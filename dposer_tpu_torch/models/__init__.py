@@ -1,0 +1,5 @@
+from .score_mlp import ScoreModelFC, create_score_model, get_act, get_sigmas
+from .time_embedding import GaussianFourierProjection, get_timestep_embedding
+
+__all__ = ["ScoreModelFC", "create_score_model", "get_act", "get_sigmas",
+           "GaussianFourierProjection", "get_timestep_embedding"]

@@ -1,0 +1,89 @@
+"""Reference-schema checkpoints for the torch ScoreModelFC.
+
+A reference ``.pth`` is ``{model_state_dict, optimizer_state_dict, epoch,
+step, ema: {decay, num_updates, shadow_params}}`` (ref run/train.py:395-401).
+The port's module uses the reference's parameter names, so the state dict
+loads as it is; the EMA ``shadow_params`` list is aligned by
+``torch_parameter_order``. ``state_dict_from_flax`` maps a JAX parameter
+pytree (as numpy) into the same state dict, for cross-framework tests.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..models.score_mlp import get_sigmas
+
+
+def torch_parameter_order(n_blocks: int = 2) -> List[str]:
+    """ScoreModelFC parameter names in ``model.parameters()`` order,
+    ``requires_grad`` only — the alignment of EMA ``shadow_params``.
+    A Fourier model's ``gauss_proj.W`` takes no gradient and is not listed."""
+    prefixes = ["pre_dense", "pre_dense_t", "pre_dense_cond", "pre_gnorm",
+                "shared_time_embed.0"]
+    for idx in range(n_blocks):
+        prefixes += [f"b{idx + 1}_{sub}" for sub in
+                     ("dense1", "dense1_t", "gnorm1", "dense2", "dense2_t", "gnorm2")]
+    prefixes.append("post_dense")
+    return [f"{p}.{leaf}" for p in prefixes for leaf in ("weight", "bias")]
+
+
+def _n_blocks(state_dict: Dict[str, Any]) -> int:
+    return sum(1 for k in state_dict if re.fullmatch(r"b\d+_dense1\.weight", k))
+
+
+def load_params_for_inference(path: str, use_ema: bool = True
+                              ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """(state dict, training step) of a reference ``.pth``: the EMA shadow
+    params when present and ``use_ema`` (ref run/demo.py:114-118)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state_dict = dict(ckpt["model_state_dict"])
+    ema = ckpt.get("ema")
+    if use_ema and ema is not None:
+        order = torch_parameter_order(_n_blocks(state_dict))
+        shadow = ema["shadow_params"]
+        if len(shadow) != len(order):
+            raise ValueError(f"EMA shadow length {len(shadow)} != expected "
+                             f"{len(order)}")
+        for name, tensor in zip(order, shadow):
+            if tuple(tensor.shape) != tuple(state_dict[name].shape):
+                raise ValueError(f"EMA shadow for {name} has shape "
+                                 f"{tuple(tensor.shape)}, model has "
+                                 f"{tuple(state_dict[name].shape)}")
+            state_dict[name] = tensor
+    return state_dict, int(ckpt.get("step", 0))
+
+
+def state_dict_from_flax(params: Dict[str, Any], sigma_min: float = 0.01,
+                         sigma_max: float = 50.0, num_scales: int = 1000
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX ScoreModelFC params (numpy leaves) -> the port's full state dict.
+
+    Dense ``kernel`` [in, out] becomes ``weight`` [out, in]; GroupNorm
+    ``scale`` becomes ``weight``. The dead ``pre_dense_cond`` layer is
+    zero-filled and the ``sigmas`` buffer recomputed, so the result loads
+    with ``strict=True``.
+    """
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, arr):
+        sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
+
+    for name, leaves in params.items():
+        prefix = "shared_time_embed.0" if name == "shared_time_embed_0" else name
+        if name == "gauss_proj":
+            put("gauss_proj.W", leaves["W"])
+        elif "gnorm" in name:
+            put(f"{prefix}.weight", leaves["scale"])
+            put(f"{prefix}.bias", leaves["bias"])
+        else:
+            put(f"{prefix}.weight", np.asarray(leaves["kernel"]).T)
+            put(f"{prefix}.bias", leaves["bias"])
+    hidden = sd["pre_dense.weight"].shape[0]
+    sd["pre_dense_cond.weight"] = torch.zeros(hidden, hidden)
+    sd["pre_dense_cond.bias"] = torch.zeros(hidden)
+    sd["sigmas"] = torch.from_numpy(get_sigmas(sigma_min, sigma_max, num_scales))
+    return sd
