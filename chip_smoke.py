@@ -8,26 +8,40 @@ Phases; any failure exits non-zero:
 1. device: the card's name, count and power limit;
 2. build: the CUDA kernels from ``dposer_tpu_torch/ops/cuda/csrc`` with nvcc
    (``-Xptxas -v`` printed);
-3. each kernel against its plain PyTorch version at the main path's shapes,
-   on the pinned trained weights, with the in-kernel normals' moments, and
-   its device time (CUDA-graph replay, so host overhead is excluded) beside
-   the plain version's, a library yardstick's and the bound from bytes and
+3. each of the six kernels against its plain PyTorch version at the main
+   paths' shapes ([500, .] for generation and imputation, [1000, .] for the
+   completion solver), on the
+   pinned trained weights, with the in-kernel normals' moments, and its
+   device time (CUDA-graph replay, so host overhead is excluded) beside the
+   plain version's, a library yardstick's and the bound from bytes and
    operations at the published H100 SXM peaks;
 4. the whole kernel sampler against the same loop on the plain versions,
-   N = 20, injected noise, corrector none and langevin: step by step, and
-   row by row on the free-running trajectories;
-5. the slice's protocols at flagship size with every launch counter read:
+   N = 20, injected noise, corrector none and langevin, without and with
+   masked imputation: step by step, and row by row on the free-running
+   trajectories; the whole kernel completion solver against its plain loop,
+   injected noise, at 6 rows x 2x8 steps and 1000 rows x 2x100 steps,
+   pointwise;
+5. the slices' protocols at flagship size, each with the launch counters
+   set to 0 before it and read after it:
    (a) generation, 500 poses x 1000 sub-VP EM steps, in-kernel normals:
    poses/s; (b) the demo's generation task with ``--metrics`` (50 poses,
    then 500 poses x 1000 steps with the langevin corrector at eps 5e-3,
    through the SMPL body): APD must lie in [0.80, 1.00];
+   (c) completion by optimisation, 100 synthetic poses x 10 hypotheses,
+   2x100 Adam steps, time strategy '3': solves/s, MPJPE and MPVPE;
+   (d) the demo's ``completion`` task and its ``completion2`` task with
+   ``--sampler pc``, ``ddim`` and ``hybrid``, 50 poses x 10 hypotheses, left
+   leg masked, through the synthetic SMPL-X body: MPJPE must lie in (50, 400)
+   mm and MPVPE in (5, 80) mm (an untrained model exceeds 1000 mm);
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
 Needs the repository around it (the port, the pinned checkpoint under
-``artifacts/trained_r5`` and ``tests/fixtures.py`` for the synthetic SMPL
-body); writes only under ``chiprun_out/chip_smoke``.
+``artifacts/trained_r5``, ``tests/fixtures.py`` for the synthetic SMPL and
+SMPL-X bodies and ``benchmarks/gen_synth_amass.py`` for the synthetic
+poses); writes only under ``chiprun_out/chip_smoke``.
 """
+import importlib.util
 import json
 import os
 import subprocess
@@ -48,10 +62,15 @@ import numpy as np  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from dposer_tpu_torch import demo  # noqa: E402
+from dposer_tpu_torch.body_model import BodyModel  # noqa: E402
 from dposer_tpu_torch.config import get_config  # noqa: E402
+from dposer_tpu_torch.data import PoseNormalizer  # noqa: E402
 from dposer_tpu_torch.diffusion import fast_sampler as tfs  # noqa: E402
 from dposer_tpu_torch.diffusion.sde import SubVPSDE  # noqa: E402
-from dposer_tpu_torch.ops.cuda import build, fused_em, score_net  # noqa: E402
+from dposer_tpu_torch.ops.cuda import build, fused_comp, fused_em, score_net  # noqa: E402
+from dposer_tpu_torch.ops.metrics import Evaler  # noqa: E402
+from dposer_tpu_torch.tasks import DPoserComp  # noqa: E402
+from dposer_tpu_torch.utils.masks import create_mask  # noqa: E402
 from fixtures import make_synthetic_body_model  # noqa: E402
 
 ART = os.path.join(REPO, "artifacts", "trained_r5")
@@ -59,6 +78,7 @@ CKPT = os.path.join(ART, "axis-zscore-400k-synth.pth")
 STATS = os.path.join(ART, "stats")
 OUT = os.path.join(REPO, "chiprun_out", "chip_smoke")
 TPU_KERNEL = "dposer_tpu/ops/pallas/fused_em.py:467"
+TPU_COMP_KERNEL = "dposer_tpu/ops/pallas/fused_comp.py:271"
 CSRC = "dposer_tpu_torch/ops/cuda/csrc"
 
 # published H100 SXM peaks (dense), at the full 700 W power limit
@@ -66,7 +86,10 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 FP32_FLOPS = 67e12
 APD_BAND = (0.80, 1.00)
+MPJPE_BAND, MPVPE_BAND = (50.0, 400.0), (5.0, 80.0)  # mm, tests/test_trained_artifact.py
 B, H, D = 500, 1024, 63
+RC = 1000  # completion's rows: 100 poses x 10 hypotheses
+PART, HYPO = "left_leg", 10
 
 
 class PhaseError(RuntimeError):
@@ -167,6 +190,22 @@ def load_pinned(dev):
     return model
 
 
+def kernel_row_line(r):
+    print(f"[kernel] {r['name']}: err {r['max_abs_err']:.3g} ({r['tol']}), "
+          f"{r['ms'] * 1e3:.2f} us/launch (eager {r['eager_ms'] * 1e3:.2f}), plain "
+          f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
+          f"({r['bound_by']}), library "
+          f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)}")
+
+
+def normal_moments(draws, what):
+    zk = torch.cat([d.flatten() for d in draws])
+    m = (float(zk.mean()), float(zk.std()), zk.numel())
+    check(m[2] >= 100000 and abs(m[0]) < 0.01 and abs(m[1] - 1) < 0.01,
+          f"{what} in-kernel normals: mean/std/n {m}")
+    return m
+
+
 def phase_kernels(model, dev):
     """Each kernel against its plain version, with timings and bounds."""
     sde = SubVPSDE(N=1000)
@@ -241,10 +280,7 @@ def phase_kernels(model, dev):
         xs = x.clone()
         fused_em.head_em(hid, wp, bp, c1, step, "em", x=xs, x_mean=xm, seed=20240917, slab=1)
         draws.append((xs - xm).flatten())
-    zk = torch.cat(draws)
-    k2_moments = (float(zk.mean()), float(zk.std()), zk.numel())
-    check(zk.numel() >= 100000 and abs(k2_moments[0]) < 0.01 and abs(k2_moments[1] - 1) < 0.01,
-          f"head_em in-kernel normals: mean/std/n {k2_moments}")
+    k2_moments = normal_moments(draws, "head_em")
     xt = x.clone()
     n2 = 4 * B * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 2 * 4 * B * D + 32
     bms2, by2 = bound(n2, 2 * B * H * D, 110 * B * D)
@@ -279,10 +315,7 @@ def phase_kernels(model, dev):
         fused_em.langevin_update(x0, score, sq, lc, i - step, 0.16, seed=99, slab=0,
                                  step_out=st)
         draws.append(((x0 - st * score) / torch.sqrt(2 * st)).flatten())
-    zk = torch.cat(draws)
-    k3_moments = (float(zk.mean()), float(zk.std()), zk.numel())
-    check(abs(k3_moments[0]) < 0.01 and abs(k3_moments[1] - 1) < 0.01,
-          f"langevin_update in-kernel normals: mean/std/n {k3_moments}")
+    k3_moments = normal_moments(draws, "langevin_update")
     bms3, by3 = bound(3 * 4 * B * D + 4 * B + 32, 0, 220 * B * D)
     xt = x.clone()
     rows.append(dict(
@@ -297,12 +330,318 @@ def phase_kernels(model, dev):
                                                                  0.16, z)),
         library_ms=None, bound_ms=bms3, bound_by=by3))
     for r in rows:
-        print(f"[kernel] {r['name']}: err {r['max_abs_err']:.3g} ({r['tol']}), "
-              f"{r['ms'] * 1e3:.2f} us/launch (eager {r['eager_ms'] * 1e3:.2f}), plain "
-              f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} us "
-              f"({r['bound_by']}), library "
-              f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)}")
+        kernel_row_line(r)
     return rows
+
+
+def phase_completion_kernels(model, dev):
+    """K4 (at the imputation sampler's 500 rows), K5 and K6 (at the solver's
+    1000 rows) against their plain versions, with timings and bounds; K1's
+    three layer shapes timed at 1000 rows too, for the solver's device share."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    sde = SubVPSDE(N=1000)
+    net, coefs = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev)
+    netc, coefc = fused_comp.build_solver_operands(sde, model, 100 * D, 0.1, 2, 100, "3",
+                                                   5.0, 900, 1e-3, dev)
+    i = 500  # a mid-trajectory step of the sampler
+    t = 150  # a second-iteration step of the solver
+    x, obs, z = (torch.randn(RC, D, generator=gen, device=dev) for _ in range(3))
+    mask = torch.ones(RC, D, device=dev)
+    mask[:, :12] = 0.0
+    rows = []
+
+    # K4 masked_renoise, at the 500 rows (50 poses x 10 hypotheses) every path
+    # that launches it gives it
+    x4, obs4, mask4, z4 = (w[:B].contiguous() for w in (x, obs, mask, z))
+    ref = fused_em.masked_renoise_plain(x4, obs4, mask4, coefs, i, z4)
+    xk = x4.clone()
+    fused_em.masked_renoise(xk, obs4, mask4, coefs, i, noise=z4)
+    torch.cuda.synchronize()
+    e4, tol4 = err(xk, ref), 1e-4 * max(1.0, float(ref.abs().max()))
+    check(e4 <= tol4, f"masked_renoise: max abs err {e4} > {tol4}")
+    c1 = coefs.clone()
+    c1[:, 5], c1[:, 6] = 0.0, 1.0  # then the observed dims are the draw
+    draws = []
+    for step in range(4):
+        xs = torch.zeros_like(x4)
+        fused_em.masked_renoise(xs, obs4, torch.ones_like(mask4), c1, step, seed=31, slab=2)
+        draws.append(xs)
+    m4 = normal_moments(draws, "masked_renoise")
+    bms, by = bound(4 * 4 * B * D + 32, 0, 116 * B * D)
+    xt = x4.clone()
+    rows.append(dict(
+        name="masked_renoise", route="cuda", source=f"{CSRC}/pose_elementwise.cu",
+        replaces=TPU_KERNEL,
+        replaces_part="fused_em.py:192-197, :208-211 (masked re-noise and overwrite "
+                      "around the predictor)",
+        shape="[500,63], in-kernel normals", max_abs_err=e4, tol="1e-4*max(1,|ref|max)",
+        normals_mean_std_n=m4,
+        ms=graph_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i, seed=5, slab=2)),
+        eager_ms=eager_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i, seed=5,
+                                                          slab=2)),
+        plain_ms=graph_ms(lambda: fused_em.masked_renoise_plain(x4, obs4, mask4, coefs, i, z4)),
+        library_ms=None, bound_ms=bms, bound_by=by))
+
+    # K5 comp_perturb
+    ref = fused_comp.comp_perturb_plain(x, coefc, t, z)
+    pert = torch.empty_like(x)
+    fused_comp.comp_perturb(x, pert, coefc, t, noise=z)
+    torch.cuda.synchronize()
+    e5, tol5 = err(pert, ref), 1e-4 * max(1.0, float(ref.abs().max()))
+    check(e5 <= tol5, f"comp_perturb: max abs err {e5} > {tol5}")
+    c1 = coefc.clone()
+    c1[:, 0], c1[:, 1] = 0.0, 1.0  # then pert is the draw
+    draws = []
+    for step in range(2):
+        fused_comp.comp_perturb(x, pert, c1, step, seed=32)
+        draws.append(pert.clone())
+    m5 = normal_moments(draws, "comp_perturb")
+    bms, by = bound(2 * 4 * RC * D + 32, 0, 113 * RC * D)
+    rows.append(dict(
+        name="comp_perturb", route="cuda", source=f"{CSRC}/pose_elementwise.cu",
+        replaces=TPU_COMP_KERNEL,
+        replaces_part="fused_comp.py:116-117 (box_muller draw and the marginal perturbation)",
+        shape="[1000,63], in-kernel normals", max_abs_err=e5, tol="1e-4*max(1,|ref|max)",
+        normals_mean_std_n=m5,
+        ms=graph_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=5)),
+        eager_ms=eager_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=5)),
+        plain_ms=graph_ms(lambda: fused_comp.comp_perturb_plain(x, coefc, t, z)),
+        library_ms=None, bound_ms=bms, bound_by=by))
+
+    # K6 head_adam, on the hidden state of the perturbed poses, mid-solve moments
+    fused_comp.comp_perturb(x, pert, coefc, t, noise=z)
+    hid = torch.empty(RC, H, device=dev)
+    score_net.network_hidden(netc, pert, t, hid, torch.empty_like(hid))
+    # moments of the gradient's own size, so that a wrong decay or a dropped
+    # g or g*g term shows in them
+    g0 = fused_comp.head_adam_plain(hid, netc["w_post"], netc["b_post"], coefc, t, x, pert, obs,
+                                    mask, torch.zeros_like(x), torch.zeros_like(x))
+    g_abs = float(10.0 * g0[1].abs().mean())  # m1 = 0.1 g from zero moments
+    m1 = g_abs * torch.randn(RC, D, generator=gen, device=dev)
+    v = g_abs ** 2 * (0.5 + torch.rand(RC, D, generator=gen, device=dev))
+    wp, bp = netc["w_post"], netc["b_post"]
+    e6, tol6 = [], []
+    for paste in (False, True):
+        want = fused_comp.head_adam_plain(hid, wp, bp, coefc, t, x, pert, obs, mask, m1, v,
+                                          paste)
+        got = (x.clone(), m1.clone(), v.clone())
+        fused_comp.head_adam(hid, wp, bp, coefc, t, got[0], pert, obs, mask, got[1], got[2],
+                             paste)
+        torch.cuda.synchronize()
+        e6 += [err(g, w) for g, w in zip(got, want)]
+        # each output to a thousandth of its own range: m1 and v are far below 1
+        tol6 += [1e-3 * max(1.0, float(want[0].abs().max()))]
+        tol6 += [1e-3 * float(w.abs().max()) for w in want[1:]]
+        if paste:
+            check(torch.equal(got[0] * mask, obs * mask), "head_adam: paste is not exact")
+    check(all(a <= b for a, b in zip(e6, tol6)), f"head_adam: errors {e6} > {tol6}")
+    n6 = 4 * RC * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 9 * 4 * RC * D + 32
+    bms, by = bound(n6, 2 * RC * H * D, 20 * RC * D)
+    xt, mt, vt = x.clone(), m1.clone(), v.clone()
+    rows.append(dict(
+        name="head_adam", route="cuda", source=f"{CSRC}/head_adam.cu",
+        replaces=TPU_COMP_KERNEL,
+        replaces_part="fused_comp.py:118-127 (fwd's post-dense, one-step denoise, gradient, "
+                      "Adam), :131 (paste of the observed dims)",
+        shape="[1000,1024]x[1024,63]", max_abs_err=max(e6),
+        tol="x 1e-3*max(1,|ref|max); m1, v 1e-3*|ref|max", errs_x_m1_v=e6, tols_x_m1_v=tol6,
+        ms=graph_ms(lambda: fused_comp.head_adam(hid, wp, bp, coefc, t, xt, pert, obs, mask,
+                                                 mt, vt)),
+        eager_ms=eager_ms(lambda: fused_comp.head_adam(hid, wp, bp, coefc, t, xt, pert, obs,
+                                                       mask, mt, vt)),
+        plain_ms=graph_ms(lambda: fused_comp.head_adam_plain(hid, wp, bp, coefc, t, x, pert,
+                                                             obs, mask, m1, v)),
+        library_ms=None, bound_ms=bms, bound_by=by))
+    for r in rows:
+        kernel_row_line(r)
+
+    # K1 at completion's 1000 rows: checked, and timed for the device shares
+    tp, W, gs, gb = netc["tp_all"][t], netc["W"], netc["gn_scale"], netc["gn_bias"]
+    h0 = score_net.dense_gn_silu_plain(pert, W[0], tp[0], gs[0], gb[0])
+    h1 = score_net.dense_gn_silu_plain(h0, W[1], tp[1], gs[1], gb[1])
+    k1_ms = {}
+    for label, a, j, res in (("pre", pert, 0, None), ("block", h0, 1, None),
+                             ("block+residual", h1, 2, h0)):
+        args = (a, W[j], tp[j], gs[j], gb[j])
+        ref = score_net.dense_gn_silu_plain(*args, res)
+        out = score_net.dense_gn_silu(*args, residual=res)
+        torch.cuda.synchronize()
+        e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
+        check(e <= tol, f"dense_gn_silu {label} at {RC} rows: max abs err {e} > {tol}")
+        o = torch.empty_like(ref)
+        k1_ms[label] = graph_ms(lambda: score_net.dense_gn_silu(*args, residual=res, out=o))
+    print(f"[kernel] dense_gn_silu at {RC} rows: " + ", ".join(
+        f"{k} {v * 1e3:.2f} us" for k, v in k1_ms.items()))
+    return rows, k1_ms
+
+
+def phase_completion_parity(model, dev):
+    """The kernel completion solver against its plain loop, and the
+    imputation sampler step by step against the plain versions.
+
+    The Adam loop is contractive (it pulls toward the data term), so the
+    free-running solvers are held pointwise to 5e-3*max(1, |ref|max), the
+    bound the JAX package holds its kernel to its XLA solver with; the
+    observed dims must be pasted exactly. The 20-step imputation sampler
+    starts each step from the plain trajectory's state (2e-2*max(1, |ref|),
+    as the generation sampler); its observed dims, which pass through no
+    network, must agree to 1e-5 after every imputation."""
+    sde = SubVPSDE(N=1000)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for rows, n_elems, iters, spi in ((6, 6 * D, 2, 8), (RC, RC // HYPO * D, 2, 100)):
+        obs = 0.5 * torch.randn(rows, D, generator=gen, device=dev)
+        mask = torch.ones(rows, D, device=dev)
+        mask[:, :12] = 0.0
+        noise = torch.randn(iters * spi, rows, D, generator=gen, device=dev)
+        kw = dict(iterations=iters, steps_per_iter=spi, time_strategy="3", device=dev)
+        ref = fused_comp.get_cuda_comp_solver(sde, model, (rows, D), n_elems, plain=True,
+                                              **kw)(None, obs, mask, noise=noise)
+        got = fused_comp.get_cuda_comp_solver(sde, model, (rows, D), n_elems, **kw)(
+            None, obs, mask, noise=noise)
+        torch.cuda.synchronize()
+        e, tol = err(got, ref), 5e-3 * max(1.0, float(ref.abs().max()))
+        check(e <= tol, f"solver parity at {rows} rows x {iters}x{spi}: {e} > {tol}")
+        check(torch.equal(got * mask, obs * mask), f"solver at {rows} rows: observed dims "
+                                                   f"are not pasted exactly")
+        moved = float((got - obs).abs().max())
+        check(moved > 0.1, f"solver at {rows} rows moved nothing ({moved})")
+        out[f"solver_{rows}x{iters * spi}"] = dict(max_abs_err=e, tol=tol,
+                                                   max_move_from_observation=moved)
+        print(f"[parity] solver {rows} rows x {iters}x{spi} steps: max abs err {e:.3g} "
+              f"(tol {tol:.3g}), paste exact")
+
+    n, shape = 20, (B, D)
+    z = torch.randn(shape, generator=gen, device=dev)
+    noise = torch.randn((n, 4) + shape, generator=gen, device=dev)
+    obs = 0.5 * torch.randn(shape, generator=gen, device=dev)
+    mask = torch.ones(shape, device=dev)
+    mask[:, :12] = 0.0
+    sde = SubVPSDE(N=n)
+    net, coefs = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev)
+    for corrector, nz in (("none", noise[:, 1:].contiguous()), ("langevin", noise)):
+        n_corr = 1 if corrector == "langevin" else 0
+        kw = dict(n_corr=n_corr, snr=0.16, observed=(obs, mask))
+        sk, sp = (fused_em.pc_scratch(net, B, n_corr, dev) for _ in range(2))
+        xp, step_err, step_tol, obs_err = z.clone(), 0.0, 0.0, 0.0
+        for i in range(n):
+            xk = xp.clone()
+            fused_em.pc_step(net, coefs, i, xk, sk, nz[i], **kw)
+            fused_em.pc_step(net, coefs, i, xp, sp, nz[i], plain=True, **kw)
+            step_err = max(step_err, err(xk, xp))
+            step_tol = max(step_tol, 2e-2 * max(1.0, float(xp.abs().max())))
+            obs_err = max(obs_err, float(((xk - xp) * mask).abs().max()))
+        check(step_err <= step_tol,
+              f"imputation step parity ({corrector}): {step_err} > {step_tol}")
+        check(obs_err <= 1e-5, f"imputation ({corrector}): observed dims differ by {obs_err}")
+        # after the last imputation the observed dims are the re-noised observation
+        want = coefs[n - 1, 5] * obs + coefs[n - 1, 6] * nz[n - 1, -1]
+        last = float(((xk - want) * mask).abs().max())
+        check(last <= 1e-5, f"imputation ({corrector}): last overwrite off by {last}")
+        run = [fused_em.get_cuda_em_sampler(sde, model, shape, corrector=corrector,
+                                            imputation=True, device=dev, plain=plain)(
+            observation=obs, mask=mask, z=z, noise=nz) for plain in (True, False)]
+        torch.cuda.synchronize()
+        tol = 2e-2 * max(1.0, float(run[0].abs().max()))
+        frac = float(((run[1] - run[0]).abs().amax(1) <= tol).float().mean())
+        check(torch.isfinite(run[1]).all().item() and frac >= 0.90,
+              f"imputation sampler ({corrector}): {frac:.3f} of rows within {tol}")
+        out[f"imputation_{corrector}"] = dict(step_max_abs_err=step_err, step_tol=step_tol,
+                                              observed_dims_max_abs_err=obs_err,
+                                              rows_within_tol=frac, tol=tol)
+        print(f"[parity] imputation corrector={corrector}: step err {step_err:.3g} "
+              f"(tol {step_tol:.3g}), observed dims {obs_err:.3g}, free-running rows "
+              f"within tol {frac:.3f}")
+    return out
+
+
+def synthetic_poses(n):
+    """``n`` test draws of the synthetic AMASS mixture the pinned checkpoint
+    was trained on (benchmarks/gen_synth_amass.py; numpy only)."""
+    spec = importlib.util.spec_from_file_location(
+        "gen_synth_amass", os.path.join(REPO, "benchmarks", "gen_synth_amass.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    centers, w, basis = mod.make_mixture(np.random.default_rng(0))
+    return mod.sample_poses(np.random.default_rng(123), n, centers, w, basis)
+
+
+def check_bands(what, mpjpe, mpvpe):
+    check(MPJPE_BAND[0] < mpjpe < MPJPE_BAND[1], f"{what}: MPJPE {mpjpe} outside {MPJPE_BAND}")
+    check(MPVPE_BAND[0] < mpvpe < MPVPE_BAND[1], f"{what}: MPVPE {mpvpe} outside {MPVPE_BAND}")
+
+
+def phase_completion_protocols(model, dev):
+    os.makedirs(OUT, exist_ok=True)
+    smplx, _ = make_synthetic_body_model(os.path.join(OUT, "smplx_fixture.npz"), "smplx")
+    poses = synthetic_poses(100)
+    poses_file = os.path.join(OUT, "synth_poses.npz")
+    np.savez(poses_file, pose_samples=poses)
+    by_run, res = {}, {}
+
+    # (c) the solver: 100 poses x 10 hypotheses, 2x100 steps, strategy '3'
+    config = get_config()
+    sde = SubVPSDE(N=1000)
+    normalizer = PoseNormalizer(STATS, normalize=config.data.normalize,
+                                min_max=config.data.min_max, rot_rep=config.data.rot_rep,
+                                device=dev)
+    gts = torch.as_tensor(poses, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mask, obs = create_mask(normalizer.offline_normalize(gts, from_axis=True), part=PART,
+                            generator=gen)
+    comp = DPoserComp(sde, model=model, time_strategy="3", backend="cuda", device=dev)
+    walls = []
+    for _ in range(3):
+        fused_em.reset_launch_counts()  # the counts read below are one solve's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hypos = comp.optimize_hypos(obs, mask, HYPO, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    by_run["solver_100x10_2x100"] = fused_em.launch_counts()
+    check(hypos.shape == (100, HYPO, D) and torch.isfinite(hypos).all().item(), "solver output")
+    check(torch.equal(hypos * mask[:, None], (obs * mask)[:, None].expand_as(hypos)),
+          "solver: observed dims are not pasted exactly")
+    body = BodyModel(smplx, num_betas=10, model_type="smplx", device=dev)
+    ev = Evaler(body, part=PART).multi_eval_bodys(
+        normalizer.offline_denormalize(hypos, to_axis=True), gts)
+    mpjpe, mpvpe = float(np.mean(ev["mpjpe_body"])), float(np.mean(ev["mpvpe_all"]))
+    check_bands("solver", mpjpe, mpvpe)
+    wall = min(walls[1:])  # the first call is the warm-up
+    res["solver"] = dict(solves_per_s=100 * HYPO / wall, poses_per_s=100 / wall, wall_s=wall,
+                         walls_s=walls, rows=100 * HYPO, steps=200, mpjpe_mm=mpjpe,
+                         mpvpe_mm=mpvpe, launches=by_run["solver_100x10_2x100"])
+    print(f"[completion] solver 100 poses x {HYPO} hypotheses x 200 steps: "
+          f"{100 * HYPO / wall:.1f} solves/s ({wall * 1e3:.1f} ms per call; calls "
+          f"{['%.3f' % w for w in walls]} s), MPJPE {mpjpe:.1f} mm, MPVPE {mpvpe:.1f} mm")
+
+    # (d) the demo's completion tasks, 50 poses x 10 hypotheses
+    for name, extra in (("completion", []),
+                        ("completion2_pc", ["--sampler", "pc"]),
+                        ("completion2_ddim", ["--sampler", "ddim"]),
+                        ("completion2_hybrid", ["--sampler", "hybrid"])):
+        args = demo.parse_args(["--task", name.split("_")[0], *extra, "--device", "cuda",
+                                "--ckpt-path", CKPT, "--stats-dir", STATS,
+                                "--bodymodel-path", smplx, "--file-path", poses_file,
+                                "--part", PART, "--hypo", str(HYPO),
+                                "--output-path", os.path.join(OUT, name), "--seed", "42"])
+        fused_em.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = demo.run(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_run[f"demo_{name}"] = fused_em.launch_counts()
+        with np.load(r["hypotheses_file"]) as f:
+            hy = f["pose_hypotheses"]
+        check(hy.shape == (50, HYPO, D) and np.isfinite(hy).all(), f"demo {name} hypotheses")
+        check_bands(f"demo {name}", r["mpjpe"], r["mpvpe"])
+        res[name] = dict(mpjpe_mm=r["mpjpe"], mpvpe_mm=r["mpvpe"], task_wall_s=wall,
+                         launches=by_run[f"demo_{name}"])
+        print(f"[completion] demo {name}: MPJPE {r['mpjpe']:.1f} mm, MPVPE {r['mpvpe']:.1f} mm, "
+              f"task wall {wall:.2f} s (load, build, sample, evaluate), launches "
+              f"{by_run[f'demo_{name}']}")
+    return dict(results=res, by_run=by_run)
 
 
 def phase_parity(model, dev):
@@ -364,14 +703,14 @@ def phase_parity(model, dev):
 
 
 def phase_protocols(model, dev):
-    fused_em.reset_launch_counts()
     # (a) generation: 500 poses x 1000 sub-VP EM steps, in-kernel normals
     config = get_config()
     sde = SubVPSDE(N=1000)
     sampler = demo.build_sampler(config, sde, model, B, 1e-3, "none", dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     walls, dev_ms = [], []
-    for _ in range(5):
+    for _ in range(3):
+        fused_em.reset_launch_counts()  # the counts read below are one call's
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -407,13 +746,10 @@ def phase_protocols(model, dev):
     apd = res["apd"]
     check(APD_BAND[0] <= apd <= APD_BAND[1], f"APD {apd} outside {APD_BAND}")
     print(f"[metrics] APD {apd:.4f} in {APD_BAND}; protocol wall {res['metrics_wall_s']:.2f}s")
-    counts = {k: gen_counts[k] + demo_counts[k] for k in gen_counts}
-    for k, v in counts.items():
-        check(v > 0, f"kernel {k} was never launched on the main path")
     return dict(generation=gen_res, metrics=dict(apd=apd, wall_s=res["metrics_wall_s"],
                                                  launches=demo_counts),
-                launches=counts, by_run=dict(generation_500x1000=gen_counts,
-                                             demo_generation_metrics=demo_counts))
+                by_run=dict(generation_500x1000=gen_counts,
+                            demo_generation_metrics=demo_counts))
 
 
 def main():
@@ -428,24 +764,42 @@ def main():
         with torch.no_grad():
             model = load_pinned(dev)
             rows = phase_kernels(model, dev)
+            comp_rows, k1_rc = phase_completion_kernels(model, dev)
+            rows += comp_rows
             parity = phase_parity(model, dev)
+            parity.update(phase_completion_parity(model, dev))
             proto = phase_protocols(model, dev)
+        comp = phase_completion_protocols(model, dev)
+        by_run = {**proto.pop("by_run"), **comp["by_run"]}
+        for r in rows:
+            r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
+            r["launches"] = sum(r["launches_by_run"].values())
+            check(r["launches"] > 0, f"kernel {r['name']} was never launched on a main path")
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
-    for r in rows:
-        r["launches"] = proto["launches"][r["name"]]
-        r["launches_by_run"] = {k: v[r["name"]] for k, v in proto["by_run"].items()}
+    ms = {r["name"]: r["ms"] for r in rows}
     # the device's share of a generation call: one step's kernel times (graph
     # replay, so no host gaps) x 1000 steps, over the call's wall time
     k1 = {v["shape"].split()[0]: v["ms"] for v in rows[0]["variants"]}
-    step_ms = k1["pre"] + 2 * k1["block"] + 2 * k1["block+residual"] + rows[1]["ms"]
+    step_ms = k1["pre"] + 2 * k1["block"] + 2 * k1["block+residual"] + ms["head_em"]
     gen = proto["generation"]
     gen["device_ms_per_call_est"] = 1000 * step_ms
     gen["device_busy_share_est"] = 1000 * step_ms / (1e3 * gen["wall_s"])
     print(f"[generation] kernels alone: {1000 * step_ms:.1f} ms per call, so the device "
           f"is busy ~{100 * gen['device_busy_share_est']:.0f}% of the best call")
-    summary = dict(device=info, build_s=build_s, kernels=rows, parity=parity,
+    # the same estimate for a solve: 200 steps of K5, K1 x5 and K6 at 1000 rows
+    fwd_rc = k1_rc["pre"] + 2 * k1_rc["block"] + 2 * k1_rc["block+residual"]
+    solve_ms = 200 * (ms["comp_perturb"] + fwd_rc + ms["head_adam"])
+    sol = comp["results"]["solver"]
+    sol["device_ms_per_call_est"] = solve_ms
+    sol["device_busy_share_est"] = solve_ms / (1e3 * sol["wall_s"])
+    print(f"[completion] kernels alone: {solve_ms:.1f} ms per solve, so the device is busy "
+          f"~{100 * sol['device_busy_share_est']:.0f}% of the best call")
+    proto["completion"] = comp["results"]
+    proto["launches_by_run"] = by_run
+    summary = dict(device=info, build_s=build_s, kernels=rows,
+                   dense_gn_silu_ms_at_1000_rows=k1_rc, parity=parity,
                    protocols=proto, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    wall_s=time.perf_counter() - t_start)
     os.makedirs(OUT, exist_ok=True)

@@ -1,18 +1,34 @@
-"""Generation demo on the card (port of ``run/demo.py --task generation``).
+"""Generation and pose-completion demo on the card (port of ``run/demo.py``).
 
     python -m dposer_tpu_torch.demo --task generation \\
         --ckpt-path artifacts/trained_r5/axis-zscore-400k-synth.pth \\
         --stats-dir artifacts/trained_r5/stats --output-path output/torch \\
         [--metrics --smpl-path SMPL_NEUTRAL.npz] [--device cpu]
+    python -m dposer_tpu_torch.demo --task completion2 --sampler hybrid \\
+        --file-path poses.npz --bodymodel-path SMPLX_NEUTRAL.npz --part left_leg ...
 
 Generation samples 50 poses with the config's sampler (sub-VP EM, no
 corrector, through the CUDA kernels) and writes them, denormalized to
 axis-angle, to ``<output-path>/generation/samples.npz`` (``pose_samples``).
 ``--metrics`` runs the 500-sample protocol (EM + langevin corrector, eps
 5e-3) through the SMPL body and prints the APD (ref run/demo.py:338-405).
-Rendering, the self-intersection metric and the other tasks are not ported
-yet. On ``--device cpu`` the kernels' plain versions run, with host-drawn
-normals.
+
+The completion tasks read up to 50 axis-angle poses (``pose_samples``) from
+``--file-path``, mask ``--part`` and complete it ``--hypo`` times:
+``completion`` by test-time optimisation (DPoserComp, time strategy '2'
+at ``min(900, N-1)``, the whole Adam loop on the CUDA kernels);
+``completion2`` by masked imputation inside the reverse sampler, with
+``--sampler pc`` (the N-step sampler), ``ddim`` / ``dpm`` (few-step) or
+``hybrid`` (a DDIM head and the pc sampler's last ``--hybrid-tail`` rows).
+Both print the min-over-hypotheses MPVPE and MPJPE through the SMPL-X body
+(ref run/demo.py:453-611) and write the hypotheses to
+``<output-path>/completion/hypotheses.npz`` (``pose_hypotheses`` [B, H, 63],
+axis-angle, with ``mask`` and ``gts``).
+
+Rendering, the self-intersection metric, ``--quant`` and the other tasks
+are not ported yet. On ``--device cuda`` every route goes through the
+kernels, DPM-Solver++ excepted (it has no kernel in either package); on
+``--device cpu`` the kernels' plain versions run, with host-drawn normals.
 """
 from __future__ import annotations
 
@@ -28,11 +44,15 @@ from . import N_POSES
 from .body_model import BodyModel
 from .config import load_config
 from .data import PoseNormalizer
+from .body_model.part_indices import BodyPartIndices
+from .diffusion import few_step
 from .diffusion.sde import build_sde, sampling_eps_for
 from .models import create_score_model
-from .ops.cuda.fused_em import get_cuda_em_sampler
-from .ops.metrics import average_pairwise_distance
+from .ops.cuda.fused_em import get_cuda_em_hypo_sampler, get_cuda_em_sampler
+from .ops.metrics import Evaler, average_pairwise_distance
+from .tasks import DPoserComp
 from .utils.checkpoint import load_params_for_inference
+from .utils.masks import create_mask
 
 SAMPLE_NUM = 50
 METRICS_SAMPLE_NUM = 500
@@ -40,8 +60,10 @@ METRICS_EPS = 5e-3
 
 
 def parse_args(argv):
-    p = argparse.ArgumentParser(description="DPoser generation on the GPU")
-    p.add_argument("--task", default="generation", choices=["generation"])
+    p = argparse.ArgumentParser(description="DPoser generation and completion "
+                                            "on the GPU")
+    p.add_argument("--task", default="generation",
+                   choices=["generation", "completion", "completion2"])
     p.add_argument("--config-path", default=None,
                    help="Python file with get_config() (default: the flagship "
                         "sub-VP ScoreModelFC config)")
@@ -53,7 +75,25 @@ def parse_args(argv):
                         "<dataset-folder>/<version>/train)")
     p.add_argument("--smpl-path", default="../body_models/smpl/SMPL_NEUTRAL.npz",
                    help="SMPL model file (for --metrics)")
+    p.add_argument("--bodymodel-path", default="../body_models/smplx/SMPLX_NEUTRAL.npz",
+                   help="SMPL-X model file (for the completion tasks)")
+    p.add_argument("--file-path", default="./examples/toy_data.npz",
+                   help="npz with pose_samples [n, 63] axis-angle (completion tasks)")
     p.add_argument("--metrics", action="store_true")
+    p.add_argument("--hypo", type=int, default=10)
+    p.add_argument("--part", default="left_leg", choices=BodyPartIndices.PARTS)
+    p.add_argument("--sampler", default="pc", choices=["pc", "ddim", "dpm", "hybrid"],
+                   help="completion2: the N-step pc sampler, few-step DDIM or "
+                        "DPM-Solver++(2M), or the hybrid of a DDIM head and the pc "
+                        "sampler's exact last --hybrid-tail rows")
+    p.add_argument("--sampler-steps", type=int, default=None,
+                   help="steps for --sampler ddim/dpm/hybrid (default: 50 ddim, "
+                        "20 dpm, 25 hybrid head)")
+    p.add_argument("--hybrid-tail", type=int, default=100,
+                   help="how many last rows of the N-step schedule run as the "
+                        "hybrid's stochastic pc tail")
+    p.add_argument("--hybrid-tail-corrector", default="langevin",
+                   choices=["langevin", "none"], help="corrector on the hybrid's tail")
     p.add_argument("--output-path", default="./output/test_results")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -86,9 +126,89 @@ def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, de
         predictor=config.sampling.predictor, device=device)
 
 
+def complete_by_optimisation(sde, model, observation, mask, hypo_num, generator, device):
+    """``--task completion``: DPoserComp with the demo's time strategy '2'
+    (ref run/demo.py:306), the whole Adam loop on the kernels. The reference's
+    fixed time 900 assumes N = 1000; a reduced N takes its last grid index."""
+    comp = DPoserComp(sde, model=model, time_strategy="2",
+                      sample_time=min(900, sde.N - 1), backend="cuda", device=device)
+    print("[completion] kernel Adam-loop solver")
+    return comp.optimize_hypos(observation, mask, hypo_num, generator)
+
+
+def complete_by_imputation(args, config, sde, model, observation, mask, generator, device):
+    """``--task completion2``: masked imputation in the reverse sampler, the
+    hypotheses tiled into rows -> [B, H, D] (ref run/demo.py:492-606)."""
+    device = torch.device(device)
+    hypo_num, shape, eps = args.hypo, tuple(observation.shape), sampling_eps_for(sde)
+    dn = config.sampling.noise_removal
+    kernel_kw = dict(rng_mode="kernel" if device.type == "cuda" else "host", device=device)
+    if args.sampler == "pc":
+        if config.sampling.method != "pc":
+            raise NotImplementedError(f"sampling method {config.sampling.method!r} "
+                                      f"is not ported yet")
+        s = get_cuda_em_hypo_sampler(sde, model, shape, hypo_num, eps=eps, denoise=dn,
+                                     corrector=config.sampling.corrector,
+                                     snr=config.sampling.snr,
+                                     n_corrector_steps=config.sampling.n_steps_each,
+                                     predictor=config.sampling.predictor, **kernel_kw)
+        print("[sampler] kernel multi-hypothesis imputation")
+        return s(generator, observation, mask)
+    n_fs = args.sampler_steps or {"ddim": 50, "dpm": 20, "hybrid": 25}[args.sampler]
+    if args.sampler == "hybrid":
+        lgv = "-lgv" if args.hybrid_tail_corrector == "langevin" else ""
+        s = few_step.get_cuda_hybrid_hypo_sampler(
+            sde, model, shape, hypo_num, n_head=n_fs, m_tail=args.hybrid_tail, eps=eps,
+            tail_corrector=args.hybrid_tail_corrector, snr=config.sampling.snr,
+            n_corrector_steps=config.sampling.n_steps_each, **kernel_kw)
+        label = f"kernel hybrid DDIM-{n_fs} + pc-tail-{args.hybrid_tail}{lgv} imputation"
+    elif args.sampler == "ddim":
+        s = few_step.get_cuda_ddim_hypo_sampler(sde, model, shape, hypo_num, n_steps=n_fs,
+                                                eps=eps, denoise=dn, **kernel_kw)
+        label = f"kernel DDIM imputation, {n_fs} steps"
+    else:
+        s = few_step.get_dpm_hypo_sampler(sde, model, shape, hypo_num, n_steps=n_fs,
+                                          eps=eps, denoise=dn, device=device)
+        label = f"tabled DPM-Solver++(2M) imputation, {n_fs} steps"
+    nfe, multihypo = s(generator, observation, mask)
+    print(f"[sampler] {label} x {hypo_num} hypos (NFE {nfe})")
+    return multihypo
+
+
+def run_completion(args, config, sde, model, normalizer, generator, device) -> dict:
+    """The completion tasks. Returns ``hypotheses_file``, ``mpvpe`` and ``mpjpe``."""
+    with np.load(args.file_path, allow_pickle=False) as f:
+        gts = torch.as_tensor(f["pose_samples"][:SAMPLE_NUM], dtype=torch.float32,
+                              device=device)
+    print(f"loaded axis pose data {tuple(gts.shape)} from {args.file_path}")
+    normed = normalizer.offline_normalize(gts, from_axis=True)
+    mask, observation = create_mask(normed, part=args.part, generator=generator)
+    if args.task == "completion":
+        multihypo = complete_by_optimisation(sde, model, observation, mask, args.hypo,
+                                             generator, device)
+    else:
+        multihypo = complete_by_imputation(args, config, sde, model, observation, mask,
+                                           generator, device)
+    preds = normalizer.offline_denormalize(multihypo, to_axis=True)
+    body = BodyModel(args.bodymodel_path, num_betas=10, model_type="smplx", device=device)
+    evaler = Evaler(body_model=body, part=args.part)
+    res = evaler.multi_eval_bodys(preds, gts)
+    evaler.print_multi_eval_result(res, args.hypo)
+    target = os.path.join(args.output_path, "completion")
+    os.makedirs(target, exist_ok=True)
+    out = dict(hypotheses_file=os.path.join(target, "hypotheses.npz"),
+               mpvpe=float(np.mean(res["mpvpe_all"])),
+               mpjpe=float(np.mean(res["mpjpe_body"])))
+    np.savez(out["hypotheses_file"], pose_hypotheses=preds.cpu().numpy(),
+             mask=mask.cpu().numpy(), gts=gts.cpu().numpy())
+    print(f"hypotheses saved to {out['hypotheses_file']}")
+    return out
+
+
 def run(args) -> dict:
-    """The generation task. Returns ``samples_file``, ``step`` and, with
-    ``--metrics``, ``apd`` and ``metrics_wall_s``."""
+    """The task. Generation returns ``samples_file``, ``step`` and, with
+    ``--metrics``, ``apd`` and ``metrics_wall_s``; the completion tasks
+    ``hypotheses_file``, ``mpvpe``, ``mpjpe`` and ``step``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -102,6 +222,9 @@ def run(args) -> dict:
                                 min_max=config.data.min_max,
                                 rot_rep=config.data.rot_rep, device=device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    if args.task in ("completion", "completion2"):
+        return dict(run_completion(args, config, sde, model, normalizer, generator, device),
+                    step=step)
 
     sampler = build_sampler(config, sde, model, SAMPLE_NUM, sampling_eps_for(sde),
                             config.sampling.corrector, device)

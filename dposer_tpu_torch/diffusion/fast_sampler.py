@@ -165,30 +165,68 @@ def _imputation_tables(sde: SDE, timesteps: torch.Tensor):
     return mean[:, 0], std
 
 
+def _sliced_timesteps(sde: SDE, eps: float, step_range, device):
+    """The N-step grid, or rows ``lo..hi`` of it. Every per-step table is a
+    function of the timestep value and ``sde.N`` only (``dt = -1/N``), never
+    of the grid's length, so a sliced grid runs those steps identically."""
+    timesteps = sde.timesteps(eps, device=device)
+    if step_range is None:
+        return timesteps
+    lo, hi = step_range
+    if not 0 <= lo < hi <= int(timesteps.shape[0]):
+        raise ValueError(f"step_range {step_range} out of bounds for the "
+                         f"{int(timesteps.shape[0])}-step grid")
+    return timesteps[lo:hi]
+
+
+def check_imputation_args(imputation: bool, observation, mask) -> None:
+    if (observation is None) != (mask is None) or (observation is None) == imputation:
+        raise ValueError("observation/mask must be passed iff the sampler was "
+                         "built with imputation=True")
+
+
+def impute(x, observation, mask, mean_coeff, std, z):
+    """The masked re-noise and overwrite of the completion samplers (ref
+    sampling.py:410-427): observed dims become ``mean_coeff*obs + std*z``."""
+    return x * (1 - mask) + (mean_coeff * observation + std * z) * mask
+
+
 def get_fast_pc_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
                         eps: float = 1e-3, denoise: bool = True,
                         corrector: str = "none", snr: float = 0.16,
-                        n_corrector_steps: int = 1,
+                        n_corrector_steps: int = 1, imputation: bool = False,
                         predictor: str = "euler_maruyama",
-                        probability_flow: bool = False, device="cuda"):
-    """Tabled PC sampler in fp32: EM (or reverse-diffusion) predictor and an
-    optional langevin corrector, on the same tables the kernels use.
+                        probability_flow: bool = False,
+                        step_range: Optional[Tuple[int, int]] = None,
+                        device="cuda"):
+    """Tabled PC sampler in fp32: EM (or reverse-diffusion) predictor, an
+    optional langevin corrector and optional masked imputation, on the same
+    tables the kernels use.
 
-    ``sampler(generator=None, z=None, noise=None) -> x``; ``noise=[N, K, B,
-    D]`` injects the per-step slabs in order corr_0..corr_{S-1}, predictor.
+    ``sampler(generator=None, observation=None, mask=None, z=None,
+    noise=None) -> x``. ``noise=[N, K, B, D]`` injects the per-step slabs in
+    the order corr_0..corr_{S-1}, imput_c, em, imput_p (present slots only:
+    K = S + 1, plus 2 with imputation); without it each step draws its K slabs
+    from ``generator`` in that order. ``step_range=(lo, hi)`` runs rows
+    ``lo..hi`` of the N-step grid, the state carried in through ``z=`` and
+    out through the return: head then tail on one generator is the full run.
+    With ``denoise`` the return is the last row's ``x_mean``, which is not
+    re-imputed.
     """
     if corrector not in ("none", "langevin"):
         raise NotImplementedError(f"corrector {corrector!r}")
-    timesteps = sde.timesteps(eps, device=device)
+    timesteps = _sliced_timesteps(sde, eps, step_range, device)
     labels = _labels_for(sde, timesteps)
     cx, cout, cnoise = _pred_tables(sde, timesteps, predictor, probability_flow)
     tprojs, out_scale = precompute_time_tables(model, labels)
     score_scale, alpha = _corrector_tables(sde, timesteps, out_scale)
+    mc, istd = _imputation_tables(sde, timesteps)
     if out_scale is not None:
         cout = cout * out_scale
     fwd = make_fast_forward(model, tprojs, None)  # scales folded into the tables
     n_steps = int(timesteps.shape[0])
     S = n_corrector_steps if corrector == "langevin" else 0
+    K = S + (2 if imputation else 0) + 1
 
     def langevin_step(x, i, z):
         score = score_scale[i] * fwd(x, i)
@@ -198,20 +236,29 @@ def get_fast_pc_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
         return x + step_size * score + torch.sqrt(step_size * 2) * z
 
     @torch.no_grad()
-    def sampler(generator: Optional[torch.Generator] = None, z=None, noise=None):
-        if noise is not None and noise.shape[1] != S + 1:
-            raise ValueError(f"noise needs K={S + 1} slabs per step, got "
-                             f"{noise.shape[1]}")
+    def sampler(generator: Optional[torch.Generator] = None, observation=None,
+                mask=None, z=None, noise=None):
+        check_imputation_args(imputation, observation, mask)
+        if noise is not None and noise.shape[1] != K:
+            raise ValueError(f"noise needs K={K} slabs per step, got "
+                             f"{noise.shape[1]}: {S} corrector + "
+                             f"{K - S - 1} imputation + 1 predictor")
         x = sde.prior_sampling(shape, generator, device) if z is None else z
         x_mean = x
         for i in range(n_steps):
             zs = (noise[i] if noise is not None else
-                  torch.randn((S + 1,) + tuple(shape), generator=generator,
+                  torch.randn((K,) + tuple(shape), generator=generator,
                               device=device))
             for j in range(S):
                 x = langevin_step(x, i, zs[j])
+            k = S
+            if imputation:
+                x = impute(x, observation, mask, mc[i], istd[i], zs[k])
+                k += 1
             x_mean = cx[i] * x + cout[i] * fwd(x, i)
-            x = x_mean + cnoise[i] * zs[S]
+            x = x_mean + cnoise[i] * zs[k]
+            if imputation:
+                x = impute(x, observation, mask, mc[i], istd[i], zs[k + 1])
         return x_mean if denoise else x
 
     return sampler

@@ -11,8 +11,10 @@ kernels: per step, the corrector update, then the predictor update; with
   (ref :273-302)
 
 Noise is drawn per step from ``generator`` in slab order corr_0..corr_{S-1},
-predictor; ``noise=[N, K, B, D]`` injects the same slabs instead, the layout
-the tabled sampler and the kernel sampler take.
+imput_c, predictor, imput_p (the imputation slabs only with
+``imputation=True``, ref sampling.py:410-427); ``noise=[N, K, B, D]`` injects
+the same slabs instead, the layout the tabled sampler and the kernel sampler
+take.
 """
 from __future__ import annotations
 
@@ -77,31 +79,47 @@ def get_pc_sampler(sde: SDE, shape: Tuple[int, ...], score_fn: Callable,
                    predictor: str = "euler_maruyama", corrector: str = "none",
                    snr: float = 0.16, n_steps: int = 1,
                    probability_flow: bool = False, denoise: bool = True,
-                   eps: float = 1e-3, device="cuda"):
-    """``sampler(generator=None, z=None, noise=None) -> x``.
+                   eps: float = 1e-3, imputation: bool = False, device="cuda"):
+    """``sampler(generator=None, observation=None, mask=None, z=None,
+    noise=None) -> x``.
 
     ``z`` replaces the prior draw; ``noise`` [N, K, B, D] (K = corrector
-    steps + 1) replaces the per-step draws.
+    steps + 1, plus 2 with imputation) replaces the per-step draws.
+    ``observation`` and ``mask`` are read only with ``imputation=True``:
+    after the corrector and after the predictor the observed dims are
+    overwritten with the observation re-noised to the step's time.
     """
     if corrector not in ("none", "langevin"):
         raise NotImplementedError(f"corrector {corrector!r}")
     predictor_update = _PREDICTORS[predictor.lower()](sde, score_fn, probability_flow)
     corrector_update = langevin_corrector_step(sde, score_fn, snr)
     n_corr = n_steps if corrector == "langevin" else 0
+    K = n_corr + (2 if imputation else 0) + 1
     timesteps = sde.timesteps(eps, device=device)
 
+    def impute(x, t, z, observation, mask):
+        masked_mean, std = sde.marginal_prob(observation, t)
+        return x * (1 - mask) + (masked_mean + std * z) * mask
+
     @torch.no_grad()
-    def sampler(generator: Optional[torch.Generator] = None, z=None, noise=None):
+    def sampler(generator: Optional[torch.Generator] = None, observation=None,
+                mask=None, z=None, noise=None):
         x = sde.prior_sampling(shape, generator, device) if z is None else z
         x_mean = x
         for i in range(sde.N):
             t = timesteps[i]
             zs = (noise[i] if noise is not None else
-                  torch.randn((n_corr + 1,) + tuple(shape), generator=generator,
+                  torch.randn((K,) + tuple(shape), generator=generator,
                               device=device))
             for j in range(n_corr):
                 x, x_mean = corrector_update(x, t, zs[j])
-            x, x_mean = predictor_update(x, t, zs[n_corr])
+            k = n_corr
+            if imputation:
+                x = impute(x, t, zs[k], observation, mask)
+                k += 1
+            x, x_mean = predictor_update(x, t, zs[k])
+            if imputation:
+                x = impute(x, t, zs[k + 1], observation, mask)
         return x_mean if denoise else x
 
     return sampler

@@ -62,6 +62,11 @@ class SDE:
     def prior_logp(self, z: Tensor) -> Tensor:
         raise NotImplementedError
 
+    def return_alpha_sigma(self, t: Tensor) -> Tuple[Tensor, Tensor]:
+        """``(alpha [..., 1], sigma [...])`` of the marginal
+        ``x_t = alpha*x_0 + sigma*eps`` (sub-VP: its non-sqrt "std")."""
+        raise NotImplementedError
+
     def discretize(self, x: Tensor, t: Tensor) -> Tuple[Tensor, Tensor]:
         """Euler-Maruyama discretization x_{i+1} = x_i + f_i + G_i z_i."""
         dt = 1.0 / self.N
@@ -136,6 +141,10 @@ class VPSDE(SDE):
         lmc = self._log_mean_coeff(t)
         return batch_mul(torch.exp(lmc), x), torch.sqrt(1.0 - torch.exp(2.0 * lmc))
 
+    def return_alpha_sigma(self, t):
+        lmc = self._log_mean_coeff(t)
+        return torch.exp(lmc)[..., None], torch.sqrt(1.0 - torch.exp(2.0 * lmc))
+
     def prior_sampling(self, shape, generator=None, device=None):
         return torch.randn(shape, generator=generator,
                            device=_prior_device(generator, device))
@@ -178,6 +187,10 @@ class SubVPSDE(SDE):
         lmc = self._log_mean_coeff(t)
         return batch_mul(torch.exp(lmc), x), 1.0 - torch.exp(2.0 * lmc)
 
+    def return_alpha_sigma(self, t):
+        lmc = self._log_mean_coeff(t)
+        return torch.exp(lmc)[..., None], 1.0 - torch.exp(2.0 * lmc)
+
     def prior_sampling(self, shape, generator=None, device=None):
         return torch.randn(shape, generator=generator,
                            device=_prior_device(generator, device))
@@ -206,6 +219,10 @@ class VESDE(SDE):
 
     def marginal_prob(self, x, t):
         return x, self.sigma_min * (self.sigma_max / self.sigma_min) ** t
+
+    def return_alpha_sigma(self, t):
+        return (torch.ones(t.shape + (1,), dtype=t.dtype, device=t.device),
+                self.sigma_min * (self.sigma_max / self.sigma_min) ** t)
 
     def prior_sampling(self, shape, generator=None, device=None):
         return torch.randn(shape, generator=generator,

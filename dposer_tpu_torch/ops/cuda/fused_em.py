@@ -9,18 +9,21 @@ the loop (the weights stay in the 50 MB L2):
 - K1 ``dense_gn_silu`` (``score_net.py``) x (1 + 2*n_blocks): the hidden layers;
 - K2 ``head_em``: the output head fused with the EM update, or, for the
   corrector, with the score and its row norms;
-- K3 ``langevin_update``: the corrector's batch-mean norms and update.
+- K3 ``langevin_update``: the corrector's batch-mean norms and update;
+- K4 ``masked_renoise``: with ``imputation=True``, the masked re-noise and
+  overwrite of the observed dims, before and after the predictor.
 
-Per step: ``[corrector: fwd -> K2(score) -> K3] * S``, then ``fwd -> K2(EM)``.
-The step's scalars come from the device table ``coefs [N, 8]`` (cx, cout,
-cnoise, score_scale, alpha, imputation mean, imputation std, 0), read by
-the kernels at the step index.
+Per step: ``[corrector: fwd -> K2(score) -> K3] * S``, then ``[K4] -> fwd ->
+K2(EM) -> [K4]``. The step's scalars come from the device table ``coefs
+[N, 8]`` (cx, cout, cnoise, score_scale, alpha, imputation mean, imputation
+std, 0), read by the kernels at the step index.
 
 Noise: ``rng_mode="host"`` takes ``[N, K, B, D]`` slabs in the order
-corr_0..corr_{S-1}, predictor (injected with ``noise=``, else drawn from the
-generator per step); ``rng_mode="kernel"`` draws Philox normals inside K2
-and K3 (card only). Each kernel's plain PyTorch version is here or in
-``score_net.py``; a wrapper given CPU tensors runs it.
+corr_0..corr_{S-1}, imput_c, predictor, imput_p (injected with ``noise=``,
+else drawn from the generator per step); ``rng_mode="kernel"`` draws Philox
+normals inside K2, K3 and K4 (card only), keyed by (seed, step, slab, row,
+column) with the slab's index in that order. Each kernel's plain PyTorch
+version is here or in ``score_net.py``; a wrapper given CPU tensors runs it.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from ...diffusion.fast_sampler import (_corrector_tables, _imputation_tables,
-                                       _labels_for, _pred_tables)
+                                       _labels_for, _pred_tables,
+                                       check_imputation_args)
 from ...diffusion.sde import SDE
 from . import build
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
@@ -89,6 +93,12 @@ def _head_em_fn():
     return fn
 
 
+def _check_coefs(coefs, step, dev):
+    if coefs.ndim != 2 or coefs.shape[1] != N_COEFS or not 0 <= step < coefs.shape[0]:
+        raise ValueError(f"coefs must be [N, {N_COEFS}] with 0 <= step < N")
+    _check("coefs", coefs, dev, torch.float32, coefs.shape)
+
+
 def _noise_args(name, noise, seed, dev, shape):
     if (noise is None) == (seed is None):
         raise ValueError(f"{name}: pass exactly one of noise= (host normals) "
@@ -110,9 +120,7 @@ def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
     _check("h", h, dev, torch.float32, (B, H))
     _check("w_post", w_post, dev, torch.bfloat16, (H, HEAD_COLS))
     _check("b_post", b_post, dev, torch.float32, (HEAD_COLS,))
-    if coefs.ndim != 2 or coefs.shape[1] != N_COEFS or not 0 <= step < coefs.shape[0]:
-        raise ValueError(f"coefs must be [N, {N_COEFS}] with 0 <= step < N")
-    _check("coefs", coefs, dev, torch.float32, coefs.shape)
+    _check_coefs(coefs, step, dev)
     if mode == "em":
         D = x.shape[1]
         _check("x", x, dev, torch.float32, (B, D))
@@ -191,9 +199,7 @@ def langevin_update(x, score, score_sq, coefs, step: int, snr: float, *,
     _check("x", x, dev, torch.float32, (B, D))
     _check("score", score, dev, torch.float32, (B, D))
     _check("score_sq", score_sq, dev, torch.float32, (B,))
-    if coefs.ndim != 2 or coefs.shape[1] != N_COEFS or not 0 <= step < coefs.shape[0]:
-        raise ValueError(f"coefs must be [N, {N_COEFS}] with 0 <= step < N")
-    _check("coefs", coefs, dev, torch.float32, coefs.shape)
+    _check_coefs(coefs, step, dev)
     if step_out is not None:
         _check("step_out", step_out, dev, torch.float32, (1,))
     _noise_args("langevin_update", noise, seed, dev, (B, D))
@@ -217,14 +223,76 @@ def langevin_update(x, score, score_sq, coefs, step: int, snr: float, *,
 langevin_update.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K4 masked_renoise
+# ---------------------------------------------------------------------------
+
+def masked_renoise_plain(x, obs, mask, coefs, step, noise):
+    """Plain K4: ``x*(1-m) + (mc*obs + sd*z)*m`` with the step's imputation
+    mean coefficient and std (columns 5, 6 of ``coefs``)."""
+    cf = coefs[step]
+    return x * (1.0 - mask) + (cf[5] * obs + cf[6] * noise) * mask
+
+
+def masked_renoise_plain_into(x, obs, mask, coefs, step: int, *, noise=None, seed=None,
+                              slab: int = 0):
+    """The plain version with ``masked_renoise``'s signature, on any device;
+    it takes host normals only."""
+    if noise is None:
+        raise ValueError("the plain masked_renoise takes host normals (noise=)")
+    x.copy_(masked_renoise_plain(x, obs, mask, coefs, step, noise))
+
+
+def _masked_renoise_fn():
+    fn = build.load("pose_elementwise").dposer_masked_renoise
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, P, ctypes.c_ulonglong, I, I, I, P]
+        fn.restype = I
+    return fn
+
+
+def masked_renoise(x, obs, mask, coefs, step: int, *, noise=None, seed=None,
+                   slab: int = 0):
+    """K4: overwrite the observed dims (``mask == 1``) of ``x`` [R, D] in
+    place with ``obs`` re-noised to the step's time."""
+    R, D = x.shape
+    dev = x.device
+    for nm, t in (("x", x), ("obs", obs), ("mask", mask)):
+        _check(nm, t, dev, torch.float32, (R, D))
+    _check_coefs(coefs, step, dev)
+    _noise_args("masked_renoise", noise, seed, dev, (R, D))
+    if dev.type == "cpu":
+        return masked_renoise_plain_into(x, obs, mask, coefs, step, noise=noise)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_renoise runs on cpu or cuda, not {dev}")
+    err = _masked_renoise_fn()(x.data_ptr(), obs.data_ptr(), mask.data_ptr(),
+                               coefs.data_ptr(), step, _ptr(noise),
+                               0 if seed is None else seed, slab, R, D,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"masked_renoise launch failed: CUDA error {err}")
+    masked_renoise.launches += 1
+
+
+masked_renoise.launches = 0
+
+
+def _counted():
+    from .fused_comp import comp_perturb, head_adam  # it imports this module
+
+    return (dense_gn_silu, head_em, langevin_update, masked_renoise, comp_perturb,
+            head_adam)
+
+
 def launch_counts() -> dict:
     """Launches of each kernel since the last ``reset_launch_counts``."""
-    return {"dense_gn_silu": dense_gn_silu.launches, "head_em": head_em.launches,
-            "langevin_update": langevin_update.launches}
+    return {fn.__name__: fn.launches for fn in _counted()}
 
 
 def reset_launch_counts() -> None:
-    dense_gn_silu.launches = head_em.launches = langevin_update.launches = 0
+    for fn in _counted():
+        fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -232,19 +300,26 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def build_sampler_operands(sde: SDE, model, eps: float, predictor: str, device):
+def build_sampler_operands(sde: SDE, model, eps: float, predictor: str, device,
+                           tables_override=None):
     """``(net, coefs)`` for the kernels: the network operands of
     ``build_network_operands`` and the per-step scalar table ``coefs [N, 8]``
     fp32 (cx, cout, cnoise, score_scale, alpha, imputation mean, imputation
     std, 0), with the model's ``1/sigma`` output scale folded into cout and
-    score_scale."""
-    timesteps = sde.timesteps(eps, device=model.sigmas.device)
-    cx, cout, cnoise = _pred_tables(sde, timesteps, predictor)
+    score_scale. ``tables_override=(timesteps, cx, cout, cnoise)`` replaces
+    the predictor's rows (and the step count) with caller-built ones whose
+    ``cout`` already folds that scale."""
+    mdev = model.sigmas.device
+    if tables_override is None:
+        timesteps = sde.timesteps(eps, device=mdev)
+        cx, cout, cnoise = _pred_tables(sde, timesteps, predictor)
+    else:
+        timesteps, cx, cout, cnoise = (t.to(mdev) for t in tables_override)
     net = build_network_operands(model, _labels_for(sde, timesteps), device)
     out_scale = net["out_scale"]
     score_scale, alpha = _corrector_tables(sde, timesteps, out_scale)
     imput_mc, imput_std = _imputation_tables(sde, timesteps)
-    if out_scale is not None:
+    if out_scale is not None and tables_override is None:
         cout = cout * out_scale
     coefs = torch.stack([cx, cout, cnoise, score_scale, alpha, imput_mc,
                          imput_std, torch.zeros_like(cx)], dim=1)
@@ -252,17 +327,21 @@ def build_sampler_operands(sde: SDE, model, eps: float, predictor: str, device):
 
 
 def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
-            snr: float, seed=None, x_mean=None, plain: bool = False) -> None:
+            snr: float, seed=None, x_mean=None, observed=None,
+            plain: bool = False) -> None:
     """Reverse step ``i`` on ``x`` [B, D] in place: ``n_corr`` langevin
     corrector steps, then the EM update (``x_mean``, when given, receives the
-    denoised state). ``slabs[k]`` are the host normals of slab ``k`` (corr_0..,
-    em), or None with ``seed`` for in-kernel normals. ``scratch`` holds ``h``,
-    ``h1`` [B, H] and, with a corrector, ``score`` [B, D] and ``score_sq``
-    [B]. ``plain=True`` runs the kernels' plain versions instead, on any
-    device: the reference the card's kernels are held to."""
-    layer, head, langevin = ((dense_gn_silu_plain_into, head_em_plain_into,
-                              langevin_update_plain_into) if plain else
-                             (dense_gn_silu, head_em, langevin_update))
+    denoised state, before any imputation). ``observed=(obs, mask)`` wraps the
+    EM update in the masked re-noise of the observed dims. ``slabs[k]`` are
+    the host normals of slab ``k`` (corr_0.., [imput_c], em, [imput_p]), or
+    None with ``seed`` for in-kernel normals. ``scratch`` holds ``h``, ``h1``
+    [B, H] and, with a corrector, ``score`` [B, D] and ``score_sq`` [B].
+    ``plain=True`` runs the kernels' plain versions instead, on any device:
+    the reference the card's kernels are held to."""
+    layer, head, langevin, renoise = (
+        (dense_gn_silu_plain_into, head_em_plain_into, langevin_update_plain_into,
+         masked_renoise_plain_into) if plain else
+        (dense_gn_silu, head_em, langevin_update, masked_renoise))
     h, h1 = scratch["h"], scratch["h1"]
     for j in range(n_corr):
         network_hidden(net, x, i, h, h1, layer)
@@ -270,9 +349,15 @@ def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
              score=scratch["score"], score_sq=scratch["score_sq"])
         langevin(x, scratch["score"], scratch["score_sq"], coefs, i, snr,
                  noise=slabs[j], seed=seed, slab=j)
+    k = n_corr
+    if observed is not None:
+        renoise(x, *observed, coefs, i, noise=slabs[k], seed=seed, slab=k)
+        k += 1
     network_hidden(net, x, i, h, h1, layer)
     head(h, net["w_post"], net["b_post"], coefs, i, "em", x=x, x_mean=x_mean,
-         noise=slabs[n_corr], seed=seed, slab=n_corr)
+         noise=slabs[k], seed=seed, slab=k)
+    if observed is not None:
+        renoise(x, *observed, coefs, i, noise=slabs[k + 1], seed=seed, slab=k + 1)
 
 
 def pc_scratch(net: dict, batch: int, n_corr: int, device) -> dict:
@@ -285,41 +370,81 @@ def pc_scratch(net: dict, batch: int, n_corr: int, device) -> dict:
     return out
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as tensors report it: "cuda" becomes the current "cuda:N"
+    (the wrappers compare devices exactly)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def draw_seed(generator: Optional[torch.Generator]) -> int:
+    """The Philox seed of one call's in-kernel normals, from ``generator``."""
+    return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device if generator is not None else "cpu"))
+
+
 def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e-3,
                         denoise: bool = True, rng_mode: str = "host",
                         corrector: str = "none", snr: float = 0.16,
-                        n_corrector_steps: int = 1,
-                        predictor: str = "euler_maruyama", device="cuda",
-                        plain: bool = False):
+                        n_corrector_steps: int = 1, imputation: bool = False,
+                        predictor: str = "euler_maruyama",
+                        step_range: Optional[Tuple[int, int]] = None,
+                        _tables_override=None, device="cuda", plain: bool = False):
     """Build the kernel PC sampler for ``model`` (a ScoreModelFC).
 
-    Returns ``sampler(generator=None, z=None, noise=None) -> x`` [B, D]:
-    ``z`` replaces the prior draw and ``noise`` ([N, K, B, D], or [N, B, D]
-    when K == 1) the host-mode normals. Tables and operands are built once
-    here; a call launches the kernels only. ``plain=True`` runs the same
-    loop on the kernels' plain versions (host normals only), on any device.
+    Returns ``sampler(generator=None, observation=None, mask=None, z=None,
+    noise=None) -> x`` [B, D]: ``z`` replaces the prior draw and ``noise``
+    ([N, K, B, D], or [N, B, D] when K == 1) the host-mode normals;
+    ``observation`` and ``mask`` [B, D] come iff ``imputation=True``. Tables
+    and operands are built once here; a call launches the kernels only.
+
+    ``step_range=(lo, hi)`` runs rows ``lo..hi`` of the N-step grid, the
+    state carried in through ``z=`` and out through the return; ``noise`` then
+    has ``hi - lo`` rows. The tables keep all N rows and the loop walks
+    ``lo..hi``, so the in-kernel normals are keyed by the grid's own step
+    index: head then tail under one seed draw what the full run draws.
+    ``_tables_override=(timesteps, cx, cout, cnoise)`` replaces the
+    predictor's rows with caller-built ones (``cout`` with any sigma output
+    scaling folded in): the few-step DDIM path runs through the kernels this
+    way. ``plain=True`` runs the same loop on the kernels' plain versions
+    (host normals only), on any device.
     """
     if rng_mode not in ("host", "kernel"):
         raise ValueError(f"rng_mode must be 'host' or 'kernel', got {rng_mode!r}")
     if corrector not in ("none", "langevin"):
         raise NotImplementedError(f"corrector {corrector!r} is not supported")
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        # tensors report "cuda:N"; the wrappers compare devices exactly
-        device = torch.device("cuda", torch.cuda.current_device())
+    if step_range is not None and _tables_override is not None:
+        raise ValueError("step_range slices the N-step grid; overridden tables "
+                         "are cut where they are made")
+    device = resolve_device(device)
     if rng_mode == "kernel" and (device.type != "cuda" or plain):
         raise ValueError("rng_mode='kernel' draws normals in the CUDA kernels; use "
                          "rng_mode='host' on the CPU or with plain=True")
     n_corr = n_corrector_steps if corrector == "langevin" else 0
-    K = n_corr + 1
+    K = n_corr + (2 if imputation else 0) + 1
     batch, dim = shape
-    net, coefs = build_sampler_operands(sde, model, eps, predictor, device)
+    net, coefs = build_sampler_operands(sde, model, eps, predictor, device,
+                                        _tables_override)
     if net["dim"] != dim:
         raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
-    n_steps = int(coefs.shape[0])
+    lo, hi = (0, int(coefs.shape[0])) if step_range is None else step_range
+    if not 0 <= lo < hi <= int(coefs.shape[0]):
+        raise ValueError(f"step_range {step_range} out of bounds for the "
+                         f"{int(coefs.shape[0])}-step grid")
+    n_steps = hi - lo
 
     @torch.no_grad()
-    def sampler(generator: Optional[torch.Generator] = None, z=None, noise=None):
+    def sampler(generator: Optional[torch.Generator] = None, observation=None,
+                mask=None, z=None, noise=None):
+        check_imputation_args(imputation, observation, mask)
+        observed = None
+        if imputation:
+            observed = tuple(t.to(device=device, dtype=torch.float32).contiguous()
+                             for t in (observation, mask))
+            for nm, t in zip(("observation", "mask"), observed):
+                _check(nm, t, device, torch.float32, (batch, dim))
         if noise is not None:
             if rng_mode != "host":
                 raise ValueError("noise= is the host-mode stream; this sampler "
@@ -334,17 +459,38 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
         x = x.contiguous()
         scratch = pc_scratch(net, batch, n_corr, device)
         x_mean = torch.empty_like(x) if denoise else None
-        seed = None
-        if rng_mode == "kernel":
-            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                                     device=generator.device if generator is not None else "cpu"))
+        seed = draw_seed(generator) if rng_mode == "kernel" else None
         slabs = [None] * K
-        for i in range(n_steps):
+        for i in range(lo, hi):
             if rng_mode == "host":
-                slabs = (noise[i] if noise is not None else
+                slabs = (noise[i - lo] if noise is not None else
                          torch.randn((K, batch, dim), generator=generator, device=device))
             pc_step(net, coefs, i, x, scratch, slabs, n_corr=n_corr, snr=snr, seed=seed,
-                    x_mean=x_mean if i == n_steps - 1 else None, plain=plain)
+                    x_mean=x_mean if i == hi - 1 else None, observed=observed,
+                    plain=plain)
         return x_mean if denoise else x
+
+    return sampler
+
+
+def get_cuda_em_hypo_sampler(sde: SDE, model, shape: Tuple[int, int], hypo_num: int,
+                             **kw):
+    """Multi-hypothesis masked imputation in one pass of the kernel sampler:
+    the hypotheses tile into rows (the flattening the completion solver uses
+    for its hypotheses).
+
+    ``sampler(generator, observation [B, D], mask [B, D], z=None, noise=None)
+    -> [B, H, D]``. Rows decorrelate through the prior draw and the noise
+    streams, which cover the whole ``H*B`` row space; ``z`` and ``noise`` are
+    taken in that tiled row space (``[H*B, D]``, ``[N, K, H*B, D]``).
+    """
+    batch, dim = shape
+    kw.setdefault("imputation", True)
+    inner = get_cuda_em_sampler(sde, model, (hypo_num * batch, dim), **kw)
+
+    def sampler(generator, observation, mask, z=None, noise=None):
+        out = inner(generator, observation=observation.repeat(hypo_num, 1),
+                    mask=mask.repeat(hypo_num, 1), z=z, noise=noise)
+        return out.reshape(hypo_num, batch, dim).transpose(0, 1)
 
     return sampler

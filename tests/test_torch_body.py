@@ -1,5 +1,5 @@
-"""The port's pose normalizer, SMPL body model and APD against the JAX
-package (CPU)."""
+"""The port's pose normalizer, SMPL / SMPL-H / SMPL-X body model, APD and
+completion ``Evaler`` against the JAX package (CPU)."""
 import os
 
 import jax.numpy as jnp
@@ -9,10 +9,11 @@ import torch
 
 from dposer_tpu.body_model.smplx_jax import BodyModel as JaxBodyModel
 from dposer_tpu.data import PoseNormalizer as JaxPoseNormalizer
+from dposer_tpu.ops.metrics import Evaler as JaxEvaler
 from dposer_tpu.ops.metrics import average_pairwise_distance as jax_apd
 from dposer_tpu_torch.body_model import BodyModel
 from dposer_tpu_torch.data import PoseNormalizer
-from dposer_tpu_torch.ops.metrics import average_pairwise_distance
+from dposer_tpu_torch.ops.metrics import Evaler, average_pairwise_distance
 
 from fixtures import make_stats_dir, make_synthetic_body_model
 
@@ -89,3 +90,71 @@ def test_smpl_defaults_and_apd_match_jax(smpl_file):
     j = rng.normal(size=(7, 22, 3)).astype(np.float32)
     np.testing.assert_allclose(float(average_pairwise_distance(torch.from_numpy(j))),
                                float(jax_apd(jnp.asarray(j))), rtol=1e-6)
+
+
+@pytest.mark.parametrize("model_type", ["smplx", "smplh"])
+def test_smplx_smplh_match_jax(tmp_path, model_type):
+    """21 body joints; hands, jaw, eyes and expression given, and left to
+    their zero defaults; the extra keypoints (clamped on the small template)
+    and, for SMPL-X, the barycentric face landmarks in ``Jtr``."""
+    path, _ = make_synthetic_body_model(tmp_path / f"{model_type}.npz", model_type)
+    rng = np.random.default_rng(4)
+    B = 4
+    parts = dict(root_orient=0.3 * rng.normal(size=(B, 3)), pose_body=0.4 * rng.normal(size=(B, 63)),
+                 pose_hand=0.2 * rng.normal(size=(B, 90)), betas=rng.normal(size=(B, 10)),
+                 trans=rng.normal(size=(B, 3)))
+    if model_type == "smplx":
+        parts.update(pose_jaw=0.1 * rng.normal(size=(B, 3)), pose_eye=0.1 * rng.normal(size=(B, 6)),
+                     expression=rng.normal(size=(B, 10)))
+    parts = {k: v.astype(np.float32) for k, v in parts.items()}
+    jbody = JaxBodyModel(path, model_type=model_type, batch_size=B, num_betas=10)
+    body = BodyModel(path, num_betas=10, model_type=model_type)
+    for given in (parts, dict(pose_body=parts["pose_body"])):
+        ref = jbody(**{k: jnp.asarray(v) for k, v in given.items()})
+        out = body(**{k: torch.from_numpy(v) for k, v in given.items()})
+        n_lbs = {"smplx": 55, "smplh": 52}[model_type]
+        assert out.Jtr.shape[1] == n_lbs + 21 + (51 if model_type == "smplx" else 0)
+        np.testing.assert_allclose(out.v.numpy(), np.asarray(ref.v), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(out.Jtr.numpy(), np.asarray(ref.Jtr), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(out.full_pose.numpy(), np.asarray(ref.full_pose))
+        np.testing.assert_array_equal(out.pose_hand.numpy(), np.asarray(ref.pose_hand))
+    with pytest.raises(ValueError):
+        BodyModel(path, model_type="mano")
+
+
+@pytest.mark.parametrize("part", ["left_leg", "arms", None])
+def test_evaler_matches_jax(tmp_path, part):
+    """Min-over-hypotheses MPVPE / MPJPE in mm, to 1e-3 mm. The synthetic
+    template is smaller than the SMPL-X segmentation, so both sides score all
+    of its vertices."""
+    path, _ = make_synthetic_body_model(tmp_path / "smplx.npz", "smplx")
+    rng = np.random.default_rng(5)
+    gts = (0.4 * rng.normal(size=(5, 63))).astype(np.float32)
+    outs = (gts[:, None] + 0.1 * rng.normal(size=(5, 3, 63))).astype(np.float32)
+    ref = JaxEvaler(JaxBodyModel(path, model_type="smplx", batch_size=5), part=part)
+    mine = Evaler(BodyModel(path, model_type="smplx"), part=part)
+    assert isinstance(mine.vert_idx, slice)
+    for name, r, o in (("multi", ref.multi_eval_bodys(jnp.asarray(outs), jnp.asarray(gts)),
+                        mine.multi_eval_bodys(torch.from_numpy(outs), torch.from_numpy(gts))),
+                       ("single", ref.eval_bodys(jnp.asarray(outs[:, 0]), jnp.asarray(gts)),
+                        mine.eval_bodys(torch.from_numpy(outs[:, 0]), torch.from_numpy(gts)))):
+        for k in ("mpvpe_all", "mpjpe_body"):
+            assert o[k].shape == (5,)
+            np.testing.assert_allclose(o[k], r[k], rtol=0, atol=1e-3, err_msg=f"{name} {k}")
+
+
+def test_evaler_vertex_segmentation(tmp_path, capsys):
+    """On a template as large as the SMPL-X mesh the part's own vertices are
+    scored; a missing segmentation warns and scores all."""
+    path, _ = make_synthetic_body_model(tmp_path / "big.npz", "smplx", n_verts=10475)
+    body = BodyModel(path, model_type="smplx")
+    ev = Evaler(body, part="left_leg")
+    seg = JaxEvaler(JaxBodyModel(path, model_type="smplx"), part="left_leg").vert_idx
+    np.testing.assert_array_equal(ev.vert_idx.numpy(), np.asarray(seg))
+    with pytest.warns(RuntimeWarning, match="ALL vertices"):
+        ev = Evaler(body, part="left_leg", seg_json_path=str(tmp_path / "missing.json"))
+    assert isinstance(ev.vert_idx, slice)
+    Evaler.print_multi_eval_result({"mpvpe_all": np.array([1.0, 2.0]),
+                                    "mpjpe_body": np.array([3.0])}, 4)
+    assert capsys.readouterr().out == ("multihypo 4 MPVPE (All): 1.50 mm\n"
+                                       "multihypo 4 MPJPE (Body): 3.00 mm\n")

@@ -12,10 +12,12 @@ import torch
 from dposer_tpu_torch.diffusion import fast_sampler as tfs
 from dposer_tpu_torch.diffusion import sde as tsde
 from dposer_tpu_torch.models import ScoreModelFC
-from dposer_tpu_torch.ops.cuda import fused_em, score_net
+from dposer_tpu_torch.ops.cuda import fused_comp, fused_em, score_net
+from dposer_tpu_torch.ops.cuda.fused_comp import (comp_perturb, get_cuda_comp_solver,
+                                                  head_adam)
 from dposer_tpu_torch.ops.cuda.fused_em import (get_cuda_em_sampler, head_em,
                                                 langevin_update, launch_counts,
-                                                reset_launch_counts)
+                                                masked_renoise, reset_launch_counts)
 from dposer_tpu_torch.ops.cuda.score_net import HEAD_COLS, dense_gn_silu
 
 pytestmark = pytest.mark.cuda
@@ -94,9 +96,10 @@ def test_in_kernel_normals_are_standard(dev):
     assert float((zs[0] - zs[1]).abs().min()) > 0  # steps draw different streams
 
 
-def test_langevin_update(dev):
+@pytest.mark.parametrize("B", [500, 1000])
+def test_langevin_update(dev, B):
     rng = np.random.default_rng(5)
-    x, score, z = (_t(rng, (500, 63), dev) for _ in range(3))
+    x, score, z = (_t(rng, (B, 63), dev) for _ in range(3))
     coefs = torch.rand(3, fused_em.N_COEFS, device=dev)
     sq = (score * score).sum(1)
     want, st_ref = fused_em.langevin_update_plain(x, score, sq, coefs, 1, 0.16, z)
@@ -125,3 +128,158 @@ def test_kernel_sampler_matches_fp32_sampler(dev):
         assert counts["langevin_update"] == (n if corrector == "langevin" else 0)
         scale = max(1.0, float(ref.abs().max()))
         torch.testing.assert_close(out, ref, rtol=0, atol=2e-2 * scale)
+
+
+def _masked(dev, B=1000, D=63, seed=8):
+    rng = np.random.default_rng(seed)
+    x, obs, z = (_t(rng, (B, D), dev) for _ in range(3))
+    mask = torch.ones(B, D, device=dev)
+    mask[:, 0:12] = 0.0
+    coefs = torch.from_numpy(rng.uniform(0.1, 1.5, size=(4, fused_em.N_COEFS))
+                             .astype(np.float32)).to(dev)
+    return x, obs, mask, z, coefs
+
+
+def test_masked_renoise(dev):
+    x, obs, mask, z, coefs = _masked(dev)
+    want = fused_em.masked_renoise_plain(x, obs, mask, coefs, 2, z)
+    reset_launch_counts()
+    masked_renoise(x, obs, mask, coefs, 2, noise=z)
+    torch.cuda.synchronize()
+    assert launch_counts()["masked_renoise"] == 1
+    torch.testing.assert_close(x, want, rtol=0, atol=1e-4)
+    # in-kernel normals: with mean coefficient 0 and std 1 the observed dims are the draw
+    coefs[:, 5], coefs[:, 6] = 0.0, 1.0
+    draws = []
+    for step in range(3):
+        xs = torch.zeros_like(x)
+        masked_renoise(xs, obs, torch.ones_like(mask), coefs, step, seed=77, slab=2)
+        draws.append(xs)
+    zk = torch.stack(draws)
+    assert zk.numel() >= 1e5
+    assert abs(float(zk.mean())) < 0.01 and abs(float(zk.std()) - 1.0) < 0.01
+    assert float((draws[0] - draws[1]).abs().min()) > 0
+
+
+def test_comp_perturb(dev):
+    x, _, _, z, coefs = _masked(dev, seed=9)
+    pert = torch.empty_like(x)
+    reset_launch_counts()
+    comp_perturb(x, pert, coefs, 1, noise=z)
+    torch.cuda.synchronize()
+    assert launch_counts()["comp_perturb"] == 1
+    torch.testing.assert_close(pert, fused_comp.comp_perturb_plain(x, coefs, 1, z),
+                               rtol=0, atol=1e-4)
+    coefs[:, 0], coefs[:, 1] = 0.0, 1.0
+    draws = []
+    for step in range(3):
+        comp_perturb(x, pert, coefs, step, seed=5)
+        draws.append(pert.clone())
+    zk = torch.stack(draws)
+    assert abs(float(zk.mean())) < 0.01 and abs(float(zk.std()) - 1.0) < 0.01
+
+
+@pytest.mark.parametrize("paste", [False, True])
+def test_head_adam(dev, paste):
+    h, w_post, b_post, coefs, x, pert = _head(dev, B=1000, seed=10)
+    rng = np.random.default_rng(10)
+    obs = _t(rng, x.shape, dev)
+    mask = (torch.rand(x.shape, device=dev) < 0.5).float()
+    m1, v = _t(rng, x.shape, dev, 0.1), _t(rng, x.shape, dev, 0.01).abs()
+    want = fused_comp.head_adam_plain(h, w_post, b_post, coefs, 2, x, pert, obs, mask,
+                                      m1, v, paste)
+    reset_launch_counts()
+    head_adam(h, w_post, b_post, coefs, 2, x, pert, obs, mask, m1, v, paste)
+    torch.cuda.synchronize()
+    assert launch_counts()["head_adam"] == 1
+    # each output to a thousandth of its own range: the moments are far below 1
+    floors = (1.0, 0.0, 0.0)
+    for got, ref, floor in zip((x, m1, v), want, floors):
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-3 * max(floor, float(ref.abs().max())))
+    if paste:
+        assert torch.equal(x * mask, obs * mask)
+
+
+def _small_model(dev):
+    torch.manual_seed(0)
+    return ScoreModelFC(n_poses=21, pose_dim=3, hidden_dim=256, embed_dim=64,
+                        n_blocks=2, dropout=0.0).eval().to(dev)
+
+
+def test_kernel_solver_matches_plain_loop(dev):
+    model = _small_model(dev)
+    rows, steps = 70, 16  # no multiple of K1's or K6's row tile
+    rng = np.random.default_rng(11)
+    obs, noise = _t(rng, (rows, 63), dev, 0.3), _t(rng, (steps, rows, 63), dev)
+    mask = torch.ones(rows, 63, device=dev)
+    mask[:, 0:12] = 0.0
+    kw = dict(iterations=2, steps_per_iter=8, device="cuda")
+    sde = tsde.SubVPSDE(N=1000)
+    ref = get_cuda_comp_solver(sde, model, (rows, 63), rows * 63, plain=True, **kw)(
+        None, obs, mask, noise=noise)
+    reset_launch_counts()
+    out = get_cuda_comp_solver(sde, model, (rows, 63), rows * 63, **kw)(
+        None, obs, mask, noise=noise)
+    counts = launch_counts()
+    assert (counts["comp_perturb"], counts["dense_gn_silu"], counts["head_adam"]) == \
+        (steps, 5 * steps, steps)
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-3 * max(1.0, float(ref.abs().max())))
+    assert torch.equal(out * mask, obs * mask)
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = get_cuda_comp_solver(sde, model, (rows, 63), rows * 63, rng_mode="kernel", **kw)(
+        g, obs, mask)
+    assert torch.isfinite(a).all() and torch.equal(a * mask, obs * mask)
+
+
+def test_imputation_sampler_steps_match_plain(dev):
+    """Step by step from the plain trajectory's state, corrector none and
+    langevin, and the launch counts of one imputation step."""
+    model = _small_model(dev)
+    n, shape = 20, (70, 63)
+    rng = np.random.default_rng(12)
+    z, noise = _t(rng, shape, dev), _t(rng, (n, 4) + shape, dev)
+    obs = _t(rng, shape, dev, 0.3)
+    mask = torch.zeros(shape, device=dev)
+    mask[:, 12:] = 1.0
+    sde = tsde.SubVPSDE(N=n)
+    net, coefs = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev)
+    for n_corr, nz in ((0, noise[:, 1:].contiguous()), (1, noise)):
+        sk, sp = (fused_em.pc_scratch(net, shape[0], n_corr, dev) for _ in range(2))
+        xp = z.clone()
+        reset_launch_counts()
+        for i in range(n):
+            xk = xp.clone()
+            kw = dict(n_corr=n_corr, snr=0.16, observed=(obs, mask))
+            fused_em.pc_step(net, coefs, i, xk, sk, nz[i], **kw)
+            fused_em.pc_step(net, coefs, i, xp, sp, nz[i], plain=True, **kw)
+            torch.testing.assert_close(xk, xp, rtol=0,
+                                       atol=2e-2 * max(1.0, float(xp.abs().max())))
+            # the observed dims went through no network
+            torch.testing.assert_close(xk * mask, xp * mask, rtol=0, atol=1e-5)
+        counts = launch_counts()
+        assert counts["masked_renoise"] == 2 * n
+        assert counts["dense_gn_silu"] == 5 * n * (1 + n_corr)
+
+
+def test_step_range_split_draws_the_full_runs_normals(dev):
+    """In-kernel normals are keyed by the grid's own step index: head then
+    tail under one seed is the full run, bit for bit."""
+    model = _small_model(dev)
+    n, cut, shape = 20, 13, (40, 63)
+    rng = np.random.default_rng(13)
+    z, obs = _t(rng, shape, dev), _t(rng, shape, dev, 0.3)
+    mask = torch.zeros(shape, device=dev)
+    mask[:, 12:] = 1.0
+    sde = tsde.SubVPSDE(N=n)
+    kw = dict(corrector="langevin", imputation=True, rng_mode="kernel", device="cuda")
+    io = dict(observation=obs, mask=mask)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(3)
+
+    full = get_cuda_em_sampler(sde, model, shape, **kw)(gen(), z=z, **io)
+    x = get_cuda_em_sampler(sde, model, shape, denoise=False, step_range=(0, cut), **kw)(
+        gen(), z=z, **io)
+    split = get_cuda_em_sampler(sde, model, shape, step_range=(cut, n), **kw)(gen(), z=x, **io)
+    assert torch.equal(split, full)

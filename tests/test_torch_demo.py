@@ -33,6 +33,8 @@ def get_config():
 def workdir(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_demo")
     (tmp / "tiny_config.py").write_text(TINY_CONFIG)
+    (tmp / "tiny_config_lgv.py").write_text(TINY_CONFIG.replace(
+        "    return c", "    c.sampling.corrector = 'langevin'\n    return c"))
     torch.manual_seed(0)
     model = ScoreModelFC(n_poses=21, pose_dim=3, hidden_dim=64, embed_dim=32,
                          n_blocks=1, scale_by_sigma=False, num_scales=50)
@@ -43,11 +45,14 @@ def workdir(tmp_path_factory):
                                    "shadow_params": shadow}}, tmp / "tiny.pth")
     stats = make_stats_dir(tmp / "stats", mean=np.full(63, 0.1), std=np.full(63, 0.2))
     smpl, _ = make_synthetic_body_model(tmp / "smpl.npz", "smpl")
-    return dict(tmp=tmp, stats=stats, smpl=smpl)
+    smplx, _ = make_synthetic_body_model(tmp / "smplx.npz", "smplx")
+    poses = 0.1 + 0.2 * np.random.default_rng(0).normal(size=(8, 63)).astype(np.float32)
+    np.savez(tmp / "poses.npz", pose_samples=poses)
+    return dict(tmp=tmp, stats=stats, smpl=smpl, smplx=smplx, poses=str(tmp / "poses.npz"))
 
 
-def _args(w, out, *extra):
-    return ["--task", "generation", "--device", "cpu",
+def _args(w, out, *extra, task="generation"):
+    return ["--task", task, "--device", "cpu",
             "--config-path", str(w["tmp"] / "tiny_config.py"),
             "--ckpt-path", str(w["tmp"] / "tiny.pth"), "--stats-dir", w["stats"],
             "--output-path", str(out), "--seed", "3", *extra]
@@ -90,3 +95,38 @@ def test_demo_refuses_cuda_without_a_card(workdir):
                         "--ckpt-path", str(workdir["tmp"] / "tiny.pth")],
                        cwd=REPO, capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and "no CUDA device" in p.stdout + p.stderr
+
+
+@pytest.mark.parametrize("task,extra", [
+    ("completion", []),
+    ("completion2", ["--sampler", "hybrid", "--sampler-steps", "3", "--hybrid-tail", "5"]),
+    ("completion2", ["--sampler", "pc"]),
+    ("completion2", ["--sampler", "ddim", "--sampler-steps", "4"]),
+    ("completion2", ["--sampler", "dpm", "--sampler-steps", "4"]),
+    ("completion2", ["--sampler", "pc", "--config-path", "tiny_config_lgv.py"]),
+], ids=["completion", "completion2-hybrid", "completion2-pc", "completion2-ddim",
+        "completion2-dpm", "completion2-pc-langevin"])
+def test_demo_completion_tasks(workdir, task, extra):
+    """Both completion tasks at the tiny config (N = 50, 2 hypotheses): the
+    ``.npz`` of hypotheses and both metric lines."""
+    out = workdir["tmp"] / f"out_{task}_{'_'.join(extra[1:2])}_{len(extra)}"
+    if "--config-path" in extra:  # a config of the work directory, by its name
+        extra = [*extra[:-1], str(workdir["tmp"] / extra[-1])]
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo",
+                        *_args(workdir, out, "--hypo", "2", "--part", "left_leg",
+                               "--file-path", workdir["poses"], "--bodymodel-path",
+                               workdir["smplx"], *extra, task=task)],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    mv = re.search(r"multihypo 2 MPVPE \(All\): (\S+) mm", p.stdout)
+    mj = re.search(r"multihypo 2 MPJPE \(Body\): (\S+) mm", p.stdout)
+    assert mv and mj, p.stdout
+    if extra[:2] == ["--sampler", "pc"]:  # with or without a corrector: the kernel route
+        assert "[sampler] kernel multi-hypothesis imputation" in p.stdout
+    assert np.isfinite(float(mv.group(1))) and float(mj.group(1)) > 0
+    with np.load(out / "completion" / "hypotheses.npz") as f:
+        hypos, mask, gts = f["pose_hypotheses"], f["mask"], f["gts"]
+    assert hypos.shape == (8, 2, 63) and np.isfinite(hypos).all()
+    assert mask.shape == gts.shape == (8, 63) and int((1 - mask[0]).sum()) == 12
+    if task == "completion":  # the solver pastes the observed dims exactly
+        np.testing.assert_allclose(hypos[:, 0] * mask, gts * mask, atol=1e-6)

@@ -1,5 +1,6 @@
 """The port's reverse-diffusion kernels (K1 dense_gn_silu, K2 head_em,
-K3 langevin_update) and the kernel sampler.
+K3 langevin_update, K4 masked_renoise), the completion kernels (K5
+comp_perturb, K6 head_adam) and the kernel sampler.
 
 On the CPU the wrappers run their plain PyTorch versions: those are held
 to the JAX formulas of the Pallas kernel (``dposer_tpu/ops/pallas``), and
@@ -16,15 +17,19 @@ import torch
 from dposer_tpu.diffusion import sde as jsde
 from dposer_tpu.diffusion.fast_sampler import _group_norm as jax_group_norm
 from dposer_tpu.diffusion.fast_sampler import _labels_for as jax_labels_for
+from dposer_tpu.diffusion.few_step import get_pallas_ddim_sampler
 from dposer_tpu.ops.pallas.fused_em import get_pallas_em_sampler
 from dposer_tpu.ops.pallas.score_net import \
     build_network_operands as jax_build_network_operands
 from dposer_tpu_torch.diffusion import fast_sampler as tfs
 from dposer_tpu_torch.diffusion import sde as tsde
-from dposer_tpu_torch.ops.cuda import fused_em, score_net
-from dposer_tpu_torch.ops.cuda.fused_em import (get_cuda_em_sampler, head_em,
+from dposer_tpu_torch.diffusion.few_step import get_cuda_ddim_sampler
+from dposer_tpu_torch.ops.cuda import fused_comp, fused_em, score_net
+from dposer_tpu_torch.ops.cuda.fused_comp import comp_perturb, head_adam
+from dposer_tpu_torch.ops.cuda.fused_em import (get_cuda_em_hypo_sampler,
+                                                get_cuda_em_sampler, head_em,
                                                 langevin_update, launch_counts,
-                                                reset_launch_counts)
+                                                masked_renoise, reset_launch_counts)
 from dposer_tpu_torch.ops.cuda.score_net import (HEAD_COLS, dense_gn_silu,
                                                  network_hidden)
 
@@ -79,7 +84,9 @@ def test_dense_gn_silu_wrapper_on_cpu_writes_out_in_place():
     out = dense_gn_silu(a, w, tp, gamma, beta, residual=res, out=res)
     assert out is res  # out may alias the residual, as the block's h = h + h2
     torch.testing.assert_close(res, want, rtol=0, atol=0)
-    assert launch_counts() == {"dense_gn_silu": 0, "head_em": 0, "langevin_update": 0}
+    assert launch_counts() == dict.fromkeys(
+        ("dense_gn_silu", "head_em", "langevin_update", "masked_renoise", "comp_perturb",
+         "head_adam"), 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous"])
@@ -249,3 +256,159 @@ def test_plain_sampler_is_the_cpu_kernel_path():
     with pytest.raises(ValueError):
         get_cuda_em_sampler(tsde.SubVPSDE(N=20), tm, (5, 63), rng_mode="kernel",
                             device="cpu", plain=True)
+
+
+def test_masked_renoise_and_comp_perturb_match_jax_formulas():
+    """fused_em.py:192-197 and fused_comp.py:116-117 on the same numbers."""
+    _, _, _, _, coefs, x, z = _head_inputs(seed=6)
+    rng = np.random.default_rng(6)
+    obs = rng.normal(size=x.shape).astype(np.float32)
+    mask = (rng.random(x.shape) < 0.3).astype(np.float32)
+    step = 3
+    masked = coefs[step, 5] * jnp.asarray(obs) + coefs[step, 6] * jnp.asarray(z)
+    ref = jnp.asarray(x) * (1.0 - mask) + masked * mask
+    tx = torch.from_numpy(x.copy())
+    masked_renoise(tx, torch.from_numpy(obs), torch.from_numpy(mask), torch.from_numpy(coefs),
+                   step, noise=torch.from_numpy(z))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(tx.numpy()[mask == 0], x[mask == 0])
+
+    pert = torch.empty(x.shape)
+    comp_perturb(torch.from_numpy(x), pert, torch.from_numpy(coefs), step,
+                 noise=torch.from_numpy(z))
+    np.testing.assert_allclose(pert.numpy(),
+                               np.asarray(coefs[step, 0] * jnp.asarray(x)
+                                          + coefs[step, 1] * jnp.asarray(z)),
+                               rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError):  # in place is refused: K6 reads x and pert
+        t = torch.from_numpy(x.copy())
+        comp_perturb(t, t, torch.from_numpy(coefs), step, noise=torch.from_numpy(z))
+    with pytest.raises(ValueError):  # in-kernel normals need the card
+        masked_renoise(tx, torch.from_numpy(obs), torch.from_numpy(mask),
+                       torch.from_numpy(coefs), step, seed=1)
+
+
+@pytest.mark.parametrize("paste", [False, True])
+def test_head_adam_matches_jax_formula(paste):
+    """fused_comp.py:118-127 (and the paste, :131) on the same numbers."""
+    h, w_post, w_vals, b_post, coefs, x, z = _head_inputs(seed=7)
+    rng = np.random.default_rng(7)
+    obs, pert = (rng.normal(size=x.shape).astype(np.float32) for _ in range(2))
+    mask = (rng.random(x.shape) < 0.5).astype(np.float32)
+    m1 = (0.1 * rng.normal(size=x.shape)).astype(np.float32)
+    v = (0.01 * rng.random(x.shape)).astype(np.float32)
+    step, D = 1, x.shape[1]
+    cf = coefs[step]
+    raw = (jax_mm(h, w_vals) + b_post)[:, :D]
+    x0_hat = cf[2] * pert + cf[3] * raw
+    g = cf[4] * (mask * (x - obs)) + cf[5] * (x - x0_hat)
+    m_ref = fused_comp.ADAM_B1 * m1 + (1.0 - fused_comp.ADAM_B1) * g
+    v_ref = fused_comp.ADAM_B2 * v + (1.0 - fused_comp.ADAM_B2) * (g * g)
+    x_ref = x - cf[6] * m_ref / (jnp.sqrt(v_ref * cf[7]) + fused_comp.ADAM_EPS)
+    if paste:
+        x_ref = obs * mask + x_ref * (1.0 - mask)
+    tx, tm1, tv = (torch.from_numpy(a.copy()) for a in (x, m1, v))
+    head_adam(torch.from_numpy(h), w_post, torch.from_numpy(b_post), torch.from_numpy(coefs),
+              step, tx, torch.from_numpy(pert), torch.from_numpy(obs), torch.from_numpy(mask),
+              tm1, tv, paste)
+    np.testing.assert_allclose(tm1.numpy(), np.asarray(m_ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(v_ref), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(tx.numpy(), np.asarray(x_ref), rtol=1e-5, atol=1e-5)
+    if paste:
+        np.testing.assert_array_equal(tx.numpy() * mask, obs * mask)
+
+
+def _obs_mask(shape, seed=13):
+    obs = (0.3 * np.random.default_rng(seed).normal(size=shape)).astype(np.float32)
+    mask = np.zeros(shape, np.float32)
+    mask[:, 39:45] = 1.0
+    return obs, mask
+
+
+@pytest.mark.parametrize("corrector", ["none", "langevin"])
+def test_imputation_kernel_sampler_matches_pallas_interpret(corrector):
+    """The imputation switch of the kernel sampler (plain K4 around plain K2
+    on CPU tensors) against ``get_pallas_em_sampler(imputation=True)`` in
+    interpret mode, on identical z and [N, K, B, D] slabs, at the bound of
+    test_kernel_sampler_matches_pallas_interpret."""
+    fm, params, tm = flax_and_torch(**dict(SMALL, scale_by_sigma=True))
+    n, shape = 20, (8, 63)
+    k = (1 if corrector == "langevin" else 0) + 3
+    z, noise = _injected(shape, n, k, seed=14)
+    obs, mask = _obs_mask(shape)
+    kw = dict(eps=1e-3, corrector=corrector, snr=0.16, n_corrector_steps=1, imputation=True)
+    for denoise in (True, False):
+        _, ref = get_pallas_em_sampler(jsde.SubVPSDE(N=n), fm, params, shape, interpret=True,
+                                       rng_mode="host", denoise=denoise, **kw)(
+            jax.random.PRNGKey(0), observation=jnp.asarray(obs), mask=jnp.asarray(mask),
+            z=jnp.asarray(z), noise=jnp.asarray(noise))
+        ref = np.asarray(ref)
+        sampler = get_cuda_em_sampler(tsde.SubVPSDE(N=n), tm, shape, device="cpu",
+                                      denoise=denoise, **kw)
+        out = sampler(observation=torch.from_numpy(obs), mask=torch.from_numpy(mask),
+                      z=torch.from_numpy(z), noise=torch.from_numpy(noise))
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(out.numpy(), ref, atol=2e-2 * scale)
+        # the observed dims went through no network: they agree to rounding
+        np.testing.assert_allclose(out.numpy()[:, 39:45], ref[:, 39:45],
+                                   atol=(2e-2 if denoise else 1e-5) * scale)
+    with pytest.raises(ValueError):
+        sampler(z=torch.from_numpy(z), noise=torch.from_numpy(noise))
+    with pytest.raises(ValueError):  # built without imputation: takes no observation
+        get_cuda_em_sampler(tsde.SubVPSDE(N=n), tm, shape, device="cpu")(
+            observation=torch.from_numpy(obs), mask=torch.from_numpy(mask))
+
+
+def test_kernel_sampler_step_range_split_equals_full_run():
+    _, _, tm = flax_and_torch(**dict(SMALL, scale_by_sigma=True))
+    n, cut, shape = 20, 13, (6, 63)
+    z, noise = _injected(shape, n, 4, seed=15)
+    z, noise = torch.from_numpy(z), torch.from_numpy(noise)
+    io = {k: torch.from_numpy(a) for k, a in zip(("observation", "mask"), _obs_mask(shape))}
+    kw = dict(corrector="langevin", imputation=True, device="cpu")
+    ts = tsde.SubVPSDE(N=n)
+    full = get_cuda_em_sampler(ts, tm, shape, **kw)(z=z, noise=noise, **io)
+    head = get_cuda_em_sampler(ts, tm, shape, denoise=False, step_range=(0, cut), **kw)
+    tail = get_cuda_em_sampler(ts, tm, shape, step_range=(cut, n), **kw)
+    assert torch.equal(tail(z=head(z=z, noise=noise[:cut], **io), noise=noise[cut:], **io), full)
+    with pytest.raises(ValueError):
+        get_cuda_em_sampler(ts, tm, shape, step_range=(3, 3), **kw)
+    with pytest.raises(ValueError):
+        head(z=z, noise=noise, **io)  # the head takes its own 13 rows of slabs
+
+
+@pytest.mark.parametrize("imputation", [False, True])
+def test_cuda_ddim_sampler_matches_pallas_ddim_interpret(imputation):
+    """DDIM on the overridden tables: ``cout`` folds the sigma scaling once,
+    and the imputation columns follow the overridden timesteps."""
+    fm, params, tm = flax_and_torch(**dict(SMALL, scale_by_sigma=True))
+    shape, n_steps = (6, 63), 8
+    k = 3 if imputation else 1
+    z, noise = _injected(shape, n_steps + 1, k, seed=16)
+    obs, mask = _obs_mask(shape)
+    jio = dict(observation=jnp.asarray(obs), mask=jnp.asarray(mask)) if imputation else {}
+    tio = {k_: torch.from_numpy(np.array(v)) for k_, v in jio.items()}
+    nfe_ref, ref = get_pallas_ddim_sampler(jsde.SubVPSDE(N=1000), fm, params, shape,
+                                           n_steps=n_steps, interpret=True, rng_mode="host",
+                                           imputation=imputation)(
+        jax.random.PRNGKey(0), z=jnp.asarray(z), noise=jnp.asarray(noise), **jio)
+    nfe, out = get_cuda_ddim_sampler(tsde.SubVPSDE(N=1000), tm, shape, n_steps=n_steps,
+                                     imputation=imputation, device="cpu")(
+        z=torch.from_numpy(z), noise=torch.from_numpy(noise), **tio)
+    assert nfe == nfe_ref == n_steps + 1
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-2 * max(1.0, float(np.abs(ref).max())))
+
+
+def test_em_hypo_sampler_tiles_rows():
+    _, _, tm = flax_and_torch(**SMALL)
+    shape, hypo = (4, 63), 3
+    obs, mask = map(torch.from_numpy, _obs_mask(shape))
+    s = get_cuda_em_hypo_sampler(tsde.SubVPSDE(N=20), tm, shape, hypo, denoise=False,
+                                 device="cpu")
+    out = s(torch.Generator().manual_seed(0), obs, mask)
+    assert out.shape == (4, hypo, 63) and torch.isfinite(out).all()
+    # the state is re-imputed last: observed dims sit at the observation, at
+    # the last step's noise level (std 1e-4 at t = 1e-3)
+    assert float(((out - obs[:, None]) * mask[:, None]).abs().max()) < 1e-2
+    assert float((out[:, 0] - out[:, 1]).abs().max()) > 1e-3
