@@ -8,9 +8,9 @@ Phases; any failure exits non-zero:
 1. device: the card's name, count and power limit;
 2. build: the CUDA kernels from ``dposer_tpu_torch/ops/cuda/csrc`` with nvcc
    (``-Xptxas -v`` printed);
-3. each of the six kernels against its plain PyTorch version at the main
-   paths' shapes ([500, .] for generation and imputation, [1000, .] for the
-   completion solver), on the
+3. each of the nine kernels against its plain PyTorch version at the main
+   paths' shapes ([500, .] for generation, imputation and PF-ODE sampling,
+   [1000, .] for the completion solver, [50, .] for the likelihood), on the
    pinned trained weights, with the in-kernel normals' moments, and its
    device time (CUDA-graph replay, so host overhead is excluded) beside the
    plain version's, a library yardstick's and the bound from bytes and
@@ -20,7 +20,10 @@ Phases; any failure exits non-zero:
    masked imputation: step by step, and row by row on the free-running
    trajectories; the whole kernel completion solver against its plain loop,
    injected noise, at 6 rows x 2x8 steps and 1000 rows x 2x100 steps,
-   pointwise;
+   pointwise; the kernel RK4 PF-ODE sampler (20 and 125 steps, without and
+   with the final denoise) and the kernel likelihood (50 x 100) against their
+   plain loops, and the kernel PF-Euler decode against the fp32 tabled
+   sampler, all pointwise, since none of them draws noise;
 5. the slices' protocols at flagship size, each with the launch counters
    set to 0 before it and read after it:
    (a) generation, 500 poses x 1000 sub-VP EM steps, in-kernel normals:
@@ -33,6 +36,13 @@ Phases; any failure exits non-zero:
    ``--sampler pc``, ``ddim`` and ``hybrid``, 50 poses x 10 hypotheses, left
    leg masked, through the synthetic SMPL-X body: MPJPE must lie in (50, 400)
    mm and MPVPE in (5, 80) mm (an untrained model exceeds 1000 mm);
+   (e) PF-ODE sampling, 500 poses x 125 RK4 steps: poses/s; (f) the PF-Euler
+   decode, 500 x 1000 deterministic steps at eps 1e-5: poses/s; (g) the exact
+   likelihood of 50 synthetic poses, 100 RK4 steps at eps 1e-4: ms per batch,
+   and its bits/dim against the fp32 fixed-grid path and the adaptive RK45
+   oracle on the same Hutchinson probe (batch means within 0.1); (h) the
+   demo's ``interpolation`` task on synthetic poses: the reconstruction error
+   and finite frames of shape [5, 60, 63];
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -66,8 +76,11 @@ from dposer_tpu_torch.body_model import BodyModel  # noqa: E402
 from dposer_tpu_torch.config import get_config  # noqa: E402
 from dposer_tpu_torch.data import PoseNormalizer  # noqa: E402
 from dposer_tpu_torch.diffusion import fast_sampler as tfs  # noqa: E402
+from dposer_tpu_torch.diffusion import likelihood as tlik  # noqa: E402
+from dposer_tpu_torch.diffusion.score_fn import get_score_fn  # noqa: E402
 from dposer_tpu_torch.diffusion.sde import SubVPSDE  # noqa: E402
-from dposer_tpu_torch.ops.cuda import build, fused_comp, fused_em, score_net  # noqa: E402
+from dposer_tpu_torch.ops.cuda import (build, fused_comp, fused_em, fused_lik,  # noqa: E402
+                                       fused_ode, score_net)
 from dposer_tpu_torch.ops.metrics import Evaler  # noqa: E402
 from dposer_tpu_torch.tasks import DPoserComp  # noqa: E402
 from dposer_tpu_torch.utils.masks import create_mask  # noqa: E402
@@ -79,6 +92,8 @@ STATS = os.path.join(ART, "stats")
 OUT = os.path.join(REPO, "chiprun_out", "chip_smoke")
 TPU_KERNEL = "dposer_tpu/ops/pallas/fused_em.py:467"
 TPU_COMP_KERNEL = "dposer_tpu/ops/pallas/fused_comp.py:271"
+TPU_ODE_KERNEL = "dposer_tpu/ops/pallas/fused_ode.py:215"
+TPU_LIK_KERNEL = "dposer_tpu/ops/pallas/fused_lik.py:180"
 CSRC = "dposer_tpu_torch/ops/cuda/csrc"
 
 # published H100 SXM peaks (dense), at the full 700 W power limit
@@ -89,6 +104,10 @@ APD_BAND = (0.80, 1.00)
 MPJPE_BAND, MPVPE_BAND = (50.0, 400.0), (5.0, 80.0)  # mm, tests/test_trained_artifact.py
 B, H, D = 500, 1024, 63
 RC = 1000  # completion's rows: 100 poses x 10 hypotheses
+BL = 50  # the likelihood protocol's batch
+ODE_STEPS, LIK_STEPS, LIK_EPS, DECODE_EPS = 125, 100, 1e-4, 1e-5
+BPD_LIMIT = 0.1  # bits/dim between two paths' batch means (tests/test_fast_ode.py)
+ODE_TOL = 5e-2  # kernel against plain deterministic samplers, times max(1, |ref|max)
 PART, HYPO = "left_leg", 10
 
 
@@ -146,6 +165,20 @@ def eager_ms(fn, iters=200):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def timed_calls(fn, n=3):
+    """Wall seconds of ``n`` calls of ``fn`` (the first is the warm-up), the
+    launch counters set to 0 before each, and the last call's result."""
+    walls = []
+    for _ in range(n):
+        fused_em.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, res
 
 
 def err(out, ref):
@@ -590,14 +623,7 @@ def phase_completion_protocols(model, dev):
     mask, obs = create_mask(normalizer.offline_normalize(gts, from_axis=True), part=PART,
                             generator=gen)
     comp = DPoserComp(sde, model=model, time_strategy="3", backend="cuda", device=dev)
-    walls = []
-    for _ in range(3):
-        fused_em.reset_launch_counts()  # the counts read below are one solve's
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        hypos = comp.optimize_hypos(obs, mask, HYPO, gen)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    walls, hypos = timed_calls(lambda: comp.optimize_hypos(obs, mask, HYPO, gen))
     by_run["solver_100x10_2x100"] = fused_em.launch_counts()
     check(hypos.shape == (100, HYPO, D) and torch.isfinite(hypos).all().item(), "solver output")
     check(torch.equal(hypos * mask[:, None], (obs * mask)[:, None].expand_as(hypos)),
@@ -641,6 +667,332 @@ def phase_completion_protocols(model, dev):
         print(f"[completion] demo {name}: MPJPE {r['mpjpe']:.1f} mm, MPVPE {r['mpvpe']:.1f} mm, "
               f"task wall {wall:.2f} s (load, build, sample, evaluate), launches "
               f"{by_run[f'demo_{name}']}")
+    return dict(results=res, by_run=by_run)
+
+
+def phase_ode_kernels(model, dev):
+    """K7 (at the likelihood's 50 rows), K8 (at PF-ODE sampling's 500 rows, each
+    stage and the denoise) and K9 (50 rows) against their plain versions, with
+    timings and bounds."""
+    sde = SubVPSDE(N=1000)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    netl, coefl = fused_ode.build_rk4_operands(sde, model, LIK_EPS, sde.T, LIK_STEPS, dev)
+    neto, coefo = fused_ode.build_rk4_operands(sde, model, sde.T, 1e-3, ODE_STEPS, dev,
+                                               denoise_eps=1e-3)
+    j = LIK_STEPS  # a mid-trajectory row of the stage grid
+    tp, W, gs, gb = netl["tp_all"][j], netl["W"], netl["gn_scale"], netl["gn_bias"]
+    x = 0.5 * torch.randn(BL, D, generator=gen, device=dev)
+    eps = tlik.draw_epsilon("Rademacher", (BL, D), gen, dev)
+    rows = []
+
+    # K7 dense_gn_silu_jvp: the three layer shapes one forward-with-tangent runs
+    h, dh = score_net.dense_gn_silu_jvp_plain(x, eps, W[0], tp[0], gs[0], gb[0])
+    h1, dh1 = score_net.dense_gn_silu_jvp_plain(h, dh, W[1], tp[1], gs[1], gb[1])
+    variants = []
+    for label, a, da, k, res in (("pre [50,63]x[63,1024]", x, eps, 0, (None, None)),
+                                 ("block [50,1024]x[1024,1024]", h, dh, 1, (None, None)),
+                                 ("block+residual [50,1024]x[1024,1024]", h1, dh1, 2, (h, dh))):
+        args = (a, da, W[k], tp[k], gs[k], gb[k])
+        ref = score_net.dense_gn_silu_jvp_plain(*args, *res)
+        out = score_net.dense_gn_silu_jvp(*args, residual=res[0], dresidual=res[1])
+        torch.cuda.synchronize()
+        e = [err(o, r) for o, r in zip(out, ref)]
+        tol = [1e-3 * max(1.0, float(r.abs().max())) for r in ref]
+        check(all(a_ <= b_ for a_, b_ in zip(e, tol)),
+              f"dense_gn_silu_jvp {label}: max abs err (out, dout) {e} > {tol}")
+        K, with_res = a.shape[1], res[0] is not None
+        n_bytes = (2 * 4 * BL * K + 2 * K * H + 3 * 4 * H
+                   + 2 * 4 * BL * H * (2 if with_res else 1))
+        bms, by = bound(n_bytes, 2 * 2 * BL * K * H, 40 * BL * H)
+        o, do = torch.empty_like(ref[0]), torch.empty_like(ref[0])
+        r0, r1 = res if with_res else (torch.zeros_like(o), torch.zeros_like(o))
+
+        def lib_layer(av, rv):
+            y = torch.matmul(av.to(torch.bfloat16), W[k]).float() + tp[k]
+            return F.silu(F.group_norm(y, 32, gs[k], gb[k], eps=1e-5)) + rv
+
+        def library():
+            return torch.func.jvp(lib_layer, (a, r0), (da, r1))
+
+        lib = library()
+        torch.cuda.synchronize()
+        # the yardstick rounds its matmul output to bf16: same function, fewer digits
+        check(err(lib[1], ref[1]) <= 50 * tol[1], f"dense_gn_silu_jvp {label}: the library "
+                                                  f"composite computes another tangent")
+        run = lambda: score_net.dense_gn_silu_jvp(*args, residual=res[0],  # noqa: E731
+                                                  dresidual=res[1], out=o, dout=do)
+        variants.append(dict(
+            shape=label, max_abs_err=max(e), errs_out_dout=e, tols_out_dout=tol,
+            ms=graph_ms(run), eager_ms=eager_ms(run),
+            plain_ms=graph_ms(lambda: score_net.dense_gn_silu_jvp_plain(*args, *res)),
+            library_ms=graph_ms(library), bound_ms=bms, bound_by=by))
+    main_v = variants[2]
+    rows.append(dict(name="dense_gn_silu_jvp", route="cuda",
+                     source=f"{CSRC}/dense_gn_silu_jvp.cu", replaces=TPU_LIK_KERNEL,
+                     replaces_part="fused_lik.py:41 _make_kernel -> score_net.py:388 "
+                                   "bind_fwd_jvp (mm, gnorm_jvp, silu_jvp, h + h2 and dh + dh2)",
+                     max_abs_err=max(v["max_abs_err"] for v in variants),
+                     tol="out 1e-3*max(1,|ref|max); dout 1e-3*max(1,|dref|max)",
+                     **{k: main_v[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
+                                               "library_ms", "bound_ms", "bound_by")},
+                     variants=variants))
+
+    # K8 head_rk4: every stage and the denoise, on a forward's hidden state
+    jo = ODE_STEPS
+    xo = torch.randn(B, D, generator=gen, device=dev)
+    xs = xo + 0.01 * torch.randn(B, D, generator=gen, device=dev)
+    acc = torch.randn(B, D, generator=gen, device=dev)
+    hid = torch.empty(B, H, device=dev)
+    score_net.network_hidden(neto, xs, jo, hid, torch.empty_like(hid))
+    wp, bp = neto["w_post"], neto["b_post"]
+    e8, tol8 = [], []
+    for stage in (0, 1, 2, 3, fused_ode.DENOISE):
+        want = fused_ode.head_rk4_plain(hid, wp, bp, coefo, jo, stage, xo, xs, acc)
+        got = (xo.clone(), xs.clone(), acc.clone())
+        fused_ode.head_rk4(hid, wp, bp, coefo, jo, stage, *got)
+        torch.cuda.synchronize()
+        e8 += [err(g, w) for g, w in zip(got, want)]
+        tol8 += [1e-3 * max(1.0, float(w.abs().max())) for w in want]
+    check(all(a_ <= b_ for a_, b_ in zip(e8, tol8)), f"head_rk4: errors {e8} > {tol8}")
+    n8 = 4 * B * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 5 * 4 * B * D + 32
+    bms, by = bound(n8, 2 * B * H * D, 12 * B * D)
+    st = (xo.clone(), xs.clone(), acc.clone())
+    run8 = lambda stage=1: fused_ode.head_rk4(hid, wp, bp, coefo, jo, stage, *st)  # noqa: E731
+    rows.append(dict(
+        name="head_rk4", route="cuda", source=f"{CSRC}/head_rk4.cu", replaces=TPU_ODE_KERNEL,
+        replaces_part="fused_ode.py:87-96 (fwd's post-dense and the RK4 step), :101-107 "
+                      "(the final denoise)",
+        shape="stage 1, [500,1024]x[1024,63]", max_abs_err=max(e8),
+        tol="1e-3*max(1,|ref|max), stages 0-3 and the denoise", errs=e8, tols=tol8,
+        ms=graph_ms(run8), eager_ms=eager_ms(run8),
+        plain_ms=graph_ms(lambda: fused_ode.head_rk4_plain(hid, wp, bp, coefo, jo, 1, xo, xs,
+                                                           acc)),
+        denoise_ms=graph_ms(lambda: run8(fused_ode.DENOISE)),
+        library_ms=None, bound_ms=bms, bound_by=by))
+
+    # K9 head_rk4_jvp, on the hidden state and tangent of the 50 rows
+    bufs = tuple(torch.empty(BL, H, device=dev) for _ in range(4))
+    hl, dhl = score_net.network_hidden_jvp(netl, x, eps, j, bufs)
+    xl, xsl, accl = x, x + 0.01 * torch.randn(BL, D, generator=gen, device=dev), \
+        torch.randn(BL, D, generator=gen, device=dev)
+    lp, lacc = (torch.randn(BL, generator=gen, device=dev) for _ in range(2))
+    wpl, bpl = netl["w_post"], netl["b_post"]
+    e9, tol9 = [], []
+    for stage in range(4):
+        want = fused_lik.head_rk4_jvp_plain(hl, dhl, wpl, bpl, coefl, j, stage, xl, xsl, accl,
+                                            eps, lp, lacc)
+        got = tuple(t.clone() for t in (xl, xsl, accl, lp, lacc))
+        fused_lik.head_rk4_jvp(hl, dhl, wpl, bpl, coefl, j, stage, *got[:3], eps, *got[3:])
+        torch.cuda.synchronize()
+        e9 += [err(g, w) for g, w in zip(got, want)]
+        tol9 += [1e-3 * max(1.0, float(w.abs().max())) for w in want]
+    check(all(a_ <= b_ for a_, b_ in zip(e9, tol9)), f"head_rk4_jvp: errors {e9} > {tol9}")
+    n9 = (2 * 4 * BL * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS
+          + 6 * 4 * BL * D + 3 * 4 * BL + 32)
+    bms, by = bound(n9, 2 * 2 * BL * H * D, 16 * BL * D)
+    st9 = tuple(t.clone() for t in (xl, xsl, accl, lp, lacc))
+    run9 = lambda: fused_lik.head_rk4_jvp(hl, dhl, wpl, bpl, coefl, j, 1, *st9[:3],  # noqa: E731
+                                          eps, *st9[3:])
+    rows.append(dict(
+        name="head_rk4_jvp", route="cuda", source=f"{CSRC}/head_rk4.cu",
+        replaces=TPU_LIK_KERNEL,
+        replaces_part="fused_lik.py:75-79 (fwd_jvp's post-dense pair, k_x and k_lp), :91-102 "
+                      "(the RK4 step on x and delta_logp)",
+        shape="stage 1, [50,1024] pair x [1024,63]", max_abs_err=max(e9),
+        tol="1e-3*max(1,|ref|max), stages 0-3, x xs acc lp lacc", errs=e9, tols=tol9,
+        ms=graph_ms(run9), eager_ms=eager_ms(run9),
+        plain_ms=graph_ms(lambda: fused_lik.head_rk4_jvp_plain(hl, dhl, wpl, bpl, coefl, j, 1,
+                                                               xl, xsl, accl, eps, lp, lacc)),
+        library_ms=None, bound_ms=bms, bound_by=by))
+    for r in rows:
+        kernel_row_line(r)
+    return rows
+
+
+def normalized_synthetic_poses(n, dev):
+    config = get_config()
+    normalizer = PoseNormalizer(STATS, normalize=config.data.normalize,
+                                min_max=config.data.min_max, rot_rep=config.data.rot_rep,
+                                device=dev)
+    return normalizer.offline_normalize(torch.as_tensor(synthetic_poses(n), device=dev),
+                                        from_axis=True)
+
+
+def phase_ode_parity(model, dev):
+    """The kernel PF-ODE sampler and the kernel likelihood against their plain
+    loops, and the kernel PF-Euler decode against the fp32 tabled sampler.
+
+    These loops draw no noise, so unlike generation a kernel loop is held to
+    its plain loop pointwise end to end, every row: the samplers to
+    ``ODE_TOL``*max(1, |ref|max), with the share of rows inside the 5e-3 the JAX
+    package allows its RK4 kernel reported beside it (a few rows of 500 pass
+    it: kernel and plain round the same bf16 operands but sum in another
+    order); the likelihood's z to 3e-2*max(1, |ref|max) and each row's bits/dim
+    to 0.1, that package's limits for its likelihood kernel. Against the fp32
+    tabled sampler the 1000-step decode differs by bf16 rounding itself, and a
+    few rows part further: there at least 95% of the rows must lie within
+    2e-2*max(1, |ref|max), with the median error under a tenth of that."""
+    sde = SubVPSDE(N=1000)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    z = torch.randn(B, D, generator=gen, device=dev)
+    out, failures = {}, []
+
+    def hold(key, what, got, ref, pointwise=True):
+        scale = max(1.0, float(ref.abs().max()))
+        row_err = (got - ref).abs().amax(1)
+        e, med = err(got, ref), float((got - ref).abs().median())
+        shares = {f"rows_within_{k}": float((row_err <= t * scale).float().mean())
+                  for k, t in (("5e_3", 5e-3), ("2e_2", 2e-2))}
+        out[key] = dict(max_abs_err=e, ref_abs_max=scale, median_abs_err=med, **shares,
+                        tol=ODE_TOL * scale if pointwise else None)
+        print(f"[parity] {what}: max abs err {e:.3g}"
+              + (f" (tol {ODE_TOL * scale:.3g})" if pointwise else "")
+              + f", median {med:.3g}, rows within 5e-3 / 2e-2 of max(1,|ref|) "
+                f"{shares['rows_within_5e_3']:.3f} / {shares['rows_within_2e_2']:.3f}")
+        if pointwise and e > ODE_TOL * scale:
+            failures.append(f"{what}: {e} > {ODE_TOL * scale}")
+        if not pointwise and (shares["rows_within_2e_2"] < 0.95 or med > 2e-3 * scale):
+            failures.append(f"{what}: {shares['rows_within_2e_2']:.3f} of rows within "
+                            f"{2e-2 * scale}, median {med}")
+
+    for n_steps in (20, ODE_STEPS):
+        for denoise in (False, True):
+            kw = dict(n_steps=n_steps, eps=1e-3, denoise=denoise, device=dev)
+            _, ref = fused_ode.get_cuda_ode_sampler(sde, model, (B, D), plain=True, **kw)(z=z)
+            _, got = fused_ode.get_cuda_ode_sampler(sde, model, (B, D), **kw)(z=z)
+            torch.cuda.synchronize()
+            hold(f"ode_{n_steps}{'_denoise' if denoise else ''}",
+                 f"ODE sampler {n_steps} steps, denoise {denoise}", got, ref)
+
+    kw = dict(eps=DECODE_EPS, probability_flow=True, device=dev)
+    fp32 = tfs.get_fast_pc_sampler(sde, model, (B, D), **kw)(
+        z=z, noise=torch.zeros(1, 1, B, D, device=dev).expand(sde.N, -1, -1, -1))
+    ref = fused_em.get_cuda_em_sampler(sde, model, (B, D), plain=True, **kw)(z=z)
+    got = fused_em.get_cuda_em_sampler(sde, model, (B, D), rng_mode="kernel", **kw)(gen, z=z)
+    torch.cuda.synchronize()
+    hold("pf_euler", "PF-Euler decode 1000 steps", got, ref)
+    hold("pf_euler_vs_fp32", "PF-Euler decode 1000 steps against the fp32 tabled sampler",
+         got, fp32, pointwise=False)
+
+    data = normalized_synthetic_poses(BL, dev)
+    eps = tlik.draw_epsilon("Rademacher", (BL, D), gen, dev)
+    kw = dict(n_steps=LIK_STEPS, eps=LIK_EPS, device=dev)
+    bpd_ref, z_ref, _ = fused_lik.get_cuda_likelihood_fn(sde, model, (BL, D), plain=True, **kw)(
+        None, data, epsilon=eps)
+    bpd, zk, _ = fused_lik.get_cuda_likelihood_fn(sde, model, (BL, D), **kw)(
+        None, data, epsilon=eps)
+    torch.cuda.synchronize()
+    ez, eb = err(zk, z_ref), err(bpd, bpd_ref)
+    tolz = 3e-2 * max(1.0, float(z_ref.abs().max()))
+    out["likelihood"] = dict(z_max_abs_err=ez, z_tol=tolz, bpd_max_abs_err=eb,
+                             bpd_tol=BPD_LIMIT, bpd_mean=float(bpd.mean()))
+    print(f"[parity] likelihood {BL} x {LIK_STEPS}: z max abs err {ez:.3g} (tol {tolz:.3g}), "
+          f"bits/dim per row {eb:.3g} (tol {BPD_LIMIT})")
+    if ez > tolz or eb > BPD_LIMIT:
+        failures.append(f"likelihood: z {ez} > {tolz} or bits/dim {eb} > {BPD_LIMIT}")
+    check(not failures, "PF-ODE parity: " + "; ".join(failures))
+    return out
+
+
+def phase_ode_protocols(model, dev):
+    sde = SubVPSDE(N=1000)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    by_run, res = {}, {}
+
+    # (e) PF-ODE sampling, 500 x 125
+    sampler = fused_ode.get_cuda_ode_sampler(sde, model, (B, D), n_steps=ODE_STEPS, eps=1e-3,
+                                             device=dev)
+    walls, (nfe, x) = timed_calls(lambda: sampler(gen))
+    by_run["ode_500x125"] = fused_em.launch_counts()
+    check(nfe == 4 * ODE_STEPS and x.shape == (B, D) and torch.isfinite(x).all().item(),
+          "PF-ODE sampler output")
+    wall = min(walls[1:])
+    res["ode_sampling"] = dict(poses_per_s=B / wall, wall_s=wall, walls_s=walls, nfe=nfe,
+                               sample_abs_max=float(x.abs().max()),
+                               launches=by_run["ode_500x125"])
+    print(f"[ode] PF-ODE sampling 500 x {ODE_STEPS} RK4 steps: {B / wall:.1f} poses/s "
+          f"({wall * 1e3:.1f} ms per call; calls {['%.3f' % w for w in walls]} s), launches "
+          f"{by_run['ode_500x125']}")
+
+    # (f) the PF-Euler decode, 500 x 1000 at eps 1e-5
+    decoder = demo.build_sampler(get_config(), sde, model, B, DECODE_EPS, "none", dev,
+                                 probability_flow=True)
+    z = torch.randn(B, D, generator=gen, device=dev)
+    walls, x = timed_calls(lambda: decoder(gen, z=z))
+    by_run["pf_euler_500x1000"] = fused_em.launch_counts()
+    check(x.shape == (B, D) and torch.isfinite(x).all().item(), "PF-Euler decode output")
+    wall = min(walls[1:])
+    res["pf_euler_decode"] = dict(poses_per_s=B / wall, wall_s=wall, walls_s=walls,
+                                  launches=by_run["pf_euler_500x1000"])
+    print(f"[ode] PF-Euler decode 500 x 1000 steps: {B / wall:.1f} poses/s ({wall * 1e3:.1f} "
+          f"ms per call; calls {['%.3f' % w for w in walls]} s)")
+
+    # (g) likelihood, 50 synthetic poses x 100 steps, and the three paths' bits/dim
+    data = normalized_synthetic_poses(BL, dev)
+    eps = tlik.draw_epsilon("Rademacher", (BL, D), gen, dev)
+    lik = fused_lik.get_cuda_likelihood_fn(sde, model, (BL, D), n_steps=LIK_STEPS, eps=LIK_EPS,
+                                           device=dev)
+    walls, (bpd, zk, nfe) = timed_calls(lambda: lik(None, data, epsilon=eps))
+    by_run["likelihood_50x100"] = fused_em.launch_counts()
+    check(nfe == 4 * LIK_STEPS and bpd.shape == (BL,) and torch.isfinite(bpd).all().item()
+          and torch.isfinite(zk).all().item(), "likelihood output")
+    t0 = time.perf_counter()
+    bpd32, z32, _ = tlik.get_fast_likelihood_fn(sde, model, n_steps=LIK_STEPS, eps=LIK_EPS)(
+        None, data, epsilon=eps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    score_fn = get_score_fn(sde, model, continuous=True)
+    bpd_ad, z_ad, nfe_ad = tlik.get_likelihood_fn(sde, score_fn, rtol=1e-4, atol=1e-4,
+                                                  eps=LIK_EPS)(None, data, epsilon=eps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(torch.isfinite(bpd_ad).all().item(), "the adaptive likelihood ran out of steps")
+    means = dict(kernel=float(bpd.mean()), fp32_rk4=float(bpd32.mean()),
+                 adaptive_rk45=float(bpd_ad.mean()))
+    gaps = dict(kernel_vs_fp32=abs(means["kernel"] - means["fp32_rk4"]),
+                kernel_vs_adaptive=abs(means["kernel"] - means["adaptive_rk45"]),
+                fp32_vs_adaptive=abs(means["fp32_rk4"] - means["adaptive_rk45"]))
+    check(max(gaps.values()) <= BPD_LIMIT, f"bits/dim batch means {means} part by {gaps}")
+    wall = min(walls[1:])
+    scale = max(1.0, float(z_ad.abs().max()))
+    res["likelihood"] = dict(
+        ms_per_batch=wall * 1e3, walls_s=walls, batch=BL, nfe=nfe, bpd_means=means,
+        bpd_mean_gaps=gaps, bpd_limit=BPD_LIMIT,
+        bpd_row_max_gap_kernel_vs_adaptive=float((bpd - bpd_ad).abs().max()),
+        z_max_abs_err_kernel_vs_adaptive=float((zk - z_ad).abs().max()),
+        z_max_abs_err_fp32_vs_adaptive=float((z32 - z_ad).abs().max()), z_abs_max=scale,
+        adaptive_nfe=nfe_ad, fp32_rk4_wall_s=t1 - t0, adaptive_wall_s=t2 - t1,
+        launches=by_run["likelihood_50x100"])
+    print(f"[likelihood] {BL} x {LIK_STEPS} RK4 steps: {wall * 1e3:.1f} ms per batch (calls "
+          f"{['%.3f' % w for w in walls]} s); bits/dim means {means}, gaps {gaps}; adaptive "
+          f"nfe {nfe_ad}; fp32 RK4 {t1 - t0:.2f} s, adaptive {t2 - t1:.2f} s once each")
+
+    # (h) the demo's interpolation task on synthetic poses
+    os.makedirs(OUT, exist_ok=True)
+    poses_file = os.path.join(OUT, "synth_poses_interp.npz")
+    np.savez(poses_file, pose_samples=synthetic_poses(20))
+    args = demo.parse_args(["--task", "interpolation", "--device", "cuda", "--ckpt-path", CKPT,
+                            "--stats-dir", STATS, "--file-path", poses_file,
+                            "--output-path", os.path.join(OUT, "interpolation"),
+                            "--seed", "42"])
+    fused_em.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = demo.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_run["demo_interpolation"] = fused_em.launch_counts()
+    with np.load(r["frames_file"]) as f:
+        frames, recon, anchors = f["pose_frames"], f["recon"], f["anchors"]
+    check(frames.shape == (5, 60, D) and np.isfinite(frames).all(), "interpolation frames")
+    check(np.isfinite(r["recon_err"]) and r["recon_err"] < 0.1,
+          f"interpolation reconstruction error {r['recon_err']}")
+    res["interpolation"] = dict(recon_err_normalized=r["recon_err"],
+                                recon_err_axis_angle=float(np.abs(recon - anchors).mean()),
+                                frame_step_abs_max=float(np.abs(np.diff(frames, axis=1)).max()),
+                                task_wall_s=wall, launches=by_run["demo_interpolation"])
+    print(f"[interpolation] demo: reconstruction error {r['recon_err']:.4f} (normalized), "
+          f"task wall {wall:.2f} s, launches {by_run['demo_interpolation']}")
     return dict(results=res, by_run=by_run)
 
 
@@ -766,11 +1118,14 @@ def main():
             rows = phase_kernels(model, dev)
             comp_rows, k1_rc = phase_completion_kernels(model, dev)
             rows += comp_rows
+            rows += phase_ode_kernels(model, dev)
             parity = phase_parity(model, dev)
             parity.update(phase_completion_parity(model, dev))
+            parity.update(phase_ode_parity(model, dev))
             proto = phase_protocols(model, dev)
         comp = phase_completion_protocols(model, dev)
-        by_run = {**proto.pop("by_run"), **comp["by_run"]}
+        ode = phase_ode_protocols(model, dev)
+        by_run = {**proto.pop("by_run"), **comp["by_run"], **ode["by_run"]}
         for r in rows:
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
@@ -797,6 +1152,21 @@ def main():
     print(f"[completion] kernels alone: {solve_ms:.1f} ms per solve, so the device is busy "
           f"~{100 * sol['device_busy_share_est']:.0f}% of the best call")
     proto["completion"] = comp["results"]
+    # and for the PF-ODE paths: 4 x 125 stages of K1 x5 and K8 at 500 rows; 4 x 100
+    # stages of K7 x5 and K9 at 50 rows
+    k7 = {v["shape"].split()[0]: v["ms"]
+          for v in next(r for r in rows if r["name"] == "dense_gn_silu_jvp")["variants"]}
+    for name, dev_ms in (
+            ("ode_sampling", 4 * ODE_STEPS * (step_ms - ms["head_em"] + ms["head_rk4"])),
+            ("likelihood", 4 * LIK_STEPS * (k7["pre"] + 2 * k7["block"] + 2 * k7["block+residual"]
+                                            + ms["head_rk4_jvp"]))):
+        r = ode["results"][name]
+        wall_ms = r["ms_per_batch"] if name == "likelihood" else 1e3 * r["wall_s"]
+        r["device_ms_per_call_est"] = dev_ms
+        r["device_busy_share_est"] = dev_ms / wall_ms
+        print(f"[{name}] kernels alone: {dev_ms:.1f} ms per call, so the device is busy "
+              f"~{100 * dev_ms / wall_ms:.0f}% of the best call")
+    proto.update(ode["results"])
     proto["launches_by_run"] = by_run
     summary = dict(device=info, build_s=build_s, kernels=rows,
                    dense_gn_silu_ms_at_1000_rows=k1_rc, parity=parity,

@@ -7,18 +7,22 @@ The port of ``dposer_tpu`` (JAX/Pallas on a TPU), module for module:
   ``load_state_dict(strict=True)``.
 - ``dposer_tpu_torch.diffusion``: VP/subVP/VE SDEs, the score adapter, the
   plain predictor-corrector loop, the tabled fast sampler (with masked
-  imputation) and the few-step samplers (DDIM, DPM-Solver++, hybrid).
+  imputation), the few-step samplers (DDIM, DPM-Solver++, hybrid), the
+  adaptive RK45 and fixed-grid RK4 probability-flow-ODE samplers and the
+  exact likelihood in bits/dim.
 - ``dposer_tpu_torch.tasks``: the DPoser prior loss and the completion
   solver (``DPoserComp``).
 - ``dposer_tpu_torch.ops.cuda``: hand-written Hopper kernels for the fused
-  reverse-diffusion loop and the completion solver's Adam loop, each beside
-  its plain PyTorch version.
+  reverse-diffusion loop, the completion solver's Adam loop, the RK4 PF-ODE
+  sampler and the likelihood with its forward-mode tangent, each beside its
+  plain PyTorch version.
 - ``dposer_tpu_torch.data``, ``body_model``, ``ops.metrics``, ``utils``: the
   pose normalizer, the SMPL / SMPL-H / SMPL-X body model, APD and the
-  completion ``Evaler``, checkpoints and completion masks.
+  completion ``Evaler``, checkpoints and completion masks; ``ops.smoothing``:
+  linear and spherical interpolation.
 
 Entry point: ``python -m dposer_tpu_torch.demo --task
-generation|completion|completion2``.
+generation|completion|completion2|interpolation``.
 The package imports torch, numpy and the standard library only.
 """
 

@@ -1,4 +1,5 @@
-"""Generation and pose-completion demo on the card (port of ``run/demo.py``).
+"""Generation, pose-completion and interpolation demo on the card (port of
+``run/demo.py``).
 
     python -m dposer_tpu_torch.demo --task generation \\
         --ckpt-path artifacts/trained_r5/axis-zscore-400k-synth.pth \\
@@ -6,10 +7,13 @@
         [--metrics --smpl-path SMPL_NEUTRAL.npz] [--device cpu]
     python -m dposer_tpu_torch.demo --task completion2 --sampler hybrid \\
         --file-path poses.npz --bodymodel-path SMPLX_NEUTRAL.npz --part left_leg ...
+    python -m dposer_tpu_torch.demo --task interpolation --file-path poses.npz ...
 
 Generation samples 50 poses with the config's sampler (sub-VP EM, no
-corrector, through the CUDA kernels) and writes them, denormalized to
-axis-angle, to ``<output-path>/generation/samples.npz`` (``pose_samples``).
+corrector, through the CUDA kernels; with ``sampling.method = "ode"`` the
+125-step RK4 probability-flow-ODE kernel sampler) and writes them,
+denormalized to axis-angle, to ``<output-path>/generation/samples.npz``
+(``pose_samples``).
 ``--metrics`` runs the 500-sample protocol (EM + langevin corrector, eps
 5e-3) through the SMPL body and prints the APD (ref run/demo.py:338-405).
 
@@ -25,7 +29,18 @@ Both print the min-over-hypotheses MPVPE and MPJPE through the SMPL-X body
 ``<output-path>/completion/hypotheses.npz`` (``pose_hypotheses`` [B, H, 63],
 axis-angle, with ``mask`` and ``gts``).
 
-Rendering, the self-intersection metric, ``--quant`` and the other tasks
+Interpolation (ref run/demo.py:624-732) takes poses 1, 10, 11, 12, 17 and 14
+of ``--file-path`` as anchors, encodes them to latents with the fp32 tabled
+RK4 likelihood (250 steps, eps 1e-4: the encode's output is z itself, so it
+stays in fp32 rather than on the bf16 likelihood kernels), decodes with the
+deterministic PF-Euler sampler on the CUDA kernels at eps 1e-5, prints the
+anchors' reconstruction error, and decodes 60 slerp frames between each pair
+of neighbours into ``<output-path>/interpolation/frames.npz`` (``pose_frames``
+[5, 60, 63], axis-angle, with ``anchors`` and ``recon``). ``--adaptive-ode``
+encodes with the adaptive RK45 likelihood and decodes with the generic PC loop
+instead.
+
+Rendering, ``--video``, the self-intersection metric, ``--quant`` and the other tasks
 are not ported yet. On ``--device cuda`` every route goes through the
 kernels, DPM-Solver++ excepted (it has no kernel in either package); on
 ``--device cpu`` the kernels' plain versions run, with host-drawn normals.
@@ -33,9 +48,11 @@ kernels, DPM-Solver++ excepted (it has no kernel in either package); on
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -46,10 +63,15 @@ from .config import load_config
 from .data import PoseNormalizer
 from .body_model.part_indices import BodyPartIndices
 from .diffusion import few_step
+from .diffusion.likelihood import get_fast_likelihood_fn, get_likelihood_fn
+from .diffusion.sampling import get_sampling_fn
+from .diffusion.score_fn import get_score_fn
 from .diffusion.sde import build_sde, sampling_eps_for
 from .models import create_score_model
 from .ops.cuda.fused_em import get_cuda_em_hypo_sampler, get_cuda_em_sampler
+from .ops.cuda.fused_ode import get_cuda_ode_sampler
 from .ops.metrics import Evaler, average_pairwise_distance
+from .ops.smoothing import slerp_interpolation
 from .tasks import DPoserComp
 from .utils.checkpoint import load_params_for_inference
 from .utils.masks import create_mask
@@ -57,13 +79,17 @@ from .utils.masks import create_mask
 SAMPLE_NUM = 50
 METRICS_SAMPLE_NUM = 500
 METRICS_EPS = 5e-3
+ODE_STEPS = 125
+ANCHOR_IDX = (1, 10, 11, 12, 17, 14)
+INTER_FRAMES = 60
+ENCODE_STEPS, ENCODE_EPS, DECODE_EPS = 250, 1e-4, 1e-5
 
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="DPoser generation and completion "
                                             "on the GPU")
     p.add_argument("--task", default="generation",
-                   choices=["generation", "completion", "completion2"])
+                   choices=["generation", "completion", "completion2", "interpolation"])
     p.add_argument("--config-path", default=None,
                    help="Python file with get_config() (default: the flagship "
                         "sub-VP ScoreModelFC config)")
@@ -78,7 +104,11 @@ def parse_args(argv):
     p.add_argument("--bodymodel-path", default="../body_models/smplx/SMPLX_NEUTRAL.npz",
                    help="SMPL-X model file (for the completion tasks)")
     p.add_argument("--file-path", default="./examples/toy_data.npz",
-                   help="npz with pose_samples [n, 63] axis-angle (completion tasks)")
+                   help="npz with pose_samples [n, 63] axis-angle (completion and "
+                        "interpolation tasks)")
+    p.add_argument("--adaptive-ode", action="store_true",
+                   help="interpolation: the adaptive RK45 encode and the generic PF "
+                        "decode instead of the fixed-grid fast paths")
     p.add_argument("--metrics", action="store_true")
     p.add_argument("--hypo", type=int, default=10)
     p.add_argument("--part", default="left_leg", choices=BodyPartIndices.PARTS)
@@ -109,13 +139,11 @@ def load_model(config, ckpt_path: str, device):
     return model.eval().to(device), step
 
 
-def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, device):
+def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, device,
+                  probability_flow: bool = False):
     """The config's PC sampler through the CUDA kernels: Philox normals drawn
     in the kernels on the card, host normals with the plain versions on the
     CPU."""
-    if config.sampling.method != "pc":
-        raise NotImplementedError(f"sampling method {config.sampling.method!r} "
-                                  f"is not ported yet")
     device = torch.device(device)
     return get_cuda_em_sampler(
         sde, model, (batch, model.n_poses * model.pose_dim), eps=eps,
@@ -123,7 +151,24 @@ def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, de
         rng_mode="kernel" if device.type == "cuda" else "host",
         corrector=corrector, snr=config.sampling.snr,
         n_corrector_steps=config.sampling.n_steps_each,
-        predictor=config.sampling.predictor, device=device)
+        predictor=config.sampling.predictor, probability_flow=probability_flow,
+        device=device)
+
+
+def build_generation_sampler(config, sde, model, batch: int, eps: float, device):
+    """``sampler(generator) -> x`` for the generation task: the config's PC
+    sampler, or under ``sampling.method = "ode"`` the RK4 PF-ODE kernel
+    sampler (ref run/demo.py:284-299)."""
+    method = config.sampling.method.lower()
+    if method == "ode":
+        s = get_cuda_ode_sampler(sde, model, (batch, model.n_poses * model.pose_dim),
+                                 n_steps=ODE_STEPS, eps=eps,
+                                 denoise=config.sampling.noise_removal, device=device)
+        print("[sampler] kernel RK4 PF-ODE path")
+        return lambda generator: s(generator)[1]
+    if method != "pc":
+        raise ValueError(f"Sampler name {config.sampling.method} unknown.")
+    return build_sampler(config, sde, model, batch, eps, config.sampling.corrector, device)
 
 
 def complete_by_optimisation(sde, model, observation, mask, hypo_num, generator, device):
@@ -145,8 +190,9 @@ def complete_by_imputation(args, config, sde, model, observation, mask, generato
     kernel_kw = dict(rng_mode="kernel" if device.type == "cuda" else "host", device=device)
     if args.sampler == "pc":
         if config.sampling.method != "pc":
-            raise NotImplementedError(f"sampling method {config.sampling.method!r} "
-                                      f"is not ported yet")
+            raise NotImplementedError(f"masked imputation runs in the pc sampler; the "
+                                      f"config's sampling method is "
+                                      f"{config.sampling.method!r}")
         s = get_cuda_em_hypo_sampler(sde, model, shape, hypo_num, eps=eps, denoise=dn,
                                      corrector=config.sampling.corrector,
                                      snr=config.sampling.snr,
@@ -205,10 +251,66 @@ def run_completion(args, config, sde, model, normalizer, generator, device) -> d
     return out
 
 
+def run_interpolation(args, config, sde, model, normalizer, generator, device) -> dict:
+    """The interpolation task. Returns ``frames_file`` and ``recon_err``."""
+    with np.load(args.file_path, allow_pickle=False) as f:
+        poses = f["pose_samples"]
+    if poses.shape[0] <= max(ANCHOR_IDX):
+        raise SystemExit(f"--file-path holds {poses.shape[0]} poses; the interpolation "
+                         f"anchors are poses {list(ANCHOR_IDX)}")
+    anchors = torch.as_tensor(poses[list(ANCHOR_IDX)], dtype=torch.float32, device=device)
+    anchor_normed = normalizer.offline_normalize(anchors, from_axis=True)
+    dim = anchor_normed.shape[1]
+    if args.adaptive_ode:
+        score_fn = get_score_fn(sde, model, continuous=config.training.continuous)
+        likelihood_fn = get_likelihood_fn(sde, score_fn, rtol=1e-4, atol=1e-4,
+                                          eps=ENCODE_EPS)
+        print("[ode] adaptive RK45 encode")
+    else:
+        likelihood_fn = get_fast_likelihood_fn(sde, model, n_steps=ENCODE_STEPS,
+                                               eps=ENCODE_EPS)
+        print("[ode] tabled fixed-grid RK4 encode")
+    _, anchor_z, _ = likelihood_fn(generator, anchor_normed)
+
+    def build_decoder(batch):
+        """The deterministic PF-Euler decode (pc + probability_flow, ref
+        demo.py:439-447): the kernel sampler, or the generic loop."""
+        if not args.adaptive_ode:
+            return build_sampler(config, sde, model, batch, DECODE_EPS, "none", device,
+                                 probability_flow=True)
+        sampling = copy.copy(config.sampling)
+        sampling.method, sampling.predictor = "pc", "euler_maruyama"
+        sampling.corrector, sampling.probability_flow = "none", True
+        return get_sampling_fn(SimpleNamespace(sampling=sampling), sde, (batch, dim),
+                               score_fn, DECODE_EPS, device=device)
+
+    print("[ode] generic PF-Euler decode" if args.adaptive_ode else
+          "[ode] kernel PF-Euler decode")
+    recon = build_decoder(len(ANCHOR_IDX))(generator, z=anchor_z)
+    recon_err = float((recon - anchor_normed).abs().mean())
+    print(f"reconstruction mean abs err (normalized space): {recon_err:.4f}")
+
+    decoder = build_decoder(INTER_FRAMES)
+    frames = []
+    for idx in range(len(ANCHOR_IDX) - 1):
+        latents = slerp_interpolation(anchor_z[idx], anchor_z[idx + 1], INTER_FRAMES)
+        frames.append(normalizer.offline_denormalize(decoder(generator, z=latents),
+                                                     to_axis=True))
+    target = os.path.join(args.output_path, "interpolation")
+    os.makedirs(target, exist_ok=True)
+    out = dict(frames_file=os.path.join(target, "frames.npz"), recon_err=recon_err)
+    np.savez(out["frames_file"], pose_frames=torch.stack(frames).cpu().numpy(),
+             anchors=anchors.cpu().numpy(),
+             recon=normalizer.offline_denormalize(recon, to_axis=True).cpu().numpy())
+    print(f"Interpolation outputs under {target}")
+    return out
+
+
 def run(args) -> dict:
     """The task. Generation returns ``samples_file``, ``step`` and, with
     ``--metrics``, ``apd`` and ``metrics_wall_s``; the completion tasks
-    ``hypotheses_file``, ``mpvpe``, ``mpjpe`` and ``step``."""
+    ``hypotheses_file``, ``mpvpe``, ``mpjpe`` and ``step``; interpolation
+    ``frames_file``, ``recon_err`` and ``step``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -225,9 +327,12 @@ def run(args) -> dict:
     if args.task in ("completion", "completion2"):
         return dict(run_completion(args, config, sde, model, normalizer, generator, device),
                     step=step)
+    if args.task == "interpolation":
+        return dict(run_interpolation(args, config, sde, model, normalizer, generator,
+                                      device), step=step)
 
-    sampler = build_sampler(config, sde, model, SAMPLE_NUM, sampling_eps_for(sde),
-                            config.sampling.corrector, device)
+    sampler = build_generation_sampler(config, sde, model, SAMPLE_NUM,
+                                       sampling_eps_for(sde), device)
     samples = normalizer.offline_denormalize(sampler(generator), to_axis=True)
     target = os.path.join(args.output_path, "generation")
     os.makedirs(target, exist_ok=True)

@@ -1,4 +1,5 @@
-"""Tabled Euler-Maruyama / PC sampler for ScoreModelFC.
+"""Tabled samplers for ScoreModelFC: Euler-Maruyama / PC, and the fixed-grid
+RK4 integrator of the probability-flow ODE.
 
 Every x-independent quantity of a step is precomputed as an ``[N, ...]``
 table before the loop (the contract the CUDA kernels consume):
@@ -10,7 +11,9 @@ table before the loop (the contract the CUDA kernels consume):
 - the time-embedding path: each layer's ``Dense(temb)`` contribution.
 
 What is left per step is 6 matmuls, 3 GroupNorms, SiLUs and 3 scalar-table
-multiplies.
+multiplies. The PF-ODE paths (``get_fast_ode_sampler``, the likelihood of
+``likelihood.py`` and the RK4 kernels) precompute the same on a stage-time grid
+(``pf_ode_grid``): the drift there is ``a1[j]*x + a2[j]*model_out``.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 
 from ..models.score_mlp import ScoreModelFC
 from ..models.time_embedding import get_timestep_embedding
-from .sde import SDE, VESDE, VPSDE, SubVPSDE
+from .sde import SDE, VESDE, VPSDE, SubVPSDE, linspace_f32
 
 Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -80,6 +83,23 @@ def _pred_tables(sde: SDE, timesteps: torch.Tensor, predictor: str,
         return _rd_tables(sde, timesteps, probability_flow)
     raise NotImplementedError(f"tabled samplers support euler_maruyama/"
                               f"reverse_diffusion; got {predictor!r}")
+
+
+def _pf_tables(sde: SDE, taus: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-grid-point (a1, a2): the probability-flow-ODE drift is
+    ``a1[j]*x + a2[j]*model_out`` (ref sde_lib.py:98-109 with
+    probability_flow=True: f - g^2*score/2, score = -out/std for VP/subVP
+    continuous and = out for VE)."""
+    zeros = torch.zeros_like(taus)
+    if isinstance(sde, (VPSDE, SubVPSDE)):
+        beta_t = sde.beta_0 + taus * (sde.beta_1 - sde.beta_0)
+        _, diffusion = sde.sde(zeros, taus)
+        _, std = sde.marginal_prob(zeros, taus)
+        return -0.5 * beta_t, 0.5 * diffusion ** 2 / std
+    if isinstance(sde, VESDE):
+        _, diffusion = sde.sde(zeros, taus)
+        return zeros, -0.5 * diffusion ** 2
+    raise NotImplementedError(type(sde).__name__)
 
 
 def _labels_for(sde: SDE, timesteps: torch.Tensor) -> torch.Tensor:
@@ -260,5 +280,98 @@ def get_fast_pc_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
             if imputation:
                 x = impute(x, observation, mask, mc[i], istd[i], zs[k + 1])
         return x_mean if denoise else x
+
+    return sampler
+
+
+def get_fast_em_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
+                        eps: float = 1e-3, denoise: bool = True, device="cuda"):
+    """The tabled EM sampler with no corrector, in fp32, the model's sigma
+    output scaling applied to the network's output as the model applies it.
+
+    ``sampler(generator=None, z=None, noise=None) -> x``; ``noise`` [N, B, D]
+    injects the per-step normals.
+    """
+    timesteps = sde.timesteps(eps, device=device)
+    cx, cout, cnoise = _em_tables(sde, timesteps)
+    tprojs, out_scale = precompute_time_tables(model, _labels_for(sde, timesteps))
+    fwd = make_fast_forward(model, tprojs, out_scale)
+
+    @torch.no_grad()
+    def sampler(generator: Optional[torch.Generator] = None, z=None, noise=None):
+        x = sde.prior_sampling(shape, generator, device) if z is None else z
+        x_mean = x
+        for i in range(sde.N):
+            z_i = (noise[i] if noise is not None else
+                   torch.randn(shape, generator=generator, device=device))
+            x_mean = cx[i] * x + cout[i] * fwd(x, i)
+            x = x_mean + cnoise[i] * z_i
+        return x_mean if denoise else x
+
+    return sampler
+
+
+def pf_ode_grid(sde: SDE, model: ScoreModelFC, t_start: float, t_end: float,
+                n_steps: int, device):
+    """The stage-time grid of an ``n_steps`` fixed-grid RK4 run of the
+    probability-flow ODE from ``t_start`` to ``t_end``: ``tau_j = t_start +
+    j*h/2`` for j = 0..2*n_steps. Returns ``(taus, labels, a1, a2, h)`` with
+    the drift ``a1[j]*x + a2[j]*raw_model_out`` (``a2`` folds the model's
+    sigma output scaling) and the step ``h``."""
+    taus = linspace_f32(t_start, t_end, 2 * n_steps + 1, device=device)
+    labels = _labels_for(sde, taus)
+    a1, a2 = _pf_tables(sde, taus)
+    if model.scale_by_sigma:
+        a2 = a2 / model.sigmas[labels.long()]
+    return taus, labels, a1, a2, (t_end - t_start) / n_steps
+
+
+def denoise_coefs(sde: SDE, model: ScoreModelFC, eps: float, device):
+    """``(cdx, cdo)`` of the PF-ODE samplers' final denoise, one noise-free
+    reverse-diffusion step at ``eps`` (ref sampling.py:492-498): ``x <- cdx*x
+    + cdo*raw_model_out``. ``f`` is linear with ``f(0) = 0``, so ``f(1)``
+    captures it."""
+    t = torch.full((1,), float(eps), device=device)
+    f1, G = sde.discretize(torch.ones((1, 1), device=device), t)
+    out_scale = (1.0 / model.sigmas[_labels_for(sde, t).long()]
+                 if model.scale_by_sigma else None)
+    ss, _ = _corrector_tables(sde, t, out_scale)
+    return 1.0 - f1.reshape(-1)[0], G.reshape(-1)[0] ** 2 * ss[0]
+
+
+def get_fast_ode_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
+                         n_steps: int = 125, eps: float = 1e-3, denoise: bool = False,
+                         device="cuda"):
+    """Tabled fixed-grid RK4 probability-flow-ODE sampler in fp32.
+
+    The drift coefficients, time embeddings and per-layer time projections
+    are precomputed on the ``2*n_steps + 1`` stage-time grid from T to
+    ``eps``, so each of the ``4*n_steps`` network evaluations is the 6-matmul
+    fast forward; the adaptive ``sampling.get_ode_sampler`` stays the accuracy
+    oracle. ``sampler(generator=None, z=None) -> (nfe, x)`` with the static
+    ``nfe = 4*n_steps``; ``denoise`` adds the noise-free reverse-diffusion
+    step at ``eps``.
+    """
+    _, labels, a1, a2, h = pf_ode_grid(sde, model, sde.T, eps, n_steps, device)
+    tprojs, _ = precompute_time_tables(model, labels)
+    fwd = make_fast_forward(model, tprojs, None)  # the output scale is folded into a2
+    cdx, cdo = denoise_coefs(sde, model, eps, device)
+
+    def drift(x, j):
+        return a1[j] * x + a2[j] * fwd(x, j)
+
+    @torch.no_grad()
+    def sampler(generator: Optional[torch.Generator] = None, z=None):
+        x = sde.prior_sampling(shape, generator, device) if z is None else z
+        for i in range(n_steps):
+            j = 2 * i
+            k1 = drift(x, j)
+            k2 = drift(x + 0.5 * h * k1, j + 1)
+            k3 = drift(x + 0.5 * h * k2, j + 1)
+            k4 = drift(x + h * k3, j + 2)
+            x = x + (h / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+        if denoise:
+            x = cdx * x + cdo * fwd(x, 2 * n_steps)
+        return 4 * n_steps, x
 
     return sampler

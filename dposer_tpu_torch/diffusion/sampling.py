@@ -15,6 +15,11 @@ imput_c, predictor, imput_p (the imputation slabs only with
 ``imputation=True``, ref sampling.py:410-427); ``noise=[N, K, B, D]`` injects
 the same slabs instead, the layout the tabled sampler and the kernel sampler
 take.
+
+``get_ode_sampler`` integrates the probability-flow ODE with the adaptive
+RK45 of ``ode.py`` (ref sampling.py:471-542), and ``get_sampling_fn``
+dispatches on the config as the reference does (ref sampling.py:80-124).
+The guided Euler-Maruyama update is not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from . import ode as ode_lib
 from .sde import SDE, VPSDE, SubVPSDE, batch_mul
 
 
@@ -123,3 +129,49 @@ def get_pc_sampler(sde: SDE, shape: Tuple[int, ...], score_fn: Callable,
         return x_mean if denoise else x
 
     return sampler
+
+
+def get_ode_sampler(sde: SDE, shape: Tuple[int, ...], score_fn: Callable,
+                    denoise: bool = False, rtol: float = 1e-5, atol: float = 1e-5,
+                    eps: float = 1e-3, device="cuda"):
+    """Deterministic probability-flow-ODE sampler on the adaptive RK45.
+
+    ``sampler(generator=None, z=None) -> (nfe, x)``. A run that exhausts the
+    solver's step budget returns NaNs rather than the truncated state;
+    ``denoise`` adds one reverse-diffusion predictor step without noise at
+    ``eps`` (ref sampling.py:492-498).
+    """
+    pf_rsde = sde.reverse_sde(score_fn, probability_flow=True)
+    rdisc = sde.reverse_discretize(score_fn, probability_flow=False)
+
+    def drift_fn(t, x):
+        return pf_rsde(x, torch.full((x.shape[0],), float(t), dtype=x.dtype,
+                                     device=x.device))[0]
+
+    @torch.no_grad()
+    def sampler(generator: Optional[torch.Generator] = None, z=None):
+        x = sde.prior_sampling(shape, generator, device) if z is None else z
+        sol = ode_lib.rk45(drift_fn, sde.T, eps, x, rtol=rtol, atol=atol)
+        x = sol.y if sol.status == 0 else torch.full_like(sol.y, float("nan"))
+        if denoise:
+            f, _ = rdisc(x, torch.full((x.shape[0],), eps, dtype=x.dtype, device=x.device))
+            x = x - f
+        return sol.nfe, x
+
+    return sampler
+
+
+def get_sampling_fn(config, sde: SDE, shape, score_fn, eps, **overrides):
+    """The config's sampler (ref sampling.py:80-124): ``method`` "ode" gives
+    ``get_ode_sampler``'s ``(nfe, x)`` sampler, "pc" ``get_pc_sampler``'s."""
+    method = config.sampling.method.lower()
+    if method == "ode":
+        return get_ode_sampler(sde, shape, score_fn,
+                               denoise=config.sampling.noise_removal, eps=eps, **overrides)
+    if method == "pc":
+        return get_pc_sampler(sde, shape, score_fn, predictor=config.sampling.predictor,
+                              corrector=config.sampling.corrector, snr=config.sampling.snr,
+                              n_steps=config.sampling.n_steps_each,
+                              probability_flow=config.sampling.probability_flow,
+                              denoise=config.sampling.noise_removal, eps=eps, **overrides)
+    raise ValueError(f"Sampler name {config.sampling.method} unknown.")

@@ -1,8 +1,8 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
-interface (``pose_elementwise`` holds two kernels), compiled for ``sm_90a`` at first use into ``_build/`` beside
-this file (listed in ``.gitignore``). Libraries are named by a hash of the
+interface (``pose_elementwise`` and ``head_rk4`` hold two kernels each), compiled
+for ``sm_90a`` at first use into ``_build/`` beside this file (listed in ``.gitignore``). Libraries are named by a hash of the
 sources and flags, so an edit rebuilds and a stale library is never loaded.
 ``build_all`` starts one nvcc per source at once.
 
@@ -22,7 +22,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("dense_gn_silu", "head_em", "langevin_update", "pose_elementwise",
-           "head_adam")
+           "head_adam", "dense_gn_silu_jvp", "head_rk4")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -1,5 +1,6 @@
 // The output head of the score network as device code shared by the kernels
-// that fuse an update into its epilogue (K2 head_em, K6 head_adam):
+// that fuse an update into its epilogue (K2 head_em, K6 head_adam, K8 head_rk4,
+// K9 head_rk4_jvp):
 //   out[r, c] = sum_k bf16(h[r, k]) * Wpost[k, c] + bpost[c]
 //
 // A block owns 16 rows and all 64 (zero-padded) output columns. It stages its
@@ -30,20 +31,14 @@ constexpr int STAGE_CHUNK = 8;  // float4 loads a thread keeps in flight
 
 static_assert(K_SPLIT * (DP / 16) == N_WARPS, "warps tile columns x depth");
 
-// The block's partial sums for rows row0 .. row0+ROWS-1 of h [B, H], left in
-// `smem` (head_smem_bytes(H) bytes, 128-byte aligned) as [K_SPLIT][ROWS][C_LD]
-// fp32. Every thread of the block calls it; it ends on a barrier.
-__device__ __forceinline__ const float* gemm_tile(const float* __restrict__ h,
-                                                  const __nv_bfloat16* __restrict__ Wpost,
-                                                  unsigned char* smem, int row0, int B, int H) {
-  using namespace nvcuda;
-  const int a_ld = H + 8;
-  auto* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto* Cs = reinterpret_cast<float*>(smem);  // the partial sums, after the MMAs
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
+using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
 
-  // stage h [ROWS, H] as bf16: 16-byte loads, STAGE_CHUNK in flight
+// Stage rows row0 .. row0+ROWS-1 of h [B, H] as bf16 into As [ROWS][H + 8]:
+// 16-byte loads, STAGE_CHUNK in flight. No barrier.
+__device__ __forceinline__ void stage_rows(const float* __restrict__ h, __nv_bfloat16* As,
+                                           int row0, int B, int H) {
+  const int a_ld = H + 8;
+  const int tid = threadIdx.x;
   const int h4 = H / 4;
   for (int q0 = tid; q0 < ROWS * h4; q0 += THREADS * STAGE_CHUNK) {
     float4 v[STAGE_CHUNK];
@@ -65,13 +60,17 @@ __device__ __forceinline__ const float* gemm_tile(const float* __restrict__ h,
       }
     }
   }
-  __syncthreads();
+}
 
-  // warp = (depth quarter kq, column tile ct)
+// acc = this warp's share of As @ Wpost: warp = (depth quarter kq, column tile ct)
+__device__ __forceinline__ void mma_rows(Acc& acc, const __nv_bfloat16* As,
+                                         const __nv_bfloat16* __restrict__ Wpost, int H) {
+  using namespace nvcuda;
+  const int warp = threadIdx.x / 32;
   const int ct = warp % (DP / 16);
   const int kq = warp / (DP / 16);
   const int k_len = H / K_SPLIT;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+  const int a_ld = H + 8;
   wmma::fill_fragment(acc, 0.0f);
 #pragma unroll 4
   for (int k = kq * k_len; k < (kq + 1) * k_len; k += 16) {
@@ -81,8 +80,56 @@ __device__ __forceinline__ const float* gemm_tile(const float* __restrict__ h,
     wmma::load_matrix_sync(a, As + k, a_ld);
     wmma::mma_sync(acc, a, b, acc);
   }
+}
+
+// This warp's partial sums into the `part`-th [K_SPLIT][ROWS][C_LD] fp32 block of Cs
+__device__ __forceinline__ void store_partial(float* Cs, const Acc& acc, int part) {
+  const int warp = threadIdx.x / 32;
+  const int ct = warp % (DP / 16);
+  const int kq = warp / (DP / 16);
+  nvcuda::wmma::store_matrix_sync(Cs + (part * K_SPLIT + kq) * ROWS * C_LD + ct * 16, acc, C_LD,
+                                  nvcuda::wmma::mem_row_major);
+}
+
+// The block's partial sums for rows row0 .. row0+ROWS-1 of h [B, H], left in
+// `smem` (smem_bytes(H) bytes, 128-byte aligned) as [K_SPLIT][ROWS][C_LD]
+// fp32. Every thread of the block calls it; it ends on a barrier.
+__device__ __forceinline__ const float* gemm_tile(const float* __restrict__ h,
+                                                  const __nv_bfloat16* __restrict__ Wpost,
+                                                  unsigned char* smem, int row0, int B, int H) {
+  auto* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  auto* Cs = reinterpret_cast<float*>(smem);  // the partial sums, after the MMAs
+  Acc acc;
+  stage_rows(h, As, row0, B, H);
+  __syncthreads();
+  mma_rows(acc, As, Wpost, H);
   __syncthreads();  // every warp is done with As: its space takes the partial sums
-  wmma::store_matrix_sync(Cs + kq * ROWS * C_LD + ct * 16, acc, C_LD, wmma::mem_row_major);
+  store_partial(Cs, acc, 0);
+  __syncthreads();
+  return Cs;
+}
+
+// The same for a primal h and its tangent dh, one after the other through the
+// one staging buffer: h's partial sums are block 0 of `smem`
+// (smem_bytes_pair(H) bytes) and dh's block 1, read with out_at and tangent_at.
+__device__ __forceinline__ const float* gemm_tile_pair(const float* __restrict__ h,
+                                                       const float* __restrict__ dh,
+                                                       const __nv_bfloat16* __restrict__ Wpost,
+                                                       unsigned char* smem, int row0, int B,
+                                                       int H) {
+  auto* As = reinterpret_cast<__nv_bfloat16*>(smem);
+  auto* Cs = reinterpret_cast<float*>(smem);
+  Acc acc, dacc;
+  stage_rows(h, As, row0, B, H);
+  __syncthreads();
+  mma_rows(acc, As, Wpost, H);
+  __syncthreads();  // As is free for dh
+  stage_rows(dh, As, row0, B, H);
+  __syncthreads();
+  mma_rows(dacc, As, Wpost, H);
+  __syncthreads();
+  store_partial(Cs, acc, 0);
+  store_partial(Cs, dacc, 1);
   __syncthreads();
   return Cs;
 }
@@ -96,11 +143,25 @@ __device__ __forceinline__ float out_at(const float* Cs, const float* __restrict
   return v;
 }
 
+// Element (r, c) of the tangent's head output (no bias), from gemm_tile_pair's sums.
+__device__ __forceinline__ float tangent_at(const float* Cs, int r, int c) {
+  float v = 0.0f;
+#pragma unroll
+  for (int s = 0; s < K_SPLIT; ++s) v += Cs[(K_SPLIT + s) * ROWS * C_LD + r * C_LD + c];
+  return v;
+}
+
 // Host side: the dynamic shared memory of a block, the grid, and the operand
 // checks (H a multiple of 64 and <= 1024, h and Wpost 16-byte aligned, D <= 64).
 inline size_t smem_bytes(int H) {
   const size_t a_bytes = static_cast<size_t>(ROWS) * (H + 8) * 2;
   const size_t c_bytes = static_cast<size_t>(K_SPLIT) * ROWS * C_LD * sizeof(float);
+  return a_bytes > c_bytes ? a_bytes : c_bytes;
+}
+
+inline size_t smem_bytes_pair(int H) {
+  const size_t a_bytes = static_cast<size_t>(ROWS) * (H + 8) * 2;
+  const size_t c_bytes = 2 * static_cast<size_t>(K_SPLIT) * ROWS * C_LD * sizeof(float);
   return a_bytes > c_bytes ? a_bytes : c_bytes;
 }
 

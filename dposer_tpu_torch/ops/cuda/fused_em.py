@@ -38,7 +38,8 @@ from ...diffusion.fast_sampler import (_corrector_tables, _imputation_tables,
 from ...diffusion.sde import SDE
 from . import build
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
-                        dense_gn_silu, dense_gn_silu_plain_into, network_hidden)
+                        dense_gn_silu, dense_gn_silu_jvp, dense_gn_silu_plain_into,
+                        network_hidden)
 
 N_COEFS = 8
 
@@ -279,10 +280,12 @@ masked_renoise.launches = 0
 
 
 def _counted():
-    from .fused_comp import comp_perturb, head_adam  # it imports this module
+    from .fused_comp import comp_perturb, head_adam  # they import this module
+    from .fused_lik import head_rk4_jvp
+    from .fused_ode import head_rk4
 
     return (dense_gn_silu, head_em, langevin_update, masked_renoise, comp_perturb,
-            head_adam)
+            head_adam, dense_gn_silu_jvp, head_rk4, head_rk4_jvp)
 
 
 def launch_counts() -> dict:
@@ -301,18 +304,19 @@ def reset_launch_counts() -> None:
 
 @torch.no_grad()
 def build_sampler_operands(sde: SDE, model, eps: float, predictor: str, device,
-                           tables_override=None):
+                           tables_override=None, probability_flow: bool = False):
     """``(net, coefs)`` for the kernels: the network operands of
     ``build_network_operands`` and the per-step scalar table ``coefs [N, 8]``
     fp32 (cx, cout, cnoise, score_scale, alpha, imputation mean, imputation
     std, 0), with the model's ``1/sigma`` output scale folded into cout and
     score_scale. ``tables_override=(timesteps, cx, cout, cnoise)`` replaces
     the predictor's rows (and the step count) with caller-built ones whose
-    ``cout`` already folds that scale."""
+    ``cout`` already folds that scale. ``probability_flow`` makes the
+    predictor's rows the deterministic PF-ODE step (``cnoise`` 0)."""
     mdev = model.sigmas.device
     if tables_override is None:
         timesteps = sde.timesteps(eps, device=mdev)
-        cx, cout, cnoise = _pred_tables(sde, timesteps, predictor)
+        cx, cout, cnoise = _pred_tables(sde, timesteps, predictor, probability_flow)
     else:
         timesteps, cx, cout, cnoise = (t.to(mdev) for t in tables_override)
     net = build_network_operands(model, _labels_for(sde, timesteps), device)
@@ -390,6 +394,7 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
                         corrector: str = "none", snr: float = 0.16,
                         n_corrector_steps: int = 1, imputation: bool = False,
                         predictor: str = "euler_maruyama",
+                        probability_flow: bool = False,
                         step_range: Optional[Tuple[int, int]] = None,
                         _tables_override=None, device="cuda", plain: bool = False):
     """Build the kernel PC sampler for ``model`` (a ScoreModelFC).
@@ -399,6 +404,11 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     ([N, K, B, D], or [N, B, D] when K == 1) the host-mode normals;
     ``observation`` and ``mask`` [B, D] come iff ``imputation=True``. Tables
     and operands are built once here; a call launches the kernels only.
+
+    ``probability_flow=True`` is the deterministic PF-ODE Euler decode of the
+    interpolation task: the same launches on tables whose score term is
+    halved and whose noise coefficient is 0, so the normals, host-drawn or
+    in-kernel, have no effect.
 
     ``step_range=(lo, hi)`` runs rows ``lo..hi`` of the N-step grid, the
     state carried in through ``z=`` and out through the return; ``noise`` then
@@ -425,8 +435,10 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     n_corr = n_corrector_steps if corrector == "langevin" else 0
     K = n_corr + (2 if imputation else 0) + 1
     batch, dim = shape
+    if probability_flow and _tables_override is not None:
+        raise ValueError("overridden tables carry their own noise coefficients")
     net, coefs = build_sampler_operands(sde, model, eps, predictor, device,
-                                        _tables_override)
+                                        _tables_override, probability_flow)
     if net["dim"] != dim:
         raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
     lo, hi = (0, int(coefs.shape[0])) if step_range is None else step_range

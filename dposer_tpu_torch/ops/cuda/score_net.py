@@ -12,6 +12,13 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
   tile holds whole 32-feature groups in the natural order.
 - kernel K1 ``dense_gn_silu`` (``csrc/dense_gn_silu.cu``) with its plain
   PyTorch version, and ``network_hidden``, which runs the layers with it.
+- kernel K7 ``dense_gn_silu_jvp`` (``csrc/dense_gn_silu_jvp.cu``): the same
+  layer with its forward-mode tangent, the tangent rules written out by hand
+  (port of ``bind_fwd_jvp``), its plain version, and ``network_hidden_jvp``.
+
+``labels`` may be any grid of times: the samplers pass their N steps, the
+RK4 integrators their ``2*n_steps + 1`` stage times, and a layer reads row
+``i`` of ``tp_all`` either way.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
@@ -156,7 +163,7 @@ dense_gn_silu.launches = 0
 
 def network_hidden(net: dict, x: torch.Tensor, i: int, h: torch.Tensor,
                    h1: torch.Tensor, layer=dense_gn_silu) -> torch.Tensor:
-    """The network's last hidden activation at step ``i`` into ``h``
+    """The network's last hidden activation at row ``i`` of the time grid into ``h``
     (``h1`` is scratch): ``layer`` (K1, or its plain version) once for the
     pre layer and twice per block."""
     tp = net["tp_all"][i]
@@ -167,3 +174,111 @@ def network_hidden(net: dict, x: torch.Tensor, i: int, h: torch.Tensor,
         layer(h, W[j], tp[j], gs[j], gb[j], out=h1)
         layer(h1, W[j + 1], tp[j + 1], gs[j + 1], gb[j + 1], residual=h, out=h)
     return h
+
+
+# ---------------------------------------------------------------------------
+# K7 dense_gn_silu_jvp
+# ---------------------------------------------------------------------------
+
+def dense_gn_silu_jvp_plain(a, da, w, tp_row, gamma, beta, residual=None, dresidual=None):
+    """Plain K7: ``(out, dout)``, K1's layer and its tangent along ``da``, the
+    rules of the kernel written out in fp32 (matmul inputs rounded to bf16)."""
+    wf = w.float()
+    h = a.to(torch.bfloat16).float() @ wf + tp_row
+    dh = da.to(torch.bfloat16).float() @ wf
+    B, N = h.shape
+
+    def mean_g(v):
+        return v.reshape(B, NUM_GROUPS, N // NUM_GROUPS).mean(-1, keepdim=True) \
+            .expand(B, NUM_GROUPS, N // NUM_GROUPS).reshape(B, N)
+
+    d = h - mean_g(h)
+    rstd = torch.rsqrt(mean_g(d * d) + 1e-5)
+    drstd = -0.5 * rstd ** 3 * (2.0 * mean_g(d * dh))
+    y = d * rstd * gamma + beta
+    dy = ((dh - mean_g(dh)) * rstd + d * drstd) * gamma
+    sig = torch.sigmoid(y)
+    out, dout = y * sig, sig * (1.0 + y * (1.0 - sig)) * dy
+    if residual is not None:
+        out, dout = out + residual, dout + dresidual
+    return out, dout
+
+
+def dense_gn_silu_jvp_plain_into(a, da, w, tp_row, gamma, beta, residual=None,
+                                 dresidual=None, out=None, dout=None):
+    """The plain version with the wrapper's signature, on any device."""
+    y, dy = dense_gn_silu_jvp_plain(a, da, w, tp_row, gamma, beta, residual, dresidual)
+    if out is None:
+        return y, dy
+    return out.copy_(y), dout.copy_(dy)
+
+
+def _dense_gn_silu_jvp_fn():
+    fn = build.load("dense_gn_silu_jvp").dposer_dense_gn_silu_jvp
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 10 + [I, I, I, P]
+        fn.restype = I
+    return fn
+
+
+def dense_gn_silu_jvp(a, da, w, tp_row, gamma, beta, residual=None, dresidual=None,
+                      out=None, dout=None):
+    """K7 on ``a``, ``da`` [B, K] fp32 and ``w`` [K, N] bf16; writes ``out``
+    and ``dout`` [B, N] fp32 (which may be ``residual`` and ``dresidual``
+    themselves) and returns them."""
+    B, K = a.shape
+    N = w.shape[1]
+    dev = a.device
+    if (out is None) != (dout is None) or (residual is None) != (dresidual is None):
+        raise ValueError("out/dout and residual/dresidual come in pairs")
+    if out is None:
+        out = torch.empty((B, N), dtype=torch.float32, device=dev)
+        dout = torch.empty_like(out)
+    _check("a", a, dev, torch.float32, (B, K))
+    _check("da", da, dev, torch.float32, (B, K))
+    _check("w", w, dev, torch.bfloat16, (K, N))
+    for nm, t in (("tp_row", tp_row), ("gamma", gamma), ("beta", beta)):
+        _check(nm, t, dev, torch.float32, (N,))
+    for nm, t in (("residual", residual), ("dresidual", dresidual), ("out", out),
+                  ("dout", dout)):
+        if t is not None:
+            _check(nm, t, dev, torch.float32, (B, N))
+    if dev.type == "cpu":
+        return dense_gn_silu_jvp_plain_into(a, da, w, tp_row, gamma, beta, residual,
+                                            dresidual, out, dout)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_gn_silu_jvp runs on cpu or cuda, not {dev}")
+    gs = N // NUM_GROUPS
+    if N % 64 or gs not in (2, 4, 8, 16, 32):
+        raise ValueError(f"dense_gn_silu_jvp kernel needs N % 64 == 0 and a group "
+                         f"size N/32 in {{2,4,8,16,32}}; got N={N}")
+    err = _dense_gn_silu_jvp_fn()(a.data_ptr(), da.data_ptr(), w.data_ptr(),
+                                  tp_row.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                  _ptr(residual), _ptr(dresidual), out.data_ptr(),
+                                  dout.data_ptr(), B, K, N,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"dense_gn_silu_jvp launch failed: CUDA error {err}")
+    dense_gn_silu_jvp.launches += 1
+    return out, dout
+
+
+dense_gn_silu_jvp.launches = 0
+
+
+def network_hidden_jvp(net: dict, x, dx, i: int, bufs, layer=dense_gn_silu_jvp):
+    """The network's last hidden activation at row ``i`` of the time grid and
+    its tangent along ``dx``, into ``bufs = (h, dh, h1, dh1)`` (the last two
+    are scratch): ``layer`` (K7, or its plain version) once for the pre layer
+    and twice per block. Returns ``(h, dh)``."""
+    h, dh, h1, dh1 = bufs
+    tp = net["tp_all"][i]
+    W, gs, gb = net["W"], net["gn_scale"], net["gn_bias"]
+    layer(x, dx, W[0], tp[0], gs[0], gb[0], out=h, dout=dh)
+    for blk in range(net["n_blocks"]):
+        j = 1 + 2 * blk
+        layer(h, dh, W[j], tp[j], gs[j], gb[j], out=h1, dout=dh1)
+        layer(h1, dh1, W[j + 1], tp[j + 1], gs[j + 1], gb[j + 1], residual=h,
+              dresidual=dh, out=h, dout=dh)
+    return h, dh

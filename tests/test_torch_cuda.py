@@ -12,13 +12,16 @@ import torch
 from dposer_tpu_torch.diffusion import fast_sampler as tfs
 from dposer_tpu_torch.diffusion import sde as tsde
 from dposer_tpu_torch.models import ScoreModelFC
-from dposer_tpu_torch.ops.cuda import fused_comp, fused_em, score_net
+from dposer_tpu_torch.ops.cuda import fused_comp, fused_em, fused_lik, fused_ode, score_net
 from dposer_tpu_torch.ops.cuda.fused_comp import (comp_perturb, get_cuda_comp_solver,
                                                   head_adam)
 from dposer_tpu_torch.ops.cuda.fused_em import (get_cuda_em_sampler, head_em,
                                                 langevin_update, launch_counts,
                                                 masked_renoise, reset_launch_counts)
-from dposer_tpu_torch.ops.cuda.score_net import HEAD_COLS, dense_gn_silu
+from dposer_tpu_torch.ops.cuda.fused_lik import get_cuda_likelihood_fn, head_rk4_jvp
+from dposer_tpu_torch.ops.cuda.fused_ode import get_cuda_ode_sampler, head_rk4
+from dposer_tpu_torch.ops.cuda.score_net import (HEAD_COLS, dense_gn_silu,
+                                                 dense_gn_silu_jvp)
 
 pytestmark = pytest.mark.cuda
 
@@ -201,10 +204,10 @@ def test_head_adam(dev, paste):
         assert torch.equal(x * mask, obs * mask)
 
 
-def _small_model(dev):
+def _small_model(dev, **kw):
     torch.manual_seed(0)
     return ScoreModelFC(n_poses=21, pose_dim=3, hidden_dim=256, embed_dim=64,
-                        n_blocks=2, dropout=0.0).eval().to(dev)
+                        n_blocks=2, dropout=0.0, **kw).eval().to(dev)
 
 
 def test_kernel_solver_matches_plain_loop(dev):
@@ -283,3 +286,127 @@ def test_step_range_split_draws_the_full_runs_normals(dev):
         gen(), z=z, **io)
     split = get_cuda_em_sampler(sde, model, shape, step_range=(cut, n), **kw)(gen(), z=x, **io)
     assert torch.equal(split, full)
+
+
+@pytest.mark.parametrize("B", [50, 70])
+@pytest.mark.parametrize("K", [63, 1024])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_dense_gn_silu_jvp(dev, B, K, with_residual):
+    rng = np.random.default_rng(K + B)
+    N = 1024
+    a, da = _t(rng, (B, K), dev), _t(rng, (B, K), dev)
+    w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    res = (_t(rng, (B, N), dev), _t(rng, (B, N), dev)) if with_residual else (None, None)
+    want = score_net.dense_gn_silu_jvp_plain(a, da, w, tp, gamma, beta, *res)
+    reset_launch_counts()
+    out, dout = dense_gn_silu_jvp(a, da, w, tp, gamma, beta, residual=res[0],
+                                  dresidual=res[1])
+    torch.cuda.synchronize()
+    assert launch_counts()["dense_gn_silu_jvp"] == 1
+    # same bf16 operands, fp32 sums in another order: rounding only; the
+    # tangent passes through 1/std of the group, so it scales with its own range
+    torch.testing.assert_close(out, want[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(dout, want[1], rtol=0,
+                               atol=1e-3 * max(1.0, float(want[1].abs().max())))
+    if with_residual:  # in place, as the block's second layer runs it
+        dense_gn_silu_jvp(a, da, w, tp, gamma, beta, residual=res[0], dresidual=res[1],
+                          out=res[0], dout=res[1])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(res[0], out, rtol=0, atol=0)
+        torch.testing.assert_close(res[1], dout, rtol=0, atol=0)
+
+
+def _rk4_state(dev, B, seed, D=63):
+    rng = np.random.default_rng(seed)
+    h, w_post, b_post, _, x, xs = _head(dev, B=B, seed=seed)
+    coefs = torch.from_numpy(rng.uniform(-1.0, 1.0, size=(7, fused_ode.N_COEFS))
+                             .astype(np.float32)).to(dev)
+    return h, w_post, b_post, coefs, x, xs, _t(rng, (B, D), dev)
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3, fused_ode.DENOISE])
+def test_head_rk4(dev, stage):
+    h, w_post, b_post, coefs, x, xs, acc = _rk4_state(dev, 500, 20 + stage)
+    want = fused_ode.head_rk4_plain(h, w_post, b_post, coefs, 5, stage, x, xs, acc)
+    reset_launch_counts()
+    head_rk4(h, w_post, b_post, coefs, 5, stage, x, xs, acc)
+    torch.cuda.synchronize()
+    assert launch_counts()["head_rk4"] == 1
+    for got, ref in zip((x, xs, acc), want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 * max(1.0, float(ref.abs().max())))
+
+
+@pytest.mark.parametrize("B", [50, 70])
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+def test_head_rk4_jvp(dev, B, stage):
+    h, w_post, b_post, coefs, x, xs, acc = _rk4_state(dev, B, 30 + stage)
+    rng = np.random.default_rng(40 + stage)
+    dh = _t(rng, h.shape, dev)
+    eps = torch.sign(_t(rng, x.shape, dev))
+    lp, lacc = _t(rng, (B,), dev), _t(rng, (B,), dev)
+    want = fused_lik.head_rk4_jvp_plain(h, dh, w_post, b_post, coefs, 5, stage, x, xs, acc,
+                                        eps, lp, lacc)
+    reset_launch_counts()
+    head_rk4_jvp(h, dh, w_post, b_post, coefs, 5, stage, x, xs, acc, eps, lp, lacc)
+    torch.cuda.synchronize()
+    assert launch_counts()["head_rk4_jvp"] == 1
+    for got, ref in zip((x, xs, acc, lp, lacc), want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 * max(1.0, float(ref.abs().max())))
+
+
+@pytest.mark.parametrize("denoise", [False, True])
+def test_kernel_ode_sampler_matches_plain_loop(dev, denoise):
+    model = _small_model(dev)
+    shape, n = (70, 63), 10
+    z = _t(np.random.default_rng(50), shape, dev)
+    sde = tsde.SubVPSDE(N=1000)
+    kw = dict(n_steps=n, eps=1e-3, denoise=denoise, device="cuda")
+    nfe, ref = get_cuda_ode_sampler(sde, model, shape, plain=True, **kw)(z=z)
+    reset_launch_counts()
+    nfe_k, out = get_cuda_ode_sampler(sde, model, shape, **kw)(z=z)
+    counts = launch_counts()
+    extra = 1 if denoise else 0
+    assert nfe == nfe_k == 4 * n
+    assert (counts["dense_gn_silu"], counts["head_rk4"]) == (5 * (4 * n + extra), 4 * n + extra)
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-3 * max(1.0, float(ref.abs().max())))
+
+
+def test_kernel_likelihood_matches_plain_loop(dev):
+    # without the sigma output scaling the untrained field stays tame (bits/dim
+    # near 10, not 500), so the absolute limits of the CPU tests apply
+    model = _small_model(dev, scale_by_sigma=False)
+    shape, n = (70, 63), 10
+    rng = np.random.default_rng(51)
+    data, eps = _t(rng, shape, dev, 0.5), torch.sign(_t(rng, shape, dev))
+    sde = tsde.SubVPSDE(N=1000)
+    kw = dict(n_steps=n, eps=1e-3, device="cuda")
+    bpd_ref, z_ref, _ = get_cuda_likelihood_fn(sde, model, shape, plain=True, **kw)(
+        None, data, epsilon=eps)
+    reset_launch_counts()
+    bpd, z, nfe = get_cuda_likelihood_fn(sde, model, shape, **kw)(None, data, epsilon=eps)
+    counts = launch_counts()
+    assert nfe == 4 * n
+    assert (counts["dense_gn_silu_jvp"], counts["head_rk4_jvp"]) == (20 * n, 4 * n)
+    torch.testing.assert_close(z, z_ref, rtol=0, atol=3e-2 * max(1.0, float(z_ref.abs().max())))
+    torch.testing.assert_close(bpd, bpd_ref, rtol=0, atol=0.1)
+    g = torch.Generator(device=dev).manual_seed(2)
+    drawn = get_cuda_likelihood_fn(sde, model, shape, **kw)(g, data)[0]
+    assert torch.isfinite(drawn).all()
+
+
+def test_pf_euler_kernel_decode_matches_plain_loop(dev):
+    model = _small_model(dev)
+    n, shape = 50, (70, 63)
+    z = _t(np.random.default_rng(52), shape, dev)
+    sde = tsde.SubVPSDE(N=n)
+    ref = get_cuda_em_sampler(sde, model, shape, eps=1e-5, probability_flow=True,
+                              device="cuda", plain=True)(z=z)
+    reset_launch_counts()
+    out = get_cuda_em_sampler(sde, model, shape, eps=1e-5, probability_flow=True,
+                              rng_mode="kernel", device="cuda")(
+        torch.Generator(device=dev).manual_seed(1), z=z)
+    counts = launch_counts()
+    assert (counts["dense_gn_silu"], counts["head_em"]) == (5 * n, n)
+    # deterministic: the in-kernel normals meet a zero coefficient
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-3 * max(1.0, float(ref.abs().max())))

@@ -1,6 +1,7 @@
 """The port's reverse-diffusion kernels (K1 dense_gn_silu, K2 head_em,
 K3 langevin_update, K4 masked_renoise), the completion kernels (K5
-comp_perturb, K6 head_adam) and the kernel sampler.
+comp_perturb, K6 head_adam), the RK4 head (K8 head_rk4; K7 and K9 are in
+test_torch_likelihood.py) and the kernel sampler.
 
 On the CPU the wrappers run their plain PyTorch versions: those are held
 to the JAX formulas of the Pallas kernel (``dposer_tpu/ops/pallas``), and
@@ -24,14 +25,15 @@ from dposer_tpu.ops.pallas.score_net import \
 from dposer_tpu_torch.diffusion import fast_sampler as tfs
 from dposer_tpu_torch.diffusion import sde as tsde
 from dposer_tpu_torch.diffusion.few_step import get_cuda_ddim_sampler
-from dposer_tpu_torch.ops.cuda import fused_comp, fused_em, score_net
+from dposer_tpu_torch.ops.cuda import fused_comp, fused_em, fused_ode, score_net
 from dposer_tpu_torch.ops.cuda.fused_comp import comp_perturb, head_adam
 from dposer_tpu_torch.ops.cuda.fused_em import (get_cuda_em_hypo_sampler,
                                                 get_cuda_em_sampler, head_em,
                                                 langevin_update, launch_counts,
                                                 masked_renoise, reset_launch_counts)
+from dposer_tpu_torch.ops.cuda.fused_ode import head_rk4
 from dposer_tpu_torch.ops.cuda.score_net import (HEAD_COLS, dense_gn_silu,
-                                                 network_hidden)
+                                                 network_hidden, network_hidden_jvp)
 
 from test_torch_model import SMALL, flax_and_torch
 from test_torch_sampling import _injected
@@ -86,7 +88,7 @@ def test_dense_gn_silu_wrapper_on_cpu_writes_out_in_place():
     torch.testing.assert_close(res, want, rtol=0, atol=0)
     assert launch_counts() == dict.fromkeys(
         ("dense_gn_silu", "head_em", "langevin_update", "masked_renoise", "comp_perturb",
-         "head_adam"), 0)
+         "head_adam", "dense_gn_silu_jvp", "head_rk4", "head_rk4_jvp"), 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous"])
@@ -412,3 +414,70 @@ def test_em_hypo_sampler_tiles_rows():
     # the last step's noise level (std 1e-4 at t = 1e-3)
     assert float(((out - obs[:, None]) * mask[:, None]).abs().max()) < 1e-2
     assert float((out[:, 0] - out[:, 1]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3, fused_ode.DENOISE])
+def test_head_rk4_matches_jax_formula(stage):
+    """fused_ode.py:87-96 (one RK4 stage) and :101-107 (the denoise) on the
+    same numbers."""
+    h, w_post, w_vals, b_post, coefs, x, z = _head_inputs(seed=30)
+    rng = np.random.default_rng(30)
+    xs, acc = z, rng.normal(size=x.shape).astype(np.float32)
+    j, D = 2, x.shape[1]
+    a1, a2, hstep, cdx, cdo = (jnp.float32(c) for c in coefs[j, :5])
+    out = (jax_mm(h, w_vals) + b_post)[:, :D]
+    k = a1 * xs + a2 * out
+    if stage == 0:
+        x_ref, acc_ref, xs_ref = x, k, x + 0.5 * hstep * k
+    elif stage in (1, 2):
+        x_ref, acc_ref = x, acc + 2.0 * k
+        xs_ref = x + (0.5 if stage == 1 else 1.0) * hstep * k
+    elif stage == 3:
+        x_ref = x + (hstep / 6.0) * (acc + k)
+        acc_ref, xs_ref = acc, x_ref
+    else:
+        x_ref, acc_ref, xs_ref = cdx * x + cdo * out, acc, xs
+    tx, txs, tacc = (torch.from_numpy(a.copy()) for a in (x, xs, acc))
+    head_rk4(torch.from_numpy(h), w_post, torch.from_numpy(b_post), torch.from_numpy(coefs),
+             j, stage, tx, txs, tacc)
+    for got, ref in ((tx, x_ref), (txs, xs_ref), (tacc, acc_ref)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+def test_head_rk4_rejects_bad_operands():
+    h, w_post, _, b_post, coefs, x, _ = _head_inputs(seed=31)
+    th, tb, tc, tx = map(torch.from_numpy, (h, b_post, coefs, x))
+    with pytest.raises(ValueError):  # stages are 0..3 and the denoise
+        head_rk4(th, w_post, tb, tc, 0, 5, tx, tx.clone(), tx.clone())
+    with pytest.raises(ValueError):  # a grid row past the table
+        head_rk4(th, w_post, tb, tc, coefs.shape[0], 0, tx, tx.clone(), tx.clone())
+    with pytest.raises(ValueError):
+        head_rk4(th, w_post, tb, tc, 0, 0, tx, tx[:-1].clone(), tx.clone())
+    with pytest.raises(TypeError):
+        head_rk4(th, w_post, tb, tc, 0, 0, tx, tx.clone(), tx.double())
+
+
+def test_network_hidden_jvp_matches_autodiff_of_the_forward():
+    """The hand-propagated tangent of the hidden stack, through the head,
+    against ``torch.func.jvp`` of the fp32 forward at a row of the stage grid;
+    the primal is ``network_hidden``'s."""
+    _, _, tm = flax_and_torch(**dict(SMALL, scale_by_sigma=True))
+    ts = tsde.SubVPSDE(N=100)
+    _, labels, _, _, _ = tfs.pf_ode_grid(ts, tm, 1e-4, ts.T, 6, "cpu")
+    net = score_net.build_network_operands(tm, labels, "cpu")
+    rng = np.random.default_rng(32)
+    x, dx = (torch.from_numpy(rng.normal(size=(6, 63)).astype(np.float32)) for _ in range(2))
+    H = SMALL["hidden_dim"]
+    bufs = tuple(torch.empty(6, H) for _ in range(4))
+    row = 7
+    h, dh = network_hidden_jvp(net, x, dx, row, bufs)
+    ref_h = network_hidden(net, x, row, torch.empty(6, H), torch.empty(6, H))
+    np.testing.assert_allclose(h.numpy(), ref_h.numpy(), rtol=1e-6, atol=1e-6)
+    tprojs, _ = tfs.precompute_time_tables(tm, labels)
+    with torch.no_grad():
+        out, dout = torch.func.jvp(lambda v: tfs.make_fast_forward(tm, tprojs, None)(v, row),
+                                   (x,), (dx,))
+    wp = net["w_post"].float()[:, :63]
+    mine = dh.to(torch.bfloat16).float() @ wp
+    # bf16 matmul operands against fp32: three decimal digits through five layers
+    np.testing.assert_allclose(mine.numpy(), dout.numpy(), atol=3e-2 * float(dout.abs().max()))

@@ -138,10 +138,28 @@ def test_config_matches_ml_collections_config():
 
 
 def test_import_leaves_jax_out():
-    prog = ("import sys; import dposer_tpu_torch.demo, dposer_tpu_torch.ops.cuda.fused_em; "
+    prog = ("import sys; import dposer_tpu_torch.demo, dposer_tpu_torch.ops.cuda.fused_em, "
+            "dposer_tpu_torch.ops.cuda.fused_ode, dposer_tpu_torch.ops.cuda.fused_lik, "
+            "dposer_tpu_torch.diffusion.likelihood, dposer_tpu_torch.diffusion.ode, "
+            "dposer_tpu_torch.ops.smoothing; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('dposer_tpu.') or m == 'dposer_tpu' or m == 'configs']; "
             "print(bad); sys.exit(1 if bad else 0)")
     p = subprocess.run([sys.executable, "-c", prog], cwd=REPO, capture_output=True,
                        text=True, timeout=120)
     assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_package_data_names_the_ports_files():
+    """An installed port finds its segmentation asset and can build its
+    kernels: pyproject's package-data lists both directories."""
+    import glob
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    for package, pattern in (("dposer_tpu_torch", "assets/*"),
+                             ("dposer_tpu_torch.ops.cuda", "csrc/*")):
+        assert pattern in data[package]
+        found = glob.glob(os.path.join(REPO, *package.split("."), pattern))
+        assert found, f"{package}: {pattern} matches no file"
