@@ -51,11 +51,14 @@ Needs the repository around it (the port, the pinned checkpoint under
 SMPL-X bodies and ``benchmarks/gen_synth_amass.py`` for the synthetic
 poses); writes only under ``chiprun_out/chip_smoke``.
 """
+import copy
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -72,16 +75,19 @@ import numpy as np  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from dposer_tpu_torch import demo  # noqa: E402
+from dposer_tpu_torch import train as train_cli  # noqa: E402
 from dposer_tpu_torch.body_model import BodyModel  # noqa: E402
 from dposer_tpu_torch.config import get_config  # noqa: E402
 from dposer_tpu_torch.data import PoseNormalizer  # noqa: E402
 from dposer_tpu_torch.diffusion import fast_sampler as tfs  # noqa: E402
 from dposer_tpu_torch.diffusion import likelihood as tlik  # noqa: E402
+from dposer_tpu_torch.diffusion import losses as tlosses  # noqa: E402
 from dposer_tpu_torch.diffusion.score_fn import get_score_fn  # noqa: E402
 from dposer_tpu_torch.diffusion.sde import SubVPSDE  # noqa: E402
 from dposer_tpu_torch.ops.cuda import (build, fused_comp, fused_em, fused_lik,  # noqa: E402
-                                       fused_ode, score_net)
-from dposer_tpu_torch.ops.metrics import Evaler  # noqa: E402
+                                       fused_ode, fused_train, score_net)
+from dposer_tpu_torch.models import create_score_model  # noqa: E402
+from dposer_tpu_torch.ops.metrics import Evaler, average_pairwise_distance  # noqa: E402
 from dposer_tpu_torch.tasks import DPoserComp  # noqa: E402
 from dposer_tpu_torch.utils.masks import create_mask  # noqa: E402
 from fixtures import make_synthetic_body_model  # noqa: E402
@@ -94,6 +100,7 @@ TPU_KERNEL = "dposer_tpu/ops/pallas/fused_em.py:467"
 TPU_COMP_KERNEL = "dposer_tpu/ops/pallas/fused_comp.py:271"
 TPU_ODE_KERNEL = "dposer_tpu/ops/pallas/fused_ode.py:215"
 TPU_LIK_KERNEL = "dposer_tpu/ops/pallas/fused_lik.py:180"
+TPU_TRAIN_KERNEL = "dposer_tpu/ops/pallas/fused_train.py:350"
 CSRC = "dposer_tpu_torch/ops/cuda/csrc"
 
 # published H100 SXM peaks (dense), at the full 700 W power limit
@@ -105,6 +112,9 @@ MPJPE_BAND, MPVPE_BAND = (50.0, 400.0), (5.0, 80.0)  # mm, tests/test_trained_ar
 B, H, D = 500, 1024, 63
 RC = 1000  # completion's rows: 100 poses x 10 hypotheses
 BL = 50  # the likelihood protocol's batch
+BT = 1280  # the train batch (configs/default_amass_configs.py)
+FT_STEPS, SCRATCH_STEPS, RESUME_STEPS = 500, 1000, 200  # the training protocols (a)-(c)
+TRAIN_DEVICE = "cuda"
 ODE_STEPS, LIK_STEPS, LIK_EPS, DECODE_EPS = 125, 100, 1e-4, 1e-5
 BPD_LIMIT = 0.1  # bits/dim between two paths' batch means (tests/test_fast_ode.py)
 ODE_TOL = 5e-2  # kernel against plain deterministic samplers, times max(1, |ref|max)
@@ -1104,6 +1114,455 @@ def phase_protocols(model, dev):
                             demo_generation_metrics=demo_counts))
 
 
+# ---------------------------------------------------------------------------
+# training: K10-K12 and the trainer CLI
+# ---------------------------------------------------------------------------
+
+def train_operands(model, dev, seed=9):
+    """The kernels' operands of one flagship train step: 1,280 normalized
+    synthetic poses, t and z drawn from ``seed``, the pinned weights."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = normalized_synthetic_poses(BT, dev)
+    t = torch.rand(BT, generator=gen, device=dev) * (1 - 1e-5) + 1e-5
+    z = torch.randn(BT, D, generator=gen, device=dev)
+    loss_fn = fused_train.get_cuda_train_loss_fn(SubVPSDE(N=1000), model, reduce_mean=True)
+    return batch, t, z, loss_fn.operands(batch, t, z)
+
+
+def library_layer(a, w, proj, gamma, beta, res, cot):
+    """autograd's bf16 layer through matmul, group_norm, silu and dropout:
+    ``(forward, forward + backward)`` as callables."""
+    a_l, w_l = a.to(torch.bfloat16).requires_grad_(True), w.clone().requires_grad_(True)
+    g_l, b_l = gamma.clone().requires_grad_(True), beta.clone().requires_grad_(True)
+
+    def fwd():
+        y = torch.matmul(a_l, w_l).float() + proj.float()
+        y = F.dropout(F.silu(F.group_norm(y, 32, g_l, b_l, eps=1e-5)), 0.1, True)
+        return y if res is None else y + res
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(fwd(), (a_l, w_l, g_l, b_l), cot)
+
+    return fwd, fwd_bwd
+
+
+def phase_train_kernels(model, dev):
+    """K10, K11 and K12 at the flagship train step's shapes (batch 1,280), with
+    dropout 0.1 and the plain version's mask, against their plain versions,
+    with timings and bounds. The inputs are a real step's: the plain chain's
+    activations on the pinned weights."""
+    _, _, _, op = train_operands(model, dev)
+    keep, seed = op["keep"], 20261016
+    W, Wb, P, gw, gb = op["w_fwd"], op["w_bwd"], op["proj"], op["gn_w"], op["gn_b"]
+    plain_f, plain_b = fused_train.dense_gn_silu_train_plain, fused_train.dense_gn_silu_bwd_plain
+    fwd = [plain_f(op["x_pert"], W[0], P[0], gw[0], gb[0], seed, 0, keep)]
+    for j in range(1, 5):
+        a, res = fwd[-1][0], (fwd[j - 2][0] if j % 2 == 0 else None)
+        fwd.append(plain_f(a, W[j], P[j], gw[j], gb[j], seed, j, keep, res))
+    rows, extra = [], {}
+
+    # K10: the three shapes of a step's forward
+    variants = []
+    for label, j in (("pre [1280,63]x[63,1024]", 0), ("block [1280,1024]x[1024,1024]", 1),
+                     ("block+residual [1280,1024]x[1024,1024]", 2)):
+        a = op["x_pert"] if j == 0 else fwd[j - 1][0]
+        res = fwd[0][0] if j == 2 else None
+        args = (a, W[j], P[j], gw[j], gb[j], seed, j, keep)
+        ref = plain_f(*args, res)
+        got = fused_train.dense_gn_silu_train(*args, residual=res)
+        torch.cuda.synchronize()
+        e_out, tol = err(got[0], ref[0]), 1e-3 * max(1.0, float(ref[0].abs().max()))
+        e_bf = [err(g.float(), r.float()) for g, r in zip(got[1:3], ref[1:3])]
+        tol_bf = [1e-2 * max(1.0, float(r.float().abs().max())) for r in ref[1:3]]
+        e_rs = float(((got[3] - ref[3]).abs() / ref[3]).max())
+        check(e_out <= tol and all(x <= y for x, y in zip(e_bf, tol_bf)) and e_rs <= 1e-3,
+              f"dense_gn_silu_train {label}: out {e_out} (tol {tol}), stash/xhat {e_bf} "
+              f"(tol {tol_bf}), rstd rel {e_rs}")
+        # the kernel applied the plain version's mask: every dropped element
+        # is the residual alone (the kept ones are held by the tolerance)
+        dropped = ~fused_train.dropout_keep(seed, j, BT, H, keep, dev)
+        base = torch.zeros_like(got[0]) if res is None else res
+        check(torch.equal(got[0][dropped], base[dropped]),
+              f"dense_gn_silu_train {label}: another dropout mask")
+        K = a.shape[1]
+        n_bytes = (4 * BT * K + 2 * K * H + 2 * BT * H + 2 * 4 * H + 4 * BT * H
+                   + 2 * 2 * BT * H + 4 * BT * 32 + (4 * BT * H if res is not None else 0))
+        bms, by = bound(n_bytes, 2 * BT * K * H, 40 * BT * H)
+        bufs = [torch.empty_like(x) for x in ref]
+        run = lambda: fused_train.dense_gn_silu_train(  # noqa: E731
+            *args, residual=res, out=bufs[0], stash=bufs[1], xhat=bufs[2], rstd=bufs[3])
+        lib_fwd, lib_fwd_bwd = library_layer(a, W[j], P[j], gw[j], gb[j], res,
+                                             torch.randn_like(ref[0]))
+        lib_ms = graph_ms(lib_fwd)
+        lib_fb_ms = profiled_ms(lib_fwd_bwd)
+        variants.append(dict(shape=label, max_abs_err=e_out, tol=tol, errs_stash_xhat=e_bf,
+                             rstd_rel_err=e_rs, ms=graph_ms(run), eager_ms=eager_ms(run),
+                             plain_ms=graph_ms(lambda: plain_f(*args, res)),
+                             library_ms=lib_ms, library_fwd_bwd_ms=lib_fb_ms,
+                             bound_ms=bms, bound_by=by))
+    main_v = variants[2]
+    rows.append(dict(name="dense_gn_silu_train", route="cuda",
+                     source=f"{CSRC}/dense_gn_silu_train.cu", replaces=TPU_TRAIN_KERNEL,
+                     replaces_part="fused_train.py:80 _make_kernel stack_fwd (:132-149), "
+                                   "stash_in (:170-176)",
+                     max_abs_err=max(v["max_abs_err"] for v in variants),
+                     tol="out 1e-3*max(1,|ref|max); stash, xhat 1e-2*max(1,|ref|max) "
+                         "(a bf16 ulp); rstd 1e-3 relative; the same dropout mask",
+                     **{k: main_v[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
+                                               "library_ms", "bound_ms", "bound_by")},
+                     library="bf16 matmul + group_norm + silu + dropout, forward",
+                     variants=variants))
+
+    # K11: the head and the loss seed on the last hidden state
+    h4 = fwd[4][0]
+    args11 = (h4, op["wpost_k"], op["bpost"], op["coefs"], op["z"])
+    ref = fused_train.head_dsm_plain(*args11)
+    got = fused_train.head_dsm(*args11)
+    torch.cuda.synchronize()
+    e_loss = float(((got[0] - ref[0]).abs() / ref[0].abs().clamp(min=1e-12)).max())
+    e_dout, tol_dout = err(got[1], ref[1]), 1e-3 * float(ref[1].abs().max())
+    check(e_loss <= 1e-3 and e_dout <= tol_dout,
+          f"head_dsm: loss rows rel {e_loss}, dout {e_dout} (tol {tol_dout})")
+    n11 = (4 * BT * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 3 * 4 * BT
+           + 2 * 4 * BT * D + 4 * BT)
+    bms, by = bound(n11, 2 * BT * H * score_net.HEAD_COLS, 8 * BT * D)
+    lr_b, do_b = torch.empty_like(ref[0]), torch.empty_like(ref[1])
+    run11 = lambda: fused_train.head_dsm(*args11, loss_rows=lr_b, dout=do_b)  # noqa: E731
+    rows.append(dict(
+        name="head_dsm", route="cuda", source=f"{CSRC}/head_dsm.cu", replaces=TPU_TRAIN_KERNEL,
+        replaces_part="fused_train.py:177-188 (post-dense, the DSM loss rows, dout)",
+        shape="[1280,1024]x[1024,63]", max_abs_err=e_dout,
+        tol="loss rows 1e-3 relative; dout 1e-3*|ref|max", loss_rows_rel_err=e_loss,
+        ms=graph_ms(run11), eager_ms=eager_ms(run11),
+        plain_ms=graph_ms(lambda: fused_train.head_dsm_plain(*args11)),
+        library_ms=None, bound_ms=bms, bound_by=by))
+
+    # K12: the first hop (the zero-padded dout), and a hidden hop without and
+    # with the residual stream's carried gradient
+    dpad = torch.zeros(BT, score_net.HEAD_COLS, dtype=torch.bfloat16, device=dev)
+    dpad[:, :D] = ref[1]
+    chain = {4: plain_b(dpad, op["wpost_t"], fwd[4][2], fwd[4][3], gw[4], gb[4], seed, 4, keep)}
+    chain[3] = plain_b(chain[4][0], Wb[3], fwd[3][2], fwd[3][3], gw[3], gb[3], seed, 3, keep)
+    variants = []
+    for label, j, A, Wt, g_res in (
+            ("hop 1 [1280,64]x[64,1024]", 4, dpad, op["wpost_t"], None),
+            ("hidden [1280,1024]x[1024,1024]", 3, chain[4][0], Wb[3], None),
+            ("hidden+g_res [1280,1024]x[1024,1024]", 2, chain[3][0], Wb[2], chain[4][1])):
+        with_out = j % 2 == 0
+        args = (A, Wt, fwd[j][2], fwd[j][3], gw[j], gb[j], seed, j, keep)
+        ref = plain_b(*args, g_res)
+        g_out = torch.empty(BT, H, device=dev) if with_out else None
+        got = fused_train.dense_gn_silu_bwd(*args, g_res=g_res, g_out=g_out)
+        torch.cuda.synchronize()
+        e_dh, tol_dh = err(got[0].float(), ref[0].float()), 1e-2 * float(ref[0].float().abs().max())
+        e_g = [err(got[1], ref[1]) if with_out else 0.0] + [err(a, b)
+                                                            for a, b in zip(got[2:], ref[2:])]
+        tol_g = [1e-3 * float(ref[1].abs().max())] + [1e-3 * float(b.abs().max())
+                                                       for b in ref[2:]]
+        check(e_dh <= tol_dh and all(x <= y for x, y in zip(e_g, tol_g)),
+              f"dense_gn_silu_bwd {label}: dh {e_dh} (tol {tol_dh}), g/dgamma/dbeta {e_g} "
+              f"(tol {tol_g})")
+        again = fused_train.dense_gn_silu_bwd(*args, g_res=g_res, g_out=g_out)
+        check(all(torch.equal(a, b) for a, b in zip(got[2:], again[2:])),
+              f"dense_gn_silu_bwd {label}: dgamma/dbeta differ between two launches")
+        K = A.shape[1]
+        n_bytes = (2 * BT * K + 2 * K * H + 2 * BT * H + 4 * BT * 32 + 2 * 4 * H + 2 * BT * H
+                   + (4 * BT * H if g_res is not None else 0) + (4 * BT * H if with_out else 0)
+                   + 2 * 4 * ((BT + 63) // 64) * H)
+        bms, by = bound(n_bytes, 2 * BT * K * H, 40 * BT * H)
+        dh_b = torch.empty_like(ref[0])
+        run = lambda: fused_train.dense_gn_silu_bwd(*args, g_res=g_res,  # noqa: E731
+                                                    g_out=g_out, dh=dh_b)
+        variants.append(dict(shape=label, max_abs_err=e_dh, tol=tol_dh, errs_g_dgamma_dbeta=e_g,
+                             tols_g_dgamma_dbeta=tol_g, ms=graph_ms(run), eager_ms=eager_ms(run),
+                             plain_ms=graph_ms(lambda: plain_b(*args, g_res)),
+                             bound_ms=bms, bound_by=by))
+    # the library's backward of one layer: its forward + backward less its forward
+    lib = {v["shape"].split()[0]: v for v in rows[0]["variants"]}
+    for v, k10 in zip(variants, ("pre", "block", "block+residual")):
+        v["library_ms"] = max(0.0, lib[k10]["library_fwd_bwd_ms"] - lib[k10]["library_ms"])
+    main_v = variants[2]
+    rows.append(dict(name="dense_gn_silu_bwd", route="cuda", source=f"{CSRC}/dense_gn_silu_bwd.cu",
+                     replaces=TPU_TRAIN_KERNEL,
+                     replaces_part="fused_train.py:151-166 stack_bwd with the mm(., W^T) hops "
+                                   "of :193-206",
+                     max_abs_err=max(v["max_abs_err"] for v in variants),
+                     tol="dh 1e-2*|ref|max (a bf16 ulp); g, dgamma, dbeta 1e-3*|ref|max; "
+                         "dgamma/dbeta equal over two launches",
+                     **{k: main_v[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
+                                               "library_ms", "bound_ms", "bound_by")},
+                     library="autograd's backward of the bf16 matmul + group_norm + silu + "
+                             "dropout layer: its forward + backward's device time (profiler) "
+                             "less its forward's (graph replay)",
+                     variants=variants))
+    for r in rows:
+        kernel_row_line(r)
+    return rows
+
+
+def grad_agreement(grads, ref):
+    """Per leaf ``(cosine, relative error)``; leaves the loss does not reach
+    (zero in both) are skipped."""
+    out = {}
+    for n, g in grads.items():
+        r = ref.get(n)
+        if r is None or float(r.norm()) == 0.0:
+            continue
+        a, b = g.flatten().double(), r.flatten().double()
+        out[n] = (float(a @ b / (a.norm() * b.norm() + 1e-30)),
+                  float((a - b).norm() / (b.norm() + 1e-30)))
+    return out
+
+
+def route_agreement(model, dev):
+    """The kernel route's loss and gradient leaves against the fp32 autograd
+    route's on one batch of 1,280 poses with the same t and z, dropout 0 (the
+    routes' dropout streams differ)."""
+    m0 = copy.deepcopy(model).train()
+    m0.dropout.p = 0.0
+    batch, t, z, _ = train_operands(m0, dev)
+    sde = SubVPSDE(N=1000)
+    loss_k, grads_k = fused_train.get_cuda_train_loss_and_grad(sde, m0, reduce_mean=True)(
+        batch, t=t, z=z, dropout_seed=1)
+    named = [(n, p) for n, p in m0.named_parameters() if p.requires_grad]
+    loss_r = tlosses.get_sde_loss_fn(sde, True, tlosses.make_model_apply(m0), reduce_mean=True)(
+        tlosses.params_of(m0), batch, t=t, z=z)
+    grads_r = torch.autograd.grad(loss_r, [p for _, p in named], allow_unused=True)
+    ref = {n: g for (n, _), g in zip(named, grads_r) if g is not None}
+    torch.cuda.synchronize()
+    agree = grad_agreement(grads_k, ref)
+    return dict(loss_kernel=float(loss_k), loss_fp32=float(loss_r.detach()),
+                loss_rel_err=abs(float(loss_k) / float(loss_r.detach()) - 1.0),
+                worst_cosine=min(agree.items(), key=lambda kv: kv[1][0]),
+                worst_rel=max(agree.items(), key=lambda kv: kv[1][1]), leaves=agree)
+
+
+def phase_train_parity(model, dev):
+    """The kernel route against the fp32 autograd route at flagship width and
+    batch 1,280 on a seeded init, as the JAX package holds its bf16 train
+    kernel (an untrained net): loss to 3e-3 relative, each leaf at cosine >
+    0.995 and relative error < 0.12. On the pinned trained weights the same
+    comparison is reported, not gated: there a leaf whose gradient is a sum
+    that cancels (a bias, a GroupNorm shift) is bf16 rounding noise."""
+    torch.manual_seed(0)
+    init = create_score_model(get_config()).to(dev)
+    out = {}
+    for name, m in (("seeded_init", init), ("pinned", model)):
+        r = route_agreement(m, dev)
+        print(f"[train parity] {name}: kernel route vs fp32 autograd at [1280, 1024]: loss "
+              f"{r['loss_kernel']:.6f} vs {r['loss_fp32']:.6f} (rel {r['loss_rel_err']:.2e}), "
+              f"worst cosine {r['worst_cosine'][1][0]:.6f} ({r['worst_cosine'][0]}), worst "
+              f"relative error {r['worst_rel'][1][1]:.4f} ({r['worst_rel'][0]})")
+        out[name] = r
+    r = out["seeded_init"]
+    check(r["loss_rel_err"] <= 3e-3, f"train parity: loss relative error {r['loss_rel_err']}")
+    bad = {n: v for n, v in r["leaves"].items() if not (v[0] > 0.995 and v[1] < 0.12)}
+    check(not bad, f"train parity: leaves outside cosine > 0.995, rel < 0.12: {bad}")
+    return out
+
+
+TRAIN_CONFIG = """
+from dposer_tpu_torch.config import get_config as _base
+
+
+def get_config():
+    c = _base()
+    c.OUTPUT_DIR = {out!r}
+    c.training.n_iters, c.training.log_freq = {n_iters}, 100
+    c.training.eval_freq, c.training.save_freq = 10 ** 9, {save_freq}
+    return c
+"""
+
+
+def device_kernel_us(prof):
+    """``(total, {name: total})`` µs of the device kernels in a profiler
+    trace; user annotations (their spans cover other kernels) are left out."""
+    total, by_name = 0.0, {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        us = e.time_range.end - e.time_range.start
+        total += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+    return total, by_name
+
+
+def profiled_ms(fn, n=20):
+    """Device time of one ``fn()`` from a profiler trace of ``n`` calls (the
+    kernels alone, the host's gaps not counted): for callables that a CUDA
+    graph cannot capture, such as an autograd backward."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total, _ = device_kernel_us(prof)
+    check(total > 0, "the profiler recorded no device time")
+    return total / 1e3 / n
+
+
+def profile_train_steps(state, data, dev, n=20):
+    """Device busy share of ``n`` kernel-route steps from a torch.profiler
+    trace: the sum of the kernels' device time over the wall. None where the
+    profiler records no device time."""
+    step_fn = fused_train.get_cuda_step_fn(SubVPSDE(N=1000), state.model, reduce_mean=True)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    idx = [torch.randint(0, data.shape[0], (BT,), generator=gen, device=dev) for _ in range(n)]
+    for i in range(3):
+        step_fn(state, data[idx[i]], generator=gen, dropout_seed=i)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            step_fn(state, data[idx[i]], generator=gen, dropout_seed=100 + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, by_name = device_kernel_us(prof)
+    if dev_us == 0.0:
+        return dict(wall_ms_per_step=wall * 1e3 / n, device_ms_per_step=None,
+                    note="the profiler recorded no device time")
+    top = sorted(((k, v / n) for k, v in by_name.items()), key=lambda kv: -kv[1])[:16]
+    return dict(wall_ms_per_step_profiled=wall * 1e3 / n, device_ms_per_step=dev_us / 1e3 / n,
+                kernels_per_step=sum(1 for e in prof.events() if e.device_type ==
+                                     torch.autograd.DeviceType.CUDA
+                                     and not e.is_user_annotation) / n,
+                top_kernels_us_per_step=top)
+
+
+def phase_train_protocols(dev):
+    """The trainer CLI's entry point (``dposer_tpu_torch.train.main``) on a
+    synthetic AMASS layout (``benchmarks/gen_synth_amass.py --seed 0``, 200,000
+    train rows): (a) a 500-step fine-tune of the pinned checkpoint, batch 1,280,
+    kernel route, loss and APD in their bands; (b) 1,000 steps from one seeded
+    init through each route on the same batches; (c) 200 steps against 100 and
+    a resume of 100. Checkpoints and data are deleted after; the logs stay."""
+    os.makedirs(OUT, exist_ok=True)
+    os.environ["DPOSER_TENSORBOARD"] = "0"
+    work = tempfile.mkdtemp(prefix="train_", dir=OUT)
+    by_run, res = {}, {}
+    try:
+        data_root = os.path.join(work, "amass")
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.join(REPO, "benchmarks", "gen_synth_amass.py"),
+                            "--seed", "0", "--train-n", "200000", "--test-n", "1000",
+                            "--root", data_root, "--version", "v1"], capture_output=True,
+                           text=True, timeout=300)
+        check(p.returncode == 0, f"gen_synth_amass failed: {p.stderr[-2000:]}")
+        res["data_s"] = time.perf_counter() - t0
+
+        def run(name, n_iters, *extra, save_freq=10 ** 9):
+            cfg = os.path.join(work, f"{name}.py")
+            with open(cfg, "w") as f:
+                f.write(TRAIN_CONFIG.format(out=os.path.join(work, "out"), n_iters=n_iters,
+                                            save_freq=save_freq))
+            fused_em.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = train_cli.main(["--config", cfg, "--dataset-folder", data_root, "--version", "v1",
+                                "--bodymodel-path", "", "--name", name, "--device",
+                                TRAIN_DEVICE, "--steps-per-dispatch", str(FT_STEPS // 5),
+                                *extra])
+            torch.cuda.synchronize()
+            r["wall_s"] = time.perf_counter() - t0
+            by_run[f"train_{name}"] = fused_em.launch_counts()
+            shutil.copy(os.path.join(r["output_dir"], "train.log"),
+                        os.path.join(OUT, f"train_{name}.log"))
+            # the first window warms up, where there is more than one
+            ms = [1e3 * s / k for k, s in (r["windows"][1:] or r["windows"])]
+            r["ms_per_step_best"], r["ms_per_step_median"] = min(ms), float(np.median(ms))
+            r["ms_per_step_windows"] = ms
+            return r
+
+        # (a) fine-tune the pinned checkpoint, 500 kernel steps
+        a = run("finetune", 400000 + FT_STEPS, "--restore-dir", CKPT)
+        check(a["route"].startswith("kernel step: K10/K11/K12 on CUDA"), f"route {a['route']}")
+        last = float(np.mean(a["losses"][-100:]))
+        check(a["step"] == 400000 + FT_STEPS and 0.10 <= last <= 0.50,
+              f"fine-tune: step {a['step']}, last-100 mean loss {last} outside [0.10, 0.50]")
+        data_dev = torch.as_tensor(np.load(os.path.join(data_root, "v1", "train",
+                                                         "pose_body.npy")), device=dev)
+        prof = profile_train_steps(a["state"], data_dev, dev)
+        if prof["device_ms_per_step"] is not None:  # against the unprofiled best step
+            prof["device_busy_share"] = prof["device_ms_per_step"] / a["ms_per_step_best"]
+        # APD of 500 samples of the fine-tuned EMA through the kernel EM sampler
+        config = get_config()
+        model = create_score_model(config).to(dev).eval()
+        sd = a["state"].model.state_dict()
+        names = [n for n, q in a["state"].model.named_parameters() if q.requires_grad]
+        sd.update(zip(names, a["state"].ema.shadow_params))
+        model.load_state_dict(sd)
+        normalizer = PoseNormalizer(os.path.join(data_root, "v1", "train"),
+                                    normalize=config.data.normalize, min_max=config.data.min_max,
+                                    rot_rep=config.data.rot_rep, device=dev)
+        fused_em.reset_launch_counts()
+        with torch.no_grad():
+            sampler = demo.build_sampler(config, SubVPSDE(N=1000), model, demo.METRICS_SAMPLE_NUM,
+                                         demo.METRICS_EPS, "langevin", dev)
+            gen = torch.Generator(device=dev).manual_seed(42)
+            samples = normalizer.offline_denormalize(sampler(gen), to_axis=True)
+            smpl, _ = make_synthetic_body_model(os.path.join(work, "smpl.npz"), "smpl")
+            body = BodyModel(smpl, num_betas=10, model_type="smpl", device=dev)
+            pose = torch.cat([samples, torch.zeros(len(samples), 6, device=dev)], 1)
+            apd = float(average_pairwise_distance(body(pose_body=pose).Jtr[:, :22]))
+        torch.cuda.synchronize()
+        by_run["train_finetune_apd"] = fused_em.launch_counts()
+        check(APD_BAND[0] <= apd <= APD_BAND[1], f"fine-tune APD {apd} outside {APD_BAND}")
+        res["finetune"] = dict(steps=FT_STEPS, batch=BT, route=a["route"], last100_loss=last,
+                               apd=apd, wall_s=a["wall_s"],
+                               ms_per_step_best=a["ms_per_step_best"],
+                               ms_per_step_median=a["ms_per_step_median"],
+                               ms_per_step_windows=a["ms_per_step_windows"],
+                               steps_per_s_best=1e3 / a["ms_per_step_best"], profile=prof,
+                               loss_first10=a["losses"][:10], launches=by_run["train_finetune"])
+        print(f"[train] (a) fine-tune 500 x {BT}: {a['ms_per_step_best']:.3f} ms/step best "
+              f"({1e3 / a['ms_per_step_best']:.1f} steps/s; windows "
+              f"{['%.3f' % m for m in a['ms_per_step_windows']]}), last-100 loss {last:.4f}, "
+              f"APD {apd:.4f}; profiler {prof.get('device_ms_per_step')} ms of device time "
+              f"a step, busy {prof.get('device_busy_share')}")
+
+        # (b) 1,000 steps from one seeded init through each route
+        routes = {}
+        for route in ("on", "off"):
+            r = run(f"scratch_{route}", SCRATCH_STEPS, "--train-kernel", route)
+            routes[route] = dict(route=r["route"], last100_loss=float(np.mean(r["losses"][-100:])),
+                                 loss_at=[r["losses"][i - 1] for i in (50, 100, 500, 1000)
+                                          if i <= SCRATCH_STEPS],
+                                 ms_per_step_best=r["ms_per_step_best"],
+                                 ms_per_step_median=r["ms_per_step_median"], wall_s=r["wall_s"],
+                                 launches=by_run[f"train_scratch_{route}"])
+        lk, la = routes["on"]["last100_loss"], routes["off"]["last100_loss"]
+        gap = abs(lk - la) / max(lk, la)
+        check(lk < 40 and la < 40 and gap <= 0.25,
+              f"from scratch: last-100 losses kernel {lk}, autograd {la} (gap {gap})")
+        res["scratch"] = dict(routes=routes, gap=gap)
+        print(f"[train] (b) 1,000 steps from scratch: last-100 loss kernel {lk:.3f}, fp32 "
+              f"autograd {la:.3f} (gap {100 * gap:.1f}%); ms/step best kernel "
+              f"{routes['on']['ms_per_step_best']:.3f}, autograd {routes['off']['ms_per_step_best']:.3f}")
+
+        # (c) 200 steps against 100 and a resume of 100
+        half = RESUME_STEPS // 2
+        whole = run("resume_whole", RESUME_STEPS, "--train-kernel", "on", save_freq=half)
+        first = next(p for p in whole["checkpoints"] if p.endswith(f"checkpoint-step{half}.pth"))
+        resumed = run("resume_tail", RESUME_STEPS, "--train-kernel", "on", "--restore-dir", first)
+        diffs = [float((a_ - b_).abs().max()) for a_, b_ in
+                 zip(whole["state"].model.parameters(), resumed["state"].model.parameters())]
+        ema_d = [float((a_ - b_).abs().max()) for a_, b_ in
+                 zip(whole["state"].ema.shadow_params, resumed["state"].ema.shadow_params)]
+        check(resumed["step"] == RESUME_STEPS and max(diffs) <= 1e-6 and max(ema_d) <= 1e-6,
+              f"resume: parameters differ by {max(diffs)}, EMA by {max(ema_d)}")
+        res["resume"] = dict(max_param_diff=max(diffs), max_ema_diff=max(ema_d))
+        print(f"[train] (c) 200 steps against 100 + a resume of 100: parameters differ by "
+              f"{max(diffs):.3g}, EMA by {max(ema_d):.3g}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(results=res, by_run=by_run)
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1123,9 +1582,12 @@ def main():
             parity.update(phase_completion_parity(model, dev))
             parity.update(phase_ode_parity(model, dev))
             proto = phase_protocols(model, dev)
+            rows += phase_train_kernels(model, dev)
         comp = phase_completion_protocols(model, dev)
         ode = phase_ode_protocols(model, dev)
-        by_run = {**proto.pop("by_run"), **comp["by_run"], **ode["by_run"]}
+        parity["train"] = phase_train_parity(model, dev)
+        train = phase_train_protocols(dev)
+        by_run = {**proto.pop("by_run"), **comp["by_run"], **ode["by_run"], **train["by_run"]}
         for r in rows:
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
@@ -1167,6 +1629,17 @@ def main():
         print(f"[{name}] kernels alone: {dev_ms:.1f} ms per call, so the device is busy "
               f"~{100 * dev_ms / wall_ms:.0f}% of the best call")
     proto.update(ode["results"])
+    # and for a train step: K10 x5, K11 and K12 x5 at batch 1,280
+    k10 = {v["shape"].split()[0]: v["ms"] for v in rows[-3]["variants"]}
+    k12 = {v["shape"].split()[0]: v["ms"] for v in rows[-1]["variants"]}
+    step_k = (k10["pre"] + 2 * k10["block"] + 2 * k10["block+residual"] + ms["head_dsm"]
+              + k12["hop"] + 2 * k12["hidden"] + 2 * k12["hidden+g_res"])
+    ft_res = train["results"]["finetune"]
+    ft_res["kernel_ms_per_step"] = step_k
+    ft_res["kernel_busy_share_est"] = step_k / ft_res["ms_per_step_best"]
+    print(f"[train] K10-K12 alone: {step_k * 1e3:.1f} us a step, {100 * step_k / ft_res['ms_per_step_best']:.0f}% "
+          f"of the best fine-tune step")
+    proto["train"] = train["results"]
     proto["launches_by_run"] = by_run
     summary = dict(device=info, build_s=build_s, kernels=rows,
                    dense_gn_silu_ms_at_1000_rows=k1_rc, parity=parity,

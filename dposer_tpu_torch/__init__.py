@@ -10,19 +10,23 @@ The port of ``dposer_tpu`` (JAX/Pallas on a TPU), module for module:
   imputation), the few-step samplers (DDIM, DPM-Solver++, hybrid), the
   adaptive RK45 and fixed-grid RK4 probability-flow-ODE samplers and the
   exact likelihood in bits/dim.
+- ``dposer_tpu_torch.diffusion.losses``: the DSM, SMLD and DDPM losses,
+  Adam with warmup and the global-norm clip, the train step; ``ema``.
 - ``dposer_tpu_torch.tasks``: the DPoser prior loss and the completion
   solver (``DPoserComp``).
 - ``dposer_tpu_torch.ops.cuda``: hand-written Hopper kernels for the fused
   reverse-diffusion loop, the completion solver's Adam loop, the RK4 PF-ODE
-  sampler and the likelihood with its forward-mode tangent, each beside its
-  plain PyTorch version.
-- ``dposer_tpu_torch.data``, ``body_model``, ``ops.metrics``, ``utils``: the
-  pose normalizer, the SMPL / SMPL-H / SMPL-X body model, APD and the
-  completion ``Evaler``, checkpoints and completion masks; ``ops.smoothing``:
+  sampler, the likelihood with its forward-mode tangent and the DSM train
+  step's forward and backward, each beside its plain PyTorch version.
+- ``dposer_tpu_torch.data``, ``body_model``, ``ops.metrics``, ``ops.rotations``,
+  ``utils``: the AMASS dataset and the pose normalizer, the SMPL / SMPL-H /
+  SMPL-X body model, APD and the completion ``Evaler``, rotation conversions,
+  checkpoints, completion masks, logging and step timing; ``ops.smoothing``:
   linear and spherical interpolation.
 
-Entry point: ``python -m dposer_tpu_torch.demo --task
-generation|completion|completion2|interpolation``.
+Entry points: ``python -m dposer_tpu_torch.demo --task
+generation|completion|completion2|interpolation`` and ``python -m
+dposer_tpu_torch.train``.
 The package imports torch, numpy and the standard library only.
 """
 

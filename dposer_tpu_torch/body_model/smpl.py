@@ -145,7 +145,6 @@ class BodyModel(nn.Module):
         verts = torch.einsum("bvmn,bvn->bvm", T[:, :, :3, :3], v_posed) + T[:, :, :3, 3]
         return verts, posed_joints
 
-    @torch.no_grad()
     def forward(self, root_orient=None, pose_body=None, pose_hand=None, pose_jaw=None,
                 pose_eye=None, betas=None, trans=None, expression=None):
         """Any argument may be None. ``pose_body`` is axis-angle: [B, 69] for

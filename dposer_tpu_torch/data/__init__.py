@@ -1,3 +1,4 @@
+from .amass import AMASSDataset
 from .normalizer import PoseNormalizer
 
-__all__ = ["PoseNormalizer"]
+__all__ = ["AMASSDataset", "PoseNormalizer"]

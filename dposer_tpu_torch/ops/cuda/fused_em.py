@@ -283,9 +283,11 @@ def _counted():
     from .fused_comp import comp_perturb, head_adam  # they import this module
     from .fused_lik import head_rk4_jvp
     from .fused_ode import head_rk4
+    from .fused_train import dense_gn_silu_bwd, dense_gn_silu_train, head_dsm
 
     return (dense_gn_silu, head_em, langevin_update, masked_renoise, comp_perturb,
-            head_adam, dense_gn_silu_jvp, head_rk4, head_rk4_jvp)
+            head_adam, dense_gn_silu_jvp, head_rk4, head_rk4_jvp, dense_gn_silu_train,
+            head_dsm, dense_gn_silu_bwd)
 
 
 def launch_counts() -> dict:

@@ -87,3 +87,66 @@ def state_dict_from_flax(params: Dict[str, Any], sigma_min: float = 0.01,
     sd["pre_dense_cond.bias"] = torch.zeros(hidden)
     sd["sigmas"] = torch.from_numpy(get_sigmas(sigma_min, sigma_max, num_scales))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Training checkpoints
+# ---------------------------------------------------------------------------
+
+def save_checkpoint(path: str, state, epoch: int = 0) -> None:
+    """Write a train state (``diffusion.losses.TrainState``) as a reference
+    ``.pth``: ``{model_state_dict, optimizer_state_dict, epoch, step, ema:
+    {decay, num_updates, shadow_params}}`` (ref run/train.py:395-401), on the
+    CPU. A disabled EMA counter (negative) is stored as None, as the
+    reference stores ``use_num_updates=False``."""
+    def cpu(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.detach().cpu().clone()
+        if isinstance(obj, dict):
+            return {k: cpu(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(cpu(v) for v in obj)
+        return obj
+
+    ema = state.ema
+    torch.save({
+        "model_state_dict": cpu(state.model.state_dict()),
+        "optimizer_state_dict": cpu(state.tx.state_dict()),
+        "epoch": int(epoch),
+        "step": int(state.step),
+        "ema": {"decay": float(ema.decay),
+                "num_updates": None if ema.num_updates < 0 else int(ema.num_updates),
+                "shadow_params": [cpu(s) for s in ema.shadow_params]},
+    }, path)
+
+
+def restore_train_state(path: str, state) -> Dict[str, Any]:
+    """Load a ``.pth`` into ``state`` in place and return what it held.
+
+    A checkpoint this package wrote comes back whole: parameters, Adam's
+    moments and count, the EMA and the step. A reference or JAX-exported
+    ``.pth`` has no optimizer state: then the parameters, the EMA and the
+    step are taken and Adam starts fresh (ref run/train.py:179-192), and a
+    ``None`` EMA counter becomes -1 (the warm-up stays off)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    model = state.model
+    model.load_state_dict(ckpt["model_state_dict"])
+    state.step = int(ckpt.get("step", 0))
+    ema = ckpt.get("ema")
+    if ema is not None:
+        shadow = ema["shadow_params"]
+        if len(shadow) != len(state.ema.shadow_params):
+            raise ValueError(f"EMA shadow length {len(shadow)} != "
+                             f"{len(state.ema.shadow_params)} trainable parameters")
+        for dst, src in zip(state.ema.shadow_params, shadow):
+            dst.copy_(src)
+        state.ema.num_updates = -1 if ema["num_updates"] is None else int(ema["num_updates"])
+        state.ema.decay = float(ema["decay"])
+    else:
+        for dst, p in zip(state.ema.shadow_params, state.tx.params):
+            dst.copy_(p.detach())
+    opt = ckpt.get("optimizer_state_dict")
+    if opt is not None:
+        state.tx.load_state_dict(opt)
+    return dict(step=state.step, optimizer_restored=opt is not None,
+                ema_restored=ema is not None)

@@ -44,8 +44,10 @@ def test_normalizer_reads_fixture_stats(tmp_path):
     x = torch.zeros(2, 63)
     np.testing.assert_allclose(norm.offline_denormalize(x).numpy()[0], mean, rtol=1e-6)
     assert torch.equal(PoseNormalizer(d, normalize=False).offline_normalize(x), x)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # the fixture caches axis-angle stats only
         PoseNormalizer(d, rot_rep="rot6d")
+    with pytest.raises(ValueError):
+        PoseNormalizer(d, rot_rep="quat")
 
 
 @pytest.fixture(scope="module")

@@ -410,3 +410,100 @@ def test_pf_euler_kernel_decode_matches_plain_loop(dev):
     assert (counts["dense_gn_silu"], counts["head_em"]) == (5 * n, n)
     # deterministic: the in-kernel normals meet a zero coefficient
     torch.testing.assert_close(out, ref, rtol=0, atol=5e-3 * max(1.0, float(ref.abs().max())))
+
+
+# ---------------------------------------------------------------------------
+# K10-K12: the DSM train step's kernels (ops/cuda/fused_train.py)
+# ---------------------------------------------------------------------------
+
+def _bf16_close(got, want, rel=1e-2):
+    """bf16 outputs: the kernel and the plain version round fp32 values that
+    differ in their last bits, so an element may land one bf16 ulp apart."""
+    got, want = got.float(), want.float()
+    assert float((got - want).abs().max()) <= rel * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("K", [63, 1024])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_dense_gn_silu_train(dev, K, with_residual):
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    rng = np.random.default_rng(K + 7)
+    B, N = 1280, 1024
+    a = _t(rng, (B, K), dev)
+    w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    proj = _t(rng, (B, N), dev, 0.3).to(torch.bfloat16)
+    gamma, beta = 1 + _t(rng, (N,), dev, 0.1), _t(rng, (N,), dev, 0.1)
+    res = _t(rng, (B, N), dev) if with_residual else None
+    want = ft.dense_gn_silu_train_plain(a, w, proj, gamma, beta, 99, 3, 0.9, res)
+    reset_launch_counts()
+    got = ft.dense_gn_silu_train(a, w, proj, gamma, beta, 99, 3, 0.9, residual=res)
+    torch.cuda.synchronize()
+    assert launch_counts()["dense_gn_silu_train"] == 1
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)  # the same mask
+    _bf16_close(got[1], want[1])
+    _bf16_close(got[2], want[2])
+    torch.testing.assert_close(got[3], want[3], rtol=1e-4, atol=1e-5)
+
+
+def test_head_dsm(dev):
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    h, w_post, b_post, _, z, _ = _head(dev, B=1280)
+    rng = np.random.default_rng(1)
+    coefs = torch.from_numpy(np.stack([-rng.uniform(0.1, 2, 1280), rng.uniform(0.5, 2, 1280),
+                                       np.full(1280, 1 / (63 * 1280))], 1)
+                             .astype(np.float32)).to(dev)
+    want = ft.head_dsm_plain(h, w_post, b_post, coefs, z)
+    got = ft.head_dsm(h, w_post, b_post, coefs, z)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1e-7)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("K", [64, 1024])
+@pytest.mark.parametrize("with_g_res", [False, True])
+def test_dense_gn_silu_bwd(dev, K, with_g_res):
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    rng = np.random.default_rng(K + 11)
+    B, N = 1280, 1024
+    dh_next = _t(rng, (B, K), dev, 1e-3).to(torch.bfloat16)
+    w_t = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    xhat = _t(rng, (B, N), dev).to(torch.bfloat16)
+    rstd = torch.from_numpy(rng.uniform(0.5, 2, (B, 32)).astype(np.float32)).to(dev)
+    gamma, beta = 1 + _t(rng, (N,), dev, 0.1), _t(rng, (N,), dev, 0.1)
+    g_res = _t(rng, (B, N), dev, 1e-3) if with_g_res else None
+    want = ft.dense_gn_silu_bwd_plain(dh_next, w_t, xhat, rstd, gamma, beta, 5, 2, 0.9, g_res)
+    g_out = torch.empty(B, N, device=dev)
+    got = ft.dense_gn_silu_bwd(dh_next, w_t, xhat, rstd, gamma, beta, 5, 2, 0.9, g_res=g_res,
+                               g_out=g_out)
+    torch.cuda.synchronize()
+    _bf16_close(got[0], want[0])
+    scale = float(want[1].abs().max())
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3 * scale)
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3 * float(w.abs().max()))
+    # a step is deterministic: the dgamma/dbeta sums take a fixed order
+    again = ft.dense_gn_silu_bwd(dh_next, w_t, xhat, rstd, gamma, beta, 5, 2, 0.9,
+                                 g_res=g_res, g_out=g_out)
+    assert all(torch.equal(a, b) for a, b in zip(got[2:], again[2:]))
+
+
+def test_train_route_matches_plain_route(dev):
+    from dposer_tpu_torch.diffusion.sde import SubVPSDE
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    torch.manual_seed(0)
+    model = ScoreModelFC(n_poses=21, pose_dim=3).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = torch.randn(1280, 63, generator=g, device=dev)
+    noise = dict(t=torch.rand(1280, generator=g, device=dev) * 0.99 + 0.01,
+                 z=torch.randn(1280, 63, generator=g, device=dev), dropout_seed=31)
+    (lk, gk), (lp, gp) = (ft.get_cuda_train_loss_and_grad(SubVPSDE(N=1000), model,
+                                                          reduce_mean=True, plain=plain)(
+        batch, **noise) for plain in (False, True))
+    torch.testing.assert_close(lk, lp, rtol=1e-3, atol=0)
+    for n in gk:
+        rel = float((gk[n] - gp[n]).norm() / (gp[n].norm() + 1e-12))
+        assert rel < 2e-2, f"{n}: relative error {rel}"

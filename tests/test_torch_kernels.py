@@ -88,7 +88,8 @@ def test_dense_gn_silu_wrapper_on_cpu_writes_out_in_place():
     torch.testing.assert_close(res, want, rtol=0, atol=0)
     assert launch_counts() == dict.fromkeys(
         ("dense_gn_silu", "head_em", "langevin_update", "masked_renoise", "comp_perturb",
-         "head_adam", "dense_gn_silu_jvp", "head_rk4", "head_rk4_jvp"), 0)
+         "head_adam", "dense_gn_silu_jvp", "head_rk4", "head_rk4_jvp", "dense_gn_silu_train",
+         "head_dsm", "dense_gn_silu_bwd"), 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous"])

@@ -133,15 +133,29 @@ def test_config_matches_ml_collections_config():
     ref = get_config()
     port = torch_get_config()
     for section, fields in vars(port).items():
+        if not hasattr(fields, "__dict__"):  # a top-level value: OUTPUT_DIR, seed
+            assert ref[section] == fields, section
+            continue
         for field, value in vars(fields).items():
             assert ref[section][field] == value, f"{section}.{field}"
+    # every field training reads is in the copy
+    for section, names in (("training", ("batch_size", "n_iters", "log_freq", "eval_freq",
+                                         "save_freq", "auxiliary_loss", "denoise_steps",
+                                         "likelihood_weighting", "reduce_mean")),
+                           ("optim", tuple(ref.optim.keys())),
+                           ("eval", ("batch_size", "num_samples")),
+                           ("DATASET", tuple(ref.DATASET.keys()))):
+        assert set(names) <= set(vars(getattr(port, section))), section
+    assert (port.training.batch_size, port.training.n_iters, port.eval.batch_size,
+            port.training.reduce_mean) == (1280, 400001, 50, True)
 
 
 def test_import_leaves_jax_out():
     prog = ("import sys; import dposer_tpu_torch.demo, dposer_tpu_torch.ops.cuda.fused_em, "
             "dposer_tpu_torch.ops.cuda.fused_ode, dposer_tpu_torch.ops.cuda.fused_lik, "
             "dposer_tpu_torch.diffusion.likelihood, dposer_tpu_torch.diffusion.ode, "
-            "dposer_tpu_torch.ops.smoothing; "
+            "dposer_tpu_torch.ops.smoothing, dposer_tpu_torch.train, "
+            "dposer_tpu_torch.ops.cuda.fused_train; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m.startswith('dposer_tpu.') or m == 'dposer_tpu' or m == 'configs']; "
             "print(bad); sys.exit(1 if bad else 0)")
