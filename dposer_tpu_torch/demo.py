@@ -11,7 +11,8 @@
 
 Generation samples 50 poses with the config's sampler (sub-VP EM, no
 corrector, through the CUDA kernels; with ``sampling.method = "ode"`` the
-125-step RK4 probability-flow-ODE kernel sampler) and writes them,
+125-step RK4 probability-flow-ODE kernel sampler; with ``--sampler
+ddim|dpm|hybrid`` under a corrector-free config the few-step one) and writes them,
 denormalized to axis-angle, to ``<output-path>/generation/samples.npz``
 (``pose_samples``).
 ``--metrics`` runs the 500-sample protocol (EM + langevin corrector, eps
@@ -40,10 +41,20 @@ of neighbours into ``<output-path>/interpolation/frames.npz`` (``pose_frames``
 encodes with the adaptive RK45 likelihood and decodes with the generic PC loop
 instead.
 
-Rendering, ``--video``, the self-intersection metric, ``--quant`` and the other tasks
-are not ported yet. On ``--device cuda`` every route goes through the
-kernels, DPM-Solver++ excepted (it has no kernel in either package); on
-``--device cpu`` the kernels' plain versions run, with host-drawn normals.
+``--quant int8`` serves the pc sampler (generation, ``--metrics``, completion2
+with ``--sampler pc``, ``ddim`` or ``hybrid``) in the W8A8 mode: int8 hidden
+matmuls through kernel K13, the activation ranges calibrated once per (eps,
+corrector, scheme) on a 256-pose fp32 trajectory drawn with seed + 999, per
+tensor or, with ``--quant-scheme channel``, per channel (SmoothQuant-style
+fold). ``--quant int8-mixed`` runs the last ``--quant-bf16-tail`` steps on the
+bf16 kernels (a tenth of the rows, at least one, for DDIM; none for the
+hybrid, as in the JAX demo). The ODE paths and the completion solver stay
+unquantized.
+
+Rendering, ``--video``, the self-intersection metric and the other tasks are
+not ported yet. On ``--device cuda`` every route goes through the kernels,
+DPM-Solver++ excepted (it has no kernel in either package); on ``--device
+cpu`` the kernels' plain versions run, with host-drawn normals.
 """
 from __future__ import annotations
 
@@ -70,6 +81,7 @@ from .diffusion.sde import build_sde, sampling_eps_for
 from .models import create_score_model
 from .ops.cuda.fused_em import get_cuda_em_hypo_sampler, get_cuda_em_sampler
 from .ops.cuda.fused_ode import get_cuda_ode_sampler
+from .ops.cuda.quant import calibrate_act_amax, calibrate_act_amax_per_channel
 from .ops.metrics import Evaler, average_pairwise_distance
 from .ops.smoothing import slerp_interpolation
 from .tasks import DPoserComp
@@ -83,6 +95,7 @@ ODE_STEPS = 125
 ANCHOR_IDX = (1, 10, 11, 12, 17, 14)
 INTER_FRAMES = 60
 ENCODE_STEPS, ENCODE_EPS, DECODE_EPS = 250, 1e-4, 1e-5
+CALIB_BATCH, CALIB_SEED_OFFSET = 256, 999
 
 
 def parse_args(argv):
@@ -113,9 +126,10 @@ def parse_args(argv):
     p.add_argument("--hypo", type=int, default=10)
     p.add_argument("--part", default="left_leg", choices=BodyPartIndices.PARTS)
     p.add_argument("--sampler", default="pc", choices=["pc", "ddim", "dpm", "hybrid"],
-                   help="completion2: the N-step pc sampler, few-step DDIM or "
-                        "DPM-Solver++(2M), or the hybrid of a DDIM head and the pc "
-                        "sampler's exact last --hybrid-tail rows")
+                   help="completion2, and generation under a corrector-free config: the "
+                        "N-step pc sampler, few-step DDIM or DPM-Solver++(2M), or the "
+                        "hybrid of a DDIM head and the pc sampler's exact last "
+                        "--hybrid-tail rows")
     p.add_argument("--sampler-steps", type=int, default=None,
                    help="steps for --sampler ddim/dpm/hybrid (default: 50 ddim, "
                         "20 dpm, 25 hybrid head)")
@@ -124,6 +138,17 @@ def parse_args(argv):
                         "hybrid's stochastic pc tail")
     p.add_argument("--hybrid-tail-corrector", default="langevin",
                    choices=["langevin", "none"], help="corrector on the hybrid's tail")
+    p.add_argument("--quant", default="none", choices=["none", "int8", "int8-mixed"],
+                   help="opt-in W8A8 serving mode of the pc sampler paths (generation, "
+                        "--metrics, completion2): int8 hidden matmuls with activation "
+                        "ranges calibrated on a sampling trajectory; 'int8-mixed' runs the "
+                        "last --quant-bf16-tail steps on the bf16 kernels")
+    p.add_argument("--quant-bf16-tail", type=int, default=100,
+                   help="K for --quant int8-mixed: the final steps run in bf16")
+    p.add_argument("--quant-scheme", default="tensor", choices=["tensor", "channel"],
+                   help="activation quantization of the int8 modes: static per-tensor "
+                        "ranges, or per-channel ranges folded into the int8 weights "
+                        "(SmoothQuant-style); per-tensor degrades completion")
     p.add_argument("--output-path", default="./output/test_results")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -139,11 +164,44 @@ def load_model(config, ckpt_path: str, device):
     return model.eval().to(device), step
 
 
+def make_quant_kwargs(args, config, sde, model, device):
+    """``quant_kwargs(eps, corrector) -> dict``: the sampler kwargs of the
+    ``--quant`` mode (empty under ``none``). The activation ranges are
+    calibrated once per (eps, corrector, scheme) on a ``CALIB_BATCH``-pose
+    trajectory drawn with seed + 999 (ref run/demo.py:177-212), and cached."""
+    cache = {}
+
+    def quant_kwargs(eps: float, corrector: str) -> dict:
+        if args.quant == "none":
+            return {}
+        corr = corrector if corrector == "langevin" else "none"
+        key = (float(eps), corr, args.quant_scheme)
+        if key not in cache:
+            calibrate = (calibrate_act_amax_per_channel if args.quant_scheme == "channel"
+                         else calibrate_act_amax)
+            amax = calibrate(sde, model, (CALIB_BATCH, model.n_poses * model.pose_dim),
+                             torch.Generator(device=device).manual_seed(
+                                 args.seed + CALIB_SEED_OFFSET),
+                             eps=float(eps), corrector=corr, snr=config.sampling.snr,
+                             n_corrector_steps=config.sampling.n_steps_each, device=device)
+            summary = np.round([float(np.max(a)) for a in amax]
+                               if args.quant_scheme == "channel" else amax, 3)
+            print(f"[quant] int8 ranges calibrated (eps={eps}, corrector={corr}, "
+                  f"scheme={args.quant_scheme}): {summary}")
+            cache[key] = amax
+        kw = dict(quant="int8", act_amax=cache[key])
+        if args.quant == "int8-mixed":
+            kw["bf16_tail_steps"] = args.quant_bf16_tail
+        return kw
+
+    return quant_kwargs
+
+
 def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, device,
-                  probability_flow: bool = False):
+                  probability_flow: bool = False, quant_kw=None):
     """The config's PC sampler through the CUDA kernels: Philox normals drawn
     in the kernels on the card, host normals with the plain versions on the
-    CPU."""
+    CPU. ``quant_kw`` (from ``make_quant_kwargs``) selects the int8 mode."""
     device = torch.device(device)
     return get_cuda_em_sampler(
         sde, model, (batch, model.n_poses * model.pose_dim), eps=eps,
@@ -152,13 +210,21 @@ def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, de
         corrector=corrector, snr=config.sampling.snr,
         n_corrector_steps=config.sampling.n_steps_each,
         predictor=config.sampling.predictor, probability_flow=probability_flow,
-        device=device)
+        device=device, **(quant_kw or {}))
 
 
-def build_generation_sampler(config, sde, model, batch: int, eps: float, device):
-    """``sampler(generator) -> x`` for the generation task: the config's PC
-    sampler, or under ``sampling.method = "ode"`` the RK4 PF-ODE kernel
-    sampler (ref run/demo.py:284-299)."""
+def build_generation_sampler(config, sde, model, batch: int, eps: float, device,
+                             quant_kw=None, args=None):
+    """``sampler(generator) -> x`` for the generation task: with ``args.sampler``
+    other than pc under a corrector-free config the few-step sampler (ref
+    run/demo.py:225-281); else the config's PC sampler, or under
+    ``sampling.method = "ode"`` the RK4 PF-ODE kernel sampler (ref
+    run/demo.py:284-299), which stays unquantized. ``quant_kw`` (from
+    ``make_quant_kwargs``) selects the int8 mode of the kernel routes."""
+    quant_kw = quant_kw or {}
+    if args is not None and args.sampler != "pc" and config.sampling.corrector == "none":
+        return few_step_generation_sampler(args, config, sde, model, batch, eps, device,
+                                           quant_kw)
     method = config.sampling.method.lower()
     if method == "ode":
         s = get_cuda_ode_sampler(sde, model, (batch, model.n_poses * model.pose_dim),
@@ -168,7 +234,51 @@ def build_generation_sampler(config, sde, model, batch: int, eps: float, device)
         return lambda generator: s(generator)[1]
     if method != "pc":
         raise ValueError(f"Sampler name {config.sampling.method} unknown.")
-    return build_sampler(config, sde, model, batch, eps, config.sampling.corrector, device)
+    return build_sampler(config, sde, model, batch, eps, config.sampling.corrector, device,
+                         quant_kw=quant_kw)
+
+
+def few_step_quant_kw(quant_kw: dict, sampler: str, n_fs: int) -> dict:
+    """The ``--quant`` kwargs of a few-step kernel route: the N-step bf16 tail
+    does not fit a few-step table, so DDIM keeps a tenth of its rows (at least
+    one) and the hybrid drops it, as the JAX demo does (run/demo.py:244,
+    :260-264)."""
+    kw = dict(quant_kw)
+    if "bf16_tail_steps" in kw:
+        if sampler == "ddim":
+            kw["bf16_tail_steps"] = max(1, min(kw["bf16_tail_steps"], n_fs // 10))
+        else:
+            del kw["bf16_tail_steps"]
+    return kw
+
+
+def few_step_generation_sampler(args, config, sde, model, batch: int, eps: float, device,
+                                quant_kw):
+    """Generation with ``--sampler ddim|dpm|hybrid``: DDIM and the hybrid on
+    the kernels (int8 under ``quant_kw``), DPM-Solver++(2M) in fp32."""
+    device = torch.device(device)
+    shape = (batch, model.n_poses * model.pose_dim)
+    n_fs = args.sampler_steps or {"ddim": 50, "dpm": 20, "hybrid": 25}[args.sampler]
+    dn = config.sampling.noise_removal
+    kernel_kw = dict(rng_mode="kernel" if device.type == "cuda" else "host", device=device)
+    qtag = "" if not quant_kw else ", " + args.quant
+    kwq = few_step_quant_kw(quant_kw, args.sampler, n_fs)
+    if args.sampler == "hybrid":
+        lgv = "-lgv" if args.hybrid_tail_corrector == "langevin" else ""
+        s = few_step.get_cuda_hybrid_sampler(
+            sde, model, shape, n_head=n_fs, m_tail=args.hybrid_tail, eps=eps,
+            tail_corrector=args.hybrid_tail_corrector, snr=config.sampling.snr,
+            n_corrector_steps=config.sampling.n_steps_each, **kernel_kw, **kwq)
+        print(f"[sampler] kernel hybrid DDIM-{n_fs} + pc-tail-{args.hybrid_tail}{lgv}{qtag}")
+    elif args.sampler == "ddim":
+        s = few_step.get_cuda_ddim_sampler(sde, model, shape, n_steps=n_fs, eps=eps,
+                                           denoise=dn, **kernel_kw, **kwq)
+        print(f"[sampler] kernel DDIM, {n_fs} steps{qtag}")
+    else:
+        s = few_step.get_dpm_sampler(sde, model, shape, n_steps=n_fs, eps=eps, denoise=dn,
+                                     device=device)
+        print(f"[sampler] tabled DPM-Solver++(2M), {n_fs} steps")
+    return lambda generator: s(generator)[1]
 
 
 def complete_by_optimisation(sde, model, observation, mask, hypo_num, generator, device):
@@ -181,13 +291,18 @@ def complete_by_optimisation(sde, model, observation, mask, hypo_num, generator,
     return comp.optimize_hypos(observation, mask, hypo_num, generator)
 
 
-def complete_by_imputation(args, config, sde, model, observation, mask, generator, device):
+def complete_by_imputation(args, config, sde, model, observation, mask, generator, device,
+                           quant_kwargs):
     """``--task completion2``: masked imputation in the reverse sampler, the
-    hypotheses tiled into rows -> [B, H, D] (ref run/demo.py:492-606)."""
+    hypotheses tiled into rows -> [B, H, D] (ref run/demo.py:492-606). Under
+    ``--quant`` the pc, DDIM and hybrid routes run int8, calibrated on the
+    config's corrector (the hybrid's tail corrector is not consulted, as in
+    the JAX demo)."""
     device = torch.device(device)
     hypo_num, shape, eps = args.hypo, tuple(observation.shape), sampling_eps_for(sde)
     dn = config.sampling.noise_removal
     kernel_kw = dict(rng_mode="kernel" if device.type == "cuda" else "host", device=device)
+    qtag = "" if args.quant == "none" else ", " + args.quant
     if args.sampler == "pc":
         if config.sampling.method != "pc":
             raise NotImplementedError(f"masked imputation runs in the pc sampler; the "
@@ -197,21 +312,26 @@ def complete_by_imputation(args, config, sde, model, observation, mask, generato
                                      corrector=config.sampling.corrector,
                                      snr=config.sampling.snr,
                                      n_corrector_steps=config.sampling.n_steps_each,
-                                     predictor=config.sampling.predictor, **kernel_kw)
-        print("[sampler] kernel multi-hypothesis imputation")
+                                     predictor=config.sampling.predictor, **kernel_kw,
+                                     **quant_kwargs(eps, config.sampling.corrector))
+        print(f"[sampler] kernel multi-hypothesis imputation{qtag}")
         return s(generator, observation, mask)
     n_fs = args.sampler_steps or {"ddim": 50, "dpm": 20, "hybrid": 25}[args.sampler]
+    if args.sampler in ("ddim", "hybrid"):
+        kwq = few_step_quant_kw(quant_kwargs(eps, config.sampling.corrector), args.sampler,
+                                n_fs)
     if args.sampler == "hybrid":
         lgv = "-lgv" if args.hybrid_tail_corrector == "langevin" else ""
         s = few_step.get_cuda_hybrid_hypo_sampler(
             sde, model, shape, hypo_num, n_head=n_fs, m_tail=args.hybrid_tail, eps=eps,
             tail_corrector=args.hybrid_tail_corrector, snr=config.sampling.snr,
-            n_corrector_steps=config.sampling.n_steps_each, **kernel_kw)
-        label = f"kernel hybrid DDIM-{n_fs} + pc-tail-{args.hybrid_tail}{lgv} imputation"
+            n_corrector_steps=config.sampling.n_steps_each, **kernel_kw, **kwq)
+        label = (f"kernel hybrid DDIM-{n_fs} + pc-tail-{args.hybrid_tail}{lgv} imputation"
+                 f"{qtag}")
     elif args.sampler == "ddim":
         s = few_step.get_cuda_ddim_hypo_sampler(sde, model, shape, hypo_num, n_steps=n_fs,
-                                                eps=eps, denoise=dn, **kernel_kw)
-        label = f"kernel DDIM imputation, {n_fs} steps"
+                                                eps=eps, denoise=dn, **kernel_kw, **kwq)
+        label = f"kernel DDIM imputation, {n_fs} steps{qtag}"
     else:
         s = few_step.get_dpm_hypo_sampler(sde, model, shape, hypo_num, n_steps=n_fs,
                                           eps=eps, denoise=dn, device=device)
@@ -221,7 +341,8 @@ def complete_by_imputation(args, config, sde, model, observation, mask, generato
     return multihypo
 
 
-def run_completion(args, config, sde, model, normalizer, generator, device) -> dict:
+def run_completion(args, config, sde, model, normalizer, generator, device,
+                   quant_kwargs) -> dict:
     """The completion tasks. Returns ``hypotheses_file``, ``mpvpe`` and ``mpjpe``."""
     with np.load(args.file_path, allow_pickle=False) as f:
         gts = torch.as_tensor(f["pose_samples"][:SAMPLE_NUM], dtype=torch.float32,
@@ -234,7 +355,7 @@ def run_completion(args, config, sde, model, normalizer, generator, device) -> d
                                              generator, device)
     else:
         multihypo = complete_by_imputation(args, config, sde, model, observation, mask,
-                                           generator, device)
+                                           generator, device, quant_kwargs)
     preds = normalizer.offline_denormalize(multihypo, to_axis=True)
     body = BodyModel(args.bodymodel_path, num_betas=10, model_type="smplx", device=device)
     evaler = Evaler(body_model=body, part=args.part)
@@ -324,15 +445,20 @@ def run(args) -> dict:
                                 min_max=config.data.min_max,
                                 rot_rep=config.data.rot_rep, device=device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    quant_kwargs = make_quant_kwargs(args, config, sde, model, device)
     if args.task in ("completion", "completion2"):
-        return dict(run_completion(args, config, sde, model, normalizer, generator, device),
-                    step=step)
+        return dict(run_completion(args, config, sde, model, normalizer, generator, device,
+                                   quant_kwargs), step=step)
     if args.task == "interpolation":
         return dict(run_interpolation(args, config, sde, model, normalizer, generator,
                                       device), step=step)
 
-    sampler = build_generation_sampler(config, sde, model, SAMPLE_NUM,
-                                       sampling_eps_for(sde), device)
+    eps = sampling_eps_for(sde)
+    few = args.sampler != "pc" and config.sampling.corrector == "none"
+    sampler = build_generation_sampler(
+        config, sde, model, SAMPLE_NUM, eps, device,
+        quant_kw=(quant_kwargs(eps, config.sampling.corrector)
+                  if few or config.sampling.method.lower() == "pc" else None), args=args)
     samples = normalizer.offline_denormalize(sampler(generator), to_axis=True)
     target = os.path.join(args.output_path, "generation")
     os.makedirs(target, exist_ok=True)
@@ -343,7 +469,8 @@ def run(args) -> dict:
     if args.metrics:
         t0 = time.perf_counter()
         sampler = build_sampler(config, sde, model, METRICS_SAMPLE_NUM, METRICS_EPS,
-                                "langevin", device)
+                                "langevin", device,
+                                quant_kw=quant_kwargs(METRICS_EPS, "langevin"))
         samples = normalizer.offline_denormalize(sampler(generator), to_axis=True)
         # Pose-NDF protocol: SMPL body, zero-padded hand joints
         body = BodyModel(args.smpl_path, num_betas=10, model_type="smpl", device=device)

@@ -194,13 +194,18 @@ def get_dpm_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
 
 def get_cuda_ddim_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
                           n_steps: int = 50, eps: float = 1e-3, denoise: bool = True,
-                          grid: str = "t", **kw):
+                          grid: str = "t", bf16_tail_steps: int = 0, **kw):
     """DDIM through the reverse-diffusion kernels: the DDIM rows are the
     kernel sampler's table contract. ``kw`` goes to ``get_cuda_em_sampler``
-    (``imputation``, ``rng_mode``, ``device``, ``plain``). With
-    ``imputation=True`` the kernel sampler derives its imputation columns from
-    the overridden timesteps. ``sampler(generator=None, observation=None,
-    mask=None, z=None, noise=None) -> (nfe, x)``."""
+    (``imputation``, ``rng_mode``, ``quant``/``act_amax``, ``device``,
+    ``plain``). With ``imputation=True`` the kernel sampler derives its
+    imputation columns from the overridden timesteps.
+
+    ``bf16_tail_steps=K`` (with ``quant="int8"``) splits the rows into an int8
+    head and a bf16 tail of the last K rows, the state carried between them:
+    the few-step form of the kernel sampler's mixed schedule.
+    ``sampler(generator=None, observation=None, mask=None, z=None, noise=None)
+    -> (nfe, x)``."""
     from ..ops.cuda.fused_em import get_cuda_em_sampler
 
     rows = ddim_tables(sde, n_steps, eps, model, denoise=denoise, grid=grid,
@@ -208,14 +213,36 @@ def get_cuda_ddim_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
     n_rows = int(rows[0].shape[0])
     # the kernel sampler's denoise returns the last row's mean: the x0
     # projection row when denoise, the last DDIM mean otherwise (cnoise = 0)
-    inner = get_cuda_em_sampler(sde, model, shape, eps=eps, denoise=denoise,
-                                _tables_override=rows, **kw)
+    if not bf16_tail_steps:
+        inner = get_cuda_em_sampler(sde, model, shape, eps=eps, denoise=denoise,
+                                    _tables_override=rows, **kw)
 
-    def sampler(generator=None, observation=None, mask=None, z=None, noise=None):
-        return n_rows, inner(generator, observation=observation, mask=mask, z=z,
-                             noise=noise)
+        def sampler(generator=None, observation=None, mask=None, z=None, noise=None):
+            return n_rows, inner(generator, observation=observation, mask=mask, z=z,
+                                 noise=noise)
 
-    return sampler
+        return sampler
+    if kw.get("quant") != "int8":
+        raise ValueError("bf16_tail_steps requires quant='int8'")
+    if not 0 < bf16_tail_steps < n_rows:
+        raise ValueError(f"bf16_tail_steps must be in (0, {n_rows}); got {bf16_tail_steps}")
+    m = n_rows - bf16_tail_steps
+    head = get_cuda_em_sampler(sde, model, shape, eps=eps, denoise=False,
+                               _tables_override=tuple(r[:m] for r in rows), **kw)
+    tail_kw = {k: v for k, v in kw.items() if k not in ("quant", "act_amax")}
+    tail = get_cuda_em_sampler(sde, model, shape, eps=eps, denoise=denoise,
+                               _tables_override=tuple(r[m:] for r in rows), **tail_kw)
+
+    def mixed(generator=None, observation=None, mask=None, z=None, noise=None):
+        nh = nt = None
+        if noise is not None:
+            if noise.ndim == 3:
+                noise = noise[:, None]
+            nh, nt = noise[:m], noise[m:]
+        x = head(generator, observation=observation, mask=mask, z=z, noise=nh)
+        return n_rows, tail(generator, observation=observation, mask=mask, z=x, noise=nt)
+
+    return mixed
 
 
 # ---------------------------------------------------------------------------
@@ -272,7 +299,8 @@ def get_cuda_hybrid_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...
     """DDIM head + exact pc tail through the reverse-diffusion kernels: the
     head rides the DDIM table override (no corrector), the tail is the kernel
     sampler's ``step_range=(N - m_tail, N)`` slice, optionally with the
-    langevin corrector. ``kw`` goes to both ``get_cuda_em_sampler`` builds."""
+    langevin corrector. ``kw`` goes to both ``get_cuda_em_sampler`` builds
+    (``quant``/``act_amax`` quantize both)."""
     from ..ops.cuda.fused_em import get_cuda_em_sampler
 
     t_sw = hybrid_t_switch(sde, m_tail, eps)

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("dense_gn_silu", "head_em", "langevin_update", "pose_elementwise",
            "head_adam", "dense_gn_silu_jvp", "head_rk4", "dense_gn_silu_train", "head_dsm",
-           "dense_gn_silu_bwd")
+           "dense_gn_silu_bwd", "dense_gn_silu_int8", "chain_link")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

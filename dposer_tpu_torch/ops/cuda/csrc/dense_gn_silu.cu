@@ -15,9 +15,10 @@
 // Design: the GEMM is dense_gemm.cuh's block tile (64x64 outputs, bf16 WMMA,
 // register-staged loads two K-steps ahead). A GroupNorm group is N/32
 // consecutive features, so with N/32 <= 32 a 64-wide tile holds whole groups
-// in the natural feature order: the epilogue adds the time row, reduces each
-// group with warp shuffles (two-pass mean/variance in fp32), applies the
-// affine and SiLU and the residual, and writes fp32 once.
+// in the natural feature order: the epilogue (gn_epilogue.cuh, shared with
+// K13 and K14) adds the time row, reduces each group with warp shuffles
+// (two-pass mean/variance in fp32), applies the affine and SiLU and the
+// residual, and writes fp32 once.
 // Not yet: cp.async/TMA multi-stage pipelines, wgmma, a bf16 copy of the
 // activations for the next layer.
 
@@ -27,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include "dense_gemm.cuh"
+#include "gn_epilogue.cuh"
 
 namespace {
 
@@ -40,52 +42,11 @@ dense_gn_silu_kernel(const float* __restrict__ A, const __nv_bfloat16* __restric
                      int B, int K, int N) {
   __shared__ __align__(128) Smem sm;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
   gemm_tile<VEC, false>(sm, A, nullptr, W, row0, col0, B, K, N);
 
-  // Epilogue: warp w takes rows w, w+8, ...; lane l holds columns l and l+32,
-  // so a group of GS features is GS consecutive lanes. The per-column rows
-  // (time projection, GN affine) are read once into registers, and the
-  // warp's residual values are all requested before the first is used.
-  constexpr int ROWS_PER_WARP = BM / (THREADS / 32);
-  constexpr float inv_gs = 1.0f / GS;
-  float tpv[2], gv[2], bv[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int gc = col0 + half * 32 + lane;
-    tpv[half] = tp[gc];
-    gv[half] = gamma[gc];
-    bv[half] = beta[gc];
-  }
-  float res[ROWS_PER_WARP][2];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int gr = row0 + warp + i * (THREADS / 32);
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      res[i][half] = (residual != nullptr && gr < B)
-                         ? residual[static_cast<size_t>(gr) * N + col0 + half * 32 + lane]
-                         : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int r = warp + i * (THREADS / 32);
-    const int gr = row0 + r;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c = half * 32 + lane;
-      const float v = sm.c[r * C_LD + c] + tpv[half];
-      const float mean = group_sum<GS>(v) * inv_gs;
-      const float d = v - mean;
-      const float var = group_sum<GS>(d * d) * inv_gs;
-      float y = d * rsqrtf(var + GN_EPS) * gv[half] + bv[half];
-      y = y / (1.0f + __expf(-y)) + res[i][half];
-      if (gr < B) out[static_cast<size_t>(gr) * N + col0 + c] = y;
-    }
-  }
+  gn_silu_epilogue<GS, Out::kStore>(sm.c, tp, gamma, beta, residual, out, row0, col0, B, N);
 }
 
 template <int GS, bool VEC>

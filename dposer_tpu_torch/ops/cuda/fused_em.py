@@ -6,7 +6,8 @@ An H100 SM has 227 KB of shared memory, so here each step is a short
 sequence of launches on one stream, with no host synchronization inside
 the loop (the weights stay in the 50 MB L2):
 
-- K1 ``dense_gn_silu`` (``score_net.py``) x (1 + 2*n_blocks): the hidden layers;
+- K1 ``dense_gn_silu`` (``score_net.py``) x (1 + 2*n_blocks): the hidden layers,
+  or K13 ``dense_gn_silu_int8`` in the int8 serving mode (``quant="int8"``);
 - K2 ``head_em``: the output head fused with the EM update, or, for the
   corrector, with the score and its row norms;
 - K3 ``langevin_update``: the corrector's batch-mean norms and update;
@@ -38,8 +39,8 @@ from ...diffusion.fast_sampler import (_corrector_tables, _imputation_tables,
 from ...diffusion.sde import SDE
 from . import build
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
-                        dense_gn_silu, dense_gn_silu_jvp, dense_gn_silu_plain_into,
-                        network_hidden)
+                        dense_gn_silu, dense_gn_silu_int8, dense_gn_silu_jvp,
+                        hidden_layer, network_hidden)
 
 N_COEFS = 8
 
@@ -280,6 +281,7 @@ masked_renoise.launches = 0
 
 
 def _counted():
+    from .chain_link import chain_link
     from .fused_comp import comp_perturb, head_adam  # they import this module
     from .fused_lik import head_rk4_jvp
     from .fused_ode import head_rk4
@@ -287,7 +289,7 @@ def _counted():
 
     return (dense_gn_silu, head_em, langevin_update, masked_renoise, comp_perturb,
             head_adam, dense_gn_silu_jvp, head_rk4, head_rk4_jvp, dense_gn_silu_train,
-            head_dsm, dense_gn_silu_bwd)
+            head_dsm, dense_gn_silu_bwd, dense_gn_silu_int8, chain_link)
 
 
 def launch_counts() -> dict:
@@ -306,7 +308,8 @@ def reset_launch_counts() -> None:
 
 @torch.no_grad()
 def build_sampler_operands(sde: SDE, model, eps: float, predictor: str, device,
-                           tables_override=None, probability_flow: bool = False):
+                           tables_override=None, probability_flow: bool = False,
+                           quant=None, act_amax=None):
     """``(net, coefs)`` for the kernels: the network operands of
     ``build_network_operands`` and the per-step scalar table ``coefs [N, 8]``
     fp32 (cx, cout, cnoise, score_scale, alpha, imputation mean, imputation
@@ -314,14 +317,16 @@ def build_sampler_operands(sde: SDE, model, eps: float, predictor: str, device,
     score_scale. ``tables_override=(timesteps, cx, cout, cnoise)`` replaces
     the predictor's rows (and the step count) with caller-built ones whose
     ``cout`` already folds that scale. ``probability_flow`` makes the
-    predictor's rows the deterministic PF-ODE step (``cnoise`` 0)."""
+    predictor's rows the deterministic PF-ODE step (``cnoise`` 0). ``quant``
+    and ``act_amax`` go to ``build_network_operands``."""
     mdev = model.sigmas.device
     if tables_override is None:
         timesteps = sde.timesteps(eps, device=mdev)
         cx, cout, cnoise = _pred_tables(sde, timesteps, predictor, probability_flow)
     else:
         timesteps, cx, cout, cnoise = (t.to(mdev) for t in tables_override)
-    net = build_network_operands(model, _labels_for(sde, timesteps), device)
+    net = build_network_operands(model, _labels_for(sde, timesteps), device, quant=quant,
+                                 act_amax=act_amax)
     out_scale = net["out_scale"]
     score_scale, alpha = _corrector_tables(sde, timesteps, out_scale)
     imput_mc, imput_std = _imputation_tables(sde, timesteps)
@@ -343,11 +348,12 @@ def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
     None with ``seed`` for in-kernel normals. ``scratch`` holds ``h``, ``h1``
     [B, H] and, with a corrector, ``score`` [B, D] and ``score_sq`` [B].
     ``plain=True`` runs the kernels' plain versions instead, on any device:
-    the reference the card's kernels are held to."""
-    layer, head, langevin, renoise = (
-        (dense_gn_silu_plain_into, head_em_plain_into, langevin_update_plain_into,
-         masked_renoise_plain_into) if plain else
-        (dense_gn_silu, head_em, langevin_update, masked_renoise))
+    the reference the card's kernels are held to. The hidden layers are K1,
+    or K13 for int8 operands."""
+    layer = hidden_layer(net, plain)
+    head, langevin, renoise = (
+        (head_em_plain_into, langevin_update_plain_into, masked_renoise_plain_into) if plain
+        else (head_em, langevin_update, masked_renoise))
     h, h1 = scratch["h"], scratch["h1"]
     for j in range(n_corr):
         network_hidden(net, x, i, h, h1, layer)
@@ -398,6 +404,8 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
                         predictor: str = "euler_maruyama",
                         probability_flow: bool = False,
                         step_range: Optional[Tuple[int, int]] = None,
+                        quant: Optional[str] = None, act_amax=None,
+                        bf16_tail_steps: int = 0,
                         _tables_override=None, device="cuda", plain: bool = False):
     """Build the kernel PC sampler for ``model`` (a ScoreModelFC).
 
@@ -422,7 +430,53 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     scaling folded in): the few-step DDIM path runs through the kernels this
     way. ``plain=True`` runs the same loop on the kernels' plain versions
     (host normals only), on any device.
+
+    ``quant="int8"`` (the opt-in W8A8 serving mode; ``act_amax`` from
+    ``quant.calibrate_act_amax`` or ``calibrate_act_amax_per_channel``) runs
+    the hidden layers on K13: int8 weights and activations, int32 sums, the
+    head and all the update arithmetic unchanged. ``bf16_tail_steps=K`` (with
+    ``quant="int8"``) composes the mixed schedule: int8 for rows ``0..N-K``
+    (``denoise=False``), then the bf16 kernels for the last K rows, the state
+    carried between them and host noise split as ``noise[:N-K]``,
+    ``noise[N-K:]``. Under in-kernel normals both parts draw with the seed of
+    one call, keyed by the grid's step, so they draw what one full run draws.
     """
+    if bf16_tail_steps:
+        if quant != "int8" or _tables_override is not None or step_range is not None:
+            raise ValueError("bf16_tail_steps requires quant='int8' and is incompatible "
+                             "with _tables_override/step_range")
+        n_total, k_tail = int(sde.N), int(bf16_tail_steps)
+        if not 0 < k_tail < n_total:
+            raise ValueError(f"bf16_tail_steps must be in (0, {n_total}); got {k_tail}")
+        common = dict(eps=eps, rng_mode=rng_mode, corrector=corrector, snr=snr,
+                      n_corrector_steps=n_corrector_steps, imputation=imputation,
+                      predictor=predictor, probability_flow=probability_flow,
+                      device=device, plain=plain)
+        cut = n_total - k_tail
+        head = get_cuda_em_sampler(sde, model, shape, denoise=False, quant="int8",
+                                   act_amax=act_amax, step_range=(0, cut), **common)
+        tail = get_cuda_em_sampler(sde, model, shape, denoise=denoise,
+                                   step_range=(cut, n_total), **common)
+        dev = resolve_device(device)
+
+        def mixed(generator: Optional[torch.Generator] = None, observation=None,
+                  mask=None, z=None, noise=None):
+            nh = nt = None
+            if noise is not None:
+                if noise.ndim == 3:
+                    noise = noise[:, None]
+                nh, nt = noise[:cut], noise[cut:]
+            if z is None:
+                z = sde.prior_sampling(tuple(shape), generator, dev)
+            state = (generator.get_state() if rng_mode == "kernel" and generator is not None
+                     else None)
+            x = head(generator, observation=observation, mask=mask, z=z, noise=nh)
+            if state is not None:  # the tail draws the head's seed
+                generator.set_state(state)
+            return tail(generator, observation=observation, mask=mask, z=x, noise=nt)
+
+        return mixed
+
     if rng_mode not in ("host", "kernel"):
         raise ValueError(f"rng_mode must be 'host' or 'kernel', got {rng_mode!r}")
     if corrector not in ("none", "langevin"):
@@ -440,7 +494,7 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     if probability_flow and _tables_override is not None:
         raise ValueError("overridden tables carry their own noise coefficients")
     net, coefs = build_sampler_operands(sde, model, eps, predictor, device,
-                                        _tables_override, probability_flow)
+                                        _tables_override, probability_flow, quant, act_amax)
     if net["dim"] != dim:
         raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
     lo, hi = (0, int(coefs.shape[0])) if step_range is None else step_range

@@ -10,8 +10,16 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
   coefficient tables. The TPU's lane-strided GroupNorm permutation and its
   8-sublane / 128-lane paddings have no counterpart here: a 64-wide GEMM
   tile holds whole 32-feature groups in the natural order.
+  With ``quant="int8"`` (the opt-in W8A8 serving mode, port of the quant
+  branch of the JAX build) the hidden layers' weights are per-output-column
+  int8 ``Wq`` instead, with the rescale rows ``qs`` and the activation
+  quantization rows ``qinv`` (per-tensor immediates or per-channel
+  ``smooth_fold`` rows, one layout for both); the head stays bf16.
 - kernel K1 ``dense_gn_silu`` (``csrc/dense_gn_silu.cu``) with its plain
   PyTorch version, and ``network_hidden``, which runs the layers with it.
+- kernel K13 ``dense_gn_silu_int8`` (``csrc/dense_gn_silu_int8.cu``): K1's
+  layer on int8 operands (port of ``bind_fwd``'s quant ``mm``), its plain
+  version; ``network_hidden`` takes it for int8 operands.
 - kernel K7 ``dense_gn_silu_jvp`` (``csrc/dense_gn_silu_jvp.cu``): the same
   layer with its forward-mode tangent, the tangent rules written out by hand
   (port of ``bind_fwd_jvp``), its plain version, and ``network_hidden_jvp``.
@@ -27,11 +35,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ...diffusion.fast_sampler import _group_norm, precompute_time_tables
 from . import build
+from .quant import int8_matmul, quantize_act, quantize_cols, smooth_fold
 
 NUM_GROUPS = 32
 HEAD_COLS = 64  # the head's output width, zero-padded for 16x16 MMA tiles
@@ -42,14 +52,29 @@ def _nvbf16(t: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def build_network_operands(model, labels: torch.Tensor, device=None) -> dict:
+def build_network_operands(model, labels: torch.Tensor, device=None, quant=None,
+                           act_amax=None) -> dict:
     """Kernel operands of a ScoreModelFC for the step labels ``labels`` [N].
 
     Returns ``W`` (list of bf16 [K, H]: pre-dense, then dense1/dense2 per
     block), ``gn_scale``/``gn_bias`` ([1+2*n_blocks, H] fp32), ``tp_all``
     ([N, 1+2*n_blocks, H] fp32), ``w_post`` ([H, 64] bf16), ``b_post``
     ([64] fp32), ``out_scale`` ([N] or None), on ``device``.
+
+    ``quant="int8"`` (requires ``act_amax`` from ``quant.calibrate_act_amax``,
+    [n_mm] per-tensor ranges, or the list of ``calibrate_act_amax_per_channel``)
+    replaces ``W`` with ``Wq``: per-output-column int8 in the kernel's [N, K]
+    layout (nn.Linear's [out, in]), with ``qs`` [1+2*n_blocks, H] fp32 (row k
+    = ``(amax_k/127)*s_k``, the activation range times the weight column
+    scales) and ``qinv`` [1+2*n_blocks, H] fp32, the quantization rows: the
+    float32 ``127/amax_k`` per tensor, or the ``smooth_fold`` rows per channel
+    (whose channel scales are folded into ``Wq``); row 0 uses its first
+    ``dim`` entries. The head stays bf16.
     """
+    if quant not in (None, "int8"):
+        raise ValueError(f"quant must be None or 'int8', got {quant!r}")
+    if (quant == "int8") != (act_amax is not None):
+        raise ValueError("act_amax must be passed iff quant='int8'")
     if model.embedding_type != "positional":
         raise NotImplementedError("the fused kernels support positional embeddings")
     if model.act_name != "swish":
@@ -65,7 +90,6 @@ def build_network_operands(model, labels: torch.Tensor, device=None) -> dict:
                              for j in (1, 2)]
     gn_names = ["pre_gnorm"] + [f"b{b + 1}_gnorm{j}" for b in range(model.n_blocks)
                                 for j in (1, 2)]
-    W = [_nvbf16(getattr(model, n).weight.t()).to(device) for n in names]
     tp_all = torch.stack([tprojs[n + "_t"] + getattr(model, n).bias[None, :]
                           for n in names], dim=1).float()
     gn_scale = torch.stack([getattr(model, n).weight for n in gn_names]).float()
@@ -74,12 +98,59 @@ def build_network_operands(model, labels: torch.Tensor, device=None) -> dict:
     w_post[:, :dim] = model.post_dense.weight.t().to(torch.bfloat16).cpu()
     b_post = torch.zeros(HEAD_COLS)
     b_post[:dim] = model.post_dense.bias.float().cpu()
-    return dict(W=W, tp_all=tp_all.to(device).contiguous(),
-                gn_scale=gn_scale.to(device).contiguous(),
-                gn_bias=gn_bias.to(device).contiguous(),
-                w_post=w_post.to(device), b_post=b_post.to(device),
-                out_scale=out_scale, dim=dim, hidden=model.hidden_dim,
-                n_blocks=model.n_blocks)
+    net = dict(tp_all=tp_all.to(device).contiguous(),
+               gn_scale=gn_scale.to(device).contiguous(),
+               gn_bias=gn_bias.to(device).contiguous(),
+               w_post=w_post.to(device), b_post=b_post.to(device),
+               out_scale=out_scale, dim=dim, hidden=model.hidden_dim,
+               n_blocks=model.n_blocks)
+    if quant is None:
+        net["W"] = [_nvbf16(getattr(model, n).weight.t()).to(device) for n in names]
+    else:
+        Wf = [getattr(model, n).weight.detach().t().float().cpu().numpy() for n in names]
+        net.update({k: ([t.to(device) for t in v] if isinstance(v, list) else v.to(device))
+                    for k, v in _int8_operands(Wf, act_amax, model.hidden_dim).items()})
+        # each layer's rows as views made once: the sampler's host loop slices nothing
+        net["qinv_rows"] = [net["qinv"][j, :w.shape[1]] for j, w in enumerate(net["Wq"])]
+        net["qs_rows"] = list(net["qs"].unbind(0))
+    return net
+
+
+def _int8_operands(Wf, act_amax, hidden: int) -> dict:
+    """``Wq``, ``qs`` and ``qinv`` for the hidden layers' fp32 weights ``Wf``
+    ([in, out] numpy, pre-dense first), as the quant branch of the JAX build
+    computes them, in the natural feature order without its 128-row padding
+    of the pre layer: the padded rows are zero, so ``smooth_fold`` leaves them
+    out of its geometric mean and the fold is the same."""
+    n_layers = len(Wf)
+    n_mm = n_layers + 1
+    per_channel = isinstance(act_amax, (list, tuple))
+    qinv = np.zeros((n_layers, hidden), np.float32)
+    if per_channel:
+        if len(act_amax) != n_mm:
+            raise ValueError(f"per-channel act_amax must have {n_mm} entries "
+                             f"(quant.calibrate_act_amax_per_channel); got {len(act_amax)}")
+        amax_t = []
+        for k in range(n_layers):
+            inv_k, Wf[k], a_t = smooth_fold(np.asarray(act_amax[k], np.float32).reshape(-1),
+                                            Wf[k])
+            qinv[k, :inv_k.shape[0]] = inv_k
+            amax_t.append(a_t)
+        amax = np.asarray(amax_t, np.float32)
+    else:
+        amax = np.asarray(act_amax, np.float32).reshape(-1)
+        if amax.shape != (n_mm,) or not np.all(amax > 0):
+            raise ValueError(f"act_amax must be {n_mm} positive ranges (one per matmul "
+                             f"input: x, h_pre, (h1, h_res) per block, h_post); got "
+                             f"{amax!r}")
+        for k in range(n_layers):
+            qinv[k] = np.float32(127.0) / amax[k]  # the TPU kernel's immediate
+    Wq, qs = [], np.zeros((n_layers, hidden), np.float32)
+    for k in range(n_layers):
+        q, s = quantize_cols(torch.from_numpy(np.ascontiguousarray(Wf[k])))
+        Wq.append(q.t().contiguous())
+        qs[k] = (amax[k] / 127.0) * s.numpy()
+    return dict(Wq=Wq, qs=torch.from_numpy(qs), qinv=torch.from_numpy(qinv))
 
 
 # ---------------------------------------------------------------------------
@@ -161,19 +232,106 @@ def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None):
 dense_gn_silu.launches = 0
 
 
+def layer_weights(net: dict, j: int) -> tuple:
+    """The weight operands of hidden layer ``j``: ``(W[j],)`` for bf16
+    operands, ``(Wq[j], qinv row, qs row)`` for int8 ones."""
+    if "Wq" not in net:
+        return (net["W"][j],)
+    return net["Wq"][j], net["qinv_rows"][j], net["qs_rows"][j]
+
+
+def hidden_layer(net: dict, plain: bool = False):
+    """The layer ``network_hidden`` runs on ``net``: K1 (bf16 operands) or
+    K13 (int8), or its plain version."""
+    if "Wq" in net:
+        return dense_gn_silu_int8_plain_into if plain else dense_gn_silu_int8
+    return dense_gn_silu_plain_into if plain else dense_gn_silu
+
+
 def network_hidden(net: dict, x: torch.Tensor, i: int, h: torch.Tensor,
-                   h1: torch.Tensor, layer=dense_gn_silu) -> torch.Tensor:
+                   h1: torch.Tensor, layer=None) -> torch.Tensor:
     """The network's last hidden activation at row ``i`` of the time grid into ``h``
-    (``h1`` is scratch): ``layer`` (K1, or its plain version) once for the
-    pre layer and twice per block."""
+    (``h1`` is scratch): ``layer`` once for the pre layer and twice per block.
+    ``layer`` (default ``hidden_layer(net)``) takes ``layer_weights(net, j)``:
+    K1 or its plain version for bf16 operands, K13 or its plain version for
+    int8 ones."""
+    layer = hidden_layer(net) if layer is None else layer
     tp = net["tp_all"][i]
-    W, gs, gb = net["W"], net["gn_scale"], net["gn_bias"]
-    layer(x, W[0], tp[0], gs[0], gb[0], out=h)
+    gs, gb = net["gn_scale"], net["gn_bias"]
+    layer(x, *layer_weights(net, 0), tp[0], gs[0], gb[0], out=h)
     for blk in range(net["n_blocks"]):
         j = 1 + 2 * blk
-        layer(h, W[j], tp[j], gs[j], gb[j], out=h1)
-        layer(h1, W[j + 1], tp[j + 1], gs[j + 1], gb[j + 1], residual=h, out=h)
+        layer(h, *layer_weights(net, j), tp[j], gs[j], gb[j], out=h1)
+        layer(h1, *layer_weights(net, j + 1), tp[j + 1], gs[j + 1], gb[j + 1],
+              residual=h, out=h)
     return h
+
+
+# ---------------------------------------------------------------------------
+# K13 dense_gn_silu_int8
+# ---------------------------------------------------------------------------
+
+def dense_gn_silu_int8_plain(a, wq, qinv, qs, tp_row, gamma, beta, residual=None):
+    """``SiLU(GN32(float(q(a) @ wq^T)*qs + tp_row)*gamma + beta) [+ residual]``
+    with ``q(a) = clamp(rint(a*qinv), -127, 127)``; the int32 sums exact."""
+    h = int8_matmul(quantize_act(a, qinv), wq.t()) * qs + tp_row
+    y = F.silu(_group_norm(h, gamma, beta, num_groups=NUM_GROUPS))
+    return y if residual is None else y + residual
+
+
+def dense_gn_silu_int8_plain_into(a, wq, qinv, qs, tp_row, gamma, beta, residual=None,
+                                  out=None):
+    """The plain version with the wrapper's signature, on any device."""
+    y = dense_gn_silu_int8_plain(a, wq, qinv, qs, tp_row, gamma, beta, residual)
+    return y if out is None else out.copy_(y)
+
+
+def _dense_gn_silu_int8_fn():
+    fn = build.load("dense_gn_silu_int8").dposer_dense_gn_silu_int8
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P] * 9 + [I, I, I, P]
+        fn.restype = I
+    return fn
+
+
+def dense_gn_silu_int8(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, out=None):
+    """K13 on ``a`` [B, K] fp32, ``wq`` [N, K] int8, ``qinv`` [K] and ``qs``
+    [N] fp32; writes ``out`` [B, N] fp32 (may be ``residual`` itself) and
+    returns it."""
+    B, K = a.shape
+    N = wq.shape[0]
+    if out is None:
+        out = torch.empty((B, N), dtype=torch.float32, device=a.device)
+    dev = a.device
+    _check("a", a, dev, torch.float32, (B, K))
+    _check("wq", wq, dev, torch.int8, (N, K))
+    _check("qinv", qinv, dev, torch.float32, (K,))
+    for nm, t in (("qs", qs), ("tp_row", tp_row), ("gamma", gamma), ("beta", beta)):
+        _check(nm, t, dev, torch.float32, (N,))
+    if residual is not None:
+        _check("residual", residual, dev, torch.float32, (B, N))
+    _check("out", out, dev, torch.float32, (B, N))
+    if dev.type == "cpu":
+        return dense_gn_silu_int8_plain_into(a, wq, qinv, qs, tp_row, gamma, beta, residual,
+                                             out)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_gn_silu_int8 runs on cpu or cuda, not {dev}")
+    gs = N // NUM_GROUPS
+    if N % 64 or gs not in (2, 4, 8, 16, 32) or K > 1024:
+        raise ValueError(f"dense_gn_silu_int8 kernel needs N % 64 == 0, a group size N/32 "
+                         f"in {{2,4,8,16,32}} and K <= 1024; got N={N}, K={K}")
+    err = _dense_gn_silu_int8_fn()(a.data_ptr(), wq.data_ptr(), qinv.data_ptr(),
+                                   qs.data_ptr(), tp_row.data_ptr(), gamma.data_ptr(),
+                                   beta.data_ptr(), _ptr(residual), out.data_ptr(), B, K, N,
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"dense_gn_silu_int8 launch failed: CUDA error {err}")
+    dense_gn_silu_int8.launches += 1
+    return out
+
+
+dense_gn_silu_int8.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -507,3 +507,124 @@ def test_train_route_matches_plain_route(dev):
     for n in gk:
         rel = float((gk[n] - gp[n]).norm() / (gp[n].norm() + 1e-12))
         assert rel < 2e-2, f"{n}: relative error {rel}"
+
+
+# ---------------------------------------------------------------------------
+# the int8 serving mode (K13) and the microbenchmarks' kernel (K14)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K", [63, 1024])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_dense_gn_silu_int8(dev, K, with_residual):
+    from dposer_tpu_torch.ops.cuda.score_net import (dense_gn_silu_int8,
+                                                     dense_gn_silu_int8_plain)
+    rng = np.random.default_rng(K + 1)
+    B, N = 500, 1024
+    a = _t(rng, (B, K), dev)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(N, K)).astype(np.int8)).to(dev)
+    qinv = torch.from_numpy(rng.uniform(10, 60, size=K).astype(np.float32)).to(dev)
+    qs = torch.from_numpy(rng.uniform(1e-5, 1e-4, size=N).astype(np.float32)).to(dev)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    res = _t(rng, (B, N), dev) if with_residual else None
+    want = dense_gn_silu_int8_plain(a, wq, qinv, qs, tp, gamma, beta, res)
+    reset_launch_counts()
+    out = dense_gn_silu_int8(a, wq, qinv, qs, tp, gamma, beta, residual=res)
+    torch.cuda.synchronize()
+    assert launch_counts()["dense_gn_silu_int8"] == 1
+    # the same int32 sums, the epilogue's fp32 in another order
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "bf16-out", "int8", "gn-silu"])
+@pytest.mark.parametrize("update", [False, True])
+def test_chain_link(dev, mode, update):
+    from dposer_tpu_torch.ops.cuda import chain_link as cl
+    rng = np.random.default_rng(21)
+    B, H = 512, 1024
+    a = _t(rng, (B, H), dev)
+    if mode == "int8":
+        w = torch.from_numpy(rng.integers(-30, 31, size=(H, H)).astype(np.int8)).to(dev)
+        rows = cl.int8_rows(H, H, dev)
+    else:
+        w, rows = _t(rng, (H, H), dev, H ** -0.5).to(torch.bfloat16), {}
+    x = _t(rng, (B, H), dev)
+    want = cl.chain_link_plain_into(a, w, mode, out=x.clone(), update=update, **rows)
+    reset_launch_counts()
+    out = cl.chain_link(a, w, mode, out=x, update=update, **rows)
+    torch.cuda.synchronize()
+    assert launch_counts()["chain_link"] == 1
+    scale = max(1.0, float(want.abs().max()))
+    # fp32 sums against the plain version's exact ones; a bf16 output may
+    # round to the neighbouring value
+    torch.testing.assert_close(out, want, rtol=0,
+                               atol=(8e-3 if mode == "bf16-out" else 1e-3) * scale)
+
+
+@pytest.mark.parametrize("scheme", ["tensor", "channel"])
+def test_int8_kernel_sampler_steps_match_plain(dev, scheme):
+    """The int8 kernel sampler against its plain loop, step by step from
+    the plain trajectory's state, and free-running within the bf16 sampler's
+    bound; K13 carries every hidden layer."""
+    from dposer_tpu_torch.ops.cuda import quant
+    model = _small_model(dev)
+    n, shape = 20, (40, 63)
+    sde = tsde.SubVPSDE(N=n)
+    calib = quant.calibrate_act_amax_per_channel if scheme == "channel" else \
+        quant.calibrate_act_amax
+    amax = calib(sde, model, (64, 63), torch.Generator(device=dev).manual_seed(0),
+                 device=dev)
+    rng = np.random.default_rng(23)
+    z, noise = _t(rng, shape, dev), _t(rng, (n, 1) + shape, dev)
+    net, coefs = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev,
+                                                 quant="int8", act_amax=amax)
+    sk, sp = (fused_em.pc_scratch(net, shape[0], 0, dev) for _ in range(2))
+    xp = z.clone()
+    reset_launch_counts()
+    for i in range(n):
+        xk = xp.clone()
+        fused_em.pc_step(net, coefs, i, xk, sk, noise[i], n_corr=0, snr=0.16)
+        fused_em.pc_step(net, coefs, i, xp, sp, noise[i], n_corr=0, snr=0.16, plain=True)
+        torch.testing.assert_close(xk, xp, rtol=0, atol=2e-2 * max(1.0, float(xp.abs().max())))
+    counts = launch_counts()
+    assert counts["dense_gn_silu_int8"] == 5 * n and counts["dense_gn_silu"] == 0
+    out = get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax,
+                              device="cuda")(z=z, noise=noise)
+    ref = get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax, device="cuda",
+                              plain=True)(z=z, noise=noise)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-2 * max(1.0, float(ref.abs().max())))
+
+
+def test_mixed_sampler_draws_the_full_runs_normals(dev):
+    """Under in-kernel normals the int8 head and the bf16 tail draw with the
+    one seed a full run draws: the mixed run is its two parts run with the
+    generator's state restored between them."""
+    from dposer_tpu_torch.ops.cuda import quant
+    model = _small_model(dev)
+    n, shape = 20, (40, 63)
+    sde = tsde.SubVPSDE(N=n)
+    amax = quant.calibrate_act_amax(sde, model, (64, 63),
+                                    torch.Generator(device=dev).manual_seed(0), device=dev)
+    kw = dict(rng_mode="kernel", device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    mixed = get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax,
+                                bf16_tail_steps=n - 1, **kw)(gen)
+    full_int8_first = get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax,
+                                          denoise=False, step_range=(0, 1), **kw)
+    tail = get_cuda_em_sampler(sde, model, shape, step_range=(1, n), **kw)
+    g = torch.Generator(device=dev).manual_seed(5)
+    z = sde.prior_sampling(shape, g, dev)
+    state = g.get_state()
+    x = full_int8_first(g, z=z)
+    g.set_state(state)
+    assert torch.equal(mixed, tail(g, z=x))
+
+
+def test_microbenchmarks_run_on_the_card(dev, monkeypatch):
+    from dposer_tpu_torch.benchmarks import ilp_probe, mxu_micro
+    args = ["--steps", "3", "--m-pipe", "2", "--rounds", "1"]
+    reset_launch_counts()
+    rows = mxu_micro.main(args)
+    assert all(r["ms"] > 0 and np.isfinite(r["checksum"]) for r in rows)
+    splits = ilp_probe.main(args)
+    assert [s["bitwise_equal_whole"] for s in splits] == [None, True, True]
+    assert launch_counts()["chain_link"] > 0

@@ -89,7 +89,7 @@ def test_dense_gn_silu_wrapper_on_cpu_writes_out_in_place():
     assert launch_counts() == dict.fromkeys(
         ("dense_gn_silu", "head_em", "langevin_update", "masked_renoise", "comp_perturb",
          "head_adam", "dense_gn_silu_jvp", "head_rk4", "head_rk4_jvp", "dense_gn_silu_train",
-         "head_dsm", "dense_gn_silu_bwd"), 0)
+         "head_dsm", "dense_gn_silu_bwd", "dense_gn_silu_int8", "chain_link"), 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous"])
