@@ -7,7 +7,8 @@ Phases; any failure exits non-zero:
 
 1. device: the card's name, count and power limit;
 2. build: the CUDA kernels from ``dposer_tpu_torch/ops/cuda/csrc`` with nvcc
-   (``-Xptxas -v`` printed);
+   (``-Xptxas -v`` printed, and the registers and shared memory of every
+   instantiation of the Hopper main loop ``dense_wgmma.cuh``);
 3. each of the fourteen kernels against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
    sampling, [1000, .] for the completion solver, [50, .] for the
@@ -17,6 +18,7 @@ Phases; any failure exits non-zero:
    plain version's, a library yardstick's and the bound from bytes and
    operations at the published H100 SXM peaks; K13 on states of a real
    trajectory with the per-tensor and per-channel ranges the demo calibrates;
+   K1 also at completion's [1000, 1024] residual block;
 4. the whole kernel sampler against the same loop on the plain versions,
    N = 20, injected noise, corrector none and langevin, without and with
    masked imputation: step by step, and row by row on the free-running
@@ -31,7 +33,8 @@ Phases; any failure exits non-zero:
 5. the slices' protocols at flagship size, each with the launch counters
    set to 0 before it and read after it:
    (a) generation, 500 poses x 1000 sub-VP EM steps, in-kernel normals:
-   poses/s; (b) the demo's generation task with ``--metrics`` (50 poses,
+   poses/s, and the tensor maps K1 encodes a call (at most 8: its map cache
+   holds them across launches); (b) the demo's generation task with ``--metrics`` (50 poses,
    then 500 poses x 1000 steps with the langevin corrector at eps 5e-3,
    through the SMPL body): APD must lie in [0.80, 1.00];
    (c) completion by optimisation, 100 synthetic poses x 10 hypotheses,
@@ -66,9 +69,11 @@ SMPL-X bodies and ``benchmarks/gen_synth_amass.py`` for the synthetic
 poses); writes only under ``chiprun_out/chip_smoke``.
 """
 import copy
+import ctypes
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -137,6 +142,7 @@ ODE_STEPS, LIK_STEPS, LIK_EPS, DECODE_EPS = 125, 100, 1e-4, 1e-5
 BPD_LIMIT = 0.1  # bits/dim between two paths' batch means (tests/test_fast_ode.py)
 ODE_TOL = 5e-2  # kernel against plain deterministic samplers, times max(1, |ref|max)
 PART, HYPO = "left_leg", 10
+TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generation call
 
 
 class PhaseError(RuntimeError):
@@ -236,6 +242,33 @@ def phase_device():
     return dict(kind=name, count=count, smi=smi)
 
 
+def wgmma_instantiations(logs):
+    """Registers, static shared memory and spills of every instantiation of
+    the Hopper main loop (``csrc/dense_wgmma.cuh``, in K1 and K14) from the
+    ``-Xptxas -v`` logs, and the dynamic shared memory of its two rings."""
+    rows = []
+    for lib in ("dense_gn_silu", "chain_link"):
+        entry = spill = None
+        for ln in logs.get(lib, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                entry = m.group(1) if "wgmma_kernel" in m.group(1) else None
+                spill = None
+            elif entry and "spill" in ln:
+                spill = ln.strip()
+            elif entry and "Used" in ln:
+                smem = re.search(r"(\d+) bytes smem", ln)
+                base = re.search(r"(dense_gn_silu|chain_link)_wgmma_kernel", entry).group(0)
+                args = ",".join(re.findall(r"L[ib](\d+)E", entry))
+                rows.append(dict(library=lib, kernel=f"{base}<{args}>",
+                                 registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
+                                 static_smem=int(smem.group(1)) if smem else 0, spills=spill))
+                entry = None
+    fn = build.load("dense_gn_silu").dposer_wgmma_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return rows, dict(wide=fn(1), narrow=fn(0))
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -243,7 +276,14 @@ def phase_build():
         print(f"[build] {name}: {build.library_path(name).name}\n{log.strip()}")
     secs = time.perf_counter() - t0
     print(f"[build] {len(logs)} kernels in {secs:.1f}s")
-    return secs
+    rows, dyn = wgmma_instantiations(logs)
+    for r in rows:
+        print(f"[build] wgmma main loop {r['library']}: {r['kernel']} {r['registers']} registers, "
+              f"{r['static_smem']} B static smem; {r['spills'] or 'spills not reported'}")
+    print(f"[build] wgmma rings: {dyn['wide']} B (wide) and {dyn['narrow']} B (narrow) of dynamic "
+          f"shared memory a block; {len(rows)} instantiations"
+          + ("" if rows else " (libraries were already built: no ptxas log)"))
+    return secs, dict(instantiations=rows, dynamic_smem=dyn)
 
 
 def load_pinned(dev):
@@ -278,22 +318,28 @@ def phase_kernels(model, dev):
     x = torch.randn(B, D, generator=gen, device=dev)
     rows = []
 
-    # K1 dense_gn_silu: the three layer shapes one network forward runs
+    # K1 dense_gn_silu: the three layer shapes one network forward runs, and
+    # the residual block at completion's 1000 rows (on the wide and the narrow
+    # ring of dense_wgmma.cuh: 128 and 256 blocks)
     h = score_net.dense_gn_silu_plain(x, W[0], tp[0], gs[0], gb[0])
     h1 = score_net.dense_gn_silu_plain(h, W[1], tp[1], gs[1], gb[1])
+    xc = torch.randn(RC, D, generator=torch.Generator(device=dev).manual_seed(1000), device=dev)
+    hc = score_net.dense_gn_silu_plain(xc, W[0], tp[0], gs[0], gb[0])
+    hc1 = score_net.dense_gn_silu_plain(hc, W[1], tp[1], gs[1], gb[1])
     variants = []
     for label, a, j, res in (("pre [500,63]x[63,1024]", x, 0, None),
                              ("block [500,1024]x[1024,1024]", h, 1, None),
-                             ("block+residual [500,1024]x[1024,1024]", h1, 2, h)):
+                             ("block+residual [500,1024]x[1024,1024]", h1, 2, h),
+                             ("block+residual/1000 [1000,1024]x[1024,1024]", hc1, 2, hc)):
         args = (a, W[j], tp[j], gs[j], gb[j])
         ref = score_net.dense_gn_silu_plain(*args, res)
         out = score_net.dense_gn_silu(*args, residual=res)
         torch.cuda.synchronize()
         e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
         check(e <= tol, f"dense_gn_silu {label}: max abs err {e} > {tol}")
-        K = a.shape[1]
-        n_bytes = 4 * B * K + 2 * K * H + 3 * 4 * H + 4 * B * H * (2 if res is not None else 1)
-        bms, by = bound(n_bytes, 2 * B * K * H, 14 * B * H)
+        R, K = a.shape
+        n_bytes = 4 * R * K + 2 * K * H + 3 * 4 * H + 4 * R * H * (2 if res is not None else 1)
+        bms, by = bound(n_bytes, 2 * R * K * H, 14 * R * H)
         o = torch.empty_like(ref)
         a16 = a.to(torch.bfloat16)
 
@@ -393,6 +439,10 @@ def phase_kernels(model, dev):
         library_ms=None, bound_ms=bms3, bound_by=by3))
     for r in rows:
         kernel_row_line(r)
+        for v in r.get("variants", []):
+            print(f"    {v['shape']}: err {v['max_abs_err']:.3g}, {v['ms'] * 1e3:.2f} us "
+                  f"(eager {v['eager_ms'] * 1e3:.2f}), plain {v['plain_ms'] * 1e3:.2f}, "
+                  f"library {v['library_ms'] * 1e3:.2f}, bound {v['bound_ms'] * 1e3:.2f} us")
     return rows
 
 
@@ -1089,9 +1139,10 @@ def phase_protocols(model, dev):
     sde = SubVPSDE(N=1000)
     sampler = demo.build_sampler(config, sde, model, B, 1e-3, "none", dev)
     gen = torch.Generator(device=dev).manual_seed(2)
-    walls, dev_ms = [], []
+    walls, dev_ms, encodes = [], [], []
     for _ in range(3):
         fused_em.reset_launch_counts()  # the counts read below are one call's
+        enc0 = build.tma_encodes("dense_gn_silu")
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1101,10 +1152,18 @@ def phase_protocols(model, dev):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         dev_ms.append(a.elapsed_time(b))
+        encodes.append(build.tma_encodes("dense_gn_silu") - enc0)
     check(x.shape == (B, D) and torch.isfinite(x).all().item(), "generation output")
     gen_counts = fused_em.launch_counts()
+    # K1 encodes its tensor maps once per (pointer, shape) and caches them: a
+    # call's four K = 1024 layers need two activation and four weight maps
+    print(f"[generation] tensor maps encoded per call: {encodes} for "
+          f"{gen_counts['dense_gn_silu']} K1 launches a call")
+    check(max(encodes) <= TMA_ENCODES_PER_CALL,
+          f"K1 encoded {max(encodes)} tensor maps in one generation call "
+          f"(> {TMA_ENCODES_PER_CALL}): the map cache is not holding")
     wall = min(walls[1:])  # steady state: the first call is the warm-up
-    gen_res = dict(poses_per_s=B / wall, wall_s=wall, walls_s=walls,
+    gen_res = dict(poses_per_s=B / wall, wall_s=wall, walls_s=walls, tma_encodes=encodes,
                    median_poses_per_s=B / float(np.median(walls[1:])), event_ms=dev_ms,
                    steps=1000, batch=B, launches=gen_counts)
     print(f"[generation] 500 x 1000 steps: {B / wall:.1f} poses/s best, "
@@ -1935,7 +1994,7 @@ def main():
     torch.cuda.set_device(dev)
     try:
         info = phase_device()
-        build_s = phase_build()
+        build_s, wgmma_build = phase_build()
         with torch.no_grad():
             model = load_pinned(dev)
             rows = phase_kernels(model, dev)
@@ -2033,7 +2092,7 @@ def main():
                          act_amax_channel_max=[float(np.max(a)) for a in amax["channel"]])
     proto["microbenchmarks"] = micro["results"]
     proto["launches_by_run"] = by_run
-    summary = dict(device=info, build_s=build_s, kernels=rows,
+    summary = dict(device=info, build_s=build_s, wgmma_build=wgmma_build, kernels=rows,
                    dense_gn_silu_ms_at_1000_rows=k1_rc, parity=parity,
                    protocols=proto, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                    wall_s=time.perf_counter() - t_start)

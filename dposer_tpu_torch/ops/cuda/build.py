@@ -96,6 +96,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def tma_encodes(name: str) -> int:
+    """Tensor maps that the library of kernel ``name`` (K1 or K14, whose main
+    loop is ``csrc/dense_wgmma.cuh``) has encoded since it was loaded: the
+    misses of its map cache."""
+    fn = load(name).dposer_tma_encodes
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
+
+
 if __name__ == "__main__":
     for kernel, log in build_all().items():
         print(f"== {kernel}: {library_path(kernel).name}")

@@ -25,10 +25,12 @@
 // bytes bound, so the card's answer to "how much faster is int8" is at best
 // the ratio of bytes, not of tensor-core rates.
 //
-// Design: the main loops of dense_gemm.cuh and dense_gemm_int8.cuh and the
-// epilogue of gn_epilogue.cuh, unchanged, so a link times exactly what K1 and
-// K13 spend on their matmuls. The state update is unfused multiplies and an
-// add, as the plain version rounds them.
+// Design: the bf16 modes run dense_wgmma.cuh's Hopper main loop (a TMA ring
+// with mbarriers, a producer warp, wgmma with A from registers), the loop K1
+// runs at K = 1024, and the gn-silu mode adds gn_epilogue.cuh, so a
+// link times exactly what K1 spends on its matmul and its epilogue. The int8
+// mode keeps dense_gemm_int8.cuh, K13's loop. The state update is unfused
+// multiplies and an add, as the plain version rounds them.
 
 #include <cstdint>
 
@@ -37,6 +39,7 @@
 
 #include "dense_gemm.cuh"
 #include "dense_gemm_int8.cuh"
+#include "dense_wgmma.cuh"
 #include "gn_epilogue.cuh"
 
 namespace {
@@ -65,39 +68,66 @@ __device__ __forceinline__ void store_plain(const float* c, float* out, int row0
   }
 }
 
-template <int MODE, int GS, bool UPDATE>
+template <bool UPDATE>
 __global__ void __launch_bounds__(THREADS)
-chain_link_kernel(const float* __restrict__ A, const void* __restrict__ W,
-                  const float* __restrict__ qinv, const float* __restrict__ qs, float* out,
-                  int B, int K, int N) {
+chain_link_int8_kernel(const float* __restrict__ A, const int8_t* __restrict__ Wq,
+                       const float* __restrict__ qinv, const float* __restrict__ qs,
+                       float* out, int B, int K, int N) {
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  if constexpr (MODE == kInt8) {
-    __shared__ __align__(128) dposer::dense8::Smem sm;
-    dposer::dense8::gemm_tile_int8<true>(sm, A, qinv, static_cast<const int8_t*>(W), qs, row0,
-                                         col0, B, K);
-    store_plain<MODE, UPDATE>(sm.c, out, row0, col0, B, N);
-  } else {
-    __shared__ __align__(128) dposer::dense::Smem sm;
-    dposer::dense::gemm_tile<true, false>(sm, A, nullptr, static_cast<const __nv_bfloat16*>(W),
-                                          row0, col0, B, K, N);
-    if constexpr (MODE == kGnSilu)
-      dposer::dense::gn_silu_epilogue<GS, UPDATE ? Out::kUpdate : Out::kStore>(
-          sm.c, nullptr, nullptr, nullptr, nullptr, out, row0, col0, B, N);
-    else
-      store_plain<MODE, UPDATE>(sm.c, out, row0, col0, B, N);
-  }
+  __shared__ __align__(128) dposer::dense8::Smem sm;
+  dposer::dense8::gemm_tile_int8<true>(sm, A, qinv, Wq, qs, row0, col0, B, K);
+  store_plain<kInt8, UPDATE>(sm.c, out, row0, col0, B, N);
+}
+
+// The bf16 modes, on ring shape R.
+template <int MODE, int GS, bool UPDATE, class R>
+__global__ void __launch_bounds__(THREADS)
+chain_link_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
+                        const __grid_constant__ CUtensorMap tmW, float* out, int B, int K,
+                        int N) {
+  extern __shared__ uint8_t smem[];
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const float* c = dposer::wgmma::gemm_tile<R>(smem, &tmA, &tmW, row0, col0, K);
+  if constexpr (MODE == kGnSilu)
+    dposer::dense::gn_silu_epilogue<GS, UPDATE ? Out::kUpdate : Out::kStore>(
+        c, nullptr, nullptr, nullptr, nullptr, out, row0, col0, B, N);
+  else
+    store_plain<MODE, UPDATE>(c, out, row0, col0, B, N);
+}
+
+int launch_int8(bool update, const float* A, const void* W, const float* qinv,
+                const float* qs, float* out, int B, int K, int N, cudaStream_t stream) {
+  const dim3 grid(N / BN, (B + BM - 1) / BM);
+  const auto* wq = static_cast<const int8_t*>(W);
+  if (update)
+    chain_link_int8_kernel<true><<<grid, THREADS, 0, stream>>>(A, wq, qinv, qs, out, B, K, N);
+  else
+    chain_link_int8_kernel<false><<<grid, THREADS, 0, stream>>>(A, wq, qinv, qs, out, B, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int MODE, int GS, class R>
+int launch_ring(bool update, dim3 grid, const float* A, const void* W, float* out, int B, int K,
+                int N, cudaStream_t stream) {
+  CUtensorMap ma, mw;
+  const int e = dposer::wgmma::gemm_maps<R>(&ma, &mw, A, W, B, K, N);
+  if (e != 0) return e;
+  if (update)
+    return dposer::wgmma::launch<R, chain_link_wgmma_kernel<MODE, GS, true, R>>(
+        grid, stream, ma, mw, out, B, K, N);
+  return dposer::wgmma::launch<R, chain_link_wgmma_kernel<MODE, GS, false, R>>(
+      grid, stream, ma, mw, out, B, K, N);
 }
 
 template <int MODE, int GS>
-void launch(bool update, const float* A, const void* W, const float* qinv, const float* qs,
-            float* out, int B, int K, int N, cudaStream_t stream) {
+int launch_bf16(bool update, const float* A, const void* W, float* out, int B, int K, int N,
+                cudaStream_t stream) {
   const dim3 grid(N / BN, (B + BM - 1) / BM);
-  if (update)
-    chain_link_kernel<MODE, GS, true><<<grid, THREADS, 0, stream>>>(A, W, qinv, qs, out, B, K, N);
-  else
-    chain_link_kernel<MODE, GS, false><<<grid, THREADS, 0, stream>>>(A, W, qinv, qs, out, B, K,
-                                                                     N);
+  if (dposer::wgmma::one_wave(grid.x * grid.y))
+    return launch_ring<MODE, GS, dposer::wgmma::Wide>(update, grid, A, W, out, B, K, N, stream);
+  return launch_ring<MODE, GS, dposer::wgmma::Narrow>(update, grid, A, W, out, B, K, N, stream);
 }
 
 }  // namespace
@@ -106,7 +136,8 @@ void launch(bool update, const float* A, const void* W, const float* qinv, const
 // qinv [K] and qs [N] fp32); out [B, N] fp32, the chain's state x when
 // update != 0 (then read and rewritten in place; it must not alias A). K a
 // multiple of 16 (<= 1024 in mode 2), N of 64, 16-byte aligned operands; in
-// mode 3 N/32 a power of two <= 32. Returns cudaGetLastError().
+// mode 3 N/32 a power of two <= 32. Returns 0, the error of a failed
+// tensor-map encode, or cudaGetLastError() after the launch.
 extern "C" int dposer_chain_link(const float* A, const void* W, const float* qinv,
                                  const float* qs, float* out, int mode, int update, int B, int K,
                                  int N, void* stream) {
@@ -119,20 +150,18 @@ extern "C" int dposer_chain_link(const float* A, const void* W, const float* qin
     return static_cast<int>(cudaErrorInvalidValue);
   const bool up = update != 0;
   switch (mode) {
-    case kBf16: launch<kBf16, 32>(up, A, W, qinv, qs, out, B, K, N, s); break;
-    case kBf16Out: launch<kBf16Out, 32>(up, A, W, qinv, qs, out, B, K, N, s); break;
-    case kInt8: launch<kInt8, 32>(up, A, W, qinv, qs, out, B, K, N, s); break;
+    case kBf16: return launch_bf16<kBf16, 32>(up, A, W, out, B, K, N, s);
+    case kBf16Out: return launch_bf16<kBf16Out, 32>(up, A, W, out, B, K, N, s);
+    case kInt8: return launch_int8(up, A, W, qinv, qs, out, B, K, N, s);
     case kGnSilu:
       switch (N / 32) {
-        case 2: launch<kGnSilu, 2>(up, A, W, qinv, qs, out, B, K, N, s); break;
-        case 4: launch<kGnSilu, 4>(up, A, W, qinv, qs, out, B, K, N, s); break;
-        case 8: launch<kGnSilu, 8>(up, A, W, qinv, qs, out, B, K, N, s); break;
-        case 16: launch<kGnSilu, 16>(up, A, W, qinv, qs, out, B, K, N, s); break;
-        case 32: launch<kGnSilu, 32>(up, A, W, qinv, qs, out, B, K, N, s); break;
+        case 2: return launch_bf16<kGnSilu, 2>(up, A, W, out, B, K, N, s);
+        case 4: return launch_bf16<kGnSilu, 4>(up, A, W, out, B, K, N, s);
+        case 8: return launch_bf16<kGnSilu, 8>(up, A, W, out, B, K, N, s);
+        case 16: return launch_bf16<kGnSilu, 16>(up, A, W, out, B, K, N, s);
+        case 32: return launch_bf16<kGnSilu, 32>(up, A, W, out, B, K, N, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
       }
-      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -37,20 +37,30 @@ def _t(rng, shape, dev, scale=1.0):
     return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("K", [63, 1024])
-@pytest.mark.parametrize("with_residual", [False, True])
-def test_dense_gn_silu(dev, K, with_residual):
+# rows: one, a likelihood batch, generation's 500 (a ragged last tile; the
+# wide ring) and completion's 1,000 (the narrow ring at N = 1024, more blocks
+# than SMs); K: the pre layer's 63
+# (the element-load loop), 64 (one TMA stage, half of a wide one) and 1024;
+# N = 32 x the group size; the residual absent, given, or aliased by out
+@pytest.mark.parametrize("B", [1, 50, 500, 1000])
+@pytest.mark.parametrize("K", [63, 64, 1024])
+@pytest.mark.parametrize("gs", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("residual", ["none", "given", "aliased"])
+def test_dense_gn_silu(dev, B, K, gs, residual):
     rng = np.random.default_rng(K)
-    B, N = 500, 1024
+    N = 32 * gs
     a = _t(rng, (B, K), dev)
     w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
     tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
-    res = _t(rng, (B, N), dev) if with_residual else None
+    res = _t(rng, (B, N), dev) if residual != "none" else None
     want = score_net.dense_gn_silu_plain(a, w, tp, gamma, beta, res)
     reset_launch_counts()
-    out = dense_gn_silu(a, w, tp, gamma, beta, residual=res)
+    out = dense_gn_silu(a, w, tp, gamma, beta, residual=res,
+                        out=res if residual == "aliased" else None)
     torch.cuda.synchronize()
     assert launch_counts()["dense_gn_silu"] == 1
+    if residual == "aliased":
+        assert out is res
     # same bf16 operands, fp32 sums in another order: rounding only
     torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
 
@@ -537,17 +547,27 @@ def test_dense_gn_silu_int8(dev, K, with_residual):
 
 @pytest.mark.parametrize("mode", ["bf16", "bf16-out", "int8", "gn-silu"])
 @pytest.mark.parametrize("update", [False, True])
-def test_chain_link(dev, mode, update):
+@pytest.mark.parametrize("B", [1, 50, 500, 1000])
+@pytest.mark.parametrize("K", [63, 64, 1024])
+@pytest.mark.parametrize("gs", [2, 4, 8, 16, 32])
+def test_chain_link(dev, mode, update, B, K, gs):
     from dposer_tpu_torch.ops.cuda import chain_link as cl
     rng = np.random.default_rng(21)
-    B, H = 512, 1024
-    a = _t(rng, (B, H), dev)
+    N = 32 * gs
+    a = _t(rng, (B, K), dev)
     if mode == "int8":
-        w = torch.from_numpy(rng.integers(-30, 31, size=(H, H)).astype(np.int8)).to(dev)
-        rows = cl.int8_rows(H, H, dev)
+        w = torch.from_numpy(rng.integers(-30, 31, size=(N, K)).astype(np.int8)).to(dev)
+        rows = cl.int8_rows(K, N, dev)
     else:
-        w, rows = _t(rng, (H, H), dev, H ** -0.5).to(torch.bfloat16), {}
-    x = _t(rng, (B, H), dev)
+        w, rows = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16), {}
+    x = _t(rng, (B, N), dev)
+    if K % 16:
+        # the kernel takes K in multiples of 16: the wrapper raises, no launch
+        reset_launch_counts()
+        with pytest.raises(ValueError):
+            cl.chain_link(a, w, mode, out=x, update=update, **rows)
+        assert launch_counts()["chain_link"] == 0
+        return
     want = cl.chain_link_plain_into(a, w, mode, out=x.clone(), update=update, **rows)
     reset_launch_counts()
     out = cl.chain_link(a, w, mode, out=x, update=update, **rows)

@@ -9,6 +9,8 @@ the kernel sampler to ``get_pallas_em_sampler(interpret=True)`` on the same
 weights and injected noise. The CUDA kernels themselves are held to the
 plain versions on the card by ``test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -105,6 +107,48 @@ def test_dense_gn_silu_wrapper_rejects_bad_operands(bad):
         a = torch.from_numpy(np.ones((K, B), np.float32)).t()
     with pytest.raises((TypeError, ValueError)):
         dense_gn_silu(a, w, tp, gamma, beta)
+
+
+def test_k1_and_k14_wrappers_check_before_any_launch():
+    """Operands on a device that is neither the CPU nor a card: both wrappers
+    of the Hopper main loop raise after their checks, before any library is
+    loaded or any kernel launched."""
+    from dposer_tpu_torch.ops.cuda import chain_link as cl
+    B, K, N = 4, 64, 64
+    meta = torch.device("meta")
+    a = torch.empty(B, K, device=meta)
+    w = torch.empty(K, N, dtype=torch.bfloat16, device=meta)
+    rows = [torch.empty(N, device=meta) for _ in range(3)]
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        dense_gn_silu(a, w, *rows)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        cl.chain_link(a, w, "bf16")
+    with pytest.raises(TypeError):  # the dtype check comes first
+        dense_gn_silu(a, w.float(), *rows)
+    assert launch_counts()["dense_gn_silu"] == launch_counts()["chain_link"] == 0
+
+
+def test_tma_encodes_reads_the_library_counter(monkeypatch):
+    """``build.tma_encodes`` reads the named library's count of tensor-map
+    encodes as a 64-bit integer."""
+    from dposer_tpu_torch.ops.cuda import build
+
+    class Counter:
+        argtypes = restype = None
+
+        def __call__(self):
+            return 2 ** 40 + 6
+
+    class Lib:
+        dposer_tma_encodes = Counter()
+
+    loaded = []
+    monkeypatch.setattr(build, "load", lambda name: loaded.append(name) or Lib)
+    assert build.tma_encodes("dense_gn_silu") == 2 ** 40 + 6
+    assert loaded == ["dense_gn_silu"]
+    assert Lib.dposer_tma_encodes.restype is ctypes.c_longlong
+    assert Lib.dposer_tma_encodes.argtypes == []
 
 
 def _head_inputs(B=10, H=128, D=63, n_steps=5, seed=3):
