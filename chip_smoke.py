@@ -8,12 +8,16 @@ Phases; any failure exits non-zero:
 1. device: the card's name, count and power limit;
 2. build: the CUDA kernels from ``dposer_tpu_torch/ops/cuda/csrc`` with nvcc
    (``-Xptxas -v`` printed, and the registers and shared memory of every
-   instantiation of the Hopper main loop ``dense_wgmma.cuh``);
+   instantiation of the Hopper main loop ``dense_wgmma.cuh``; for the
+   cluster kernels K2 and K3 their grid, cluster size, shared memory, the
+   clusters the card holds at once and their registers);
 3. each of the fourteen kernels against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
    sampling, [1000, .] for the completion solver, [50, .] for the
    likelihood, [1280, .] for training, [512, .] for the microbenchmarks), on
-   the pinned trained weights, with the in-kernel normals' moments, and its
+   the pinned trained weights, with the in-kernel normals' moments (for K2
+   and K3 also element by element against the plain Philox stream of
+   ``ops/cuda/philox.py``, and 50 repeated calls bit-identical), and its
    device time (CUDA-graph replay, so host overhead is excluded) beside the
    plain version's, a library yardstick's and the bound from bytes and
    operations at the published H100 SXM peaks; K13 on states of a real
@@ -105,7 +109,8 @@ from dposer_tpu_torch.diffusion.score_fn import get_score_fn  # noqa: E402
 from dposer_tpu_torch.diffusion.sde import SubVPSDE  # noqa: E402
 from dposer_tpu_torch.benchmarks import ilp_probe, mxu_micro  # noqa: E402
 from dposer_tpu_torch.ops.cuda import (build, chain_link, fused_comp, fused_em,  # noqa: E402
-                                       fused_lik, fused_ode, fused_train, quant, score_net)
+                                       fused_lik, fused_ode, fused_train, philox, quant,
+                                       score_net)
 from dposer_tpu_torch.models import create_score_model  # noqa: E402
 from dposer_tpu_torch.ops.metrics import Evaler, average_pairwise_distance  # noqa: E402
 from dposer_tpu_torch.tasks import DPoserComp  # noqa: E402
@@ -143,6 +148,8 @@ BPD_LIMIT = 0.1  # bits/dim between two paths' batch means (tests/test_fast_ode.
 ODE_TOL = 5e-2  # kernel against plain deterministic samplers, times max(1, |ref|max)
 PART, HYPO = "left_leg", 10
 TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generation call
+DRAW_TOL = 1e-5  # in-kernel normals against the plain Philox stream (logf, cospif vs float64)
+REPEATS = 50  # repeated calls of K2 and K3 that must give the same bits
 
 
 class PhaseError(RuntimeError):
@@ -242,31 +249,54 @@ def phase_device():
     return dict(kind=name, count=count, smi=smi)
 
 
+def ptxas_entries(log, word):
+    """Registers, static shared memory and spills of each entry function of
+    one library's ``-Xptxas -v`` log whose mangled name holds ``word``."""
+    rows, entry, spill = [], None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = m.group(1) if word in m.group(1) else None
+            spill = None
+        elif entry and "spill" in ln:
+            spill = ln.strip()
+        elif entry and "Used" in ln:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            rows.append(dict(entry=entry,
+                             registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
+                             static_smem=int(smem.group(1)) if smem else 0, spills=spill))
+            entry = None
+    return rows
+
+
 def wgmma_instantiations(logs):
     """Registers, static shared memory and spills of every instantiation of
     the Hopper main loop (``csrc/dense_wgmma.cuh``, in K1 and K14) from the
     ``-Xptxas -v`` logs, and the dynamic shared memory of its two rings."""
     rows = []
     for lib in ("dense_gn_silu", "chain_link"):
-        entry = spill = None
-        for ln in logs.get(lib, "").splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", ln)
-            if m:
-                entry = m.group(1) if "wgmma_kernel" in m.group(1) else None
-                spill = None
-            elif entry and "spill" in ln:
-                spill = ln.strip()
-            elif entry and "Used" in ln:
-                smem = re.search(r"(\d+) bytes smem", ln)
-                base = re.search(r"(dense_gn_silu|chain_link)_wgmma_kernel", entry).group(0)
-                args = ",".join(re.findall(r"L[ib](\d+)E", entry))
-                rows.append(dict(library=lib, kernel=f"{base}<{args}>",
-                                 registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
-                                 static_smem=int(smem.group(1)) if smem else 0, spills=spill))
-                entry = None
+        for e in ptxas_entries(logs.get(lib, ""), "wgmma_kernel"):
+            base = re.search(r"(dense_gn_silu|chain_link)_wgmma_kernel", e["entry"]).group(0)
+            args = ",".join(re.findall(r"L[ib](\d+)E", e["entry"]))
+            rows.append(dict(library=lib, kernel=f"{base}<{args}>", registers=e["registers"],
+                             static_smem=e["static_smem"], spills=e["spills"]))
     fn = build.load("dense_gn_silu").dposer_wgmma_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return rows, dict(wide=fn(1), narrow=fn(0))
+
+
+def cluster_launch(lib, *args):
+    """The cluster kernel of ``lib`` (K2 ``head_em`` at ``args`` = (B, H), K3
+    ``langevin_update``) as it launches on this card: grid CTAs, cluster
+    size, threads and dynamic shared memory a CTA, and the clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    fn = getattr(build.load(lib), f"dposer_{lib}_launch_info")
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    check(fn(*args, out) == 0 and out[4] >= 1, f"{lib}: the card holds no cluster ({list(out)})")
+    return dict(zip(("grid_ctas", "cluster", "threads", "dynamic_smem", "clusters_resident"),
+                    list(out)))
 
 
 def phase_build():
@@ -283,7 +313,18 @@ def phase_build():
     print(f"[build] wgmma rings: {dyn['wide']} B (wide) and {dyn['narrow']} B (narrow) of dynamic "
           f"shared memory a block; {len(rows)} instantiations"
           + ("" if rows else " (libraries were already built: no ptxas log)"))
-    return secs, dict(instantiations=rows, dynamic_smem=dyn)
+    clusters = {}
+    for lib, args in (("head_em", (B, H)), ("langevin_update", ())):
+        ptx = ptxas_entries(logs.get(lib, ""), f"{lib}_kernel")
+        clusters[lib] = dict(cluster_launch(lib, *args), ptxas=ptx)
+        c = clusters[lib]
+        print(f"[build] {lib} cluster kernel: grid {c['grid_ctas']} CTAs in clusters of "
+              f"{c['cluster']}, {c['threads']} threads, {c['dynamic_smem']} B dynamic smem a CTA; "
+              f"{c['clusters_resident']} clusters resident at once; "
+              + ("; ".join(f"{e['registers']} registers, {e['static_smem']} B static smem, "
+                           f"{e['spills'] or 'spills not reported'}" for e in ptx)
+                 or "no ptxas log (already built)"))
+    return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters)
 
 
 def load_pinned(dev):
@@ -380,24 +421,48 @@ def phase_kernels(model, dev):
     check(all(a <= b for a, b in zip(e2, tol2)), f"head_em: errors {e2} > {tol2}")
     sq_e = float(((sq - sq_ref).abs() / sq_ref.abs().clamp(min=1e-6)).max())
     check(sq_e <= 1e-3, f"head_em: row norms relative error {sq_e}")
-    # in-kernel normals: with cnoise = 1, x_new - x_mean is the draw
+    # in-kernel normals: with cnoise = 1, x_new - x_mean is the draw, held
+    # element by element to the plain Philox stream (philox_normal per element)
     c1 = coefs.clone()
     c1[:, 2] = 1.0
-    draws = []
+    draws, draw_e = [], 0.0
     for step in range(4):
         xs = x.clone()
         fused_em.head_em(hid, wp, bp, c1, step, "em", x=xs, x_mean=xm, seed=20240917, slab=1)
         draws.append((xs - xm).flatten())
+        want = philox.normals_grid(20240917, step, 1, B, D, device=dev)
+        draw_e = max(draw_e, err(xs - xm, want))
+    check(draw_e <= DRAW_TOL, f"head_em: in-kernel normals off the Philox stream by {draw_e}")
     k2_moments = normal_moments(draws, "head_em")
+    # 50 repeated calls give the same bits: the split-K partials are summed
+    # through distributed shared memory in a fixed order
+    xt, xmt, st_, sqt = x.clone(), torch.empty_like(x), torch.empty_like(x), torch.empty_like(sq)
+    runs2 = []
+    for _ in range(1 + REPEATS):
+        xt.copy_(x)
+        fused_em.head_em(hid, wp, bp, coefs, i, "em", x=xt, x_mean=xmt, seed=7, slab=1)
+        fused_em.head_em(hid, wp, bp, coefs, i, "score", score=st_, score_sq=sqt)
+        runs2.append([t.clone() for t in (xt, xmt, st_, sqt)])
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for run in runs2[1:] for a, b in zip(run, runs2[0])),
+          f"head_em: {REPEATS} repeated calls are not bit-identical")
     xt = x.clone()
     n2 = 4 * B * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 2 * 4 * B * D + 32
     bms2, by2 = bound(n2, 2 * B * H * D, 110 * B * D)
+    bp16, cf = bp.to(torch.bfloat16), coefs[i]
+
+    def head_library():  # composite: bf16 addmm, then the EM update on host normals
+        out = torch.addmm(bp16, hid.to(torch.bfloat16), wp)[:, :D].float()
+        xm_l = cf[0] * x + cf[1] * out
+        return xm_l + cf[2] * z, xm_l
+
     rows.append(dict(
         name="head_em", route="cuda", source=f"{CSRC}/head_em.cu", replaces=TPU_KERNEL,
         replaces_part="fused_em.py:199-206 (fwd's post-dense, EM update, box_muller); "
                       ":178 (the corrector's score)",
         shape="EM mode, in-kernel normals, [500,1024]x[1024,63]",
         max_abs_err=max(e2), tol="1e-3*max(1,|ref|max)", normals_mean_std_n=k2_moments,
+        draws_max_abs_err=draw_e, repeats_bit_identical=REPEATS,
         ms=graph_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "em", x=xt, seed=7, slab=1)),
         eager_ms=eager_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "em", x=xt,
                                                    seed=7, slab=1)),
@@ -405,7 +470,11 @@ def phase_kernels(model, dev):
                                                          x=x, noise=z)),
         score_mode_ms=graph_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "score",
                                                         score=score, score_sq=sq)),
-        library_ms=None, bound_ms=bms2, bound_by=by2))
+        score_mode_eager_ms=eager_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "score",
+                                                              score=score, score_sq=sq)),
+        library_ms=graph_ms(head_library),
+        library="composite: bf16 torch.addmm + the EM update in torch ops, host normals",
+        bound_ms=bms2, bound_by=by2))
 
     # K3 langevin_update, on the score K2 produced
     lc = coefs.clone()
@@ -417,32 +486,64 @@ def phase_kernels(model, dev):
     check(e3 <= tol3, f"langevin_update: max abs err {e3} > {tol3}")
     st_e = abs(float(st[0]) / float(st_ref) - 1.0)
     check(st_e <= 1e-4, f"langevin_update: step size relative error {st_e}")
-    draws = []
+    # in-kernel normals from x = 0, held to the plain Philox stream
+    # (philox_normal4: a call a group of four columns)
+    draws, draw_e3 = [], 0.0
     for step in range(4):
         x0 = torch.zeros_like(x)
         fused_em.langevin_update(x0, score, sq, lc, i - step, 0.16, seed=99, slab=0,
                                  step_out=st)
-        draws.append(((x0 - st * score) / torch.sqrt(2 * st)).flatten())
+        zk = (x0 - st * score) / torch.sqrt(2 * st)
+        draws.append(zk.flatten())
+        want = philox.normals_grid(99, i - step, 0, B, D, per_group=True, device=dev)
+        draw_e3 = max(draw_e3, err(zk, want))
+    check(draw_e3 <= DRAW_TOL,
+          f"langevin_update: in-kernel normals off the Philox stream by {draw_e3}")
     k3_moments = normal_moments(draws, "langevin_update")
+    runs3 = []
+    x3t = torch.empty_like(x)
+    for _ in range(1 + REPEATS):
+        x3t.copy_(x)
+        fused_em.langevin_update(x3t, score, sq, lc, i, 0.16, seed=5, step_out=st)
+        runs3.append((x3t.clone(), st.clone()))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for run in runs3[1:] for a, b in zip(run, runs3[0])),
+          f"langevin_update: {REPEATS} repeated calls are not bit-identical")
     bms3, by3 = bound(3 * 4 * B * D + 4 * B + 32, 0, 220 * B * D)
     xt = x.clone()
+
+    def langevin_library():  # composite: vector_norm, mean and the update in torch ops
+        gn = torch.sqrt(sq).mean()
+        zn = torch.linalg.vector_norm(z, dim=1).mean()
+        st_l = (0.16 * zn / gn) ** 2 * 2 * lc[i, 4]
+        return x + st_l * score + torch.sqrt(2 * st_l) * z
+
     rows.append(dict(
         name="langevin_update", route="cuda", source=f"{CSRC}/langevin_update.cu",
         replaces=TPU_KERNEL, replaces_part="fused_em.py:176-190 (langevin corrector)",
         shape="[500,63], in-kernel normals", max_abs_err=e3, tol="1e-4*max(1,|ref|max)",
-        normals_mean_std_n=k3_moments,
+        normals_mean_std_n=k3_moments, draws_max_abs_err=draw_e3,
+        repeats_bit_identical=REPEATS,
         ms=graph_ms(lambda: fused_em.langevin_update(xt, score, sq, lc, i, 0.16, seed=5)),
         eager_ms=eager_ms(lambda: fused_em.langevin_update(xt, score, sq, lc, i, 0.16,
                                                            seed=5)),
         plain_ms=graph_ms(lambda: fused_em.langevin_update_plain(x, score, sq, lc, i,
                                                                  0.16, z)),
-        library_ms=None, bound_ms=bms3, bound_by=by3))
+        library_ms=graph_ms(langevin_library),
+        library="composite: torch.linalg.vector_norm + mean + the update in torch ops",
+        bound_ms=bms3, bound_by=by3))
     for r in rows:
         kernel_row_line(r)
         for v in r.get("variants", []):
             print(f"    {v['shape']}: err {v['max_abs_err']:.3g}, {v['ms'] * 1e3:.2f} us "
                   f"(eager {v['eager_ms'] * 1e3:.2f}), plain {v['plain_ms'] * 1e3:.2f}, "
                   f"library {v['library_ms'] * 1e3:.2f}, bound {v['bound_ms'] * 1e3:.2f} us")
+        if "draws_max_abs_err" in r:
+            print(f"    in-kernel normals within {r['draws_max_abs_err']:.3g} of the plain Philox "
+                  f"stream; {r['repeats_bit_identical']} repeated calls bit-identical; library "
+                  f"is a {r['library']}"
+                  + (f"; score mode {r['score_mode_ms'] * 1e3:.2f} us (eager "
+                     f"{r['score_mode_eager_ms'] * 1e3:.2f})" if "score_mode_ms" in r else ""))
     return rows
 
 
@@ -2038,8 +2139,21 @@ def main():
     gen = proto["generation"]
     gen["device_ms_per_call_est"] = 1000 * step_ms
     gen["device_busy_share_est"] = 1000 * step_ms / (1e3 * gen["wall_s"])
-    print(f"[generation] kernels alone: {1000 * step_ms:.1f} ms per call, so the device "
-          f"is busy ~{100 * gen['device_busy_share_est']:.0f}% of the best call")
+    print(f"[generation] kernels alone: {step_ms * 1e3:.1f} us a step, {1000 * step_ms:.1f} ms "
+          f"per call, so the device is busy ~{100 * gen['device_busy_share_est']:.0f}% of the "
+          f"best call")
+    # a metrics step (500 x 1000, langevin): the corrector's forward, K2 in
+    # score mode and K3, then the predictor's forward and K2 in EM mode
+    k2_row = next(r for r in rows if r["name"] == "head_em")
+    metrics_step = (2 * (step_ms - ms["head_em"]) + ms["head_em"] + k2_row["score_mode_ms"]
+                    + ms["langevin_update"])
+    met = proto["metrics"]
+    met["device_ms_per_sampling_est"] = 1000 * metrics_step
+    met["device_share_of_protocol_wall_est"] = 1000 * metrics_step / (1e3 * met["wall_s"])
+    print(f"[metrics] kernels alone: {metrics_step * 1e3:.1f} us a step, "
+          f"{1000 * metrics_step:.1f} ms for the 500 x 1000 sampling, "
+          f"~{100 * met['device_share_of_protocol_wall_est']:.0f}% of the protocol's wall "
+          f"(build + 50-pose demo + sampling + APD)")
     # the same estimate for a solve: 200 steps of K5, K1 x5 and K6 at 1000 rows
     fwd_rc = k1_rc["pre"] + 2 * k1_rc["block"] + 2 * k1_rc["block+residual"]
     solve_ms = 200 * (ms["comp_perturb"] + fwd_rc + ms["head_adam"])

@@ -55,11 +55,11 @@
 //   bound by L2, so there are no clusters.
 // - The fp32 tile for the epilogue aliases stage 0 of the ring once the
 //   consumers are done.
-// - Tensor maps are encoded on the host (cuTensorMapEncodeTiled, found with
-//   cudaGetDriverEntryPoint, so no -lcuda) and cached by (pointer, dims,
-//   stride, box): the samplers' loops launch with a handful of maps and
-//   encode each once. They reach the kernel as __grid_constant__
-//   parameters.
+// - Tensor maps are encoded on the host (tensor_map.cuh:
+//   cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint, so no -lcuda)
+//   and cached by (pointer, dims, stride, box): the samplers' loops launch
+//   with a handful of maps and encode each once. They reach the kernel as
+//   __grid_constant__ parameters.
 // TMA needs 16-byte aligned rows and pointers: an A with K % 4 != 0 (the
 // pre layer, K = 63) or a misaligned operand goes through dense_gemm.cuh.
 #pragma once
@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 
 #include "dense_gemm.cuh"
+#include "mbarrier.cuh"
+#include "tensor_map.cuh"
 
 namespace dposer {
 namespace wgmma {
@@ -110,47 +112,8 @@ using Wide = Ring<128, 3>;
 using Narrow = Ring<64, 4>;
 
 // ---------------------------------------------------------------------------
-// device side
+// device side (the mbarrier and copy wrappers are mbarrier.cuh's)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // Descriptor of a bf16 B operand, MN-major, 128-byte swizzle, one atom (64
 // columns) wide: 8-row K groups 1024 bytes apart (the stride byte offset;
@@ -384,85 +347,6 @@ inline bool tma_ok(const void* A, const void* W, int K, int N) {
          reinterpret_cast<uintptr_t>(W) % 16 == 0;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                : nullptr;
-  }();
-  return fn;
-}
-
-struct MapKey {
-  const void* ptr;
-  uint64_t dim0, dim1, stride;
-  uint32_t box0, box1;
-  int dtype;
-};
-
-struct MapCache {
-  static constexpr int SLOTS = 64;
-  MapKey key[SLOTS];
-  CUtensorMap map[SLOTS];
-  int used = 0, next = 0;
-  long long encodes = 0;
-  std::mutex mu;
-};
-
-inline MapCache& map_cache() {
-  static MapCache cache;
-  return cache;
-}
-
-// A 2-D row-major map (dim0 contiguous) with the 128-byte swizzle, from the
-// cache or encoded into it. Returns 0 or a CUDA error code.
-inline int tensor_map(CUtensorMap* out, const void* ptr, CUtensorMapDataType dtype,
-                      int elem_bytes, uint64_t dim0, uint64_t dim1, uint32_t box0,
-                      uint32_t box1) {
-  const MapKey k{ptr, dim0, dim1, dim0 * elem_bytes, box0, box1, static_cast<int>(dtype)};
-  MapCache& c = map_cache();
-  std::lock_guard<std::mutex> lock(c.mu);
-  for (int i = 0; i < c.used; ++i) {
-    const MapKey& h = c.key[i];
-    if (h.ptr == k.ptr && h.dim0 == k.dim0 && h.dim1 == k.dim1 && h.stride == k.stride &&
-        h.box0 == k.box0 && h.box1 == k.box1 && h.dtype == k.dtype) {
-      *out = c.map[i];
-      return 0;
-    }
-  }
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[2] = {dim0, dim1};
-  const cuuint64_t strides[1] = {k.stride};
-  const cuuint32_t box[2] = {box0, box1};
-  const cuuint32_t elem[2] = {1, 1};
-  const int slot = c.used < MapCache::SLOTS ? c.used++ : (c.next++ % MapCache::SLOTS);
-  const CUresult r = encode(&c.map[slot], dtype, 2, const_cast<void*>(ptr), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) {
-    c.key[slot].ptr = nullptr;  // never matches: the slot holds no valid map
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  c.key[slot] = k;
-  ++c.encodes;
-  *out = c.map[slot];
-  return 0;
-}
-
 // Whether a grid of `blocks` fits the current device's SMs once (then the
 // Wide ring).
 inline bool one_wave(int blocks) {
@@ -500,7 +384,7 @@ int launch(dim3 grid, cudaStream_t stream, Args... args) {
 // unit a library): tensor maps encoded so far (the cache's misses), and the
 // dynamic shared memory a block of the main loop takes.
 extern "C" long long dposer_tma_encodes(void) {
-  dposer::wgmma::MapCache& c = dposer::wgmma::map_cache();
+  dposer::MapCache& c = dposer::map_cache();
   std::lock_guard<std::mutex> lock(c.mu);
   return c.encodes;
 }

@@ -12,62 +12,108 @@
 // bf16 tensor-core time) against ~2.4 MB moved (h fp32 read once, x read and
 // written): bytes bound, ~0.7 us.
 //
-// Design: the head itself is head_gemm.cuh's block tile (16 rows x 64 padded
-// columns, bf16 WMMA, partial sums in shared memory). The update runs in the
-// epilogue, so out never goes to device memory; in score mode warp r owns row
-// r and reduces its norm with shuffles. The step's scalars are read from the
-// device coefficient table, so the host loop never synchronizes.
+// Design: the head is head_cluster.cuh's split-K over a cluster of 4 CTAs a
+// 16-row tile (128 CTAs at 500 rows), its partials pushed through
+// distributed shared memory (st.async onto the receiver's mbarrier) to the
+// CTA that finishes their rows and summed there in a fixed order. The update
+// runs in that epilogue, so out never goes to device memory: the CTA of rank
+// q finishes rows 4q .. 4q+3 of its tile, its epilogue warp 4 + e row
+// 4q + e, each lane columns lane and lane + 32; in score mode the warp
+// reduces the row's norm with shuffles. The epilogue warps load x, the bias
+// and the step's scalars and draw the normals while the head's copies fly
+// (at 500 rows 6 MB from L2, two thirds of it the 32 KB Wpost slice each
+// CTA reads) and the MMA warps wait for them. The
+// step's scalars are read from the device coefficient table, so the host
+// loop never synchronizes. In-kernel normals are philox_normal(seed, step,
+// slab, row, col), one Philox call an element, as in every earlier version.
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-#include "head_gemm.cuh"
+#include "head_cluster.cuh"
 
 namespace {
 
-using namespace dposer::head;
+using namespace dposer::head_cluster;
 
 constexpr int N_COEFS = 8;  // cx, cout, cnoise, score_scale, alpha, (imputation x2), pad
 
-__global__ void __launch_bounds__(THREADS)
-head_em_kernel(const float* __restrict__ h, const __nv_bfloat16* __restrict__ Wpost,
+__global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(THREADS)
+head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
                int mode, float* x, float* x_mean, float* score, float* score_sq,
                const float* __restrict__ noise, unsigned long long seed, int slab, int B,
                int H, int D) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int row0 = blockIdx.x * ROWS;
-  const float* Cs = gemm_tile(h, Wpost, smem, row0, B, H);
+  const Layout L(smem, H);
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int row0 = (blockIdx.x / SPLIT) * ROWS;
+  start_copies(h, &tmW, L, row0, rank, B, H);
+  cluster_arrive_relaxed();  // the barriers are set up; waited on before the first push
+  __syncthreads();  // the barriers are initialized, the zeroed rows written
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < MMA_WARPS) {
+    send_partials(L, rank, H);
+    return;
+  }
 
+  // The epilogue warps: warp MMA_WARPS + e finishes row rank * ROWS_PER_CTA
+  // + e of the tile, each lane columns lane and lane + 32. While the copies
+  // fly it loads x, the bias and the step's scalars and draws the normals.
+  const int e = warp - MMA_WARPS;
+  const int r = rank * ROWS_PER_CTA + e;
+  const int gr = row0 + r;
+  const bool has_row = e < ROWS_PER_CTA && gr < B;  // uniform across the warp
   const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
-  auto head_out = [&](int r, int c) { return out_at(Cs, bpost, r, c); };
-  if (mode == 0) {
-    const float cx = cf[0], cout = cf[1], cn = cf[2];
-    for (int idx = tid; idx < ROWS * D; idx += THREADS) {
-      const int r = idx / D, c = idx % D;
-      const int gr = row0 + r;
-      if (gr >= B) continue;
-      const size_t o = static_cast<size_t>(gr) * D + c;
-      const float xm = cx * x[o] + cout * head_out(r, c);
-      const float z = dposer::draw_normal(noise, seed, step, slab, gr, c, D);
-      if (x_mean != nullptr) x_mean[o] = xm;
-      x[o] = xm + cn * z;
+  float cx = 0.0f, cout = 0.0f, cn = 0.0f, s = 0.0f;
+  float bias[2] = {0.0f, 0.0f}, xin[2] = {0.0f, 0.0f}, z[2] = {0.0f, 0.0f};
+  if (has_row) {
+    if (mode == 0) {
+      cx = cf[0];
+      cout = cf[1];
+      cn = cf[2];
+    } else {
+      s = cf[3];
     }
-  } else {
-    const float s = cf[3];
-    const int r = warp;  // N_WARPS == ROWS: warp r owns row r
-    const int gr = row0 + r;
-    if (gr < B) {  // uniform across the warp
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = lane + 32 * u;
+      if (c >= D) continue;
+      bias[u] = bpost[c];
+      if (mode != 0) continue;
+      xin[u] = x[static_cast<size_t>(gr) * D + c];
+      z[u] = dposer::draw_normal(noise, seed, step, slab, gr, c, D);
+    }
+  }
+  wait_partials(L);  // every epilogue warp waits: peers push into this CTA until then
+
+  if (has_row) {
+    float v[2] = {0.0f, 0.0f};  // out at columns lane, lane + 32
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (lane + 32 * u < D) v[u] = out_at(L, bias[u], e, lane + 32 * u);
+    if (mode == 0) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = lane + 32 * u;
+        if (c >= D) continue;
+        const size_t o = static_cast<size_t>(gr) * D + c;
+        const float xm = cx * xin[u] + cout * v[u];
+        if (x_mean != nullptr) x_mean[o] = xm;
+        x[o] = xm + cn * z[u];
+      }
+    } else {
       float sq = 0.0f;
-      for (int c = lane; c < D; c += 32) {
-        const float v = s * head_out(r, c);
-        score[static_cast<size_t>(gr) * D + c] = v;
-        sq += v * v;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = lane + 32 * u;
+        if (c >= D) continue;
+        const float val = s * v[u];
+        score[static_cast<size_t>(gr) * D + c] = val;
+        sq += val * val;
       }
       sq = dposer::warp_sum(sq);
       if (lane == 0) score_sq[gr] = sq;
@@ -75,7 +121,13 @@ head_em_kernel(const float* __restrict__ h, const __nv_bfloat16* __restrict__ Wp
   }
 }
 
-static_assert(N_WARPS == ROWS, "score mode gives each warp one row");
+// More than 48 KB of dynamic shared memory a CTA, allowed once.
+cudaError_t allow_smem() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      head_em_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(1024)));
+  return attr;
+}
 
 }  // namespace
 
@@ -92,8 +144,40 @@ extern "C" int dposer_head_em(const float* h, const void* Wpost, const float* bp
                               int H, int D, void* stream) {
   if (!operands_ok(h, Wpost, B, H, D) || (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = allow_smem();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tmW;
+  const int e = wpost_map(&tmW, Wpost, H);
+  if (e != 0) return e;
   head_em_kernel<<<grid_blocks(B), THREADS, smem_bytes(H), static_cast<cudaStream_t>(stream)>>>(
-      h, static_cast<const __nv_bfloat16*>(Wpost), bpost, coefs, step, mode, x, x_mean, score,
-      score_sq, noise, seed, slab, B, H, D);
+      h, tmW, bpost, coefs, step, mode, x, x_mean, score, score_sq, noise, seed, slab, B, H, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of a call at B rows and depth H, for reports: grid CTAs,
+// cluster size, threads a CTA, dynamic shared memory a CTA, and the clusters
+// the current device can hold at once (cudaOccupancyMaxActiveClusters).
+// Returns 0 or a CUDA error code.
+extern "C" int dposer_head_em_launch_info(int B, int H, int* out) {
+  const cudaError_t attr = allow_smem();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute cl;
+  cl.id = cudaLaunchAttributeClusterDimension;
+  cl.val.clusterDim.x = SPLIT;
+  cl.val.clusterDim.y = 1;
+  cl.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(grid_blocks(B));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes(H);
+  cfg.attrs = &cl;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, head_em_kernel, &cfg);
+  out[0] = grid_blocks(B);
+  out[1] = SPLIT;
+  out[2] = THREADS;
+  out[3] = static_cast<int>(smem_bytes(H));
+  out[4] = clusters;
+  return static_cast<int>(e);
 }

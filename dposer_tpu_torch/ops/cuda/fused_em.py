@@ -9,8 +9,10 @@ the loop (the weights stay in the 50 MB L2):
 - K1 ``dense_gn_silu`` (``score_net.py``) x (1 + 2*n_blocks): the hidden layers,
   or K13 ``dense_gn_silu_int8`` in the int8 serving mode (``quant="int8"``);
 - K2 ``head_em``: the output head fused with the EM update, or, for the
-  corrector, with the score and its row norms;
-- K3 ``langevin_update``: the corrector's batch-mean norms and update;
+  corrector, with the score and its row norms (split-K over a cluster of 4
+  CTAs a 16-row tile);
+- K3 ``langevin_update``: the corrector's batch-mean norms and update (one
+  cluster of 16 CTAs);
 - K4 ``masked_renoise``: with ``imputation=True``, the masked re-noise and
   overwrite of the observed dims, before and after the predictor.
 
@@ -23,8 +25,9 @@ Noise: ``rng_mode="host"`` takes ``[N, K, B, D]`` slabs in the order
 corr_0..corr_{S-1}, imput_c, predictor, imput_p (injected with ``noise=``,
 else drawn from the generator per step); ``rng_mode="kernel"`` draws Philox
 normals inside K2, K3 and K4 (card only), keyed by (seed, step, slab, row,
-column) with the slab's index in that order. Each kernel's plain PyTorch
-version is here or in ``score_net.py``; a wrapper given CPU tensors runs it.
+column) with the slab's index in that order (their plain versions are in
+``philox.py``). Each kernel's plain PyTorch version is here or in
+``score_net.py``; a wrapper given CPU tensors runs it.
 """
 from __future__ import annotations
 
@@ -211,8 +214,7 @@ def langevin_update(x, score, score_sq, coefs, step: int, snr: float, *,
     if dev.type != "cuda":
         raise ValueError(f"langevin_update runs on cpu or cuda, not {dev}")
     if B > 12288:
-        raise ValueError(f"langevin_update kernel keeps one float per row in shared "
-                         f"memory: batch {B} > 12288")
+        raise ValueError(f"langevin_update kernel takes at most 12288 rows: batch {B}")
     err = _langevin_fn()(x.data_ptr(), score.data_ptr(), score_sq.data_ptr(),
                          coefs.data_ptr(), step, float(snr), _ptr(noise),
                          0 if seed is None else seed, slab, _ptr(step_out), B, D,

@@ -12,7 +12,8 @@ import torch
 from dposer_tpu_torch.diffusion import fast_sampler as tfs
 from dposer_tpu_torch.diffusion import sde as tsde
 from dposer_tpu_torch.models import ScoreModelFC
-from dposer_tpu_torch.ops.cuda import fused_comp, fused_em, fused_lik, fused_ode, score_net
+from dposer_tpu_torch.ops.cuda import (fused_comp, fused_em, fused_lik, fused_ode, philox,
+                                       score_net)
 from dposer_tpu_torch.ops.cuda.fused_comp import (comp_perturb, get_cuda_comp_solver,
                                                   head_adam)
 from dposer_tpu_torch.ops.cuda.fused_em import (get_cuda_em_sampler, head_em,
@@ -77,8 +78,11 @@ def _head(dev, B=500, H=1024, D=63, seed=0):
     return h, w_post.to(torch.bfloat16), b_post, coefs, _t(rng, (B, D), dev), _t(rng, (B, D), dev)
 
 
-def test_head_em_host_noise(dev):
-    h, w_post, b_post, coefs, x, z = _head(dev)
+# K2's tiles: one row, a partial 16-row tile (37), generation's 500 and the
+# completion hypotheses' 1,000
+@pytest.mark.parametrize("B", [1, 37, 500, 1000])
+def test_head_em_host_noise(dev, B):
+    h, w_post, b_post, coefs, x, z = _head(dev, B=B)
     x_new_ref, x_mean_ref = fused_em.head_em_plain(h, w_post, b_post, coefs, 2, "em",
                                                    63, x=x, noise=z)
     x_mean = torch.empty_like(x)
@@ -109,7 +113,36 @@ def test_in_kernel_normals_are_standard(dev):
     assert float((zs[0] - zs[1]).abs().min()) > 0  # steps draw different streams
 
 
-@pytest.mark.parametrize("B", [500, 1000])
+@pytest.mark.parametrize("kernel", ["head_em", "langevin_update"])
+def test_in_kernel_normals_follow_the_plain_philox_stream(dev, kernel):
+    """Element by element: K2 draws philox_normal per element, K3
+    philox_normal4 per group of four columns, keyed by (seed, step, slab,
+    row, column); recovered from the updates (K2 with cnoise = 1, K3 from
+    x = 0)."""
+    h, w_post, b_post, coefs, x, _ = _head(dev)
+    B, D = x.shape
+    for step, slab in ((0, 1), (3, 2)):
+        if kernel == "head_em":
+            coefs[:, 2] = 1.0
+            xs, x_mean = x.clone(), torch.empty_like(x)
+            head_em(h, w_post, b_post, coefs, step, "em", x=xs, x_mean=x_mean, seed=77,
+                    slab=slab)
+            z = xs - x_mean
+        else:
+            score = x.clone()
+            xs, st = torch.zeros_like(x), torch.empty(1, device=dev)
+            langevin_update(xs, score, (score * score).sum(1), coefs, step, 0.16, seed=77,
+                            slab=slab, step_out=st)
+            z = (xs - st * score) / torch.sqrt(2 * st)
+        want = philox.normals_grid(77, step, slab, B, D,
+                                   per_group=kernel == "langevin_update", device=dev)
+        torch.testing.assert_close(z, want, rtol=0, atol=1e-5)
+
+
+# K3's batches: one row, fewer rows than its cluster has CTAs x warps, the
+# flagship's 500, 1,000, and the largest it takes (its normals kept in
+# registers up to 2,048 rows, redrawn past them)
+@pytest.mark.parametrize("B", [1, 37, 500, 1000, 12288])
 def test_langevin_update(dev, B):
     rng = np.random.default_rng(5)
     x, score, z = (_t(rng, (B, 63), dev) for _ in range(3))
@@ -121,6 +154,50 @@ def test_langevin_update(dev, B):
     torch.cuda.synchronize()
     torch.testing.assert_close(st[0], st_ref, rtol=1e-5, atol=0)
     torch.testing.assert_close(x, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("B", [37, 1000, 12288])
+def test_langevin_update_in_kernel_normals_at_every_batch(dev, B):
+    """In-kernel normals, kept in registers (up to 2,048 rows) or redrawn
+    (past them), against the plain version fed the plain Philox stream."""
+    rng = np.random.default_rng(6)
+    x, score = (_t(rng, (B, 63), dev) for _ in range(2))
+    coefs = torch.rand(3, fused_em.N_COEFS, device=dev)
+    sq = (score * score).sum(1)
+    z = philox.normals_grid(11, 2, 0, B, 63, per_group=True, device=dev)
+    want, st_ref = fused_em.langevin_update_plain(x, score, sq, coefs, 2, 0.16, z)
+    st = torch.empty(1, device=dev)
+    langevin_update(x, score, sq, coefs, 2, 0.16, seed=11, slab=0, step_out=st)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(st[0], st_ref, rtol=1e-5, atol=0)
+    torch.testing.assert_close(x, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["head_em-em", "head_em-score", "langevin_update"])
+@pytest.mark.parametrize("B", [37, 500])
+def test_repeated_calls_are_bit_identical(dev, case, B):
+    """The split-K partials (K2) and the batch sums (K3) meet in a fixed
+    order through distributed shared memory: no atomics, the same bits."""
+    h, w_post, b_post, coefs, x, _ = _head(dev, B=B)
+    score = x.flip(1).contiguous()
+    sq = (score * score).sum(1)
+    outs = []
+    for _ in range(10):
+        if case == "head_em-em":
+            xs, xm = x.clone(), torch.empty_like(x)
+            head_em(h, w_post, b_post, coefs, 2, "em", x=xs, x_mean=xm, seed=3)
+            outs.append((xs, xm))
+        elif case == "head_em-score":
+            s, q = torch.empty_like(x), torch.empty(B, device=dev)
+            head_em(h, w_post, b_post, coefs, 1, "score", score=s, score_sq=q)
+            outs.append((s, q))
+        else:
+            xs, st = x.clone(), torch.empty(1, device=dev)
+            langevin_update(xs, score, sq, coefs, 1, 0.16, seed=3, step_out=st)
+            outs.append((xs, st))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
 
 
 def test_kernel_sampler_matches_fp32_sampler(dev):
