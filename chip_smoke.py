@@ -8,9 +8,10 @@ Phases; any failure exits non-zero:
 1. device: the card's name, count and power limit;
 2. build: the CUDA kernels from ``dposer_tpu_torch/ops/cuda/csrc`` with nvcc
    (``-Xptxas -v`` printed, and the registers and shared memory of every
-   instantiation of the Hopper main loop ``dense_wgmma.cuh``; for the
-   cluster kernels K2 and K3 their grid, cluster size, shared memory, the
-   clusters the card holds at once and their registers);
+   instantiation of the Hopper main loops ``dense_wgmma.cuh`` and
+   ``dense_wgmma_int8.cuh``, with any ptxas line reporting serialized wgmma;
+   for the cluster kernels K2 and K3 their grid, cluster size, shared
+   memory, the clusters the card holds at once and their registers);
 3. each of the fourteen kernels against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
    sampling, [1000, .] for the completion solver, [50, .] for the
@@ -21,7 +22,11 @@ Phases; any failure exits non-zero:
    device time (CUDA-graph replay, so host overhead is excluded) beside the
    plain version's, a library yardstick's and the bound from bytes and
    operations at the published H100 SXM peaks; K13 on states of a real
-   trajectory with the per-tensor and per-channel ranges the demo calibrates;
+   trajectory with the per-tensor and per-channel ranges the demo calibrates,
+   each K = 1024 layer on the int8 copy the layer before wrote; the Hopper
+   int8 loop first alone (one [64,128]x[128,64] tile and K13's product at
+   [500,1024]x[1024,1024], exact), K13's int8 copies byte for byte and K14's
+   int8 inner and last links exact against their plain versions;
    K1 also at completion's [1000, 1024] residual block;
 4. the whole kernel sampler against the same loop on the plain versions,
    N = 20, injected noise, corrector none and langevin, without and with
@@ -55,15 +60,18 @@ Phases; any failure exits non-zero:
    demo's ``interpolation`` task on synthetic poses: the reconstruction error
    and finite frames of shape [5, 60, 63]; (i) the int8 serving mode: 500 x
    1000 generation per tensor, per channel and int8-mixed beside bf16
-   (poses/s), the metrics protocol under per-channel int8 (APD in [0.80,
+   (poses/s; K13's route counters: 4,000 launches on the Hopper int8 loop
+   and 1,000 on the register-staged one a call, 3,600 and 900 mixed), the
+   metrics protocol under per-channel int8 (APD in [0.80,
    1.00] and within 0.03 of bf16's), moments at 2,000 rows against the bf16
    kernel route on one host-normal stream (mean within 1e-2, std within 2e-2,
    corr(0, 32) within 5e-2; bf16 against fp32 within 1e-2 in all three),
    completion2 pc under per-channel int8 (MPJPE in
    the band and within 15% of bf16 pc) and the hybrid per channel and per
    tensor; (j) both microbenchmarks (``dposer_tpu_torch.benchmarks``) at 100
-   chain steps, the ilp splits bit-identical to the whole run; and the
-   trainer's protocols;
+   chain steps, the ilp splits bit-identical to the whole run, the int8
+   chain after 100 steps bit-equal to the plain chain; and the trainer's
+   protocols;
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -285,6 +293,27 @@ def wgmma_instantiations(logs):
     return rows, dict(wide=fn(1), narrow=fn(0))
 
 
+def wgmma8_instantiations(logs):
+    """Registers, static shared memory and spills of every instantiation of
+    the Hopper int8 loop (``csrc/dense_wgmma_int8.cuh``, in K13 and K14) from
+    the ``-Xptxas -v`` logs, its dynamic shared memory at K = 1024 and 128,
+    and the ptxas lines that report serialized wgmma (C7513, C7520)."""
+    rows, serialized = [], []
+    for lib in ("dense_gn_silu_int8", "chain_link"):
+        log = logs.get(lib, "")
+        serialized += [ln.strip() for ln in log.splitlines()
+                       if "wgmma" in ln and "serialized" in ln]
+        for e in ptxas_entries(log, "wgmma8_kernel"):
+            base = re.search(r"(dense_gn_silu_int8|dense_int8_product|chain_link)_wgmma8_kernel",
+                             e["entry"]).group(0)
+            args = ",".join(re.findall(r"L[ib](\d+)E", e["entry"]))
+            rows.append(dict(library=lib, kernel=f"{base}<{args}>", registers=e["registers"],
+                             static_smem=e["static_smem"], spills=e["spills"]))
+    fn = build.load("dense_gn_silu_int8").dposer_wgmma8_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    return rows, {"K1024": fn(1024), "K128": fn(128)}, serialized
+
+
 def cluster_launch(lib, *args):
     """The cluster kernel of ``lib`` (K2 ``head_em`` at ``args`` = (B, H), K3
     ``langevin_update``) as it launches on this card: grid CTAs, cluster
@@ -313,6 +342,14 @@ def phase_build():
     print(f"[build] wgmma rings: {dyn['wide']} B (wide) and {dyn['narrow']} B (narrow) of dynamic "
           f"shared memory a block; {len(rows)} instantiations"
           + ("" if rows else " (libraries were already built: no ptxas log)"))
+    rows8, dyn8, serialized = wgmma8_instantiations(logs)
+    for r in rows8:
+        print(f"[build] int8 wgmma loop {r['library']}: {r['kernel']} {r['registers']} registers, "
+              f"{r['static_smem']} B static smem; {r['spills'] or 'spills not reported'}")
+    print(f"[build] int8 wgmma loop: {dyn8['K1024']} B of dynamic shared memory a block at K = "
+          f"1024 ({dyn8['K128']} B at K = 128); {len(rows8)} instantiations; ptxas lines "
+          f"reporting serialized wgmma: {len(serialized)}"
+          + "".join(f"\n    {ln}" for ln in serialized))
     clusters = {}
     for lib, args in (("head_em", (B, H)), ("langevin_update", ())):
         ptx = ptxas_entries(logs.get(lib, ""), f"{lib}_kernel")
@@ -324,7 +361,9 @@ def phase_build():
               + ("; ".join(f"{e['registers']} registers, {e['static_smem']} B static smem, "
                            f"{e['spills'] or 'spills not reported'}" for e in ptx)
                  or "no ptxas log (already built)"))
-    return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters)
+    return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters,
+                      int8_instantiations=rows8, int8_dynamic_smem=dyn8,
+                      serialized_wgmma=serialized)
 
 
 def load_pinned(dev):
@@ -582,6 +621,12 @@ def phase_completion_kernels(model, dev):
     m4 = normal_moments(draws, "masked_renoise")
     bms, by = bound(4 * 4 * B * D + 32, 0, 116 * B * D)
     xt = x4.clone()
+    mc, sd = float(coefs[i, 5]), float(coefs[i, 6])
+
+    def renoise_library():  # composite: the re-noise in torch ops, host normals
+        return torch.lerp(x4, torch.add(obs4 * mc, z4, alpha=sd), mask4)
+
+    lib4_e = float((renoise_library() - ref).abs().max())
     rows.append(dict(
         name="masked_renoise", route="cuda", source=f"{CSRC}/pose_elementwise.cu",
         replaces=TPU_KERNEL,
@@ -593,7 +638,9 @@ def phase_completion_kernels(model, dev):
         eager_ms=eager_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i, seed=5,
                                                           slab=2)),
         plain_ms=graph_ms(lambda: fused_em.masked_renoise_plain(x4, obs4, mask4, coefs, i, z4)),
-        library_ms=None, bound_ms=bms, bound_by=by))
+        library_ms=graph_ms(renoise_library), library_max_abs_err=lib4_e,
+        library="composite: torch.add + torch.lerp on the mask, host normals",
+        bound_ms=bms, bound_by=by))
 
     # K5 comp_perturb
     ref = fused_comp.comp_perturb_plain(x, coefc, t, z)
@@ -610,6 +657,12 @@ def phase_completion_kernels(model, dev):
         draws.append(pert.clone())
     m5 = normal_moments(draws, "comp_perturb")
     bms, by = bound(2 * 4 * RC * D + 32, 0, 113 * RC * D)
+    cm, cs = float(coefc[t, 0]), float(coefc[t, 1])
+
+    def perturb_library():  # composite: the perturbation in torch ops, host normals
+        return torch.add(x * cm, z, alpha=cs)
+
+    lib5_e = float((perturb_library() - ref).abs().max())
     rows.append(dict(
         name="comp_perturb", route="cuda", source=f"{CSRC}/pose_elementwise.cu",
         replaces=TPU_COMP_KERNEL,
@@ -619,7 +672,9 @@ def phase_completion_kernels(model, dev):
         ms=graph_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=5)),
         eager_ms=eager_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=5)),
         plain_ms=graph_ms(lambda: fused_comp.comp_perturb_plain(x, coefc, t, z)),
-        library_ms=None, bound_ms=bms, bound_by=by))
+        library_ms=graph_ms(perturb_library), library_max_abs_err=lib5_e,
+        library="composite: torch.mul + torch.add, host normals",
+        bound_ms=bms, bound_by=by))
 
     # K6 head_adam, on the hidden state of the perturbed poses, mid-solve moments
     fused_comp.comp_perturb(x, pert, coefc, t, noise=z)
@@ -651,6 +706,20 @@ def phase_completion_kernels(model, dev):
     n6 = 4 * RC * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 9 * 4 * RC * D + 32
     bms, by = bound(n6, 2 * RC * H * D, 20 * RC * D)
     xt, mt, vt = x.clone(), m1.clone(), v.clone()
+    c6, bp16 = [float(c) for c in coefc[t]], bp.to(torch.bfloat16)
+
+    def adam_library():  # composite: bf16 addmm + the denoise, gradient and Adam in torch ops
+        raw = torch.addmm(bp16, hid.to(torch.bfloat16), wp)[:, :D].float()
+        x0_hat = torch.add(pert * c6[2], raw, alpha=c6[3])
+        g = torch.add(mask * (x - obs) * c6[4], x - x0_hat, alpha=c6[5])
+        m1n = torch.lerp(g, m1, fused_comp.ADAM_B1)
+        vn = torch.lerp(g * g, v, fused_comp.ADAM_B2)
+        return torch.addcdiv(x, m1n, (vn * c6[7]).sqrt_().add_(fused_comp.ADAM_EPS),
+                             value=-c6[6]), m1n, vn
+
+    lib6 = adam_library()
+    want6 = fused_comp.head_adam_plain(hid, wp, bp, coefc, t, x, pert, obs, mask, m1, v)
+    lib6_e = [float((a - b).abs().max()) for a, b in zip(lib6, want6)]
     rows.append(dict(
         name="head_adam", route="cuda", source=f"{CSRC}/head_adam.cu",
         replaces=TPU_COMP_KERNEL,
@@ -664,7 +733,9 @@ def phase_completion_kernels(model, dev):
                                                        mask, mt, vt)),
         plain_ms=graph_ms(lambda: fused_comp.head_adam_plain(hid, wp, bp, coefc, t, x, pert,
                                                              obs, mask, m1, v)),
-        library_ms=None, bound_ms=bms, bound_by=by))
+        library_ms=graph_ms(adam_library), library_max_abs_err_x_m1_v=lib6_e,
+        library="composite: bf16 torch.addmm + the denoise, gradient and Adam in torch ops",
+        bound_ms=bms, bound_by=by))
     for r in rows:
         kernel_row_line(r)
 
@@ -938,6 +1009,15 @@ def phase_ode_kernels(model, dev):
     bms, by = bound(n8, 2 * B * H * D, 12 * B * D)
     st = (xo.clone(), xs.clone(), acc.clone())
     run8 = lambda stage=1: fused_ode.head_rk4(hid, wp, bp, coefo, jo, stage, *st)  # noqa: E731
+    c8, bp16 = [float(c) for c in coefo[jo]], bp.to(torch.bfloat16)
+
+    def rk4_library():  # composite: bf16 addmm + the RK4 stage-1 update in torch ops
+        out = torch.addmm(bp16, hid.to(torch.bfloat16), wp)[:, :D].float()
+        k = torch.add(xs * c8[0], out, alpha=c8[1])
+        return xo, torch.add(xo, k, alpha=0.5 * c8[2]), torch.add(acc, k, alpha=2.0)
+
+    want8 = fused_ode.head_rk4_plain(hid, wp, bp, coefo, jo, 1, xo, xs, acc)
+    lib8_e = max(float((a - b).abs().max()) for a, b in zip(rk4_library(), want8))
     rows.append(dict(
         name="head_rk4", route="cuda", source=f"{CSRC}/head_rk4.cu", replaces=TPU_ODE_KERNEL,
         replaces_part="fused_ode.py:87-96 (fwd's post-dense and the RK4 step), :101-107 "
@@ -948,7 +1028,9 @@ def phase_ode_kernels(model, dev):
         plain_ms=graph_ms(lambda: fused_ode.head_rk4_plain(hid, wp, bp, coefo, jo, 1, xo, xs,
                                                            acc)),
         denoise_ms=graph_ms(lambda: run8(fused_ode.DENOISE)),
-        library_ms=None, bound_ms=bms, bound_by=by))
+        library_ms=graph_ms(rk4_library), library_max_abs_err=lib8_e,
+        library="composite: bf16 torch.addmm + the RK4 stage update in torch ops",
+        bound_ms=bms, bound_by=by))
 
     # K9 head_rk4_jvp, on the hidden state and tangent of the 50 rows
     bufs = tuple(torch.empty(BL, H, device=dev) for _ in range(4))
@@ -973,6 +1055,21 @@ def phase_ode_kernels(model, dev):
     st9 = tuple(t.clone() for t in (xl, xsl, accl, lp, lacc))
     run9 = lambda: fused_lik.head_rk4_jvp(hl, dhl, wpl, bpl, coefl, j, 1, *st9[:3],  # noqa: E731
                                           eps, *st9[3:])
+    c9, bpl16 = [float(c) for c in coefl[j]], bpl.to(torch.bfloat16)
+
+    def head_fn(hh):
+        return torch.addmm(bpl16, hh.to(torch.bfloat16), wpl)[:, :D].float()
+
+    def rk4_jvp_library():  # composite: torch.func.jvp of bf16 addmm + RK4 on x and delta logp
+        out, dout = torch.func.jvp(head_fn, (hl,), (dhl,))
+        k = torch.add(xsl * c9[0], out, alpha=c9[1])
+        kl = (eps * eps).sum(1) * c9[0] + (dout * eps).sum(1) * c9[1]
+        return (xl, torch.add(xl, k, alpha=0.5 * c9[2]), torch.add(accl, k, alpha=2.0), lp,
+                torch.add(lacc, kl, alpha=2.0))
+
+    want9 = fused_lik.head_rk4_jvp_plain(hl, dhl, wpl, bpl, coefl, j, 1, xl, xsl, accl, eps,
+                                         lp, lacc)
+    lib9_e = max(float((a - b).abs().max()) for a, b in zip(rk4_jvp_library(), want9))
     rows.append(dict(
         name="head_rk4_jvp", route="cuda", source=f"{CSRC}/head_rk4.cu",
         replaces=TPU_LIK_KERNEL,
@@ -983,7 +1080,9 @@ def phase_ode_kernels(model, dev):
         ms=graph_ms(run9), eager_ms=eager_ms(run9),
         plain_ms=graph_ms(lambda: fused_lik.head_rk4_jvp_plain(hl, dhl, wpl, bpl, coefl, j, 1,
                                                                xl, xsl, accl, eps, lp, lacc)),
-        library_ms=None, bound_ms=bms, bound_by=by))
+        library_ms=graph_ms(rk4_jvp_library), library_max_abs_err=lib9_e,
+        library="composite: torch.func.jvp of bf16 torch.addmm + RK4 on x and delta logp",
+        bound_ms=bms, bound_by=by))
     for r in rows:
         kernel_row_line(r)
     return rows
@@ -1308,115 +1407,236 @@ def calibrate(model, dev, scheme, eps=1e-3, corrector="none"):
 
 
 def phase_int8_kernels(model, dev, amax):
-    """(i) K13 against its plain version at the sampler's shapes, per-tensor
-    and per-channel rows, on states of a real trajectory (the bf16 kernel
-    sampler's state after 500 of 1000 steps), with timings, bound, plain and
-    library times; (ii) K14 in its four modes at the microbenchmarks'
-    [512,1024]x[1024,1024]."""
+    """(i) The Hopper int8 loop (``csrc/dense_wgmma_int8.cuh``) first, alone:
+    one [64,128]x[128,64] tile, then K13's pre-epilogue product at the
+    sampler's [500,1024]x[1024,1024] on each scheme's weights, bit-equal to
+    the exact sums times the rescale row, and the loop's time at one block
+    against 128 and at K 128 against 1024; (ii) K13 against its plain
+    version at the sampler's shapes, per-tensor and per-channel rows, on
+    states of a real trajectory (the bf16 kernel sampler's state after 500
+    of 1000 steps): the pre layer on the fp32 state (the register-staged
+    loop), each K = 1024 layer on the int8 copy the layer before it wrote
+    (the Hopper loop), each writing the next layer's int8 copy, held byte for
+    byte to ``quantize_act`` of its own fp32 output; the K = 1024 layers also
+    on the register route, as they ran before the handoff; timings, the bound
+    from the new byte flow (fp32 in and no copy beside it), plain and
+    library times;
+    (iii) K14 in its four modes at the microbenchmarks' [512,1024]x[1024,1024],
+    the int8 inner link (int8 in, int8 out) and last link (the state update
+    and its int8 copy) exact against the plain link."""
     sde = SubVPSDE(N=1000)
     gen = torch.Generator(device=dev).manual_seed(11)
+    # (i) the loop alone: one tile, exact (qs = 1: the int32 sums themselves)
+    a_t = torch.randint(-127, 128, (64, 128), dtype=torch.int8, generator=gen, device=dev)
+    w_t = torch.randint(-127, 128, (64, 128), dtype=torch.int8, generator=gen, device=dev)
+    tile = score_net.int8_loop_product(a_t, w_t, torch.ones(64, device=dev))
+    torch.cuda.synchronize()
+    check(torch.equal(tile, quant.int8_matmul(a_t.float(), w_t.t())),
+          "the int8 wgmma loop's first [64,128]x[128,64] tile is not the exact int32 sums")
+    probe = {}
+    for label, rows_, cols, k in (("1 block, K 1024", 64, 64, 1024),
+                                  ("128 blocks, K 1024", B, H, 1024),
+                                  ("128 blocks, K 128", B, H, 128)):
+        ap = torch.randint(-127, 128, (rows_, k), dtype=torch.int8, generator=gen, device=dev)
+        wp_ = torch.randint(-127, 128, (cols, k), dtype=torch.int8, generator=gen, device=dev)
+        qp = torch.ones(cols, device=dev)
+        probe[label] = graph_ms(lambda ap=ap, wp_=wp_, qp=qp:
+                                score_net.int8_loop_product(ap, wp_, qp))
+    print("[int8] the Hopper int8 loop alone (product, plain store): first tile exact; "
+          + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in probe.items()))
+
     i = 500
     x = fused_em.get_cuda_em_sampler(sde, model, (B, D), denoise=False, step_range=(0, i),
                                      rng_mode="kernel", device=dev)(gen)
-    rows, variants = [], []
+    rows, variants, copies = [], [], {}
     for scheme in ("tensor", "channel"):
         net, _ = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev,
                                                  quant="int8", act_amax=amax[scheme])
         tp, gs, gb = net["tp_all"][i], net["gn_scale"], net["gn_bias"]
         lw = lambda j: score_net.layer_weights(net, j)  # noqa: E731
+        qrow = net["qinv_rows"]
         h = score_net.dense_gn_silu_int8_plain(x, *lw(0), tp[0], gs[0], gb[0])
         h1 = score_net.dense_gn_silu_int8_plain(h, *lw(1), tp[1], gs[1], gb[1])
-        for label, a, j, res in (("pre [500,63]x[63,1024]", x, 0, None),
-                                 ("block [500,1024]x[1024,1024]", h, 1, None),
-                                 ("block+residual [500,1024]x[1024,1024]", h1, 2, h)):
-            args = (a, *lw(j), tp[j], gs[j], gb[j])
+        # the pre-epilogue product of the Hopper loop, exact, on this scheme's weights
+        aq1 = quant.quantize_act(h, qrow[1]).to(torch.int8)
+        prod = score_net.int8_loop_product(aq1, net["Wq"][1], net["qs_rows"][1])
+        torch.cuda.synchronize()
+        check(torch.equal(prod, quant.int8_matmul(aq1.float(), net["Wq"][1].t())
+                          * net["qs_rows"][1]),
+              f"dense_gn_silu_int8 {scheme}: the Hopper loop's product is not exact")
+        for label, a, j, res, route in (
+                ("pre [500,63]x[63,1024]", x, 0, None, "register"),
+                ("block [500,1024]x[1024,1024]", h, 1, None, "wgmma_int8"),
+                ("block+residual [500,1024]x[1024,1024]", h1, 2, h, "wgmma_int8"),
+                ("block/register [500,1024]x[1024,1024]", h, 1, None, "register"),
+                ("block+residual/register [500,1024]x[1024,1024]", h1, 2, h, "register")):
+            hopper = route == "wgmma_int8"
+            wq, qinv, qs = lw(j)
+            args = (a, wq, qinv, qs, tp[j], gs[j], gb[j])
+            a_q = quant.quantize_act(a, qinv).to(torch.int8) if hopper else None
+            qn = qrow[j + 1] if hopper or j == 0 else None  # the copy the sampler hands on
+            o_q = torch.empty((B, H), dtype=torch.int8, device=dev) if qn is not None else None
+            qkw = dict(a_q=a_q, qinv_next=qn, out_q=o_q)
             ref = score_net.dense_gn_silu_int8_plain(*args, res)
-            out = score_net.dense_gn_silu_int8(*args, residual=res)
+            fused_em.reset_launch_counts()
+            out = score_net.dense_gn_silu_int8(None if hopper else a, *args[1:], residual=res,
+                                               **qkw)
             torch.cuda.synchronize()
+            check(fused_em.route_counts()["dense_gn_silu_int8"][route] == 1,
+                  f"dense_gn_silu_int8 {label}: not on the {route} route")
             e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
             check(e <= tol, f"dense_gn_silu_int8 {scheme} {label}: max abs err {e} > {tol}")
+            if o_q is not None:
+                same = torch.equal(o_q, quant.quantize_act(out, qn).to(torch.int8))
+                check(same, f"dense_gn_silu_int8 {scheme} {label}: the int8 copy is not "
+                            f"quantize_act of the layer's own fp32 output")
+                copies[f"{label.split()[0]} {scheme}"] = "bit-equal"
             K = a.shape[1]
-            n_bytes = (4 * B * K + K * H + 4 * K + 4 * 4 * H
-                       + 4 * B * H * (2 if res is not None else 1))
+            rows_n = 4 * 4 * H + 4 * B * H * (2 if res is not None else 1)  # rows, res, out
+            old_bytes = 4 * B * K + K * H + 4 * K + rows_n
+            n_bytes = ((B * K if hopper else 4 * B * K + 4 * K) + K * H + rows_n
+                       + (4 * H + B * H if qn is not None else 0))
             bms, by = bound(n_bytes, 2 * B * K * H, 14 * B * H, INT8_TC_OPS)
+            old_bms, _ = bound(old_bytes, 2 * B * K * H, 14 * B * H, INT8_TC_OPS)
             o = torch.empty_like(ref)
-            wq, qinv, qs = lw(j)
             kp = (K + 7) // 8 * 8  # torch._int_mm takes K in multiples of 8
             wq_t = F.pad(wq, (0, kp - K)).t()  # [K, N], column-major as cuBLASLt wants
 
-            def library(a=a, qinv=qinv, qs=qs, j=j, res=res, K=K, kp=kp, wq_t=wq_t):
-                aq = torch.clamp(torch.round(a * qinv), -127, 127).to(torch.int8)
+            def library(a=a, a_q=a_q, qinv=qinv, qs=qs, j=j, res=res, K=K, kp=kp, wq_t=wq_t,
+                        qn=qn):
+                aq = (torch.clamp(torch.round(a * qinv), -127, 127).to(torch.int8)
+                      if a_q is None else a_q)
                 y = torch._int_mm(F.pad(aq, (0, kp - K)), wq_t).float() * qs + tp[j]
                 y = F.silu(F.group_norm(y, 32, gs[j], gb[j], eps=1e-5))
-                return y if res is None else y + res
+                y = y if res is None else y + res
+                return y if qn is None else (y, torch.clamp(torch.round(y * qn), -127,
+                                                            127).to(torch.int8))
 
-            lib_e = float((library() - ref).abs().max())
-            run = lambda args=args, res=res, o=o: score_net.dense_gn_silu_int8(  # noqa: E731
-                *args, residual=res, out=o)
+            lib = library()
+            lib_e = float(((lib if qn is None else lib[0]) - ref).abs().max())
+            run = lambda args=args, res=res, o=o, hopper=hopper, qkw=qkw: (  # noqa: E731
+                score_net.dense_gn_silu_int8(None if hopper else args[0], *args[1:],
+                                             residual=res, out=o, **qkw))
             variants.append(dict(
-                shape=f"{label.split()[0]} {scheme} {label.split()[1]}", max_abs_err=e,
-                tol=tol, ms=graph_ms(run), eager_ms=eager_ms(run),
+                shape=f"{label.split()[0]} {scheme} {label.split()[1]}", route=route,
+                int8_copy=qn is not None, max_abs_err=e, tol=tol, ms=graph_ms(run),
+                eager_ms=eager_ms(run),
                 plain_ms=graph_ms(lambda args=args, res=res:
                                   score_net.dense_gn_silu_int8_plain(*args, res)),
                 library_ms=graph_ms(library), library_max_abs_err=lib_e, bound_ms=bms,
-                bound_by=by))
+                bound_by=by, bound_ms_fp32_in=old_bms))
     main_v = next(v for v in variants if v["shape"].startswith("block+residual channel"))
     rows.append(dict(name="dense_gn_silu_int8", route="cuda",
                      source=f"{CSRC}/dense_gn_silu_int8.cu", replaces=TPU_KERNEL,
                      replaces_part="fused_em.py:62,104-110 quant_inv -> score_net.py:337-360 "
                                    "quant mm (int8 x int8 -> int32, rescale row), then the "
                                    "time row, group_norm_vpu, SiLU, h + h2",
+                     main_loop=f"{CSRC}/dense_wgmma_int8.cuh (K = 1024 layers, on the int8 "
+                               f"copy the layer before wrote); {CSRC}/dense_gemm_int8.cuh "
+                               f"(the pre layer, on the fp32 state)",
                      max_abs_err=max(v["max_abs_err"] for v in variants),
-                     tol="1e-3*max(1,|ref|max)",
+                     tol="1e-3*max(1,|ref|max); the loop's product, the int8 copies: exact",
                      **{k: main_v[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
-                                               "library_ms", "bound_ms", "bound_by")},
-                     library="quantize + torch._int_mm (K padded to 64) + rescale + "
-                             "group_norm + silu",
-                     variants=variants))
+                                               "library_ms", "bound_ms", "bound_by",
+                                               "bound_ms_fp32_in")},
+                     library="torch._int_mm (K padded to 8) + rescale + group_norm + silu, "
+                             "on the same int8 input (quantized first on the register route), "
+                             "+ the int8 copy",
+                     int8_copies=copies, loop_alone_ms=probe, variants=variants))
 
-    # (ii) K14 chain_link in its four modes
+    # (iii) K14 chain_link in its four modes; int8 on both routes
     a = torch.randn(mxu_micro.B, mxu_micro.H, generator=gen, device=dev)
     _, ws, ws_i8 = mxu_micro.make_inputs(dev, mxu_micro.B, mxu_micro.H)
     int8_rows = chain_link.int8_rows(mxu_micro.H, mxu_micro.H, dev)
+    qnext = int8_rows["qinv"]  # the chain requantizes every link's input by one row
+    a_q = quant.quantize_act(a, qnext).to(torch.int8)
+    R = a.shape[0]
     cvariants = []
-    for mode in chain_link.MODES:
-        w = ws_i8[0] if mode == "int8" else ws[0]
-        rk = int8_rows if mode == "int8" else {}
+    for mode in ("bf16", "bf16-out", "gn-silu", "int8", "int8 inner", "int8 last"):
+        base = mode.split()[0]
+        w = ws_i8[0] if base == "int8" else ws[0]
+        rk = int8_rows if base == "int8" else {}
+        hkw = {}
+        if mode == "int8 inner":
+            hkw = dict(a_q=a_q, qinv_next=qnext)
+        elif mode == "int8 last":
+            hkw = dict(a_q=a_q, qinv_next=qnext, update=True)
         errs = []
-        for update in (False, True):
+        for update in ((False, True) if not hkw else (hkw.get("update", False),)):
+            kw = {k: v for k, v in hkw.items() if k != "update"}
             xs = torch.randn(a.shape, generator=gen, device=dev)
-            ref = chain_link.chain_link_plain_into(a, w, mode, out=xs.clone(), update=update,
-                                                   **rk)
-            out = chain_link.chain_link(a, w, mode, out=xs, update=update, **rk)
+            oq_ref = oq = None
+            if "a_q" in kw:
+                oq_ref, oq = (torch.empty(a.shape, dtype=torch.int8, device=dev)
+                              for _ in range(2))
+            out_ref = xs.clone() if (update or not kw) else None
+            out_k = xs if (update or not kw) else None
+            ref = chain_link.chain_link_plain_into(None if kw else a, w, base, out=out_ref,
+                                                   update=update, out_q=oq_ref, **kw, **rk)
+            got = chain_link.chain_link(None if kw else a, w, base, out=out_k, update=update,
+                                        out_q=oq, **kw, **rk)
             torch.cuda.synchronize()
+            if kw:  # the Hopper int8 loop: exact, fp32 state and int8 copy alike
+                check(torch.equal(got, ref) and torch.equal(oq, oq_ref),
+                      f"chain_link {mode}: not bit-equal to the plain link")
+                errs.append(0.0)
+                continue
             # bf16-out: one flipped rounding is a bf16 ulp, 2^-7 of the value
             tol = (8e-3 if mode == "bf16-out" else 1e-3) * max(1.0, float(ref.abs().max()))
-            errs.append(err(out, ref))
+            errs.append(err(got, ref))
             check(errs[-1] <= tol, f"chain_link {mode} update={update}: {errs[-1]} > {tol}")
-        bms, by = bound(4 * a.numel() + (1 if mode == "int8" else 2) * w.numel()
-                        + 4 * a.numel(), 2 * a.shape[0] * w.numel(),
-                        14 * a.numel() if mode == "gn-silu" else 0,
-                        INT8_TC_OPS if mode == "int8" else BF16_TC_FLOPS)
-        o = torch.empty_like(a)
-        a16 = a.to(torch.bfloat16)
+        K = w.shape[1] if base == "int8" else w.shape[0]
+        N = w.shape[0] if base == "int8" else w.shape[1]
+        if mode == "int8 inner":
+            n_bytes = R * K + K * N + 8 * N + R * N
+        elif mode == "int8 last":
+            n_bytes = R * K + K * N + 8 * N + 2 * 4 * R * N + R * N
+        else:
+            n_bytes = (4 * R * K + (1 if base == "int8" else 2) * K * N + 4 * R * N
+                       + (8 * N if base == "int8" else 0))
+        bms, by = bound(n_bytes, 2 * R * K * N, 14 * R * N if mode == "gn-silu" else 0,
+                        INT8_TC_OPS if base == "int8" else BF16_TC_FLOPS)
+        o, oq_t = torch.empty_like(a), torch.empty(a.shape, dtype=torch.int8, device=dev)
+        xt = torch.randn(a.shape, generator=gen, device=dev)
+        a16, wt = a.to(torch.bfloat16), w.t()
         if mode == "int8":
-            wt = w.t()
             library = lambda: torch._int_mm(  # noqa: E731
                 torch.clamp(torch.round(a * chain_link.INT8_QINV), -127, 127).to(torch.int8),
                 wt).float() * chain_link.INT8_SCALE
+            run = lambda: chain_link.chain_link(a, w, "int8", out=o, **rk)  # noqa: E731
+        elif mode == "int8 inner":
+            library = lambda: torch.clamp(torch.round(  # noqa: E731
+                torch._int_mm(a_q, wt).float() * chain_link.INT8_SCALE * chain_link.INT8_QINV),
+                -127, 127).to(torch.int8)
+            run = lambda: chain_link.chain_link(None, w, "int8", a_q=a_q,  # noqa: E731
+                                                qinv_next=qnext, out_q=oq_t, **rk)
+        elif mode == "int8 last":
+            def library():
+                xn = xt * 0.5 + torch._int_mm(a_q, wt).float() * chain_link.INT8_SCALE * 1e-3
+                return xn, torch.clamp(torch.round(xn * chain_link.INT8_QINV), -127,
+                                       127).to(torch.int8)
+            run = lambda: chain_link.chain_link(None, w, "int8", out=xt, update=True,  # noqa: E731
+                                                a_q=a_q, qinv_next=qnext, out_q=oq_t, **rk)
         elif mode == "gn-silu":
             library = lambda w=w: F.silu(F.group_norm(  # noqa: E731
                 torch.matmul(a16, w).float(), 32, eps=1e-5))
+            run = lambda w=w: chain_link.chain_link(a, w, "gn-silu", out=o)  # noqa: E731
         else:
             library = lambda w=w: torch.matmul(a16, w).float()  # noqa: E731
-        run = lambda w=w, mode=mode, rk=rk: chain_link.chain_link(a, w, mode, out=o,  # noqa: E731
-                                                                   **rk)
+            run = lambda w=w, mode=mode: chain_link.chain_link(a, w, mode, out=o)  # noqa: E731
+        if hkw:  # the link's plain version on its int8 input, writing what it writes
+            pkw = dict(out=xt.clone() if mode == "int8 last" else None,
+                       update=mode == "int8 last", out_q=oq_t.clone(), a_q=a_q,
+                       qinv_next=qnext, **rk)
+            plain = lambda w=w, pkw=pkw: chain_link.chain_link_plain_into(  # noqa: E731
+                None, w, "int8", **pkw)
+        else:
+            plain = lambda w=w, base=base, rk=rk: chain_link.chain_link_plain(  # noqa: E731
+                a, w, base, **rk)
         cvariants.append(dict(
             shape=f"{mode} [512,1024]x[1024,1024]", max_abs_err=max(errs), ms=graph_ms(run),
-            eager_ms=eager_ms(run),
-            plain_ms=graph_ms(lambda w=w, mode=mode, rk=rk:
-                              chain_link.chain_link_plain(a, w, mode, **rk)),
-            library_ms=graph_ms(library), bound_ms=bms, bound_by=by))
+            eager_ms=eager_ms(run), plain_ms=graph_ms(plain), library_ms=graph_ms(library),
+            bound_ms=bms, bound_by=by))
     main_c = cvariants[0]
     rows.append(dict(name="chain_link", route="cuda", source=f"{CSRC}/chain_link.cu",
                      replaces=f"{TPU_MXU_KERNEL}; {TPU_ILP_KERNEL}",
@@ -1424,18 +1644,27 @@ def phase_int8_kernels(model, dev, amax):
                                    "fp32 or bf16 accumulation, or int8 with the requant) and "
                                    "ilp_probe.py:37-58 (matmul -> GN32 no affine -> SiLU), "
                                    "with the state update on a chain's last link",
+                     main_loop=f"{CSRC}/dense_wgmma.cuh (bf16, bf16-out, gn-silu); "
+                               f"{CSRC}/dense_wgmma_int8.cuh (int8 on the int8 copy the link "
+                               f"before wrote); {CSRC}/dense_gemm_int8.cuh (int8, a call's "
+                               f"first link)",
                      max_abs_err=max(v["max_abs_err"] for v in cvariants),
-                     tol="1e-3*max(1,|ref|max); bf16-out 8e-3 (one bf16 ulp)",
+                     tol="1e-3*max(1,|ref|max); bf16-out 8e-3 (one bf16 ulp); int8 inner and "
+                         "last links exact",
                      **{k: main_c[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
                                                "library_ms", "bound_ms", "bound_by")},
-                     library="torch.matmul bf16 (+ group_norm + silu); torch._int_mm int8",
+                     library="torch.matmul bf16 (+ group_norm + silu); torch._int_mm int8 (+ "
+                             "the rescale, update and requantization)",
                      variants=cvariants))
     for r in rows:
         kernel_row_line(r)
         for v in r["variants"]:
             print(f"    {v['shape']}: err {v['max_abs_err']:.3g}, {v['ms'] * 1e3:.2f} us "
                   f"(eager {v['eager_ms'] * 1e3:.2f}), plain {v['plain_ms'] * 1e3:.2f}, "
-                  f"library {v['library_ms'] * 1e3:.2f}, bound {v['bound_ms'] * 1e3:.2f} us")
+                  f"library {v['library_ms'] * 1e3:.2f}, bound {v['bound_ms'] * 1e3:.2f} us"
+                  + (f" (fp32 in, no copy: {v['bound_ms_fp32_in'] * 1e3:.2f})"
+                     if "bound_ms_fp32_in" in v else ""))
+    print(f"[int8] K13's int8 copies: {copies}")
     return rows
 
 
@@ -1493,7 +1722,7 @@ def timed_generation(sampler, gen):
     t0 = time.perf_counter()
     x = sampler(gen)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0, x, fused_em.launch_counts()
+    return time.perf_counter() - t0, x, fused_em.launch_counts(), fused_em.route_counts()
 
 
 def moments(x):
@@ -1519,17 +1748,18 @@ def phase_int8_protocols(model, dev, amax, bf16_apd, bf16_c2_pc_mpjpe):
     samplers = {m: demo.build_sampler(config, sde, model, B, 1e-3, "none", dev, quant_kw=kw)
                 for m, kw in modes.items()}
     gen = torch.Generator(device=dev).manual_seed(13)
-    walls = {m: [] for m in modes}
+    walls, routes = {m: [] for m in modes}, {}
     for _ in range(3):  # the first turn warms up
         for m, s in samplers.items():
-            wall, x, counts = timed_generation(s, gen)
+            wall, x, counts, routes[m] = timed_generation(s, gen)
             walls[m].append(wall)
             check(x.shape == (B, D) and torch.isfinite(x).all().item(), f"generation {m}")
             by_run[f"generation_500x1000_{m}"] = counts
     for m in modes:
         best = min(walls[m][1:])
         res[f"generation_{m}"] = dict(poses_per_s=B / best, wall_s=best, walls_s=walls[m],
-                                      launches=by_run[f"generation_500x1000_{m}"])
+                                      launches=by_run[f"generation_500x1000_{m}"],
+                                      k13_routes=routes[m]["dense_gn_silu_int8"])
         print(f"[int8] generation 500 x 1000 {m}: {B / best:.1f} poses/s best "
               f"(calls {['%.3f' % w for w in walls[m]]} s)")
     check(by_run["generation_500x1000_int8_channel"]["dense_gn_silu_int8"] == 5000 and
@@ -1538,6 +1768,16 @@ def phase_int8_protocols(model, dev, amax, bf16_apd, bf16_c2_pc_mpjpe):
     check(by_run["generation_500x1000_int8_mixed"]["dense_gn_silu_int8"] == 4500 and
           by_run["generation_500x1000_int8_mixed"]["dense_gn_silu"] == 500,
           "int8-mixed generation: 900 int8 steps and 100 bf16 steps")
+    # which loop carried each int8 layer: the pre layer on the fp32 state (the
+    # register-staged loop), the four K = 1024 layers on the int8 handoff (the
+    # Hopper int8 loop)
+    for m, want in (("int8_tensor", (4000, 1000)), ("int8_channel", (4000, 1000)),
+                    ("int8_mixed", (3600, 900))):
+        got = routes[m]["dense_gn_silu_int8"]
+        check((got["wgmma_int8"], got["register"]) == want,
+              f"generation {m}: K13 routes {got}, expected wgmma_int8/register {want}")
+    print("[int8] K13 routes a 500 x 1000 call: " + "; ".join(
+        f"{m} {routes[m]['dense_gn_silu_int8']}" for m in modes if m != "bf16"))
 
     # the metrics protocol through the demo, per-channel int8
     smpl, _ = make_synthetic_body_model(os.path.join(OUT, "smpl_fixture.npz"), "smpl")
@@ -1633,8 +1873,23 @@ def phase_microbenchmarks():
     check([s["bitwise_equal_whole"] for s in ilp] == [None, True, True],
           f"ilp_probe: splits not bit-identical to the whole run: {ilp}")
     wall = time.perf_counter() - t0
-    print(f"[micro] both microbenchmarks in {wall:.1f} s, launches {counts['chain_link']}")
-    return dict(results=dict(mxu_micro=mxu, ilp_probe=ilp, wall_s=wall),
+    # the int8 chain hands q(h) on from link to link: after 100 steps its
+    # state is bit-equal to the plain chain's; one link a call on the
+    # register-staged loop (the first), every other on the Hopper int8 loop
+    x0, ws, ws_i8 = mxu_micro.make_inputs(torch.device("cuda", 0), mxu_micro.B, mxu_micro.H)
+    fused_em.reset_launch_counts()
+    got = mxu_micro.run_row("int8", x0, ws, ws_i8, 100)
+    torch.cuda.synchronize()
+    routes = fused_em.route_counts()["chain_link"]
+    want = mxu_micro.run_row("int8", x0, ws, ws_i8, 100, link=chain_link.chain_link_plain_into)
+    check(torch.equal(got, want), "[micro] the int8 chain after 100 steps is not bit-equal to "
+                                  "the plain chain")
+    check(routes == {"wgmma": 0, "wgmma_int8": 6 * 100 - 1, "register": 1},
+          f"[micro] int8 chain routes {routes}")
+    print(f"[micro] both microbenchmarks in {wall:.1f} s, launches {counts['chain_link']}; "
+          f"the int8 chain after 100 steps bit-equal to the plain chain (routes {routes})")
+    return dict(results=dict(mxu_micro=mxu, ilp_probe=ilp, wall_s=wall,
+                             int8_chain_bit_equal_plain=True, int8_chain_routes=routes),
                 by_run=dict(microbenchmarks=counts))
 
 
@@ -1753,6 +2008,15 @@ def phase_train_kernels(model, dev):
     bms, by = bound(n11, 2 * BT * H * score_net.HEAD_COLS, 8 * BT * D)
     lr_b, do_b = torch.empty_like(ref[0]), torch.empty_like(ref[1])
     run11 = lambda: fused_train.head_dsm(*args11, loss_rows=lr_b, dout=do_b)  # noqa: E731
+    wk, bk16 = op["wpost_k"], op["bpost"].to(op["wpost_k"].dtype)
+    ca, cv, cs = (op["coefs"][:, c:c + 1] for c in range(3))
+
+    def dsm_library():  # composite: addmm + the DSM loss rows and their gradient
+        out = torch.addmm(bk16, h4.to(wk.dtype), wk)[:, :D].float()
+        r = torch.addcmul(cv * op["z"], ca, out)
+        return (r * r).sum(1) * cs[:, 0], 2.0 * cs * ca * r
+
+    lib11_e = [float((a - b).abs().max()) for a, b in zip(dsm_library(), ref)]
     rows.append(dict(
         name="head_dsm", route="cuda", source=f"{CSRC}/head_dsm.cu", replaces=TPU_TRAIN_KERNEL,
         replaces_part="fused_train.py:177-188 (post-dense, the DSM loss rows, dout)",
@@ -1760,7 +2024,9 @@ def phase_train_kernels(model, dev):
         tol="loss rows 1e-3 relative; dout 1e-3*|ref|max", loss_rows_rel_err=e_loss,
         ms=graph_ms(run11), eager_ms=eager_ms(run11),
         plain_ms=graph_ms(lambda: fused_train.head_dsm_plain(*args11)),
-        library_ms=None, bound_ms=bms, bound_by=by))
+        library_ms=graph_ms(dsm_library), library_max_abs_err_loss_dout=lib11_e,
+        library="composite: torch.addmm in w_post's type + the DSM loss rows and dout",
+        bound_ms=bms, bound_by=by))
 
     # K12: the first hop (the zero-padded dout), and a hidden hop without and
     # with the residual stream's carried gradient
@@ -2197,10 +2463,13 @@ def main():
         step13 = (k13[f"pre {scheme}"] + 2 * k13[f"block {scheme}"]
                   + 2 * k13[f"block+residual {scheme}"] + ms["head_em"])
         g = int8["results"][f"generation_int8_{scheme}"]
+        g["device_us_per_step_est"] = step13 * 1e3
+        g["bf16_device_us_per_step_est"] = step_ms * 1e3
         g["device_ms_per_call_est"] = 1000 * step13
         g["device_busy_share_est"] = 1000 * step13 / (1e3 * g["wall_s"])
-        print(f"[int8] generation {scheme}: kernels alone {1000 * step13:.1f} ms per call, "
-              f"the device busy ~{100 * g['device_busy_share_est']:.0f}% of the best call")
+        print(f"[int8] generation {scheme}: kernels alone {step13 * 1e3:.1f} us a step (bf16 "
+              f"{step_ms * 1e3:.1f} in this run), {1000 * step13:.1f} ms per call, the device "
+              f"busy ~{100 * g['device_busy_share_est']:.0f}% of the best call")
     proto["int8"] = dict(int8["results"], calibration_s=calib_s,
                          act_amax_tensor=[float(a) for a in amax["tensor"]],
                          act_amax_channel_max=[float(np.max(a)) for a in amax["channel"]])

@@ -6,7 +6,9 @@ in three forms (port of the TPU package's ``benchmarks/mxu_micro.py``):
 - "bf16 accumulator": Hopper's MMA has none, so the chain accumulates in
   fp32 and rounds each matmul's output to bf16;
 - int8 x int8 -> int32 with the requantization every pass would pay,
-  ``rint(h*21)`` clamped to +-127, and the rescale ``1/(21*127)``.
+  ``rint(h*21)`` clamped to +-127, and the rescale ``1/(21*127)``; each link
+  writes the next link's int8 input in its epilogue, so the chain moves int8
+  activations between links and the fp32 state only on a step's last link.
 
 Each matmul is a launch of kernel K14 ``chain_link``; the state stays fp32
 between links. Timing is steady state (``utils/benchtime.py``): ``m_pipe``
@@ -47,12 +49,20 @@ def make_inputs(device, batch: int, hidden: int, seed: int = 0):
     return x0.to(device), [w.to(device) for w in ws], [w.to(device) for w in ws_i8]
 
 
-def link_bound_s(mode: str, batch: int, k: int, n: int, update: bool) -> float:
+def link_bound_s(mode: str, batch: int, k: int, n: int, update: bool,
+                 first: bool = False) -> float:
     """Least seconds for one link: A read, W read, the output written (and the
     state read too on an updating link) at the memory rate, against the
-    matmul's operations at the peak rate of its type."""
-    w_bytes = (1 if mode == "int8" else 2) * k * n
-    n_bytes = 4 * batch * k + w_bytes + 4 * batch * n * (2 if update else 1)
+    matmul's operations at the peak rate of its type. An int8 link reads its
+    input as the int8 copy the link before it wrote (fp32 state only on a
+    call's ``first`` link) and writes the next link's int8 copy, the fp32
+    state only on an updating link."""
+    if mode == "int8":
+        n_bytes = (4 if first else 1) * batch * k + k * n + batch * n
+        if update:
+            n_bytes += 2 * 4 * batch * n
+    else:
+        n_bytes = 4 * batch * k + 2 * k * n + 4 * batch * n * (2 if update else 1)
     ops = 2 * batch * k * n
     return max(n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS["int8" if mode == "int8" else "bf16"])
 
@@ -60,7 +70,9 @@ def link_bound_s(mode: str, batch: int, k: int, n: int, update: bool) -> float:
 def chain_bound_s(mode: str, n_steps: int, batch: int = None) -> float:
     batch = B if batch is None else batch
     per_step = sum(link_bound_s(mode, batch, H, H, k == CHAIN - 1) for k in range(CHAIN))
-    return n_steps * per_step
+    first_extra = link_bound_s(mode, batch, H, H, False, first=True) - link_bound_s(
+        mode, batch, H, H, False)
+    return n_steps * per_step + first_extra
 
 
 def run_row(mode, x0, ws, ws_i8, n_steps, link=chain_link):

@@ -5,8 +5,9 @@
 // dense_gn_silu_bwd (its Smem, Stage and mma_stage, with a bf16 A), and K1
 // dense_gn_silu only where TMA cannot address A (K % 4 != 0, the pre layer
 // at K = 63, or a misaligned operand); K1's other layers and K14's bf16
-// modes run dense_wgmma.cuh. Its constants (BM, BN, C_LD, THREADS) and
-// group_sum are those of gn_epilogue.cuh and dense_wgmma.cuh too.
+// modes run dense_wgmma.cuh. Its constants (BM, BN, C_LD, THREADS),
+// group_sum and quant8 are those of gn_epilogue.cuh, dense_wgmma.cuh and the
+// int8 loops (dense_gemm_int8.cuh, dense_wgmma_int8.cuh) too.
 //
 // A block owns a 64x64 output tile (8 warps, 32x16 each, bf16 WMMA 16x16x16
 // with fp32 accumulation) and walks K in steps of 64. A and W tiles are loaded
@@ -62,6 +63,14 @@ __device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
   for (int off = GS / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// The int8 activation quantizer of K13 and K14's int8 mode:
+// clamp(rint(a * qinv), -127, 127), the product rounded once, then half to
+// even (the TPU kernel's jnp.round, quant.py::quantize_act).
+__device__ __forceinline__ int quant8(float a, float qinv) {
+  const float v = rintf(__fmul_rn(a, qinv));
+  return static_cast<int>(fminf(fmaxf(v, -127.0f), 127.0f));
 }
 
 // One K-step's operands in registers. VEC: 16-byte loads (K % 4 == 0,

@@ -1,20 +1,24 @@
-// The int8 GEMM main loop of the network's hidden layers, shared by K13
-// dense_gn_silu_int8 and K14 chain_link's int8 mode:
+// The register-staged int8 GEMM main loop of the network's hidden layers,
+// the route of K13 dense_gn_silu_int8 and K14 chain_link's int8 mode where
+// A is fp32 (K13's pre layer, whose input is the state x at K = 63; a
+// chain's first link):
 //   C[r, c] = float(sum_k q(A[r, k]) * Wq[c, k]) * qs[c],
 //   q(a) = clamp(rint(a * qinv[k]), -127, 127)
 // (the TPU kernel's quant ``mm``, dposer_tpu/ops/pallas/score_net.py:337-360).
+// Every later layer or link reads the int8 copy of its input that the
+// previous epilogue wrote, through dense_wgmma_int8.cuh, which computes the
+// same sums.
 //
 // dense_gemm.cuh's block tile with 8-bit operands: a block owns a 64x64 output
 // tile (8 warps, 32x16 each) and walks K in steps of 64, with the A and W tiles
 // loaded into registers two K-steps ahead. A is read in fp32 and quantized as
-// it is staged (round half to even, clamped to +-127), so the state never
-// exists as int8 in device memory. The MMA is mma.sync.m16n8k32 s8 x s8 ->
-// s32, which wants B K-contiguous: Wq is stored [N, K] (nn.Linear's [out, in])
-// and its tile is staged [n][k]. Both shared tiles pad their 64-byte rows to
-// 80 bytes, so a fragment's eight rows of four words fall on 32 distinct
-// banks. The int32 sums are exact (|sum| <= K * 127^2 < 2^24 for K <= 1024),
-// converted to fp32 and scaled by the column's rescale row as the tile is
-// left in shared memory for the caller's epilogue.
+// it is staged (round half to even, clamped to +-127). The MMA is
+// mma.sync.m16n8k32 s8 x s8 -> s32, which wants B K-contiguous: Wq is stored
+// [N, K] (nn.Linear's [out, in]) and its tile is staged [n][k]. Both shared
+// tiles pad their 64-byte rows to 80 bytes, so a fragment's eight rows of four
+// words fall on 32 distinct banks. The int32 sums are exact (|sum| <= K *
+// 127^2 < 2^24 for K <= 1024), converted to fp32 and scaled by the column's
+// rescale row as the tile is left in shared memory for the caller's epilogue.
 #pragma once
 
 #include <cstdint>
@@ -31,6 +35,7 @@ using dense::BM;
 using dense::BN;
 using dense::C_LD;
 using dense::THREADS;
+using dense::quant8;
 
 constexpr int A_LD = BK + 16;  // int8 elements (bytes)
 constexpr int W_LD = BK + 16;
@@ -61,11 +66,6 @@ struct Regs<true> {
   float4 qi;
   uint4 w;
 };
-
-__device__ __forceinline__ int quant8(float a, float qinv) {
-  const float v = rintf(__fmul_rn(a, qinv));  // round half to even
-  return static_cast<int>(fminf(fmaxf(v, -127.0f), 127.0f));
-}
 
 __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
   return (static_cast<uint32_t>(a) & 0xffu) | ((static_cast<uint32_t>(b) & 0xffu) << 8) |

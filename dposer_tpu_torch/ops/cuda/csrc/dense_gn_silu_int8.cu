@@ -9,30 +9,39 @@
 // row (one row layout here serves both), int32 accumulation, one fp32 rescale
 // row, then the time row, GroupNorm, SiLU and the block's residual.
 //
-// Bound on the H100: at the flagship layer ([500, 1024] x [1024, 1024] +
-// residual) the call moves ~7.2 MB (A, residual and out fp32, Wq int8) against
-// ~1.07 G int8 operations: ~2.15 us of HBM time vs ~0.54 us at the int8 tensor
-// rate, so bytes bound, as K1 is. Int8 weights save 1 MB of K1's 6 MB: the
-// gain is bounded by the fp32 activations, which stay fp32 in device memory
-// because GroupNorm and the residual need them.
+// Bound on the H100: bytes. At the flagship block layer ([500, 1024] x [1024,
+// 1024] + residual) the call moves ~6.2 MB on the Hopper route (Aq int8, Wq
+// int8, the residual and the fp32 out, the int8 copy for the next layer)
+// against ~1.07 G int8 operations: ~1.85 us of HBM time vs ~0.54 us at the
+// int8 tensor rate. (The register route read A as fp32: ~7.2 MB, 2.15 us.)
+// The fp32 out stays, because GroupNorm's next residual and the bf16 head
+// read it.
 //
-// Design: dense_gemm_int8.cuh's main loop (K1's 64x64 tile and register
-// staging, quantizing A as it is staged, mma.sync m16n8k32 s8) and K1's
-// epilogue (gn_epilogue.cuh). Not yet: wgmma, TMA, an int8 copy of the
-// activations written by the previous layer's epilogue.
+// Design: two routes, chosen by the operand, never as a fallback:
+// - Aq given (the int8 copy an earlier layer's epilogue wrote; every K =
+//   1024 layer of the int8 forward): dense_wgmma_int8.cuh, TMA copies of Aq
+//   and Wq and wgmma s8 from shared memory. An Aq that TMA cannot address
+//   (K % 16 != 0, a misaligned pointer) is refused.
+// - Aq absent (the pre layer, whose input is the fp32 state x at K = 63):
+//   dense_gemm_int8.cuh, K1's register-staged tile quantizing A as it is
+//   staged, mma.sync m16n8k32 s8.
+// Both end in K1's epilogue arithmetic (gn_epilogue.cuh, gn_silu_epilogue_q:
+// the warp's GroupNorm chains interleaved) with its int8 option: given
+// qinv_next and out_q, it also writes q(out, qinv_next), the next layer's Aq,
+// on the value it stores.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "dense_gemm_int8.cuh"
+#include "dense_wgmma_int8.cuh"
 #include "gn_epilogue.cuh"
 
 namespace {
 
 using dposer::dense::BM;
 using dposer::dense::BN;
-using dposer::dense::Out;
 using dposer::dense::THREADS;
 
 template <int GS, bool VEC>
@@ -41,54 +50,134 @@ dense_gn_silu_int8_kernel(const float* __restrict__ A, const int8_t* __restrict_
                           const float* __restrict__ qinv, const float* __restrict__ qs,
                           const float* __restrict__ tp, const float* __restrict__ gamma,
                           const float* __restrict__ beta, const float* residual, float* out,
-                          int B, int K, int N) {
+                          const float* __restrict__ qnext, int8_t* __restrict__ out_q, int B,
+                          int K, int N) {
   __shared__ __align__(128) dposer::dense8::Smem sm;
 
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
   dposer::dense8::gemm_tile_int8<VEC>(sm, A, qinv, Wq, qs, row0, col0, B, K);
-  dposer::dense::gn_silu_epilogue<GS, Out::kStore>(sm.c, tp, gamma, beta, residual, out, row0,
-                                                   col0, B, N);
+  dposer::dense::gn_silu_epilogue_q<GS>(sm.c, tp, gamma, beta, residual, out, row0, col0, B,
+                                        N, qnext, out_q);
 }
 
 template <int GS>
-void launch_gs(bool vec, const float* A, const int8_t* Wq, const float* qinv, const float* qs,
-               const float* tp, const float* gamma, const float* beta, const float* residual,
-               float* out, int B, int K, int N, cudaStream_t stream) {
-  const dim3 grid(N / BN, (B + BM - 1) / BM);
+__global__ void __launch_bounds__(THREADS)
+dense_gn_silu_int8_wgmma8_kernel(const __grid_constant__ CUtensorMap tmA,
+                                 const __grid_constant__ CUtensorMap tmW,
+                                 const float* __restrict__ qs, const float* __restrict__ tp,
+                                 const float* __restrict__ gamma,
+                                 const float* __restrict__ beta, const float* residual,
+                                 float* out, const float* __restrict__ qnext,
+                                 int8_t* __restrict__ out_q, int B, int K, int N) {
+  extern __shared__ uint8_t smem[];
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const float* c = dposer::wgmma8::gemm_tile(smem, &tmA, &tmW, qs, row0, col0, K);
+  dposer::dense::gn_silu_epilogue_q<GS>(c, tp, gamma, beta, residual, out, row0, col0, B, N,
+                                        qnext, out_q);
+}
+
+// The main loop's product alone, float(Aq @ Wq^T) * qs, stored as it leaves
+// the loop: the exact check of the loop inside this library.
+__global__ void __launch_bounds__(THREADS)
+dense_int8_product_wgmma8_kernel(const __grid_constant__ CUtensorMap tmA,
+                                 const __grid_constant__ CUtensorMap tmW,
+                                 const float* __restrict__ qs, float* __restrict__ out, int B,
+                                 int K, int N) {
+  extern __shared__ uint8_t smem[];
+  const int row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN;
+  const float* c = dposer::wgmma8::gemm_tile(smem, &tmA, &tmW, qs, row0, col0, K);
+  for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
+    const int r = idx / BN, cc = idx % BN;
+    if (row0 + r < B)
+      out[static_cast<size_t>(row0 + r) * N + col0 + cc] = c[r * dposer::dense::C_LD + cc];
+  }
+}
+
+struct Args {
+  const float* A;
+  const void* Aq;
+  const int8_t* Wq;
+  const float *qinv, *qs, *tp, *gamma, *beta, *residual;
+  float* out;
+  const float* qnext;
+  int8_t* out_q;
+  int B, K, N;
+  cudaStream_t stream;
+};
+
+template <int GS>
+int launch_gs(const Args& a) {
+  const dim3 grid(a.N / BN, (a.B + BM - 1) / BM);
+  if (a.Aq != nullptr) {
+    CUtensorMap ma, mw;
+    const int e = dposer::wgmma8::gemm_maps(&ma, &mw, a.Aq, a.Wq, a.B, a.K, a.N);
+    if (e != 0) return e;
+    return dposer::wgmma8::launch<dense_gn_silu_int8_wgmma8_kernel<GS>>(
+        grid, a.K, a.stream, ma, mw, a.qs, a.tp, a.gamma, a.beta, a.residual, a.out, a.qnext,
+        a.out_q, a.B, a.K, a.N);
+  }
+  const bool vec = a.K % 16 == 0 && reinterpret_cast<uintptr_t>(a.A) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.Wq) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(a.qinv) % 16 == 0;
   if (vec)
-    dense_gn_silu_int8_kernel<GS, true><<<grid, THREADS, 0, stream>>>(
-        A, Wq, qinv, qs, tp, gamma, beta, residual, out, B, K, N);
+    dense_gn_silu_int8_kernel<GS, true><<<grid, THREADS, 0, a.stream>>>(
+        a.A, a.Wq, a.qinv, a.qs, a.tp, a.gamma, a.beta, a.residual, a.out, a.qnext, a.out_q,
+        a.B, a.K, a.N);
   else
-    dense_gn_silu_int8_kernel<GS, false><<<grid, THREADS, 0, stream>>>(
-        A, Wq, qinv, qs, tp, gamma, beta, residual, out, B, K, N);
+    dense_gn_silu_int8_kernel<GS, false><<<grid, THREADS, 0, a.stream>>>(
+        a.A, a.Wq, a.qinv, a.qs, a.tp, a.gamma, a.beta, a.residual, a.out, a.qnext, a.out_q,
+        a.B, a.K, a.N);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// A [B, K] fp32, Wq [N, K] int8, qinv [K] fp32 (the activation quantization
-// row), qs [N] fp32 (the rescale row), tp/gamma/beta [N] fp32, residual
-// (nullable) and out [B, N] fp32; out may alias residual. N/32 (the group
-// size) must be a power of two <= 32 and N a multiple of 64; K <= 1024 keeps
-// the int32 sums exact in fp32. Returns cudaGetLastError().
-extern "C" int dposer_dense_gn_silu_int8(const float* A, const void* Wq, const float* qinv,
-                                         const float* qs, const float* tp, const float* gamma,
-                                         const float* beta, const float* residual, float* out,
-                                         int B, int K, int N, void* stream) {
-  const auto* w = static_cast<const int8_t*>(Wq);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || K <= 0 || K > 1024 || N % BN != 0)
+// A [B, K] fp32 (read on the register route only) or Aq [B, K] int8 (the
+// Hopper route; K % 16 == 0 and Aq, Wq 16-byte aligned, else refused), Wq
+// [N, K] int8, qinv [K] fp32 (the activation quantization row, register
+// route), qs [N] fp32 (the rescale row), tp/gamma/beta [N] fp32, residual
+// (nullable) and out [B, N] fp32; out may alias residual. qinv_next [N] fp32
+// and out_q [B, N] int8 (both or neither): the int8 copy of out for the next
+// layer. N/32 (the group size) must be a power of two <= 32 and N a multiple
+// of 64; K <= 1024 keeps the int32 sums exact in fp32. Returns 0, the error
+// of a failed tensor-map encode, or cudaGetLastError() after the launch.
+extern "C" int dposer_dense_gn_silu_int8(const float* A, const void* Aq, const void* Wq,
+                                         const float* qinv, const float* qs, const float* tp,
+                                         const float* gamma, const float* beta,
+                                         const float* residual, float* out,
+                                         const float* qinv_next, void* out_q, int B, int K,
+                                         int N, void* stream) {
+  const Args a{A, Aq, static_cast<const int8_t*>(Wq), qinv, qs, tp, gamma, beta, residual, out,
+               qinv_next, static_cast<int8_t*>(out_q), B, K, N,
+               static_cast<cudaStream_t>(stream)};
+  if (B <= 0 || K <= 0 || K > 1024 || N % BN != 0 || (out_q == nullptr) != (qinv_next == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(Wq) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(qinv) % 16 == 0;
+  if (Aq != nullptr ? !dposer::wgmma8::tma_ok(Aq, Wq, K) : (A == nullptr || qinv == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (N / 32) {
-    case 2: launch_gs<2>(vec, A, w, qinv, qs, tp, gamma, beta, residual, out, B, K, N, s); break;
-    case 4: launch_gs<4>(vec, A, w, qinv, qs, tp, gamma, beta, residual, out, B, K, N, s); break;
-    case 8: launch_gs<8>(vec, A, w, qinv, qs, tp, gamma, beta, residual, out, B, K, N, s); break;
-    case 16: launch_gs<16>(vec, A, w, qinv, qs, tp, gamma, beta, residual, out, B, K, N, s); break;
-    case 32: launch_gs<32>(vec, A, w, qinv, qs, tp, gamma, beta, residual, out, B, K, N, s); break;
+    case 2: return launch_gs<2>(a);
+    case 4: return launch_gs<4>(a);
+    case 8: return launch_gs<8>(a);
+    case 16: return launch_gs<16>(a);
+    case 32: return launch_gs<32>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// The Hopper main loop's product alone into out [B, N] fp32 (Aq, Wq and qs
+// as above; N a multiple of 64): the exact check of the loop K13 runs.
+extern "C" int dposer_dense_gn_silu_int8_product(const void* Aq, const void* Wq,
+                                                 const float* qs, float* out, int B, int K,
+                                                 int N, void* stream) {
+  if (B <= 0 || K <= 0 || N % BN != 0 || !dposer::wgmma8::tma_ok(Aq, Wq, K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma, mw;
+  const int e = dposer::wgmma8::gemm_maps(&ma, &mw, Aq, Wq, B, K, N);
+  if (e != 0) return e;
+  const dim3 grid(N / BN, (B + BM - 1) / BM);
+  return dposer::wgmma8::launch<dense_int8_product_wgmma8_kernel>(
+      grid, K, static_cast<cudaStream_t>(stream), ma, mw, qs, out, B, K, N);
 }

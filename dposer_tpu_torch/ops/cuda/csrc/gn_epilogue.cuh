@@ -8,7 +8,16 @@
 // mean and variance are warp shuffles. The per-column rows (time projection,
 // GN affine) are read once into registers, and the warp's residual values are
 // all requested before the first is used.
+//
+// K13 takes gn_silu_epilogue_q: the same arithmetic with the warp's sixteen
+// (row, half) chains interleaved shuffle by shuffle, and an optional int8
+// copy of what it stores, out_q[r, c] = quant8(y, qnext[c]) after the
+// residual: the next int8 layer's input, which that layer's main loop reads
+// by TMA as it is (dense_wgmma_int8.cuh) and which quantizing the fp32 out
+// would give, bit for bit.
 #pragma once
+
+#include <cstdint>
 
 #include "dense_gemm.cuh"
 
@@ -70,6 +79,72 @@ __device__ __forceinline__ void gn_silu_epilogue(const float* c, const float* __
         y = __fadd_rn(__fmul_rn(0.5f, res[i][half]), __fmul_rn(1e-3f, y));
       }
       if (gr < B) out[static_cast<size_t>(gr) * N + col0 + cc] = y;
+    }
+  }
+}
+
+// The GS-lane group sums of M values at once, level by level: each value
+// gets group_sum<GS>'s adds in group_sum's order, and the M shuffles of a
+// level are independent, so their latencies overlap.
+template <int GS, int M>
+__device__ __forceinline__ void group_sums(float (&v)[M]) {
+#pragma unroll
+  for (int off = GS / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < M; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+}
+
+// K13's epilogue: gn_silu_epilogue<GS, Out::kStore>'s arithmetic on the
+// warp's rows and columns, the sixteen GroupNorm chains of a warp
+// interleaved (one chain's ten dependent shuffles at a time leave the warp
+// waiting on each), and with qnext [N] and out_q [B, N] int8 (out_q nullable)
+// the int8 copy of out for the next layer.
+template <int GS>
+__device__ __forceinline__ void gn_silu_epilogue_q(
+    const float* c, const float* __restrict__ tp, const float* __restrict__ gamma,
+    const float* __restrict__ beta, const float* residual, float* out, int row0, int col0,
+    int B, int N, const float* __restrict__ qnext, int8_t* __restrict__ out_q) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  constexpr int WARPS = THREADS / 32;
+  constexpr int M = 2 * (BM / WARPS);  // (row, half) pairs a warp: k = 2 i + half
+  constexpr float inv_gs = 1.0f / GS;
+  float tpv[2], gv[2], bv[2], qn[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int gc = col0 + half * 32 + lane;
+    tpv[half] = tp != nullptr ? tp[gc] : 0.0f;
+    gv[half] = gamma != nullptr ? gamma[gc] : 1.0f;
+    bv[half] = beta != nullptr ? beta[gc] : 0.0f;
+    qn[half] = out_q != nullptr ? qnext[gc] : 0.0f;
+  }
+  float res[M], v[M], s[M];
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const int r = warp + (k / 2) * WARPS, gr = row0 + r, cc = (k % 2) * 32 + lane;
+    res[k] = (residual != nullptr && gr < B) ? residual[static_cast<size_t>(gr) * N + col0 + cc]
+                                             : 0.0f;
+    v[k] = c[r * C_LD + cc] + tpv[k % 2];
+    s[k] = v[k];
+  }
+  group_sums<GS>(s);
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const float mean = s[k] * inv_gs;
+    v[k] = v[k] - mean;  // d
+    s[k] = v[k] * v[k];
+  }
+  group_sums<GS>(s);
+#pragma unroll
+  for (int k = 0; k < M; ++k) {
+    const int r = warp + (k / 2) * WARPS, gr = row0 + r, half = k % 2;
+    const float var = s[k] * inv_gs;
+    float y = v[k] * rsqrtf(var + GN_EPS) * gv[half] + bv[half];
+    y = y / (1.0f + __expf(-y)) + res[k];
+    if (gr < B) {
+      const size_t o = static_cast<size_t>(gr) * N + col0 + half * 32 + lane;
+      out[o] = y;
+      if (out_q != nullptr) out_q[o] = static_cast<int8_t>(quant8(y, qn[half]));
     }
   }
 }

@@ -43,7 +43,7 @@ from ...diffusion.sde import SDE
 from . import build
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
                         dense_gn_silu, dense_gn_silu_int8, dense_gn_silu_jvp,
-                        hidden_layer, network_hidden)
+                        hidden_layer, int8_handoff_buffers, network_hidden)
 
 N_COEFS = 8
 
@@ -299,9 +299,18 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in _counted()}
 
 
+def route_counts() -> dict:
+    """Launches of each kernel with more than one main loop, by route, since
+    the last ``reset_launch_counts``: K13 and K14 ``{"wgmma_int8": n,
+    "register": n}`` (K14 also ``"wgmma"``, its bf16 modes)."""
+    return {fn.__name__: dict(fn.routes) for fn in _counted() if hasattr(fn, "routes")}
+
+
 def reset_launch_counts() -> None:
     for fn in _counted():
         fn.launches = 0
+        for route in getattr(fn, "routes", ()):
+            fn.routes[route] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -348,17 +357,19 @@ def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
     EM update in the masked re-noise of the observed dims. ``slabs[k]`` are
     the host normals of slab ``k`` (corr_0.., [imput_c], em, [imput_p]), or
     None with ``seed`` for in-kernel normals. ``scratch`` holds ``h``, ``h1``
-    [B, H] and, with a corrector, ``score`` [B, D] and ``score_sq`` [B].
+    [B, H], for int8 operands ``q`` (their int8 copies, handed on from layer
+    to layer) and, with a corrector, ``score`` [B, D] and ``score_sq`` [B].
     ``plain=True`` runs the kernels' plain versions instead, on any device:
     the reference the card's kernels are held to. The hidden layers are K1,
-    or K13 for int8 operands."""
+    or K13 for int8 operands (the plain versions hand on the same int8
+    copies)."""
     layer = hidden_layer(net, plain)
     head, langevin, renoise = (
         (head_em_plain_into, langevin_update_plain_into, masked_renoise_plain_into) if plain
         else (head_em, langevin_update, masked_renoise))
-    h, h1 = scratch["h"], scratch["h1"]
+    h, h1, q = scratch["h"], scratch["h1"], scratch["q"]
     for j in range(n_corr):
-        network_hidden(net, x, i, h, h1, layer)
+        network_hidden(net, x, i, h, h1, layer, q)
         head(h, net["w_post"], net["b_post"], coefs, i, "score",
              score=scratch["score"], score_sq=scratch["score_sq"])
         langevin(x, scratch["score"], scratch["score_sq"], coefs, i, snr,
@@ -367,7 +378,7 @@ def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
     if observed is not None:
         renoise(x, *observed, coefs, i, noise=slabs[k], seed=seed, slab=k)
         k += 1
-    network_hidden(net, x, i, h, h1, layer)
+    network_hidden(net, x, i, h, h1, layer, q)
     head(h, net["w_post"], net["b_post"], coefs, i, "em", x=x, x_mean=x_mean,
          noise=slabs[k], seed=seed, slab=k)
     if observed is not None:
@@ -377,7 +388,7 @@ def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
 def pc_scratch(net: dict, batch: int, n_corr: int, device) -> dict:
     """The buffers ``pc_step`` works in."""
     h = torch.empty((batch, net["hidden"]), dtype=torch.float32, device=device)
-    out = dict(h=h, h1=torch.empty_like(h))
+    out = dict(h=h, h1=torch.empty_like(h), q=int8_handoff_buffers(net, batch, device))
     if n_corr:
         out["score"] = torch.empty((batch, net["dim"]), dtype=torch.float32, device=device)
         out["score_sq"] = torch.empty((batch,), dtype=torch.float32, device=device)

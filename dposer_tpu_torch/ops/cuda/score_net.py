@@ -19,7 +19,10 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
   PyTorch version, and ``network_hidden``, which runs the layers with it.
 - kernel K13 ``dense_gn_silu_int8`` (``csrc/dense_gn_silu_int8.cu``): K1's
   layer on int8 operands (port of ``bind_fwd``'s quant ``mm``), its plain
-  version; ``network_hidden`` takes it for int8 operands.
+  version; ``network_hidden`` takes it for int8 operands and hands the
+  activations on as int8 (each epilogue writes the next layer's quantized
+  input, which the Hopper int8 loop ``csrc/dense_wgmma_int8.cuh`` reads;
+  the pre layer, on the fp32 state, runs the register-staged loop).
 - kernel K7 ``dense_gn_silu_jvp`` (``csrc/dense_gn_silu_jvp.cu``): the same
   layer with its forward-mode tangent, the tangent rules written out by hand
   (port of ``bind_fwd_jvp``), its plain version, and ``network_hidden_jvp``.
@@ -249,40 +252,75 @@ def hidden_layer(net: dict, plain: bool = False):
 
 
 def network_hidden(net: dict, x: torch.Tensor, i: int, h: torch.Tensor,
-                   h1: torch.Tensor, layer=None) -> torch.Tensor:
+                   h1: torch.Tensor, layer=None, q=None) -> torch.Tensor:
     """The network's last hidden activation at row ``i`` of the time grid into ``h``
     (``h1`` is scratch): ``layer`` once for the pre layer and twice per block.
     ``layer`` (default ``hidden_layer(net)``) takes ``layer_weights(net, j)``:
     K1 or its plain version for bf16 operands, K13 or its plain version for
-    int8 ones."""
+    int8 ones.
+
+    Int8 operands hand the activations on as int8 through ``q = (hq, h1q)``,
+    int8 [B, H] beside ``h`` and ``h1`` (``int8_handoff_buffers``; made here
+    when not given): each layer's epilogue also writes its output quantized by
+    the next layer's ``qinv`` row, and the next layer reads that copy (K13's
+    Hopper route) instead of quantizing the fp32 one; the sums are the same.
+    The pre layer reads the fp32 state (K13's register route); the last block
+    writes no copy, since the bf16 head reads ``h``."""
     layer = hidden_layer(net) if layer is None else layer
     tp = net["tp_all"][i]
     gs, gb = net["gn_scale"], net["gn_bias"]
-    layer(x, *layer_weights(net, 0), tp[0], gs[0], gb[0], out=h)
+    n_layers = 1 + 2 * net["n_blocks"]
+    if q is None:
+        q = int8_handoff_buffers(net, h.shape[0], h.device)
+
+    def handoff(j, a_q, out_q):  # K13's int8 input and output for layer j
+        if q is None:
+            return {}
+        kw = {} if a_q is None else dict(a_q=a_q)
+        if j + 1 < n_layers:
+            kw.update(qinv_next=net["qinv_rows"][j + 1], out_q=out_q)
+        return kw
+
+    hq, h1q = (None, None) if q is None else q
+    layer(x, *layer_weights(net, 0), tp[0], gs[0], gb[0], out=h, **handoff(0, None, hq))
     for blk in range(net["n_blocks"]):
         j = 1 + 2 * blk
-        layer(h, *layer_weights(net, j), tp[j], gs[j], gb[j], out=h1)
+        layer(h, *layer_weights(net, j), tp[j], gs[j], gb[j], out=h1, **handoff(j, hq, h1q))
         layer(h1, *layer_weights(net, j + 1), tp[j + 1], gs[j + 1], gb[j + 1],
-              residual=h, out=h)
+              residual=h, out=h, **handoff(j + 1, h1q, hq))
     return h
+
+
+def int8_handoff_buffers(net: dict, batch: int, device) -> tuple:
+    """``network_hidden``'s ``q`` for int8 operands: two int8 [batch, H]
+    buffers; ``None`` for bf16 operands."""
+    if "Wq" not in net:
+        return None
+    return tuple(torch.empty((batch, net["hidden"]), dtype=torch.int8, device=device)
+                 for _ in range(2))
 
 
 # ---------------------------------------------------------------------------
 # K13 dense_gn_silu_int8
 # ---------------------------------------------------------------------------
 
-def dense_gn_silu_int8_plain(a, wq, qinv, qs, tp_row, gamma, beta, residual=None):
+def dense_gn_silu_int8_plain(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, a_q=None):
     """``SiLU(GN32(float(q(a) @ wq^T)*qs + tp_row)*gamma + beta) [+ residual]``
-    with ``q(a) = clamp(rint(a*qinv), -127, 127)``; the int32 sums exact."""
-    h = int8_matmul(quantize_act(a, qinv), wq.t()) * qs + tp_row
+    with ``q(a) = clamp(rint(a*qinv), -127, 127)``; the int32 sums exact.
+    ``a_q`` (int8), when given, is ``q(a)`` already and ``a`` is not read."""
+    aq = quantize_act(a, qinv) if a_q is None else a_q.float()
+    h = int8_matmul(aq, wq.t()) * qs + tp_row
     y = F.silu(_group_norm(h, gamma, beta, num_groups=NUM_GROUPS))
     return y if residual is None else y + residual
 
 
 def dense_gn_silu_int8_plain_into(a, wq, qinv, qs, tp_row, gamma, beta, residual=None,
-                                  out=None):
-    """The plain version with the wrapper's signature, on any device."""
-    y = dense_gn_silu_int8_plain(a, wq, qinv, qs, tp_row, gamma, beta, residual)
+                                  out=None, *, a_q=None, qinv_next=None, out_q=None):
+    """The plain version with the wrapper's signature, on any device: with
+    ``out_q`` it also writes ``quantize_act(out, qinv_next)`` as int8."""
+    y = dense_gn_silu_int8_plain(a, wq, qinv, qs, tp_row, gamma, beta, residual, a_q)
+    if out_q is not None:
+        out_q.copy_(quantize_act(y, qinv_next).to(torch.int8))
     return y if out is None else out.copy_(y)
 
 
@@ -290,21 +328,43 @@ def _dense_gn_silu_int8_fn():
     fn = build.load("dense_gn_silu_int8").dposer_dense_gn_silu_int8
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 9 + [I, I, I, P]
+        fn.argtypes = [P] * 12 + [I, I, I, P]
         fn.restype = I
     return fn
 
 
-def dense_gn_silu_int8(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, out=None):
+def check_int8_input(a_q, wq, B: int, K: int) -> None:
+    """Raise unless TMA can address ``a_q`` and ``wq`` (the Hopper int8
+    route of K13 and K14): int8 [B, K] contiguous, K a multiple of 16 and at
+    most 1024, both 16-byte aligned. Checked on every device, so the CPU's
+    plain path takes the operands the card takes."""
+    _check("a_q", a_q, wq.device, torch.int8, (B, K))
+    if K % 16 or K > 1024:
+        raise ValueError(f"a_q needs K % 16 == 0 and K <= 1024 (TMA rows); got K={K}")
+    for nm, t in (("a_q", a_q), ("wq", wq)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{nm} must be 16-byte aligned for TMA")
+
+
+def dense_gn_silu_int8(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, out=None, *,
+                       a_q=None, qinv_next=None, out_q=None):
     """K13 on ``a`` [B, K] fp32, ``wq`` [N, K] int8, ``qinv`` [K] and ``qs``
     [N] fp32; writes ``out`` [B, N] fp32 (may be ``residual`` itself) and
-    returns it."""
-    B, K = a.shape
+    returns it.
+
+    ``a_q`` int8 [B, K], ``q(a)`` written by the previous layer, routes the
+    layer through the Hopper int8 loop (TMA and ``wgmma`` s8; ``a`` may then
+    be None); without it the register-staged loop quantizes ``a``. With
+    ``qinv_next`` [N] fp32 and ``out_q`` int8 [B, N] the epilogue also
+    writes ``q(out, qinv_next)``, the next layer's ``a_q``. Each launch adds
+    one to ``launches`` and to its route's count in ``routes``."""
+    B, K = (a if a_q is None else a_q).shape
     N = wq.shape[0]
+    dev = wq.device
     if out is None:
-        out = torch.empty((B, N), dtype=torch.float32, device=a.device)
-    dev = a.device
-    _check("a", a, dev, torch.float32, (B, K))
+        out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    if a_q is None or a is not None:
+        _check("a", a, dev, torch.float32, (B, K))
     _check("wq", wq, dev, torch.int8, (N, K))
     _check("qinv", qinv, dev, torch.float32, (K,))
     for nm, t in (("qs", qs), ("tp_row", tp_row), ("gamma", gamma), ("beta", beta)):
@@ -312,26 +372,62 @@ def dense_gn_silu_int8(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, out=
     if residual is not None:
         _check("residual", residual, dev, torch.float32, (B, N))
     _check("out", out, dev, torch.float32, (B, N))
+    if a_q is not None:
+        check_int8_input(a_q, wq, B, K)
+    if (out_q is None) != (qinv_next is None):
+        raise ValueError("out_q and qinv_next come together")
+    if out_q is not None:
+        _check("out_q", out_q, dev, torch.int8, (B, N))
+        _check("qinv_next", qinv_next, dev, torch.float32, (N,))
     if dev.type == "cpu":
         return dense_gn_silu_int8_plain_into(a, wq, qinv, qs, tp_row, gamma, beta, residual,
-                                             out)
+                                             out, a_q=a_q, qinv_next=qinv_next, out_q=out_q)
     if dev.type != "cuda":
         raise ValueError(f"dense_gn_silu_int8 runs on cpu or cuda, not {dev}")
     gs = N // NUM_GROUPS
     if N % 64 or gs not in (2, 4, 8, 16, 32) or K > 1024:
         raise ValueError(f"dense_gn_silu_int8 kernel needs N % 64 == 0, a group size N/32 "
                          f"in {{2,4,8,16,32}} and K <= 1024; got N={N}, K={K}")
-    err = _dense_gn_silu_int8_fn()(a.data_ptr(), wq.data_ptr(), qinv.data_ptr(),
-                                   qs.data_ptr(), tp_row.data_ptr(), gamma.data_ptr(),
-                                   beta.data_ptr(), _ptr(residual), out.data_ptr(), B, K, N,
+    err = _dense_gn_silu_int8_fn()(_ptr(a) if a_q is None else None, _ptr(a_q),
+                                   wq.data_ptr(), qinv.data_ptr(), qs.data_ptr(),
+                                   tp_row.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                   _ptr(residual), out.data_ptr(), _ptr(qinv_next),
+                                   _ptr(out_q), B, K, N,
                                    torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"dense_gn_silu_int8 launch failed: CUDA error {err}")
     dense_gn_silu_int8.launches += 1
+    dense_gn_silu_int8.routes["register" if a_q is None else "wgmma_int8"] += 1
     return out
 
 
 dense_gn_silu_int8.launches = 0
+dense_gn_silu_int8.routes = {"wgmma_int8": 0, "register": 0}
+
+
+def int8_loop_product(a_q, wq, qs):
+    """``float(a_q @ wq^T) * qs`` [B, N] fp32 from K13's Hopper int8 loop
+    alone (``dposer_dense_gn_silu_int8_product``), on CUDA tensors: the loop's
+    exact check, held bit for bit to ``int8_matmul(a_q, wq.t()) * qs``. No
+    path runs it, so it counts no launch."""
+    B, K = a_q.shape
+    N = wq.shape[0]
+    dev = wq.device
+    _check("wq", wq, dev, torch.int8, (N, K))
+    _check("qs", qs, dev, torch.float32, (N,))
+    check_int8_input(a_q, wq, B, K)
+    if dev.type != "cuda" or N % 64:
+        raise ValueError(f"int8_loop_product runs on CUDA tensors with N % 64 == 0; got "
+                         f"{dev}, N={N}")
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    fn = build.load("dense_gn_silu_int8").dposer_dense_gn_silu_int8_product
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes, fn.restype = [P] * 4 + [I, I, I, P], I
+    err = fn(a_q.data_ptr(), wq.data_ptr(), qs.data_ptr(), out.data_ptr(), B, K, N,
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"int8_loop_product launch failed: CUDA error {err}")
+    return out
 
 
 # ---------------------------------------------------------------------------

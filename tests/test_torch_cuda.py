@@ -657,6 +657,148 @@ def test_chain_link(dev, mode, update, B, K, gs):
                                atol=(8e-3 if mode == "bf16-out" else 1e-3) * scale)
 
 
+def _int8(rng, shape, dev, lo=-127, hi=128):
+    return torch.from_numpy(rng.integers(lo, hi, size=shape).astype(np.int8)).to(dev)
+
+
+def test_int8_loop_first_tile_is_exact(dev):
+    """The Hopper int8 loop (csrc/dense_wgmma_int8.cuh) on one [64,128] x
+    [128,64] tile, both operands through TMA and wgmma s8 descriptors: the
+    int32 sums exactly (qs = 1), then with a rescale row, bit for bit."""
+    from dposer_tpu_torch.ops.cuda.quant import int8_matmul
+    rng = np.random.default_rng(31)
+    a_q, wq = _int8(rng, (64, 128), dev), _int8(rng, (64, 128), dev)
+    want = int8_matmul(a_q.float(), wq.t())
+    got = score_net.int8_loop_product(a_q, wq, torch.ones(64, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    qs = torch.from_numpy(rng.uniform(1e-5, 1e-3, size=64).astype(np.float32)).to(dev)
+    assert torch.equal(score_net.int8_loop_product(a_q, wq, qs), want * qs)
+
+
+@pytest.mark.parametrize("B", [1, 500, 1000])
+@pytest.mark.parametrize("K", [16, 128, 1024])
+def test_int8_loop_product_is_exact(dev, B, K):
+    """The loop's product at a ragged row count, one partial stage (K 16),
+    one stage and the eight stages of K = 1024, extreme values included:
+    bit-equal to the exact sums times the rescale row."""
+    from dposer_tpu_torch.ops.cuda.quant import int8_matmul
+    rng = np.random.default_rng(K + B)
+    N = 1024
+    a_q, wq = _int8(rng, (B, K), dev), _int8(rng, (N, K), dev)
+    a_q[0, :] = 127
+    if K == 1024:  # the largest sums, |sum| = 1024 * 127^2 < 2^24
+        wq = torch.where(wq > 0, 127, -127).to(torch.int8)
+    qs = torch.from_numpy(rng.uniform(1e-5, 1e-4, size=N).astype(np.float32)).to(dev)
+    got = score_net.int8_loop_product(a_q, wq, qs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, int8_matmul(a_q.float(), wq.t()) * qs)
+
+
+@pytest.mark.parametrize("B", [1, 500])
+@pytest.mark.parametrize("K", [128, 1024])
+@pytest.mark.parametrize("residual", ["none", "given", "aliased"])
+@pytest.mark.parametrize("copy", [False, True])
+def test_dense_gn_silu_int8_hopper_route(dev, B, K, residual, copy):
+    """K13 on an int8 ``a_q`` (the Hopper loop) against its plain version on
+    the fp32 ``a`` that ``a_q`` quantizes: the same int32 sums, the epilogue's
+    fp32 in another order (1e-3, as the register route); the int8 copy it
+    writes is ``quantize_act`` of its own fp32 output, byte for byte."""
+    from dposer_tpu_torch.ops.cuda.quant import quantize_act
+    rng = np.random.default_rng(7 * K + B)
+    N = 1024
+    a = _t(rng, (B, K), dev)
+    wq = _int8(rng, (N, K), dev)
+    qinv = torch.from_numpy(rng.uniform(10, 60, size=K).astype(np.float32)).to(dev)
+    qs = torch.from_numpy(rng.uniform(1e-5, 1e-4, size=N).astype(np.float32)).to(dev)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    res = _t(rng, (B, N), dev) if residual != "none" else None
+    qnext = torch.from_numpy(rng.uniform(10, 60, size=N).astype(np.float32)).to(dev)
+    out_q = torch.empty((B, N), dtype=torch.int8, device=dev) if copy else None
+    want = score_net.dense_gn_silu_int8_plain(a, wq, qinv, qs, tp, gamma, beta, res)
+    a_q = quantize_act(a, qinv).to(torch.int8)
+    reset_launch_counts()
+    out = score_net.dense_gn_silu_int8(None, wq, qinv, qs, tp, gamma, beta, residual=res,
+                                       out=res if residual == "aliased" else None, a_q=a_q,
+                                       qinv_next=qnext if copy else None, out_q=out_q)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == {"wgmma_int8": 1, "register": 0}
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
+    if copy:
+        assert torch.equal(out_q, quantize_act(out, qnext).to(torch.int8))
+
+
+def test_dense_gn_silu_int8_register_route_writes_the_copy(dev):
+    """The pre layer (K = 63, the fp32 state, the register-staged loop) with
+    the int8 copy for the first block: ``quantize_act`` of its output."""
+    from dposer_tpu_torch.ops.cuda.quant import quantize_act
+    rng = np.random.default_rng(64)
+    B, K, N = 500, 63, 1024
+    a = _t(rng, (B, K), dev)
+    wq = _int8(rng, (N, K), dev)
+    qinv = torch.from_numpy(rng.uniform(10, 60, size=K).astype(np.float32)).to(dev)
+    qs = torch.from_numpy(rng.uniform(1e-5, 1e-4, size=N).astype(np.float32)).to(dev)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    qnext = torch.from_numpy(rng.uniform(10, 60, size=N).astype(np.float32)).to(dev)
+    out_q = torch.empty((B, N), dtype=torch.int8, device=dev)
+    want = score_net.dense_gn_silu_int8_plain(a, wq, qinv, qs, tp, gamma, beta)
+    reset_launch_counts()
+    out = score_net.dense_gn_silu_int8(a, wq, qinv, qs, tp, gamma, beta, qinv_next=qnext,
+                                       out_q=out_q)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == {"wgmma_int8": 0, "register": 1}
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
+    assert torch.equal(out_q, quantize_act(out, qnext).to(torch.int8))
+
+
+@pytest.mark.parametrize("B", [1, 500, 512])
+@pytest.mark.parametrize("K", [128, 1024])
+@pytest.mark.parametrize("update", [False, True])
+def test_chain_link_int8_handoff(dev, B, K, update):
+    """K14's int8 mode on an int8 ``a_q`` (the Hopper loop): an inner link
+    writes only the next link's ``q(h)``, a last link the state and
+    ``q(x_new)``; both bit-equal to the plain link."""
+    from dposer_tpu_torch.ops.cuda import chain_link as cl
+    rng = np.random.default_rng(B + K)
+    N = 1024
+    a_q, w = _int8(rng, (B, K), dev), _int8(rng, (N, K), dev, -30, 31)
+    rows = cl.int8_rows(K, N, dev)
+    qnext = torch.full((N,), cl.INT8_QINV, device=dev)
+    x = _t(rng, (B, N), dev) if update else None
+    want_q = torch.empty((B, N), dtype=torch.int8, device=dev)
+    want = cl.chain_link_plain_into(None, w, "int8", out=None if x is None else x.clone(),
+                                    update=update, a_q=a_q, qinv_next=qnext, out_q=want_q,
+                                    **rows)
+    out_q = torch.empty_like(want_q)
+    reset_launch_counts()
+    got = cl.chain_link(None, w, "int8", out=x, update=update, a_q=a_q, qinv_next=qnext,
+                        out_q=out_q, **rows)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["chain_link"]["wgmma_int8"] == 1
+    assert torch.equal(out_q, want_q)
+    if update:
+        assert got is x and torch.equal(x, want)
+    else:
+        assert got is out_q
+
+
+def test_int8_chain_with_handoff_matches_plain_chain(dev):
+    """The microbenchmark's int8 chain (6 links, 5 steps, [512, 1024]) on the
+    card against its plain chain: bit-equal states; one register-route link
+    (the call's first), the rest on the Hopper loop."""
+    from dposer_tpu_torch.benchmarks import mxu_micro
+    from dposer_tpu_torch.ops.cuda import chain_link as cl
+    x0, _, ws_i8 = mxu_micro.make_inputs(dev, mxu_micro.B, mxu_micro.H)
+    rows = cl.int8_rows(mxu_micro.H, mxu_micro.H, dev)
+    reset_launch_counts()
+    got = cl.run_chain(x0.clone(), ws_i8, "int8", 5, **rows)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["chain_link"] == {"wgmma": 0, "wgmma_int8": 29,
+                                                      "register": 1}
+    want = cl.run_chain(x0.clone(), ws_i8, "int8", 5, link=cl.chain_link_plain_into, **rows)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("scheme", ["tensor", "channel"])
 def test_int8_kernel_sampler_steps_match_plain(dev, scheme):
     """The int8 kernel sampler against its plain loop, step by step from
@@ -684,6 +826,9 @@ def test_int8_kernel_sampler_steps_match_plain(dev, scheme):
         torch.testing.assert_close(xk, xp, rtol=0, atol=2e-2 * max(1.0, float(xp.abs().max())))
     counts = launch_counts()
     assert counts["dense_gn_silu_int8"] == 5 * n and counts["dense_gn_silu"] == 0
+    # the pre layer on the fp32 state, every later layer on the int8 handoff
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == {"wgmma_int8": 4 * n,
+                                                              "register": n}
     out = get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax,
                               device="cuda")(z=z, noise=noise)
     ref = get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax, device="cuda",
