@@ -10,8 +10,10 @@ Phases; any failure exits non-zero:
    (``-Xptxas -v`` printed, and the registers and shared memory of every
    instantiation of the Hopper main loops ``dense_wgmma.cuh`` and
    ``dense_wgmma_int8.cuh``, with any ptxas line reporting serialized wgmma;
-   for the cluster kernels K2 and K3 their grid, cluster size, shared
-   memory, the clusters the card holds at once and their registers);
+   for the cluster kernels K2, K3, K7's Hopper route and K9 their grid,
+   cluster size, shared memory, the clusters the card holds at once and
+   their registers; a ptxas line reporting serialized wgmma in K7 or K9
+   fails the phase);
 3. each of the fourteen kernels against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
    sampling, [1000, .] for the completion solver, [50, .] for the
@@ -23,7 +25,12 @@ Phases; any failure exits non-zero:
    plain version's, a library yardstick's and the bound from bytes and
    operations at the published H100 SXM peaks; K13 on states of a real
    trajectory with the per-tensor and per-channel ranges the demo calibrates,
-   each K = 1024 layer on the int8 copy the layer before wrote; the Hopper
+   each K = 1024 layer on the int8 copy the layer before wrote; K7 on the
+   likelihood's routes (the pre layer on the register route writing the bf16
+   copies, the K = 1024 layers on the Hopper route from them; the copies
+   byte for byte) and beside them on the register route, and K9, both with
+   50 repeated calls bit-identical and bounds at the handoff's bytes and at
+   fp32 A; the Hopper
    int8 loop first alone (one [64,128]x[128,64] tile and K13's product at
    [500,1024]x[1024,1024], exact), K13's int8 copies byte for byte and K14's
    int8 inner and last links exact against their plain versions;
@@ -55,8 +62,10 @@ Phases; any failure exits non-zero:
    (e) PF-ODE sampling, 500 poses x 125 RK4 steps: poses/s; (f) the PF-Euler
    decode, 500 x 1000 deterministic steps at eps 1e-5: poses/s; (g) the exact
    likelihood of 50 synthetic poses, 100 RK4 steps at eps 1e-4: ms per batch,
-   and its bits/dim against the fp32 fixed-grid path and the adaptive RK45
-   oracle on the same Hutchinson probe (batch means within 0.1); (h) the
+   a stage's device time from graph replay and the device's busy share,
+   K7's route counters (a stage: 1 register, 4 Hopper), and its bits/dim
+   against the fp32 fixed-grid path and the adaptive RK45 oracle on the same
+   Hutchinson probe (batch means within 0.1); (h) the
    demo's ``interpolation`` task on synthetic poses: the reconstruction error
    and finite frames of shape [5, 60, 63]; (i) the int8 serving mode: 500 x
    1000 generation per tensor, per channel and int8-mixed beside bf16
@@ -314,12 +323,14 @@ def wgmma8_instantiations(logs):
     return rows, {"K1024": fn(1024), "K128": fn(128)}, serialized
 
 
-def cluster_launch(lib, *args):
-    """The cluster kernel of ``lib`` (K2 ``head_em`` at ``args`` = (B, H), K3
-    ``langevin_update``) as it launches on this card: grid CTAs, cluster
-    size, threads and dynamic shared memory a CTA, and the clusters the card
-    holds at once (``cudaOccupancyMaxActiveClusters``)."""
-    fn = getattr(build.load(lib), f"dposer_{lib}_launch_info")
+def cluster_launch(lib, *args, kernel=None):
+    """The cluster kernel ``kernel`` of ``lib`` (default ``lib``: K2
+    ``head_em`` at ``args`` = (B, H), K3 ``langevin_update``; K7
+    ``dense_gn_silu_jvp`` at (B, K, N), K9 ``head_rk4_jvp`` in ``head_rk4``
+    at (B, H)) as it launches on this card: grid CTAs,
+    cluster size, threads and dynamic shared memory a CTA, and the clusters
+    the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    fn = getattr(build.load(lib), f"dposer_{kernel or lib}_launch_info")
     fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
@@ -361,9 +372,32 @@ def phase_build():
               + ("; ".join(f"{e['registers']} registers, {e['static_smem']} B static smem, "
                            f"{e['spills'] or 'spills not reported'}" for e in ptx)
                  or "no ptxas log (already built)"))
+    # the likelihood's kernels: K7's Hopper route and K9 at the likelihood's
+    # 50 rows
+    jvp_serialized = [ln.strip() for lib in ("dense_gn_silu_jvp", "head_rk4")
+                      for ln in logs.get(lib, "").splitlines()
+                      if "wgmma" in ln and "serialized" in ln]
+    for lib, kernel, word, args in (
+            ("dense_gn_silu_jvp", None, "dense_gn_silu_jvp_wgmma_kernel", (BL, H, H)),
+            ("head_rk4", "head_rk4_jvp", "head_rk4_jvp_kernel", (BL, H))):
+        ptx = ptxas_entries(logs.get(lib, ""), word)
+        for e in ptx:
+            print(f"[build] {kernel or lib} cluster kernel <cluster "
+                  f"{','.join(re.findall(r'ILi(\d+)E', e['entry']))}>: {e['registers']} "
+                  f"registers, {e['static_smem']} B static smem; "
+                  f"{e['spills'] or 'spills not reported'}")
+        c = cluster_launch(lib, *args, kernel=kernel)
+        clusters[kernel or lib] = dict(c, ptxas=ptx)
+        print(f"[build] {kernel or lib} at {args}: grid {c['grid_ctas']} CTAs in clusters of "
+              f"{c['cluster']}, {c['threads']} threads, {c['dynamic_smem']} B dynamic smem a "
+              f"CTA; {c['clusters_resident']} clusters resident at once")
+    print(f"[build] likelihood kernels: ptxas lines reporting serialized wgmma: "
+          f"{len(jvp_serialized)}" + "".join(f"\n    {ln}" for ln in jvp_serialized))
+    # a serialized wgmma in K7's loop cost ~40% of it: the design keeps it out
+    check(not jvp_serialized, "ptxas serialized a wgmma of K7 or K9")
     return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters,
                       int8_instantiations=rows8, int8_dynamic_smem=dyn8,
-                      serialized_wgmma=serialized)
+                      serialized_wgmma=serialized, likelihood_serialized_wgmma=jvp_serialized)
 
 
 def load_pinned(dev):
@@ -936,33 +970,56 @@ def phase_ode_kernels(model, dev):
     eps = tlik.draw_epsilon("Rademacher", (BL, D), gen, dev)
     rows = []
 
-    # K7 dense_gn_silu_jvp: the three layer shapes one forward-with-tangent runs
+    # K7 dense_gn_silu_jvp: the three layer shapes one forward-with-tangent
+    # runs, on the routes the likelihood takes (the pre layer on the register
+    # route, writing the bf16 copies; the K = 1024 layers on the Hopper route
+    # from the copies the layer before wrote), then the K = 1024 layers on
+    # the register route (the route before the handoff: timed beside)
+    bf = torch.bfloat16
     h, dh = score_net.dense_gn_silu_jvp_plain(x, eps, W[0], tp[0], gs[0], gb[0])
     h1, dh1 = score_net.dense_gn_silu_jvp_plain(h, dh, W[1], tp[1], gs[1], gb[1])
+    copies = {id(t): t.to(bf) for t in (h, dh, h1, dh1)}
     variants = []
-    for label, a, da, k, res in (("pre [50,63]x[63,1024]", x, eps, 0, (None, None)),
-                                 ("block [50,1024]x[1024,1024]", h, dh, 1, (None, None)),
-                                 ("block+residual [50,1024]x[1024,1024]", h1, dh1, 2, (h, dh))):
+    for key, label, a, da, k, res, route in (
+            ("pre", "pre [50,63]x[63,1024]", x, eps, 0, (None, None), "register"),
+            ("block", "block [50,1024]x[1024,1024]", h, dh, 1, (None, None), "wgmma"),
+            ("block+residual", "block+residual [50,1024]x[1024,1024]", h1, dh1, 2, (h, dh),
+             "wgmma"),
+            ("register block", "block, register route", h, dh, 1, (None, None), "register"),
+            ("register block+residual", "block+residual, register route", h1, dh1, 2, (h, dh),
+             "register")):
         args = (a, da, W[k], tp[k], gs[k], gb[k])
         ref = score_net.dense_gn_silu_jvp_plain(*args, *res)
-        out = score_net.dense_gn_silu_jvp(*args, residual=res[0], dresidual=res[1])
+        o, do = torch.empty_like(ref[0]), torch.empty_like(ref[0])
+        ob, dob = torch.empty_like(ref[0], dtype=bf), torch.empty_like(ref[0], dtype=bf)
+        kw = dict(residual=res[0], dresidual=res[1], out=o, dout=do, out_b=ob, dout_b=dob)
+        kargs, cluster = args, None
+        if route == "wgmma":
+            kw.update(a_b=copies[id(a)], da_b=copies[id(da)])
+            kargs, cluster = (None, None) + args[2:], score_net.jvp_cluster(a.shape[1])
+        fused_em.reset_launch_counts()
+        score_net.dense_gn_silu_jvp(*kargs, **kw)
         torch.cuda.synchronize()
-        e = [err(o, r) for o, r in zip(out, ref)]
+        check(fused_em.route_counts()["dense_gn_silu_jvp"][route] == 1,
+              f"dense_gn_silu_jvp {label}: not on the {route} route")
+        e = [err(o, ref[0]), err(do, ref[1])]
         tol = [1e-3 * max(1.0, float(r.abs().max())) for r in ref]
         check(all(a_ <= b_ for a_, b_ in zip(e, tol)),
               f"dense_gn_silu_jvp {label}: max abs err (out, dout) {e} > {tol}")
+        check(torch.equal(ob, o.to(bf)) and torch.equal(dob, do.to(bf)),
+              f"dense_gn_silu_jvp {label}: the bf16 copies are not the outputs rounded")
         K, with_res = a.shape[1], res[0] is not None
-        n_bytes = (2 * 4 * BL * K + 2 * K * H + 3 * 4 * H
-                   + 2 * 4 * BL * H * (2 if with_res else 1))
-        bms, by = bound(n_bytes, 2 * 2 * BL * K * H, 40 * BL * H)
-        o, do = torch.empty_like(ref[0]), torch.empty_like(ref[0])
+        a_bytes = 2 * (2 if route == "wgmma" else 4) * BL * K
+        rest = 2 * K * H + 3 * 4 * H + 2 * 4 * BL * H * (2 if with_res else 1)
+        bms, by = bound(a_bytes + rest + 2 * 2 * BL * H, 2 * 2 * BL * K * H, 40 * BL * H)
+        bms_old, _ = bound(2 * 4 * BL * K + rest, 2 * 2 * BL * K * H, 40 * BL * H)
         r0, r1 = res if with_res else (torch.zeros_like(o), torch.zeros_like(o))
 
-        def lib_layer(av, rv):
+        def lib_layer(av, rv, k=k):
             y = torch.matmul(av.to(torch.bfloat16), W[k]).float() + tp[k]
             return F.silu(F.group_norm(y, 32, gs[k], gb[k], eps=1e-5)) + rv
 
-        def library():
+        def library(a=a, da=da, r0=r0, r1=r1, lib_layer=lib_layer):
             return torch.func.jvp(lib_layer, (a, r0), (da, r1))
 
         lib = library()
@@ -970,22 +1027,42 @@ def phase_ode_kernels(model, dev):
         # the yardstick rounds its matmul output to bf16: same function, fewer digits
         check(err(lib[1], ref[1]) <= 50 * tol[1], f"dense_gn_silu_jvp {label}: the library "
                                                   f"composite computes another tangent")
-        run = lambda: score_net.dense_gn_silu_jvp(*args, residual=res[0],  # noqa: E731
-                                                  dresidual=res[1], out=o, dout=do)
-        variants.append(dict(
-            shape=label, max_abs_err=max(e), errs_out_dout=e, tols_out_dout=tol,
-            ms=graph_ms(run), eager_ms=eager_ms(run),
-            plain_ms=graph_ms(lambda: score_net.dense_gn_silu_jvp_plain(*args, *res)),
-            library_ms=graph_ms(library), bound_ms=bms, bound_by=by))
-    main_v = variants[2]
+        run = lambda kargs=kargs, kw=kw: score_net.dense_gn_silu_jvp(*kargs, **kw)  # noqa: E731
+        v = dict(key=key, shape=label, route=route, cluster=cluster, max_abs_err=max(e),
+                 errs_out_dout=e, tols_out_dout=tol, ms=graph_ms(run), eager_ms=eager_ms(run),
+                 bound_ms=bms, bound_by=by, bound_ms_at_fp32_a_no_copies=bms_old)
+        if key in ("pre", "block", "block+residual"):
+            v.update(plain_ms=graph_ms(lambda args=args, res=res:
+                                       score_net.dense_gn_silu_jvp_plain(*args, *res)),
+                     library_ms=graph_ms(library))
+        if route == "wgmma" and key == "block+residual":
+            # 50 repeated calls give the same bits: the split-K partials are
+            # summed in rank order in the finishing CTA
+            runs7 = []
+            for _ in range(1 + REPEATS):
+                run()
+                runs7.append((o.clone(), do.clone()))
+            torch.cuda.synchronize()
+            check(all(torch.equal(p_, q_) for r_ in runs7[1:] for p_, q_ in zip(r_, runs7[0])),
+                  f"dense_gn_silu_jvp {label}: {REPEATS} repeated calls are not bit-identical")
+            v["repeats_bit_identical"] = REPEATS
+        variants.append(v)
+        print(f"[kernel] dense_gn_silu_jvp {label} ({route}"
+              + (f", clusters of {cluster}" if cluster else "") + f"): {v['ms'] * 1e3:.2f} us "
+              f"(eager {v['eager_ms'] * 1e3:.2f}), bound {bms * 1e3:.2f} us ({bms_old * 1e3:.2f} "
+              f"at fp32 A without copies), err {max(e):.3g}")
+    by_key = {v["key"]: v for v in variants}
+    main_v = by_key["block+residual"]
     rows.append(dict(name="dense_gn_silu_jvp", route="cuda",
                      source=f"{CSRC}/dense_gn_silu_jvp.cu", replaces=TPU_LIK_KERNEL,
                      replaces_part="fused_lik.py:41 _make_kernel -> score_net.py:388 "
                                    "bind_fwd_jvp (mm, gnorm_jvp, silu_jvp, h + h2 and dh + dh2)",
                      max_abs_err=max(v["max_abs_err"] for v in variants),
                      tol="out 1e-3*max(1,|ref|max); dout 1e-3*max(1,|dref|max)",
+                     repeats_bit_identical=REPEATS,
                      **{k: main_v[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
-                                               "library_ms", "bound_ms", "bound_by")},
+                                               "library_ms", "bound_ms", "bound_by",
+                                               "bound_ms_at_fp32_a_no_copies")},
                      variants=variants))
 
     # K8 head_rk4: every stage and the denoise, on a forward's hidden state
@@ -1033,7 +1110,7 @@ def phase_ode_kernels(model, dev):
         bound_ms=bms, bound_by=by))
 
     # K9 head_rk4_jvp, on the hidden state and tangent of the 50 rows
-    bufs = tuple(torch.empty(BL, H, device=dev) for _ in range(4))
+    bufs = score_net.hidden_jvp_buffers(netl, BL, dev)
     hl, dhl = score_net.network_hidden_jvp(netl, x, eps, j, bufs)
     xl, xsl, accl = x, x + 0.01 * torch.randn(BL, D, generator=gen, device=dev), \
         torch.randn(BL, D, generator=gen, device=dev)
@@ -1049,12 +1126,21 @@ def phase_ode_kernels(model, dev):
         e9 += [err(g, w) for g, w in zip(got, want)]
         tol9 += [1e-3 * max(1.0, float(w.abs().max())) for w in want]
     check(all(a_ <= b_ for a_, b_ in zip(e9, tol9)), f"head_rk4_jvp: errors {e9} > {tol9}")
+    # 50 repeated calls bit-identical (the partials summed in rank order)
+    runs9 = []
+    for _ in range(1 + REPEATS):
+        got = tuple(t.clone() for t in (xl, xsl, accl, lp, lacc))
+        fused_lik.head_rk4_jvp(hl, dhl, wpl, bpl, coefl, j, 1, *got[:3], eps, *got[3:])
+        runs9.append(got)
+    torch.cuda.synchronize()
+    check(all(torch.equal(p_, q_) for r_ in runs9[1:] for p_, q_ in zip(r_, runs9[0])),
+          f"head_rk4_jvp: {REPEATS} repeated calls are not bit-identical")
     n9 = (2 * 4 * BL * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS
           + 6 * 4 * BL * D + 3 * 4 * BL + 32)
     bms, by = bound(n9, 2 * 2 * BL * H * D, 16 * BL * D)
     st9 = tuple(t.clone() for t in (xl, xsl, accl, lp, lacc))
-    run9 = lambda: fused_lik.head_rk4_jvp(hl, dhl, wpl, bpl, coefl, j, 1, *st9[:3],  # noqa: E731
-                                          eps, *st9[3:])
+    run9 = lambda: fused_lik.head_rk4_jvp(  # noqa: E731
+        hl, dhl, wpl, bpl, coefl, j, 1, *st9[:3], eps, *st9[3:])
     c9, bpl16 = [float(c) for c in coefl[j]], bpl.to(torch.bfloat16)
 
     def head_fn(hh):
@@ -1077,12 +1163,15 @@ def phase_ode_kernels(model, dev):
                       "(the RK4 step on x and delta_logp)",
         shape="stage 1, [50,1024] pair x [1024,63]", max_abs_err=max(e9),
         tol="1e-3*max(1,|ref|max), stages 0-3, x xs acc lp lacc", errs=e9, tols=tol9,
-        ms=graph_ms(run9), eager_ms=eager_ms(run9),
+        cluster=cluster_launch("head_rk4", BL, H, kernel="head_rk4_jvp")["cluster"],
+        repeats_bit_identical=REPEATS, ms=graph_ms(run9), eager_ms=eager_ms(run9),
         plain_ms=graph_ms(lambda: fused_lik.head_rk4_jvp_plain(hl, dhl, wpl, bpl, coefl, j, 1,
                                                                xl, xsl, accl, eps, lp, lacc)),
         library_ms=graph_ms(rk4_jvp_library), library_max_abs_err=lib9_e,
         library="composite: torch.func.jvp of bf16 torch.addmm + RK4 on x and delta logp",
         bound_ms=bms, bound_by=by))
+    print(f"[kernel] head_rk4_jvp: clusters of {rows[-1]['cluster']} {rows[-1]['ms'] * 1e3:.2f} "
+          f"us; {REPEATS} repeated calls bit-identical")
     for r in rows:
         kernel_row_line(r)
     return rows
@@ -1213,6 +1302,11 @@ def phase_ode_protocols(model, dev):
                                            device=dev)
     walls, (bpd, zk, nfe) = timed_calls(lambda: lik(None, data, epsilon=eps))
     by_run["likelihood_50x100"] = fused_em.launch_counts()
+    k7_routes = fused_em.route_counts()["dense_gn_silu_jvp"]
+    n_stages = 4 * LIK_STEPS
+    check(k7_routes == {"wgmma": 4 * n_stages, "register": n_stages},
+          f"likelihood: K7's routes {k7_routes}, expected the pre layer on the register "
+          f"route and the four block layers on the Hopper route each stage")
     check(nfe == 4 * LIK_STEPS and bpd.shape == (BL,) and torch.isfinite(bpd).all().item()
           and torch.isfinite(zk).all().item(), "likelihood output")
     t0 = time.perf_counter()
@@ -1234,8 +1328,25 @@ def phase_ode_protocols(model, dev):
     check(max(gaps.values()) <= BPD_LIMIT, f"bits/dim batch means {means} part by {gaps}")
     wall = min(walls[1:])
     scale = max(1.0, float(z_ad.abs().max()))
+    # one stage's device time (K7 x5 and K9, graph replay: no host gaps) on
+    # the likelihood's own operands, and the device's busy share of a batch
+    net, coefs = fused_ode.build_rk4_operands(sde, model, LIK_EPS, sde.T, LIK_STEPS, dev)
+    st = [data.clone(), data.clone(), torch.zeros_like(data), torch.zeros(BL, device=dev),
+          torch.zeros(BL, device=dev)]
+    bufs = score_net.hidden_jvp_buffers(net, BL, dev)
+    jm = LIK_STEPS  # a mid-trajectory row of the stage grid
+
+    def stage():
+        hh, dhh = score_net.network_hidden_jvp(net, st[1], eps, jm, bufs)
+        fused_lik.head_rk4_jvp(hh, dhh, net["w_post"], net["b_post"], coefs, jm, 1, st[0],
+                               st[1], st[2], eps, st[3], st[4])
+
+    stage_ms = graph_ms(stage)
+    busy = n_stages * stage_ms / (wall * 1e3)
     res["likelihood"] = dict(
-        ms_per_batch=wall * 1e3, walls_s=walls, batch=BL, nfe=nfe, bpd_means=means,
+        ms_per_batch=wall * 1e3, walls_s=walls, batch=BL, nfe=nfe,
+        stage_device_us=stage_ms * 1e3, device_ms_per_batch=n_stages * stage_ms,
+        device_busy_share=busy, k7_routes=k7_routes, bpd_means=means,
         bpd_mean_gaps=gaps, bpd_limit=BPD_LIMIT,
         bpd_row_max_gap_kernel_vs_adaptive=float((bpd - bpd_ad).abs().max()),
         z_max_abs_err_kernel_vs_adaptive=float((zk - z_ad).abs().max()),
@@ -1243,8 +1354,10 @@ def phase_ode_protocols(model, dev):
         adaptive_nfe=nfe_ad, fp32_rk4_wall_s=t1 - t0, adaptive_wall_s=t2 - t1,
         launches=by_run["likelihood_50x100"])
     print(f"[likelihood] {BL} x {LIK_STEPS} RK4 steps: {wall * 1e3:.1f} ms per batch (calls "
-          f"{['%.3f' % w for w in walls]} s); bits/dim means {means}, gaps {gaps}; adaptive "
-          f"nfe {nfe_ad}; fp32 RK4 {t1 - t0:.2f} s, adaptive {t2 - t1:.2f} s once each")
+          f"{['%.3f' % w for w in walls]} s); a stage {stage_ms * 1e3:.1f} us of device time "
+          f"(graph replay), {n_stages * stage_ms:.1f} ms a batch, busy {100 * busy:.0f}%; K7 "
+          f"routes {k7_routes}; bits/dim means {means}, gaps {gaps}; adaptive nfe {nfe_ad}; "
+          f"fp32 RK4 {t1 - t0:.2f} s, adaptive {t2 - t1:.2f} s once each")
 
     # (h) the demo's interpolation task on synthetic poses
     os.makedirs(OUT, exist_ok=True)
@@ -2431,7 +2544,7 @@ def main():
     proto["completion"] = comp["results"]
     # and for the PF-ODE paths: 4 x 125 stages of K1 x5 and K8 at 500 rows; 4 x 100
     # stages of K7 x5 and K9 at 50 rows
-    k7 = {v["shape"].split()[0]: v["ms"]
+    k7 = {v["key"]: v["ms"]
           for v in next(r for r in rows if r["name"] == "dense_gn_silu_jvp")["variants"]}
     for name, dev_ms in (
             ("ode_sampling", 4 * ODE_STEPS * (step_ms - ms["head_em"] + ms["head_rk4"])),

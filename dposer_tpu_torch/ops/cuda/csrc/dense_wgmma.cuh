@@ -124,6 +124,19 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
+// Descriptor of a K-major operand in shared memory with the 128-byte swizzle
+// (rows of 128 bytes: 64 bf16 or 128 int8 values along K): 8-row groups
+// 1024 bytes apart (the stride byte offset); the leading byte offset is not
+// read for a swizzled K-major operand whose K-step (32 bytes: k16 of bf16,
+// k32 of int8) lies inside the atom, and is set to 1. A K-step inside the
+// atom advances the start address by 32 bytes. The int8 loop
+// (dense_wgmma_int8.cuh) and K7's bf16 loop (dense_gn_silu_jvp.cu) read
+// both or one operand through it.
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -161,6 +174,24 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A(descriptor a) * B(descriptor b), m64n64k16, bf16 in, fp32 out, A
+// K-major (desc_k), B MN-major (desc_b).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float2 v) {

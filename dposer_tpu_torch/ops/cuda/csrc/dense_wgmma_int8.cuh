@@ -46,7 +46,8 @@
 //   128-byte-swizzled K-major operand: stride byte offset 1024 B (one 8-row
 //   group), leading byte offset unused (1), start address advanced 32 B per
 //   k32 step inside the atom (the swizzle is a function of the address bits,
-//   so the step's chunks are found where TMA put them).
+//   so the step's chunks are found where TMA put them): dense_wgmma.cuh's
+//   desc_k.
 // - Nothing is converted in the loop: no register holds an operand, so no
 //   instruction can define a wgmma input while one is in flight (ptxas
 //   C7513, which serialized the bf16 loop's first version).
@@ -96,15 +97,6 @@ __host__ __device__ constexpr int stages(int K) { return (K + KSTAGE - 1) / KSTA
 // the swizzle's 1024 bytes, the stages, the epilogue's tile, the barriers.
 __host__ __device__ constexpr int smem_bytes(int K) {
   return 1024 + stages(K) * STAGE_BYTES + TILE_BYTES + 8 * stages(K);
-}
-
-// Descriptor of an 8-bit operand in shared memory, K-major, 128-byte swizzle:
-// 8-row groups 1024 bytes apart (the stride byte offset); the leading byte
-// offset is not read for a swizzled K-major operand whose K-step (32 bytes)
-// lies inside the atom, and is set to 1.
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
 __device__ __forceinline__ void keep(int& r) { asm volatile("" : "+r"(r)::"memory"); }
@@ -175,7 +167,7 @@ __device__ __forceinline__ const float* gemm_tile(uint8_t* smem_raw, const CUten
       wgmma::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KSTAGE / 32; ++kk)
-        wgmma_m64n64k32_s8(acc, desc_k(a + 32 * kk), desc_k(b + 32 * kk));
+        wgmma_m64n64k32_s8(acc, wgmma::desc_k(a + 32 * kk), wgmma::desc_k(b + 32 * kk));
       wgmma::wgmma_commit();
       // no group stays in flight across the next barrier wait: a wgmma in
       // flight across that divergent spin made ptxas serialize every wgmma

@@ -39,24 +39,26 @@ namespace {
 
 using namespace dposer::head_cluster;
 
+using T = Tile<4>;  // 16 poses a tile, 4 CTAs a cluster
+
 constexpr int N_COEFS = 8;  // cx, cout, cnoise, score_scale, alpha, (imputation x2), pad
 
-__global__ void __cluster_dims__(SPLIT, 1, 1) __launch_bounds__(THREADS)
+__global__ void __cluster_dims__(T::SPLIT, 1, 1) __launch_bounds__(THREADS)
 head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
                int mode, float* x, float* x_mean, float* score, float* score_sq,
                const float* __restrict__ noise, unsigned long long seed, int slab, int B,
                int H, int D) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(smem, H);
+  const Layout<T> L(smem, H);
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int row0 = (blockIdx.x / SPLIT) * ROWS;
-  start_copies(h, &tmW, L, row0, rank, B, H);
+  const int row0 = (blockIdx.x / T::SPLIT) * ROWS;
+  start_copies<T>(h, nullptr, &tmW, L, row0, rank, B, H);
   cluster_arrive_relaxed();  // the barriers are set up; waited on before the first push
   __syncthreads();  // the barriers are initialized, the zeroed rows written
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp < MMA_WARPS) {
-    send_partials(L, rank, H);
+    send_partials<T>(L, rank, H);
     return;
   }
 
@@ -64,9 +66,9 @@ head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap 
   // + e of the tile, each lane columns lane and lane + 32. While the copies
   // fly it loads x, the bias and the step's scalars and draws the normals.
   const int e = warp - MMA_WARPS;
-  const int r = rank * ROWS_PER_CTA + e;
+  const int r = rank * T::ROWS_PER_CTA + e;
   const int gr = row0 + r;
-  const bool has_row = e < ROWS_PER_CTA && gr < B;  // uniform across the warp
+  const bool has_row = e < T::ROWS_PER_CTA && gr < B;  // uniform across the warp
   const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
   float cx = 0.0f, cout = 0.0f, cn = 0.0f, s = 0.0f;
   float bias[2] = {0.0f, 0.0f}, xin[2] = {0.0f, 0.0f}, z[2] = {0.0f, 0.0f};
@@ -88,13 +90,13 @@ head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap 
       z[u] = dposer::draw_normal(noise, seed, step, slab, gr, c, D);
     }
   }
-  wait_partials(L);  // every epilogue warp waits: peers push into this CTA until then
+  wait_partials<T>(L);  // every epilogue warp waits: peers push into this CTA until then
 
   if (has_row) {
     float v[2] = {0.0f, 0.0f};  // out at columns lane, lane + 32
 #pragma unroll
     for (int u = 0; u < 2; ++u)
-      if (lane + 32 * u < D) v[u] = out_at(L, bias[u], e, lane + 32 * u);
+      if (lane + 32 * u < D) v[u] = out_at<T>(L, bias[u], e, lane + 32 * u);
     if (mode == 0) {
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
@@ -125,7 +127,7 @@ head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap 
 cudaError_t allow_smem() {
   static const cudaError_t attr = cudaFuncSetAttribute(
       head_em_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(1024)));
+      static_cast<int>(smem_bytes<T>(1024)));
   return attr;
 }
 
@@ -142,14 +144,14 @@ extern "C" int dposer_head_em(const float* h, const void* Wpost, const float* bp
                               float* x_mean, float* score, float* score_sq,
                               const float* noise, unsigned long long seed, int slab, int B,
                               int H, int D, void* stream) {
-  if (!operands_ok(h, Wpost, B, H, D) || (mode != 0 && mode != 1))
+  if (!operands_ok<T>(h, Wpost, B, H, D) || (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t attr = allow_smem();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap tmW;
-  const int e = wpost_map(&tmW, Wpost, H);
+  const int e = wpost_map<T>(&tmW, Wpost, H);
   if (e != 0) return e;
-  head_em_kernel<<<grid_blocks(B), THREADS, smem_bytes(H), static_cast<cudaStream_t>(stream)>>>(
+  head_em_kernel<<<grid_blocks<T>(B), THREADS, smem_bytes<T>(H), static_cast<cudaStream_t>(stream)>>>(
       h, tmW, bpost, coefs, step, mode, x, x_mean, score, score_sq, noise, seed, slab, B, H, D);
   return static_cast<int>(cudaGetLastError());
 }
@@ -161,23 +163,5 @@ extern "C" int dposer_head_em(const float* h, const void* Wpost, const float* bp
 extern "C" int dposer_head_em_launch_info(int B, int H, int* out) {
   const cudaError_t attr = allow_smem();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute cl;
-  cl.id = cudaLaunchAttributeClusterDimension;
-  cl.val.clusterDim.x = SPLIT;
-  cl.val.clusterDim.y = 1;
-  cl.val.clusterDim.z = 1;
-  cfg.gridDim = dim3(grid_blocks(B));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem_bytes(H);
-  cfg.attrs = &cl;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, head_em_kernel, &cfg);
-  out[0] = grid_blocks(B);
-  out[1] = SPLIT;
-  out[2] = THREADS;
-  out[3] = static_cast<int>(smem_bytes(H));
-  out[4] = clusters;
-  return static_cast<int>(e);
+  return launch_info<T>(head_em_kernel, B, H, out);
 }

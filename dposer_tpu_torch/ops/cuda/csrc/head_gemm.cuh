@@ -1,6 +1,6 @@
 // The output head of the score network as device code shared by the kernels
-// that fuse an update into its epilogue (K2 head_em, K6 head_adam, K8 head_rk4,
-// K9 head_rk4_jvp):
+// that fuse an update into its epilogue (K6 head_adam, K8 head_rk4, K11
+// head_dsm; K2 and K9 run head_cluster.cuh):
 //   out[r, c] = sum_k bf16(h[r, k]) * Wpost[k, c] + bpost[c]
 //
 // A block owns 16 rows and all 64 (zero-padded) output columns. It stages its
@@ -109,31 +109,6 @@ __device__ __forceinline__ const float* gemm_tile(const float* __restrict__ h,
   return Cs;
 }
 
-// The same for a primal h and its tangent dh, one after the other through the
-// one staging buffer: h's partial sums are block 0 of `smem`
-// (smem_bytes_pair(H) bytes) and dh's block 1, read with out_at and tangent_at.
-__device__ __forceinline__ const float* gemm_tile_pair(const float* __restrict__ h,
-                                                       const float* __restrict__ dh,
-                                                       const __nv_bfloat16* __restrict__ Wpost,
-                                                       unsigned char* smem, int row0, int B,
-                                                       int H) {
-  auto* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  auto* Cs = reinterpret_cast<float*>(smem);
-  Acc acc, dacc;
-  stage_rows(h, As, row0, B, H);
-  __syncthreads();
-  mma_rows(acc, As, Wpost, H);
-  __syncthreads();  // As is free for dh
-  stage_rows(dh, As, row0, B, H);
-  __syncthreads();
-  mma_rows(dacc, As, Wpost, H);
-  __syncthreads();
-  store_partial(Cs, acc, 0);
-  store_partial(Cs, dacc, 1);
-  __syncthreads();
-  return Cs;
-}
-
 // Element (r, c) of the block's head output, from gemm_tile's partial sums.
 __device__ __forceinline__ float out_at(const float* Cs, const float* __restrict__ bpost, int r,
                                         int c) {
@@ -143,25 +118,11 @@ __device__ __forceinline__ float out_at(const float* Cs, const float* __restrict
   return v;
 }
 
-// Element (r, c) of the tangent's head output (no bias), from gemm_tile_pair's sums.
-__device__ __forceinline__ float tangent_at(const float* Cs, int r, int c) {
-  float v = 0.0f;
-#pragma unroll
-  for (int s = 0; s < K_SPLIT; ++s) v += Cs[(K_SPLIT + s) * ROWS * C_LD + r * C_LD + c];
-  return v;
-}
-
 // Host side: the dynamic shared memory of a block, the grid, and the operand
 // checks (H a multiple of 64 and <= 1024, h and Wpost 16-byte aligned, D <= 64).
 inline size_t smem_bytes(int H) {
   const size_t a_bytes = static_cast<size_t>(ROWS) * (H + 8) * 2;
   const size_t c_bytes = static_cast<size_t>(K_SPLIT) * ROWS * C_LD * sizeof(float);
-  return a_bytes > c_bytes ? a_bytes : c_bytes;
-}
-
-inline size_t smem_bytes_pair(int H) {
-  const size_t a_bytes = static_cast<size_t>(ROWS) * (H + 8) * 2;
-  const size_t c_bytes = 2 * static_cast<size_t>(K_SPLIT) * ROWS * C_LD * sizeof(float);
   return a_bytes > c_bytes ? a_bytes : c_bytes;
 }
 

@@ -24,24 +24,37 @@
 // and acc read and written): bytes bound, ~0.8 us. K9 at [50, 1024] pair is
 // 12.9 MFLOP against ~0.6 MB (h and dh; Wpost 0.13 MB): bytes bound, ~0.2 us.
 //
-// Design: the head is head_gemm.cuh's block tile (16 rows x 64 padded columns,
-// bf16 WMMA, partial sums in shared memory); K9 runs it twice through the one
-// staging buffer, for h and for dh. The RK4 bookkeeping is the epilogue over
-// the tile's [16, D] elements, so neither out nor k reaches device memory. A
-// tile holds whole rows, so in K9 warp r owns row r and reduces its two row
-// sums with shuffles. The grid point's scalars (a1, a2, h, cdx, cdo) are read
-// from the device table coefs [G, 8] at row j, so the host loop never
-// synchronizes.
+// Design:
+// - K8: the head is head_gemm.cuh's block tile (16 rows x 64 padded columns,
+//   bf16 WMMA, partial sums in shared memory). The RK4 bookkeeping is the
+//   epilogue over the tile's [16, D] elements, so neither out nor k reaches
+//   device memory.
+// - K9: the head is head_cluster.cuh's split-K over a cluster, its tile a
+//   PAIR: 8 poses' h rows and the same poses' dh rows, so one mma row tile
+//   carries the primal and the tangent product (at 50 rows 7 tiles x 8 CTAs
+//   = 56 CTAs, each copying a 128-deep slice: 16 KB of Wpost, 8 KB of h and
+//   dh; the 16-row tile of the head_gemm.cuh version gave 4 blocks, each
+//   staging all of Wpost and running the head twice). The partials of a
+//   pose's two rows go to the CTA that finishes the pose and are summed there
+//   in rank order (the same bits on every call). Its epilogue warp e, while
+//   the copies fly, loads the pose's x, xs, acc, probe row, lp and lacc; then
+//   it forms out and dout, k_x = a1*xs + a2*out and the row sums of k_lp =
+//   a1*sum(e^2) + a2*sum(dout*e) with shuffles, and runs the RK4 bookkeeping
+//   on x and on delta_logp.
+// The grid point's scalars (a1, a2, h, cdx, cdo) are read from the device
+// table coefs [G, 8] at row j, so the host loop never synchronizes.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "head_cluster.cuh"
 #include "head_gemm.cuh"
 
 namespace {
 
+namespace hc = dposer::head_cluster;
 using namespace dposer::head;
 
 constexpr int N_COEFS = 8;  // a1, a2, h, cdx, cdo, pad x3
@@ -59,18 +72,14 @@ __device__ __forceinline__ float rk4_stage(int stage, float hstep, float k, floa
   }
 }
 
-template <bool JVP>
 __global__ void __launch_bounds__(THREADS)
-head_rk4_kernel(const float* __restrict__ h, const float* __restrict__ dh,
-                const __nv_bfloat16* __restrict__ Wpost, const float* __restrict__ bpost,
-                const float* __restrict__ coefs, int j, int stage, float* x, float* xs,
-                float* acc, const float* __restrict__ eps, float* lp, float* lacc, int B, int H,
-                int D) {
+head_rk4_kernel(const float* __restrict__ h, const __nv_bfloat16* __restrict__ Wpost,
+                const float* __restrict__ bpost, const float* __restrict__ coefs, int j,
+                int stage, float* x, float* xs, float* acc, int B, int H, int D) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
-  const float* Cs = JVP ? gemm_tile_pair(h, dh, Wpost, smem, row0, B, H)
-                        : gemm_tile(h, Wpost, smem, row0, B, H);
+  const float* Cs = gemm_tile(h, Wpost, smem, row0, B, H);
 
   const float* cf = coefs + static_cast<size_t>(j) * N_COEFS;
   const float a1 = cf[0], a2 = cf[1], hstep = cf[2];
@@ -92,33 +101,120 @@ head_rk4_kernel(const float* __restrict__ h, const float* __restrict__ dh,
     else
       acc[o] = ao;
   }
+}
 
-  if constexpr (JVP) {
-    const int warp = tid / 32, lane = tid % 32;
-    const int r = warp;  // N_WARPS == ROWS: warp r owns row r
-    const int gr = row0 + r;
-    if (gr < B) {  // uniform across the warp
-      float dot = 0.0f, ee = 0.0f;
-      for (int c = lane; c < D; c += 32) {
-        const float e = eps[static_cast<size_t>(gr) * D + c];
-        dot += tangent_at(Cs, r, c) * e;
-        ee += e * e;
-      }
-      dot = dposer::warp_sum(dot);
-      ee = dposer::warp_sum(ee);
-      if (lane == 0) {
-        float lo = lp[gr], ao = stage == 0 ? 0.0f : lacc[gr];
-        rk4_stage(stage, hstep, a1 * ee + a2 * dot, lo, ao);
-        if (stage == 3)
-          lp[gr] = lo;
-        else
-          lacc[gr] = ao;
-      }
+// K9 over a cluster of T::SPLIT CTAs a tile of T::POSES poses (T a PAIR).
+// (launched in clusters of T::SPLIT CTAs: dposer::launch_cluster)
+template <class T>
+__global__ void __launch_bounds__(hc::THREADS)
+head_rk4_jvp_kernel(const float* __restrict__ h, const float* __restrict__ dh,
+                    const __grid_constant__ CUtensorMap tmW, const float* __restrict__ bpost,
+                    const float* __restrict__ coefs, int j, int stage, float* x, float* xs,
+                    float* acc, const float* __restrict__ eps, float* lp, float* lacc, int B,
+                    int H, int D) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const hc::Layout<T> L(smem, H);
+  const int rank = static_cast<int>(hc::cg::this_cluster().block_rank());
+  const int pose0 = (blockIdx.x / T::SPLIT) * T::POSES;
+  hc::start_copies<T>(h, dh, &tmW, L, pose0, rank, B, H);
+  hc::cluster_arrive_relaxed();  // the barriers are set up; waited on before the first push
+  __syncthreads();  // the barriers are initialized, the zeroed rows written
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < hc::MMA_WARPS) {
+    hc::send_partials<T>(L, rank, H);
+    return;
+  }
+
+  // The epilogue warps: warp MMA_WARPS + e finishes pose rank * PPC + e of
+  // the tile (its rows e and PPC + e among the received ones), each lane
+  // columns lane and lane + 32. While the copies fly it loads the pose's
+  // state, probe row and scalars.
+  const int e = warp - hc::MMA_WARPS;
+  const int gr = pose0 + rank * T::PPC + e;
+  const bool has_row = e < T::PPC && gr < B;  // uniform across the warp
+  const float* cf = coefs + static_cast<size_t>(j) * N_COEFS;
+  float a1 = 0.0f, a2 = 0.0f, hstep = 0.0f, lo = 0.0f, la = 0.0f;
+  float bias[2] = {}, xo[2] = {}, xso[2] = {}, ao[2] = {}, ev[2] = {};
+  if (has_row) {
+    a1 = cf[0];
+    a2 = cf[1];
+    hstep = cf[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = lane + 32 * u;
+      if (c >= D) continue;
+      const size_t o = static_cast<size_t>(gr) * D + c;
+      bias[u] = bpost[c];
+      xo[u] = x[o];
+      xso[u] = xs[o];
+      ao[u] = stage == 0 ? 0.0f : acc[o];
+      ev[u] = eps[o];
+    }
+    lo = lp[gr];
+    la = stage == 0 ? 0.0f : lacc[gr];
+  }
+  hc::wait_partials<T>(L);  // every epilogue warp waits: peers push into this CTA until then
+
+  if (has_row) {
+    float dot = 0.0f, ee = 0.0f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = lane + 32 * u;
+      if (c >= D) continue;
+      const size_t o = static_cast<size_t>(gr) * D + c;
+      const float out = hc::out_at<T>(L, bias[u], e, c);
+      const float dout = hc::out_at<T>(L, 0.0f, T::PPC + e, c);
+      xs[o] = rk4_stage(stage, hstep, a1 * xso[u] + a2 * out, xo[u], ao[u]);
+      if (stage == 3)
+        x[o] = xo[u];
+      else
+        acc[o] = ao[u];
+      dot += dout * ev[u];
+      ee += ev[u] * ev[u];
+    }
+    dot = dposer::warp_sum(dot);
+    ee = dposer::warp_sum(ee);
+    if (lane == 0) {
+      rk4_stage(stage, hstep, a1 * ee + a2 * dot, lo, la);
+      if (stage == 3)
+        lp[gr] = lo;
+      else
+        lacc[gr] = la;
     }
   }
 }
 
-static_assert(N_WARPS == ROWS, "the tangent's row sums give each warp one row");
+// K9's cluster sizes: 8 CTAs where H cuts into 8 whole 16-deep slices (56
+// CTAs at 50 rows, where 4 gave 28 and was slower), else 4 (H = 64, 192, ...).
+using Jvp8 = hc::Tile<8, true>;
+using Jvp4 = hc::Tile<4, true>;
+inline bool takes_jvp8(int H) { return H % (16 * Jvp8::SPLIT) == 0; }
+
+// More than 48 KB of dynamic shared memory a CTA, allowed once a kernel.
+template <class T>
+cudaError_t allow_smem_jvp() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      head_rk4_jvp_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(hc::smem_bytes<T>(1024)));
+  return attr;
+}
+
+template <class T>
+int launch_jvp(const float* h, const float* dh, const void* Wpost, const float* bpost,
+               const float* coefs, int j, int stage, float* x, float* xs, float* acc,
+               const float* eps, float* lp, float* lacc, int B, int H, int D,
+               cudaStream_t stream) {
+  if (!hc::operands_ok<T>(h, Wpost, B, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = allow_smem_jvp<T>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tmW;
+  const int e = hc::wpost_map<T>(&tmW, Wpost, H);
+  if (e != 0) return e;
+  const cudaError_t err = dposer::launch_cluster(
+      head_rk4_jvp_kernel<T>, dim3(hc::grid_blocks<T>(B)), hc::THREADS, hc::smem_bytes<T>(H),
+      stream, T::SPLIT, h, dh, tmW, bpost, coefs, j, stage, x, xs, acc, eps, lp, lacc, B, H, D);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
 
 }  // namespace
 
@@ -132,25 +228,36 @@ extern "C" int dposer_head_rk4(const float* h, const void* Wpost, const float* b
                                float* acc, int B, int H, int D, void* stream) {
   if (!operands_ok(h, Wpost, B, H, D) || stage < 0 || stage > DENOISE)
     return static_cast<int>(cudaErrorInvalidValue);
-  head_rk4_kernel<false>
-      <<<grid_blocks(B), THREADS, smem_bytes(H), static_cast<cudaStream_t>(stream)>>>(
-          h, nullptr, static_cast<const __nv_bfloat16*>(Wpost), bpost, coefs, j, stage, x, xs,
-          acc, nullptr, nullptr, nullptr, B, H, D);
+  head_rk4_kernel<<<grid_blocks(B), THREADS, smem_bytes(H), static_cast<cudaStream_t>(stream)>>>(
+      h, static_cast<const __nv_bfloat16*>(Wpost), bpost, coefs, j, stage, x, xs, acc, B, H, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K9. As K8 (stages 0..3), with the tangent dh [B, H] fp32 (16-byte aligned),
-// the probe eps [B, D], and lp, lacc [B] updated in place.
+// the probe eps [B, D], and lp, lacc [B] updated in place; over clusters of
+// 8 CTAs where H is a multiple of 128, else of 4 (H a multiple of 64).
 extern "C" int dposer_head_rk4_jvp(const float* h, const float* dh, const void* Wpost,
                                    const float* bpost, const float* coefs, int j, int stage,
                                    float* x, float* xs, float* acc, const float* eps, float* lp,
                                    float* lacc, int B, int H, int D, void* stream) {
-  if (!operands_ok(h, Wpost, B, H, D) || reinterpret_cast<uintptr_t>(dh) % 16 != 0 ||
-      stage < 0 || stage >= DENOISE)
+  if (reinterpret_cast<uintptr_t>(dh) % 16 != 0 || stage < 0 || stage >= DENOISE)
     return static_cast<int>(cudaErrorInvalidValue);
-  head_rk4_kernel<true>
-      <<<grid_blocks(B), THREADS, smem_bytes_pair(H), static_cast<cudaStream_t>(stream)>>>(
-          h, dh, static_cast<const __nv_bfloat16*>(Wpost), bpost, coefs, j, stage, x, xs, acc,
-          eps, lp, lacc, B, H, D);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (takes_jvp8(H))
+    return launch_jvp<Jvp8>(h, dh, Wpost, bpost, coefs, j, stage, x, xs, acc, eps, lp, lacc, B, H, D, s);
+  return launch_jvp<Jvp4>(h, dh, Wpost, bpost, coefs, j, stage, x, xs, acc, eps, lp, lacc, B, H, D, s);
+}
+
+// K9's launch at B rows and depth H, for reports: grid CTAs, cluster size,
+// threads and dynamic shared memory a CTA, and the clusters the current
+// device holds at once. Returns 0 or a CUDA error code.
+extern "C" int dposer_head_rk4_jvp_launch_info(int B, int H, int* out) {
+  if (takes_jvp8(H)) {
+    const cudaError_t attr = allow_smem_jvp<Jvp8>();
+    return attr != cudaSuccess ? static_cast<int>(attr)
+                               : hc::launch_info<Jvp8>(head_rk4_jvp_kernel<Jvp8>, B, H, out);
+  }
+  const cudaError_t attr = allow_smem_jvp<Jvp4>();
+  return attr != cudaSuccess ? static_cast<int>(attr)
+                             : hc::launch_info<Jvp4>(head_rk4_jvp_kernel<Jvp4>, B, H, out);
 }

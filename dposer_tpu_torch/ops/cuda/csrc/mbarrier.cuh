@@ -1,7 +1,9 @@
 // PTX wrappers for Hopper's asynchronous copies and the shared-memory
 // barriers (mbarriers) that count them in, shared by the Hopper main loops
-// dense_wgmma.cuh (K1, K14) and head_cluster.cuh (K2). Addresses are 32-bit
-// shared-window addresses (smem_u32).
+// dense_wgmma.cuh (K1, K14), dense_wgmma_int8.cuh (K13, K14), head_cluster.cuh
+// (K2, K9) and K7's (dense_gn_silu_jvp.cu). Addresses are 32-bit
+// shared-window addresses (smem_u32). And launch_cluster, the host's launch
+// of a kernel over clusters whose size the launch chooses.
 #pragma once
 
 #include <cstdint>
@@ -103,6 +105,45 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// A launch over `grid` in clusters of `cluster` CTAs along x, `threads` a
+// CTA and `smem` bytes of dynamic shared memory, on `stream`; `at` holds
+// the cluster attribute `cfg` points to.
+inline cudaLaunchConfig_t cluster_config(cudaLaunchAttribute& at, dim3 grid, int threads,
+                                         size_t smem, cudaStream_t stream, int cluster) {
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = cluster;
+  at.val.clusterDim.y = 1;
+  at.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launch `kernel` so (a kernel without __cluster_dims__: the cluster size is
+// the launch's).
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int threads, size_t smem,
+                           cudaStream_t stream, int cluster, Args... args) {
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg = cluster_config(at, grid, threads, smem, stream, cluster);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The clusters of `kernel` launched so that the current device holds at
+// once (cudaOccupancyMaxActiveClusters), into *clusters: for reports.
+template <typename Kernel>
+cudaError_t active_clusters(int* clusters, Kernel kernel, dim3 grid, int threads, size_t smem,
+                            int cluster) {
+  cudaLaunchAttribute at;
+  const cudaLaunchConfig_t cfg = cluster_config(at, grid, threads, smem, nullptr, cluster);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 }  // namespace dposer

@@ -8,8 +8,11 @@ GroupNorm, SiLU and the skips (forward mode: one more bf16 matmul per primal
 matmul). Per stage, six launches on one stream, no host synchronization:
 
 - K7 ``dense_gn_silu_jvp`` (``score_net.py``) x (1 + 2*n_blocks): the hidden
-  layers and their tangents at the stage's state and time row;
-- K9 ``head_rk4_jvp``: the output head for both, then at grid point j
+  layers and their tangents at the stage's state and time row, handing the
+  activations on in bf16 (the pre layer on the register route, the rest on
+  the Hopper route);
+- K9 ``head_rk4_jvp``: the output head for both (split-K over a cluster of
+  8 CTAs, each tile 8 poses' primal and tangent rows), then at grid point j
 
       k_x  = a1[j]*xs + a2[j]*out
       k_lp = a1[j]*sum(e^2) + a2[j]*sum(dout*e)
@@ -36,7 +39,7 @@ from .fused_em import resolve_device
 from .fused_ode import (DENOISE, STAGE_GRID, build_rk4_operands, check_head_rk4_operands,
                         rk4_stage)
 from .score_net import (_check, dense_gn_silu_jvp, dense_gn_silu_jvp_plain_into,
-                        network_hidden_jvp)
+                        hidden_jvp_buffers, network_hidden_jvp)
 
 
 # ---------------------------------------------------------------------------
@@ -80,13 +83,17 @@ def head_rk4_jvp(h, dh, w_post, b_post, coefs, j: int, stage: int, x, xs, acc, e
     """K9 on ``h``, ``dh`` [B, H], the hidden state and its tangent at the
     stage's state ``xs`` and grid row ``j``: RK4 stage ``stage`` (0..3) on
     ``x``, ``xs``, ``acc`` [B, D] and on ``lp``, ``lacc`` [B], all in place;
-    ``eps`` [B, D] is the Hutchinson probe."""
+    ``eps`` [B, D] is the Hutchinson probe. The head is split over clusters
+    of 8 CTAs where H is a multiple of 128 (56 CTAs at 50 rows), else of 4
+    (H a multiple of 64, at most 1024), each tile 8 poses' h and dh rows."""
     B, H, D, dev = check_head_rk4_operands(
         "head_rk4_jvp", h, w_post, b_post, coefs, j, stage, DENOISE,
         (("x", x), ("xs", xs), ("acc", acc), ("eps", eps)))
     _check("dh", dh, dev, torch.float32, (B, H))
     _check("lp", lp, dev, torch.float32, (B,))
     _check("lacc", lacc, dev, torch.float32, (B,))
+    if H % 64 or H > 1024:
+        raise ValueError(f"head_rk4_jvp needs H a multiple of 64 and at most 1024; got H={H}")
     if dev.type == "cpu":
         return head_rk4_jvp_plain_into(h, dh, w_post, b_post, coefs, j, stage, x, xs, acc,
                                        eps, lp, lacc)
@@ -138,8 +145,7 @@ def get_cuda_likelihood_fn(sde: SDE, model, shape: Tuple[int, int], n_steps: int
         xs, acc = x.clone(), torch.empty_like(x)
         lp = torch.zeros((batch,), dtype=torch.float32, device=device)
         lacc = torch.empty_like(lp)
-        bufs = tuple(torch.empty((batch, net["hidden"]), dtype=torch.float32, device=device)
-                     for _ in range(4))
+        bufs = hidden_jvp_buffers(net, batch, device)
         for i in range(n_steps):
             for s in range(4):
                 j = 2 * i + STAGE_GRID[s]

@@ -25,7 +25,11 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
   the pre layer, on the fp32 state, runs the register-staged loop).
 - kernel K7 ``dense_gn_silu_jvp`` (``csrc/dense_gn_silu_jvp.cu``): the same
   layer with its forward-mode tangent, the tangent rules written out by hand
-  (port of ``bind_fwd_jvp``), its plain version, and ``network_hidden_jvp``.
+  (port of ``bind_fwd_jvp``), its plain version, and ``network_hidden_jvp``,
+  which hands the activations on in bf16 (each epilogue writes the next
+  layer's rounded input, which the Hopper route reads: TMA, ``wgmma``, split-K
+  over a thread-block cluster; the pre layer, on the fp32 state, runs the
+  register-staged loop).
 
 ``labels`` may be any grid of times: the samplers pass their N steps, the
 RK4 integrators their ``2*n_steps + 1`` stage times, and a layer reads row
@@ -434,12 +438,15 @@ def int8_loop_product(a_q, wq, qs):
 # K7 dense_gn_silu_jvp
 # ---------------------------------------------------------------------------
 
-def dense_gn_silu_jvp_plain(a, da, w, tp_row, gamma, beta, residual=None, dresidual=None):
+def dense_gn_silu_jvp_plain(a, da, w, tp_row, gamma, beta, residual=None, dresidual=None,
+                            a_b=None, da_b=None):
     """Plain K7: ``(out, dout)``, K1's layer and its tangent along ``da``, the
-    rules of the kernel written out in fp32 (matmul inputs rounded to bf16)."""
+    rules of the kernel written out in fp32 (matmul inputs rounded to bf16).
+    ``a_b`` and ``da_b`` (bf16), when given, are those roundings already and
+    ``a``, ``da`` are not read."""
     wf = w.float()
-    h = a.to(torch.bfloat16).float() @ wf + tp_row
-    dh = da.to(torch.bfloat16).float() @ wf
+    h = (a.to(torch.bfloat16) if a_b is None else a_b).float() @ wf + tp_row
+    dh = (da.to(torch.bfloat16) if da_b is None else da_b).float() @ wf
     B, N = h.shape
 
     def mean_g(v):
@@ -459,9 +466,15 @@ def dense_gn_silu_jvp_plain(a, da, w, tp_row, gamma, beta, residual=None, dresid
 
 
 def dense_gn_silu_jvp_plain_into(a, da, w, tp_row, gamma, beta, residual=None,
-                                 dresidual=None, out=None, dout=None):
-    """The plain version with the wrapper's signature, on any device."""
-    y, dy = dense_gn_silu_jvp_plain(a, da, w, tp_row, gamma, beta, residual, dresidual)
+                                 dresidual=None, out=None, dout=None, *, a_b=None, da_b=None,
+                                 out_b=None, dout_b=None):
+    """The plain version with the wrapper's signature, on any device: with
+    ``out_b`` and ``dout_b`` it also writes the bf16 copies of out and dout."""
+    y, dy = dense_gn_silu_jvp_plain(a, da, w, tp_row, gamma, beta, residual, dresidual,
+                                    a_b, da_b)
+    if out_b is not None:
+        out_b.copy_(y)
+        dout_b.copy_(dy)
     if out is None:
         return y, dy
     return out.copy_(y), dout.copy_(dy)
@@ -471,26 +484,67 @@ def _dense_gn_silu_jvp_fn():
     fn = build.load("dense_gn_silu_jvp").dposer_dense_gn_silu_jvp
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P] * 10 + [I, I, I, P]
+        fn.argtypes = [P] * 14 + [I, I, I, P]
         fn.restype = I
     return fn
 
 
+JVP_MAX_SLICE = 256  # the deepest K slice a CTA of the Hopper route takes
+
+
+def jvp_cluster(K: int):
+    """The cluster size K7's Hopper route takes at depth ``K``, as the kernel
+    picks it: the fewest CTAs of 1, 2, 4, 8 whose slices are whole 64-deep
+    boxes at most 256 deep (K = 1024: 4 CTAs of 256; on the H100 8 CTAs of
+    128 were slower, PERF.md); None where no size cuts K so."""
+    for c in (1, 2, 4, 8):
+        if K % (64 * c) == 0 and K // c <= JVP_MAX_SLICE:
+            return c
+    return None
+
+
+def check_bf16_inputs(a_b, da_b, w, B: int, K: int) -> None:
+    """Raise unless K7's Hopper route can take ``a_b`` and ``da_b``: bf16
+    [B, K] contiguous and, with ``w``, 16-byte aligned (TMA rows), and a depth
+    ``jvp_cluster`` cuts. Checked on every device, so the CPU's plain path
+    takes the operands the card takes."""
+    for name, t in (("a_b", a_b), ("da_b", da_b), ("w", w)):
+        if name != "w":
+            _check(name, t, w.device, torch.bfloat16, (B, K))
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for TMA")
+    if jvp_cluster(K) is None:
+        raise ValueError(f"the Hopper route needs K a multiple of 64 that 1, 2, 4 or 8 CTAs "
+                         f"cut into slices of at most {JVP_MAX_SLICE}; got K={K}")
+
+
 def dense_gn_silu_jvp(a, da, w, tp_row, gamma, beta, residual=None, dresidual=None,
-                      out=None, dout=None):
+                      out=None, dout=None, *, a_b=None, da_b=None, out_b=None, dout_b=None):
     """K7 on ``a``, ``da`` [B, K] fp32 and ``w`` [K, N] bf16; writes ``out``
     and ``dout`` [B, N] fp32 (which may be ``residual`` and ``dresidual``
-    themselves) and returns them."""
-    B, K = a.shape
+    themselves) and returns them.
+
+    ``a_b`` and ``da_b`` bf16 [B, K], the bf16 copies of ``a`` and ``da``
+    written by the previous layer, route the layer through the Hopper loop
+    (TMA and ``wgmma``, split-K over clusters of ``jvp_cluster(K)`` CTAs;
+    ``a`` and ``da`` may then be None); without them the
+    register-staged loop rounds ``a`` and ``da``. With ``out_b`` and
+    ``dout_b`` bf16 [B, N] the epilogue also writes the bf16 copies of out and
+    dout, the next layer's ``a_b`` and ``da_b``. Each launch adds one to
+    ``launches`` and to its route's count in ``routes``."""
+    B, K = (a if a_b is None else a_b).shape
     N = w.shape[1]
-    dev = a.device
+    dev = w.device
     if (out is None) != (dout is None) or (residual is None) != (dresidual is None):
         raise ValueError("out/dout and residual/dresidual come in pairs")
+    if (a_b is None) != (da_b is None) or (out_b is None) != (dout_b is None):
+        raise ValueError("a_b/da_b and out_b/dout_b come in pairs")
     if out is None:
         out = torch.empty((B, N), dtype=torch.float32, device=dev)
         dout = torch.empty_like(out)
-    _check("a", a, dev, torch.float32, (B, K))
-    _check("da", da, dev, torch.float32, (B, K))
+    if a_b is None or a is not None:
+        _check("a", a, dev, torch.float32, (B, K))
+        _check("da", da, dev, torch.float32, (B, K))
     _check("w", w, dev, torch.bfloat16, (K, N))
     for nm, t in (("tp_row", tp_row), ("gamma", gamma), ("beta", beta)):
         _check(nm, t, dev, torch.float32, (N,))
@@ -498,41 +552,69 @@ def dense_gn_silu_jvp(a, da, w, tp_row, gamma, beta, residual=None, dresidual=No
                   ("dout", dout)):
         if t is not None:
             _check(nm, t, dev, torch.float32, (B, N))
+    for nm, t in (("out_b", out_b), ("dout_b", dout_b)):
+        if t is not None:
+            _check(nm, t, dev, torch.bfloat16, (B, N))
+    if a_b is not None:
+        check_bf16_inputs(a_b, da_b, w, B, K)
     if dev.type == "cpu":
         return dense_gn_silu_jvp_plain_into(a, da, w, tp_row, gamma, beta, residual,
-                                            dresidual, out, dout)
+                                            dresidual, out, dout, a_b=a_b, da_b=da_b,
+                                            out_b=out_b, dout_b=dout_b)
     if dev.type != "cuda":
         raise ValueError(f"dense_gn_silu_jvp runs on cpu or cuda, not {dev}")
     gs = N // NUM_GROUPS
     if N % 64 or gs not in (2, 4, 8, 16, 32):
         raise ValueError(f"dense_gn_silu_jvp kernel needs N % 64 == 0 and a group "
                          f"size N/32 in {{2,4,8,16,32}}; got N={N}")
-    err = _dense_gn_silu_jvp_fn()(a.data_ptr(), da.data_ptr(), w.data_ptr(),
-                                  tp_row.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                                  _ptr(residual), _ptr(dresidual), out.data_ptr(),
-                                  dout.data_ptr(), B, K, N,
+    hopper = a_b is not None
+    err = _dense_gn_silu_jvp_fn()(None if hopper else a.data_ptr(),
+                                  None if hopper else da.data_ptr(), _ptr(a_b), _ptr(da_b),
+                                  w.data_ptr(), tp_row.data_ptr(), gamma.data_ptr(),
+                                  beta.data_ptr(), _ptr(residual), _ptr(dresidual),
+                                  out.data_ptr(), dout.data_ptr(), _ptr(out_b), _ptr(dout_b),
+                                  B, K, N,
                                   torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"dense_gn_silu_jvp launch failed: CUDA error {err}")
     dense_gn_silu_jvp.launches += 1
+    dense_gn_silu_jvp.routes["wgmma" if hopper else "register"] += 1
     return out, dout
 
 
 dense_gn_silu_jvp.launches = 0
+dense_gn_silu_jvp.routes = {"wgmma": 0, "register": 0}
 
 
 def network_hidden_jvp(net: dict, x, dx, i: int, bufs, layer=dense_gn_silu_jvp):
     """The network's last hidden activation at row ``i`` of the time grid and
-    its tangent along ``dx``, into ``bufs = (h, dh, h1, dh1)`` (the last two
-    are scratch): ``layer`` (K7, or its plain version) once for the pre layer
-    and twice per block. Returns ``(h, dh)``."""
-    h, dh, h1, dh1 = bufs
+    its tangent along ``dx``, into ``bufs`` (``hidden_jvp_buffers``: h, dh
+    and the scratch h1, dh1, then their bf16 copies hb, dhb, h1b, dh1b):
+    ``layer`` (K7, or its plain version) once for the pre layer and twice per
+    block. Returns ``(h, dh)``.
+
+    The activations are handed on in bf16: each layer's epilogue also writes
+    its out and dout rounded to bf16, and the next layer reads those copies
+    (K7's Hopper route) instead of rounding the fp32 ones; the products are
+    the same. The pre layer reads the fp32 state (K7's register route); the
+    last block writes no copy, since K9 reads ``h`` and ``dh``."""
+    h, dh, h1, dh1, hb, dhb, h1b, dh1b = bufs
     tp = net["tp_all"][i]
     W, gs, gb = net["W"], net["gn_scale"], net["gn_bias"]
-    layer(x, dx, W[0], tp[0], gs[0], gb[0], out=h, dout=dh)
+    layer(x, dx, W[0], tp[0], gs[0], gb[0], out=h, dout=dh, out_b=hb, dout_b=dhb)
     for blk in range(net["n_blocks"]):
         j = 1 + 2 * blk
-        layer(h, dh, W[j], tp[j], gs[j], gb[j], out=h1, dout=dh1)
-        layer(h1, dh1, W[j + 1], tp[j + 1], gs[j + 1], gb[j + 1], residual=h,
-              dresidual=dh, out=h, dout=dh)
+        last = blk + 1 == net["n_blocks"]
+        layer(None, None, W[j], tp[j], gs[j], gb[j], out=h1, dout=dh1, a_b=hb, da_b=dhb,
+              out_b=h1b, dout_b=dh1b)
+        layer(None, None, W[j + 1], tp[j + 1], gs[j + 1], gb[j + 1], residual=h,
+              dresidual=dh, out=h, dout=dh, a_b=h1b, da_b=dh1b,
+              out_b=None if last else hb, dout_b=None if last else dhb)
     return h, dh
+
+
+def hidden_jvp_buffers(net: dict, batch: int, device) -> tuple:
+    """``network_hidden_jvp``'s ``bufs``: four fp32 [batch, H] buffers (h, dh,
+    h1, dh1), then four bf16 ones (their copies)."""
+    return tuple(torch.empty((batch, net["hidden"]), dtype=dt, device=device)
+                 for dt in (torch.float32,) * 4 + (torch.bfloat16,) * 4)

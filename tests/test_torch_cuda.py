@@ -375,38 +375,101 @@ def test_step_range_split_draws_the_full_runs_normals(dev):
     assert torch.equal(split, full)
 
 
-@pytest.mark.parametrize("B", [50, 70])
-@pytest.mark.parametrize("K", [63, 1024])
-@pytest.mark.parametrize("with_residual", [False, True])
-def test_dense_gn_silu_jvp(dev, B, K, with_residual):
-    rng = np.random.default_rng(K + B)
-    N = 1024
+# rows: one, a ragged tile, the likelihood's 50, one whole 64-pose tile, a
+# tile and a ragged one, two whole tiles, 500 (eight tiles); K: the pre
+# layer's 63 (the register route) and 1024 on both routes: the register
+# route rounding fp32 A and dA, the Hopper route on their bf16 copies
+JVP_ROWS = [1, 17, 50, 64, 70, 128, 500]
+
+
+def _jvp_operands(dev, B, K, with_residual, N=1024, seed=0):
+    rng = np.random.default_rng(K + B + seed)
     a, da = _t(rng, (B, K), dev), _t(rng, (B, K), dev)
     w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
     tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
     res = (_t(rng, (B, N), dev), _t(rng, (B, N), dev)) if with_residual else (None, None)
-    want = score_net.dense_gn_silu_jvp_plain(a, da, w, tp, gamma, beta, *res)
-    reset_launch_counts()
-    out, dout = dense_gn_silu_jvp(a, da, w, tp, gamma, beta, residual=res[0],
-                                  dresidual=res[1])
-    torch.cuda.synchronize()
-    assert launch_counts()["dense_gn_silu_jvp"] == 1
+    return a, da, w, tp, gamma, beta, res
+
+
+def _hold_jvp(out, dout, want):
     # same bf16 operands, fp32 sums in another order: rounding only; the
     # tangent passes through 1/std of the group, so it scales with its own range
     torch.testing.assert_close(out, want[0], rtol=0, atol=1e-3)
     torch.testing.assert_close(dout, want[1], rtol=0,
                                atol=1e-3 * max(1.0, float(want[1].abs().max())))
+
+
+@pytest.mark.parametrize("B", JVP_ROWS)
+@pytest.mark.parametrize("K,route", [(63, "register"), (1024, "register"), (1024, "wgmma")])
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_dense_gn_silu_jvp(dev, B, K, route, with_residual):
+    a, da, w, tp, gamma, beta, res = _jvp_operands(dev, B, K, with_residual)
+    want = score_net.dense_gn_silu_jvp_plain(a, da, w, tp, gamma, beta, *res)
+    kw = {}
+    if route == "wgmma":
+        kw = dict(a_b=a.to(torch.bfloat16), da_b=da.to(torch.bfloat16))
+        a = da = None
+    N = w.shape[1]
+    ob, dob = (torch.empty((B, N), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    reset_launch_counts()
+    out, dout = dense_gn_silu_jvp(a, da, w, tp, gamma, beta, residual=res[0],
+                                  dresidual=res[1], out_b=ob, dout_b=dob, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["dense_gn_silu_jvp"] == 1
+    assert fused_em.route_counts()["dense_gn_silu_jvp"][route] == 1
+    _hold_jvp(out, dout, want)
+    # the copies are the stored values rounded to bf16
+    assert torch.equal(ob, out.to(torch.bfloat16)) and torch.equal(dob, dout.to(torch.bfloat16))
     if with_residual:  # in place, as the block's second layer runs it
         dense_gn_silu_jvp(a, da, w, tp, gamma, beta, residual=res[0], dresidual=res[1],
-                          out=res[0], dout=res[1])
+                          out=res[0], dout=res[1], **kw)
         torch.cuda.synchronize()
         torch.testing.assert_close(res[0], out, rtol=0, atol=0)
         torch.testing.assert_close(res[1], dout, rtol=0, atol=0)
 
 
-def _rk4_state(dev, B, seed, D=63):
+# the Hopper route's cluster sizes through the depths that take them (1 at
+# K 64-256, 2 at 384 and 512, 4 at 1024, 8 at 2048) and group sizes 8
+# (N = 256) and 32
+@pytest.mark.parametrize("K", [64, 128, 256, 384, 512, 1024, 2048])
+@pytest.mark.parametrize("N", [256, 1024])
+def test_dense_gn_silu_jvp_clusters(dev, K, N):
+    B = 70
+    a, da, w, tp, gamma, beta, res = _jvp_operands(dev, B, K, True, N=N, seed=1)
+    want = score_net.dense_gn_silu_jvp_plain(a, da, w, tp, gamma, beta, *res)
+    out, dout = dense_gn_silu_jvp(None, None, w, tp, gamma, beta, residual=res[0],
+                                  dresidual=res[1], a_b=a.to(torch.bfloat16),
+                                  da_b=da.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    _hold_jvp(out, dout, want)
+
+
+def test_likelihood_kernels_bit_identical(dev):
+    """K7's Hopper route and K9 sum their split-K partials in rank order: 50
+    repeated calls give the same bits."""
+    B, K = 50, 1024
+    a, da, w, tp, gamma, beta, res = _jvp_operands(dev, B, K, True, seed=2)
+    kw = dict(a_b=a.to(torch.bfloat16), da_b=da.to(torch.bfloat16))
+    first = [t.clone() for t in dense_gn_silu_jvp(None, None, w, tp, gamma, beta, *res, **kw)]
+    for _ in range(49):
+        again = dense_gn_silu_jvp(None, None, w, tp, gamma, beta, *res, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+    h, w_post, b_post, coefs, x, xs, acc = _rk4_state(dev, B, 60)
+    rng = np.random.default_rng(61)
+    dh, eps = _t(rng, h.shape, dev), torch.sign(_t(rng, x.shape, dev))
+    lp, lacc = _t(rng, (B,), dev), _t(rng, (B,), dev)
+    outs = []
+    for _ in range(50):
+        st = [t.clone() for t in (x, xs, acc, lp, lacc)]
+        head_rk4_jvp(h, dh, w_post, b_post, coefs, 5, 1, *st[:3], eps, *st[3:])
+        outs.append(st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for st in outs[1:] for p, q in zip(st, outs[0]))
+
+
+def _rk4_state(dev, B, seed, D=63, H=1024):
     rng = np.random.default_rng(seed)
-    h, w_post, b_post, _, x, xs = _head(dev, B=B, seed=seed)
+    h, w_post, b_post, _, x, xs = _head(dev, B=B, H=H, seed=seed)
     coefs = torch.from_numpy(rng.uniform(-1.0, 1.0, size=(7, fused_ode.N_COEFS))
                              .astype(np.float32)).to(dev)
     return h, w_post, b_post, coefs, x, xs, _t(rng, (B, D), dev)
@@ -424,10 +487,12 @@ def test_head_rk4(dev, stage):
         torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 * max(1.0, float(ref.abs().max())))
 
 
-@pytest.mark.parametrize("B", [50, 70])
+@pytest.mark.parametrize("B", JVP_ROWS)
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
-def test_head_rk4_jvp(dev, B, stage):
-    h, w_post, b_post, coefs, x, xs, acc = _rk4_state(dev, B, 30 + stage)
+# H 1024 splits over clusters of 8 CTAs, H 192 over clusters of 4
+@pytest.mark.parametrize("H", [1024, 192])
+def test_head_rk4_jvp(dev, B, stage, H):
+    h, w_post, b_post, coefs, x, xs, acc = _rk4_state(dev, B, 30 + stage, H=H)
     rng = np.random.default_rng(40 + stage)
     dh = _t(rng, h.shape, dev)
     eps = torch.sign(_t(rng, x.shape, dev))
@@ -475,6 +540,9 @@ def test_kernel_likelihood_matches_plain_loop(dev):
     counts = launch_counts()
     assert nfe == 4 * n
     assert (counts["dense_gn_silu_jvp"], counts["head_rk4_jvp"]) == (20 * n, 4 * n)
+    # a stage: the pre layer on the register route, the four block layers on
+    # the Hopper route (the bf16 handoff)
+    assert fused_em.route_counts()["dense_gn_silu_jvp"] == {"wgmma": 16 * n, "register": 4 * n}
     torch.testing.assert_close(z, z_ref, rtol=0, atol=3e-2 * max(1.0, float(z_ref.abs().max())))
     torch.testing.assert_close(bpd, bpd_ref, rtol=0, atol=0.1)
     g = torch.Generator(device=dev).manual_seed(2)

@@ -513,7 +513,7 @@ def test_network_hidden_jvp_matches_autodiff_of_the_forward():
     rng = np.random.default_rng(32)
     x, dx = (torch.from_numpy(rng.normal(size=(6, 63)).astype(np.float32)) for _ in range(2))
     H = SMALL["hidden_dim"]
-    bufs = tuple(torch.empty(6, H) for _ in range(4))
+    bufs = score_net.hidden_jvp_buffers(net, 6, "cpu")
     row = 7
     h, dh = network_hidden_jvp(net, x, dx, row, bufs)
     ref_h = network_hidden(net, x, row, torch.empty(6, H), torch.empty(6, H))
