@@ -13,7 +13,9 @@ Phases; any failure exits non-zero:
    for the cluster kernels K2, K3, K7's Hopper route and K9 their grid,
    cluster size, shared memory, the clusters the card holds at once and
    their registers; a ptxas line reporting serialized wgmma in K7 or K9
-   fails the phase);
+   fails the phase; K10's and K12's instantiations with their registers,
+   shared memory, spills and CTAs an SM, where a serialized wgmma fails the
+   phase too);
 3. each of the fourteen kernels against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
    sampling, [1000, .] for the completion solver, [50, .] for the
@@ -34,6 +36,12 @@ Phases; any failure exits non-zero:
    int8 loop first alone (one [64,128]x[128,64] tile and K13's product at
    [500,1024]x[1024,1024], exact), K13's int8 copies byte for byte and K14's
    int8 inner and last links exact against their plain versions;
+   K10 on the routes a train step takes (the pre layer from fp32 A on the
+   register route, the K = 1024 layers from the bf16 stash on the Hopper
+   route, a block's first layer without its fp32 output) and beside them on
+   the register route and writing that output, K12's three hops, each with
+   50 repeated calls bit-identical and K10's bounds at the handoff's bytes
+   and at fp32 A;
    K1 also at completion's [1000, 1024] residual block;
 4. the whole kernel sampler against the same loop on the plain versions,
    N = 20, injected noise, corrector none and langevin, without and with
@@ -80,7 +88,10 @@ Phases; any failure exits non-zero:
    tensor; (j) both microbenchmarks (``dposer_tpu_torch.benchmarks``) at 100
    chain steps, the ilp splits bit-identical to the whole run, the int8
    chain after 100 steps bit-equal to the plain chain; and the trainer's
-   protocols;
+   protocols, after the kernel step against the fp32 autograd step, whose
+   kernel step must run K10's four K = 1024 layers on the Hopper route and
+   its pre layer on the register route, and K12's five hops on the Hopper
+   route;
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -166,7 +177,7 @@ ODE_TOL = 5e-2  # kernel against plain deterministic samplers, times max(1, |ref
 PART, HYPO = "left_leg", 10
 TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generation call
 DRAW_TOL = 1e-5  # in-kernel normals against the plain Philox stream (logf, cospif vs float64)
-REPEATS = 50  # repeated calls of K2 and K3 that must give the same bits
+REPEATS = 50  # repeated calls of K2, K3, K7, K9, K10 and K12 that must give the same bits
 
 
 class PhaseError(RuntimeError):
@@ -339,6 +350,17 @@ def cluster_launch(lib, *args, kernel=None):
                     list(out)))
 
 
+def train_launch(lib, n):
+    """K10's Hopper route or K12 (``lib``) at width ``n`` as it launches on
+    this card: threads and dynamic shared memory a CTA, its tile rows, and
+    the CTAs an SM holds at once."""
+    fn = getattr(build.load(lib), f"dposer_{lib}_launch_info")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    check(fn(n, out) == 0 and out[3] >= 1, f"{lib}: no CTA fits an SM ({list(out)})")
+    return dict(zip(("threads", "dynamic_smem", "tile_rows", "ctas_per_sm"), list(out)))
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -395,9 +417,32 @@ def phase_build():
           f"{len(jvp_serialized)}" + "".join(f"\n    {ln}" for ln in jvp_serialized))
     # a serialized wgmma in K7's loop cost ~40% of it: the design keeps it out
     check(not jvp_serialized, "ptxas serialized a wgmma of K7 or K9")
+    # the train step's layer kernels: K10 (both routes) and K12 on
+    # dense_wgmma_ss.cuh, at the flagship width
+    train_serialized = [ln.strip() for lib in ("dense_gn_silu_train", "dense_gn_silu_bwd")
+                        for ln in logs.get(lib, "").splitlines()
+                        if "wgmma" in ln and "serialized" in ln]
+    train_kernels = {}
+    for lib, word in (("dense_gn_silu_train", "dense_gn_silu_train"),
+                      ("dense_gn_silu_bwd", "dense_gn_silu_bwd_kernel")):
+        ptx = ptxas_entries(logs.get(lib, ""), word)
+        for e in ptx:
+            kind = re.search(r"(dense_gn_silu_\w+?kernel)I", e["entry"]).group(1)
+            print(f"[build] {kind}<{','.join(re.findall(r'L[ib](\d+)E', e['entry']))}>: "
+                  f"{e['registers']} registers, {e['static_smem']} B static smem; "
+                  f"{e['spills'] or 'spills not reported'}")
+        info = train_launch(lib, H)
+        train_kernels[lib] = dict(info, ptxas=ptx)
+        print(f"[build] {lib} Hopper route at N = {H}: {info['threads']} threads, "
+              f"{info['dynamic_smem']} B dynamic smem and {info['tile_rows']} rows a CTA; "
+              f"{info['ctas_per_sm']} CTAs an SM")
+    print(f"[build] train kernels: ptxas lines reporting serialized wgmma: "
+          f"{len(train_serialized)}" + "".join(f"\n    {ln}" for ln in train_serialized))
+    check(not train_serialized, "ptxas serialized a wgmma of K10 or K12")
     return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters,
                       int8_instantiations=rows8, int8_dynamic_smem=dyn8,
-                      serialized_wgmma=serialized, likelihood_serialized_wgmma=jvp_serialized)
+                      serialized_wgmma=serialized, likelihood_serialized_wgmma=jvp_serialized,
+                      train_kernels=train_kernels, train_serialized_wgmma=train_serialized)
 
 
 def load_pinned(dev):
@@ -2039,11 +2084,26 @@ def library_layer(a, w, proj, gamma, beta, res, cot):
     return fwd, fwd_bwd
 
 
+def repeats_bit_identical(fn, outs, what, n=REPEATS):
+    """``fn()`` ``n`` more times: each call's tensors must equal ``outs``'s
+    (Nones skipped) bit for bit."""
+    ref = [None if t is None else t.clone() for t in outs]
+    for _ in range(n):
+        again = fn()
+        check(all(r is None or torch.equal(r, t) for r, t in zip(ref, again)),
+              f"{what}: {n} repeated calls are not bit-identical")
+
+
 def phase_train_kernels(model, dev):
     """K10, K11 and K12 at the flagship train step's shapes (batch 1,280), with
     dropout 0.1 and the plain version's mask, against their plain versions,
     with timings and bounds. The inputs are a real step's: the plain chain's
-    activations on the pinned weights."""
+    activations on the pinned weights. K10 runs each layer kind on the route
+    a step takes it (the pre layer from fp32 A on the register route, the K =
+    1024 layers from the bf16 stash on the Hopper route, a block's first
+    layer without its fp32 output) and, beside them, the K = 1024 layers on
+    the register route from fp32 A and the first layer writing its output;
+    each bound is given at the route's bytes and at fp32 A."""
     _, _, _, op = train_operands(model, dev)
     keep, seed = op["keep"], 20261016
     W, Wb, P, gw, gb = op["w_fwd"], op["w_bwd"], op["proj"], op["gn_w"], op["gn_b"]
@@ -2054,17 +2114,29 @@ def phase_train_kernels(model, dev):
         fwd.append(plain_f(a, W[j], P[j], gw[j], gb[j], seed, j, keep, res))
     rows, extra = [], {}
 
-    # K10: the three shapes of a step's forward
-    variants = []
-    for label, j in (("pre [1280,63]x[63,1024]", 0), ("block [1280,1024]x[1024,1024]", 1),
-                     ("block+residual [1280,1024]x[1024,1024]", 2)):
+    # K10: the three layer kinds of a step on its routes, then the others
+    variants, lib_by_j = [], {}
+    for label, j, route, write_out in (
+            ("pre [1280,63]x[63,1024]", 0, "register", True),
+            ("block [1280,1024]x[1024,1024], no fp32 out", 1, "wgmma", False),
+            ("block+residual [1280,1024]x[1024,1024]", 2, "wgmma", True),
+            ("block-with-out [1280,1024]x[1024,1024]", 1, "wgmma", True),
+            ("register-block [1280,1024]x[1024,1024]", 1, "register", True),
+            ("register-block+residual [1280,1024]x[1024,1024]", 2, "register", True)):
         a = op["x_pert"] if j == 0 else fwd[j - 1][0]
+        a_b = fwd[j - 1][1] if route == "wgmma" else None  # the stash of the layer before
         res = fwd[0][0] if j == 2 else None
-        args = (a, W[j], P[j], gw[j], gb[j], seed, j, keep)
-        ref = plain_f(*args, res)
-        got = fused_train.dense_gn_silu_train(*args, residual=res)
+        args = (W[j], P[j], gw[j], gb[j], seed, j, keep)
+        ref = plain_f(a, *args, res)
+        a_in = None if a_b is not None else a
+        fused_em.reset_launch_counts()
+        got = fused_train.dense_gn_silu_train(a_in, *args, residual=res, a_b=a_b,
+                                              write_out=write_out)
         torch.cuda.synchronize()
-        e_out, tol = err(got[0], ref[0]), 1e-3 * max(1.0, float(ref[0].abs().max()))
+        check(fused_em.route_counts()["dense_gn_silu_train"][route] == 1,
+              f"dense_gn_silu_train {label}: not on the {route} route")
+        e_out, tol = ((err(got[0], ref[0]), 1e-3 * max(1.0, float(ref[0].abs().max())))
+                      if write_out else (0.0, 0.0))
         e_bf = [err(g.float(), r.float()) for g, r in zip(got[1:3], ref[1:3])]
         tol_bf = [1e-2 * max(1.0, float(r.float().abs().max())) for r in ref[1:3]]
         e_rs = float(((got[3] - ref[3]).abs() / ref[3]).max())
@@ -2072,27 +2144,36 @@ def phase_train_kernels(model, dev):
               f"dense_gn_silu_train {label}: out {e_out} (tol {tol}), stash/xhat {e_bf} "
               f"(tol {tol_bf}), rstd rel {e_rs}")
         # the kernel applied the plain version's mask: every dropped element
-        # is the residual alone (the kept ones are held by the tolerance)
+        # is the residual alone (the kept ones are held by the tolerance);
+        # without the fp32 out the stash shows it (no residual there)
         dropped = ~fused_train.dropout_keep(seed, j, BT, H, keep, dev)
-        base = torch.zeros_like(got[0]) if res is None else res
-        check(torch.equal(got[0][dropped], base[dropped]),
+        base = torch.zeros(BT, H, device=dev) if res is None else res
+        shown = got[0] if write_out else got[1].float()
+        check(torch.equal(shown[dropped], base[dropped]),
               f"dense_gn_silu_train {label}: another dropout mask")
-        K = a.shape[1]
-        n_bytes = (4 * BT * K + 2 * K * H + 2 * BT * H + 2 * 4 * H + 4 * BT * H
-                   + 2 * 2 * BT * H + 4 * BT * 32 + (4 * BT * H if res is not None else 0))
-        bms, by = bound(n_bytes, 2 * BT * K * H, 40 * BT * H)
         bufs = [torch.empty_like(x) for x in ref]
+        if not write_out:
+            bufs[0] = None
         run = lambda: fused_train.dense_gn_silu_train(  # noqa: E731
-            *args, residual=res, out=bufs[0], stash=bufs[1], xhat=bufs[2], rstd=bufs[3])
-        lib_fwd, lib_fwd_bwd = library_layer(a, W[j], P[j], gw[j], gb[j], res,
-                                             torch.randn_like(ref[0]))
-        lib_ms = graph_ms(lib_fwd)
-        lib_fb_ms = profiled_ms(lib_fwd_bwd)
-        variants.append(dict(shape=label, max_abs_err=e_out, tol=tol, errs_stash_xhat=e_bf,
-                             rstd_rel_err=e_rs, ms=graph_ms(run), eager_ms=eager_ms(run),
-                             plain_ms=graph_ms(lambda: plain_f(*args, res)),
-                             library_ms=lib_ms, library_fwd_bwd_ms=lib_fb_ms,
-                             bound_ms=bms, bound_by=by))
+            a_in, *args, residual=res, out=bufs[0], stash=bufs[1], xhat=bufs[2], rstd=bufs[3],
+            a_b=a_b, write_out=write_out)
+        repeats_bit_identical(run, run(), f"dense_gn_silu_train {label}")
+        K = a.shape[1]
+        rest = (2 * K * H + 2 * BT * H + 2 * 4 * H + (4 * BT * H if write_out else 0)
+                + 2 * 2 * BT * H + 4 * BT * 32 + (4 * BT * H if res is not None else 0))
+        bms, by = bound((2 if a_b is not None else 4) * BT * K + rest, 2 * BT * K * H, 40 * BT * H)
+        bms_fp32, _ = bound(4 * BT * K + rest, 2 * BT * K * H, 40 * BT * H)
+        if j not in lib_by_j:
+            lib_fwd, lib_fwd_bwd = library_layer(a, W[j], P[j], gw[j], gb[j], res,
+                                                 torch.randn_like(ref[0]))
+            lib_by_j[j] = (graph_ms(lib_fwd), profiled_ms(lib_fwd_bwd))
+        variants.append(dict(shape=label, route=route, writes_out=write_out,
+                             max_abs_err=e_out, tol=tol, errs_stash_xhat=e_bf,
+                             rstd_rel_err=e_rs, repeats_bit_identical=REPEATS,
+                             ms=graph_ms(run), eager_ms=eager_ms(run),
+                             plain_ms=graph_ms(lambda: plain_f(a, *args, res)),
+                             library_ms=lib_by_j[j][0], library_fwd_bwd_ms=lib_by_j[j][1],
+                             bound_ms=bms, bound_by=by, bound_fp32_a_ms=bms_fp32))
     main_v = variants[2]
     rows.append(dict(name="dense_gn_silu_train", route="cuda",
                      source=f"{CSRC}/dense_gn_silu_train.cu", replaces=TPU_TRAIN_KERNEL,
@@ -2100,9 +2181,11 @@ def phase_train_kernels(model, dev):
                                    "stash_in (:170-176)",
                      max_abs_err=max(v["max_abs_err"] for v in variants),
                      tol="out 1e-3*max(1,|ref|max); stash, xhat 1e-2*max(1,|ref|max) "
-                         "(a bf16 ulp); rstd 1e-3 relative; the same dropout mask",
+                         "(a bf16 ulp); rstd 1e-3 relative; the same dropout mask; "
+                         f"{REPEATS} repeated calls bit-identical",
                      **{k: main_v[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
-                                               "library_ms", "bound_ms", "bound_by")},
+                                               "library_ms", "bound_ms", "bound_by",
+                                               "bound_fp32_a_ms")},
                      library="bf16 matmul + group_norm + silu + dropout, forward",
                      variants=variants))
 
@@ -2156,6 +2239,7 @@ def phase_train_kernels(model, dev):
         args = (A, Wt, fwd[j][2], fwd[j][3], gw[j], gb[j], seed, j, keep)
         ref = plain_b(*args, g_res)
         g_out = torch.empty(BT, H, device=dev) if with_out else None
+        fused_em.reset_launch_counts()
         got = fused_train.dense_gn_silu_bwd(*args, g_res=g_res, g_out=g_out)
         torch.cuda.synchronize()
         e_dh, tol_dh = err(got[0].float(), ref[0].float()), 1e-2 * float(ref[0].float().abs().max())
@@ -2166,13 +2250,15 @@ def phase_train_kernels(model, dev):
         check(e_dh <= tol_dh and all(x <= y for x, y in zip(e_g, tol_g)),
               f"dense_gn_silu_bwd {label}: dh {e_dh} (tol {tol_dh}), g/dgamma/dbeta {e_g} "
               f"(tol {tol_g})")
-        again = fused_train.dense_gn_silu_bwd(*args, g_res=g_res, g_out=g_out)
-        check(all(torch.equal(a, b) for a, b in zip(got[2:], again[2:])),
-              f"dense_gn_silu_bwd {label}: dgamma/dbeta differ between two launches")
+        check(fused_em.route_counts()["dense_gn_silu_bwd"]["wgmma"] >= 1,
+              f"dense_gn_silu_bwd {label}: not on the Hopper route")
+        repeats_bit_identical(lambda: fused_train.dense_gn_silu_bwd(*args, g_res=g_res,
+                                                                    g_out=g_out), got,
+                              f"dense_gn_silu_bwd {label}")
         K = A.shape[1]
         n_bytes = (2 * BT * K + 2 * K * H + 2 * BT * H + 4 * BT * 32 + 2 * 4 * H + 2 * BT * H
                    + (4 * BT * H if g_res is not None else 0) + (4 * BT * H if with_out else 0)
-                   + 2 * 4 * ((BT + 63) // 64) * H)
+                   + 2 * 4 * H)
         bms, by = bound(n_bytes, 2 * BT * K * H, 40 * BT * H)
         dh_b = torch.empty_like(ref[0])
         run = lambda: fused_train.dense_gn_silu_bwd(*args, g_res=g_res,  # noqa: E731
@@ -2183,6 +2269,7 @@ def phase_train_kernels(model, dev):
                              bound_ms=bms, bound_by=by))
     # the library's backward of one layer: its forward + backward less its forward
     lib = {v["shape"].split()[0]: v for v in rows[0]["variants"]}
+    check(set(lib) >= {"pre", "block", "block+residual"}, f"K10 variants {sorted(lib)}")
     for v, k10 in zip(variants, ("pre", "block", "block+residual")):
         v["library_ms"] = max(0.0, lib[k10]["library_fwd_bwd_ms"] - lib[k10]["library_ms"])
     main_v = variants[2]
@@ -2192,7 +2279,7 @@ def phase_train_kernels(model, dev):
                                    "of :193-206",
                      max_abs_err=max(v["max_abs_err"] for v in variants),
                      tol="dh 1e-2*|ref|max (a bf16 ulp); g, dgamma, dbeta 1e-3*|ref|max; "
-                         "dgamma/dbeta equal over two launches",
+                         f"dh, g, dgamma, dbeta bit-identical over {REPEATS} repeated calls",
                      **{k: main_v[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
                                                "library_ms", "bound_ms", "bound_by")},
                      library="autograd's backward of the bf16 matmul + group_norm + silu + "
@@ -2221,13 +2308,21 @@ def grad_agreement(grads, ref):
 def route_agreement(model, dev):
     """The kernel route's loss and gradient leaves against the fp32 autograd
     route's on one batch of 1,280 poses with the same t and z, dropout 0 (the
-    routes' dropout streams differ)."""
+    routes' dropout streams differ), and the kernel step's K10 and K12 routes."""
     m0 = copy.deepcopy(model).train()
     m0.dropout.p = 0.0
     batch, t, z, _ = train_operands(m0, dev)
     sde = SubVPSDE(N=1000)
+    fused_em.reset_launch_counts()
     loss_k, grads_k = fused_train.get_cuda_train_loss_and_grad(sde, m0, reduce_mean=True)(
         batch, t=t, z=z, dropout_seed=1)
+    torch.cuda.synchronize()
+    # one step's routes: K10's four K = 1024 layers from the stash, the pre
+    # layer from fp32 A; K12's five hops on the Hopper loop
+    routes = {k: v for k, v in fused_em.route_counts().items()
+              if k in ("dense_gn_silu_train", "dense_gn_silu_bwd")}
+    check(routes == {"dense_gn_silu_train": {"wgmma": 4, "register": 1},
+                     "dense_gn_silu_bwd": {"wgmma": 5}}, f"train step routes {routes}")
     named = [(n, p) for n, p in m0.named_parameters() if p.requires_grad]
     loss_r = tlosses.get_sde_loss_fn(sde, True, tlosses.make_model_apply(m0), reduce_mean=True)(
         tlosses.params_of(m0), batch, t=t, z=z)
@@ -2235,7 +2330,7 @@ def route_agreement(model, dev):
     ref = {n: g for (n, _), g in zip(named, grads_r) if g is not None}
     torch.cuda.synchronize()
     agree = grad_agreement(grads_k, ref)
-    return dict(loss_kernel=float(loss_k), loss_fp32=float(loss_r.detach()),
+    return dict(loss_kernel=float(loss_k), loss_fp32=float(loss_r.detach()), step_routes=routes,
                 loss_rel_err=abs(float(loss_k) / float(loss_r.detach()) - 1.0),
                 worst_cosine=min(agree.items(), key=lambda kv: kv[1][0]),
                 worst_rel=max(agree.items(), key=lambda kv: kv[1][1]), leaves=agree)
@@ -2256,7 +2351,8 @@ def phase_train_parity(model, dev):
         print(f"[train parity] {name}: kernel route vs fp32 autograd at [1280, 1024]: loss "
               f"{r['loss_kernel']:.6f} vs {r['loss_fp32']:.6f} (rel {r['loss_rel_err']:.2e}), "
               f"worst cosine {r['worst_cosine'][1][0]:.6f} ({r['worst_cosine'][0]}), worst "
-              f"relative error {r['worst_rel'][1][1]:.4f} ({r['worst_rel'][0]})")
+              f"relative error {r['worst_rel'][1][1]:.4f} ({r['worst_rel'][0]}); a step's "
+              f"routes {r['step_routes']}")
         out[name] = r
     r = out["seeded_init"]
     check(r["loss_rel_err"] <= 3e-3, f"train parity: loss relative error {r['loss_rel_err']}")

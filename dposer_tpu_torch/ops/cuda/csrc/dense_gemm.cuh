@@ -1,13 +1,14 @@
 // The register-staged GEMM main loop of the network's hidden layers as
 // device code:
 //   C[r, c] = sum_k bf16(A[r, k]) * W[k, c]
-// Its users: K7 dense_gn_silu_jvp (STACKED), K10 dense_gn_silu_train, K12
-// dense_gn_silu_bwd (its Smem, Stage and mma_stage, with a bf16 A), and K1
+// Its users: K7 dense_gn_silu_jvp (STACKED) and K10 dense_gn_silu_train on
+// their register routes (fp32 A: the pre layer at K = 63), and K1
 // dense_gn_silu only where TMA cannot address A (K % 4 != 0, the pre layer
 // at K = 63, or a misaligned operand); K1's other layers and K14's bf16
-// modes run dense_wgmma.cuh. Its constants (BM, BN, C_LD, THREADS),
-// group_sum and quant8 are those of gn_epilogue.cuh, dense_wgmma.cuh and the
-// int8 loops (dense_gemm_int8.cuh, dense_wgmma_int8.cuh) too.
+// modes run dense_wgmma.cuh, K10's bf16 layers and K12 dense_wgmma_ss.cuh.
+// Its constants (BM, BN, C_LD, THREADS), group_sum and quant8 are those of
+// gn_epilogue.cuh, dense_wgmma.cuh and the int8 loops (dense_gemm_int8.cuh,
+// dense_wgmma_int8.cuh) too.
 //
 // A block owns a 64x64 output tile (8 warps, 32x16 each, bf16 WMMA 16x16x16
 // with fp32 accumulation) and walks K in steps of 64. A and W tiles are loaded

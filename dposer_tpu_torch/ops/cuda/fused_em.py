@@ -300,10 +300,10 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """Launches of each kernel with more than one main loop, by route, since
-    the last ``reset_launch_counts``: K7 ``{"wgmma": n, "register": n}``, K13
-    and K14 ``{"wgmma_int8": n, "register": n}`` (K14 also ``"wgmma"``, its
-    bf16 modes)."""
+    """Launches of each kernel with a Hopper main loop, by route, since the
+    last ``reset_launch_counts``: K7 and K10 ``{"wgmma": n, "register": n}``,
+    K12 ``{"wgmma": n}`` (its one route), K13 and K14 ``{"wgmma_int8": n,
+    "register": n}`` (K14 also ``"wgmma"``, its bf16 modes)."""
     return {fn.__name__: dict(fn.routes) for fn in _counted() if hasattr(fn, "routes")}
 
 

@@ -8,14 +8,21 @@ launch, 11 a step:
 - K10 ``dense_gn_silu_train`` (``csrc/dense_gn_silu_train.cu``), 1 + 2 *
   n_blocks launches: ``bf16(A) @ W + proj``, GroupNorm, SiLU, dropout and
   the block's residual; it writes the layer's output, its bf16 copy (the
-  next dense layer's input, which the weight-gradient GEMMs read), bf16 xhat
-  and rstd per (row, group).
+  stash: the next dense layer's A, which the weight-gradient GEMMs read
+  too), bf16 xhat and rstd per (row, group). The activations are handed on
+  in bf16: every layer but the pre one reads the stash the layer before
+  wrote (the Hopper route, ``csrc/dense_wgmma_ss.cuh``), which is the
+  product's rounding of the fp32 output anyway; the pre layer reads the fp32
+  perturbed pose (the register route). A block's first layer writes no fp32
+  output, since only its stash is read.
 - K11 ``head_dsm`` (``csrc/head_dsm.cu``), 1 launch: the post-dense and the
   DSM loss seed, per-row losses and ``dout``.
 - K12 ``dense_gn_silu_bwd`` (``csrc/dense_gn_silu_bwd.cu``), 1 + 2 *
-  n_blocks launches: the hop ``dh_next @ W_next^T`` (+ the residual stream's
-  carried gradient), then the dropout, SiLU and GroupNorm backward, writing
-  bf16 ``dh`` and per-row-block sums of dgamma and dbeta.
+  n_blocks launches, all on the Hopper loop of ``csrc/dense_wgmma_ss.cuh``:
+  the hop ``dh_next @ W_next^T`` (+ the residual stream's carried gradient),
+  then the dropout, SiLU and GroupNorm backward, writing bf16 ``dh`` and
+  dgamma and dbeta (per-row-block sums that the kernel's last CTA of each
+  column tile adds in a fixed order).
 
 Everything around them is plain PyTorch, as it is plain XLA in JAX: the
 time-embedding path (differentiated by autograd through the per-row
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from types import SimpleNamespace
 from typing import Optional
 
@@ -81,6 +89,7 @@ def _fmix32(h):
     return h ^ (h >> 16)
 
 
+@functools.lru_cache(maxsize=None)
 def keep_threshold(keep: float) -> int:
     """The kernels' integer keep test: top 24 hash bits below this; 2^24
     (keep >= 1) turns dropout off."""
@@ -108,6 +117,7 @@ def dropout_mask(seed: int, layer: int, rows: int, cols: int, keep: float,
     return kept.float() * torch.tensor(1.0 / keep, dtype=torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def _inv_keep(keep: float) -> float:
     return float(torch.tensor(1.0 / keep, dtype=torch.float32))
 
@@ -122,11 +132,13 @@ def _mean_g(v: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed: int, layer: int, keep: float,
-                              residual=None):
+                              residual=None, a_b=None):
     """Plain K10: ``(out fp32, out in w's dtype, xhat in w's dtype, rstd
-    [B, 32] fp32)``."""
+    [B, 32] fp32)``. ``a_b``, ``a`` already in w's dtype (the stash the
+    layer before wrote), takes the place of ``a``, which may then be None.
+    The stash is a tensor of its own, also in fp32."""
     cdt = w.dtype
-    h = a.to(cdt).float() @ w.float() + proj.float()
+    h = (a.to(cdt) if a_b is None else a_b).float() @ w.float() + proj.float()
     B, N = h.shape
     hg = h.reshape(B, NUM_GROUPS, N // NUM_GROUPS)
     d = hg - hg.mean(-1, keepdim=True)
@@ -137,7 +149,7 @@ def dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed: int, layer: int, ke
     if mask is not None:
         s = s * mask
     out = s if residual is None else s + residual
-    return out, out.to(cdt), xhat.to(cdt), rstd.reshape(B, NUM_GROUPS)
+    return out, out.to(cdt, copy=True), xhat.to(cdt), rstd.reshape(B, NUM_GROUPS)
 
 
 def head_dsm_plain(h, w_post, b_post, coefs, z):
@@ -201,15 +213,38 @@ def _kernel_device(name: str, dev: torch.device, cdt, N: int) -> None:
                          f"{{2,4,8,16,32}}; got N={N}")
 
 
+def check_stash_input(a_b, w, B: int, K: int) -> None:
+    """Raise unless K10's Hopper route can take ``a_b`` as A: ``w``'s dtype,
+    [B, K] contiguous, 16-byte aligned, K % 8 == 0 (TMA rows). Checked on
+    every device, so the CPU's plain path takes the operands the card
+    takes."""
+    _check("a_b", a_b, w.device, w.dtype, (B, K))
+    if a_b.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("a_b and w must be 16-byte aligned for TMA")
+    if K % 8:
+        raise ValueError(f"a_b needs K % 8 == 0 (16-byte TMA rows); got K={K}")
+
+
 def dense_gn_silu_train(a, w, proj, gamma, beta, seed: int, layer: int, keep: float,
-                        residual=None, out=None, stash=None, xhat=None, rstd=None):
+                        residual=None, out=None, stash=None, xhat=None, rstd=None, *,
+                        a_b=None, write_out: bool = True):
     """K10 on ``a`` [B, K] fp32, ``w`` [K, N] and ``proj`` [B, N] in the
     compute dtype; returns ``(out, stash, xhat, rstd)`` (allocated when not
-    given; ``out`` may be ``residual`` itself)."""
-    B, K = a.shape
+    given; ``out`` may be ``residual`` itself).
+
+    ``a_b`` [B, K] in the compute dtype, the stash the layer before wrote,
+    routes the layer through the Hopper loop (TMA and ``wgmma`` from shared
+    memory; ``a`` may then be None); without it the register-staged loop
+    rounds ``a``. ``write_out=False`` writes no fp32 output (``out`` is then
+    None): the caller reads only the stash. Each launch adds one to
+    ``launches`` and to its route's count in ``routes``."""
+    B, K = (a if a_b is None else a_b).shape
     N = w.shape[1]
-    dev, cdt = a.device, w.dtype
-    if out is None:
+    dev, cdt = w.device, w.dtype
+    if not write_out:
+        if out is not None:
+            raise ValueError("write_out=False takes no out")
+    elif out is None:
         out = torch.empty((B, N), dtype=torch.float32, device=dev)
     if stash is None:
         stash = torch.empty((B, N), dtype=cdt, device=dev)
@@ -217,36 +252,45 @@ def dense_gn_silu_train(a, w, proj, gamma, beta, seed: int, layer: int, keep: fl
         xhat = torch.empty((B, N), dtype=cdt, device=dev)
     if rstd is None:
         rstd = torch.empty((B, NUM_GROUPS), dtype=torch.float32, device=dev)
-    _check("a", a, dev, torch.float32, (B, K))
+    if a_b is None or a is not None:
+        _check("a", a, dev, torch.float32, (B, K))
     _check("w", w, dev, cdt, (K, N))
     _check("proj", proj, dev, cdt, (B, N))
     for nm, t in (("gamma", gamma), ("beta", beta)):
         _check(nm, t, dev, torch.float32, (N,))
     if residual is not None:
         _check("residual", residual, dev, torch.float32, (B, N))
-    _check("out", out, dev, torch.float32, (B, N))
+    if out is not None:
+        _check("out", out, dev, torch.float32, (B, N))
     _check("stash", stash, dev, cdt, (B, N))
     _check("xhat", xhat, dev, cdt, (B, N))
     _check("rstd", rstd, dev, torch.float32, (B, NUM_GROUPS))
+    if a_b is not None:
+        check_stash_input(a_b, w, B, K)
     if dev.type == "cpu":
-        res = dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed, layer, keep, residual)
+        res = dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed, layer, keep, residual,
+                                        a_b=a_b)
         for dst, src in zip((out, stash, xhat, rstd), res):
-            dst.copy_(src)
+            if dst is not None:
+                dst.copy_(src)
         return out, stash, xhat, rstd
     _kernel_device("dense_gn_silu_train", dev, cdt, N)
+    hopper = a_b is not None
     fn = _lib_fn("dense_gn_silu_train", "dposer_dense_gn_silu_train",
-                 [_P] * 10 + [_U, _I, _U, _F, _I, _I, _I, _P])
-    err = fn(a.data_ptr(), w.data_ptr(), proj.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-             _ptr(residual), out.data_ptr(), stash.data_ptr(), xhat.data_ptr(),
-             rstd.data_ptr(), seed & 0xFFFFFFFF, layer, keep_threshold(keep), _inv_keep(keep),
-             B, K, N, torch.cuda.current_stream(dev).cuda_stream)
+                 [_P] * 11 + [_U, _I, _U, _F, _I, _I, _I, _P])
+    err = fn(None if hopper else a.data_ptr(), _ptr(a_b), w.data_ptr(), proj.data_ptr(),
+             gamma.data_ptr(), beta.data_ptr(), _ptr(residual), _ptr(out), stash.data_ptr(),
+             xhat.data_ptr(), rstd.data_ptr(), seed & 0xFFFFFFFF, layer, keep_threshold(keep),
+             _inv_keep(keep), B, K, N, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"dense_gn_silu_train launch failed: CUDA error {err}")
     dense_gn_silu_train.launches += 1
+    dense_gn_silu_train.routes["wgmma" if hopper else "register"] += 1
     return out, stash, xhat, rstd
 
 
 dense_gn_silu_train.launches = 0
+dense_gn_silu_train.routes = {"wgmma": 0, "register": 0}
 
 
 def head_dsm(h, w_post, b_post, coefs, z, loss_rows=None, dout=None):
@@ -289,12 +333,21 @@ def head_dsm(h, w_post, b_post, coefs, z, loss_rows=None, dout=None):
 head_dsm.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_tile_rows() -> int:
+    """The rows a K12 CTA sums dgamma and dbeta over (the partials' rows are
+    ceil(B / this))."""
+    fn = _lib_fn("dense_gn_silu_bwd", "dposer_dense_gn_silu_bwd_tile_rows", [])
+    return int(fn())
+
+
 def dense_gn_silu_bwd(dh_next, w_t, xhat, rstd, gamma, beta, seed: int, layer: int,
                       keep: float, g_res=None, g_out=None, dh=None):
     """K12 on ``dh_next`` [B, K] and ``w_t`` [K, N] in the compute dtype (on
-    the card K a multiple of 64); returns ``(dh [B, N], g_out, dgamma [N],
-    dbeta [N])``. ``g_out`` (may be ``g_res`` itself) receives the hop's fp32
-    gradient when given."""
+    the card K % 8 == 0 and both 16-byte aligned: TMA rows); returns ``(dh
+    [B, N], g_out, dgamma [N], dbeta [N])``. ``g_out`` (may be ``g_res``
+    itself) receives the hop's fp32 gradient when given. Each launch adds one
+    to ``launches`` and to ``routes["wgmma"]``, its one route."""
     B, K = dh_next.shape
     N = w_t.shape[1]
     dev, cdt = dh_next.device, w_t.dtype
@@ -317,9 +370,10 @@ def dense_gn_silu_bwd(dh_next, w_t, xhat, rstd, gamma, beta, seed: int, layer: i
             g_out.copy_(g)
         return dh.copy_(d), g_out, dg, db
     _kernel_device("dense_gn_silu_bwd", dev, cdt, N)
-    if K % 64:
-        raise ValueError(f"dense_gn_silu_bwd kernel needs K % 64 == 0 (zero-pad); got K={K}")
-    n_blk = (B + 63) // 64
+    if K % 8 or dh_next.data_ptr() % 16 or w_t.data_ptr() % 16:
+        raise ValueError(f"dense_gn_silu_bwd kernel needs K % 8 == 0 (zero-pad) and dh_next, "
+                         f"w_t 16-byte aligned (TMA rows); got K={K}")
+    n_blk = -(-B // _bwd_tile_rows())
     parts = torch.empty((2, n_blk, N), dtype=torch.float32, device=dev)
     fn = _lib_fn("dense_gn_silu_bwd", "dposer_dense_gn_silu_bwd",
                  [_P] * 11 + [_U, _I, _U, _F, _I, _I, _I, _P])
@@ -331,18 +385,24 @@ def dense_gn_silu_bwd(dh_next, w_t, xhat, rstd, gamma, beta, seed: int, layer: i
     if err:
         raise RuntimeError(f"dense_gn_silu_bwd launch failed: CUDA error {err}")
     dense_gn_silu_bwd.launches += 1
-    sums = parts.sum(1)  # one fixed-order reduction over the row blocks
-    return dh, g_out, sums[0], sums[1]
+    dense_gn_silu_bwd.routes["wgmma"] += 1
+    # the kernel added the row blocks' partials in a fixed order into row 0
+    return dh, g_out, parts[0, 0], parts[1, 0]
 
 
 dense_gn_silu_bwd.launches = 0
+dense_gn_silu_bwd.routes = {"wgmma": 0}
 
 
 def dense_gn_silu_train_plain_into(a, w, proj, gamma, beta, seed: int, layer: int,
-                                   keep: float, residual=None, out=None, **_):
+                                   keep: float, residual=None, out=None, *, a_b=None,
+                                   write_out: bool = True, **_):
     """The plain K10 with the wrapper's signature, on any device: the
     reference path the kernels are held to on the card."""
-    res = dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed, layer, keep, residual)
+    res = dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed, layer, keep, residual,
+                                    a_b=a_b)
+    if not write_out:
+        return (None,) + res[1:]
     return res if out is None else (out.copy_(res[0]),) + res[1:]
 
 
@@ -418,11 +478,14 @@ class _DSMNet(torch.autograd.Function):
         fwd = cfg.layers.fwd
         h, st, xh, rs = fwd(x_pert, w_fwd[0], proj_c[0], gn_w[0], gn_b[0], seed, 0, keep)
         stash, xhats, rstds = [st], [xh], [rs]
+        # every layer after the pre one reads the stash of the layer before;
+        # a block's first layer writes only its stash
         for j in range(1, n_tp, 2):
-            s1, st, xh, rs = fwd(h, w_fwd[j], proj_c[j], gn_w[j], gn_b[j], seed, j, keep)
+            _, st, xh, rs = fwd(None, w_fwd[j], proj_c[j], gn_w[j], gn_b[j], seed, j, keep,
+                                a_b=stash[-1], write_out=False)
             stash.append(st), xhats.append(xh), rstds.append(rs)
-            h, st, xh, rs = fwd(s1, w_fwd[j + 1], proj_c[j + 1], gn_w[j + 1], gn_b[j + 1],
-                                seed, j + 1, keep, residual=h, out=h)
+            h, st, xh, rs = fwd(None, w_fwd[j + 1], proj_c[j + 1], gn_w[j + 1], gn_b[j + 1],
+                                seed, j + 1, keep, residual=h, out=h, a_b=stash[-1])
             stash.append(st), xhats.append(xh), rstds.append(rs)
         loss_rows, dout = cfg.layers.head(h, wpost_k, bpost, coefs, z)
         ctx.cfg = cfg

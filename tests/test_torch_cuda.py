@@ -645,6 +645,173 @@ def test_dense_gn_silu_bwd(dev, K, with_g_res):
     assert all(torch.equal(a, b) for a, b in zip(got[2:], again[2:]))
 
 
+def _k10_operands(dev, B, K, N, seed):
+    rng = np.random.default_rng(seed)
+    a = _t(rng, (B, K), dev)
+    w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    proj = _t(rng, (B, N), dev, 0.3).to(torch.bfloat16)
+    gamma, beta = 1 + _t(rng, (N,), dev, 0.1), _t(rng, (N,), dev, 0.1)
+    return a, w, proj, gamma, beta, _t(rng, (B, N), dev)
+
+
+def _k10_close(got, want):
+    """K10's tolerances (chip_smoke.py phase 3): out 1e-3 absolute, the bf16
+    stash and xhat one bf16 ulp, rstd 1e-3 relative (a group of 2 features
+    has a variance that cancels)."""
+    if got[0] is not None:
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
+    _bf16_close(got[1], want[1])
+    _bf16_close(got[2], want[2])
+    torch.testing.assert_close(got[3], want[3], rtol=1e-3, atol=0)
+
+
+# rows: one, a ragged 37, generation's 500, the train batch 1,280 and 2,000
+# (more tiles than three CTAs an SM hold at once); N = 32 x the group size;
+# the layer kinds of a step: the pre layer (fp32 A at K = 63, the register
+# route), a block's first layer (the stash as A, no fp32 output) and its
+# second (the residual given, or updated in place)
+@pytest.mark.parametrize("B", [1, 37, 500, 1280, 2000])
+@pytest.mark.parametrize("gs", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("layer", ["pre", "block", "block_no_out", "block_residual",
+                                   "block_residual_in_place"])
+def test_dense_gn_silu_train_hopper_route(dev, B, gs, layer):
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    N, K = 32 * gs, 63 if layer == "pre" else 1024
+    a, w, proj, gamma, beta, res = _k10_operands(dev, B, K, N, B + gs)
+    res = res if layer.startswith("block_residual") else None
+    want = ft.dense_gn_silu_train_plain(a, w, proj, gamma, beta, 99, 3, 0.9, res)
+    kw = dict(residual=res)
+    if layer != "pre":
+        kw["a_b"] = a.to(torch.bfloat16)
+    if layer == "block_no_out":
+        kw["write_out"] = False
+    if layer == "block_residual_in_place":
+        kw["out"] = res.clone()
+        kw["residual"] = kw["out"]
+    reset_launch_counts()
+    got = ft.dense_gn_silu_train(None if layer != "pre" else a, w, proj, gamma, beta, 99, 3, 0.9,
+                                 **kw)
+    torch.cuda.synchronize()
+    route = "register" if layer == "pre" else "wgmma"
+    assert fused_em.route_counts()["dense_gn_silu_train"] == {
+        "wgmma": int(route == "wgmma"), "register": int(route == "register")}
+    assert launch_counts()["dense_gn_silu_train"] == 1
+    if layer == "block_no_out":
+        assert got[0] is None
+    if layer == "block_residual_in_place":
+        assert got[0] is kw["out"]
+    _k10_close(got, want)  # out to 1e-3 holds the kernel to the plain version's mask
+
+
+@pytest.mark.parametrize("B", [37, 1280])
+@pytest.mark.parametrize("K", [72, 1024])
+def test_dense_gn_silu_train_routes_agree(dev, B, K):
+    """The stash as A (the Hopper route; K = 72 ends on a ragged 64-deep box,
+    whose columns past K read as zeros) against fp32 A (the register route),
+    both rounding to the same bf16 operands: on the card within the plain
+    version's tolerances of each other, since wgmma and the register loop's
+    mma sum in different orders; the plain version gives the same bits
+    either way. 10 repeated calls of each route give the same bits."""
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    a, w, proj, gamma, beta, res = _k10_operands(dev, B, K, 1024, K)
+    a_b = a.to(torch.bfloat16)
+    plain = ft.dense_gn_silu_train_plain(a, w, proj, gamma, beta, 7, 1, 0.9, res)
+    plain_b = ft.dense_gn_silu_train_plain(None, w, proj, gamma, beta, 7, 1, 0.9, res, a_b=a_b)
+    assert all(torch.equal(x, y) for x, y in zip(plain, plain_b))
+    reset_launch_counts()
+    runs = {route: [ft.dense_gn_silu_train(a if route == "register" else None, w, proj, gamma,
+                                           beta, 7, 1, 0.9, residual=res,
+                                           a_b=a_b if route == "wgmma" else None)
+                    for _ in range(10)] for route in ("wgmma", "register")}
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu_train"] == {"wgmma": 10, "register": 10}
+    for outs in runs.values():
+        _k10_close(outs[0], plain)
+        assert all(torch.equal(x, y) for o in outs[1:] for x, y in zip(o, outs[0]))
+    _k10_close(runs["wgmma"][0], runs["register"][0])
+
+
+@pytest.mark.parametrize("B", [1, 37, 500, 1280, 2000])
+@pytest.mark.parametrize("gs", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("K", [64, 1024])
+@pytest.mark.parametrize("g_res", ["none", "given", "in_place"])
+def test_dense_gn_silu_bwd_hopper_route(dev, B, gs, K, g_res):
+    """Every hop on the Hopper loop: the first (K = 64, the zero-padded
+    dout), a hidden one, with the carried gradient given or updated in place
+    (g_out is g_res); the tolerances of test_dense_gn_silu_bwd; dgamma and
+    dbeta bit-identical over 10 calls."""
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    rng = np.random.default_rng(B + gs + K)
+    N = 32 * gs
+    dh_next = _t(rng, (B, K), dev, 1e-3).to(torch.bfloat16)
+    w_t = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    xhat = _t(rng, (B, N), dev).to(torch.bfloat16)
+    rstd = torch.from_numpy(rng.uniform(0.5, 2, (B, 32)).astype(np.float32)).to(dev)
+    gamma, beta = 1 + _t(rng, (N,), dev, 0.1), _t(rng, (N,), dev, 0.1)
+    gr = _t(rng, (B, N), dev, 1e-3) if g_res != "none" else None
+    want = ft.dense_gn_silu_bwd_plain(dh_next, w_t, xhat, rstd, gamma, beta, 5, 2, 0.9, gr)
+    args = (dh_next, w_t, xhat, rstd, gamma, beta, 5, 2, 0.9)
+    reset_launch_counts()
+    runs = []
+    for _ in range(10):
+        res_in = None if gr is None else gr.clone()
+        g_out = res_in if g_res == "in_place" else torch.empty(B, N, device=dev)
+        runs.append(ft.dense_gn_silu_bwd(*args, g_res=res_in, g_out=g_out))
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu_bwd"] == {"wgmma": 10}
+    got = runs[0]
+    _bf16_close(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3 * float(want[1].abs().max()))
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3 * float(w.abs().max()))
+    for r in runs[1:]:
+        assert torch.equal(r[0], got[0]) and torch.equal(r[1], got[1])
+        assert torch.equal(r[2], got[2]) and torch.equal(r[3], got[3])
+
+
+def test_dense_gn_silu_bwd_ragged_depth(dev):
+    """K = 72: the second 64-deep box is ragged and reads zeros past K."""
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    rng = np.random.default_rng(72)
+    B, K, N = 300, 72, 1024
+    args = (_t(rng, (B, K), dev, 1e-3).to(torch.bfloat16),
+            _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16),
+            _t(rng, (B, N), dev).to(torch.bfloat16),
+            torch.from_numpy(rng.uniform(0.5, 2, (B, 32)).astype(np.float32)).to(dev),
+            1 + _t(rng, (N,), dev, 0.1), _t(rng, (N,), dev, 0.1), 5, 2, 0.9)
+    want = ft.dense_gn_silu_bwd_plain(*args)
+    got = ft.dense_gn_silu_bwd(*args)
+    torch.cuda.synchronize()
+    _bf16_close(got[0], want[0])
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-3 * float(w.abs().max()))
+
+
+def test_train_step_routes(dev):
+    """One flagship-width step through the kernels: K10 runs its four K =
+    1024 layers on the Hopper route and the pre layer on the register route,
+    K12 its five hops on the Hopper route."""
+    from dposer_tpu_torch.diffusion.sde import SubVPSDE
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    torch.manual_seed(0)
+    model = ScoreModelFC(n_poses=21, pose_dim=3).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = torch.randn(1280, 63, generator=g, device=dev)
+    reset_launch_counts()
+    ft.get_cuda_train_loss_and_grad(SubVPSDE(N=1000), model, reduce_mean=True)(batch,
+                                                                                generator=g)
+    torch.cuda.synchronize()
+    routes = fused_em.route_counts()
+    assert routes["dense_gn_silu_train"] == {"wgmma": 4, "register": 1}
+    assert routes["dense_gn_silu_bwd"] == {"wgmma": 5}
+    assert launch_counts()["head_dsm"] == 1
+
+
 def test_train_route_matches_plain_route(dev):
     from dposer_tpu_torch.diffusion.sde import SubVPSDE
     from dposer_tpu_torch.ops.cuda import fused_train as ft

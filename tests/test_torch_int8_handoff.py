@@ -262,13 +262,15 @@ def test_k14_handoff_validation_errors(case):
 
 
 def test_route_counts_start_at_zero():
-    """``route_counts`` names K7's two routes, K13's two and K14's three, and
-    ``reset_launch_counts`` sets them to 0."""
+    """``route_counts`` names K7's two routes, K10's two, K12's one, K13's two
+    and K14's three, and ``reset_launch_counts`` sets them to 0."""
     score_net.dense_gn_silu_int8.routes["register"] += 3
     score_net.dense_gn_silu_jvp.routes["wgmma"] += 2
     fused_em.reset_launch_counts()
     assert fused_em.route_counts() == {
         "dense_gn_silu_jvp": {"wgmma": 0, "register": 0},
+        "dense_gn_silu_train": {"wgmma": 0, "register": 0},
+        "dense_gn_silu_bwd": {"wgmma": 0},
         "dense_gn_silu_int8": {"wgmma_int8": 0, "register": 0},
         "chain_link": {"wgmma": 0, "wgmma_int8": 0, "register": 0}}
 
