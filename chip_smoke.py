@@ -10,10 +10,10 @@ Phases; any failure exits non-zero:
    (``-Xptxas -v`` printed, and the registers and shared memory of every
    instantiation of the Hopper main loops ``dense_wgmma.cuh`` and
    ``dense_wgmma_int8.cuh``, with any ptxas line reporting serialized wgmma;
-   for the cluster kernels K2, K3, K7's Hopper route and K9 their grid,
-   cluster size, shared memory, the clusters the card holds at once and
-   their registers; a ptxas line reporting serialized wgmma in K7 or K9
-   fails the phase; K10's and K12's instantiations with their registers,
+   for the cluster kernels K2, K3, K7's Hopper route, K8, K9 and K11 (on
+   the bf16 stash and on fp32 h) their grid, cluster size, shared memory,
+   the clusters the card holds at once and their registers; a ptxas line
+   reporting serialized wgmma in K7 or K9 fails the phase; K10's and K12's instantiations with their registers,
    shared memory, spills and CTAs an SM, where a serialized wgmma fails the
    phase too);
 3. each of the fourteen kernels against its plain PyTorch version at the
@@ -38,10 +38,12 @@ Phases; any failure exits non-zero:
    int8 inner and last links exact against their plain versions;
    K10 on the routes a train step takes (the pre layer from fp32 A on the
    register route, the K = 1024 layers from the bf16 stash on the Hopper
-   route, a block's first layer without its fp32 output) and beside them on
-   the register route and writing that output, K12's three hops, each with
-   50 repeated calls bit-identical and K10's bounds at the handoff's bytes
-   and at fp32 A;
+   route, a block's first layer and the last layer without their fp32
+   output) and beside them on the register route and writing that output,
+   K11 on the last layer's bf16 stash, bit-equal to K11 on fp32 h, K12's
+   three hops, each with 50 repeated calls bit-identical and K10's and K11's
+   bounds at the handoff's bytes and at fp32 input; K8 at every stage and
+   the denoise, with 50 repeated calls bit-identical;
    K1 also at completion's [1000, 1024] residual block;
 4. the whole kernel sampler against the same loop on the plain versions,
    N = 20, injected noise, corrector none and langevin, without and with
@@ -177,7 +179,7 @@ ODE_TOL = 5e-2  # kernel against plain deterministic samplers, times max(1, |ref
 PART, HYPO = "left_leg", 10
 TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generation call
 DRAW_TOL = 1e-5  # in-kernel normals against the plain Philox stream (logf, cospif vs float64)
-REPEATS = 50  # repeated calls of K2, K3, K7, K9, K10 and K12 that must give the same bits
+REPEATS = 50  # repeated calls of K2, K3, K7-K12 that must give the same bits
 
 
 class PhaseError(RuntimeError):
@@ -336,9 +338,10 @@ def wgmma8_instantiations(logs):
 
 def cluster_launch(lib, *args, kernel=None):
     """The cluster kernel ``kernel`` of ``lib`` (default ``lib``: K2
-    ``head_em`` at ``args`` = (B, H), K3 ``langevin_update``; K7
-    ``dense_gn_silu_jvp`` at (B, K, N), K9 ``head_rk4_jvp`` in ``head_rk4``
-    at (B, H)) as it launches on this card: grid CTAs,
+    ``head_em`` and K8 ``head_rk4`` at ``args`` = (B, H), K3
+    ``langevin_update``; K7 ``dense_gn_silu_jvp`` at (B, K, N), K9
+    ``head_rk4_jvp`` in ``head_rk4`` at (B, H), K11 ``head_dsm`` at (B, H,
+    h_bf16)) as it launches on this card: grid CTAs,
     cluster size, threads and dynamic shared memory a CTA, and the clusters
     the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
     fn = getattr(build.load(lib), f"dposer_{kernel or lib}_launch_info")
@@ -384,11 +387,18 @@ def phase_build():
           f"reporting serialized wgmma: {len(serialized)}"
           + "".join(f"\n    {ln}" for ln in serialized))
     clusters = {}
-    for lib, args in (("head_em", (B, H)), ("langevin_update", ())):
-        ptx = ptxas_entries(logs.get(lib, ""), f"{lib}_kernel")
-        clusters[lib] = dict(cluster_launch(lib, *args), ptxas=ptx)
-        c = clusters[lib]
-        print(f"[build] {lib} cluster kernel: grid {c['grid_ctas']} CTAs in clusters of "
+    # K2, K3; K8 at ODE sampling's 500 rows; K11 at the train batch on the
+    # bf16 stash (the step's) and on fp32 h
+    for key, lib, args in (("head_em", "head_em", (B, H)),
+                           ("langevin_update", "langevin_update", ()),
+                           ("head_rk4", "head_rk4", (B, H)),
+                           ("head_dsm", "head_dsm", (BT, H, 1)),
+                           ("head_dsm fp32 h", "head_dsm", (BT, H, 0))):
+        ptx = [e for e in ptxas_entries(logs.get(lib, ""), f"{lib}_kernel")
+               if lib != "head_dsm" or ("nv_bfloat16" in e["entry"]) == (args[-1] == 1)]
+        clusters[key] = dict(cluster_launch(lib, *args), ptxas=ptx)
+        c = clusters[key]
+        print(f"[build] {key} cluster kernel: grid {c['grid_ctas']} CTAs in clusters of "
               f"{c['cluster']}, {c['threads']} threads, {c['dynamic_smem']} B dynamic smem a CTA; "
               f"{c['clusters_resident']} clusters resident at once; "
               + ("; ".join(f"{e['registers']} registers, {e['static_smem']} B static smem, "
@@ -1127,6 +1137,18 @@ def phase_ode_kernels(model, dev):
         e8 += [err(g, w) for g, w in zip(got, want)]
         tol8 += [1e-3 * max(1.0, float(w.abs().max())) for w in want]
     check(all(a_ <= b_ for a_, b_ in zip(e8, tol8)), f"head_rk4: errors {e8} > {tol8}")
+    # 50 repeated calls bit-identical, at stage 1 and the denoise (the
+    # partials summed in rank order in the finishing CTA)
+    for stage in (1, fused_ode.DENOISE):
+        st8 = [torch.empty_like(t) for t in (xo, xs, acc)]
+
+        def call8(stage=stage, st8=st8):
+            for t, src in zip(st8, (xo, xs, acc)):
+                t.copy_(src)
+            fused_ode.head_rk4(hid, wp, bp, coefo, jo, stage, *st8)
+            return st8
+
+        repeats_bit_identical(call8, call8(), f"head_rk4 stage {stage}")
     n8 = 4 * B * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 5 * 4 * B * D + 32
     bms, by = bound(n8, 2 * B * H * D, 12 * B * D)
     st = (xo.clone(), xs.clone(), acc.clone())
@@ -1150,9 +1172,12 @@ def phase_ode_kernels(model, dev):
         plain_ms=graph_ms(lambda: fused_ode.head_rk4_plain(hid, wp, bp, coefo, jo, 1, xo, xs,
                                                            acc)),
         denoise_ms=graph_ms(lambda: run8(fused_ode.DENOISE)),
+        cluster=cluster_launch("head_rk4", B, H)["cluster"], repeats_bit_identical=REPEATS,
         library_ms=graph_ms(rk4_library), library_max_abs_err=lib8_e,
         library="composite: bf16 torch.addmm + the RK4 stage update in torch ops",
         bound_ms=bms, bound_by=by))
+    print(f"[kernel] head_rk4: clusters of {rows[-1]['cluster']} {rows[-1]['ms'] * 1e3:.2f} us "
+          f"(denoise {rows[-1]['denoise_ms'] * 1e3:.2f}); {REPEATS} repeated calls bit-identical")
 
     # K9 head_rk4_jvp, on the hidden state and tangent of the 50 rows
     bufs = score_net.hidden_jvp_buffers(netl, BL, dev)
@@ -2120,12 +2145,13 @@ def phase_train_kernels(model, dev):
             ("pre [1280,63]x[63,1024]", 0, "register", True),
             ("block [1280,1024]x[1024,1024], no fp32 out", 1, "wgmma", False),
             ("block+residual [1280,1024]x[1024,1024]", 2, "wgmma", True),
+            ("last [1280,1024]x[1024,1024]+residual, no fp32 out", 4, "wgmma", False),
             ("block-with-out [1280,1024]x[1024,1024]", 1, "wgmma", True),
             ("register-block [1280,1024]x[1024,1024]", 1, "register", True),
             ("register-block+residual [1280,1024]x[1024,1024]", 2, "register", True)):
         a = op["x_pert"] if j == 0 else fwd[j - 1][0]
         a_b = fwd[j - 1][1] if route == "wgmma" else None  # the stash of the layer before
-        res = fwd[0][0] if j == 2 else None
+        res = fwd[j - 2][0] if j in (2, 4) else None
         args = (W[j], P[j], gw[j], gb[j], seed, j, keep)
         ref = plain_f(a, *args, res)
         a_in = None if a_b is not None else a
@@ -2145,10 +2171,12 @@ def phase_train_kernels(model, dev):
               f"(tol {tol_bf}), rstd rel {e_rs}")
         # the kernel applied the plain version's mask: every dropped element
         # is the residual alone (the kept ones are held by the tolerance);
-        # without the fp32 out the stash shows it (no residual there)
+        # without the fp32 out the stash shows it, the residual rounded
         dropped = ~fused_train.dropout_keep(seed, j, BT, H, keep, dev)
         base = torch.zeros(BT, H, device=dev) if res is None else res
         shown = got[0] if write_out else got[1].float()
+        if not write_out:
+            base = base.to(torch.bfloat16).float()
         check(torch.equal(shown[dropped], base[dropped]),
               f"dense_gn_silu_train {label}: another dropout mask")
         bufs = [torch.empty_like(x) for x in ref]
@@ -2189,26 +2217,36 @@ def phase_train_kernels(model, dev):
                      library="bf16 matmul + group_norm + silu + dropout, forward",
                      variants=variants))
 
-    # K11: the head and the loss seed on the last hidden state
-    h4 = fwd[4][0]
-    args11 = (h4, op["wpost_k"], op["bpost"], op["coefs"], op["z"])
-    ref = fused_train.head_dsm_plain(*args11)
+    # K11: the head and the loss seed on the last layer's bf16 stash, as the
+    # step hands it over, and beside it on the fp32 h (the same bits)
+    h4, h4_b = fwd[4][0], fwd[4][1]
+    rest11 = (op["wpost_k"], op["bpost"], op["coefs"], op["z"])
+    args11 = (h4_b,) + rest11
+    ref = fused_train.head_dsm_plain(h4, *rest11)
     got = fused_train.head_dsm(*args11)
+    got32 = fused_train.head_dsm(h4, *rest11)
     torch.cuda.synchronize()
     e_loss = float(((got[0] - ref[0]).abs() / ref[0].abs().clamp(min=1e-12)).max())
     e_dout, tol_dout = err(got[1], ref[1]), 1e-3 * float(ref[1].abs().max())
     check(e_loss <= 1e-3 and e_dout <= tol_dout,
           f"head_dsm: loss rows rel {e_loss}, dout {e_dout} (tol {tol_dout})")
-    n11 = (4 * BT * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 3 * 4 * BT
-           + 2 * 4 * BT * D + 4 * BT)
-    bms, by = bound(n11, 2 * BT * H * score_net.HEAD_COLS, 8 * BT * D)
+    check(all(torch.equal(a, b) for a, b in zip(got, got32)),
+          "head_dsm: the bf16 stash and fp32 h give different bits")
+    for what, hh in (("the stash", h4_b), ("fp32 h", h4)):
+        repeats_bit_identical(lambda hh=hh: fused_train.head_dsm(hh, *rest11), got,
+                              f"head_dsm on {what}")
+    other = 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 3 * 4 * BT + 2 * 4 * BT * D \
+        + 4 * BT
+    bms, by = bound(2 * BT * H + other, 2 * BT * H * score_net.HEAD_COLS, 8 * BT * D)
+    bms32, _ = bound(4 * BT * H + other, 2 * BT * H * score_net.HEAD_COLS, 8 * BT * D)
     lr_b, do_b = torch.empty_like(ref[0]), torch.empty_like(ref[1])
-    run11 = lambda: fused_train.head_dsm(*args11, loss_rows=lr_b, dout=do_b)  # noqa: E731
+    run11 = lambda hh=h4_b: fused_train.head_dsm(hh, *rest11, loss_rows=lr_b,  # noqa: E731
+                                                  dout=do_b)
     wk, bk16 = op["wpost_k"], op["bpost"].to(op["wpost_k"].dtype)
     ca, cv, cs = (op["coefs"][:, c:c + 1] for c in range(3))
 
-    def dsm_library():  # composite: addmm + the DSM loss rows and their gradient
-        out = torch.addmm(bk16, h4.to(wk.dtype), wk)[:, :D].float()
+    def dsm_library():  # composite on the stash: addmm + the DSM loss rows and their gradient
+        out = torch.addmm(bk16, h4_b, wk)[:, :D].float()
         r = torch.addcmul(cv * op["z"], ca, out)
         return (r * r).sum(1) * cs[:, 0], 2.0 * cs * ca * r
 
@@ -2216,13 +2254,20 @@ def phase_train_kernels(model, dev):
     rows.append(dict(
         name="head_dsm", route="cuda", source=f"{CSRC}/head_dsm.cu", replaces=TPU_TRAIN_KERNEL,
         replaces_part="fused_train.py:177-188 (post-dense, the DSM loss rows, dout)",
-        shape="[1280,1024]x[1024,63]", max_abs_err=e_dout,
-        tol="loss rows 1e-3 relative; dout 1e-3*|ref|max", loss_rows_rel_err=e_loss,
-        ms=graph_ms(run11), eager_ms=eager_ms(run11),
+        shape="[1280,1024] bf16 stash x [1024,63]", max_abs_err=e_dout,
+        tol="loss rows 1e-3 relative; dout 1e-3*|ref|max; the stash and fp32 h bit-equal; "
+            f"{REPEATS} repeated calls bit-identical", loss_rows_rel_err=e_loss,
+        cluster=cluster_launch("head_dsm", BT, H, 1)["cluster"], repeats_bit_identical=REPEATS,
+        stash_bit_equal_fp32_h=True, ms=graph_ms(run11), eager_ms=eager_ms(run11),
+        fp32_h_ms=graph_ms(lambda: run11(h4)),
         plain_ms=graph_ms(lambda: fused_train.head_dsm_plain(*args11)),
         library_ms=graph_ms(dsm_library), library_max_abs_err_loss_dout=lib11_e,
-        library="composite: torch.addmm in w_post's type + the DSM loss rows and dout",
-        bound_ms=bms, bound_by=by))
+        library="composite on the stash: torch.addmm in w_post's type + the DSM loss rows "
+                "and dout",
+        bound_ms=bms, bound_by=by, bound_fp32_h_ms=bms32))
+    print(f"[kernel] head_dsm: clusters of {rows[-1]['cluster']} {rows[-1]['ms'] * 1e3:.2f} us on "
+          f"the stash ({rows[-1]['fp32_h_ms'] * 1e3:.2f} on fp32 h), bit-equal; {REPEATS} "
+          f"repeated calls bit-identical")
 
     # K12: the first hop (the zero-padded dout), and a hidden hop without and
     # with the residual stream's carried gradient
@@ -2653,11 +2698,12 @@ def main():
         print(f"[{name}] kernels alone: {dev_ms:.1f} ms per call, so the device is busy "
               f"~{100 * dev_ms / wall_ms:.0f}% of the best call")
     proto.update(ode["results"])
-    # and for a train step: K10 x5, K11 and K12 x5 at batch 1,280
+    # and for a train step: K10 x5 (the last layer without its fp32 out), K11
+    # on the stash and K12 x5 at batch 1,280
     by_name = {r["name"]: r for r in rows}
     k10 = {v["shape"].split()[0]: v["ms"] for v in by_name["dense_gn_silu_train"]["variants"]}
     k12 = {v["shape"].split()[0]: v["ms"] for v in by_name["dense_gn_silu_bwd"]["variants"]}
-    step_k = (k10["pre"] + 2 * k10["block"] + 2 * k10["block+residual"] + ms["head_dsm"]
+    step_k = (k10["pre"] + 2 * k10["block"] + k10["block+residual"] + k10["last"] + ms["head_dsm"]
               + k12["hop"] + 2 * k12["hidden"] + 2 * k12["hidden+g_res"])
     ft_res = train["results"]["finetune"]
     ft_res["kernel_ms_per_step"] = step_k

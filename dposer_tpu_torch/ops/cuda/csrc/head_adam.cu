@@ -16,9 +16,9 @@
 // bf16 tensor-core time) against ~5.9 MB moved (h fp32 read once; x, m1 and v
 // read and written; pert, obs and mask read): bytes bound, ~1.8 us.
 //
-// Design: the head is head_gemm.cuh's block tile, the device code K2 runs
-// (16 rows x 64 padded columns a block, bf16 WMMA, fp32 partial sums in
-// shared memory). The Adam step is the epilogue over the tile's [16, D]
+// Design: the head is head_gemm.cuh's block tile (16 rows x 64 padded
+// columns a block, bf16 WMMA, fp32 partial sums in shared memory); K2, K8,
+// K9 and K11 run head_cluster.cuh instead. The Adam step is the epilogue over the tile's [16, D]
 // elements, so the head's output and the gradient never go to device memory.
 // v*cv stays under the square root, as the TPU kernel and optax have it.
 

@@ -1,21 +1,25 @@
 // The output head of the score network split over a thread-block cluster,
-// for K2 head_em and K9 head_rk4_jvp:
+// for K2 head_em, K8 head_rk4, K9 head_rk4_jvp and K11 head_dsm:
 //   out[r, c] = sum_k bf16_rne(h[r, k]) * Wpost[k, c] + bpost[c]
-// with h fp32 [B, H], Wpost bf16 [H, 64] (zero-padded columns), fp32 sums.
-// It computes what head_gemm.cuh::gemm_tile computes (the sum order
-// differs); head_gemm.cuh stays the head of K6, K8 and K11.
+// with h [B, H] fp32 or bf16, Wpost bf16 [H, 64] (zero-padded columns),
+// fp32 sums. It computes what head_gemm.cuh::gemm_tile computes (the sum
+// order differs); head_gemm.cuh stays the head of K6 alone.
 //
 // Bound on the H100: at [500, 1024] x [1024, 63] the head reads 2 MB of h
 // once and does 64.5 MFLOP (~0.07 us of bf16 tensor-core time): bytes. One
 // block a 16-row tile (head_gemm.cuh) gives 32 blocks at 500 rows, a quarter
 // of the 132 SMs, each staging 64 KB through registers before its first MMA.
 //
-// A tile is one mma row tile of ROWS = 16 rows. Tile<SPLIT, PAIR> says how
-// it is cut: SPLIT CTAs a cluster, and whether its rows are 16 poses of h
-// (K2) or a PAIR, 8 poses of h at rows 0-7 and the same poses' tangent dh
-// at rows 8-15 (K9: the forward-mode head of the likelihood, whose epilogue
-// needs out and dout of a pose together). The m16n8k16 A fragment then puts
-// a pose's primal and tangent rows in one thread (rows g and g + 8).
+// A tile is one mma row tile of ROWS = 16 rows. Tile<SPLIT, PAIR, A> says
+// how it is cut and what its rows hold: SPLIT CTAs a cluster, whether its
+// rows are 16 poses of h (K2, K8, K11) or a PAIR, 8 poses of h at rows 0-7
+// and the same poses' tangent dh at rows 8-15 (K9: the forward-mode head of
+// the likelihood, whose epilogue needs out and dout of a pose together; the
+// m16n8k16 A fragment then puts a pose's primal and tangent rows in one
+// thread, rows g and g + 8), and the rows' type A: fp32 (K2, K8, K9), which
+// the MMA warps round to bf16 in registers, or bf16 already rounded (K11 on
+// the train step's stash, which is bf16_rne(h) bit for bit), copied at half
+// the bytes and loaded as packed pairs.
 //
 // Design (split-K over a cluster):
 // - A cluster of SPLIT CTAs owns one tile; CTA `rank` takes the depth slice
@@ -24,16 +28,20 @@
 //   of Wpost; at 50 rows K9's is 7 tiles x 8 = 56 CTAs, each 8 KB of h and
 //   dh and 16 KB of Wpost.
 // - Both slices arrive on one mbarrier. h's (and dh's) by cp.async.bulk, one
-//   copy a row (1 KB at H = 1024 over 4 CTAs), into rows KC + 8 floats
-//   apart, so the fp32 pairs of an mma.m16n8k16 A fragment load without bank
-//   conflicts; they are rounded to bf16 (RNE) in registers, as every other
-//   path rounds h. Wpost's as one TMA box with the 128-byte swizzle (chunk c
-//   of row k at c ^ (k & 7)): its rows are 128 bytes, so an ldmatrix.trans
-//   of eight rows at one column would otherwise hit one bank group eight
-//   times. The tensor map is encoded once a pointer (tensor_map.cuh). Each
-//   warp copying its own rows with 16-byte cp.async into the same swizzle
-//   landed later. At 500 rows K2's 128 CTAs read 6 MB from L2 (4 MB of it
-//   Wpost, each CTA its slice), and that bounds the copies.
+//   copy a row (1 KB of fp32 at H = 1024 over 4 CTAs), into rows KC + 8
+//   elements apart, so the A fragment loads go without bank conflicts: fp32
+//   pairs (8-byte loads; a half-warp's four rows g land on four distinct
+//   groups of 8 banks), rounded to bf16 (RNE) in registers as every other
+//   path rounds h, or bf16 pairs (4-byte loads at word g * (KC/2 + 4) + t:
+//   KC/2 + 4 is 4 times an odd number, so the eight rows g fall on eight
+//   distinct groups of 4 banks). Wpost's as one TMA box with the 128-byte
+//   swizzle (chunk c of row k at c ^ (k & 7)): its rows are 128 bytes, so
+//   an ldmatrix.trans of eight rows at one column would otherwise hit one
+//   bank group eight times. The tensor map is encoded once a pointer
+//   (tensor_map.cuh). Each warp copying its own rows with 16-byte cp.async
+//   into the same swizzle landed later. At 500 rows K2's 128 CTAs read 6 MB
+//   from L2 (4 MB of it Wpost, each CTA its slice), and that bounds the
+//   copies.
 // - Each of the 4 MMA warps takes every 4th k-step of the slice across all 8
 //   column tiles (8 independent accumulators).
 // - 4 more warps load the epilogue's operands (and K2 draws its normals:
@@ -62,6 +70,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -90,10 +99,13 @@ constexpr int RECV_BYTES = ROWS * DP * 4;
 
 static_assert(ROWS * DP / 4 == 2 * MMA_THREADS, "the push: two float4 a thread");
 
-template <int SPLIT_, bool PAIR_ = false>
+template <int SPLIT_, bool PAIR_ = false, class A_ = float>
 struct Tile {
   static constexpr int SPLIT = SPLIT_;  // CTAs a cluster, each a 1/SPLIT slice of the depth
   static constexpr bool PAIR = PAIR_;
+  using A = A_;  // the rows' type: float (rounded in registers) or __nv_bfloat16
+  static_assert(std::is_same_v<A, float> || std::is_same_v<A, __nv_bfloat16>,
+                "rows of fp32 or bf16");
   static constexpr int POSES = PAIR ? ROWS / 2 : ROWS;  // poses a tile
   static constexpr int PPC = POSES / SPLIT;             // poses a CTA finishes
   static constexpr int ROWS_PER_CTA = ROWS / SPLIT;     // rows a CTA finishes
@@ -109,30 +121,33 @@ struct Tile {
 
 // Shared memory of a CTA for depth slice KC = H / SPLIT, from the first
 // 1024-byte boundary (the swizzle's atom): the swizzled Wpost slice [KC][64]
-// bf16, the tile's slice [ROWS][KC + 8] fp32, its warps' partials, the
+// bf16, the tile's slice [ROWS][KC + 8] of T::A, its warps' partials, the
 // partials of its rows that the cluster sends it, and two mbarriers: the
 // copies' and the received partials'.
 __host__ __device__ constexpr int w_bytes(int KC) { return KC * DP * 2; }
-__host__ __device__ constexpr int a_ld(int KC) { return KC + 8; }
-__host__ __device__ constexpr int a_bytes(int KC) { return ROWS * a_ld(KC) * 4; }
+__host__ __device__ constexpr int a_ld(int KC) { return KC + 8; }  // elements
+template <class T>
+__host__ __device__ constexpr int a_bytes(int KC) {
+  return ROWS * a_ld(KC) * static_cast<int>(sizeof(typename T::A));
+}
 template <class T>
 inline size_t smem_bytes(int H) {
   const int KC = H / T::SPLIT;
-  return 1024 + w_bytes(KC) + a_bytes(KC) + P_BYTES + RECV_BYTES + 16;
+  return 1024 + w_bytes(KC) + a_bytes<T>(KC) + P_BYTES + RECV_BYTES + 16;
 }
 
 template <class T>
 struct Layout {
   unsigned char* w;  // 1024-byte aligned
-  float* a;
+  typename T::A* a;
   float* part;  // the warps' partials
   float* recv;  // the received CTA partials
   uint64_t* bar;  // [0] the copies, [1] the received partials
   __device__ __forceinline__ Layout(unsigned char* smem, int H) {
     const int KC = H / T::SPLIT;
     w = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
-    a = reinterpret_cast<float*>(w + w_bytes(KC));
-    part = a + ROWS * a_ld(KC);
+    a = reinterpret_cast<typename T::A*>(w + w_bytes(KC));
+    part = reinterpret_cast<float*>(a + ROWS * a_ld(KC));
     recv = part + P_BYTES / 4;
     bar = reinterpret_cast<uint64_t*>(recv + RECV_BYTES / 4);
   }
@@ -184,17 +199,19 @@ __device__ __forceinline__ void cluster_wait() {
 // Set up this CTA's two mbarriers and start its copies for the tile whose
 // first pose is pose0: Wpost's slice as one TMA box with the 128-byte
 // swizzle (chunk c of row k at c ^ (k & 7)), the rows' slices as one bulk
-// copy a row (tile row r is h's row pose0 + r, or for a PAIR h's row pose0 +
-// r below POSES and dh's row pose0 + r - POSES from there); rows past the
-// batch's end are zeroed. The partials' barrier expects RECV_BYTES. Every
-// thread calls it, then arrives on the cluster barrier
-// (cluster_arrive_relaxed: the barriers are initialized), may issue its own
-// loads, and must pass a __syncthreads() before send_partials.
+// copy a row of KC elements of T::A (tile row r is h's row pose0 + r, or for
+// a PAIR h's row pose0 + r below POSES and dh's row pose0 + r - POSES from
+// there); rows past the batch's end are zeroed. The partials' barrier
+// expects RECV_BYTES. Every thread calls it, then arrives on the cluster
+// barrier (cluster_arrive_relaxed: the barriers are initialized), may issue
+// its own loads, and must pass a __syncthreads() before send_partials.
 template <class T>
-__device__ __forceinline__ void start_copies(const float* __restrict__ h,
-                                             const float* __restrict__ dh,
+__device__ __forceinline__ void start_copies(const typename T::A* __restrict__ h,
+                                             const typename T::A* __restrict__ dh,
                                              const CUtensorMap* tmW, const Layout<T>& L,
                                              int pose0, int rank, int B, int H) {
+  using A = typename T::A;
+  constexpr int A_BYTES = static_cast<int>(sizeof(A));
   const int KC = H / T::SPLIT, k0 = rank * KC, ald = a_ld(KC);
   const int lane = threadIdx.x % 32;
   const uint32_t bar = smem_u32(L.bar), recv_bar = smem_u32(L.bar + 1);
@@ -206,20 +223,22 @@ __device__ __forceinline__ void start_copies(const float* __restrict__ h,
       mbar_init(recv_bar, 1);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
       mbar_expect_tx(recv_bar, static_cast<uint32_t>(RECV_BYTES));
-      mbar_expect_tx(bar, static_cast<uint32_t>(w_bytes(KC) + (ROWS / T::POSES) * poses * KC * 4));
+      mbar_expect_tx(bar,
+                     static_cast<uint32_t>(w_bytes(KC) + (ROWS / T::POSES) * poses * KC * A_BYTES));
       tma_load(smem_u32(L.w), tmW, bar, 0, k0);
     }
     __syncwarp();
     if (lane < ROWS && lane % T::POSES < poses) {
-      const float* src = T::PAIR && lane >= T::POSES ? dh : h;
+      const A* src = T::PAIR && lane >= T::POSES ? dh : h;
       bulk_copy(smem_u32(L.a + lane * ald), src + static_cast<size_t>(pose0 + lane % T::POSES) * H + k0,
-                static_cast<uint32_t>(KC * 4), bar);
+                static_cast<uint32_t>(KC * A_BYTES), bar);
     }
   }
+  const A zero = 0.0f;
 #pragma unroll
   for (int half = 0; half < ROWS / T::POSES; ++half)
     for (int i = threadIdx.x; i < gaps * KC; i += THREADS)
-      L.a[(half * T::POSES + poses + i / KC) * ald + i % KC] = 0.0f;
+      L.a[(half * T::POSES + poses + i / KC) * ald + i % KC] = zero;
 }
 
 // Warps 0 .. MMA_WARPS-1, after start_copies, the relaxed cluster arrive
@@ -243,11 +262,19 @@ __device__ __forceinline__ void send_partials(const Layout<T>& L, int rank, int 
 #pragma unroll 4
   for (int s = warp; s < KC / 16; s += MMA_WARPS) {
     const int kk = 16 * s;
-    const float* lo = L.a + g * ald + kk + 2 * t;  // row g; row g + 8 is 8 * ald on
-    const uint32_t a[4] = {pack_bf16(*reinterpret_cast<const float2*>(lo)),
-                           pack_bf16(*reinterpret_cast<const float2*>(lo + 8 * ald)),
-                           pack_bf16(*reinterpret_cast<const float2*>(lo + 8)),
-                           pack_bf16(*reinterpret_cast<const float2*>(lo + 8 * ald + 8))};
+    const typename T::A* lo = L.a + g * ald + kk + 2 * t;  // row g; row g + 8 is 8 * ald on
+    uint32_t a[4];
+    if constexpr (std::is_same_v<typename T::A, float>) {
+      a[0] = pack_bf16(*reinterpret_cast<const float2*>(lo));
+      a[1] = pack_bf16(*reinterpret_cast<const float2*>(lo + 8 * ald));
+      a[2] = pack_bf16(*reinterpret_cast<const float2*>(lo + 8));
+      a[3] = pack_bf16(*reinterpret_cast<const float2*>(lo + 8 * ald + 8));
+    } else {  // bf16 pairs, the lower column in the low half as the mma takes them
+      a[0] = *reinterpret_cast<const uint32_t*>(lo);
+      a[1] = *reinterpret_cast<const uint32_t*>(lo + 8 * ald);
+      a[2] = *reinterpret_cast<const uint32_t*>(lo + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(lo + 8 * ald + 8);
+    }
     // ldmatrix.x4.trans: lanes 0-15 address rows kk..kk+15 of column tile
     // 2p, lanes 16-31 the same rows of tile 2p + 1
     const int r = kk + (lane & 15);

@@ -1,6 +1,6 @@
-// The output head of the score network as device code shared by the kernels
-// that fuse an update into its epilogue (K6 head_adam, K8 head_rk4, K11
-// head_dsm; K2 and K9 run head_cluster.cuh):
+// The output head of the score network as device code for a kernel that
+// fuses an update into its epilogue: K6 head_adam, its one user (K2, K8, K9
+// and K11 run head_cluster.cuh's split-K over a cluster):
 //   out[r, c] = sum_k bf16(h[r, k]) * Wpost[k, c] + bpost[c]
 //
 // A block owns 16 rows and all 64 (zero-padded) output columns. It stages its

@@ -2,8 +2,8 @@
 // encoded with cuTensorMapEncodeTiled (found with cudaGetDriverEntryPoint,
 // so no -lcuda) and cached by (pointer, dims, stride, box), since the
 // samplers' loops launch with a handful of maps: each is encoded once. Used
-// by dense_wgmma.cuh (K1, K14) and head_cluster.cuh (K2). One cache a
-// library (translation unit).
+// by the Hopper main loops (dense_wgmma*.cuh, K7's) and head_cluster.cuh (K2,
+// K8, K9, K11). One cache a library (translation unit).
 #pragma once
 
 #include <cstdint>

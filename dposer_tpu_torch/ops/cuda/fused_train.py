@@ -14,9 +14,10 @@ launch, 11 a step:
   wrote (the Hopper route, ``csrc/dense_wgmma_ss.cuh``), which is the
   product's rounding of the fp32 output anyway; the pre layer reads the fp32
   perturbed pose (the register route). A block's first layer writes no fp32
-  output, since only its stash is read.
+  output, since only its stash is read, and neither does the last layer.
 - K11 ``head_dsm`` (``csrc/head_dsm.cu``), 1 launch: the post-dense and the
-  DSM loss seed, per-row losses and ``dout``.
+  DSM loss seed, per-row losses and ``dout``, reading the last layer's stash
+  (split-K over a thread-block cluster, ``csrc/head_cluster.cuh``).
 - K12 ``dense_gn_silu_bwd`` (``csrc/dense_gn_silu_bwd.cu``), 1 + 2 *
   n_blocks launches, all on the Hopper loop of ``csrc/dense_wgmma_ss.cuh``:
   the hop ``dh_next @ W_next^T`` (+ the residual stream's carried gradient),
@@ -154,7 +155,8 @@ def dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed: int, layer: int, ke
 
 def head_dsm_plain(h, w_post, b_post, coefs, z):
     """Plain K11: ``(loss_rows [B], dout [B, D])`` with ``w_post`` [H, 64]
-    (zero-padded), ``b_post`` [64], ``coefs`` [B, 3] = (a, v, s)."""
+    (zero-padded), ``b_post`` [64], ``coefs`` [B, 3] = (a, v, s); ``h`` fp32
+    or already in ``w_post``'s dtype (rounded first either way)."""
     D = z.shape[1]
     out = (h.to(w_post.dtype).float() @ w_post.float() + b_post)[:, :D]
     a, v, s = coefs[:, 0:1], coefs[:, 1:2], coefs[:, 2:3]
@@ -294,8 +296,11 @@ dense_gn_silu_train.routes = {"wgmma": 0, "register": 0}
 
 
 def head_dsm(h, w_post, b_post, coefs, z, loss_rows=None, dout=None):
-    """K11 on ``h`` [B, H] fp32 with ``w_post`` [H, 64] in the compute dtype;
-    returns ``(loss_rows [B], dout [B, D])`` fp32."""
+    """K11 on ``h`` [B, H] with ``w_post`` [H, 64] in the compute dtype;
+    returns ``(loss_rows [B], dout [B, D])`` fp32. ``h`` is fp32 or in the
+    compute dtype: the train step hands the kernel its stash of the last
+    block's output, which is ``h`` rounded as the head rounds it, so both
+    give the same bits (on the card each launches its own instantiation)."""
     B, H = h.shape
     D = z.shape[1]
     dev, cdt = h.device, w_post.dtype
@@ -303,7 +308,9 @@ def head_dsm(h, w_post, b_post, coefs, z, loss_rows=None, dout=None):
         loss_rows = torch.empty((B,), dtype=torch.float32, device=dev)
     if dout is None:
         dout = torch.empty((B, D), dtype=torch.float32, device=dev)
-    _check("h", h, dev, torch.float32, (B, H))
+    if h.dtype not in (torch.float32, cdt):
+        raise TypeError(f"h has dtype {h.dtype}, expected float32 or {cdt}")
+    _check("h", h, dev, h.dtype, (B, H))
     _check("w_post", w_post, dev, cdt, (H, HEAD_COLS))
     _check("b_post", b_post, dev, torch.float32, (HEAD_COLS,))
     _check("coefs", coefs, dev, torch.float32, (B, 3))
@@ -320,10 +327,12 @@ def head_dsm(h, w_post, b_post, coefs, z, loss_rows=None, dout=None):
     if H % 64 or H > 1024 or D > HEAD_COLS:
         raise ValueError(f"head_dsm kernel needs H % 64 == 0, H <= 1024 and D <= 64; "
                          f"got H={H}, D={D}")
-    fn = _lib_fn("head_dsm", "dposer_head_dsm", [_P] * 7 + [_I, _I, _I, _P])
-    err = fn(h.data_ptr(), w_post.data_ptr(), b_post.data_ptr(), coefs.data_ptr(),
-             z.data_ptr(), loss_rows.data_ptr(), dout.data_ptr(), B, H, D,
-             torch.cuda.current_stream(dev).cuda_stream)
+    if h.data_ptr() % 16 or w_post.data_ptr() % 16:
+        raise ValueError("head_dsm kernel needs h and w_post 16-byte aligned (bulk copies)")
+    fn = _lib_fn("head_dsm", "dposer_head_dsm", [_P, _I] + [_P] * 6 + [_I, _I, _I, _P])
+    err = fn(h.data_ptr(), int(h.dtype == torch.bfloat16), w_post.data_ptr(),
+             b_post.data_ptr(), coefs.data_ptr(), z.data_ptr(), loss_rows.data_ptr(),
+             dout.data_ptr(), B, H, D, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"head_dsm launch failed: CUDA error {err}")
     head_dsm.launches += 1
@@ -479,15 +488,18 @@ class _DSMNet(torch.autograd.Function):
         h, st, xh, rs = fwd(x_pert, w_fwd[0], proj_c[0], gn_w[0], gn_b[0], seed, 0, keep)
         stash, xhats, rstds = [st], [xh], [rs]
         # every layer after the pre one reads the stash of the layer before;
-        # a block's first layer writes only its stash
+        # a block's first layer and the last layer write only their stash
+        # (the head reads the last one: h rounded as the head rounds it)
         for j in range(1, n_tp, 2):
             _, st, xh, rs = fwd(None, w_fwd[j], proj_c[j], gn_w[j], gn_b[j], seed, j, keep,
                                 a_b=stash[-1], write_out=False)
             stash.append(st), xhats.append(xh), rstds.append(rs)
+            last = j + 2 >= n_tp
             h, st, xh, rs = fwd(None, w_fwd[j + 1], proj_c[j + 1], gn_w[j + 1], gn_b[j + 1],
-                                seed, j + 1, keep, residual=h, out=h, a_b=stash[-1])
+                                seed, j + 1, keep, residual=h, out=None if last else h,
+                                a_b=stash[-1], write_out=not last)
             stash.append(st), xhats.append(xh), rstds.append(rs)
-        loss_rows, dout = cfg.layers.head(h, wpost_k, bpost, coefs, z)
+        loss_rows, dout = cfg.layers.head(stash[-1], wpost_k, bpost, coefs, z)
         ctx.cfg = cfg
         ctx.bufs = (x_pert, w_bwd, wpost_t, stash, xhats, rstds, dout)
         ctx.save_for_backward(gn_w, gn_b)

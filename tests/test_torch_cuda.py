@@ -173,17 +173,30 @@ def test_langevin_update_in_kernel_normals_at_every_batch(dev, B):
     torch.testing.assert_close(x, want, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("case", ["head_em-em", "head_em-score", "langevin_update"])
+@pytest.mark.parametrize("case", ["head_em-em", "head_em-score", "langevin_update", "head_rk4",
+                                  "head_rk4-denoise", "head_dsm-fp32", "head_dsm-bf16"])
 @pytest.mark.parametrize("B", [37, 500])
 def test_repeated_calls_are_bit_identical(dev, case, B):
-    """The split-K partials (K2) and the batch sums (K3) meet in a fixed
-    order through distributed shared memory: no atomics, the same bits."""
+    """The split-K partials (K2, K8, K11) and the batch sums (K3) meet in a
+    fixed order through distributed shared memory: no atomics, the same
+    bits."""
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
     h, w_post, b_post, coefs, x, _ = _head(dev, B=B)
     score = x.flip(1).contiguous()
     sq = (score * score).sum(1)
+    dsm_coefs = torch.rand(B, 3, device=dev)
     outs = []
     for _ in range(10):
-        if case == "head_em-em":
+        if case.startswith("head_rk4"):
+            st = [x.clone(), score.clone(), x.flip(0).contiguous()]
+            head_rk4(h, w_post, b_post, coefs, 1, fused_ode.DENOISE if case.endswith("denoise")
+                     else 1, *st)
+            outs.append(st)
+        elif case.startswith("head_dsm"):
+            hh = h.to(torch.bfloat16) if case.endswith("bf16") else h
+            outs.append(ft.head_dsm(hh, w_post, b_post, dsm_coefs, score))
+        elif case == "head_em-em":
             xs, xm = x.clone(), torch.empty_like(x)
             head_em(h, w_post, b_post, coefs, 2, "em", x=xs, x_mean=xm, seed=3)
             outs.append((xs, xm))
@@ -475,9 +488,14 @@ def _rk4_state(dev, B, seed, D=63, H=1024):
     return h, w_post, b_post, coefs, x, xs, _t(rng, (B, D), dev)
 
 
+# rows: one, a partial tile (15), one whole tile (16), one past it (17) and
+# ODE sampling's 500; H 1024 cuts into 256-deep slices, H 64 into one k-step
+# a CTA
+@pytest.mark.parametrize("B", [1, 15, 16, 17, 500])
 @pytest.mark.parametrize("stage", [0, 1, 2, 3, fused_ode.DENOISE])
-def test_head_rk4(dev, stage):
-    h, w_post, b_post, coefs, x, xs, acc = _rk4_state(dev, 500, 20 + stage)
+@pytest.mark.parametrize("H", [64, 1024])
+def test_head_rk4(dev, B, stage, H):
+    h, w_post, b_post, coefs, x, xs, acc = _rk4_state(dev, B, 20 + stage, H=H)
     want = fused_ode.head_rk4_plain(h, w_post, b_post, coefs, 5, stage, x, xs, acc)
     reset_launch_counts()
     head_rk4(h, w_post, b_post, coefs, 5, stage, x, xs, acc)
@@ -614,6 +632,32 @@ def test_head_dsm(dev):
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=1e-7)
     torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-6)
+
+
+# rows: one, one past a tile, the train batch; H 1024 and the smallest, 64
+@pytest.mark.parametrize("B", [1, 17, 1280])
+@pytest.mark.parametrize("H", [64, 1024])
+def test_head_dsm_on_stash(dev, B, H):
+    """K11 on the bf16 stash (its bf16 instantiation: half the bytes, no
+    rounding in registers) against K11 on fp32 h (the fp32 instantiation):
+    bit-equal, since the stash is h rounded as the head rounds it; both
+    within the plain version's tolerances."""
+    from dposer_tpu_torch.ops.cuda import fused_train as ft
+
+    h, w_post, b_post, _, z, _ = _head(dev, B=B, H=H)
+    rng = np.random.default_rng(B)
+    coefs = torch.from_numpy(np.stack([-rng.uniform(0.1, 2, B), rng.uniform(0.5, 2, B),
+                                       np.full(B, 1 / (63 * B))], 1).astype(np.float32)).to(dev)
+    want = ft.head_dsm_plain(h, w_post, b_post, coefs, z)
+    reset_launch_counts()
+    got32 = ft.head_dsm(h, w_post, b_post, coefs, z)
+    got16 = ft.head_dsm(h.to(torch.bfloat16), w_post, b_post, coefs, z)
+    torch.cuda.synchronize()
+    assert launch_counts()["head_dsm"] == 2
+    for a, b in zip(got16, got32):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got16[0], want[0], rtol=1e-3, atol=1e-7)
+    torch.testing.assert_close(got16[1], want[1], rtol=0, atol=1e-3 * float(want[1].abs().max()))
 
 
 @pytest.mark.parametrize("K", [64, 1024])

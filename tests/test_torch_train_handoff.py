@@ -1,7 +1,8 @@
 """The bf16 handoff of the train step's layers, on the CPU: every K10 layer
 after the pre one reads the stash the layer before wrote (its output rounded
 to the compute dtype) instead of rounding that layer's fp32 output itself,
-and a block's first layer writes no fp32 output.
+a block's first layer and the last layer write no fp32 output, and K11
+reads the last layer's stash instead of its fp32 output.
 
 The product rounds its inputs to the compute dtype either way, so every
 check of the handoff here is bit equality against the dataflow without it:
@@ -9,7 +10,8 @@ K10's plain version and wrapper on CPU tensors, and the whole plain-route
 step (loss and every gradient); the fp32 route is also held to the TPU train
 kernel in interpret mode at the bounds of ``tests/test_torch_train_kernel.py``.
 On the card the same dataflow runs K10's Hopper route (TMA and ``wgmma`` from
-the stash) and K12 on the same loop (``tests/test_torch_cuda.py``).
+the stash), K12 on the same loop and K11's bf16 instantiation of the
+cluster head (``tests/test_torch_cuda.py``).
 """
 import jax
 import jax.numpy as jnp
@@ -91,14 +93,18 @@ def test_plain_stash_is_its_own_tensor():
 
 
 class RoundingEachInput:
-    """K10 as the step ran it before the handoff: every layer rounds its own
-    fp32 input, the fp32 output of the layer before (which it is handed here
-    whether or not that layer was asked to write it)."""
+    """K10 and K11 as the step ran them before the handoff: every layer and
+    the head round their own fp32 input, the fp32 output of the layer before
+    (which it is handed here whether or not that layer was asked to write
+    it)."""
 
     def __init__(self):
         self.prev = None
-        self.head = ft.head_dsm_plain
         self.bwd = ft.dense_gn_silu_bwd_plain_into
+
+    def head(self, h, w_post, b_post, coefs, z):
+        assert torch.equal(h, self.prev.to(w_post.dtype))  # the step hands over the stash
+        return ft.head_dsm_plain(self.prev, w_post, b_post, coefs, z)
 
     def fwd(self, a, w, proj, gamma, beta, seed, layer, keep, residual=None, out=None,
             a_b=None, write_out=True):
@@ -127,9 +133,10 @@ def _noise(seed=1):
 @pytest.mark.parametrize("route", ["plain", "wrapper"])
 def test_step_with_handoff_is_bit_equal(monkeypatch, dtype, route):
     """The whole step (hidden 128, one block, dropout 0.1) through the plain
-    versions with the handoff, and through the wrappers on CPU tensors,
-    against the layers rounding each input as before the handoff: the same
-    loss and every gradient, bit for bit, in fp32 and bf16."""
+    versions with the handoff (K11 on the last layer's stash), and through
+    the wrappers on CPU tensors, against the layers and the head rounding
+    each input as before the handoff (K11 on the fp32 h): the same loss and
+    every gradient, bit for bit, in fp32 and bf16."""
     model = _model()
     x, noise = _noise()
     sde = SubVPSDE(N=1000)
@@ -145,6 +152,93 @@ def test_step_with_handoff_is_bit_equal(monkeypatch, dtype, route):
     assert torch.equal(loss, ref_loss)
     for n, g in grads.items():
         assert torch.equal(g, ref[n]), n
+
+
+class RecordingLayers:
+    """The plain layers, recording what each K10 call was asked to write and
+    what K11 was handed."""
+
+    def __init__(self):
+        self.writes, self.head_in = [], None
+        self.bwd = ft.dense_gn_silu_bwd_plain_into
+
+    def fwd(self, *args, write_out=True, **kw):
+        self.writes.append(write_out)
+        return ft.dense_gn_silu_train_plain_into(*args, write_out=write_out, **kw)
+
+    def head(self, h, *args):
+        self.head_in = h
+        return ft.head_dsm_plain(h, *args)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 2])
+def test_step_writes_no_fp32_out_for_the_head(monkeypatch, n_blocks):
+    """Only the pre layer and the residual layers whose output the next
+    block carries write fp32 outputs; the last layer writes its stash alone,
+    and K11 is handed that stash (bf16)."""
+    torch.manual_seed(0)
+    model = ScoreModelFC(n_poses=21, pose_dim=3, hidden_dim=H, embed_dim=32,
+                         n_blocks=n_blocks, dropout=0.1)
+    x, noise = _noise()
+    rec = RecordingLayers()
+    monkeypatch.setattr(ft, "PLAIN_LAYERS", rec)
+    ft.get_cuda_train_loss_and_grad(SubVPSDE(N=1000), model, reduce_mean=True,
+                                    plain=True)(x, **noise)
+    assert rec.writes == [True] + [False, True] * (n_blocks - 1) + [False, False]
+    assert rec.head_in.dtype == torch.bfloat16 and rec.head_in.shape == (B, H)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["plain", "wrapper"])
+@pytest.mark.parametrize("rows", [1, 17, B])
+def test_head_dsm_on_stash_is_bit_equal(dtype, fn, rows):
+    """K11 handed ``h`` rounded to the weights' dtype (the train step's
+    stash) against K11 on fp32 ``h``: the same loss rows and dout bit for
+    bit, through the plain version and through the wrapper on CPU tensors,
+    at fp32 and bf16 weights."""
+    g = torch.Generator().manual_seed(6)
+    h = torch.randn(rows, H, generator=g)
+    w_post = torch.zeros(H, 64)
+    w_post[:, :D] = H ** -0.5 * torch.randn(H, D, generator=g)
+    b_post = torch.zeros(64)
+    b_post[:D] = torch.randn(D, generator=g)
+    coefs = torch.stack([-torch.rand(rows, generator=g) - 0.1,
+                         torch.rand(rows, generator=g) + 0.5,
+                         torch.full((rows,), 1.0 / (D * rows))], 1)
+    z = torch.randn(rows, D, generator=g)
+    args = (w_post.to(dtype), b_post, coefs, z)
+    f = ft.head_dsm_plain if fn == "plain" else ft.head_dsm
+    fused_em.reset_launch_counts()
+    want = f(h, *args)
+    got = f(h.to(dtype), *args)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    assert fused_em.launch_counts()["head_dsm"] == 0  # the CPU takes no launch
+
+
+@pytest.mark.parametrize("case", ["fp16", "bf16_h_fp32_weights", "shape", "meta"])
+def test_head_dsm_operand_checks(case):
+    """``h`` in a dtype that is neither fp32 nor the weights' (fp16; bf16
+    beside fp32 weights) or of the wrong shape, or operands on the meta
+    device, raise before any launch."""
+    g = torch.Generator().manual_seed(8)
+    h = torch.randn(B, H, generator=g)
+    w_post = torch.zeros(H, 64, dtype=torch.bfloat16)
+    args = [torch.zeros(64), torch.rand(B, 3, generator=g), torch.randn(B, D, generator=g)]
+    err = TypeError
+    if case == "fp16":
+        h = h.half()
+    elif case == "bf16_h_fp32_weights":
+        h, w_post = h.bfloat16(), w_post.float()
+    elif case == "shape":
+        h, err = h.bfloat16()[:, :-1], ValueError
+    else:
+        h, w_post, err = h.bfloat16().to("meta"), w_post.to("meta"), ValueError
+        args = [t.to("meta") for t in args]
+    fused_em.reset_launch_counts()
+    with pytest.raises(err):
+        ft.head_dsm(h, w_post, *args)
+    assert fused_em.launch_counts()["head_dsm"] == 0
 
 
 def test_fp32_route_with_handoff_matches_jax():
@@ -256,3 +350,22 @@ def test_train_rings_variants_apply(kernel):
             assert old not in files[name] and new in files[name]
     assert train_rings.applies("dense_gn_silu_bwd", "K12's final sum unrolled by 8")
     assert not train_rings.applies("dense_gn_silu_train", "K12's final sum unrolled by 8")
+
+
+@pytest.mark.parametrize("kernel", ["head_rk4", "head_dsm"])
+def test_head_splits_variants_apply(kernel):
+    """Every variant of ``benchmarks/head_splits.py`` still applies to the
+    shipped sources of K8 and K11 (one substitution each, into the kernel's
+    file or the cluster head), and the shipped variant is the source as it
+    is."""
+    from dposer_tpu_torch.benchmarks import head_splits
+    from dposer_tpu_torch.ops.cuda import build
+
+    shipped = (build.CSRC / f"{kernel}.cu").read_text()
+    assert head_splits.variant_sources(kernel, "shipped") == {f"{kernel}.cu": shipped}
+    for variant, subs in head_splits.VARIANTS.items():
+        files = head_splits.variant_sources(kernel, variant)
+        for name, (old, new) in subs.items():
+            if name in files:
+                assert old not in files[name] and new in files[name]
+        assert variant == "shipped" or len(files) > 1 or files[f"{kernel}.cu"] != shipped
