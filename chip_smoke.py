@@ -10,13 +10,17 @@ Phases; any failure exits non-zero:
    (``-Xptxas -v`` printed, and the registers and shared memory of every
    instantiation of the Hopper main loops ``dense_wgmma.cuh`` and
    ``dense_wgmma_int8.cuh``, with any ptxas line reporting serialized wgmma;
-   for the cluster kernels K2, K3, K7's Hopper route, K8, K9 and K11 (on
-   the bf16 stash and on fp32 h) their grid, cluster size, shared memory,
-   the clusters the card holds at once and their registers; a ptxas line
+   for the cluster kernels K2 (and its imputation instantiation), K3, K6,
+   K7's Hopper route, K8, K9 and K11 (on the bf16 stash and on fp32 h) their
+   grid, cluster size, shared memory, the clusters the card holds at once
+   and their registers; K2's instantiation without imputation held by its
+   ``cuobjdump -sass`` digest to the SASS it had before that instantiation
+   existed (under the nvcc the digest was recorded with); a ptxas line
    reporting serialized wgmma in K7 or K9 fails the phase; K10's and K12's instantiations with their registers,
    shared memory, spills and CTAs an SM, where a serialized wgmma fails the
    phase too);
-3. each of the fourteen kernels against its plain PyTorch version at the
+3. each of the fourteen kernels, and K2's imputation mode, against its plain
+   PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
    sampling, [1000, .] for the completion solver, [50, .] for the
    likelihood, [1280, .] for training, [512, .] for the microbenchmarks), on
@@ -44,7 +48,10 @@ Phases; any failure exits non-zero:
    three hops, each with 50 repeated calls bit-identical and K10's and K11's
    bounds at the handoff's bytes and at fp32 input; K8 at every stage and
    the denoise, with 50 repeated calls bit-identical;
-   K1 also at completion's [1000, 1024] residual block;
+   K1 also at completion's [1000, 1024] residual block; K2's imputation mode
+   (the EM update, then the re-noise of its step and of the next) also bit
+   for bit against K2 -> K4 -> K4 under host and in-kernel normals, with 50
+   repeated calls bit-identical, and K6 with 50 repeated calls bit-identical;
 4. the whole kernel sampler against the same loop on the plain versions,
    N = 20, injected noise, corrector none and langevin, without and with
    masked imputation: step by step, and row by row on the free-running
@@ -68,7 +75,9 @@ Phases; any failure exits non-zero:
    (d) the demo's ``completion`` task and its ``completion2`` task with
    ``--sampler pc``, ``ddim`` and ``hybrid``, 50 poses x 10 hypotheses, left
    leg masked, through the synthetic SMPL-X body: MPJPE must lie in (50, 400)
-   mm and MPVPE in (5, 80) mm (an untrained model exceeds 1000 mm);
+   mm and MPVPE in (5, 80) mm (an untrained model exceeds 1000 mm), with K4's
+   and K2's launches a completion2 call (corrector-free pc and ddim must
+   launch K4 once);
    (e) PF-ODE sampling, 500 poses x 125 RK4 steps: poses/s; (f) the PF-Euler
    decode, 500 x 1000 deterministic steps at eps 1e-5: poses/s; (g) the exact
    likelihood of 50 synthetic poses, 100 RK4 steps at eps 1e-4: ms per batch,
@@ -104,6 +113,7 @@ poses); writes only under ``chiprun_out/chip_smoke``.
 """
 import copy
 import ctypes
+import hashlib
 import importlib.util
 import json
 import os
@@ -179,7 +189,12 @@ ODE_TOL = 5e-2  # kernel against plain deterministic samplers, times max(1, |ref
 PART, HYPO = "left_leg", 10
 TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generation call
 DRAW_TOL = 1e-5  # in-kernel normals against the plain Philox stream (logf, cospif vs float64)
-REPEATS = 50  # repeated calls of K2, K3, K7-K12 that must give the same bits
+REPEATS = 50  # repeated calls of K2, K3, K6-K12 that must give the same bits
+# The SASS of K2 without imputation (csrc/head_em.cu::head_em_kernel, EM and
+# score mode) as the source before the imputation instantiation compiled it
+# (build.sass; sha256 of the text), and the nvcc that compiled it
+K2_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
+               sha256="8020dc81140cef5a36a7ab6df570b6b4fc3afd624af13bd5b2432b7be78838cb")
 
 
 class PhaseError(RuntimeError):
@@ -364,6 +379,39 @@ def train_launch(lib, n):
     return dict(zip(("threads", "dynamic_smem", "tile_rows", "ctas_per_sm"), list(out)))
 
 
+def nvcc_release():
+    """The ``Build ...`` line of ``nvcc --version``: the compiler a SASS
+    digest belongs to."""
+    out = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
+                         timeout=60).stdout
+    return out.strip().splitlines()[-1].strip()
+
+
+def check_k2_sass():
+    """K2 without imputation (``head_em_kernel``: EM and score mode) must
+    compile to the SASS it had before the imputation instantiation was added
+    beside it: its ``cuobjdump -sass`` text (offsets, instructions,
+    encodings) hashes to the digest recorded from that source under the same
+    nvcc. Under another nvcc the digest is printed and not compared."""
+    funcs = build.sass(build.library_path("head_em"))
+    names = {k: [f for f in funcs if f"{len(k)}{k}E" in f]
+             for k in ("head_em_kernel", "head_em_impute_kernel")}
+    check(all(len(v) == 1 for v in names.values()), f"head_em: entry functions {list(funcs)}")
+    digest = hashlib.sha256(funcs[names["head_em_kernel"][0]].encode()).hexdigest()
+    release = nvcc_release()
+    same = release == K2_SASS["nvcc"]
+    print(f"[build] head_em_kernel SASS: {len(funcs[names['head_em_kernel'][0]].splitlines())} "
+          f"lines, sha256 {digest[:16]}; before the imputation instantiation "
+          f"{K2_SASS['sha256'][:16]} under {K2_SASS['nvcc']!r}: "
+          + (("identical" if digest == K2_SASS["sha256"] else "DIFFERENT") if same
+             else f"not compared (this nvcc: {release!r})"))
+    if same:
+        check(digest == K2_SASS["sha256"],
+              "head_em_kernel's SASS differs from the one before the imputation instantiation")
+    return dict(sha256=digest, nvcc=release, recorded=K2_SASS, compared=same,
+                identical=digest == K2_SASS["sha256"])
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build_all()
@@ -387,16 +435,20 @@ def phase_build():
           f"reporting serialized wgmma: {len(serialized)}"
           + "".join(f"\n    {ln}" for ln in serialized))
     clusters = {}
-    # K2, K3; K8 at ODE sampling's 500 rows; K11 at the train batch on the
-    # bf16 stash (the step's) and on fp32 h
+    # K2 (both instantiations), K3; K6 at the solver's 1,000 rows; K8 at ODE
+    # sampling's 500 rows; K11 at the train batch on the bf16 stash (the
+    # step's) and on fp32 h
     for key, lib, args in (("head_em", "head_em", (B, H)),
+                           ("head_em_impute", "head_em", (B, H)),
                            ("langevin_update", "langevin_update", ()),
+                           ("head_adam", "head_adam", (RC, H)),
                            ("head_rk4", "head_rk4", (B, H)),
                            ("head_dsm", "head_dsm", (BT, H, 1)),
                            ("head_dsm fp32 h", "head_dsm", (BT, H, 0))):
-        ptx = [e for e in ptxas_entries(logs.get(lib, ""), f"{lib}_kernel")
+        kernel = key.split()[0]
+        ptx = [e for e in ptxas_entries(logs.get(lib, ""), f"{kernel}_kernel")
                if lib != "head_dsm" or ("nv_bfloat16" in e["entry"]) == (args[-1] == 1)]
-        clusters[key] = dict(cluster_launch(lib, *args), ptxas=ptx)
+        clusters[key] = dict(cluster_launch(lib, *args, kernel=kernel), ptxas=ptx)
         c = clusters[key]
         print(f"[build] {key} cluster kernel: grid {c['grid_ctas']} CTAs in clusters of "
               f"{c['cluster']}, {c['threads']} threads, {c['dynamic_smem']} B dynamic smem a CTA; "
@@ -449,7 +501,9 @@ def phase_build():
     print(f"[build] train kernels: ptxas lines reporting serialized wgmma: "
           f"{len(train_serialized)}" + "".join(f"\n    {ln}" for ln in train_serialized))
     check(not train_serialized, "ptxas serialized a wgmma of K10 or K12")
+    k2_sass = check_k2_sass()
     return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters,
+                      k2_sass=k2_sass,
                       int8_instantiations=rows8, int8_dynamic_smem=dyn8,
                       serialized_wgmma=serialized, likelihood_serialized_wgmma=jvp_serialized,
                       train_kernels=train_kernels, train_serialized_wgmma=train_serialized)
@@ -676,9 +730,11 @@ def phase_kernels(model, dev):
 
 
 def phase_completion_kernels(model, dev):
-    """K4 (at the imputation sampler's 500 rows), K5 and K6 (at the solver's
-    1000 rows) against their plain versions, with timings and bounds; K1's
-    three layer shapes timed at 1000 rows too, for the solver's device share."""
+    """K4 and K2's imputation mode (at the imputation sampler's 500 rows), K5
+    and K6 (at the solver's 1000 rows) against their plain versions, with
+    timings and bounds, K2's imputation mode also against the unfused K2 ->
+    K4 -> K4 bit for bit; K1's three layer shapes timed at 1000 rows too, for
+    the solver's device share."""
     gen = torch.Generator(device=dev).manual_seed(3)
     sde = SubVPSDE(N=1000)
     net, coefs = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev)
@@ -700,6 +756,7 @@ def phase_completion_kernels(model, dev):
     torch.cuda.synchronize()
     e4, tol4 = err(xk, ref), 1e-4 * max(1.0, float(ref.abs().max()))
     check(e4 <= tol4, f"masked_renoise: max abs err {e4} > {tol4}")
+    k4_plain_equal = bool(torch.equal(xk, ref))
     c1 = coefs.clone()
     c1[:, 5], c1[:, 6] = 0.0, 1.0  # then the observed dims are the draw
     draws = []
@@ -722,13 +779,96 @@ def phase_completion_kernels(model, dev):
         replaces_part="fused_em.py:192-197, :208-211 (masked re-noise and overwrite "
                       "around the predictor)",
         shape="[500,63], in-kernel normals", max_abs_err=e4, tol="1e-4*max(1,|ref|max)",
-        normals_mean_std_n=m4,
+        normals_mean_std_n=m4, bit_equal_to_plain=k4_plain_equal,
         ms=graph_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i, seed=5, slab=2)),
         eager_ms=eager_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i, seed=5,
                                                           slab=2)),
         plain_ms=graph_ms(lambda: fused_em.masked_renoise_plain(x4, obs4, mask4, coefs, i, z4)),
         library_ms=graph_ms(renoise_library), library_max_abs_err=lib4_e,
         library="composite: torch.add + torch.lerp on the mask, host normals",
+        bound_ms=bms, bound_by=by))
+
+    # K2's imputation mode at the 500 rows of the imputation sampler: the EM
+    # update, the re-noise after it and the next step's before its predictor
+    # (corrector-free imputation), against K2 -> K4 -> K4 bit for bit
+    hid4 = torch.empty(B, H, device=dev)
+    score_net.network_hidden(net, x4, i, hid4, torch.empty_like(hid4))
+    wp, bp = net["w_post"], net["b_post"]
+    zp, zn = (w[B:2 * B].contiguous() for w in (z, x))
+    obsd = (obs4, mask4)
+    hk = (hid4, wp, bp, coefs, i)
+
+    def fused(xs, xm=None, host=True, passes=2):
+        nz = dict(noise=z4, renoise_noise=(zp, zn)[:passes]) if host else dict(seed=11)
+        fused_em.head_em(*hk, "em", x=xs, x_mean=xm, slab=1, observed=obsd,
+                         renoise_next=0 if passes == 2 else None, **nz)
+
+    def unfused(xs, xm=None, host=True):
+        fused_em.head_em(*hk, "em", x=xs, x_mean=xm, slab=1,
+                         **(dict(noise=z4) if host else dict(seed=11)))
+        for j, (zr, sl) in enumerate(((zp, 2), (zn, 0))):
+            fused_em.masked_renoise(xs, *obsd, coefs, i + j, slab=sl,
+                                    **(dict(noise=zr) if host else dict(seed=11)))
+
+    same = {}
+    for host in (True, False):
+        got, want = [x4.clone(), torch.empty_like(x4)], [x4.clone(), torch.empty_like(x4)]
+        fused(*got, host=host)
+        unfused(*want, host=host)
+        torch.cuda.synchronize()
+        same["host" if host else "kernel"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(all(same.values()), f"head_em imputation: not bit-equal to K2 -> K4 -> K4 ({same})")
+    ref = x4.clone()
+    ref_m = torch.empty_like(x4)
+    fused_em.head_em_plain_into(*hk, "em", x=ref, x_mean=ref_m, noise=z4, slab=1,
+                                observed=obsd, renoise_noise=(zp, zn), renoise_next=0)
+    got = [x4.clone(), torch.empty_like(x4)]
+    fused(*got)
+    torch.cuda.synchronize()
+    e2i = [err(got[0], ref), err(got[1], ref_m)]
+    tol2i = [1e-3 * max(1.0, float(r.abs().max())) for r in (ref, ref_m)]
+    check(all(a <= b for a, b in zip(e2i, tol2i)), f"head_em imputation: errors {e2i} > {tol2i}")
+    runs = []
+    xt = x4.clone()
+    for _ in range(1 + REPEATS):
+        xt.copy_(x4)
+        fused(xt, host=False)
+        runs.append(xt.clone())
+    torch.cuda.synchronize()
+    check(all(torch.equal(r, runs[0]) for r in runs[1:]),
+          f"head_em imputation: {REPEATS} repeated calls are not bit-identical")
+    n2i = 4 * B * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 4 * 4 * B * D + 32
+    bms, by = bound(n2i, 2 * B * H * D, 360 * B * D)
+    bp16, cf = bp.to(torch.bfloat16), coefs[i]
+    (mc0, sd0), (mc1, sd1) = ([float(c) for c in coefs[j, 5:7]] for j in (i, i + 1))
+
+    def impute_library():  # composite: bf16 addmm, the EM update and two re-noises
+        out = torch.addmm(bp16, hid4.to(torch.bfloat16), wp)[:, :D].float()
+        xn = cf[0] * x4 + cf[1] * out + cf[2] * z4
+        xn = torch.lerp(xn, torch.add(obs4 * mc0, zp, alpha=sd0), mask4)
+        return torch.lerp(xn, torch.add(obs4 * mc1, zn, alpha=sd1), mask4)
+
+    xt = x4.clone()
+    rows.append(dict(
+        name="head_em_impute", route="cuda", source=f"{CSRC}/head_em.cu", replaces=TPU_KERNEL,
+        replaces_part="fused_em.py:199-206 (fwd's post-dense, EM update), :208-211 (the "
+                      "re-noise after it), :192-197 (the next step's re-noise before its "
+                      "predictor, no corrector between)",
+        shape="EM mode + two re-noises, in-kernel normals, [500,1024]x[1024,63]",
+        max_abs_err=max(e2i), tol="1e-3*max(1,|ref|max)", bit_equal_to_unfused=same,
+        repeats_bit_identical=REPEATS, launch=cluster_launch("head_em", B, H,
+                                                             kernel="head_em_impute"),
+        ms=graph_ms(lambda: fused(xt, host=False)),
+        eager_ms=eager_ms(lambda: fused(xt, host=False)),
+        one_pass_ms=graph_ms(lambda: fused(xt, host=False, passes=1)),
+        unfused_ms=graph_ms(lambda: unfused(xt, host=False)),
+        unfused_eager_ms=eager_ms(lambda: unfused(xt, host=False)),
+        plain_ms=graph_ms(lambda: fused_em.head_em_plain_into(
+            *hk, "em", x=xt, noise=z4, slab=1, observed=obsd, renoise_noise=(zp, zn),
+            renoise_next=0)),
+        library_ms=graph_ms(impute_library),
+        library="composite: bf16 torch.addmm + the EM update + two torch.lerp re-noises, "
+                "host normals",
         bound_ms=bms, bound_by=by))
 
     # K5 comp_perturb
@@ -792,6 +932,16 @@ def phase_completion_kernels(model, dev):
         if paste:
             check(torch.equal(got[0] * mask, obs * mask), "head_adam: paste is not exact")
     check(all(a <= b for a, b in zip(e6, tol6)), f"head_adam: errors {e6} > {tol6}")
+    # 50 repeated calls give the same bits: the partials meet in rank order
+    runs6 = []
+    for _ in range(1 + REPEATS):
+        got = (x.clone(), m1.clone(), v.clone())
+        fused_comp.head_adam(hid, wp, bp, coefc, t, got[0], pert, obs, mask, got[1], got[2],
+                             True)
+        runs6.append(got)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for run in runs6[1:] for a, b in zip(run, runs6[0])),
+          f"head_adam: {REPEATS} repeated calls are not bit-identical")
     n6 = 4 * RC * H + 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS + 9 * 4 * RC * D + 32
     bms, by = bound(n6, 2 * RC * H * D, 20 * RC * D)
     xt, mt, vt = x.clone(), m1.clone(), v.clone()
@@ -811,6 +961,8 @@ def phase_completion_kernels(model, dev):
     lib6_e = [float((a - b).abs().max()) for a, b in zip(lib6, want6)]
     rows.append(dict(
         name="head_adam", route="cuda", source=f"{CSRC}/head_adam.cu",
+        design="head_cluster.cuh Tile<4>: split-K over clusters of 4 CTAs",
+        launch=cluster_launch("head_adam", RC, H), repeats_bit_identical=REPEATS,
         replaces=TPU_COMP_KERNEL,
         replaces_part="fused_comp.py:118-127 (fwd's post-dense, one-step denoise, gradient, "
                       "Adam), :131 (paste of the observed dims)",
@@ -827,6 +979,15 @@ def phase_completion_kernels(model, dev):
         bound_ms=bms, bound_by=by))
     for r in rows:
         kernel_row_line(r)
+        if "launch" in r:
+            c = r["launch"]
+            print(f"    grid {c['grid_ctas']} CTAs in clusters of {c['cluster']}, "
+                  f"{c['dynamic_smem']} B dynamic smem a CTA, {c['clusters_resident']} clusters "
+                  f"resident at once; {r['repeats_bit_identical']} repeated calls bit-identical")
+        if r["name"] == "head_em_impute":
+            print(f"    bit-equal to K2 -> K4 -> K4: {r['bit_equal_to_unfused']}; one re-noise "
+                  f"{r['one_pass_ms'] * 1e3:.2f} us; unfused K2 + 2 x K4 "
+                  f"{r['unfused_ms'] * 1e3:.2f} us (eager {r['unfused_eager_ms'] * 1e3:.2f})")
 
     # K1 at completion's 1000 rows: checked, and timed for the device shares
     tp, W, gs, gb = netc["tp_all"][t], netc["W"], netc["gn_scale"], netc["gn_bias"]
@@ -1007,6 +1168,15 @@ def phase_completion_protocols(model, dev):
         print(f"[completion] demo {name}: MPJPE {r['mpjpe']:.1f} mm, MPVPE {r['mpvpe']:.1f} mm, "
               f"task wall {wall:.2f} s (load, build, sample, evaluate), launches "
               f"{by_run[f'demo_{name}']}")
+        if name.startswith("completion2"):
+            c = by_run[f"demo_{name}"]
+            print(f"[completion] demo {name} a call: K4 masked_renoise {c['masked_renoise']}, "
+                  f"K2 head_em {c['head_em']} and its imputation mode {c['head_em_impute']}")
+            # corrector-free imputation: K2 re-noises for the next step, K4
+            # only at the sampler's first
+            if name in ("completion2_pc", "completion2_ddim"):
+                check(c["masked_renoise"] == 1 and c["head_em_impute"] > 1,
+                      f"demo {name}: K4 launched {c['masked_renoise']} times, not once")
     return dict(results=res, by_run=by_run)
 
 

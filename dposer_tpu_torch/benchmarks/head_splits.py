@@ -1,15 +1,16 @@
-"""The cluster heads K8 ``head_rk4`` and K11 ``head_dsm`` against the
-shapes their design left out, on the card.
+"""The cluster heads K6 ``head_adam``, K8 ``head_rk4`` and K11 ``head_dsm``
+against the shapes their design left out, on the card.
 
-Both run ``ops/cuda/csrc/head_cluster.cuh`` split over clusters of 4 CTAs a
+All three run ``ops/cuda/csrc/head_cluster.cuh`` split over clusters of 4 CTAs a
 16-row tile, the tile's rows KC + 8 elements apart. Each variant here is the
 shipped source with one substitution (clusters of 8 CTAs: half the depth a
 CTA, twice the CTAs and the pushes; or rows KC apart, where the A fragment
 loads of a warp's eight rows meet in one group of banks), compiled into a
 temporary directory, checked against the shipped build's output and timed by
-CUDA-graph replay beside it, in turns, at the main paths' shapes: K8's RK4
-stage 1 at ODE sampling's [500, 1024] x [1024, 63], K11 at the train step's
-[1280, 1024] x [1024, 63] on the bf16 stash and on fp32 h.
+CUDA-graph replay beside it, in turns, at the main paths' shapes: K6's Adam
+step (with the paste) at the completion solver's [1000, 1024] x [1024, 63],
+K8's RK4 stage 1 at ODE sampling's [500, 1024] x [1024, 63], K11 at the train
+step's [1280, 1024] x [1024, 63] on the bf16 stash and on fp32 h.
 
     python -m dposer_tpu_torch.benchmarks.head_splits [--rounds 2]
 
@@ -32,18 +33,19 @@ import torch
 from ..ops.cuda import build
 from .train_rings import graph_us
 
-B_ODE, B_TRAIN, H, D, COLS = 500, 1280, 1024, 63, 64
+B_COMP, B_ODE, B_TRAIN, H, D, COLS = 1000, 500, 1280, 1024, 63, 64
 HEADER = "head_cluster.cuh"
 # name: {file: (old, new)}: a substitution in a kernel's own source (that
 # kernel's variant only) or in the cluster head (both kernels')
 VARIANTS = {
     "shipped": {},
-    "clusters of 8": {"head_rk4.cu": ("using Rk4 = hc::Tile<4>;", "using Rk4 = hc::Tile<8>;"),
+    "clusters of 8": {"head_adam.cu": ("using Adam = hc::Tile<4>;", "using Adam = hc::Tile<8>;"),
+                      "head_rk4.cu": ("using Rk4 = hc::Tile<4>;", "using Rk4 = hc::Tile<8>;"),
                       "head_dsm.cu": ("constexpr int SPLIT = 4;", "constexpr int SPLIT = 8;")},
     "rows KC apart": {HEADER: ("constexpr int a_ld(int KC) { return KC + 8; }",
                                "constexpr int a_ld(int KC) { return KC; }")},
 }
-KERNELS = ("head_rk4", "head_dsm")
+KERNELS = ("head_adam", "head_rk4", "head_dsm")
 
 
 def variant_sources(kernel: str, variant: str) -> dict:
@@ -102,6 +104,21 @@ def shapes(dev) -> dict:
     b_post = torch.zeros(COLS, device=dev)
     b_post[:D] = rn(D)
     out = {}
+
+    h6, coefs6 = rn(B_COMP, H), torch.rand(4, 8, generator=g, device=dev)
+    x6, pert6, obs6 = rn(B_COMP, D), rn(B_COMP, D), rn(B_COMP, D)
+    mask6 = (torch.rand(B_COMP, D, generator=g, device=dev) < 0.5).float()
+    m6, v6 = rn(B_COMP, D, sc=0.1), rn(B_COMP, D, sc=0.01).abs()
+
+    def k6(lib):
+        fn = lib.dposer_head_adam
+        fn.argtypes, fn.restype = [P, P, P, P, I] + [P] * 6 + [I, I, I, I, P], I
+        st = [t.clone() for t in (x6, m6, v6)]
+        return (lambda: fn(h6.data_ptr(), w_post.data_ptr(), b_post.data_ptr(), coefs6.data_ptr(),
+                           2, st[0].data_ptr(), pert6.data_ptr(), obs6.data_ptr(),
+                           mask6.data_ptr(), st[1].data_ptr(), st[2].data_ptr(), 1, B_COMP, H, D,
+                           stream())), st
+    out["K6 paste [1000,1024]x[1024,63]"] = ("head_adam", k6)
 
     h8, coefs8 = rn(B_ODE, H), torch.rand(3, 8, generator=g, device=dev)
     x8, xs8, acc8 = rn(B_ODE, D), rn(B_ODE, D), rn(B_ODE, D)

@@ -1,8 +1,9 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
-interface (``pose_elementwise`` and ``head_rk4`` hold two kernels each), compiled
-for ``sm_90a`` at first use into ``_build/`` beside this file (listed in ``.gitignore``). Libraries are named by a hash of the
+interface (``pose_elementwise``, ``head_rk4`` and ``head_em`` hold two
+kernels each), compiled for ``sm_90a`` at first use into ``_build/`` beside
+this file (listed in ``.gitignore``). Libraries are named by a hash of the
 sources and flags, so an edit rebuilds and a stale library is never loaded.
 ``build_all`` starts one nvcc per source at once.
 
@@ -103,6 +104,29 @@ def tma_encodes(name: str) -> int:
     fn = load(name).dposer_tma_encodes
     fn.argtypes, fn.restype = [], ctypes.c_longlong
     return int(fn())
+
+
+def sass(library) -> Dict[str, str]:
+    """``{function: SASS}`` of a built library (``library_path(name)``, or
+    any other tree's), from ``cuobjdump -sass``: each entry function's
+    instructions with their offsets and encodings, one a line with its
+    spaces collapsed (the tool pads its columns to the library's longest
+    line), its name and header lines left out, so two builds of the same
+    device code give equal texts."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs: Dict[str, list] = {}
+    lines = None
+    for ln in out.splitlines():
+        text = ln.strip()
+        if text.startswith("Function :"):
+            lines = funcs.setdefault(text.split(":", 1)[1].strip(), [])
+        elif lines is not None and text.startswith("/*"):
+            lines.append(" ".join(text.split()))
+        elif lines is not None and text.startswith("...."):
+            lines = None
+    return {fn: "\n".join(body) for fn, body in funcs.items()}
 
 
 if __name__ == "__main__":

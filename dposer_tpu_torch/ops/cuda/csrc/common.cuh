@@ -73,4 +73,15 @@ __device__ __forceinline__ float draw_normal(const float* noise, unsigned long l
                           : philox_normal(seed, step, slab, row, col);
 }
 
+// The masked re-noise of one element, x*(1-m) + (mc*obs + sd*z)*m: the
+// observed dims (m = 1) overwritten with obs re-noised to the step's time.
+// Each operation rounds on its own (no contraction into FMAs), in the order
+// the plain version's torch ops take, so K4 and K2's imputation epilogue give
+// the same bits as each other and as the plain version on the same normals.
+__device__ __forceinline__ float masked_renoise(float x, float m, float obs, float mc, float sd,
+                                                float z) {
+  return __fadd_rn(__fmul_rn(x, __fsub_rn(1.0f, m)),
+                   __fmul_rn(__fadd_rn(__fmul_rn(mc, obs), __fmul_rn(sd, z)), m));
+}
+
 }  // namespace dposer

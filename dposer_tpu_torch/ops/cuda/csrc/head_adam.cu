@@ -13,24 +13,35 @@
 // coefs [T, 8]; clr and cv fold Adam's bias corrections.
 //
 // Bound on the H100: [1000, 1024] x [1024, 63] is 129 MFLOP (~0.13 us of
-// bf16 tensor-core time) against ~5.9 MB moved (h fp32 read once; x, m1 and v
-// read and written; pert, obs and mask read): bytes bound, ~1.8 us.
+// bf16 tensor-core time) against ~6.5 MB moved (h fp32 read once, 4 MB; x,
+// m1 and v read and written; pert, obs and mask read): bytes bound, ~1.9 us.
 //
-// Design: the head is head_gemm.cuh's block tile (16 rows x 64 padded
-// columns a block, bf16 WMMA, fp32 partial sums in shared memory); K2, K8,
-// K9 and K11 run head_cluster.cuh instead. The Adam step is the epilogue over the tile's [16, D]
-// elements, so the head's output and the gradient never go to device memory.
-// v*cv stays under the square root, as the TPU kernel and optax have it.
+// Design: the head is head_cluster.cuh's split-K over a thread-block cluster,
+// as K2's and K8's: Tile<4>, 16 poses a tile over 4 CTAs, each copying a
+// 256-deep slice (16 KB of h, 32 KB of Wpost), 63 tiles x 4 = 252 CTAs at
+// 1,000 rows, 73,232 B of shared memory a CTA, so three fit on an SM and all
+// are resident at once. The partials of a row are pushed through distributed
+// shared memory (st.async onto the finishing CTA's mbarrier) and summed there
+// in rank order, so every call gives the same bits. Epilogue warp e of the
+// CTA of rank q finishes pose 4q + e of the tile, each lane columns lane and
+// lane + 32: while the copies fly it loads the step's scalars, the bias and
+// the pose's x, pert, obs, mask, m1 and v (six reads an element, K6's the
+// widest epilogue of the cluster heads); after the partials arrive it runs
+// the denoise, the gradient and the Adam step on them, so neither the head's
+// output nor g reaches device memory. v*cv stays under the square root, as
+// the TPU kernel and optax have it. The 16-row block tile this replaced
+// (one CTA a tile staging its rows of h through registers: 63 CTAs at 1,000
+// rows, under half of the 132 SMs) took 11.05 us (PERF.md).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "head_gemm.cuh"
+#include "head_cluster.cuh"
 
 namespace {
 
-using namespace dposer::head;
+namespace hc = dposer::head_cluster;
 
 constexpr int N_COEFS = 8;  // c_m, c_s, ca, cb, cd, cp, clr, cv
 // 1 - b1 and 1 - b2 as fp32 roundings of the exact values, not of 1 - fp32(b):
@@ -38,48 +49,118 @@ constexpr int N_COEFS = 8;  // c_m, c_s, ca, cb, cd, cp, clr, cv
 constexpr float ADAM_B1 = 0.9f, ADAM_1MB1 = 0.1f, ADAM_B2 = 0.999f, ADAM_1MB2 = 0.001f;
 constexpr float ADAM_EPS = 1e-8f;
 
-__global__ void __launch_bounds__(THREADS)
-head_adam_kernel(const float* __restrict__ h, const __nv_bfloat16* __restrict__ Wpost,
+// K6 over a cluster of T::SPLIT CTAs a tile of T::POSES poses.
+// (launched in clusters of T::SPLIT CTAs: dposer::launch_cluster)
+template <class T>
+__global__ void __launch_bounds__(hc::THREADS)
+head_adam_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                  const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
                  float* x, const float* __restrict__ pert, const float* __restrict__ obs,
                  const float* __restrict__ mask, float* m1, float* v, int paste, int B, int H,
                  int D) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int row0 = blockIdx.x * ROWS;
-  const float* Cs = gemm_tile(h, Wpost, smem, row0, B, H);
-
-  const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
-  const float ca = cf[2], cb = cf[3], cd = cf[4], cp = cf[5], clr = cf[6], cv = cf[7];
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
-    const int r = idx / D, c = idx % D;
-    const int gr = row0 + r;
-    if (gr >= B) continue;
-    const size_t o = static_cast<size_t>(gr) * D + c;
-    const float xo = x[o], ob = obs[o], mk = mask[o];
-    const float x0_hat = ca * pert[o] + cb * out_at(Cs, bpost, r, c);
-    const float g = cd * (mk * (xo - ob)) + cp * (xo - x0_hat);
-    const float mo = ADAM_B1 * m1[o] + ADAM_1MB1 * g;
-    const float vo = ADAM_B2 * v[o] + ADAM_1MB2 * (g * g);
-    m1[o] = mo;
-    v[o] = vo;
-    const float xn = xo - clr * mo / (sqrtf(vo * cv) + ADAM_EPS);
-    x[o] = paste ? ob * mk + xn * (1.0f - mk) : xn;
+  const hc::Layout<T> L(smem, H);
+  const int rank = static_cast<int>(hc::cg::this_cluster().block_rank());
+  const int pose0 = (blockIdx.x / T::SPLIT) * T::POSES;
+  hc::start_copies<T>(h, nullptr, &tmW, L, pose0, rank, B, H);
+  hc::cluster_arrive_relaxed();  // the barriers are set up; waited on before the first push
+  __syncthreads();  // the barriers are initialized, the zeroed rows written
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < hc::MMA_WARPS) {
+    hc::send_partials<T>(L, rank, H);
+    return;
   }
+
+  // The epilogue warps: warp MMA_WARPS + e finishes pose rank * PPC + e of
+  // the tile, each lane columns lane and lane + 32. While the copies fly it
+  // loads the step's scalars, the bias and the pose's state.
+  const int e = warp - hc::MMA_WARPS;
+  const int gr = pose0 + rank * T::PPC + e;
+  const bool has_row = e < T::PPC && gr < B;  // uniform across the warp
+  const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
+  float ca = 0.0f, cb = 0.0f, cd = 0.0f, cp = 0.0f, clr = 0.0f, cv = 0.0f;
+  float bias[2] = {}, xo[2] = {}, pe[2] = {}, ob[2] = {}, mk[2] = {}, mo[2] = {}, vo[2] = {};
+  if (has_row) {
+    ca = cf[2];
+    cb = cf[3];
+    cd = cf[4];
+    cp = cf[5];
+    clr = cf[6];
+    cv = cf[7];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = lane + 32 * u;
+      if (c >= D) continue;
+      const size_t o = static_cast<size_t>(gr) * D + c;
+      bias[u] = bpost[c];
+      xo[u] = x[o];
+      pe[u] = pert[o];
+      ob[u] = obs[o];
+      mk[u] = mask[o];
+      mo[u] = m1[o];
+      vo[u] = v[o];
+    }
+  }
+  hc::wait_partials<T>(L);  // every epilogue warp waits: peers push into this CTA until then
+
+  if (has_row) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = lane + 32 * u;
+      if (c >= D) continue;
+      const size_t o = static_cast<size_t>(gr) * D + c;
+      const float x0_hat = ca * pe[u] + cb * hc::out_at<T>(L, bias[u], e, c);
+      const float g = cd * (mk[u] * (xo[u] - ob[u])) + cp * (xo[u] - x0_hat);
+      const float mn = ADAM_B1 * mo[u] + ADAM_1MB1 * g;
+      const float vn = ADAM_B2 * vo[u] + ADAM_1MB2 * (g * g);
+      m1[o] = mn;
+      v[o] = vn;
+      const float xn = xo[u] - clr * mn / (sqrtf(vn * cv) + ADAM_EPS);
+      x[o] = paste ? ob[u] * mk[u] + xn * (1.0f - mk[u]) : xn;
+    }
+  }
+}
+
+// K6's cluster: K2's grid, 16 poses a tile over 4 CTAs.
+using Adam = hc::Tile<4>;
+
+// More than 48 KB of dynamic shared memory a CTA, allowed once.
+cudaError_t allow_smem() {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      head_adam_kernel<Adam>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(hc::smem_bytes<Adam>(1024)));
+  return attr;
 }
 
 }  // namespace
 
 // h [B, H] fp32, Wpost [H, 64] bf16 (columns >= D zero), bpost [64] fp32,
 // coefs [T, 8] fp32; x, m1, v [B, D] updated in place; pert, obs, mask
-// [B, D]. H a multiple of 64 and <= 1024, h and Wpost 16-byte aligned,
-// D <= 64. Returns cudaGetLastError().
+// [B, D]; over clusters of 4 CTAs. H a multiple of 64 and <= 1024, h and
+// Wpost 16-byte aligned, D <= 64. Returns 0, the error of a failed
+// tensor-map encode, or cudaGetLastError() after the launch.
 extern "C" int dposer_head_adam(const float* h, const void* Wpost, const float* bpost,
                                 const float* coefs, int step, float* x, const float* pert,
                                 const float* obs, const float* mask, float* m1, float* v,
                                 int paste, int B, int H, int D, void* stream) {
-  if (!operands_ok(h, Wpost, B, H, D)) return static_cast<int>(cudaErrorInvalidValue);
-  head_adam_kernel<<<grid_blocks(B), THREADS, smem_bytes(H), static_cast<cudaStream_t>(stream)>>>(
-      h, static_cast<const __nv_bfloat16*>(Wpost), bpost, coefs, step, x, pert, obs, mask, m1, v,
-      paste, B, H, D);
-  return static_cast<int>(cudaGetLastError());
+  if (!hc::operands_ok<Adam>(h, Wpost, B, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = allow_smem();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap tmW;
+  const int e = hc::wpost_map<Adam>(&tmW, Wpost, H);
+  if (e != 0) return e;
+  const cudaError_t err = dposer::launch_cluster(
+      head_adam_kernel<Adam>, dim3(hc::grid_blocks<Adam>(B)), hc::THREADS,
+      hc::smem_bytes<Adam>(H), static_cast<cudaStream_t>(stream), Adam::SPLIT, h, tmW, bpost,
+      coefs, step, x, pert, obs, mask, m1, v, paste, B, H, D);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// K6's launch at B rows and depth H, for reports: grid CTAs, cluster size,
+// threads and dynamic shared memory a CTA, and the clusters the current
+// device holds at once. Returns 0 or a CUDA error code.
+extern "C" int dposer_head_adam_launch_info(int B, int H, int* out) {
+  const cudaError_t attr = allow_smem();
+  return attr != cudaSuccess ? static_cast<int>(attr)
+                             : hc::launch_info<Adam>(head_adam_kernel<Adam>, B, H, out);
 }

@@ -1,22 +1,23 @@
 // The output head of the score network split over a thread-block cluster,
-// for K2 head_em, K8 head_rk4, K9 head_rk4_jvp and K11 head_dsm:
+// for K2 head_em, K6 head_adam, K8 head_rk4, K9 head_rk4_jvp and K11
+// head_dsm, every kernel that fuses an update into the head:
 //   out[r, c] = sum_k bf16_rne(h[r, k]) * Wpost[k, c] + bpost[c]
 // with h [B, H] fp32 or bf16, Wpost bf16 [H, 64] (zero-padded columns),
-// fp32 sums. It computes what head_gemm.cuh::gemm_tile computes (the sum
-// order differs); head_gemm.cuh stays the head of K6 alone.
+// fp32 sums.
 //
 // Bound on the H100: at [500, 1024] x [1024, 63] the head reads 2 MB of h
 // once and does 64.5 MFLOP (~0.07 us of bf16 tensor-core time): bytes. One
-// block a 16-row tile (head_gemm.cuh) gives 32 blocks at 500 rows, a quarter
-// of the 132 SMs, each staging 64 KB through registers before its first MMA.
+// block a 16-row tile, the heads' first design, gave 32 blocks at 500 rows,
+// a quarter of the 132 SMs, each staging 64 KB through registers before its
+// first MMA.
 //
 // A tile is one mma row tile of ROWS = 16 rows. Tile<SPLIT, PAIR, A> says
 // how it is cut and what its rows hold: SPLIT CTAs a cluster, whether its
-// rows are 16 poses of h (K2, K8, K11) or a PAIR, 8 poses of h at rows 0-7
+// rows are 16 poses of h (K2, K6, K8, K11) or a PAIR, 8 poses of h at rows 0-7
 // and the same poses' tangent dh at rows 8-15 (K9: the forward-mode head of
 // the likelihood, whose epilogue needs out and dout of a pose together; the
 // m16n8k16 A fragment then puts a pose's primal and tangent rows in one
-// thread, rows g and g + 8), and the rows' type A: fp32 (K2, K8, K9), which
+// thread, rows g and g + 8), and the rows' type A: fp32 (K2, K6, K8, K9), which
 // the MMA warps round to bf16 in registers, or bf16 already rounded (K11 on
 // the train step's stash, which is bf16_rne(h) bit for bit), copied at half
 // the bytes and loaded as packed pairs.

@@ -31,9 +31,9 @@
 // order, so every call gives the same bits.
 // - K8: Tile<4>, K2's grid: 16 poses a tile over 4 CTAs, each copying a
 //   256-deep slice (16 KB of h, 32 KB of Wpost), 32 tiles x 4 = 128 CTAs at
-//   500 rows (the 16-row block tile of head_gemm.cuh gave 32 blocks, each
-//   staging its 64 KB of h through registers and reading all of Wpost from
-//   L2 inside its WMMA loop). Epilogue warp e of the CTA of rank q finishes
+//   500 rows (the heads' first design, a 16-row block tile, gave 32 blocks,
+//   each staging its 64 KB of h through registers and reading all of Wpost
+//   from L2 inside its WMMA loop). Epilogue warp e of the CTA of rank q finishes
 //   pose 4q + e of the tile, each lane columns lane and lane + 32: while the
 //   copies fly it loads the grid row's scalars, the bias and the pose's x,
 //   xs and acc (x alone for the denoise, no acc at stage 0); after the
@@ -44,8 +44,8 @@
 //   PAIR: 8 poses' h rows and the same poses' dh rows, so one mma row tile
 //   carries the primal and the tangent product (at 50 rows 7 tiles x 8 CTAs
 //   = 56 CTAs, each copying a 128-deep slice: 16 KB of Wpost, 8 KB of h and
-//   dh; the 16-row tile of the head_gemm.cuh version gave 4 blocks, each
-//   staging all of Wpost and running the head twice). The partials of a
+//   dh; the first design's 16-row block tile gave 4 blocks, each staging
+//   all of Wpost and running the head twice). The partials of a
 //   pose's two rows go to the CTA that finishes the pose and are summed there
 //   in rank order (the same bits on every call). Its epilogue warp e, while
 //   the copies fly, loads the pose's x, xs, acc, probe row, lp and lacc; then

@@ -4,7 +4,11 @@
 //   Replaces: the masked re-noise and overwrite of the observed dims before
 //   and after the predictor inside the TPU reverse-diffusion kernel,
 //   dposer_tpu/ops/pallas/fused_em.py::_make_kernel (:192-197, :208-211).
-//   mc and sd are columns 5 and 6 of the step's row of coefs [N, 8].
+//   mc and sd are columns 5 and 6 of the step's row of coefs [N, 8]. K2's
+//   imputation epilogue (head_em.cu) runs the same re-noise after the EM
+//   update, and the next step's before its predictor, where no corrector
+//   comes between; K4 runs it at a call's first step and after the
+//   langevin corrector (K3).
 // K5 comp_perturb: pert <- c_m*x + c_s*z, into a second buffer (x is needed
 //   again by K6 head_adam).
 //   Replaces: the marginal perturbation that opens every Adam step of the TPU
@@ -24,7 +28,8 @@
 //
 // Design: one thread per element, 256 threads a block, the step's scalars
 // read from the device table so the host loop never synchronizes. Nothing is
-// staged: every byte is touched once.
+// staged: every byte is touched once. K4's arithmetic is common.cuh's
+// masked_renoise, which rounds each operation on its own.
 
 #include <cuda_runtime.h>
 
@@ -44,8 +49,7 @@ masked_renoise_kernel(float* x, const float* __restrict__ obs, const float* __re
   if (idx >= R * D) return;
   const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
   const float z = dposer::draw_normal(noise, seed, step, slab, idx / D, idx % D, D);
-  const float m = mask[idx];
-  x[idx] = x[idx] * (1.0f - m) + (cf[5] * obs[idx] + cf[6] * z) * m;
+  x[idx] = dposer::masked_renoise(x[idx], mask[idx], obs[idx], cf[5], cf[6], z);
 }
 
 __global__ void __launch_bounds__(THREADS)

@@ -10,24 +10,30 @@ the loop (the weights stay in the 50 MB L2):
   or K13 ``dense_gn_silu_int8`` in the int8 serving mode (``quant="int8"``);
 - K2 ``head_em``: the output head fused with the EM update, or, for the
   corrector, with the score and its row norms (split-K over a cluster of 4
-  CTAs a 16-row tile);
+  CTAs a 16-row tile); with ``imputation=True`` its imputation instantiation
+  (``head_em_impute``) also runs the masked re-noise of the observed dims
+  after the update and, where no corrector follows, the next step's before
+  its predictor;
 - K3 ``langevin_update``: the corrector's batch-mean norms and update (one
   cluster of 16 CTAs);
-- K4 ``masked_renoise``: with ``imputation=True``, the masked re-noise and
-  overwrite of the observed dims, before and after the predictor.
+- K4 ``masked_renoise``: the masked re-noise where no K2 comes before it:
+  at a call's first step and after the corrector.
 
 Per step: ``[corrector: fwd -> K2(score) -> K3] * S``, then ``[K4] -> fwd ->
-K2(EM) -> [K4]``. The step's scalars come from the device table ``coefs
-[N, 8]`` (cx, cout, cnoise, score_scale, alpha, imputation mean, imputation
-std, 0), read by the kernels at the step index.
+K2(EM[+re-noise])``. With imputation and no corrector a call launches K4
+once, at its first step; with the corrector, once a step. The step's scalars
+come from the device table ``coefs [N, 8]`` (cx, cout, cnoise, score_scale,
+alpha, imputation mean, imputation std, 0), read by the kernels at the step
+index.
 
 Noise: ``rng_mode="host"`` takes ``[N, K, B, D]`` slabs in the order
 corr_0..corr_{S-1}, imput_c, predictor, imput_p (injected with ``noise=``,
-else drawn from the generator per step); ``rng_mode="kernel"`` draws Philox
-normals inside K2, K3 and K4 (card only), keyed by (seed, step, slab, row,
-column) with the slab's index in that order (their plain versions are in
-``philox.py``). Each kernel's plain PyTorch version is here or in
-``score_net.py``; a wrapper given CPU tensors runs it.
+else drawn from the generator a step at a time, one step ahead where K2
+re-noises for the next step); ``rng_mode="kernel"`` draws Philox normals
+inside K2, K3 and K4 (card only), keyed by (seed, step, slab, row, column)
+with the slab's index in that order (their plain versions are in
+``philox.py``), whichever kernel draws them. Each kernel's plain PyTorch
+version is here or in ``score_net.py``; a wrapper given CPU tensors runs it.
 """
 from __future__ import annotations
 
@@ -71,9 +77,13 @@ def head_em_plain(h, w_post, b_post, coefs, step, mode, dim, x=None, noise=None)
 
 def head_em_plain_into(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
                        x_mean=None, score=None, score_sq=None, noise=None, seed=None,
-                       slab: int = 0):
+                       slab: int = 0, observed=None, renoise_noise=None,
+                       renoise_next=None):
     """The plain version with ``head_em``'s signature, on any device; it
-    takes host normals only."""
+    takes host normals only. With ``observed`` it is the EM update followed
+    by ``masked_renoise_plain`` at ``step`` and, with ``renoise_next``, at
+    ``step + 1``: the same operations in the same order as K2 then K4
+    then K4."""
     if mode == "em":
         if noise is None:
             raise ValueError("the plain head_em takes host normals (noise=)")
@@ -81,6 +91,14 @@ def head_em_plain_into(h, w_post, b_post, coefs, step: int, mode: str, *, x=None
                                   x=x, noise=noise)
         if x_mean is not None:
             x_mean.copy_(xm)
+        if observed is not None:
+            passes = 1 if renoise_next is None else 2
+            if renoise_noise is None or len(renoise_noise) != passes:
+                raise ValueError(f"the plain head_em takes the re-noise's host normals: "
+                                 f"renoise_noise must hold {passes} slab(s)")
+            for p in range(passes):
+                x_new = masked_renoise_plain(x_new, *observed, coefs, step + p,
+                                             renoise_noise[p])
         x.copy_(x_new)
     else:
         s, sq = head_em_plain(h, w_post, b_post, coefs, step, mode, score.shape[1])
@@ -114,17 +132,37 @@ def _noise_args(name, noise, seed, dev, shape):
         raise ValueError(f"{name}: in-kernel normals (seed=) need CUDA tensors")
 
 
-def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
-            x_mean=None, score=None, score_sq=None, noise=None, seed=None,
-            slab: int = 0):
-    """K2 on ``h`` [B, H]. ``mode="em"`` updates ``x`` [B, D] in place (and
-    writes ``x_mean`` when given); ``mode="score"`` writes ``score`` [B, D]
-    and ``score_sq`` [B]."""
+def _check_head(h, w_post, b_post):
+    """The output head's operands: h [B, H] fp32, w_post [H, 64] bf16,
+    b_post [64] fp32, on one device. Returns ``(B, H, device)``."""
     B, H = h.shape
     dev = h.device
     _check("h", h, dev, torch.float32, (B, H))
     _check("w_post", w_post, dev, torch.bfloat16, (H, HEAD_COLS))
     _check("b_post", b_post, dev, torch.float32, (HEAD_COLS,))
+    return B, H, dev
+
+
+def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
+            x_mean=None, score=None, score_sq=None, noise=None, seed=None,
+            slab: int = 0, observed=None, renoise_noise=None, renoise_next=None):
+    """K2 on ``h`` [B, H]. ``mode="em"`` updates ``x`` [B, D] in place (and
+    writes ``x_mean`` when given); ``mode="score"`` writes ``score`` [B, D]
+    and ``score_sq`` [B].
+
+    ``observed=(obs, mask)`` (EM mode; ``head_em_impute``) follows the update
+    with the masked re-noise of ``step`` from slab ``slab + 1`` and, with
+    ``renoise_next=s``, that of ``step + 1`` from slab ``s`` (its re-noise
+    before its predictor): K4 at those steps and slabs, bit for bit.
+    ``renoise_noise`` holds their host normals (one [B, D] slab a re-noise)
+    when ``noise`` is given; ``x_mean`` is the state before them."""
+    if observed is not None:
+        if mode != "em":
+            raise ValueError("observed= re-noises after the EM update (mode='em')")
+        return head_em_impute(h, w_post, b_post, coefs, step, x=x, observed=observed,
+                              x_mean=x_mean, noise=noise, seed=seed, slab=slab,
+                              renoise_noise=renoise_noise, renoise_next=renoise_next)
+    B, H, dev = _check_head(h, w_post, b_post)
     _check_coefs(coefs, step, dev)
     if mode == "em":
         D = x.shape[1]
@@ -159,6 +197,63 @@ def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
 
 
 head_em.launches = 0
+
+
+def _head_em_impute_fn():
+    fn = build.load("head_em").dposer_head_em_impute
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, P, P, P, ctypes.c_ulonglong, I, P, P, P, I, P, I,
+                       I, I, I, I, P]
+        fn.restype = I
+    return fn
+
+
+def head_em_impute(h, w_post, b_post, coefs, step: int, *, x, observed, x_mean=None,
+                   noise=None, seed=None, slab: int = 0, renoise_noise=None,
+                   renoise_next=None):
+    """K2's imputation instantiation: ``head_em(..., "em", observed=...)``,
+    launched and counted on its own."""
+    B, H, dev = _check_head(h, w_post, b_post)
+    D = x.shape[1]
+    passes = 1 if renoise_next is None else 2
+    _check_coefs(coefs, step + passes - 1, dev)
+    for nm, t in (("x", x), ("obs", observed[0]), ("mask", observed[1])):
+        _check(nm, t, dev, torch.float32, (B, D))
+    if x_mean is not None:
+        _check("x_mean", x_mean, dev, torch.float32, (B, D))
+    _noise_args("head_em", noise, seed, dev, (B, D))
+    if noise is not None:
+        if renoise_noise is None or len(renoise_noise) != passes:
+            raise ValueError(f"host normals: renoise_noise must hold {passes} slab(s)")
+        for z in renoise_noise:
+            _check("renoise_noise", z, dev, torch.float32, (B, D))
+    elif renoise_noise is not None and any(z is not None for z in renoise_noise):
+        raise ValueError("in-kernel normals (seed=) draw the re-noise too: no renoise_noise")
+    if D > HEAD_COLS:
+        raise ValueError(f"pose dim {D} > {HEAD_COLS}")
+    if dev.type == "cpu":
+        return head_em_plain_into(h, w_post, b_post, coefs, step, "em", x=x, x_mean=x_mean,
+                                  noise=noise, observed=observed, renoise_noise=renoise_noise,
+                                  renoise_next=renoise_next)
+    if dev.type != "cuda":
+        raise ValueError(f"head_em runs on cpu or cuda, not {dev}")
+    if H % 64 or H > 1024:
+        raise ValueError(f"head_em kernel needs H % 64 == 0 and H <= 1024; got {H}")
+    zs = tuple(renoise_noise) if noise is not None else (None, None)
+    err = _head_em_impute_fn()(h.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
+                               coefs.data_ptr(), step, x.data_ptr(), _ptr(x_mean),
+                               _ptr(noise), 0 if seed is None else seed, slab,
+                               observed[0].data_ptr(), observed[1].data_ptr(), _ptr(zs[0]),
+                               slab + 1, _ptr(zs[1]) if passes == 2 else None, renoise_next or 0,
+                               passes, B, H, D,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"head_em (imputation) launch failed: CUDA error {err}")
+    head_em_impute.launches += 1
+
+
+head_em_impute.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -289,9 +384,9 @@ def _counted():
     from .fused_ode import head_rk4
     from .fused_train import dense_gn_silu_bwd, dense_gn_silu_train, head_dsm
 
-    return (dense_gn_silu, head_em, langevin_update, masked_renoise, comp_perturb,
-            head_adam, dense_gn_silu_jvp, head_rk4, head_rk4_jvp, dense_gn_silu_train,
-            head_dsm, dense_gn_silu_bwd, dense_gn_silu_int8, chain_link)
+    return (dense_gn_silu, head_em, head_em_impute, langevin_update, masked_renoise,
+            comp_perturb, head_adam, dense_gn_silu_jvp, head_rk4, head_rk4_jvp,
+            dense_gn_silu_train, head_dsm, dense_gn_silu_bwd, dense_gn_silu_int8, chain_link)
 
 
 def launch_counts() -> dict:
@@ -350,20 +445,27 @@ def build_sampler_operands(sde: SDE, model, eps: float, predictor: str, device,
 
 
 def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
-            snr: float, seed=None, x_mean=None, observed=None,
-            plain: bool = False) -> None:
+            snr: float, seed=None, x_mean=None, observed=None, renoised: bool = False,
+            renoise_next: bool = False, next_slabs=None, plain: bool = False) -> None:
     """Reverse step ``i`` on ``x`` [B, D] in place: ``n_corr`` langevin
     corrector steps, then the EM update (``x_mean``, when given, receives the
     denoised state, before any imputation). ``observed=(obs, mask)`` wraps the
-    EM update in the masked re-noise of the observed dims. ``slabs[k]`` are
-    the host normals of slab ``k`` (corr_0.., [imput_c], em, [imput_p]), or
-    None with ``seed`` for in-kernel normals. ``scratch`` holds ``h``, ``h1``
+    EM update in the masked re-noise of the observed dims: before it K4
+    (unless ``renoised``: step ``i - 1``'s K2 did it), after it K2's
+    imputation epilogue, which with ``renoise_next`` (no corrector) also runs
+    step ``i + 1``'s re-noise before its predictor, from ``next_slabs``; that
+    step then runs with ``renoised``. ``slabs[k]`` are the host normals of
+    slab ``k`` (corr_0.., [imput_c], em, [imput_p]), or None with ``seed``
+    for in-kernel normals. ``scratch`` holds ``h``, ``h1``
     [B, H], for int8 operands ``q`` (their int8 copies, handed on from layer
     to layer) and, with a corrector, ``score`` [B, D] and ``score_sq`` [B].
     ``plain=True`` runs the kernels' plain versions instead, on any device:
     the reference the card's kernels are held to. The hidden layers are K1,
     or K13 for int8 operands (the plain versions hand on the same int8
     copies)."""
+    if renoise_next and (observed is None or n_corr):
+        raise ValueError("renoise_next folds the next step's re-noise into K2: "
+                         "imputation without a corrector only")
     layer = hidden_layer(net, plain)
     head, langevin, renoise = (
         (head_em_plain_into, langevin_update_plain_into, masked_renoise_plain_into) if plain
@@ -376,14 +478,19 @@ def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
         langevin(x, scratch["score"], scratch["score_sq"], coefs, i, snr,
                  noise=slabs[j], seed=seed, slab=j)
     k = n_corr
+    impute = {}
     if observed is not None:
-        renoise(x, *observed, coefs, i, noise=slabs[k], seed=seed, slab=k)
+        if not renoised:
+            renoise(x, *observed, coefs, i, noise=slabs[k], seed=seed, slab=k)
         k += 1
+        zs = None  # in-kernel normals: K2 draws the re-noise's too
+        if seed is None:
+            zs = (slabs[k + 1],) + ((next_slabs[n_corr],) if renoise_next else ())
+        impute = dict(observed=observed, renoise_noise=zs,
+                      renoise_next=n_corr if renoise_next else None)
     network_hidden(net, x, i, h, h1, layer, q)
     head(h, net["w_post"], net["b_post"], coefs, i, "em", x=x, x_mean=x_mean,
-         noise=slabs[k], seed=seed, slab=k)
-    if observed is not None:
-        renoise(x, *observed, coefs, i, noise=slabs[k + 1], seed=seed, slab=k + 1)
+         noise=slabs[k], seed=seed, slab=k, **impute)
 
 
 def pc_scratch(net: dict, batch: int, n_corr: int, device) -> dict:
@@ -394,6 +501,23 @@ def pc_scratch(net: dict, batch: int, n_corr: int, device) -> dict:
         out["score"] = torch.empty((batch, net["dim"]), dtype=torch.float32, device=device)
         out["score_sq"] = torch.empty((batch,), dtype=torch.float32, device=device)
     return out
+
+
+def host_slabs(noise, lo: int, hi: int, shape, generator, device):
+    """Steps ``lo..hi-1``'s host normals: yields ``(slabs, next_slabs)``, the
+    [K, B, D] slabs of step i (``noise[i - lo]`` when injected, else one
+    ``torch.randn`` a step from ``generator``) and step i + 1's (None past
+    ``hi``), drawn one step early for K2's re-noise of step i + 1. The
+    generator still draws the steps in their order, one at a time."""
+    def draw(i):
+        if noise is not None:
+            return noise[i - lo]
+        return torch.randn(tuple(shape), generator=generator, device=device)
+
+    nxt = draw(lo)
+    for i in range(lo, hi):
+        slabs, nxt = nxt, (draw(i + 1) if i + 1 < hi else None)
+        yield slabs, nxt
 
 
 def resolve_device(device) -> torch.device:
@@ -516,6 +640,8 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
         raise ValueError(f"step_range {step_range} out of bounds for the "
                          f"{int(coefs.shape[0])}-step grid")
     n_steps = hi - lo
+    # corrector-free imputation: K2 re-noises for the next step, K4 runs once
+    fold = imputation and n_corr == 0
 
     @torch.no_grad()
     def sampler(generator: Optional[torch.Generator] = None, observation=None,
@@ -542,14 +668,13 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
         scratch = pc_scratch(net, batch, n_corr, device)
         x_mean = torch.empty_like(x) if denoise else None
         seed = draw_seed(generator) if rng_mode == "kernel" else None
-        slabs = [None] * K
-        for i in range(lo, hi):
-            if rng_mode == "host":
-                slabs = (noise[i - lo] if noise is not None else
-                         torch.randn((K, batch, dim), generator=generator, device=device))
+        steps = (host_slabs(noise, lo, hi, (K, batch, dim), generator, device)
+                 if rng_mode == "host" else (([None] * K, None) for _ in range(lo, hi)))
+        for i, (slabs, next_slabs) in zip(range(lo, hi), steps):
             pc_step(net, coefs, i, x, scratch, slabs, n_corr=n_corr, snr=snr, seed=seed,
                     x_mean=x_mean if i == hi - 1 else None, observed=observed,
-                    plain=plain)
+                    renoised=fold and i > lo, renoise_next=fold and i + 1 < hi,
+                    next_slabs=next_slabs, plain=plain)
         return x_mean if denoise else x
 
     return sampler

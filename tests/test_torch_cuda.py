@@ -282,9 +282,12 @@ def test_comp_perturb(dev):
     assert abs(float(zk.mean())) < 0.01 and abs(float(zk.std()) - 1.0) < 0.01
 
 
+# K6's tiles: a ragged one (37 rows: 2 whole tiles and 5 poses) and the
+# solver's 1,000 rows (63 tiles, the last of 8 poses)
+@pytest.mark.parametrize("B", [37, 1000])
 @pytest.mark.parametrize("paste", [False, True])
-def test_head_adam(dev, paste):
-    h, w_post, b_post, coefs, x, pert = _head(dev, B=1000, seed=10)
+def test_head_adam(dev, paste, B):
+    h, w_post, b_post, coefs, x, pert = _head(dev, B=B, seed=10)
     rng = np.random.default_rng(10)
     obs = _t(rng, x.shape, dev)
     mask = (torch.rand(x.shape, device=dev) < 0.5).float()
@@ -361,8 +364,108 @@ def test_imputation_sampler_steps_match_plain(dev):
             # the observed dims went through no network
             torch.testing.assert_close(xk * mask, xp * mask, rtol=0, atol=1e-5)
         counts = launch_counts()
-        assert counts["masked_renoise"] == 2 * n
+        # a step called alone re-noises before its predictor in K4, after it in K2
+        assert (counts["masked_renoise"], counts["head_em_impute"]) == (n, n)
+        assert counts["head_em"] == n * n_corr
         assert counts["dense_gn_silu"] == 5 * n * (1 + n_corr)
+
+
+def _impute_operands(dev, B, seed=14):
+    h, w_post, b_post, coefs, x, z = _head(dev, B=B, seed=seed)
+    rng = np.random.default_rng(seed)
+    obs, zp, zn = (_t(rng, (B, 63), dev) for _ in range(3))
+    mask = torch.zeros(B, 63, device=dev)
+    mask[:, 12:] = 1.0
+    return (h, w_post, b_post, coefs), x, z, (obs, mask), zp, zn
+
+
+# K2's tiles, as test_head_em_host_noise; one re-noise (the call's last step)
+# or two (the next step's too); host slabs and in-kernel draws
+@pytest.mark.parametrize("B", [1, 37, 500, 1000])
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("rng_mode", ["host", "kernel"])
+def test_head_em_impute_is_head_em_then_masked_renoise(dev, B, passes, rng_mode):
+    """K2's imputation epilogue against K2 -> K4 (-> K4 at the next step)
+    on the same normals: the same bits (the re-noise rounds each operation
+    on its own in both kernels), and x_mean the state before the re-noise."""
+    args, x, z, observed, zp, zn = _impute_operands(dev, B)
+    step, slab = 1, 1
+    host = rng_mode == "host"
+    nz = dict(noise=z) if host else dict(seed=4242)
+    x_f, xm_f = x.clone(), torch.empty_like(x)
+    reset_launch_counts()
+    head_em(*args, step, "em", x=x_f, x_mean=xm_f, slab=slab, observed=observed,
+            renoise_noise=((zp, zn)[:passes] if host else None),
+            renoise_next=0 if passes == 2 else None, **nz)
+    torch.cuda.synchronize()
+    assert launch_counts()["head_em_impute"] == 1 and launch_counts()["head_em"] == 0
+    x_u, xm_u = x.clone(), torch.empty_like(x)
+    head_em(*args, step, "em", x=x_u, x_mean=xm_u, slab=slab, **nz)
+    masked_renoise(x_u, *observed, args[3], step, slab=slab + 1,
+                   **(dict(noise=zp) if host else nz))
+    if passes == 2:
+        masked_renoise(x_u, *observed, args[3], step + 1, slab=0,
+                       **(dict(noise=zn) if host else nz))
+    torch.cuda.synchronize()
+    assert torch.equal(xm_f, xm_u)
+    assert torch.equal(x_f, x_u)
+    # and the plain version on the same host slabs, within K2's bound
+    if host:
+        want = x.clone()
+        fused_em.head_em_plain_into(*args, step, "em", x=want, noise=z, slab=slab,
+                                    observed=observed, renoise_noise=(zp, zn)[:passes],
+                                    renoise_next=0 if passes == 2 else None)
+        torch.testing.assert_close(x_f, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("kernel", ["head_adam", "head_em_impute"])
+def test_cluster_heads_50_calls_bit_identical(dev, kernel):
+    """K6 and K2's imputation epilogue: 50 calls, the same bits."""
+    outs = []
+    if kernel == "head_adam":
+        h, w_post, b_post, coefs, x, pert = _head(dev, B=1000, seed=15)
+        rng = np.random.default_rng(15)
+        obs = _t(rng, x.shape, dev)
+        mask = (torch.rand(x.shape, device=dev) < 0.5).float()
+        m1, v = _t(rng, x.shape, dev, 0.1), _t(rng, x.shape, dev, 0.01).abs()
+        for _ in range(50):
+            st = [x.clone(), m1.clone(), v.clone()]
+            head_adam(h, w_post, b_post, coefs, 2, st[0], pert, obs, mask, st[1], st[2], True)
+            outs.append(st)
+    else:
+        args, x, _, observed, _, _ = _impute_operands(dev, 500, seed=16)
+        for _ in range(50):
+            st = [x.clone(), torch.empty_like(x)]
+            head_em(*args, 1, "em", x=st[0], x_mean=st[1], seed=9, slab=1,
+                    observed=observed, renoise_next=0)
+            outs.append(st)
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+
+
+@pytest.mark.parametrize("corrector", ["none", "langevin"])
+def test_imputation_sampler_launches_masked_renoise_once_without_corrector(dev, corrector):
+    """A whole call: without a corrector K4 runs once (the first step's
+    re-noise) and K2's imputation epilogue every step; after the corrector
+    K4 runs once a step."""
+    model = _small_model(dev)
+    n, shape = 20, (40, 63)
+    rng = np.random.default_rng(17)
+    z, obs = _t(rng, shape, dev), _t(rng, shape, dev, 0.3)
+    mask = torch.zeros(shape, device=dev)
+    mask[:, 12:] = 1.0
+    for rng_mode in ("host", "kernel"):
+        sampler = get_cuda_em_sampler(tsde.SubVPSDE(N=n), model, shape, corrector=corrector,
+                                      imputation=True, rng_mode=rng_mode, device="cuda")
+        reset_launch_counts()
+        out = sampler(torch.Generator(device=dev).manual_seed(1), observation=obs, mask=mask,
+                      z=z)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["masked_renoise"] == (1 if corrector == "none" else n)
+        assert counts["head_em_impute"] == n
+        assert torch.isfinite(out).all()
 
 
 def test_step_range_split_draws_the_full_runs_normals(dev):

@@ -352,10 +352,10 @@ def test_train_rings_variants_apply(kernel):
     assert not train_rings.applies("dense_gn_silu_train", "K12's final sum unrolled by 8")
 
 
-@pytest.mark.parametrize("kernel", ["head_rk4", "head_dsm"])
+@pytest.mark.parametrize("kernel", ["head_adam", "head_rk4", "head_dsm"])
 def test_head_splits_variants_apply(kernel):
     """Every variant of ``benchmarks/head_splits.py`` still applies to the
-    shipped sources of K8 and K11 (one substitution each, into the kernel's
+    shipped sources of K6, K8 and K11 (one substitution each, into the kernel's
     file or the cluster head), and the shipped variant is the source as it
     is."""
     from dposer_tpu_torch.benchmarks import head_splits
