@@ -13,14 +13,17 @@ Phases; any failure exits non-zero:
    for the cluster kernels K2 (and its imputation instantiation), K3, K6,
    K7's Hopper route, K8, K9 and K11 (on the bf16 stash and on fp32 h) their
    grid, cluster size, shared memory, the clusters the card holds at once
-   and their registers; K2's instantiation without imputation held by its
-   ``cuobjdump -sass`` digest to the SASS it had before that instantiation
-   existed (under the nvcc the digest was recorded with); a ptxas line
+   and their registers; K2's instantiation without imputation and K6's
+   without the next step's perturbation held by their ``cuobjdump -sass``
+   digests to the SASS they had before those instantiations existed (under
+   the nvcc the digests were recorded with); K6 and its perturbing
+   instantiation with their registers, spills (none allowed) and CTAs an SM
+   by registers; a ptxas line
    reporting serialized wgmma in K7 or K9 fails the phase; K10's and K12's instantiations with their registers,
    shared memory, spills and CTAs an SM, where a serialized wgmma fails the
    phase too);
-3. each of the fourteen kernels, and K2's imputation mode, against its plain
-   PyTorch version at the
+3. each of the fourteen kernels, K2's imputation mode and K6's perturbing
+   instantiation against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
    sampling, [1000, .] for the completion solver, [50, .] for the
    likelihood, [1280, .] for training, [512, .] for the microbenchmarks), on
@@ -52,6 +55,10 @@ Phases; any failure exits non-zero:
    (the EM update, then the re-noise of its step and of the next) also bit
    for bit against K2 -> K4 -> K4 under host and in-kernel normals, with 50
    repeated calls bit-identical, and K6 with 50 repeated calls bit-identical;
+   K5 bit-equal to its plain version on host normals; K6's perturbing
+   instantiation (the Adam step, then the next step's perturbation) bit for
+   bit against K6 -> K5 at 1, 37, 500 and 1,000 rows under host and
+   in-kernel normals, with 50 repeated calls bit-identical;
 4. the whole kernel sampler against the same loop on the plain versions,
    N = 20, injected noise, corrector none and langevin, without and with
    masked imputation: step by step, and row by row on the free-running
@@ -71,7 +78,9 @@ Phases; any failure exits non-zero:
    then 500 poses x 1000 steps with the langevin corrector at eps 5e-3,
    through the SMPL body): APD must lie in [0.80, 1.00];
    (c) completion by optimisation, 100 synthetic poses x 10 hypotheses,
-   2x100 Adam steps, time strategy '3': solves/s, MPJPE and MPVPE;
+   2x100 Adam steps, time strategy '3': solves/s, MPJPE and MPVPE, and the
+   launches a solve (K5 1, K1 1,000, K6's perturbing instantiation 199, K6
+   with the paste 1);
    (d) the demo's ``completion`` task and its ``completion2`` task with
    ``--sampler pc``, ``ddim`` and ``hybrid``, 50 poses x 10 hypotheses, left
    leg masked, through the synthetic SMPL-X body: MPJPE must lie in (50, 400)
@@ -190,11 +199,15 @@ PART, HYPO = "left_leg", 10
 TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generation call
 DRAW_TOL = 1e-5  # in-kernel normals against the plain Philox stream (logf, cospif vs float64)
 REPEATS = 50  # repeated calls of K2, K3, K6-K12 that must give the same bits
-# The SASS of K2 without imputation (csrc/head_em.cu::head_em_kernel, EM and
-# score mode) as the source before the imputation instantiation compiled it
-# (build.sass; sha256 of the text), and the nvcc that compiled it
+# The SASS of a kernel as the source before an instantiation was added
+# beside it compiled it (build.sass; sha256 of the text), and the nvcc that
+# compiled it: K2 without imputation (csrc/head_em.cu::head_em_kernel, EM and
+# score mode) and K6 without the next step's perturbation
+# (csrc/head_adam.cu::head_adam_kernel)
 K2_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
                sha256="8020dc81140cef5a36a7ab6df570b6b4fc3afd624af13bd5b2432b7be78838cb")
+K6_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
+               sha256="03b1a6bd6f40a81e41fc149024a423cf027c101d25243e95e333ca1e6a77ac17")
 
 
 class PhaseError(RuntimeError):
@@ -387,29 +400,34 @@ def nvcc_release():
     return out.strip().splitlines()[-1].strip()
 
 
-def check_k2_sass():
-    """K2 without imputation (``head_em_kernel``: EM and score mode) must
-    compile to the SASS it had before the imputation instantiation was added
-    beside it: its ``cuobjdump -sass`` text (offsets, instructions,
-    encodings) hashes to the digest recorded from that source under the same
-    nvcc. Under another nvcc the digest is printed and not compared."""
-    funcs = build.sass(build.library_path("head_em"))
-    names = {k: [f for f in funcs if f"{len(k)}{k}E" in f]
-             for k in ("head_em_kernel", "head_em_impute_kernel")}
-    check(all(len(v) == 1 for v in names.values()), f"head_em: entry functions {list(funcs)}")
-    digest = hashlib.sha256(funcs[names["head_em_kernel"][0]].encode()).hexdigest()
+def check_sass(lib, kept, added, recorded):
+    """``kept`` (an entry function of ``lib``: K2's ``head_em_kernel``, K6's
+    ``head_adam_kernel``) must compile to the SASS it had before ``added``
+    was instantiated beside it: its ``cuobjdump -sass`` text (offsets,
+    instructions, encodings) hashes to the digest ``recorded`` from that
+    source under the same nvcc. Under another nvcc the digest is printed and
+    not compared."""
+    funcs = build.sass(build.library_path(lib))
+    names = {k: [f for f in funcs if re.search(rf"{len(k)}{k}[EI]", f)] for k in (kept, added)}
+    check(all(len(v) == 1 for v in names.values()), f"{lib}: entry functions {list(funcs)}")
+    text = funcs[names[kept][0]]
+    digest = hashlib.sha256(text.encode()).hexdigest()
     release = nvcc_release()
-    same = release == K2_SASS["nvcc"]
-    print(f"[build] head_em_kernel SASS: {len(funcs[names['head_em_kernel'][0]].splitlines())} "
-          f"lines, sha256 {digest[:16]}; before the imputation instantiation "
-          f"{K2_SASS['sha256'][:16]} under {K2_SASS['nvcc']!r}: "
-          + (("identical" if digest == K2_SASS["sha256"] else "DIFFERENT") if same
+    same = release == recorded["nvcc"]
+    print(f"[build] {kept} SASS: {len(text.splitlines())} lines, sha256 {digest[:16]}; before "
+          f"{added} {recorded['sha256'][:16]} under {recorded['nvcc']!r}: "
+          + (("identical" if digest == recorded["sha256"] else "DIFFERENT") if same
              else f"not compared (this nvcc: {release!r})"))
     if same:
-        check(digest == K2_SASS["sha256"],
-              "head_em_kernel's SASS differs from the one before the imputation instantiation")
-    return dict(sha256=digest, nvcc=release, recorded=K2_SASS, compared=same,
-                identical=digest == K2_SASS["sha256"])
+        check(digest == recorded["sha256"], f"{kept}'s SASS differs from the one before {added}")
+    return dict(sha256=digest, nvcc=release, recorded=recorded, compared=same,
+                identical=digest == recorded["sha256"])
+
+
+def ctas_per_sm_by_registers(registers, threads):
+    """The CTAs of ``threads`` threads an H100 SM's 65,536 registers hold at
+    ``registers`` a thread (allocated in units of 8 a thread)."""
+    return 65536 // (-(-registers // 8) * 8 * threads)
 
 
 def phase_build():
@@ -442,6 +460,7 @@ def phase_build():
                            ("head_em_impute", "head_em", (B, H)),
                            ("langevin_update", "langevin_update", ()),
                            ("head_adam", "head_adam", (RC, H)),
+                           ("head_adam_perturb", "head_adam", (RC, H)),
                            ("head_rk4", "head_rk4", (B, H)),
                            ("head_dsm", "head_dsm", (BT, H, 1)),
                            ("head_dsm fp32 h", "head_dsm", (BT, H, 0))):
@@ -456,6 +475,19 @@ def phase_build():
               + ("; ".join(f"{e['registers']} registers, {e['static_smem']} B static smem, "
                            f"{e['spills'] or 'spills not reported'}" for e in ptx)
                  or "no ptxas log (already built)"))
+    # K6 and its perturbing instantiation: no spills, and the CTAs an SM
+    # their registers allow (all 252 of a 1,000-row call resident at 2)
+    for key in ("head_adam", "head_adam_perturb"):
+        c = clusters[key]
+        for e in c["ptxas"]:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", e["spills"] or "")
+            check(m is not None and m.groups() == ("0", "0"),
+                  f"{key}: ptxas reports spills ({e['spills']})")
+            e["ctas_per_sm_by_registers"] = ctas_per_sm_by_registers(e["registers"], c["threads"])
+            print(f"[build] {key}: {e['registers']} registers, no spills, "
+                  f"{e['ctas_per_sm_by_registers']} CTAs an SM by registers; "
+                  f"{c['clusters_resident'] * c['cluster']} CTAs resident at once for a grid of "
+                  f"{c['grid_ctas']}")
     # the likelihood's kernels: K7's Hopper route and K9 at the likelihood's
     # 50 rows
     jvp_serialized = [ln.strip() for lib in ("dense_gn_silu_jvp", "head_rk4")
@@ -501,9 +533,10 @@ def phase_build():
     print(f"[build] train kernels: ptxas lines reporting serialized wgmma: "
           f"{len(train_serialized)}" + "".join(f"\n    {ln}" for ln in train_serialized))
     check(not train_serialized, "ptxas serialized a wgmma of K10 or K12")
-    k2_sass = check_k2_sass()
+    k2_sass = check_sass("head_em", "head_em_kernel", "head_em_impute_kernel", K2_SASS)
+    k6_sass = check_sass("head_adam", "head_adam_kernel", "head_adam_perturb_kernel", K6_SASS)
     return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters,
-                      k2_sass=k2_sass,
+                      k2_sass=k2_sass, k6_sass=k6_sass,
                       int8_instantiations=rows8, int8_dynamic_smem=dyn8,
                       serialized_wgmma=serialized, likelihood_serialized_wgmma=jvp_serialized,
                       train_kernels=train_kernels, train_serialized_wgmma=train_serialized)
@@ -729,12 +762,14 @@ def phase_kernels(model, dev):
     return rows
 
 
-def phase_completion_kernels(model, dev):
-    """K4 and K2's imputation mode (at the imputation sampler's 500 rows), K5
-    and K6 (at the solver's 1000 rows) against their plain versions, with
-    timings and bounds, K2's imputation mode also against the unfused K2 ->
-    K4 -> K4 bit for bit; K1's three layer shapes timed at 1000 rows too, for
-    the solver's device share."""
+def phase_completion_kernels(model, dev, clusters):
+    """K4 and K2's imputation mode (at the imputation sampler's 500 rows), K5,
+    K6 and K6's perturbing instantiation (at the solver's 1000 rows) against
+    their plain versions, with timings and bounds, K2's imputation mode also
+    against the unfused K2 -> K4 -> K4 and K6's perturbing instantiation
+    against K6 -> K5 bit for bit; K1's three layer shapes timed at 1000 rows
+    too, for the solver's device share. ``clusters`` is the build phase's
+    launch and ptxas report of the cluster kernels."""
     gen = torch.Generator(device=dev).manual_seed(3)
     sde = SubVPSDE(N=1000)
     net, coefs = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev)
@@ -878,6 +913,8 @@ def phase_completion_kernels(model, dev):
     torch.cuda.synchronize()
     e5, tol5 = err(pert, ref), 1e-4 * max(1.0, float(ref.abs().max()))
     check(e5 <= tol5, f"comp_perturb: max abs err {e5} > {tol5}")
+    # the perturbation rounds each operation on its own, as the torch ops do
+    check(torch.equal(pert, ref), "comp_perturb: not bit-equal to its plain version")
     c1 = coefc.clone()
     c1[:, 0], c1[:, 1] = 0.0, 1.0  # then pert is the draw
     draws = []
@@ -897,7 +934,7 @@ def phase_completion_kernels(model, dev):
         replaces=TPU_COMP_KERNEL,
         replaces_part="fused_comp.py:116-117 (box_muller draw and the marginal perturbation)",
         shape="[1000,63], in-kernel normals", max_abs_err=e5, tol="1e-4*max(1,|ref|max)",
-        normals_mean_std_n=m5,
+        normals_mean_std_n=m5, bit_equal_to_plain=True,
         ms=graph_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=5)),
         eager_ms=eager_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=5)),
         plain_ms=graph_ms(lambda: fused_comp.comp_perturb_plain(x, coefc, t, z)),
@@ -977,6 +1014,93 @@ def phase_completion_kernels(model, dev):
         library_ms=graph_ms(adam_library), library_max_abs_err_x_m1_v=lib6_e,
         library="composite: bf16 torch.addmm + the denoise, gradient and Adam in torch ops",
         bound_ms=bms, bound_by=by))
+
+    # K6's perturbing instantiation: the Adam step, then step t + 1's
+    # perturbation of the new x (the solver's steps but its last), against
+    # K6 -> K5 bit for bit at 1, 37, 500 and 1,000 rows, host and in-kernel
+    # normals
+    zn = torch.randn(RC, D, generator=gen, device=dev)  # step t + 1's host normals
+    st0 = (x, pert, obs, mask, m1, v)
+
+    def fold(st, host=True, rows=RC):
+        nz = dict(noise=zn[:rows]) if host else dict(seed=13)
+        fused_comp.head_adam_perturb(hid[:rows], wp, bp, coefc, t, *st, **nz)
+
+    def unfused(st, host=True, rows=RC):
+        nz = dict(noise=zn[:rows]) if host else dict(seed=13)
+        fused_comp.head_adam(hid[:rows], wp, bp, coefc, t, *st)
+        fused_comp.comp_perturb(st[0], st[1], coefc, t + 1, **nz)
+
+    same = {}
+    for rows_ in (1, 37, 500, RC):
+        for host in (True, False):
+            got, want = ([w[:rows_].clone() for w in st0] for _ in range(2))
+            fold(got, host, rows_)
+            unfused(want, host, rows_)
+            torch.cuda.synchronize()
+            same[f"{rows_} {'host' if host else 'kernel'}"] = all(
+                torch.equal(a, b) for a, b in zip(got, want))
+    check(all(same.values()), f"head_adam_perturb: not bit-equal to K6 -> K5 ({same})")
+    ref = [w.clone() for w in st0]
+    fused_comp.head_adam_perturb_plain_into(hid, wp, bp, coefc, t, *ref, noise=zn)
+    got = [w.clone() for w in st0]
+    fold(got)
+    torch.cuda.synchronize()
+    # x, m1, v and pert: each to a thousandth of its own range, as K6's
+    ef = [err(got[j], ref[j]) for j in (0, 4, 5, 1)]
+    tolf = [1e-3 * max(1.0, float(ref[0].abs().max())), 1e-3 * float(ref[4].abs().max()),
+            1e-3 * float(ref[5].abs().max()), 1e-3 * max(1.0, float(ref[1].abs().max()))]
+    check(all(a <= b for a, b in zip(ef, tolf)), f"head_adam_perturb: errors {ef} > {tolf}")
+    runs = []
+    for _ in range(1 + REPEATS):
+        st = [w.clone() for w in st0]
+        fold(st, host=False)
+        runs.append(st)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for run in runs[1:] for a, b in zip(run, runs[0])),
+          f"head_adam_perturb: {REPEATS} repeated calls are not bit-identical")
+    # K6's bytes, the pert write and (host slabs) the normals' read; the draw
+    # ~113 fp32 operations an element (as K5's)
+    bms, by = bound(n6 + 4 * RC * D, 2 * RC * H * D, (20 + 113) * RC * D)
+    bms_host, by_host = bound(n6 + 2 * 4 * RC * D, 2 * RC * H * D, 23 * RC * D)
+    cm1, cs1 = float(coefc[t + 1, 0]), float(coefc[t + 1, 1])
+
+    def perturb_adam_library():  # composite: K6's, then the perturbation in torch ops
+        xn, m1n, vn = adam_library()
+        return torch.add(xn * cm1, zn, alpha=cs1), xn, m1n, vn
+
+    libf = perturb_adam_library()
+    wantf = [ref[1], ref[0], ref[4], ref[5]]
+    libf_e = [float((a - b).abs().max()) for a, b in zip(libf, wantf)]
+    stt = [w.clone() for w in st0]
+    ptx = clusters["head_adam_perturb"]["ptxas"]
+    rows.append(dict(
+        name="head_adam_perturb", route="cuda", source=f"{CSRC}/head_adam.cu",
+        design="head_adam.cu's body with the next step's perturbation in the epilogue: "
+               "head_cluster.cuh Tile<4>, split-K over clusters of 4 CTAs",
+        launch=cluster_launch("head_adam", RC, H, kernel="head_adam_perturb"),
+        registers=[e["registers"] for e in ptx], spills=[e["spills"] for e in ptx],
+        ctas_per_sm_by_registers=[e.get("ctas_per_sm_by_registers") for e in ptx],
+        repeats_bit_identical=REPEATS, bit_equal_to_unfused=same,
+        replaces=TPU_COMP_KERNEL,
+        replaces_part="fused_comp.py:118-127 (fwd's post-dense, one-step denoise, gradient, "
+                      "Adam), :116-117 (the next step's box_muller draw and perturbation)",
+        shape="[1000,1024]x[1024,63], in-kernel normals", max_abs_err=max(ef),
+        tol="x, pert 1e-3*max(1,|ref|max); m1, v 1e-3*|ref|max", errs_x_m1_v_pert=ef,
+        tols_x_m1_v_pert=tolf,
+        ms=graph_ms(lambda: fold(stt, host=False)),
+        eager_ms=eager_ms(lambda: fused_comp.head_adam_perturb(hid, wp, bp, coefc, t, *stt,
+                                                               seed=13)),
+        host_ms=graph_ms(lambda: fold(stt)), host_bound_ms=bms_host, host_bound_by=by_host,
+        unfused_ms=graph_ms(lambda: unfused(stt, host=False)),
+        unfused_eager_ms=eager_ms(lambda: unfused(stt, host=False)),
+        plain_ms=graph_ms(lambda: fused_comp.comp_perturb_plain(
+            fused_comp.head_adam_plain(hid, wp, bp, coefc, t, x, pert, obs, mask, m1, v)[0],
+            coefc, t + 1, zn)),
+        library_ms=graph_ms(perturb_adam_library), library_max_abs_err_pert_x_m1_v=libf_e,
+        library="composite: bf16 torch.addmm + the denoise, gradient and Adam in torch ops, "
+                "then torch.mul + torch.add, host normals",
+        bound_ms=bms, bound_by=by))
     for r in rows:
         kernel_row_line(r)
         if "launch" in r:
@@ -988,6 +1112,12 @@ def phase_completion_kernels(model, dev):
             print(f"    bit-equal to K2 -> K4 -> K4: {r['bit_equal_to_unfused']}; one re-noise "
                   f"{r['one_pass_ms'] * 1e3:.2f} us; unfused K2 + 2 x K4 "
                   f"{r['unfused_ms'] * 1e3:.2f} us (eager {r['unfused_eager_ms'] * 1e3:.2f})")
+        if r["name"] == "head_adam_perturb":
+            print(f"    bit-equal to K6 -> K5: {r['bit_equal_to_unfused']}; host normals "
+                  f"{r['host_ms'] * 1e3:.2f} us (bound {r['host_bound_ms'] * 1e3:.2f}); "
+                  f"unfused K6 + K5 {r['unfused_ms'] * 1e3:.2f} us (eager "
+                  f"{r['unfused_eager_ms'] * 1e3:.2f}); registers {r['registers']}, CTAs an SM "
+                  f"by registers {r['ctas_per_sm_by_registers']}, {r['spills']}")
 
     # K1 at completion's 1000 rows: checked, and timed for the device shares
     tp, W, gs, gb = netc["tp_all"][t], netc["W"], netc["gn_scale"], netc["gn_bias"]
@@ -1126,6 +1256,13 @@ def phase_completion_protocols(model, dev):
     comp = DPoserComp(sde, model=model, time_strategy="3", backend="cuda", device=dev)
     walls, hypos = timed_calls(lambda: comp.optimize_hypos(obs, mask, HYPO, gen))
     by_run["solver_100x10_2x100"] = fused_em.launch_counts()
+    c = by_run["solver_100x10_2x100"]
+    per_solve = {k: c[k] for k in ("comp_perturb", "dense_gn_silu", "head_adam_perturb",
+                                   "head_adam")}
+    print(f"[completion] solver launches a solve: {per_solve}")
+    # K5 at the first step; K6 perturbs for every later one but pastes at the last
+    check(per_solve == dict(comp_perturb=1, dense_gn_silu=1000, head_adam_perturb=199,
+                            head_adam=1), f"solver: launches a solve {per_solve}")
     check(hypos.shape == (100, HYPO, D) and torch.isfinite(hypos).all().item(), "solver output")
     check(torch.equal(hypos * mask[:, None], (obs * mask)[:, None].expand_as(hypos)),
           "solver: observed dims are not pasted exactly")
@@ -2789,7 +2926,8 @@ def main():
         with torch.no_grad():
             model = load_pinned(dev)
             rows = phase_kernels(model, dev)
-            comp_rows, k1_rc = phase_completion_kernels(model, dev)
+            comp_rows, k1_rc = phase_completion_kernels(model, dev,
+                                                        wgmma_build["cluster_kernels"])
             rows += comp_rows
             rows += phase_ode_kernels(model, dev)
             t0 = time.perf_counter()
@@ -2844,9 +2982,11 @@ def main():
           f"{1000 * metrics_step:.1f} ms for the 500 x 1000 sampling, "
           f"~{100 * met['device_share_of_protocol_wall_est']:.0f}% of the protocol's wall "
           f"(build + 50-pose demo + sampling + APD)")
-    # the same estimate for a solve: 200 steps of K5, K1 x5 and K6 at 1000 rows
+    # the same estimate for a solve at 1000 rows: K5 once, 200 steps of K1 x5,
+    # K6's perturbing instantiation at the first 199 and K6 at the last
     fwd_rc = k1_rc["pre"] + 2 * k1_rc["block"] + 2 * k1_rc["block+residual"]
-    solve_ms = 200 * (ms["comp_perturb"] + fwd_rc + ms["head_adam"])
+    solve_ms = (ms["comp_perturb"] + 199 * ms["head_adam_perturb"] + ms["head_adam"]
+                + 200 * fwd_rc)
     sol = comp["results"]["solver"]
     sol["device_ms_per_call_est"] = solve_ms
     sol["device_busy_share_est"] = solve_ms / (1e3 * sol["wall_s"])

@@ -84,4 +84,12 @@ __device__ __forceinline__ float masked_renoise(float x, float m, float obs, flo
                    __fmul_rn(__fadd_rn(__fmul_rn(mc, obs), __fmul_rn(sd, z)), m));
 }
 
+// The marginal perturbation of one element, c_m*x + c_s*z. Each operation
+// rounds on its own (no contraction into an FMA), in the order the plain
+// version's torch ops take, so K5 and K6's perturbing epilogue give the same
+// bits as each other and as the plain version on the same normals.
+__device__ __forceinline__ float comp_perturb(float cm, float x, float cs, float z) {
+  return __fadd_rn(__fmul_rn(cm, x), __fmul_rn(cs, z));
+}
+
 }  // namespace dposer

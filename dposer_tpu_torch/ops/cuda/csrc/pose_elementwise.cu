@@ -14,7 +14,9 @@
 //   Replaces: the marginal perturbation that opens every Adam step of the TPU
 //   completion kernel, dposer_tpu/ops/pallas/fused_comp.py::_make_kernel
 //   (:116-117). c_m and c_s are columns 0 and 1 of the step's row of its
-//   coefs [T, 8].
+//   coefs [T, 8]. K6's perturbing instantiation (head_adam.cu) writes every
+//   later step's perturbation from the new x in its epilogue; K5 runs at a
+//   solve's first step.
 //
 // z is the host slab noise [R, D] or, when that is null, the Philox normal
 // keyed by (seed, step, slab, row, column): the same stream K2 and K3 draw
@@ -28,8 +30,8 @@
 //
 // Design: one thread per element, 256 threads a block, the step's scalars
 // read from the device table so the host loop never synchronizes. Nothing is
-// staged: every byte is touched once. K4's arithmetic is common.cuh's
-// masked_renoise, which rounds each operation on its own.
+// staged: every byte is touched once. K4's and K5's arithmetic is common.cuh's
+// masked_renoise and comp_perturb, which round each operation on their own.
 
 #include <cuda_runtime.h>
 
@@ -60,7 +62,7 @@ comp_perturb_kernel(const float* __restrict__ x, float* __restrict__ pert,
   if (idx >= R * D) return;
   const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
   const float z = dposer::draw_normal(noise, seed, step, slab, idx / D, idx % D, D);
-  pert[idx] = cf[0] * x[idx] + cf[1] * z;
+  pert[idx] = dposer::comp_perturb(cf[0], x[idx], cf[1], z);
 }
 
 inline int blocks_for(int R, int D) { return (R * D + THREADS - 1) / THREADS; }

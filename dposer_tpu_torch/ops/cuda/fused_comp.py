@@ -6,13 +6,16 @@ denoised estimate is detached, so every step is a forward-only network
 evaluation plus elementwise arithmetic, and both losses are means of
 per-element terms, so the gradient never couples rows. The TPU runs the whole
 loop as one program with the weights resident on-core; here each step is
-seven launches on one stream, with no host synchronization in the loop:
+six launches on one stream, with no host synchronization in the loop:
 
-- K5 ``comp_perturb``: ``pert = c_m*x + c_s*z`` (the marginal perturbation);
+- K5 ``comp_perturb``: ``pert = c_m*x + c_s*z`` (the marginal perturbation),
+  at a solve's first step only;
 - K1 ``dense_gn_silu`` (``score_net.py``) x (1 + 2*n_blocks): the hidden layers;
 - K6 ``head_adam``: the output head fused with the one-step denoise, the
-  gradient and the Adam update, ``x``, ``m1`` and ``v`` in place; on the last
-  step it also pastes the observed dims.
+  gradient and the Adam update, ``x``, ``m1`` and ``v`` in place; before the
+  last step as ``head_adam_perturb``, which then writes the next step's
+  ``pert`` from the new ``x`` (K5's work at that step, bit for bit), and on
+  the last step with the paste of the observed dims.
 
 The step's scalars come from the device table ``coefs [T, 8]``: c_m, c_s, ca,
 cb, cd, cp, clr, cv, with ``x0_hat = ca*pert + cb*raw``, ``cd = 2*w_data/n``
@@ -36,7 +39,7 @@ from ...diffusion.fast_sampler import _corrector_tables, _labels_for
 from ...diffusion.sde import SDE
 from ...tasks.prior import sample_quan_t
 from . import build
-from .fused_em import _check_coefs, _noise_args, draw_seed, resolve_device
+from .fused_em import _check_coefs, _noise_args, draw_seed, host_slabs, resolve_device
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
                         dense_gn_silu, dense_gn_silu_plain_into, network_hidden)
 
@@ -48,7 +51,8 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 # ---------------------------------------------------------------------------
 
 def comp_perturb_plain(x, coefs, step, noise):
-    """Plain K5: ``c_m*x + c_s*z`` with the step's columns 0, 1 of ``coefs``."""
+    """Plain K5: ``c_m*x + c_s*z`` with the step's columns 0, 1 of ``coefs``,
+    each operation rounded on its own (the kernels' order)."""
     return coefs[step, 0] * x + coefs[step, 1] * noise
 
 
@@ -122,6 +126,15 @@ def head_adam_plain_into(h, w_post, b_post, coefs, step: int, x, pert, obs, mask
         dst.copy_(src)
 
 
+def head_adam_perturb_plain_into(h, w_post, b_post, coefs, step: int, x, pert, obs, mask,
+                                 m1, v, *, noise=None, seed=None, slab: int = 0):
+    """The plain version with ``head_adam_perturb``'s signature, on any
+    device: plain K6 at ``step``, then plain K5 at ``step + 1`` on the new
+    ``x`` into ``pert`` (host normals only)."""
+    head_adam_plain_into(h, w_post, b_post, coefs, step, x, pert, obs, mask, m1, v)
+    comp_perturb_plain_into(x, pert, coefs, step + 1, noise=noise, seed=seed, slab=slab)
+
+
 def _head_adam_fn():
     fn = build.load("head_adam").dposer_head_adam
     if fn.argtypes is None:
@@ -131,14 +144,14 @@ def _head_adam_fn():
     return fn
 
 
-def head_adam(h, w_post, b_post, coefs, step: int, x, pert, obs, mask, m1, v,
-              paste: bool = False):
-    """K6 on ``h`` [R, H]: one Adam step of ``x`` [R, D] with its moments
-    ``m1``, ``v``, all in place; ``paste`` then overwrites the observed dims
-    of ``x`` with ``obs`` (the solver's last step)."""
+def _check_adam(name, h, w_post, b_post, coefs, step, x, pert, obs, mask, m1, v):
+    """K6's operands on one CPU or CUDA device, and the kernel's limits on
+    H there; returns ``(R, H, D, device)``."""
     R, H = h.shape
     D = x.shape[1]
     dev = h.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
     _check("h", h, dev, torch.float32, (R, H))
     _check("w_post", w_post, dev, torch.bfloat16, (H, HEAD_COLS))
     _check("b_post", b_post, dev, torch.float32, (HEAD_COLS,))
@@ -148,13 +161,31 @@ def head_adam(h, w_post, b_post, coefs, step: int, x, pert, obs, mask, m1, v,
         _check(nm, t, dev, torch.float32, (R, D))
     if D > HEAD_COLS:
         raise ValueError(f"pose dim {D} > {HEAD_COLS}")
+    if dev.type == "cuda" and (H % 64 or H > 1024):
+        raise ValueError(f"{name} kernel needs H % 64 == 0 and H <= 1024; got {H}")
+    return R, H, D, dev
+
+
+def head_adam(h, w_post, b_post, coefs, step: int, x, pert, obs, mask, m1, v,
+              paste: bool = False, *, perturb_next=None):
+    """K6 on ``h`` [R, H]: one Adam step of ``x`` [R, D] with its moments
+    ``m1``, ``v``, all in place; ``paste`` then overwrites the observed dims
+    of ``x`` with ``obs`` (the solver's last step).
+
+    ``perturb_next=dict(noise=..., seed=..., slab=0)`` (``head_adam_perturb``)
+    then writes step ``step + 1``'s perturbation of the new ``x`` into
+    ``pert``: K5 at that step, bit for bit. It never pastes."""
+    if perturb_next is not None:
+        if paste:
+            raise ValueError("perturb_next: the paste step (the solver's last) perturbs "
+                             "no next step")
+        return head_adam_perturb(h, w_post, b_post, coefs, step, x, pert, obs, mask, m1, v,
+                                 **perturb_next)
+    R, H, D, dev = _check_adam("head_adam", h, w_post, b_post, coefs, step, x, pert, obs,
+                               mask, m1, v)
     if dev.type == "cpu":
         return head_adam_plain_into(h, w_post, b_post, coefs, step, x, pert, obs, mask,
                                     m1, v, paste)
-    if dev.type != "cuda":
-        raise ValueError(f"head_adam runs on cpu or cuda, not {dev}")
-    if H % 64 or H > 1024:
-        raise ValueError(f"head_adam kernel needs H % 64 == 0 and H <= 1024; got {H}")
     err = _head_adam_fn()(h.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
                           coefs.data_ptr(), step, x.data_ptr(), pert.data_ptr(),
                           obs.data_ptr(), mask.data_ptr(), m1.data_ptr(), v.data_ptr(),
@@ -165,6 +196,46 @@ def head_adam(h, w_post, b_post, coefs, step: int, x, pert, obs, mask, m1, v,
 
 
 head_adam.launches = 0
+
+
+def _head_adam_perturb_fn():
+    fn = build.load("head_adam").dposer_head_adam_perturb
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [P, P, P, P, I, P, P, P, P, P, P, P, ctypes.c_ulonglong, I, I, I, I, P]
+        fn.restype = I
+    return fn
+
+
+def head_adam_perturb(h, w_post, b_post, coefs, step: int, x, pert, obs, mask, m1, v, *,
+                      noise=None, seed=None, slab: int = 0):
+    """K6's perturbing instantiation: ``head_adam(..., perturb_next=...)``,
+    launched and counted on its own. After the Adam step (no paste) it
+    writes ``pert`` <- ``c_m*x + c_s*z`` with row ``step + 1`` of ``coefs``
+    and the host normals ``noise`` [R, D] or, with ``seed``, the in-kernel
+    draw (seed, step + 1, slab): K5 at step + 1."""
+    R, H, D, dev = _check_adam("head_adam_perturb", h, w_post, b_post, coefs, step, x, pert,
+                               obs, mask, m1, v)
+    if step + 1 >= coefs.shape[0]:
+        raise ValueError(f"head_adam_perturb: step {step} is the table's last; no step "
+                         f"{step + 1} to perturb for")
+    if pert.data_ptr() == x.data_ptr():
+        raise ValueError("pert must not alias x: the kernel reads both")
+    _noise_args("head_adam_perturb", noise, seed, dev, (R, D))
+    if dev.type == "cpu":
+        return head_adam_perturb_plain_into(h, w_post, b_post, coefs, step, x, pert, obs,
+                                            mask, m1, v, noise=noise)
+    err = _head_adam_perturb_fn()(h.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
+                                  coefs.data_ptr(), step, x.data_ptr(), pert.data_ptr(),
+                                  obs.data_ptr(), mask.data_ptr(), m1.data_ptr(),
+                                  v.data_ptr(), _ptr(noise), 0 if seed is None else seed,
+                                  slab, R, H, D, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"head_adam_perturb launch failed: CUDA error {err}")
+    head_adam_perturb.launches += 1
+
+
+head_adam_perturb.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -209,18 +280,31 @@ def build_solver_operands(sde: SDE, model, n_elems: int, lr: float, iterations: 
 
 
 def adam_step(net: dict, coefs, i: int, x, m1, v, obs, mask, scratch: dict, noise, *,
-              seed=None, paste: bool = False, plain: bool = False) -> None:
+              seed=None, paste: bool = False, plain: bool = False, perturbed: bool = False,
+              perturb_next: bool = False, next_noise=None) -> None:
     """Adam step ``i`` on ``x`` [R, D] and its moments in place. ``noise`` is
     the step's host normals [R, D], or None with ``seed`` for in-kernel
     normals. ``scratch`` holds ``pert`` [R, D] and ``h``, ``h1`` [R, H].
-    ``plain=True`` runs the kernels' plain versions instead, on any device."""
-    perturb, layer, head = ((comp_perturb_plain_into, dense_gn_silu_plain_into,
-                             head_adam_plain_into) if plain else
-                            (comp_perturb, dense_gn_silu, head_adam))
+    ``perturbed``: step ``i - 1``'s K6 already wrote this step's ``pert``,
+    so K5 does not run. ``perturb_next``: K6 writes step ``i + 1``'s ``pert``
+    from the new ``x`` (``head_adam_perturb``), from ``next_noise`` (host
+    normals [R, D]) or ``seed``. ``plain=True`` runs the kernels' plain
+    versions instead, on any device."""
+    if perturb_next and paste:
+        raise ValueError("the paste step (the solver's last) perturbs no next step")
+    perturb, layer, head, head_next = (
+        (comp_perturb_plain_into, dense_gn_silu_plain_into, head_adam_plain_into,
+         head_adam_perturb_plain_into) if plain else
+        (comp_perturb, dense_gn_silu, head_adam, head_adam_perturb))
     pert, h, h1 = scratch["pert"], scratch["h"], scratch["h1"]
-    perturb(x, pert, coefs, i, noise=noise, seed=seed)
+    if not perturbed:
+        perturb(x, pert, coefs, i, noise=noise, seed=seed)
     network_hidden(net, pert, i, h, h1, layer)
-    head(h, net["w_post"], net["b_post"], coefs, i, x, pert, obs, mask, m1, v, paste)
+    args = (h, net["w_post"], net["b_post"], coefs, i, x, pert, obs, mask, m1, v)
+    if perturb_next:
+        head_next(*args, noise=next_noise, seed=seed)
+    else:
+        head(*args, paste)
 
 
 def solver_scratch(net: dict, rows: int, device) -> dict:
@@ -244,10 +328,14 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
     mean losses divide by (ref completion.py:196-201), not rows*D.
 
     ``rng_mode="host"`` draws each step's perturbation normals [R, D] from
-    the generator (``noise=[T, R, D]`` injects them); ``"kernel"`` draws them
-    in K5 (card only). Tables and operands are built once here; a call
-    launches the kernels only. ``plain=True`` runs the same loop on the
-    kernels' plain versions (host normals only), on any device.
+    the generator, one step early and in step order (``noise=[T, R, D]``
+    injects them); ``"kernel"`` draws them in K5 and K6 (card only). Tables
+    and operands are built once here; a call launches the kernels only: K5
+    at the first step, K6 with the next step's perturbation
+    (``head_adam_perturb``) before the last, K6 with the paste at the last.
+    ``plain=True`` runs the unfused loop (K5, K1, K6 every step) on the
+    kernels' plain versions (host normals only), on any device: the
+    reference the fold is held to.
     """
     if rng_mode not in ("host", "kernel"):
         raise ValueError(f"rng_mode must be 'host' or 'kernel', got {rng_mode!r}")
@@ -271,6 +359,7 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
                                        sample_time, eps, device)
     if net["dim"] != dim:
         raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
+    fold = not plain  # K6 perturbs for the next step; K5 runs once a solve
 
     @torch.no_grad()
     def solve(generator: Optional[torch.Generator], observation, mask, noise=None):
@@ -287,13 +376,13 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
         m1, v = torch.zeros_like(x), torch.zeros_like(x)
         scratch = solver_scratch(net, rows, device)
         seed = draw_seed(generator) if rng_mode == "kernel" else None
-        z = None
-        for i in range(total_steps):
-            if rng_mode == "host":
-                z = (noise[i] if noise is not None else
-                     torch.randn((rows, dim), generator=generator, device=device))
-            adam_step(net, coefs, i, x, m1, v, obs, msk, scratch, z, seed=seed,
-                      paste=i == total_steps - 1, plain=plain)
+        steps = (host_slabs(noise, 0, total_steps, (rows, dim), generator, device)
+                 if rng_mode == "host" else ((None, None) for _ in range(total_steps)))
+        for i, (z, z_next) in enumerate(steps):
+            last = i == total_steps - 1
+            adam_step(net, coefs, i, x, m1, v, obs, msk, scratch, z, seed=seed, paste=last,
+                      plain=plain, perturbed=fold and i > 0, perturb_next=fold and not last,
+                      next_noise=z_next)
         return x
 
     return solve

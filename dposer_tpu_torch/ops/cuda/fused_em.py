@@ -379,14 +379,15 @@ masked_renoise.launches = 0
 
 def _counted():
     from .chain_link import chain_link
-    from .fused_comp import comp_perturb, head_adam  # they import this module
+    from .fused_comp import comp_perturb, head_adam, head_adam_perturb  # they import this module
     from .fused_lik import head_rk4_jvp
     from .fused_ode import head_rk4
     from .fused_train import dense_gn_silu_bwd, dense_gn_silu_train, head_dsm
 
     return (dense_gn_silu, head_em, head_em_impute, langevin_update, masked_renoise,
-            comp_perturb, head_adam, dense_gn_silu_jvp, head_rk4, head_rk4_jvp,
-            dense_gn_silu_train, head_dsm, dense_gn_silu_bwd, dense_gn_silu_int8, chain_link)
+            comp_perturb, head_adam, head_adam_perturb, dense_gn_silu_jvp, head_rk4,
+            head_rk4_jvp, dense_gn_silu_train, head_dsm, dense_gn_silu_bwd, dense_gn_silu_int8,
+            chain_link)
 
 
 def launch_counts() -> dict:

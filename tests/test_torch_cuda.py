@@ -15,7 +15,7 @@ from dposer_tpu_torch.models import ScoreModelFC
 from dposer_tpu_torch.ops.cuda import (fused_comp, fused_em, fused_lik, fused_ode, philox,
                                        score_net)
 from dposer_tpu_torch.ops.cuda.fused_comp import (comp_perturb, get_cuda_comp_solver,
-                                                  head_adam)
+                                                  head_adam, head_adam_perturb)
 from dposer_tpu_torch.ops.cuda.fused_em import (get_cuda_em_sampler, head_em,
                                                 langevin_update, launch_counts,
                                                 masked_renoise, reset_launch_counts)
@@ -282,6 +282,59 @@ def test_comp_perturb(dev):
     assert abs(float(zk.mean())) < 0.01 and abs(float(zk.std()) - 1.0) < 0.01
 
 
+# K5 on host normals: the same bits as its plain version (no contraction)
+@pytest.mark.parametrize("B", [1, 37, 1000])
+def test_comp_perturb_bit_equal_to_plain(dev, B):
+    rng = np.random.default_rng(B)
+    x, z = _t(rng, (B, 63), dev), _t(rng, (B, 63), dev)
+    coefs = torch.from_numpy(rng.uniform(0.1, 1.5, size=(4, 8)).astype(np.float32)).to(dev)
+    pert = torch.empty_like(x)
+    comp_perturb(x, pert, coefs, 2, noise=z)
+    torch.cuda.synchronize()
+    assert torch.equal(pert, fused_comp.comp_perturb_plain(x, coefs, 2, z))
+
+
+def _adam_operands(dev, B, seed=18):
+    h, w_post, b_post, coefs, x, pert = _head(dev, B=B, seed=seed)
+    rng = np.random.default_rng(seed)
+    obs, zn = _t(rng, x.shape, dev), _t(rng, x.shape, dev)
+    mask = (torch.rand(x.shape, device=dev) < 0.5).float()
+    m1, v = _t(rng, x.shape, dev, 0.1), _t(rng, x.shape, dev, 0.01).abs()
+    return (h, w_post, b_post, coefs), [x, pert, obs, mask, m1, v], zn
+
+
+# K6's tiles, as test_head_adam, with one pose and generation's 500 rows;
+# host slabs and in-kernel draws
+@pytest.mark.parametrize("B", [1, 37, 500, 1000])
+@pytest.mark.parametrize("rng_mode", ["host", "kernel"])
+def test_head_adam_perturb_is_head_adam_then_comp_perturb(dev, B, rng_mode):
+    """K6's perturbing instantiation against K6 -> K5 at the next step on
+    the same normals: the same bits in x, m1, v and pert (the perturbation
+    rounds each operation on its own in both kernels)."""
+    args, state, zn = _adam_operands(dev, B)
+    step, slab = 1, 0
+    nz = dict(noise=zn) if rng_mode == "host" else dict(seed=4243)
+    got = [t.clone() for t in state]
+    reset_launch_counts()
+    head_adam_perturb(*args, step, *got, slab=slab, **nz)
+    torch.cuda.synchronize()
+    c = launch_counts()
+    assert (c["head_adam_perturb"], c["head_adam"], c["comp_perturb"]) == (1, 0, 0)
+    want = [t.clone() for t in state]
+    head_adam(*args, step, *want)
+    comp_perturb(want[0], want[1], args[3], step + 1, slab=slab, **nz)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # and the plain version on the same host slab, within K6's bound
+    if rng_mode == "host":
+        ref = [t.clone() for t in state]
+        fused_comp.head_adam_perturb_plain_into(*args, step, *ref, noise=zn)
+        for a, b, floor in zip(got, ref, (1.0, 1.0, 1.0, 1.0, 0.0, 0.0)):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-3 * max(floor, float(b.abs().max())))
+
+
 # K6's tiles: a ragged one (37 rows: 2 whole tiles and 5 poses) and the
 # solver's 1,000 rows (63 tiles, the last of 8 poses)
 @pytest.mark.parametrize("B", [37, 1000])
@@ -328,8 +381,9 @@ def test_kernel_solver_matches_plain_loop(dev):
     out = get_cuda_comp_solver(sde, model, (rows, 63), rows * 63, **kw)(
         None, obs, mask, noise=noise)
     counts = launch_counts()
-    assert (counts["comp_perturb"], counts["dense_gn_silu"], counts["head_adam"]) == \
-        (steps, 5 * steps, steps)
+    # K5 at the first step only: K6 writes every later step's perturbation
+    assert (counts["comp_perturb"], counts["dense_gn_silu"], counts["head_adam_perturb"],
+            counts["head_adam"]) == (1, 5 * steps, steps - 1, 1)
     torch.testing.assert_close(out, ref, rtol=0, atol=5e-3 * max(1.0, float(ref.abs().max())))
     assert torch.equal(out * mask, obs * mask)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -418,11 +472,18 @@ def test_head_em_impute_is_head_em_then_masked_renoise(dev, B, passes, rng_mode)
         torch.testing.assert_close(x_f, want, rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("kernel", ["head_adam", "head_em_impute"])
+@pytest.mark.parametrize("kernel", ["head_adam", "head_em_impute", "head_adam_perturb"])
 def test_cluster_heads_50_calls_bit_identical(dev, kernel):
-    """K6 and K2's imputation epilogue: 50 calls, the same bits."""
+    """K6, K2's imputation epilogue and K6's perturbing instantiation: 50
+    calls, the same bits."""
     outs = []
-    if kernel == "head_adam":
+    if kernel == "head_adam_perturb":
+        args, state, _ = _adam_operands(dev, 1000, seed=19)
+        for _ in range(50):
+            st = [t.clone() for t in state]
+            head_adam_perturb(*args, 2, *st, seed=9)
+            outs.append(st)
+    elif kernel == "head_adam":
         h, w_post, b_post, coefs, x, pert = _head(dev, B=1000, seed=15)
         rng = np.random.default_rng(15)
         obs = _t(rng, x.shape, dev)
