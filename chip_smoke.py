@@ -15,8 +15,9 @@ Phases; any failure exits non-zero:
    grid, cluster size, shared memory, the clusters the card holds at once
    and their registers; K2's instantiation without imputation and K6's
    without the next step's perturbation held by their ``cuobjdump -sass``
-   digests to the SASS they had before those instantiations existed (under
-   the nvcc the digests were recorded with); K6 and its perturbing
+   digests to recorded SASS (K6's from before its perturbing instantiation
+   existed, K2's from the source whose kernels read their seed from device
+   memory; under the nvcc the digests were recorded with); K6 and its perturbing
    instantiation with their registers, spills (none allowed) and CTAs an SM
    by registers; a ptxas line
    reporting serialized wgmma in K7 or K9 fails the phase; K10's and K12's instantiations with their registers,
@@ -51,7 +52,10 @@ Phases; any failure exits non-zero:
    three hops, each with 50 repeated calls bit-identical and K10's and K11's
    bounds at the handoff's bytes and at fp32 input; K8 at every stage and
    the denoise, with 50 repeated calls bit-identical;
-   K1 also at completion's [1000, 1024] residual block; K2's imputation mode
+   K1 also at completion's [1000, 1024] residual block; K2-K6's in-kernel
+   normals read their seed from device memory (timed with a seed tensor
+   made once), each within 0.3 us of its time in PERF.md's table
+   (``TABLE_US``; every other kernel's delta printed); K2's imputation mode
    (the EM update, then the re-noise of its step and of the next) also bit
    for bit against K2 -> K4 -> K4 under host and in-kernel normals, with 50
    repeated calls bit-identical, and K6 with 50 repeated calls bit-identical;
@@ -111,7 +115,17 @@ Phases; any failure exits non-zero:
    protocols, after the kernel step against the fp32 autograd step, whose
    kernel step must run K10's four K = 1024 layers on the Hopper route and
    its pre layer on the register route, and K12's five hops on the Hopper
-   route;
+   route; (k) the loops as CUDA graphs (``ops/cuda/graph_loop.py``, the
+   samplers' default on the card): every graphed route at its main path's
+   shape (generation, the metrics sampler, completion2 pc, ddim and hybrid,
+   int8 per channel and int8-mixed, the PF-Euler decode, PF-ODE sampling,
+   the likelihood, the 5c solve) bit-equal to its eager loop from the same
+   generator state with the same launch and route counts, another seed
+   giving other values in tensors of their own; 5a, 5c, 5e and 5g time
+   their eager loop beside the graph and print both walls, the graph's
+   warm-up, capture and instantiation seconds and the device's busy share
+   of each; (l) ``python -m dposer_tpu_torch.bench``'s line as run on the
+   card;
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -155,7 +169,8 @@ from dposer_tpu_torch.diffusion import fast_sampler as tfs  # noqa: E402
 from dposer_tpu_torch.diffusion import likelihood as tlik  # noqa: E402
 from dposer_tpu_torch.diffusion import losses as tlosses  # noqa: E402
 from dposer_tpu_torch.diffusion.score_fn import get_score_fn  # noqa: E402
-from dposer_tpu_torch.diffusion.sde import SubVPSDE  # noqa: E402
+from dposer_tpu_torch.diffusion import few_step  # noqa: E402
+from dposer_tpu_torch.diffusion.sde import SubVPSDE, sampling_eps_for  # noqa: E402
 from dposer_tpu_torch.benchmarks import ilp_probe, mxu_micro  # noqa: E402
 from dposer_tpu_torch.ops.cuda import (build, chain_link, fused_comp, fused_em,  # noqa: E402
                                        fused_lik, fused_ode, fused_train, philox, quant,
@@ -199,13 +214,28 @@ PART, HYPO = "left_leg", 10
 TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generation call
 DRAW_TOL = 1e-5  # in-kernel normals against the plain Philox stream (logf, cospif vs float64)
 REPEATS = 50  # repeated calls of K2, K3, K6-K12 that must give the same bits
-# The SASS of a kernel as the source before an instantiation was added
-# beside it compiled it (build.sass; sha256 of the text), and the nvcc that
-# compiled it: K2 without imputation (csrc/head_em.cu::head_em_kernel, EM and
-# score mode) and K6 without the next step's perturbation
-# (csrc/head_adam.cu::head_adam_kernel)
+GRAPH_SEED = 21  # the graph phase's generator seed (and GRAPH_SEED + 1)
+# Each kernel row's device us per launch in PERF.md's table before the seed
+# moved to device memory (as the run that last changed the kernel until then
+# measured it), and the kernels that read their seed from device memory
+TABLE_US = dict(dense_gn_silu=11.08, head_em=3.60, langevin_update=3.68, masked_renoise=1.83,
+                head_em_impute=4.94, comp_perturb=2.00, head_adam=4.45, head_adam_perturb=4.69,
+                dense_gn_silu_jvp=5.70, head_rk4=3.55, head_rk4_jvp=3.26,
+                dense_gn_silu_int8=7.01, chain_link=7.58, dense_gn_silu_train=18.39,
+                head_dsm=4.45, dense_gn_silu_bwd=18.78)
+SEED_KERNELS = ("head_em", "head_em_impute", "langevin_update", "masked_renoise", "comp_perturb",
+                "head_adam_perturb")
+# The SASS of a kernel as recorded from a source that compiled it beside an
+# instantiation added to its file (build.sass; sha256 of the text), and the
+# nvcc that compiled it: K2 without imputation (csrc/head_em.cu::
+# head_em_kernel, EM and score mode), recorded from the source whose kernels
+# read their seed from device memory (the graph loops' change; before it
+# 8020dc81..., recorded before the imputation instantiation), and K6 without
+# the next step's perturbation (csrc/head_adam.cu::head_adam_kernel),
+# recorded before the perturbing instantiation and unchanged by the seed's
+# move, since this kernel draws nothing
 K2_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
-               sha256="8020dc81140cef5a36a7ab6df570b6b4fc3afd624af13bd5b2432b7be78838cb")
+               sha256="878fe3d94d1d2aacabe0029453c17a7edc17d31d0592b5f6433a98ed3b9a4cb8")
 K6_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
                sha256="03b1a6bd6f40a81e41fc149024a423cf027c101d25243e95e333ca1e6a77ac17")
 
@@ -279,6 +309,28 @@ def timed_calls(fn, n=3):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     return walls, res
+
+
+_SEEDS = {}
+
+
+def dseed(s):
+    """The seed ``s`` as the kernels read it (a one-element int64 tensor on
+    the card), made once, so that a timed launch times the kernel alone and
+    not also the fill of a new seed tensor."""
+    if s not in _SEEDS:
+        _SEEDS[s] = fused_em.seed_tensor(s, torch.device("cuda", torch.cuda.current_device()))
+    return _SEEDS[s]
+
+
+def eager_twin(res, graph_fn, eager_call):
+    """Time the eager loop of a protocol whose default call replays a CUDA
+    graph (3 calls, the first warms up) and record its walls in ``res``
+    beside the graph's first-call seconds: warm-up, capture, instantiation."""
+    walls, _ = timed_calls(eager_call)
+    res.update(eager_wall_s=min(walls[1:]), eager_walls_s=walls,
+               graph_loops=[dict(warmup_s=lp.warmup_s, capture_s=lp.capture_s,
+                                 instantiate_s=lp.instantiate_s) for lp in graph_fn.loops])
 
 
 def err(out, ref):
@@ -402,11 +454,11 @@ def nvcc_release():
 
 def check_sass(lib, kept, added, recorded):
     """``kept`` (an entry function of ``lib``: K2's ``head_em_kernel``, K6's
-    ``head_adam_kernel``) must compile to the SASS it had before ``added``
-    was instantiated beside it: its ``cuobjdump -sass`` text (offsets,
-    instructions, encodings) hashes to the digest ``recorded`` from that
-    source under the same nvcc. Under another nvcc the digest is printed and
-    not compared."""
+    ``head_adam_kernel``) must compile to its recorded SASS while ``added``
+    is instantiated beside it: its ``cuobjdump -sass`` text (offsets,
+    instructions, encodings) hashes to the digest ``recorded`` under the same
+    nvcc (``K2_SASS``, ``K6_SASS`` say from which source). Under another
+    nvcc the digest is printed and not compared."""
     funcs = build.sass(build.library_path(lib))
     names = {k: [f for f in funcs if re.search(rf"{len(k)}{k}[EI]", f)] for k in (kept, added)}
     check(all(len(v) == 1 for v in names.values()), f"{lib}: entry functions {list(funcs)}")
@@ -414,12 +466,12 @@ def check_sass(lib, kept, added, recorded):
     digest = hashlib.sha256(text.encode()).hexdigest()
     release = nvcc_release()
     same = release == recorded["nvcc"]
-    print(f"[build] {kept} SASS: {len(text.splitlines())} lines, sha256 {digest[:16]}; before "
-          f"{added} {recorded['sha256'][:16]} under {recorded['nvcc']!r}: "
+    print(f"[build] {kept} SASS: {len(text.splitlines())} lines, sha256 {digest[:16]}; "
+          f"recorded {recorded['sha256'][:16]} under {recorded['nvcc']!r}, beside {added}: "
           + (("identical" if digest == recorded["sha256"] else "DIFFERENT") if same
              else f"not compared (this nvcc: {release!r})"))
     if same:
-        check(digest == recorded["sha256"], f"{kept}'s SASS differs from the one before {added}")
+        check(digest == recorded["sha256"], f"{kept}'s SASS differs from the recorded one")
     return dict(sha256=digest, nvcc=release, recorded=recorded, compared=same,
                 identical=digest == recorded["sha256"])
 
@@ -678,9 +730,10 @@ def phase_kernels(model, dev):
         shape="EM mode, in-kernel normals, [500,1024]x[1024,63]",
         max_abs_err=max(e2), tol="1e-3*max(1,|ref|max)", normals_mean_std_n=k2_moments,
         draws_max_abs_err=draw_e, repeats_bit_identical=REPEATS,
-        ms=graph_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "em", x=xt, seed=7, slab=1)),
+        ms=graph_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "em", x=xt, seed=dseed(7),
+                                             slab=1)),
         eager_ms=eager_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "em", x=xt,
-                                                   seed=7, slab=1)),
+                                                   seed=dseed(7), slab=1)),
         plain_ms=graph_ms(lambda: fused_em.head_em_plain(hid, wp, bp, coefs, i, "em", D,
                                                          x=x, noise=z)),
         score_mode_ms=graph_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "score",
@@ -739,9 +792,10 @@ def phase_kernels(model, dev):
         shape="[500,63], in-kernel normals", max_abs_err=e3, tol="1e-4*max(1,|ref|max)",
         normals_mean_std_n=k3_moments, draws_max_abs_err=draw_e3,
         repeats_bit_identical=REPEATS,
-        ms=graph_ms(lambda: fused_em.langevin_update(xt, score, sq, lc, i, 0.16, seed=5)),
+        ms=graph_ms(lambda: fused_em.langevin_update(xt, score, sq, lc, i, 0.16,
+                                                     seed=dseed(5))),
         eager_ms=eager_ms(lambda: fused_em.langevin_update(xt, score, sq, lc, i, 0.16,
-                                                           seed=5)),
+                                                           seed=dseed(5))),
         plain_ms=graph_ms(lambda: fused_em.langevin_update_plain(x, score, sq, lc, i,
                                                                  0.16, z)),
         library_ms=graph_ms(langevin_library),
@@ -815,9 +869,10 @@ def phase_completion_kernels(model, dev, clusters):
                       "around the predictor)",
         shape="[500,63], in-kernel normals", max_abs_err=e4, tol="1e-4*max(1,|ref|max)",
         normals_mean_std_n=m4, bit_equal_to_plain=k4_plain_equal,
-        ms=graph_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i, seed=5, slab=2)),
-        eager_ms=eager_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i, seed=5,
-                                                          slab=2)),
+        ms=graph_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i, seed=dseed(5),
+                                                    slab=2)),
+        eager_ms=eager_ms(lambda: fused_em.masked_renoise(xt, obs4, mask4, coefs, i,
+                                                          seed=dseed(5), slab=2)),
         plain_ms=graph_ms(lambda: fused_em.masked_renoise_plain(x4, obs4, mask4, coefs, i, z4)),
         library_ms=graph_ms(renoise_library), library_max_abs_err=lib4_e,
         library="composite: torch.add + torch.lerp on the mask, host normals",
@@ -834,16 +889,16 @@ def phase_completion_kernels(model, dev, clusters):
     hk = (hid4, wp, bp, coefs, i)
 
     def fused(xs, xm=None, host=True, passes=2):
-        nz = dict(noise=z4, renoise_noise=(zp, zn)[:passes]) if host else dict(seed=11)
+        nz = dict(noise=z4, renoise_noise=(zp, zn)[:passes]) if host else dict(seed=dseed(11))
         fused_em.head_em(*hk, "em", x=xs, x_mean=xm, slab=1, observed=obsd,
                          renoise_next=0 if passes == 2 else None, **nz)
 
     def unfused(xs, xm=None, host=True):
         fused_em.head_em(*hk, "em", x=xs, x_mean=xm, slab=1,
-                         **(dict(noise=z4) if host else dict(seed=11)))
+                         **(dict(noise=z4) if host else dict(seed=dseed(11))))
         for j, (zr, sl) in enumerate(((zp, 2), (zn, 0))):
             fused_em.masked_renoise(xs, *obsd, coefs, i + j, slab=sl,
-                                    **(dict(noise=zr) if host else dict(seed=11)))
+                                    **(dict(noise=zr) if host else dict(seed=dseed(11))))
 
     same = {}
     for host in (True, False):
@@ -935,8 +990,8 @@ def phase_completion_kernels(model, dev, clusters):
         replaces_part="fused_comp.py:116-117 (box_muller draw and the marginal perturbation)",
         shape="[1000,63], in-kernel normals", max_abs_err=e5, tol="1e-4*max(1,|ref|max)",
         normals_mean_std_n=m5, bit_equal_to_plain=True,
-        ms=graph_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=5)),
-        eager_ms=eager_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=5)),
+        ms=graph_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=dseed(5))),
+        eager_ms=eager_ms(lambda: fused_comp.comp_perturb(x, pert, coefc, t, seed=dseed(5))),
         plain_ms=graph_ms(lambda: fused_comp.comp_perturb_plain(x, coefc, t, z)),
         library_ms=graph_ms(perturb_library), library_max_abs_err=lib5_e,
         library="composite: torch.mul + torch.add, host normals",
@@ -1023,11 +1078,11 @@ def phase_completion_kernels(model, dev, clusters):
     st0 = (x, pert, obs, mask, m1, v)
 
     def fold(st, host=True, rows=RC):
-        nz = dict(noise=zn[:rows]) if host else dict(seed=13)
+        nz = dict(noise=zn[:rows]) if host else dict(seed=dseed(13))
         fused_comp.head_adam_perturb(hid[:rows], wp, bp, coefc, t, *st, **nz)
 
     def unfused(st, host=True, rows=RC):
-        nz = dict(noise=zn[:rows]) if host else dict(seed=13)
+        nz = dict(noise=zn[:rows]) if host else dict(seed=dseed(13))
         fused_comp.head_adam(hid[:rows], wp, bp, coefc, t, *st)
         fused_comp.comp_perturb(st[0], st[1], coefc, t + 1, **nz)
 
@@ -1090,7 +1145,7 @@ def phase_completion_kernels(model, dev, clusters):
         tols_x_m1_v_pert=tolf,
         ms=graph_ms(lambda: fold(stt, host=False)),
         eager_ms=eager_ms(lambda: fused_comp.head_adam_perturb(hid, wp, bp, coefc, t, *stt,
-                                                               seed=13)),
+                                                               seed=dseed(13))),
         host_ms=graph_ms(lambda: fold(stt)), host_bound_ms=bms_host, host_bound_by=by_host,
         unfused_ms=graph_ms(lambda: unfused(stt, host=False)),
         unfused_eager_ms=eager_ms(lambda: unfused(stt, host=False)),
@@ -1278,6 +1333,13 @@ def phase_completion_protocols(model, dev):
     print(f"[completion] solver 100 poses x {HYPO} hypotheses x 200 steps: "
           f"{100 * HYPO / wall:.1f} solves/s ({wall * 1e3:.1f} ms per call; calls "
           f"{['%.3f' % w for w in walls]} s), MPJPE {mpjpe:.1f} mm, MPVPE {mpvpe:.1f} mm")
+    eager = fused_comp.get_cuda_comp_solver(
+        sde, model, (100 * HYPO, D), 100 * D, lr=comp.lr, iterations=comp.iterations,
+        steps_per_iter=comp.steps_per_iter, time_strategy="3", sample_trun=comp.sample_trun,
+        sample_time=comp.sample_time, rng_mode="kernel", device=dev, loop="eager")
+    (graphed,) = comp._solvers.values()
+    eager_twin(res["solver"], graphed,
+               lambda: eager(gen, obs.repeat(HYPO, 1), mask.repeat(HYPO, 1)))
 
     # (d) the demo's completion tasks, 50 poses x 10 hypotheses
     for name, extra in (("completion", []),
@@ -1658,6 +1720,9 @@ def phase_ode_protocols(model, dev):
     print(f"[ode] PF-ODE sampling 500 x {ODE_STEPS} RK4 steps: {B / wall:.1f} poses/s "
           f"({wall * 1e3:.1f} ms per call; calls {['%.3f' % w for w in walls]} s), launches "
           f"{by_run['ode_500x125']}")
+    eager = fused_ode.get_cuda_ode_sampler(sde, model, (B, D), n_steps=ODE_STEPS, eps=1e-3,
+                                           device=dev, loop="eager")
+    eager_twin(res["ode_sampling"], sampler, lambda: eager(gen))
 
     # (f) the PF-Euler decode, 500 x 1000 at eps 1e-5
     decoder = demo.build_sampler(get_config(), sde, model, B, DECODE_EPS, "none", dev,
@@ -1730,6 +1795,9 @@ def phase_ode_protocols(model, dev):
         z_max_abs_err_fp32_vs_adaptive=float((z32 - z_ad).abs().max()), z_abs_max=scale,
         adaptive_nfe=nfe_ad, fp32_rk4_wall_s=t1 - t0, adaptive_wall_s=t2 - t1,
         launches=by_run["likelihood_50x100"])
+    eager = fused_lik.get_cuda_likelihood_fn(sde, model, (BL, D), n_steps=LIK_STEPS,
+                                             eps=LIK_EPS, device=dev, loop="eager")
+    eager_twin(res["likelihood"], lik, lambda: eager(None, data, epsilon=eps))
     print(f"[likelihood] {BL} x {LIK_STEPS} RK4 steps: {wall * 1e3:.1f} ms per batch (calls "
           f"{['%.3f' % w for w in walls]} s); a stage {stage_ms * 1e3:.1f} us of device time "
           f"(graph replay), {n_stages * stage_ms:.1f} ms a batch, busy {100 * busy:.0f}%; K7 "
@@ -1859,6 +1927,8 @@ def phase_protocols(model, dev):
     print(f"[generation] 500 x 1000 steps: {B / wall:.1f} poses/s best, "
           f"{gen_res['median_poses_per_s']:.1f} median "
           f"({wall * 1e3:.1f} ms per call; calls {['%.3f' % w for w in walls]} s)")
+    eager = demo.build_sampler(config, sde, model, B, 1e-3, "none", dev, loop="eager")
+    eager_twin(gen_res, sampler, lambda: eager(gen))
 
     # (b) the demo's generation task with --metrics, on the synthetic SMPL body
     os.makedirs(OUT, exist_ok=True)
@@ -1880,6 +1950,155 @@ def phase_protocols(model, dev):
                                                  launches=demo_counts),
                 by_run=dict(generation_500x1000=gen_counts,
                             demo_generation_metrics=demo_counts))
+
+
+# ---------------------------------------------------------------------------
+# the loops as CUDA graphs (ops/cuda/graph_loop.py)
+# ---------------------------------------------------------------------------
+
+def _tensors(out):
+    return tuple(out) if isinstance(out, tuple) else (out,)
+
+
+def graph_against_eager(name, build, call, dev, n_graphs=1):
+    """One graphed route at its main path's shape: ``build(loop)`` makes the
+    route's sampler, ``call(fn, generator)`` runs it once. The graph's first
+    call (warm-up, capture, replay) must give the eager call's bits from the
+    same generator state, with the same launch and route counts; a second
+    call from another seed must give other values in tensors of its own."""
+    eager, graph = build("eager"), build("graph")
+    kinds = ([lp.graph for lp in graph.loops], [lp.graph for lp in eager.loops])
+    check(kinds == ([True] * n_graphs, [False] * n_graphs), f"{name}: loops {kinds}")
+    outs, counts, walls = {}, {}, {}
+    for kind, fn in (("eager", eager), ("graph", graph)):
+        fused_em.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[kind] = _tensors(call(fn, torch.Generator(device=dev).manual_seed(GRAPH_SEED)))
+        torch.cuda.synchronize()
+        walls[kind] = time.perf_counter() - t0
+        counts[kind] = (fused_em.launch_counts(), fused_em.route_counts())
+    check(all(torch.equal(a, b) for a, b in zip(outs["graph"], outs["eager"])),
+          f"{name}: the graph is not bit-equal to the eager loop")
+    check(counts["graph"] == counts["eager"],
+          f"{name}: launches {counts['graph']} on the graph, {counts['eager']} eager")
+    again = _tensors(call(graph, torch.Generator(device=dev).manual_seed(GRAPH_SEED + 1)))
+    torch.cuda.synchronize()
+    check(not torch.equal(again[0], outs["graph"][0]),
+          f"{name}: another seed gave the graph's output again")
+    check(again[0].data_ptr() != outs["graph"][0].data_ptr(),
+          f"{name}: two calls returned the same tensor")
+    check(all(torch.isfinite(t).all().item() for t in outs["graph"] + again),
+          f"{name}: non-finite output")
+    loops = [dict(warmup_s=lp.warmup_s, capture_s=lp.capture_s,
+                  instantiate_s=lp.instantiate_s) for lp in graph.loops]
+    n = sum(counts["graph"][0].values())
+    print(f"[graph] {name}: bit-equal to eager, {n} launches a call on both, another seed "
+          f"differs; first call {walls['graph'] * 1e3:.1f} ms (eager {walls['eager'] * 1e3:.1f}"
+          f" ms); " + "; ".join(f"warm-up {lp['warmup_s'] * 1e3:.1f} ms, capture "
+                                f"{lp['capture_s'] * 1e3:.1f} ms, instantiate "
+                                f"{lp['instantiate_s'] * 1e3:.1f} ms" for lp in loops))
+    return dict(bit_equal=True, launches_equal=True, launches=n, other_seed_differs=True,
+                distinct_tensors=True, first_call_s=walls["graph"], eager_call_s=walls["eager"],
+                loops=loops)
+
+
+def phase_graphs(model, dev, amax):
+    """Every graphed route at its main path's shape, graph against eager:
+    generation (5a), the metrics sampler (langevin), completion2 pc, ddim and
+    hybrid (50 poses x 10 hypotheses), int8 per channel and int8-mixed, the
+    PF-Euler decode, PF-ODE sampling, the likelihood and the 5c solve."""
+    config = get_config()
+    sp = config.sampling
+    sde = SubVPSDE(N=1000)
+    eps = sampling_eps_for(sde)
+    poses = normalized_synthetic_poses(100, dev)
+    mask_rc, obs_rc = create_mask(poses, part=PART,
+                                  generator=torch.Generator(device=dev).manual_seed(5))
+    obs, mask = obs_rc[:50].contiguous(), mask_rc[:50].contiguous()  # completion2's 50
+    obs_rc, mask_rc = obs_rc.repeat(HYPO, 1), mask_rc.repeat(HYPO, 1)  # 5c's 1,000 rows
+    data = normalized_synthetic_poses(BL, dev)
+    kern = dict(rng_mode="kernel", device=dev)
+
+    def em(loop, eps=1e-3, corrector="none", **kw):
+        return demo.build_sampler(config, sde, model, B, eps, corrector, dev, loop=loop, **kw)
+
+    comp = DPoserComp(sde, model=model, time_strategy="3", backend="cuda", device=dev)
+
+    def solver(loop):
+        return fused_comp.get_cuda_comp_solver(
+            sde, model, (RC, D), 100 * D, lr=comp.lr, iterations=comp.iterations,
+            steps_per_iter=comp.steps_per_iter, time_strategy="3", sample_trun=comp.sample_trun,
+            sample_time=comp.sample_time, loop=loop, **kern)
+
+    pc_kw = dict(eps=eps, denoise=sp.noise_removal, corrector=sp.corrector, snr=sp.snr,
+                 n_corrector_steps=sp.n_steps_each, predictor=sp.predictor, **kern)
+    routes = [
+        ("generation", lambda loop: em(loop), lambda fn, g: fn(g), 1),
+        ("metrics_langevin", lambda loop: em(loop, 5e-3, "langevin"), lambda fn, g: fn(g), 1),
+        ("completion2_pc", lambda loop: fused_em.get_cuda_em_hypo_sampler(
+            sde, model, (50, D), HYPO, loop=loop, **pc_kw), lambda fn, g: fn(g, obs, mask), 1),
+        ("completion2_ddim", lambda loop: few_step.get_cuda_ddim_hypo_sampler(
+            sde, model, (50, D), HYPO, n_steps=50, eps=eps, denoise=sp.noise_removal,
+            loop=loop, **kern), lambda fn, g: fn(g, obs, mask)[1], 1),
+        ("completion2_hybrid", lambda loop: few_step.get_cuda_hybrid_hypo_sampler(
+            sde, model, (50, D), HYPO, n_head=25, m_tail=100, eps=eps,
+            tail_corrector="langevin", snr=sp.snr, n_corrector_steps=sp.n_steps_each,
+            loop=loop, **kern), lambda fn, g: fn(g, obs, mask)[1], 2),
+        ("int8_channel", lambda loop: em(loop, quant_kw=dict(quant="int8",
+                                                             act_amax=amax["channel"])),
+         lambda fn, g: fn(g), 1),
+        ("int8_mixed", lambda loop: em(loop, quant_kw=dict(quant="int8", act_amax=amax["tensor"],
+                                                           bf16_tail_steps=100)),
+         lambda fn, g: fn(g), 2),
+        ("pf_euler_decode", lambda loop: em(loop, DECODE_EPS, probability_flow=True),
+         lambda fn, g: fn(g), 1),
+        ("ode_sampling", lambda loop: fused_ode.get_cuda_ode_sampler(
+            sde, model, (B, D), n_steps=ODE_STEPS, eps=1e-3, device=dev, loop=loop),
+         lambda fn, g: fn(g)[1], 1),
+        ("likelihood", lambda loop: fused_lik.get_cuda_likelihood_fn(
+            sde, model, (BL, D), n_steps=LIK_STEPS, eps=LIK_EPS, device=dev, loop=loop),
+         lambda fn, g: fn(g, data)[:2], 1),
+        ("solver", solver, lambda fn, g: fn(g, obs_rc, mask_rc), 1),
+    ]
+    t0 = time.perf_counter()
+    res = {name: graph_against_eager(name, build, call, dev, n)
+           for name, build, call, n in routes}
+    print(f"[graph] {len(res)} routes: graph bit-equal to eager in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def check_table_times(rows):
+    """Each kernel's device time in this run beside its time in PERF.md's
+    table before the seed moved to device memory (``TABLE_US``), printed;
+    the kernels that read it there (K2-K6) must stay within 0.3 us of
+    theirs."""
+    for r in rows:
+        was = TABLE_US.get(r["name"])
+        if was is None:
+            continue
+        now = r["ms"] * 1e3
+        r["table_us"] = was
+        print(f"[table] {r['name']}: {now:.2f} us, table {was:.2f} ({now - was:+.2f})")
+        if r["name"] in SEED_KERNELS:
+            check(now <= was + 0.3, f"{r['name']}: {now:.2f} us, more than 0.3 us over the "
+                                    f"table's {was:.2f}")
+
+
+def bench_line():
+    """``python -m dposer_tpu_torch.bench`` on the card, as a user runs it:
+    its one JSON line, printed and checked."""
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.bench"], capture_output=True,
+                       text=True, cwd=REPO, timeout=600)
+    lines = p.stdout.strip().splitlines()
+    check(p.returncode == 0 and len(lines) == 1, f"bench: exit {p.returncode}, stdout "
+          f"{p.stdout[-2000:]!r}, stderr {p.stderr[-2000:]!r}")
+    res = json.loads(lines[0])
+    check(res["metric"] == "subvp_generation_poses_per_sec" and res["value"] > 0
+          and res["baseline_source"] == "fresh", f"bench line {res}")
+    print(f"[bench] {lines[0]}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2947,6 +3166,7 @@ def main():
             int8 = phase_int8_protocols(model, dev, amax, proto["metrics"]["apd"],
                                         comp["results"]["completion2_pc"]["mpjpe_mm"])
             micro = phase_microbenchmarks()
+            graphs = phase_graphs(model, dev, amax)
         ode = phase_ode_protocols(model, dev)
         parity["train"] = phase_train_parity(model, dev)
         train = phase_train_protocols(dev)
@@ -2956,6 +3176,8 @@ def main():
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
             check(r["launches"] > 0, f"kernel {r['name']} was never launched on a main path")
+        check_table_times(rows)
+        bench = bench_line()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3035,11 +3257,28 @@ def main():
         print(f"[int8] generation {scheme}: kernels alone {step13 * 1e3:.1f} us a step (bf16 "
               f"{step_ms * 1e3:.1f} in this run), {1000 * step13:.1f} ms per call, the device "
               f"busy ~{100 * g['device_busy_share_est']:.0f}% of the best call")
+    ode_r, lik_r = proto["ode_sampling"], proto["likelihood"]
+    for name, r, dev_ms, wall_ms in (
+            ("generation 5a", gen, gen["device_ms_per_call_est"], 1e3 * gen["wall_s"]),
+            ("solver 5c", sol, solve_ms, 1e3 * sol["wall_s"]),
+            ("ode_sampling 5e", ode_r, ode_r["device_ms_per_call_est"], 1e3 * ode_r["wall_s"]),
+            ("likelihood 5g", lik_r, lik_r["device_ms_per_call_est"], lik_r["ms_per_batch"])):
+        eager_ms_ = 1e3 * r["eager_wall_s"]
+        r["graph_device_busy_share_est"] = dev_ms / wall_ms
+        r["eager_device_busy_share_est"] = dev_ms / eager_ms_
+        lp = r["graph_loops"][0]
+        print(f"[graph] {name}: eager {eager_ms_:.1f} ms, graph {wall_ms:.1f} ms best; the "
+              f"graph's first call: warm-up {lp['warmup_s'] * 1e3:.1f} ms, capture "
+              f"{lp['capture_s'] * 1e3:.1f} ms, instantiate {lp['instantiate_s'] * 1e3:.1f} ms; "
+              f"kernels alone {dev_ms:.1f} ms: device busy ~{100 * dev_ms / eager_ms_:.0f}% "
+              f"eager, ~{100 * dev_ms / wall_ms:.0f}% graph")
     proto["int8"] = dict(int8["results"], calibration_s=calib_s,
                          act_amax_tensor=[float(a) for a in amax["tensor"]],
                          act_amax_channel_max=[float(np.max(a)) for a in amax["channel"]])
     proto["microbenchmarks"] = micro["results"]
     proto["launches_by_run"] = by_run
+    proto["graphs"] = graphs
+    proto["bench"] = bench
     summary = dict(device=info, build_s=build_s, wgmma_build=wgmma_build, kernels=rows,
                    dense_gn_silu_ms_at_1000_rows=k1_rc, parity=parity,
                    protocols=proto, peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,

@@ -198,9 +198,10 @@ def make_quant_kwargs(args, config, sde, model, device):
 
 
 def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, device,
-                  probability_flow: bool = False, quant_kw=None):
+                  probability_flow: bool = False, quant_kw=None, loop=None):
     """The config's PC sampler through the CUDA kernels: Philox normals drawn
-    in the kernels on the card, host normals with the plain versions on the
+    in the kernels on the card (the whole loop replayed as one CUDA graph
+    unless ``loop="eager"``), host normals with the plain versions on the
     CPU. ``quant_kw`` (from ``make_quant_kwargs``) selects the int8 mode."""
     device = torch.device(device)
     return get_cuda_em_sampler(
@@ -210,7 +211,7 @@ def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, de
         corrector=corrector, snr=config.sampling.snr,
         n_corrector_steps=config.sampling.n_steps_each,
         predictor=config.sampling.predictor, probability_flow=probability_flow,
-        device=device, **(quant_kw or {}))
+        device=device, loop=loop, **(quant_kw or {}))
 
 
 def build_generation_sampler(config, sde, model, batch: int, eps: float, device,

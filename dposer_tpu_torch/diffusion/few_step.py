@@ -221,6 +221,7 @@ def get_cuda_ddim_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
             return n_rows, inner(generator, observation=observation, mask=mask, z=z,
                                  noise=noise)
 
+        sampler.loops = inner.loops
         return sampler
     if kw.get("quant") != "int8":
         raise ValueError("bf16_tail_steps requires quant='int8'")
@@ -242,6 +243,7 @@ def get_cuda_ddim_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
         x = head(generator, observation=observation, mask=mask, z=z, noise=nh)
         return n_rows, tail(generator, observation=observation, mask=mask, z=x, noise=nt)
 
+    mixed.loops = head.loops + tail.loops
     return mixed
 
 
@@ -313,7 +315,9 @@ def get_cuda_hybrid_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...
                                n_corrector_steps=n_corrector_steps,
                                step_range=(sde.N - m_tail, sde.N), **kw)
     S = n_corrector_steps if tail_corrector == "langevin" else 0
-    return _head_then_tail(head, tail, n_head + m_tail * (1 + S))
+    sampler = _head_then_tail(head, tail, n_head + m_tail * (1 + S))
+    sampler.loops = head.loops + tail.loops  # the kernel loops, graphed or eager
+    return sampler
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +336,7 @@ def _tile_hypos(build_sampler: Callable, shape: Tuple[int, int], hypo_num: int):
                          mask=mask.repeat(hypo_num, 1), z=z, noise=noise)
         return nfe, out.reshape(hypo_num, batch, dim).transpose(0, 1)
 
+    sampler.loops = getattr(inner, "loops", ())  # the kernel routes' loops
     return sampler
 
 

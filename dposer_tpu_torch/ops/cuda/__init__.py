@@ -9,4 +9,6 @@ masked imputation, the few-step tables, the PF-Euler decode),
 plain PyTorch versions are in ``score_net.py`` (K1, K7), ``fused_em.py`` (K2,
 K3, K4), ``fused_comp.py`` (K5, K6), ``fused_ode.py`` (K8), ``fused_lik.py``
 (K9) and ``fused_train.py`` (K10, K11, K12); ``build.py`` compiles ``csrc/``.
+On the card the four sampling loops replay one CUDA graph a call
+(``graph_loop.py``).
 """

@@ -65,6 +65,14 @@ __device__ __forceinline__ float4 philox_normal4(unsigned long long seed, int st
   return make_float4(ra * ca, ra * sa, rb * cb, rb * sb);
 }
 
+// The Philox seed of a launch's in-kernel normals, read from device memory
+// (a one-element int64 tensor), so a CUDA graph that captured the launch
+// draws with whatever seed was written there before each replay. Null where
+// the launch takes host normals; the seed is then never used.
+__device__ __forceinline__ unsigned long long load_seed(const unsigned long long* seed) {
+  return seed != nullptr ? __ldg(seed) : 0ull;
+}
+
 // The step's normal for element (row, col): the host-supplied slab
 // [B, D] when `noise` is given, else the in-kernel draw.
 __device__ __forceinline__ float draw_normal(const float* noise, unsigned long long seed,

@@ -69,14 +69,17 @@ using PertPtr = std::conditional_t<PERTURB, float*, const float*>;
 
 // K6 over a cluster of T::SPLIT CTAs a tile of T::POSES poses; with PERTURB
 // also step + 1's perturbation of the new x into pert, from the host normals
-// next_noise [B, D] or, where that is null, the draw (seed, step + 1, slab).
+// next_noise [B, D] or, where that is null, the draw (seed, step + 1, slab)
+// with the seed read from device memory (*seed_ptr; each epilogue warp
+// loads it once, before its draws), so a CUDA graph that captured the
+// launch draws with the seed written before each replay.
 template <class T, bool PERTURB>
 __device__ __forceinline__ void head_adam_body(
     const float* __restrict__ h, const CUtensorMap& tmW, const float* __restrict__ bpost,
     const float* __restrict__ coefs, int step, float* x, PertPtr<PERTURB> __restrict__ pert,
     const float* __restrict__ obs, const float* __restrict__ mask, float* m1, float* v,
     int paste, int B, int H, int D, const float* __restrict__ next_noise,
-    unsigned long long seed, int slab) {
+    const unsigned long long* __restrict__ seed_ptr, int slab) {
   extern __shared__ __align__(128) unsigned char smem[];
   const hc::Layout<T> L(smem, H);
   const int rank = static_cast<int>(hc::cg::this_cluster().block_rank());
@@ -125,6 +128,7 @@ __device__ __forceinline__ void head_adam_body(
   float cm = 0.0f, cs = 0.0f, zn[2] = {};
   if constexpr (PERTURB) {
     if (has_row) {
+      const unsigned long long seed = dposer::load_seed(seed_ptr);
       cm = cf[N_COEFS + 0];
       cs = cf[N_COEFS + 1];
 #pragma unroll
@@ -168,7 +172,7 @@ head_adam_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMa
                  const float* __restrict__ mask, float* m1, float* v, int paste, int B, int H,
                  int D) {
   head_adam_body<T, false>(h, tmW, bpost, coefs, step, x, pert, obs, mask, m1, v, paste, B, H,
-                           D, nullptr, 0, 0);
+                           D, nullptr, nullptr, 0);
 }
 
 // K6 with step + 1's perturbation (the solver's steps before its last; no
@@ -179,7 +183,8 @@ head_adam_perturb_kernel(const float* __restrict__ h, const __grid_constant__ CU
                          const float* __restrict__ bpost, const float* __restrict__ coefs,
                          int step, float* x, float* pert, const float* __restrict__ obs,
                          const float* __restrict__ mask, float* m1, float* v, int B, int H,
-                         int D, const float* __restrict__ next_noise, unsigned long long seed,
+                         int D, const float* __restrict__ next_noise,
+                         const unsigned long long* __restrict__ seed,
                          int slab) {
   head_adam_body<T, true>(h, tmW, bpost, coefs, step, x, pert, obs, mask, m1, v, 0, B, H, D,
                           next_noise, seed, slab);
@@ -242,13 +247,15 @@ extern "C" int dposer_head_adam_launch_info(int B, int H, int* out) {
 // the paste, then pert [B, D] (read at step, written in place) <- step + 1's
 // perturbation of the new x, with coefs row step + 1 (columns 0, 1; step + 1
 // < T) and the host normals next_noise [B, D] or, when null, the in-kernel
-// draw (seed, step + 1, slab). pert must not alias x. Returns as
+// draw (*seed, step + 1, slab), seed in device memory (null with
+// next_noise). pert must not alias x. Returns as
 // dposer_head_adam.
 extern "C" int dposer_head_adam_perturb(const float* h, const void* Wpost, const float* bpost,
                                         const float* coefs, int step, float* x, float* pert,
                                         const float* obs, const float* mask, float* m1,
                                         float* v, const float* next_noise,
-                                        unsigned long long seed, int slab, int B, int H, int D,
+                                        const unsigned long long* seed, int slab, int B, int H,
+                                        int D,
                                         void* stream) {
   if (!hc::operands_ok<Adam>(h, Wpost, B, H, D) || pert == x)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -33,11 +33,15 @@
 // CTA reads) and the MMA warps wait for them. The
 // step's scalars are read from the device coefficient table, so the host
 // loop never synchronizes. In-kernel normals are philox_normal(seed, step,
-// slab, row, col), one Philox call an element, as in every earlier version.
-// The imputation instantiation also loads the row's obs and mask and draws
-// each pass's normals (step + p, its slab) while the copies fly; x_mean
-// stays the state before the re-noise. head_em_kernel is the body without
-// it, so modes 0 and 1 compile as they did before the imputation existed.
+// slab, row, col), one Philox call an element, as in every earlier version;
+// the seed is read from device memory (each epilogue warp loads it once,
+// before its draws), so a CUDA graph that captured the launch draws with the
+// seed written before each replay. The imputation instantiation also loads
+// the row's obs and mask and draws each pass's normals (step + p, its slab)
+// while the copies fly; x_mean stays the state before the re-noise.
+// head_em_kernel is the body without it, so modes 0 and 1 compile as they
+// would if the imputation did not exist (chip_smoke.py holds its SASS to a
+// recorded digest).
 
 #include <cstdint>
 
@@ -73,8 +77,9 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
                                              const float* __restrict__ coefs, int step, int mode,
                                              float* x, float* x_mean, float* score,
                                              float* score_sq, const float* __restrict__ noise,
-                                             unsigned long long seed, int slab, int B, int H,
-                                             int D, const Renoise& rn) {
+                                             const unsigned long long* __restrict__ seed_ptr,
+                                             int slab, int B, int H, int D,
+                                             const Renoise& rn) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Layout<T> L(smem, H);
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
@@ -90,7 +95,9 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
 
   // The epilogue warps: warp MMA_WARPS + e finishes row rank * ROWS_PER_CTA
   // + e of the tile, each lane columns lane and lane + 32. While the copies
-  // fly it loads x, the bias and the step's scalars and draws the normals.
+  // fly it loads the seed, x, the bias and the step's scalars and draws the
+  // normals.
+  const unsigned long long seed = dposer::load_seed(seed_ptr);
   const int e = warp - MMA_WARPS;
   const int r = rank * T::ROWS_PER_CTA + e;
   const int gr = row0 + r;
@@ -184,8 +191,8 @@ __global__ void __cluster_dims__(T::SPLIT, 1, 1) __launch_bounds__(THREADS)
 head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
                int mode, float* x, float* x_mean, float* score, float* score_sq,
-               const float* __restrict__ noise, unsigned long long seed, int slab, int B,
-               int H, int D) {
+               const float* __restrict__ noise, const unsigned long long* __restrict__ seed,
+               int slab, int B, int H, int D) {
   head_em_body<false>(h, tmW, bpost, coefs, step, mode, x, x_mean, score, score_sq, noise, seed,
                       slab, B, H, D, Renoise{});
 }
@@ -194,7 +201,8 @@ __global__ void __cluster_dims__(T::SPLIT, 1, 1) __launch_bounds__(THREADS)
 head_em_impute_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                       const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
                       float* x, float* x_mean, const float* __restrict__ noise,
-                      unsigned long long seed, int slab, int B, int H, int D,
+                      const unsigned long long* __restrict__ seed, int slab, int B, int H,
+                      int D,
                       const __grid_constant__ Renoise rn) {
   head_em_body<true>(h, tmW, bpost, coefs, step, 0, x, x_mean, nullptr, nullptr, noise, seed,
                      slab, B, H, D, rn);
@@ -222,14 +230,15 @@ cudaError_t allow_smem_impute() {
 // h [B, H] fp32, Wpost [H, 64] bf16 (columns >= D zero), bpost [64] fp32,
 // coefs [N, 8] fp32. EM mode: x [B, D] updated in place, x_mean (nullable)
 // [B, D]; score mode: score [B, D], score_sq [B]. noise [B, D] (nullable:
-// then the normals are drawn in-kernel from seed/step/slab). H must be a
+// then the normals are drawn in-kernel from *seed/step/slab: seed points to
+// device memory, and may be null with noise). H must be a
 // multiple of 64 and <= 1024, h and Wpost 16-byte aligned; D <= 64.
 // Returns cudaGetLastError().
 extern "C" int dposer_head_em(const float* h, const void* Wpost, const float* bpost,
                               const float* coefs, int step, int mode, float* x,
                               float* x_mean, float* score, float* score_sq,
-                              const float* noise, unsigned long long seed, int slab, int B,
-                              int H, int D, void* stream) {
+                              const float* noise, const unsigned long long* seed, int slab,
+                              int B, int H, int D, void* stream) {
   if (!operands_ok<T>(h, Wpost, B, H, D) || (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t attr = allow_smem();
@@ -255,12 +264,12 @@ extern "C" int dposer_head_em_launch_info(int B, int H, int* out) {
 // The imputation instantiation: EM mode as dposer_head_em, then `passes` (1
 // or 2) masked re-noises of x's observed dims, obs and mask [B, D]: pass p
 // with coefs row step + p (columns 5, 6; step + passes - 1 < N) and the host
-// normals renoise_p [B, D] or, when null, the in-kernel draw (seed, step + p,
+// normals renoise_p [B, D] or, when null, the in-kernel draw (*seed, step + p,
 // slab_p). x_mean (nullable) receives the state before the re-noise.
 // Returns cudaGetLastError().
 extern "C" int dposer_head_em_impute(const float* h, const void* Wpost, const float* bpost,
                                      const float* coefs, int step, float* x, float* x_mean,
-                                     const float* noise, unsigned long long seed, int slab,
+                                     const float* noise, const unsigned long long* seed, int slab,
                                      const float* obs, const float* mask, const float* renoise0,
                                      int slab0, const float* renoise1, int slab1, int passes,
                                      int B, int H, int D, void* stream) {

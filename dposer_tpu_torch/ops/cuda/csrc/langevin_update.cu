@@ -17,7 +17,9 @@
 // row at a time, each lane a group of four columns (63 columns: 16 lanes).
 // - Pass 1 draws each group's normals once (philox_normal4: one Philox call
 //   gives the four, keyed by (seed, step, slab, row, column / 4) as in every
-//   earlier version), loads its x and score, and keeps all of them in
+//   earlier version; the seed read from device memory, so a CUDA graph that
+//   captured the launch draws with the seed written before each replay),
+//   loads its x and score, and keeps all of them in
 //   registers for the half-warp's first CACHED rows (2,048 rows a cluster):
 //   pass 2 then waits on no load. Rows past those, and groups past a row's
 //   16th, are reloaded and redrawn from their counters in pass 2 (large
@@ -157,7 +159,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(THREADS)
 langevin_update_kernel(float* x, const float* __restrict__ score,
                        const float* __restrict__ score_sq, const float* __restrict__ coefs,
                        int step, float snr, const float* __restrict__ noise,
-                       unsigned long long seed, int slab, float* step_out, int B, int D) {
+                       const unsigned long long* __restrict__ seed, int slab, float* step_out,
+                       int B, int D) {
   __shared__ float red_g[N_WARPS], red_z[N_WARPS];
   __shared__ float2 sums[CLUSTER];  // each CTA's (sum sqrt(score_sq), sum |z|), by rank
   __shared__ uint64_t sums_bar;      // counts the CLUSTER pushed sums in
@@ -172,7 +175,8 @@ langevin_update_kernel(float* x, const float* __restrict__ score,
   // the barrier is set up; every CTA waits on this before its first push
   asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 
-  const Args a{x, score, score_sq, noise, seed, step, slab, D};
+  // the seed in device memory: each thread loads it once, before its draws
+  const Args a{x, score, score_sq, noise, dposer::load_seed(seed), step, slab, D};
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int per_cta = (B + CLUSTER - 1) / CLUSTER;
   Rows rs;
@@ -254,12 +258,13 @@ cudaError_t allow_cluster() {
 
 // x [B, D] fp32 updated in place; score [B, D], score_sq [B] from head_em's
 // score mode; coefs [N, 8] (column 4: alpha); noise [B, D] (nullable: drawn
-// in-kernel from seed/step/slab); step_out (nullable) receives the step
-// size. B <= 12288. Returns cudaGetLastError().
+// in-kernel from *seed/step/slab, seed in device memory, null with noise);
+// step_out (nullable) receives the step size. B <= 12288. Returns
+// cudaGetLastError().
 extern "C" int dposer_langevin_update(float* x, const float* score, const float* score_sq,
                                       const float* coefs, int step, float snr,
-                                      const float* noise, unsigned long long seed, int slab,
-                                      float* step_out, int B, int D, void* stream) {
+                                      const float* noise, const unsigned long long* seed,
+                                      int slab, float* step_out, int B, int D, void* stream) {
   if (B <= 0 || D <= 0 || B > 12288) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t attr = allow_cluster();
   if (attr != cudaSuccess) return static_cast<int>(attr);

@@ -20,7 +20,10 @@
 //
 // z is the host slab noise [R, D] or, when that is null, the Philox normal
 // keyed by (seed, step, slab, row, column): the same stream K2 and K3 draw
-// from, so a slab index of its own keeps each draw apart from theirs.
+// from, so a slab index of its own keeps each draw apart from theirs. The
+// seed is read from device memory (a broadcast load a warp, before the
+// draw), so a CUDA graph that captured the launch draws with the seed
+// written before each replay.
 //
 // Bound on the H100: at [1000, 63] K4 moves 4 arrays (x read and written,
 // obs, mask; 1.0 MB) and K5 2 (0.5 MB), with a few flops and one Box-Muller
@@ -45,23 +48,25 @@ constexpr int N_COEFS = 8;
 __global__ void __launch_bounds__(THREADS)
 masked_renoise_kernel(float* x, const float* __restrict__ obs, const float* __restrict__ mask,
                       const float* __restrict__ coefs, int step,
-                      const float* __restrict__ noise, unsigned long long seed, int slab, int R,
-                      int D) {
+                      const float* __restrict__ noise, const unsigned long long* __restrict__ seed,
+                      int slab, int R, int D) {
   const int idx = blockIdx.x * THREADS + threadIdx.x;
   if (idx >= R * D) return;
   const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
-  const float z = dposer::draw_normal(noise, seed, step, slab, idx / D, idx % D, D);
+  const float z = dposer::draw_normal(noise, dposer::load_seed(seed), step, slab, idx / D,
+                                      idx % D, D);
   x[idx] = dposer::masked_renoise(x[idx], mask[idx], obs[idx], cf[5], cf[6], z);
 }
 
 __global__ void __launch_bounds__(THREADS)
 comp_perturb_kernel(const float* __restrict__ x, float* __restrict__ pert,
                     const float* __restrict__ coefs, int step, const float* __restrict__ noise,
-                    unsigned long long seed, int slab, int R, int D) {
+                    const unsigned long long* __restrict__ seed, int slab, int R, int D) {
   const int idx = blockIdx.x * THREADS + threadIdx.x;
   if (idx >= R * D) return;
   const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
-  const float z = dposer::draw_normal(noise, seed, step, slab, idx / D, idx % D, D);
+  const float z = dposer::draw_normal(noise, dposer::load_seed(seed), step, slab, idx / D,
+                                      idx % D, D);
   pert[idx] = dposer::comp_perturb(cf[0], x[idx], cf[1], z);
 }
 
@@ -71,10 +76,11 @@ inline int blocks_for(int R, int D) { return (R * D + THREADS - 1) / THREADS; }
 
 // x [R, D] fp32 updated in place; obs, mask [R, D]; coefs [N, 8] (columns 5,
 // 6: the imputation mean coefficient and std); noise [R, D] (nullable: then
-// drawn in-kernel from seed/step/slab). Returns cudaGetLastError().
+// drawn in-kernel from *seed/step/slab, seed in device memory; null with
+// noise). Returns cudaGetLastError().
 extern "C" int dposer_masked_renoise(float* x, const float* obs, const float* mask,
                                      const float* coefs, int step, const float* noise,
-                                     unsigned long long seed, int slab, int R, int D,
+                                     const unsigned long long* seed, int slab, int R, int D,
                                      void* stream) {
   if (R <= 0 || D <= 0) return static_cast<int>(cudaErrorInvalidValue);
   masked_renoise_kernel<<<blocks_for(R, D), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -83,11 +89,11 @@ extern "C" int dposer_masked_renoise(float* x, const float* obs, const float* ma
 }
 
 // x [R, D] fp32 read, pert [R, D] written (not x itself); coefs [T, 8]
-// (columns 0, 1: c_m, c_s); noise [R, D] (nullable: drawn in-kernel).
-// Returns cudaGetLastError().
+// (columns 0, 1: c_m, c_s); noise [R, D] (nullable: drawn in-kernel from
+// *seed, as dposer_masked_renoise). Returns cudaGetLastError().
 extern "C" int dposer_comp_perturb(const float* x, float* pert, const float* coefs, int step,
-                                   const float* noise, unsigned long long seed, int slab, int R,
-                                   int D, void* stream) {
+                                   const float* noise, const unsigned long long* seed, int slab,
+                                   int R, int D, void* stream) {
   if (R <= 0 || D <= 0 || x == pert) return static_cast<int>(cudaErrorInvalidValue);
   comp_perturb_kernel<<<blocks_for(R, D), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       x, pert, coefs, step, noise, seed, slab, R, D);

@@ -1,4 +1,5 @@
-"""The completion task's Adam loop on the card: a host loop of CUDA kernels.
+"""The completion task's Adam loop on the card: CUDA kernels, the whole
+loop replayed as one CUDA graph (``graph_loop.py``).
 
 Port of ``dposer_tpu/ops/pallas/fused_comp.py``. DPoserComp optimises poses
 against the DPoser one-step-denoise loss plus a masked data term. The
@@ -40,6 +41,7 @@ from ...diffusion.sde import SDE
 from ...tasks.prior import sample_quan_t
 from . import build
 from .fused_em import _check_coefs, _noise_args, draw_seed, host_slabs, resolve_device
+from .graph_loop import GraphLoop, resolve_loop
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
                         dense_gn_silu, dense_gn_silu_plain_into, network_hidden)
 
@@ -69,7 +71,7 @@ def _comp_perturb_fn():
     fn = build.load("pose_elementwise").dposer_comp_perturb
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, I, P, ctypes.c_ulonglong, I, I, I, P]
+        fn.argtypes = [P, P, P, I, P, P, I, I, I, P]
         fn.restype = I
     return fn
 
@@ -83,13 +85,13 @@ def comp_perturb(x, pert, coefs, step: int, *, noise=None, seed=None, slab: int 
     if pert.data_ptr() == x.data_ptr():
         raise ValueError("pert must not alias x: head_adam reads both")
     _check_coefs(coefs, step, dev)
-    _noise_args("comp_perturb", noise, seed, dev, (R, D))
+    seed = _noise_args("comp_perturb", noise, seed, dev, (R, D))
     if dev.type == "cpu":
         return comp_perturb_plain_into(x, pert, coefs, step, noise=noise)
     if dev.type != "cuda":
         raise ValueError(f"comp_perturb runs on cpu or cuda, not {dev}")
     err = _comp_perturb_fn()(x.data_ptr(), pert.data_ptr(), coefs.data_ptr(), step,
-                             _ptr(noise), 0 if seed is None else seed, slab, R, D,
+                             _ptr(noise), _ptr(seed), slab, R, D,
                              torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"comp_perturb launch failed: CUDA error {err}")
@@ -202,7 +204,7 @@ def _head_adam_perturb_fn():
     fn = build.load("head_adam").dposer_head_adam_perturb
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, P, P, P, P, P, P, P, ctypes.c_ulonglong, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, P, P, P, P, P, P, P, P, I, I, I, I, P]
         fn.restype = I
     return fn
 
@@ -221,14 +223,14 @@ def head_adam_perturb(h, w_post, b_post, coefs, step: int, x, pert, obs, mask, m
                          f"{step + 1} to perturb for")
     if pert.data_ptr() == x.data_ptr():
         raise ValueError("pert must not alias x: the kernel reads both")
-    _noise_args("head_adam_perturb", noise, seed, dev, (R, D))
+    seed = _noise_args("head_adam_perturb", noise, seed, dev, (R, D))
     if dev.type == "cpu":
         return head_adam_perturb_plain_into(h, w_post, b_post, coefs, step, x, pert, obs,
                                             mask, m1, v, noise=noise)
     err = _head_adam_perturb_fn()(h.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
                                   coefs.data_ptr(), step, x.data_ptr(), pert.data_ptr(),
                                   obs.data_ptr(), mask.data_ptr(), m1.data_ptr(),
-                                  v.data_ptr(), _ptr(noise), 0 if seed is None else seed,
+                                  v.data_ptr(), _ptr(noise), _ptr(seed),
                                   slab, R, H, D, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"head_adam_perturb launch failed: CUDA error {err}")
@@ -319,7 +321,8 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
                          steps_per_iter: int = 100, time_strategy: str = "3",
                          sample_trun: float = 5.0, sample_time: int = 900,
                          eps: float = 1e-3, rng_mode: str = "host",
-                         continuous: bool = True, device="cuda", plain: bool = False):
+                         continuous: bool = True, device="cuda", plain: bool = False,
+                         loop: Optional[str] = None):
     """Build the kernel completion solver for ``model`` (a ScoreModelFC).
 
     Returns ``solve(generator, observation, mask, noise=None) -> x`` [R, D].
@@ -329,13 +332,18 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
 
     ``rng_mode="host"`` draws each step's perturbation normals [R, D] from
     the generator, one step early and in step order (``noise=[T, R, D]``
-    injects them); ``"kernel"`` draws them in K5 and K6 (card only). Tables
-    and operands are built once here; a call launches the kernels only: K5
-    at the first step, K6 with the next step's perturbation
+    injects them); ``"kernel"`` draws them in K5 and K6 (card only). Tables,
+    operands and the loop's buffers are made once here; a call launches the
+    kernels only: K5 at the first step, K6 with the next step's perturbation
     (``head_adam_perturb``) before the last, K6 with the paste at the last.
     ``plain=True`` runs the unfused loop (K5, K1, K6 every step) on the
     kernels' plain versions (host normals only), on any device: the
     reference the fold is held to.
+
+    ``loop`` is ``get_cuda_em_sampler``'s: by default the whole solve is one
+    CUDA graph, captured at the first call and replayed at every call, on
+    the card under ``rng_mode="kernel"``; ``"graph"`` under ``"host"`` needs
+    ``noise=`` at every call. ``solve.loops`` holds its ``GraphLoop``.
     """
     if rng_mode not in ("host", "kernel"):
         raise ValueError(f"rng_mode must be 'host' or 'kernel', got {rng_mode!r}")
@@ -352,6 +360,7 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
     if rng_mode == "kernel" and (device.type != "cuda" or plain):
         raise ValueError("rng_mode='kernel' draws normals in the CUDA kernels; use "
                          "rng_mode='host' on the CPU or with plain=True")
+    graph = resolve_loop(loop, device, plain, rng_mode == "kernel") == "graph"
     rows, dim = shape
     total_steps = iterations * steps_per_iter
     net, coefs = build_solver_operands(sde, model, n_elems, lr, iterations,
@@ -361,28 +370,58 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
         raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
     fold = not plain  # K6 perturbs for the next step; K5 runs once a solve
 
-    @torch.no_grad()
-    def solve(generator: Optional[torch.Generator], observation, mask, noise=None):
-        obs, msk = (t.to(device=device, dtype=torch.float32).contiguous()
-                    for t in (observation, mask))
-        _check("observation", obs, device, torch.float32, (rows, dim))
-        _check("mask", msk, device, torch.float32, (rows, dim))
-        if noise is not None:
-            if rng_mode != "host":
-                raise ValueError("noise= is the host-mode stream; this solver "
-                                 "draws its normals in-kernel")
-            _check("noise", noise, device, torch.float32, (total_steps, rows, dim))
-        x = obs.clone()
-        m1, v = torch.zeros_like(x), torch.zeros_like(x)
-        scratch = solver_scratch(net, rows, device)
-        seed = draw_seed(generator) if rng_mode == "kernel" else None
-        steps = (host_slabs(noise, 0, total_steps, (rows, dim), generator, device)
+    # the loop's static buffers: x and its moments, the scratch and the inputs
+    x = torch.empty((rows, dim), dtype=torch.float32, device=device)
+    m1, v = torch.empty_like(x), torch.empty_like(x)
+    scratch = solver_scratch(net, rows, device)
+    inputs = dict(observation=torch.empty_like(x), mask=torch.empty_like(x))
+    if rng_mode == "kernel":
+        inputs["seed"] = torch.zeros((1,), dtype=torch.int64, device=device)
+    elif graph:
+        inputs["noise"] = torch.empty((total_steps, rows, dim), dtype=torch.float32,
+                                      device=device)
+
+    def body(noise=None, generator=None, warm_up=False):
+        obs, msk = inputs["observation"], inputs["mask"]
+        x.copy_(obs)
+        m1.zero_()
+        v.zero_()
+        seed = inputs.get("seed")
+        steps = (host_slabs(inputs["noise"] if graph else noise, 0, total_steps, (rows, dim),
+                            generator, device)
                  if rng_mode == "host" else ((None, None) for _ in range(total_steps)))
         for i, (z, z_next) in enumerate(steps):
             last = i == total_steps - 1
+            if warm_up and 0 < i and not last:
+                continue  # the first and the last step launch every kernel of the loop
             adam_step(net, coefs, i, x, m1, v, obs, msk, scratch, z, seed=seed, paste=last,
                       plain=plain, perturbed=fold and i > 0, perturb_next=fold and not last,
                       next_noise=z_next)
         return x
 
+    runner = GraphLoop(body, inputs, graph=graph)
+
+    @torch.no_grad()
+    def solve(generator: Optional[torch.Generator], observation, mask, noise=None):
+        values = {}
+        for nm, t in (("observation", observation), ("mask", mask)):
+            values[nm] = t.to(device=device, dtype=torch.float32).contiguous()
+            _check(nm, values[nm], device, torch.float32, (rows, dim))
+        if noise is not None:
+            if rng_mode != "host":
+                raise ValueError("noise= is the host-mode stream; this solver "
+                                 "draws its normals in-kernel")
+            _check("noise", noise, device, torch.float32, (total_steps, rows, dim))
+        elif graph and rng_mode == "host":
+            raise ValueError("loop='graph' under rng_mode='host' replays injected normals: "
+                             "pass noise=")
+        if rng_mode == "kernel":
+            values["seed"] = draw_seed(generator)
+        if graph:
+            if noise is not None:
+                values["noise"] = noise
+            return runner(values)
+        return runner(values, noise=noise, generator=generator)
+
+    solve.loops = (runner,)
     return solve

@@ -1,10 +1,14 @@
-"""The reverse-diffusion loop on the card: a host loop of CUDA kernels.
+"""The reverse-diffusion loop on the card: CUDA kernels, the whole loop
+replayed as one CUDA graph.
 
 Port of ``dposer_tpu/ops/pallas/fused_em.py``. The TPU runs the whole
 N-step loop as one program with ~8.3 MB of bf16 weights resident on-core.
 An H100 SM has 227 KB of shared memory, so here each step is a short
 sequence of launches on one stream, with no host synchronization inside
-the loop (the weights stay in the 50 MB L2):
+the loop (the weights stay in the 50 MB L2), and the host submits the loop
+once: on the card it is captured into a CUDA graph at the first call and
+replayed at every call (``graph_loop.py``), as the TPU program runs its loop
+inside one ``pallas_call``:
 
 - K1 ``dense_gn_silu`` (``score_net.py``) x (1 + 2*n_blocks): the hidden layers,
   or K13 ``dense_gn_silu_int8`` in the int8 serving mode (``quant="int8"``);
@@ -47,6 +51,8 @@ from ...diffusion.fast_sampler import (_corrector_tables, _imputation_tables,
                                        check_imputation_args)
 from ...diffusion.sde import SDE
 from . import build
+from .graph_loop import GraphLoop, resolve_loop
+from .philox import seed_bits
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
                         dense_gn_silu, dense_gn_silu_int8, dense_gn_silu_jvp,
                         hidden_layer, int8_handoff_buffers, network_hidden)
@@ -110,8 +116,7 @@ def _head_em_fn():
     fn = build.load("head_em").dposer_head_em
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, I, P, P, P, P, P, ctypes.c_ulonglong, I,
-                       I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, I, P, P, P, P, P, P, I, I, I, I, P]
         fn.restype = I
     return fn
 
@@ -122,14 +127,33 @@ def _check_coefs(coefs, step, dev):
     _check("coefs", coefs, dev, torch.float32, coefs.shape)
 
 
+def seed_tensor(seed, device) -> torch.Tensor:
+    """``seed`` as the kernels read it: a one-element int64 tensor on
+    ``device`` holding the seed's 64 bits (the kernels load it from device
+    memory, so a captured graph draws with whatever seed a replay finds
+    there). An int is written into a new one on the current stream; a tensor
+    must be one already."""
+    if isinstance(seed, torch.Tensor):
+        _check("seed", seed, device, torch.int64, (1,))
+        return seed
+    bits = seed_bits(seed)
+    return torch.full((1,), bits - 2 ** 64 if bits >= 2 ** 63 else bits, dtype=torch.int64,
+                      device=device)
+
+
 def _noise_args(name, noise, seed, dev, shape):
+    """Check the normals' source: exactly one of the host normals ``noise``
+    and the in-kernel seed ``seed`` (an int or a one-element int64 tensor,
+    CUDA only). Returns the seed tensor, or None."""
     if (noise is None) == (seed is None):
         raise ValueError(f"{name}: pass exactly one of noise= (host normals) "
                          f"or seed= (in-kernel normals)")
     if noise is not None:
         _check("noise", noise, dev, torch.float32, shape)
-    elif dev.type != "cuda":
+        return None
+    if dev.type != "cuda":
         raise ValueError(f"{name}: in-kernel normals (seed=) need CUDA tensors")
+    return seed_tensor(seed, dev)
 
 
 def _check_head(h, w_post, b_post):
@@ -169,7 +193,7 @@ def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
         _check("x", x, dev, torch.float32, (B, D))
         if x_mean is not None:
             _check("x_mean", x_mean, dev, torch.float32, (B, D))
-        _noise_args("head_em", noise, seed, dev, (B, D))
+        seed = _noise_args("head_em", noise, seed, dev, (B, D))
     elif mode == "score":
         D = score.shape[1]
         _check("score", score, dev, torch.float32, (B, D))
@@ -189,7 +213,7 @@ def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
     err = _head_em_fn()(h.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
                         coefs.data_ptr(), step, 0 if mode == "em" else 1,
                         _ptr(x), _ptr(x_mean), _ptr(score), _ptr(score_sq),
-                        _ptr(noise), 0 if seed is None else seed, slab, B, H, D,
+                        _ptr(noise), _ptr(seed), slab, B, H, D,
                         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"head_em launch failed: CUDA error {err}")
@@ -203,8 +227,7 @@ def _head_em_impute_fn():
     fn = build.load("head_em").dposer_head_em_impute
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, P, P, P, ctypes.c_ulonglong, I, P, P, P, I, P, I,
-                       I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, P, P, P, P, I, P, P, P, I, P, I, I, I, I, I, P]
         fn.restype = I
     return fn
 
@@ -222,7 +245,7 @@ def head_em_impute(h, w_post, b_post, coefs, step: int, *, x, observed, x_mean=N
         _check(nm, t, dev, torch.float32, (B, D))
     if x_mean is not None:
         _check("x_mean", x_mean, dev, torch.float32, (B, D))
-    _noise_args("head_em", noise, seed, dev, (B, D))
+    seed = _noise_args("head_em", noise, seed, dev, (B, D))
     if noise is not None:
         if renoise_noise is None or len(renoise_noise) != passes:
             raise ValueError(f"host normals: renoise_noise must hold {passes} slab(s)")
@@ -243,7 +266,7 @@ def head_em_impute(h, w_post, b_post, coefs, step: int, *, x, observed, x_mean=N
     zs = tuple(renoise_noise) if noise is not None else (None, None)
     err = _head_em_impute_fn()(h.data_ptr(), w_post.data_ptr(), b_post.data_ptr(),
                                coefs.data_ptr(), step, x.data_ptr(), _ptr(x_mean),
-                               _ptr(noise), 0 if seed is None else seed, slab,
+                               _ptr(noise), _ptr(seed), slab,
                                observed[0].data_ptr(), observed[1].data_ptr(), _ptr(zs[0]),
                                slab + 1, _ptr(zs[1]) if passes == 2 else None, renoise_next or 0,
                                passes, B, H, D,
@@ -284,8 +307,7 @@ def _langevin_fn():
     fn = build.load("langevin_update").dposer_langevin_update
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, ctypes.c_float, P, ctypes.c_ulonglong, I,
-                       P, I, I, P]
+        fn.argtypes = [P, P, P, P, I, ctypes.c_float, P, P, I, P, I, I, P]
         fn.restype = I
     return fn
 
@@ -302,7 +324,7 @@ def langevin_update(x, score, score_sq, coefs, step: int, snr: float, *,
     _check_coefs(coefs, step, dev)
     if step_out is not None:
         _check("step_out", step_out, dev, torch.float32, (1,))
-    _noise_args("langevin_update", noise, seed, dev, (B, D))
+    seed = _noise_args("langevin_update", noise, seed, dev, (B, D))
     if dev.type == "cpu":
         return langevin_update_plain_into(x, score, score_sq, coefs, step, snr,
                                           noise=noise, step_out=step_out)
@@ -312,7 +334,7 @@ def langevin_update(x, score, score_sq, coefs, step: int, snr: float, *,
         raise ValueError(f"langevin_update kernel takes at most 12288 rows: batch {B}")
     err = _langevin_fn()(x.data_ptr(), score.data_ptr(), score_sq.data_ptr(),
                          coefs.data_ptr(), step, float(snr), _ptr(noise),
-                         0 if seed is None else seed, slab, _ptr(step_out), B, D,
+                         _ptr(seed), slab, _ptr(step_out), B, D,
                          torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"langevin_update launch failed: CUDA error {err}")
@@ -346,7 +368,7 @@ def _masked_renoise_fn():
     fn = build.load("pose_elementwise").dposer_masked_renoise
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, I, P, ctypes.c_ulonglong, I, I, I, P]
+        fn.argtypes = [P, P, P, P, I, P, P, I, I, I, P]
         fn.restype = I
     return fn
 
@@ -360,14 +382,14 @@ def masked_renoise(x, obs, mask, coefs, step: int, *, noise=None, seed=None,
     for nm, t in (("x", x), ("obs", obs), ("mask", mask)):
         _check(nm, t, dev, torch.float32, (R, D))
     _check_coefs(coefs, step, dev)
-    _noise_args("masked_renoise", noise, seed, dev, (R, D))
+    seed = _noise_args("masked_renoise", noise, seed, dev, (R, D))
     if dev.type == "cpu":
         return masked_renoise_plain_into(x, obs, mask, coefs, step, noise=noise)
     if dev.type != "cuda":
         raise ValueError(f"masked_renoise runs on cpu or cuda, not {dev}")
     err = _masked_renoise_fn()(x.data_ptr(), obs.data_ptr(), mask.data_ptr(),
                                coefs.data_ptr(), step, _ptr(noise),
-                               0 if seed is None else seed, slab, R, D,
+                               _ptr(seed), slab, R, D,
                                torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"masked_renoise launch failed: CUDA error {err}")
@@ -530,10 +552,12 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def draw_seed(generator: Optional[torch.Generator]) -> int:
-    """The Philox seed of one call's in-kernel normals, from ``generator``."""
-    return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                             device=generator.device if generator is not None else "cpu"))
+def draw_seed(generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The Philox seed of one call's in-kernel normals, from ``generator``:
+    a one-element int64 tensor on the generator's device (no host
+    synchronisation), which the call copies into its seed buffer."""
+    return torch.randint(0, 2 ** 62, (1,), generator=generator,
+                         device=generator.device if generator is not None else "cpu")
 
 
 def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e-3,
@@ -545,14 +569,28 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
                         step_range: Optional[Tuple[int, int]] = None,
                         quant: Optional[str] = None, act_amax=None,
                         bf16_tail_steps: int = 0,
-                        _tables_override=None, device="cuda", plain: bool = False):
+                        _tables_override=None, device="cuda", plain: bool = False,
+                        loop: Optional[str] = None):
     """Build the kernel PC sampler for ``model`` (a ScoreModelFC).
 
     Returns ``sampler(generator=None, observation=None, mask=None, z=None,
     noise=None) -> x`` [B, D]: ``z`` replaces the prior draw and ``noise``
     ([N, K, B, D], or [N, B, D] when K == 1) the host-mode normals;
-    ``observation`` and ``mask`` [B, D] come iff ``imputation=True``. Tables
-    and operands are built once here; a call launches the kernels only.
+    ``observation`` and ``mask`` [B, D] come iff ``imputation=True``. Tables,
+    operands and the loop's buffers are made once here; a call launches the
+    kernels only.
+
+    ``loop="graph"`` (``graph_loop.GraphLoop``) captures the whole loop into
+    one CUDA graph at the first call and replays it at every call, the
+    counterpart of the TPU program's in-kernel loop; ``"eager"`` submits the
+    launches from Python at every call. The default is the graph on the card
+    for ``rng_mode="kernel"``, else the eager loop; ``"graph"`` needs a CUDA
+    device and ``plain=False``, and under ``rng_mode="host"`` every call
+    must inject ``noise=`` (a replay cannot draw from a generator step by
+    step). The prior draw and the seed draw stay outside the graph, in the
+    eager order, so both loops give the same bits from one generator state.
+    ``sampler.loops`` holds the call's ``GraphLoop`` (two for the mixed
+    schedule).
 
     ``probability_flow=True`` is the deterministic PF-ODE Euler decode of the
     interpolation task: the same launches on tables whose score term is
@@ -578,7 +616,8 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     (``denoise=False``), then the bf16 kernels for the last K rows, the state
     carried between them and host noise split as ``noise[:N-K]``,
     ``noise[N-K:]``. Under in-kernel normals both parts draw with the seed of
-    one call, keyed by the grid's step, so they draw what one full run draws.
+    one call, keyed by the grid's step, so they draw what one full run draws;
+    on the graph each part is a graph of its own.
     """
     if bf16_tail_steps:
         if quant != "int8" or _tables_override is not None or step_range is not None:
@@ -590,7 +629,7 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
         common = dict(eps=eps, rng_mode=rng_mode, corrector=corrector, snr=snr,
                       n_corrector_steps=n_corrector_steps, imputation=imputation,
                       predictor=predictor, probability_flow=probability_flow,
-                      device=device, plain=plain)
+                      device=device, plain=plain, loop=loop)
         cut = n_total - k_tail
         head = get_cuda_em_sampler(sde, model, shape, denoise=False, quant="int8",
                                    act_amax=act_amax, step_range=(0, cut), **common)
@@ -614,6 +653,7 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
                 generator.set_state(state)
             return tail(generator, observation=observation, mask=mask, z=x, noise=nt)
 
+        mixed.loops = head.loops + tail.loops
         return mixed
 
     if rng_mode not in ("host", "kernel"):
@@ -627,6 +667,7 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     if rng_mode == "kernel" and (device.type != "cuda" or plain):
         raise ValueError("rng_mode='kernel' draws normals in the CUDA kernels; use "
                          "rng_mode='host' on the CPU or with plain=True")
+    graph = resolve_loop(loop, device, plain, rng_mode == "kernel") == "graph"
     n_corr = n_corrector_steps if corrector == "langevin" else 0
     K = n_corr + (2 if imputation else 0) + 1
     batch, dim = shape
@@ -644,16 +685,48 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     # corrector-free imputation: K2 re-noises for the next step, K4 runs once
     fold = imputation and n_corr == 0
 
+    # the loop's static buffers: the state, its scratch and the inputs
+    x = torch.empty((batch, dim), dtype=torch.float32, device=device)
+    x_mean = torch.empty_like(x) if denoise else None
+    scratch = pc_scratch(net, batch, n_corr, device)
+    inputs = dict(z=torch.empty_like(x))
+    if imputation:
+        inputs.update(observation=torch.empty_like(x), mask=torch.empty_like(x))
+    if rng_mode == "kernel":
+        inputs["seed"] = torch.zeros((1,), dtype=torch.int64, device=device)
+    elif graph:
+        inputs["noise"] = torch.empty((n_steps, K, batch, dim), dtype=torch.float32,
+                                      device=device)
+
+    def body(noise=None, generator=None, warm_up=False):
+        x.copy_(inputs["z"])
+        observed = (inputs["observation"], inputs["mask"]) if imputation else None
+        seed = inputs.get("seed")
+        if rng_mode == "host":
+            steps = host_slabs(inputs["noise"] if graph else noise, lo, hi,
+                               (K, batch, dim), generator, device)
+        else:
+            steps = (([None] * K, None) for _ in range(lo, hi))
+        for i, (slabs, next_slabs) in zip(range(lo, hi), steps):
+            if warm_up and lo < i < hi - 1:
+                continue  # the first and the last step launch every kernel of the loop
+            pc_step(net, coefs, i, x, scratch, slabs, n_corr=n_corr, snr=snr, seed=seed,
+                    x_mean=x_mean if i == hi - 1 else None, observed=observed,
+                    renoised=fold and i > lo, renoise_next=fold and i + 1 < hi,
+                    next_slabs=next_slabs, plain=plain)
+        return x_mean if denoise else x
+
+    runner = GraphLoop(body, inputs, graph=graph)
+
     @torch.no_grad()
     def sampler(generator: Optional[torch.Generator] = None, observation=None,
                 mask=None, z=None, noise=None):
         check_imputation_args(imputation, observation, mask)
-        observed = None
+        values = {}
         if imputation:
-            observed = tuple(t.to(device=device, dtype=torch.float32).contiguous()
-                             for t in (observation, mask))
-            for nm, t in zip(("observation", "mask"), observed):
-                _check(nm, t, device, torch.float32, (batch, dim))
+            for nm, t in (("observation", observation), ("mask", mask)):
+                values[nm] = t.to(device=device, dtype=torch.float32).contiguous()
+                _check(nm, values[nm], device, torch.float32, (batch, dim))
         if noise is not None:
             if rng_mode != "host":
                 raise ValueError("noise= is the host-mode stream; this sampler "
@@ -661,23 +734,22 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
             if noise.ndim == 3:
                 noise = noise[:, None]
             _check("noise", noise, device, torch.float32, (n_steps, K, batch, dim))
+        elif graph and rng_mode == "host":
+            raise ValueError("loop='graph' under rng_mode='host' replays injected normals: "
+                             "pass noise=")
         if z is None:
-            x = sde.prior_sampling(shape, generator, device)
+            values["z"] = sde.prior_sampling(shape, generator, device)
         else:
-            x = z.to(device=device, dtype=torch.float32).clone()
-        x = x.contiguous()
-        scratch = pc_scratch(net, batch, n_corr, device)
-        x_mean = torch.empty_like(x) if denoise else None
-        seed = draw_seed(generator) if rng_mode == "kernel" else None
-        steps = (host_slabs(noise, lo, hi, (K, batch, dim), generator, device)
-                 if rng_mode == "host" else (([None] * K, None) for _ in range(lo, hi)))
-        for i, (slabs, next_slabs) in zip(range(lo, hi), steps):
-            pc_step(net, coefs, i, x, scratch, slabs, n_corr=n_corr, snr=snr, seed=seed,
-                    x_mean=x_mean if i == hi - 1 else None, observed=observed,
-                    renoised=fold and i > lo, renoise_next=fold and i + 1 < hi,
-                    next_slabs=next_slabs, plain=plain)
-        return x_mean if denoise else x
+            values["z"] = z.to(device=device, dtype=torch.float32)
+        if rng_mode == "kernel":
+            values["seed"] = draw_seed(generator)
+        if graph:
+            if noise is not None:
+                values["noise"] = noise
+            return runner(values)
+        return runner(values, noise=noise, generator=generator)
 
+    sampler.loops = (runner,)
     return sampler
 
 
@@ -701,4 +773,5 @@ def get_cuda_em_hypo_sampler(sde: SDE, model, shape: Tuple[int, int], hypo_num: 
                     mask=mask.repeat(hypo_num, 1), z=z, noise=noise)
         return out.reshape(hypo_num, batch, dim).transpose(0, 1)
 
+    sampler.loops = inner.loops
     return sampler

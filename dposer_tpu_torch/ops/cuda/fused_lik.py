@@ -1,4 +1,5 @@
-"""The exact PF-ODE log-likelihood on the card: a host loop of CUDA kernels.
+"""The exact PF-ODE log-likelihood on the card: CUDA kernels, the whole
+loop replayed as one CUDA graph (``graph_loop.py``).
 
 Port of ``dposer_tpu/ops/pallas/fused_lik.py``. The augmented state ``(x,
 delta_logp)`` is integrated forward (data -> prior, eps -> T) with fixed-grid
@@ -28,7 +29,7 @@ bits/dim are finished in PyTorch outside the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +37,7 @@ from ...diffusion.likelihood import bits_per_dim, draw_epsilon
 from ...diffusion.sde import SDE
 from . import build
 from .fused_em import resolve_device
+from .graph_loop import GraphLoop, resolve_loop
 from .fused_ode import (DENOISE, STAGE_GRID, build_rk4_operands, check_head_rk4_operands,
                         rk4_stage)
 from .score_net import (_check, dense_gn_silu_jvp, dense_gn_silu_jvp_plain_into,
@@ -116,42 +118,62 @@ head_rk4_jvp.launches = 0
 
 def get_cuda_likelihood_fn(sde: SDE, model, shape: Tuple[int, int], n_steps: int = 100,
                            hutchinson_type: str = "Rademacher", eps: float = 1e-5,
-                           device="cuda", plain: bool = False):
+                           device="cuda", plain: bool = False, loop: Optional[str] = None):
     """Build the kernel likelihood for ``model`` (a ScoreModelFC).
 
     Returns ``likelihood_fn(generator, data [B, D], epsilon=None) -> (bpd [B],
     z [B, D], nfe)`` with the static ``nfe = 4*n_steps``, the contract of
     ``likelihood.get_likelihood_fn``; ``epsilon`` [B, D] replaces the probe
-    drawn from ``generator``. Tables and operands are built once here; a call
-    launches the kernels only. ``plain=True`` runs the same loop on the
-    kernels' plain versions, on any device.
+    drawn from ``generator``. Tables, operands and the loop's buffers are
+    made once here; a call launches the kernels only. ``plain=True`` runs
+    the same loop on the kernels' plain versions, on any device. ``loop`` is
+    ``get_cuda_em_sampler``'s: on the card the integration is by default one
+    CUDA graph, captured at the first call and replayed at every call (the
+    probe is drawn before it and copied in); ``likelihood_fn.loops`` holds
+    its ``GraphLoop``.
     """
     device = resolve_device(device)
+    graph = resolve_loop(loop, device, plain) == "graph"
     batch, dim = shape
     net, coefs = build_rk4_operands(sde, model, eps, sde.T, n_steps, device)
     if net["dim"] != dim:
         raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
     layer, head = ((dense_gn_silu_jvp_plain_into, head_rk4_jvp_plain_into) if plain else
                    (dense_gn_silu_jvp, head_rk4_jvp))
+    # the loop's static buffers: the state (acc and lacc are written at each
+    # step's first stage before they are read), the layers' buffers, the inputs
+    x = torch.empty((batch, dim), dtype=torch.float32, device=device)
+    xs, acc = torch.empty_like(x), torch.empty_like(x)
+    lp = torch.empty((batch,), dtype=torch.float32, device=device)
+    lacc = torch.empty_like(lp)
+    bufs = hidden_jvp_buffers(net, batch, device)
+    inputs = dict(data=torch.empty_like(x), epsilon=torch.empty_like(x))
 
-    @torch.no_grad()
-    def likelihood_fn(generator, data, epsilon=None):
-        if epsilon is None:
-            epsilon = draw_epsilon(hutchinson_type, shape, generator, device)
-        epsilon = epsilon.to(device=device, dtype=torch.float32).contiguous()
-        x = data.to(device=device, dtype=torch.float32).clone().contiguous()
-        _check("data", x, device, torch.float32, (batch, dim))
-        _check("epsilon", epsilon, device, torch.float32, (batch, dim))
-        xs, acc = x.clone(), torch.empty_like(x)
-        lp = torch.zeros((batch,), dtype=torch.float32, device=device)
-        lacc = torch.empty_like(lp)
-        bufs = hidden_jvp_buffers(net, batch, device)
-        for i in range(n_steps):
+    def body(warm_up=False):
+        x.copy_(inputs["data"])
+        xs.copy_(x)
+        lp.zero_()
+        epsilon = inputs["epsilon"]
+        for i in range(1 if warm_up else n_steps):  # the warm-up: the first step's stages
             for s in range(4):
                 j = 2 * i + STAGE_GRID[s]
                 h, dh = network_hidden_jvp(net, xs, epsilon, j, bufs, layer)
                 head(h, dh, net["w_post"], net["b_post"], coefs, j, s, x, xs, acc, epsilon,
                      lp, lacc)
+        return x, lp
+
+    runner = GraphLoop(body, inputs, graph=graph)
+
+    @torch.no_grad()
+    def likelihood_fn(generator, data, epsilon=None):
+        if epsilon is None:
+            epsilon = draw_epsilon(hutchinson_type, shape, generator, device)
+        values = dict(data=data.to(device=device, dtype=torch.float32).contiguous(),
+                      epsilon=epsilon.to(device=device, dtype=torch.float32).contiguous())
+        for nm, t in values.items():
+            _check(nm, t, device, torch.float32, (batch, dim))
+        x, lp = runner(values)
         return bits_per_dim(sde, x, lp), x, 4 * n_steps
 
+    likelihood_fn.loops = (runner,)
     return likelihood_fn

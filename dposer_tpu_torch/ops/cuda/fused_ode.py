@@ -1,5 +1,5 @@
-"""The fixed-grid RK4 probability-flow-ODE sampler on the card: a host loop
-of CUDA kernels.
+"""The fixed-grid RK4 probability-flow-ODE sampler on the card: CUDA
+kernels, the whole loop replayed as one CUDA graph (``graph_loop.py``).
 
 Port of ``dposer_tpu/ops/pallas/fused_ode.py``. The TPU runs the whole
 integration as one program with the weights resident on-core; here each of
@@ -37,6 +37,7 @@ from ...diffusion.fast_sampler import denoise_coefs, pf_ode_grid
 from ...diffusion.sde import SDE
 from . import build
 from .fused_em import resolve_device
+from .graph_loop import GraphLoop, resolve_loop
 from .score_net import (HEAD_COLS, _check, build_network_operands, dense_gn_silu,
                         dense_gn_silu_plain_into, network_hidden)
 
@@ -159,17 +160,21 @@ head_rk4.launches = 0
 
 def get_cuda_ode_sampler(sde: SDE, model, shape: Tuple[int, int], n_steps: int = 125,
                          eps: float = 1e-3, denoise: bool = False, device="cuda",
-                         plain: bool = False):
+                         plain: bool = False, loop: Optional[str] = None):
     """Build the kernel RK4 PF-ODE sampler for ``model`` (a ScoreModelFC).
 
     Returns ``sampler(generator=None, z=None) -> (nfe, x)`` with the static
     ``nfe = 4*n_steps``, the contract of ``sampling.get_ode_sampler`` and
     ``fast_sampler.get_fast_ode_sampler``; ``z`` [B, D] replaces the prior
-    draw. Tables and operands are built once here; a call launches the kernels
-    only. ``plain=True`` runs the same loop on the kernels' plain versions, on
-    any device.
+    draw. Tables, operands and the loop's buffers are made once here; a call
+    launches the kernels only. ``plain=True`` runs the same loop on the
+    kernels' plain versions, on any device. ``loop`` is
+    ``get_cuda_em_sampler``'s: on the card the integration is by default one
+    CUDA graph, captured at the first call and replayed at every call (it
+    draws no noise); ``sampler.loops`` holds its ``GraphLoop``.
     """
     device = resolve_device(device)
+    graph = resolve_loop(loop, device, plain) == "graph"
     batch, dim = shape
     net, coefs = build_rk4_operands(sde, model, sde.T, eps, n_steps, device,
                                     denoise_eps=eps if denoise else None)
@@ -177,24 +182,35 @@ def get_cuda_ode_sampler(sde: SDE, model, shape: Tuple[int, int], n_steps: int =
         raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
     layer, head = ((dense_gn_silu_plain_into, head_rk4_plain_into) if plain else
                    (dense_gn_silu, head_rk4))
+    stages = [(2 * i + STAGE_GRID[s], s) for i in range(n_steps) for s in range(4)]
+    if denoise:
+        stages.append((2 * n_steps, DENOISE))
+    # the loop's static buffers: the state (acc is written at each step's first
+    # stage before it is read), the hidden activations and the input
+    x = torch.empty((batch, dim), dtype=torch.float32, device=device)
+    xs, acc = torch.empty_like(x), torch.empty_like(x)
+    h = torch.empty((batch, net["hidden"]), dtype=torch.float32, device=device)
+    h1 = torch.empty_like(h)
+    inputs = dict(z=torch.empty_like(x))
+
+    def body(warm_up=False):
+        x.copy_(inputs["z"])
+        xs.copy_(x)
+        # the warm-up: the first step's stages and the last stage (the denoise)
+        for j, s in (stages[:4] + stages[-1:] if warm_up else stages):
+            network_hidden(net, xs, j, h, h1, layer)
+            head(h, net["w_post"], net["b_post"], coefs, j, s, x, xs, acc)
+        return x
+
+    runner = GraphLoop(body, inputs, graph=graph)
 
     @torch.no_grad()
     def sampler(generator: Optional[torch.Generator] = None, z=None):
         if z is None:
-            x = sde.prior_sampling(shape, generator, device)
-        else:
-            x = z.to(device=device, dtype=torch.float32).clone()
-        x = x.contiguous()
-        _check("z", x, device, torch.float32, (batch, dim))
-        xs, acc = x.clone(), torch.empty_like(x)
-        h = torch.empty((batch, net["hidden"]), dtype=torch.float32, device=device)
-        h1 = torch.empty_like(h)
-        stages = [(2 * i + STAGE_GRID[s], s) for i in range(n_steps) for s in range(4)]
-        if denoise:
-            stages.append((2 * n_steps, DENOISE))
-        for j, s in stages:
-            network_hidden(net, xs, j, h, h1, layer)
-            head(h, net["w_post"], net["b_post"], coefs, j, s, x, xs, acc)
-        return 4 * n_steps, x
+            z = sde.prior_sampling(shape, generator, device)
+        z = z.to(device=device, dtype=torch.float32).contiguous()
+        _check("z", z, device, torch.float32, (batch, dim))
+        return 4 * n_steps, runner(dict(z=z))
 
+    sampler.loops = (runner,)
     return sampler

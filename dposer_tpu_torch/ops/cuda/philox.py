@@ -6,6 +6,8 @@ in-kernel normals to the stream it promises, element by element. Every
 32-bit word is carried in an int64 holding a value in [0, 2**32).
 The Box-Muller step runs in float64 and rounds once to float32: the kernels'
 ``logf``, ``sqrtf`` and ``cospif`` are within an ulp or two of that.
+A seed is an int or, as the kernels read it from device memory, a
+one-element int64 tensor holding its 64 bits: both key the same stream.
 """
 from __future__ import annotations
 
@@ -41,7 +43,19 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def _counter(seed: int, step: int, slab: int, row, col):
+def seed_bits(seed) -> int:
+    """The 64 bits of ``seed`` (an int, or a one-element int64 tensor, whose
+    negative values are the seeds at and above 2**63) as an int."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise ValueError(f"a seed tensor holds one int64; got {seed.dtype} "
+                             f"{tuple(seed.shape)}")
+        seed = int(seed.reshape(()).item())
+    return int(seed) & (2 ** 64 - 1)
+
+
+def _counter(seed, step: int, slab: int, row, col):
+    seed = seed_bits(seed)
     row = torch.as_tensor(row, dtype=torch.int64)
     col = torch.as_tensor(col, dtype=torch.int64)
     row, col = torch.broadcast_tensors(row, col)
@@ -59,7 +73,7 @@ def _angle(word):
     return 2.0 * math.pi * ((word >> 8).double() * 2.0 ** -24)  # 2*pi*[0, 1)
 
 
-def philox_normal_plain(seed: int, step: int, slab: int, row, col) -> torch.Tensor:
+def philox_normal_plain(seed, step: int, slab: int, row, col) -> torch.Tensor:
     """``philox_normal``: the standard normal of element (row, col) of noise
     slab ``slab`` at sampler step ``step`` (one Philox call an element,
     Box-Muller's cos branch); ``row`` and ``col`` broadcast. float32."""
@@ -68,7 +82,7 @@ def philox_normal_plain(seed: int, step: int, slab: int, row, col) -> torch.Tens
     return (_radius(r[0]) * torch.cos(_angle(r[1]))).float()
 
 
-def philox_normal4_plain(seed: int, step: int, slab: int, row, col0) -> torch.Tensor:
+def philox_normal4_plain(seed, step: int, slab: int, row, col0) -> torch.Tensor:
     """``philox_normal4``: the four normals of elements (row, col0 ..
     col0 + 3) (``col0`` a multiple of 4) from one Philox call keyed by
     column group ``col0 // 4``; float32 with a trailing axis of 4."""
@@ -81,7 +95,7 @@ def philox_normal4_plain(seed: int, step: int, slab: int, row, col0) -> torch.Te
                         rb * torch.sin(b)], dim=-1).float()
 
 
-def normals_grid(seed: int, step: int, slab: int, rows: int, cols: int,
+def normals_grid(seed, step: int, slab: int, rows: int, cols: int,
                  per_group: bool = False, device=None) -> torch.Tensor:
     """The [rows, cols] normals a kernel draws for one (step, slab):
     ``philox_normal`` per element (K2, K4), or with ``per_group`` the

@@ -1313,3 +1313,147 @@ def test_microbenchmarks_run_on_the_card(dev, monkeypatch):
     splits = ilp_probe.main(args)
     assert [s["bitwise_equal_whole"] for s in splits] == [None, True, True]
     assert launch_counts()["chain_link"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the loops as CUDA graphs (ops/cuda/graph_loop.py) and the device seed
+# ---------------------------------------------------------------------------
+
+def _graph_routes(dev, route):
+    """``(build(loop) -> fn, call(fn, gen, i) -> output)`` of one graphed
+    route at a small size; call ``i`` takes other inputs than call ``i+1``."""
+    model = _small_model(dev, scale_by_sigma=route not in ("ode", "likelihood"))
+    shape, n = (70, 63), 20
+    rng = np.random.default_rng(60)
+    obs, z = _t(rng, shape, dev, 0.3), _t(rng, shape, dev)
+    mask = torch.zeros(shape, device=dev)
+    mask[:, 12:] = 1.0
+    sde = tsde.SubVPSDE(N=n)
+    kern = dict(rng_mode="kernel", device="cuda")
+    if route in ("generation", "langevin", "imputation", "pf_euler"):
+        kw = dict(corrector="langevin" if route == "langevin" else "none",
+                  imputation=route == "imputation", probability_flow=route == "pf_euler",
+                  eps=1e-5 if route == "pf_euler" else 1e-3, **kern)
+        io = dict(observation=obs, mask=mask) if route == "imputation" else {}
+
+        def build(loop):
+            return get_cuda_em_sampler(sde, model, shape, loop=loop, **kw)
+
+        return build, lambda fn, g, i: fn(g, z=z if route == "pf_euler" and i == 0 else None,
+                                          **io)
+    if route == "int8_mixed":
+        from dposer_tpu_torch.ops.cuda import quant
+        amax = quant.calibrate_act_amax(sde, model, (64, 63),
+                                        torch.Generator(device=dev).manual_seed(0), device=dev)
+
+        def build(loop):
+            return get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax,
+                                       bf16_tail_steps=5, loop=loop, **kern)
+
+        return build, lambda fn, g, i: fn(g)
+    if route == "solver":
+        def build(loop):
+            return get_cuda_comp_solver(tsde.SubVPSDE(N=1000), model, shape, 70 * 63,
+                                        iterations=2, steps_per_iter=8, loop=loop, **kern)
+
+        return build, lambda fn, g, i: fn(g, obs * (1 + i), mask)
+    if route == "ode":
+        def build(loop):
+            return get_cuda_ode_sampler(tsde.SubVPSDE(N=1000), model, shape, n_steps=10,
+                                        denoise=True, device="cuda", loop=loop)
+
+        return build, lambda fn, g, i: fn(g)[1]
+
+    def build(loop):
+        return get_cuda_likelihood_fn(tsde.SubVPSDE(N=1000), model, shape, n_steps=10,
+                                      device="cuda", loop=loop)
+
+    return build, lambda fn, g, i: fn(g, obs * (1 + i))[:2]
+
+
+def _flat(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("route", ["generation", "langevin", "imputation", "pf_euler",
+                                   "int8_mixed", "solver", "ode", "likelihood"])
+def test_graph_loop_equals_eager_loop(dev, route):
+    """One CUDA graph a call (two for int8-mixed), bit-equal to the eager
+    loop from the same generator state, with the same launch and route
+    counts; a second call draws other normals (or takes other inputs) and
+    returns tensors of its own."""
+    build, call = _graph_routes(dev, route)
+    eager, graph = build("eager"), build("graph")
+    assert [lp.graph for lp in graph.loops] == [True] * (2 if route == "int8_mixed" else 1)
+    assert not any(lp.graph for lp in eager.loops)
+    results, counts = {}, {}
+    for name, fn in (("eager", eager), ("graph", graph)):
+        reset_launch_counts()
+        out = _flat(call(fn, torch.Generator(device=dev).manual_seed(7), 0))
+        torch.cuda.synchronize()
+        results[name], counts[name] = out, (launch_counts(), fused_em.route_counts())
+    assert all(torch.equal(a, b) for a, b in zip(results["graph"], results["eager"]))
+    assert counts["graph"] == counts["eager"] and sum(counts["graph"][0].values()) > 0
+    again = _flat(call(graph, torch.Generator(device=dev).manual_seed(8), 1))
+    torch.cuda.synchronize()
+    assert not torch.equal(again[0], results["graph"][0])
+    assert again[0].data_ptr() != results["graph"][0].data_ptr()
+    for lp in graph.loops:
+        assert lp.capture_s > 0 and lp.instantiate_s > 0 and lp.launches
+
+
+def test_graph_loop_under_host_normals_replays_injected_noise(dev):
+    """Under rng_mode="host" a replay needs noise=; with it the graph is the
+    eager loop bit for bit."""
+    model = _small_model(dev)
+    n, shape = 20, (70, 63)
+    rng = np.random.default_rng(61)
+    z, noise = _t(rng, shape, dev), _t(rng, (n, 1) + shape, dev)
+    sde = tsde.SubVPSDE(N=n)
+    graph = get_cuda_em_sampler(sde, model, shape, device="cuda", loop="graph")
+    with pytest.raises(ValueError):
+        graph(torch.Generator(device=dev).manual_seed(1), z=z)
+    eager = get_cuda_em_sampler(sde, model, shape, device="cuda")
+    assert not eager.loops[0].graph
+    assert torch.equal(graph(z=z, noise=noise), eager(z=z, noise=noise))
+
+
+@pytest.mark.parametrize("kernel", ["head_em", "head_em_impute", "langevin_update",
+                                    "masked_renoise", "comp_perturb", "head_adam_perturb"])
+def test_seed_in_device_memory_draws_the_ints_normals(dev, kernel):
+    """K2-K5 and K6's perturbing instantiation read the seed from device
+    memory: the seed as an int and as the one-element int64 tensor (here one
+    at and above 2**63, negative as int64) give the same bits, and a
+    changed tensor draws other normals."""
+    seed = 2 ** 63 + 12345
+    h, w_post, b_post, coefs, x, _ = _head(dev, B=70)
+    score = x.flip(1).contiguous()
+    sq = (score * score).sum(1)
+    obs, mask = x.flip(0).contiguous(), (x > 0).float()
+
+    def run(s):
+        xs, other = x.clone(), torch.zeros_like(x)
+        if kernel == "head_em":
+            head_em(h, w_post, b_post, coefs, 2, "em", x=xs, seed=s, slab=1)
+        elif kernel == "head_em_impute":
+            head_em(h, w_post, b_post, coefs, 2, "em", x=xs, seed=s, observed=(obs, mask),
+                    renoise_next=0)
+        elif kernel == "langevin_update":
+            langevin_update(xs, score, sq, coefs, 1, 0.16, seed=s)
+        elif kernel == "masked_renoise":
+            masked_renoise(xs, obs, mask, coefs, 2, seed=s, slab=2)
+        elif kernel == "comp_perturb":
+            comp_perturb(xs, other, coefs, 2, seed=s)
+        else:
+            m1, v = torch.zeros_like(x), torch.ones_like(x)
+            head_adam_perturb(h, w_post, b_post, coefs, 2, xs, other, obs, mask, m1, v, seed=s)
+        return xs, other
+
+    t = fused_em.seed_tensor(seed, dev)
+    assert int(t) < 0
+    want, got = run(seed), run(t)
+    t.fill_(77)
+    changed = run(t)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not all(torch.equal(a, b) for a, b in zip(changed, want))
