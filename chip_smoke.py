@@ -125,13 +125,25 @@ Phases; any failure exits non-zero:
    their eager loop beside the graph and print both walls, the graph's
    warm-up, capture and instantiation seconds and the device's busy share
    of each; (l) ``python -m dposer_tpu_torch.bench``'s line as run on the
-   card;
+   card; (m) motion denoising (``MotionDenoise``) of 8 fragments x 60 frames
+   of ``benchmarks/gen_synth_motion.py`` on the human-scale synthetic SMPL-X
+   body, sigma 0.04, 3 x 60 Adam steps in one ``optimize_batch``: every
+   fragment's MPJPE below its noisy init, each fragment's ``optimize`` on the
+   same draws pointwise within 1e-5 rad over 20 steps and within 5% of its
+   MPJPE over the schedule, ms per fragment; (n) SMPLify with the DPoser
+   prior on 8 synthetic EHF images (``benchmarks/gen_synth_ehf.py``'s
+   geometry, the 10,475-vertex synthetic body), 100 + 5 x 100 steps:
+   PA-MPJPE and MPJPE below the mean-pose init's, the same fit without the
+   prior, ms per image; both with the device's busy share over a profiled
+   window and no kernel launched (the JAX package runs these tasks under
+   XLA);
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
 Needs the repository around it (the port, the pinned checkpoint under
 ``artifacts/trained_r5``, ``tests/fixtures.py`` for the synthetic SMPL and
-SMPL-X bodies and ``benchmarks/gen_synth_amass.py`` for the synthetic
+SMPL-X bodies, ``dposer_tpu/assets`` for the mean pose, and
+``benchmarks/gen_synth_amass.py`` and ``gen_synth_motion.py`` for the synthetic
 poses); writes only under ``chiprun_out/chip_smoke``.
 """
 import copy
@@ -161,10 +173,15 @@ import numpy as np  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from dposer_tpu_torch import demo  # noqa: E402
+from dposer_tpu_torch import fitting as fitting_cli  # noqa: E402
+from dposer_tpu_torch import motion_denoising as motion_cli  # noqa: E402
 from dposer_tpu_torch import train as train_cli  # noqa: E402
 from dposer_tpu_torch.body_model import BodyModel  # noqa: E402
+from dposer_tpu_torch.body_model.fitting_losses import perspective_projection  # noqa: E402
+from dposer_tpu_torch.body_model.smplx_fit import SMPLXFit  # noqa: E402
 from dposer_tpu_torch.config import get_config  # noqa: E402
-from dposer_tpu_torch.data import PoseNormalizer  # noqa: E402
+from dposer_tpu_torch.data import MocapDataset, PoseNormalizer  # noqa: E402
+from dposer_tpu_torch.data.preprocess import bbox_from_detector  # noqa: E402
 from dposer_tpu_torch.diffusion import fast_sampler as tfs  # noqa: E402
 from dposer_tpu_torch.diffusion import likelihood as tlik  # noqa: E402
 from dposer_tpu_torch.diffusion import losses as tlosses  # noqa: E402
@@ -177,7 +194,8 @@ from dposer_tpu_torch.ops.cuda import (build, chain_link, fused_comp, fused_em, 
                                        score_net)
 from dposer_tpu_torch.models import create_score_model  # noqa: E402
 from dposer_tpu_torch.ops.metrics import Evaler, average_pairwise_distance  # noqa: E402
-from dposer_tpu_torch.tasks import DPoserComp  # noqa: E402
+from dposer_tpu_torch.ops.rotations import estimate_focal_length  # noqa: E402
+from dposer_tpu_torch.tasks import DPoser, DPoserComp, MotionDenoise, SMPLify  # noqa: E402
 from dposer_tpu_torch.utils.masks import create_mask  # noqa: E402
 from fixtures import make_synthetic_body_model  # noqa: E402
 
@@ -215,6 +233,13 @@ TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generati
 DRAW_TOL = 1e-5  # in-kernel normals against the plain Philox stream (logf, cospif vs float64)
 REPEATS = 50  # repeated calls of K2, K3, K6-K12 that must give the same bits
 GRAPH_SEED = 21  # the graph phase's generator seed (and GRAPH_SEED + 1)
+MOTION_STD = 0.04  # (m): the joints' noise in m
+# (m): optimize_batch against each fragment's optimize on the same draws:
+# the poses over the first MOTION_SHORT_STEPS steps (rad), and each
+# fragment's final MPJPE over the whole schedule (relative)
+MOTION_SHORT_STEPS, MOTION_BATCH_TOL, MOTION_MPJPE_RTOL = 20, 1e-5, 0.05
+SHARE_STEPS = 12  # the fitting phases' profiled window, Adam steps
+N_IMG, EHF_W, EHF_H, EHF_TOP_V = 8, 1600, 1200, 250.0  # (n): gen_synth_ehf.py's geometry
 # Each kernel row's device us per launch in PERF.md's table before the seed
 # moved to device memory (as the run that last changed the kernel until then
 # measured it), and the kernels that read their seed from device memory
@@ -1274,13 +1299,20 @@ def phase_completion_parity(model, dev):
     return out
 
 
+def load_benchmark(name):
+    """``benchmarks/<name>.py`` loaded by path (numpy only)."""
+    sys.path.insert(0, os.path.join(REPO, "benchmarks"))  # its sibling imports
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "benchmarks", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def synthetic_poses(n):
     """``n`` test draws of the synthetic AMASS mixture the pinned checkpoint
     was trained on (benchmarks/gen_synth_amass.py; numpy only)."""
-    spec = importlib.util.spec_from_file_location(
-        "gen_synth_amass", os.path.join(REPO, "benchmarks", "gen_synth_amass.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = load_benchmark("gen_synth_amass")
     centers, w, basis = mod.make_mixture(np.random.default_rng(0))
     return mod.sample_poses(np.random.default_rng(123), n, centers, w, basis)
 
@@ -1614,6 +1646,240 @@ def phase_ode_kernels(model, dev):
     for r in rows:
         kernel_row_line(r)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the fitting path: motion denoising and SMPLify (no kernel, as in JAX)
+# ---------------------------------------------------------------------------
+
+def fitting_launches(what):
+    """The kernel launches of a fitting run: none, since its prior runs the
+    fp32 ``nn.Module`` (the JAX tasks call ``model.apply`` under XLA)."""
+    counts = fused_em.launch_counts()
+    check(not any(counts.values()), f"{what} launched kernels: {counts}")
+    return counts
+
+
+def device_share(fn, steps):
+    """The device's busy share over a short window ``fn`` of ``steps`` Adam
+    steps: its kernels' device time in a profiled call over the wall of an
+    unprofiled one (a whole fit holds ~10^5 kernels, too many to trace);
+    None where the profiler records no device time."""
+    _, wall = timed(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us, _ = device_kernel_us(prof)
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation)
+    out = dict(window_steps=steps, window_ms_per_step=wall * 1e3 / steps,
+               kernels_per_step=n / steps, device_ms_per_step=None, busy_share=None)
+    if dev_us > 0.0:
+        out.update(device_ms_per_step=dev_us / 1e3 / steps, busy_share=dev_us / 1e6 / wall)
+    return out
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_fitting_protocols(model, dev):
+    """(m) motion denoising of 8 fragments x 60 frames of
+    ``benchmarks/gen_synth_motion.py`` (``--n-seqs 8 --frames 60 --seed 0``)
+    on the human-scale 120-vertex synthetic SMPL-X body, sigma 0.04, strategy
+    '3', ``noise_schedule_kwargs(0.04)`` (3 x 60 Adam steps), all fragments
+    in one ``optimize_batch``: each fragment's final MPJPE below its init,
+    and ``optimize`` of each fragment alone on the same draws within
+    ``MOTION_BATCH_TOL`` rad of the batch's poses over the first
+    ``MOTION_SHORT_STEPS`` steps and within ``MOTION_MPJPE_RTOL`` of its
+    final MPJPE over the schedule. (n) SMPLify with the DPoser prior on 8
+    images of ``benchmarks/gen_synth_ehf.py``'s geometry (in-distribution
+    draws of the synthetic AMASS mixture, ``--pose-scale 1.0``, through the
+    port's ``SMPLXFit`` on the 10,475-vertex synthetic body, projected with
+    the 1600 x 1200 EHF camera, ``joints[:25]`` at confidence 1), from the
+    mean pose at the reference defaults (step 1e-2, 5 x 100 iterations,
+    batch 8): PA-MPJPE and MPJPE by ``eval_EHF``'s arithmetic below the
+    unfitted init's; and the same fit without the prior. The bbox, focal
+    length and initial camera are ``fitting.py``'s arithmetic; images are
+    not read (the card's machine has no cv2). Both run the pinned network in
+    fp32 under autograd and launch no kernel."""
+    t_phase = time.perf_counter()
+    sde = SubVPSDE(N=motion_cli.SDE_N)
+    score_fn = get_score_fn(sde, model, continuous=True)
+    config = get_config()
+    normalizer = PoseNormalizer(STATS, normalize=config.data.normalize,
+                                min_max=config.data.min_max, rot_rep=config.data.rot_rep,
+                                device=dev)
+    os.makedirs(OUT, exist_ok=True)
+    res, by_run = {}, {}
+
+    # (m) motion denoising
+    gsm = load_benchmark("gen_synth_motion")
+    centers, w, basis = gsm.make_mixture(np.random.default_rng(0))
+    rng = np.random.default_rng(0)
+    gts = torch.as_tensor(np.stack([gsm.sample_sequence(rng, 60, centers, w, basis, 30.0)
+                                    for _ in range(8)]), device=dev)
+    human, _ = make_synthetic_body_model(os.path.join(OUT, "smplx_human.npz"), "smplx",
+                                         n_verts=120, template_scale=0.15, seed=0)
+    body = BodyModel(human, num_betas=10, model_type="smplx", device=dev)
+    md = MotionDenoise(sde, score_fn, body, normalizer, dposer_weight=1.0, batch_size=60)
+    sched = motion_cli.noise_schedule_kwargs(MOTION_STD)
+
+    def fragment_draws():
+        gens = [motion_cli.sequence_generator(0, i, dev) for i in range(8)]
+        return gens, torch.stack([motion_cli.noisy_joints(body, gts[i], MOTION_STD, g)
+                                  for i, g in enumerate(gens)])
+
+    gens, noisy = fragment_draws()
+    fused_em.reset_launch_counts()
+    poses, wall = timed(lambda: md.optimize_batch(noisy, time_strategy="3", generators=gens,
+                                                  **sched))
+    by_run["motion_denoising"] = fitting_launches("motion denoising")
+    check(poses.shape == (8, 60, D) and torch.isfinite(poses).all().item(),
+          "motion denoising output")
+    per = [md.metrics(poses[i], noisy[i], gts[i]) for i in range(8)]
+    init, final = ([float(np.mean(r[k])) for r in per] for k in ("init_MPJPE", "MPJPE"))
+    mpvpe = [float(np.mean(r["MPVPE"])) for r in per]
+    for i in range(8):
+        check(final[i] < init[i], f"motion fragment {i}: MPJPE {final[i]} cm not below its "
+                                  f"init {init[i]} cm")
+    # each fragment alone: the same draws; the batch's products (480 rows,
+    # the fragment's 60) round otherwise, and 180 Adam steps amplify that
+    # (Adam divides each gradient by its running norm, so an ulp in a gradient
+    # near 0 flips a step): pointwise over the first SHORT_STEPS steps, by
+    # the fragments' MPJPE over the whole schedule
+    gens1, noisy1 = fragment_draws()
+    check(torch.equal(noisy1, noisy), "motion: the fragments' noise is not reproducible")
+    alone, alone_final, seq_walls = [], [], []
+    for i in range(8):
+        _, w1 = timed(lambda: md.optimize(noisy1[i], gts[i], time_strategy="3",
+                                          generator=gens1[i], **sched))
+        alone.append(md.last_poses)
+        alone_final.append(float(np.mean(md.metrics(md.last_poses, noisy1[i],
+                                                    gts[i])["MPJPE"])))
+        seq_walls.append(w1)
+    full_err = float((torch.stack(alone) - poses).abs().max())
+    mpjpe_rel = max(abs(a - b) / b for a, b in zip(alone_final, final))
+    check(mpjpe_rel <= MOTION_MPJPE_RTOL, f"motion: optimize_batch's MPJPE against optimize's "
+                                          f"{mpjpe_rel:.3g} relative (> {MOTION_MPJPE_RTOL})")
+    short = dict(sched, iterations=1, steps_per_iter=MOTION_SHORT_STEPS)
+    gens_s, _ = fragment_draws()
+    short_b = md.optimize_batch(noisy, time_strategy="3", generators=gens_s, **short)
+    gens_s, _ = fragment_draws()
+    short_err = 0.0
+    for i in range(8):
+        md.optimize(noisy[i], time_strategy="3", generator=gens_s[i], **short)
+        short_err = max(short_err, float((md.last_poses - short_b[i]).abs().max()))
+    check(short_err <= MOTION_BATCH_TOL, f"motion: optimize_batch against optimize over "
+                                         f"{MOTION_SHORT_STEPS} steps {short_err} rad "
+                                         f"(> {MOTION_BATCH_TOL})")
+    batch_err = dict(short_steps=MOTION_SHORT_STEPS, short_max_abs_rad=short_err,
+                     full_max_abs_rad=full_err, full_mpjpe_max_rel=mpjpe_rel,
+                     alone_mpjpe_cm=alone_final)
+    window = dict(sched, iterations=1, steps_per_iter=SHARE_STEPS)
+    share = device_share(lambda: md.optimize_batch(noisy, time_strategy="3", generators=gens,
+                                                   **window), SHARE_STEPS)
+    steps = sched["iterations"] * sched["steps_per_iter"]
+    res["motion_denoising"] = dict(
+        fragments=8, frames=60, steps=steps, noise_std=MOTION_STD, init_mpjpe_cm=init,
+        mpjpe_cm=final, mpvpe_cm=mpvpe, wall_s=wall, ms_per_fragment=wall * 1e3 / 8,
+        ms_per_step=wall * 1e3 / steps, alone_walls_s=seq_walls,
+        alone_ms_per_fragment=float(np.mean(seq_walls)) * 1e3,
+        batch_vs_alone=batch_err, launches=by_run["motion_denoising"], **share)
+    print(f"[fitting] (m) motion denoising 8 x 60 frames, sigma {MOTION_STD}, {steps} steps: "
+          f"MPJPE {np.mean(init):.3f} -> {np.mean(final):.3f} cm (every fragment below its "
+          f"init; per fragment {['%.2f' % v for v in final]}), MPVPE {np.mean(mpvpe):.3f} cm; "
+          f"{wall * 1e3 / 8:.1f} ms per fragment batched ({wall:.2f} s a batch, "
+          f"{wall * 1e3 / steps:.2f} ms a step), {np.mean(seq_walls) * 1e3:.1f} ms per fragment "
+          f"alone; optimize_batch against optimize: {short_err:.3g} rad over {MOTION_SHORT_STEPS} "
+          f"steps (tol {MOTION_BATCH_TOL}), {full_err:.3g} rad and MPJPE {mpjpe_rel:.3g} "
+          f"relative over {steps} (tol {MOTION_MPJPE_RTOL}); a step over {SHARE_STEPS}: "
+          f"{share['kernels_per_step']:.0f} kernels, {share['device_ms_per_step']} ms of them "
+          f"in {share['window_ms_per_step']:.2f} ms, busy share {share['busy_share']}")
+
+    # (n) SMPLify on synthetic EHF geometry
+    gsa = load_benchmark("gen_synth_amass")
+    centers, w, basis = gsa.make_mixture(np.random.default_rng(0))
+    rng = np.random.default_rng(2024)
+    gt_body = torch.as_tensor(gsa.sample_poses(rng, N_IMG, centers, w, basis), device=dev)
+    hd = os.path.join(OUT, "smplx_hd.npz")
+    make_synthetic_body_model(hd, "smplx", n_verts=10475, template_scale=0.15, seed=0)
+    smpl = SMPLXFit(hd, device=dev)
+    os.remove(hd)  # 110 MB: loaded, and not brought back
+    root = torch.as_tensor(MocapDataset.EHF_CAM_R_AA, dtype=torch.float32,
+                           device=dev).expand(N_IMG, 3)
+    focal = float(estimate_focal_length(EHF_H, EHF_W))
+    center, scale = bbox_from_detector(fitting_cli.EHF_BBOX)
+
+    def col(v):
+        return torch.full((N_IMG,), float(v), device=dev)
+
+    init_cam_t, cc = fitting_cli.init_camera(
+        torch.as_tensor(np.tile(center, (N_IMG, 1)), dtype=torch.float32, device=dev),
+        col(scale), col(EHF_H), col(EHF_W), col(focal))
+    zeros = torch.zeros(N_IMG, 10, device=dev)
+    eye = torch.eye(3, device=dev).expand(N_IMG, 3, 3)
+    with torch.no_grad():
+        t_gt = init_cam_t.clone()
+        for _ in range(3):  # gen_synth_ehf.py's standing placement: the top keypoint at row 250
+            kp = perspective_projection(smpl(betas=zeros, body_pose=gt_body, global_orient=root,
+                                             transl=t_gt).joints, eye, t_gt, focal, cc)
+            t_gt[:, 1] += (EHF_TOP_V - kp[:, :25, 1].min(1).values) * t_gt[:, 2] / focal
+        out = smpl(betas=zeros, body_pose=gt_body, global_orient=root, transl=t_gt)
+        kp = perspective_projection(out.joints, eye, t_gt, focal, cc)
+    keypoints = torch.zeros(N_IMG, 49, 3, device=dev)
+    keypoints[:, :25, :2], keypoints[:, :25, 2] = kp[:, :25], 1.0
+    cam_R = MocapDataset([], np.zeros((0, 5))).cam_R
+    mesh_gt = out.vertices.cpu().numpy() @ cam_R  # the ply's frame: cam_R.T @ (v + t)
+    seated = kp[:, :25, 1].min(1).values > 400  # fitting.py's bend-pose rule
+    check(not bool(seated.any()), "SMPLify: a synthetic subject reads as seated")
+    init_pose = smpl.mean_poses[:66].expand(N_IMG, -1).clone()
+    init_betas = smpl.mean_shape.expand(N_IMG, -1).clone()
+    db = MocapDataset([], np.zeros((0, 5)), body_model=smpl.bm)
+
+    def evaluate(fit):
+        rows = [db.eval_mesh([a[i:i + 1].cpu().numpy() for a in fit[:3]], mesh_gt[i])
+                for i in range(N_IMG)]
+        return ([r["pa_mpjpe_body"][0] for r in rows], [r["mpjpe_body"][0] for r in rows])
+
+    pa0, mp0 = evaluate((init_pose, init_betas, init_cam_t))
+    prior = DPoser(sde, score_fn, normalizer, batch_size=N_IMG, device=dev)
+    for name, pp in (("smplify", prior), ("smplify_no_prior", None)):
+        fitter = SMPLify(smpl, pose_prior=pp, step_size=1e-2, cam_step_size=1e-2,
+                         batch_size=N_IMG, num_iters=100, focal_length=focal, sde_N=sde.N)
+        gen = torch.Generator(device=dev).manual_seed(42)
+        fused_em.reset_launch_counts()
+        fit, wall = timed(lambda: fitter(init_pose, init_betas, init_cam_t, cc, keypoints,
+                                         generator=gen))
+        by_run[name] = fitting_launches(name)
+        check(all(torch.isfinite(a).all().item() for a in fit), f"{name}: non-finite fit")
+        pa, mp = evaluate(fit)
+        res[name] = dict(images=N_IMG, steps=100 + 5 * 100, init_pa_mpjpe_mm=pa0,
+                         init_mpjpe_mm=mp0, pa_mpjpe_mm=pa, mpjpe_mm=mp, wall_s=wall,
+                         ms_per_image=wall * 1e3 / N_IMG, launches=by_run[name])
+        print(f"[fitting] (n) {name} {N_IMG} images, 100 + 5 x 100 steps: PA-MPJPE "
+              f"{np.mean(pa0):.2f} -> {np.mean(pa):.2f} mm, MPJPE {np.mean(mp0):.2f} -> "
+              f"{np.mean(mp):.2f} mm; {wall * 1e3 / N_IMG:.1f} ms per image ({wall:.2f} s a "
+              f"batch)")
+    r = res["smplify"]
+    check(np.mean(r["pa_mpjpe_mm"]) < np.mean(pa0) and np.mean(r["mpjpe_mm"]) < np.mean(mp0),
+          f"SMPLify: PA-MPJPE {np.mean(r['pa_mpjpe_mm'])} / MPJPE {np.mean(r['mpjpe_mm'])} mm "
+          f"not below the mean-pose init's {np.mean(pa0)} / {np.mean(mp0)}")
+    short = SMPLify(smpl, pose_prior=prior, step_size=1e-2, batch_size=N_IMG,
+                    num_iters=SHARE_STEPS // 6, focal_length=focal, sde_N=sde.N)
+    r.update(device_share(lambda: short(init_pose, init_betas, init_cam_t, cc, keypoints,
+                                        generator=gen), 6 * (SHARE_STEPS // 6)))
+    print(f"[fitting] (n) smplify, a step over {r['window_steps']}: "
+          f"{r['kernels_per_step']:.0f} kernels, {r['device_ms_per_step']} ms of them in "
+          f"{r['window_ms_per_step']:.2f} ms, busy share {r['busy_share']}")
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[fitting] (m) and (n) in {res['phase_wall_s']:.1f} s")
+    return dict(results=res, by_run=by_run)
 
 
 def normalized_synthetic_poses(n, dev):
@@ -3168,10 +3434,11 @@ def main():
             micro = phase_microbenchmarks()
             graphs = phase_graphs(model, dev, amax)
         ode = phase_ode_protocols(model, dev)
+        fit = phase_fitting_protocols(model, dev)
         parity["train"] = phase_train_parity(model, dev)
         train = phase_train_protocols(dev)
         by_run = {**proto.pop("by_run"), **comp["by_run"], **int8["by_run"], **micro["by_run"],
-                  **ode["by_run"], **train["by_run"]}
+                  **ode["by_run"], **fit["by_run"], **train["by_run"]}
         for r in rows:
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
@@ -3230,6 +3497,7 @@ def main():
         print(f"[{name}] kernels alone: {dev_ms:.1f} ms per call, so the device is busy "
               f"~{100 * dev_ms / wall_ms:.0f}% of the best call")
     proto.update(ode["results"])
+    proto["fitting"] = fit["results"]
     # and for a train step: K10 x5 (the last layer without its fp32 out), K11
     # on the stash and K12 x5 at batch 1,280
     by_name = {r["name"]: r for r in rows}

@@ -12,21 +12,25 @@ The port of ``dposer_tpu`` (JAX/Pallas on a TPU), module for module:
   exact likelihood in bits/dim.
 - ``dposer_tpu_torch.diffusion.losses``: the DSM, SMLD and DDPM losses,
   Adam with warmup and the global-norm clip, the train step; ``ema``.
-- ``dposer_tpu_torch.tasks``: the DPoser prior loss and the completion
-  solver (``DPoserComp``).
+- ``dposer_tpu_torch.tasks``: the DPoser prior loss, the completion
+  solver (``DPoserComp``), motion denoising (``MotionDenoise``) and SMPLify
+  mesh fitting (``SMPLify`` with the ``DPoser`` prior).
 - ``dposer_tpu_torch.ops.cuda``: hand-written Hopper kernels for the fused
   reverse-diffusion loop, the completion solver's Adam loop, the RK4 PF-ODE
   sampler, the likelihood with its forward-mode tangent and the DSM train
   step's forward and backward, each beside its plain PyTorch version.
 - ``dposer_tpu_torch.data``, ``body_model``, ``ops.metrics``, ``ops.rotations``,
-  ``utils``: the AMASS dataset and the pose normalizer, the SMPL / SMPL-H /
-  SMPL-X body model, APD and the completion ``Evaler``, rotation conversions,
+  ``utils``: the AMASS dataset, the pose normalizer, the HumanEva splitter,
+  the HMR image preprocessing and ``MocapDataset``, the SMPL / SMPL-H /
+  SMPL-X body model with the 49-joint ``SMPLXFit`` and the fitting losses,
+  APD, the completion ``Evaler`` and the PA-MPJPE, rotation conversions,
   checkpoints, completion masks, logging and step timing; ``ops.smoothing``:
-  linear and spherical interpolation.
+  the temporal filters and linear and spherical interpolation.
 
 Entry points: ``python -m dposer_tpu_torch.demo --task
-generation|completion|completion2|interpolation`` and ``python -m
-dposer_tpu_torch.train``.
+generation|completion|completion2|interpolation``, ``python -m
+dposer_tpu_torch.train``, ``python -m dposer_tpu_torch.bench``, ``python -m
+dposer_tpu_torch.motion_denoising`` and ``python -m dposer_tpu_torch.fitting``.
 The package imports torch, numpy and the standard library only.
 """
 

@@ -5,14 +5,16 @@ Port of ``dposer_tpu/body_model/part_indices.py`` (``BodyPartIndices``,
 order; the pelvis (global orient) is excluded, so indices run 0..20 over the
 21 modelled joints. Vertex-segment indices come from the standard
 ``smplx_vert_segmentation.json`` asset of the SMPL-X tooling: pass its path
-or set ``DPOSER_VERT_SEG_PATH``. The OpenPose joint maps wait for the fitting
-tasks.
+or set ``DPOSER_VERT_SEG_PATH``. ``smpl_to_openpose`` maps SMPL-family joints
+to the OpenPose order (ref lib/body_model/utils.py:68-177).
 """
 from __future__ import annotations
 
 import json
 import os
 from typing import Dict, List
+
+import numpy as np
 
 BODY_JOINT_NAMES = [
     "pelvis",  # the global orient; excluded from the part indices
@@ -78,3 +80,49 @@ class BodySegIndices:
             out["arms"] = sorted(set(out["left_arm"] + out["right_arm"]))
             cls._cache[path] = out
         return cls._cache[path]
+
+
+# OpenPose body order: head keypoint, neck, shoulders, elbows, wrists, hips,
+# knees, ankles; the head keypoint is the first extra joint of the model
+_OP_BODY = [12, 17, 19, 21, 16, 18, 20, 0, 2, 5, 8, 1, 4, 7]
+_N_LBS = {"smpl": 24, "smplh": 52, "smplx": 55}
+# the hands' OpenPose order over the model's finger joints; the fingertips
+# (the +4, +8, ... entries) are the extra joints after the face and feet
+_HAND = {"smplh": ([20, 34, 35, 36, 22, 23, 24, 25, 26, 27, 31, 32, 33, 28, 29, 30],
+                   [21, 49, 50, 51, 37, 38, 39, 40, 41, 42, 46, 47, 48, 43, 44, 45]),
+         "smplx": ([20, 37, 38, 39, 25, 26, 27, 28, 29, 30, 34, 35, 36, 31, 32, 33],
+                   [21, 52, 53, 54, 40, 41, 42, 43, 44, 45, 49, 50, 51, 46, 47, 48])}
+
+
+def _hand(joints, tips):
+    """wrist, then per finger three joints and its tip."""
+    out = [joints[0]]
+    for f in range(5):
+        out += joints[1 + 3 * f:4 + 3 * f] + [tips[f]]
+    return out
+
+
+def smpl_to_openpose(model_type: str = "smplx", use_hands: bool = True,
+                     use_face: bool = True, use_face_contour: bool = False,
+                     openpose_format: str = "coco25") -> np.ndarray:
+    """The permutation of SMPL-family joints into OpenPose order (int32):
+    the body (coco25: nose, body, eyes, ears, feet; coco19: no feet), then
+    for SMPL-H / SMPL-X the two hands and for SMPL-X the face landmarks
+    (ref lib/body_model/utils.py:68-177)."""
+    fmt = openpose_format.lower()
+    if fmt not in ("coco25", "coco19"):
+        raise ValueError(f"Unknown joint format: {openpose_format}")
+    if model_type not in _N_LBS:
+        raise ValueError(f"Unknown model type: {model_type}")
+    n = _N_LBS[model_type]
+    n_body_extra = 10 if fmt == "coco25" else 4  # eyes and ears, and the feet
+    mapping = [n] + _OP_BODY + list(range(n + 1, n + 1 + n_body_extra))
+    if model_type != "smpl" and use_hands:
+        tip0 = n + 1 + n_body_extra
+        left, right = _HAND[model_type]
+        mapping += _hand(left, list(range(tip0, tip0 + 5)))
+        mapping += _hand(right, list(range(tip0 + 5, tip0 + 10)))
+    if model_type == "smplx" and use_face:
+        face0 = n + 1 + n_body_extra + 10
+        mapping += list(range(face0, face0 + 51 + 17 * use_face_contour))
+    return np.asarray(mapping, np.int32)

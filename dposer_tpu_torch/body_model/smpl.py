@@ -9,7 +9,8 @@ poses are raw 45-dim axis-angle with a flat hand mean, and hands, jaw, eyes
 and expression are zero unless given.
 
 Joint layout of ``Jtr``: the LBS joints (24 / 52 / 55), then the 21 extra
-vertex keypoints of the model's vertex table (face, feet, fingertips), then,
+vertex keypoints of the model's vertex table (face, feet, fingertips;
+``vertex_ids=`` overrides the release's table), then,
 where the model file carries them, the 51 barycentric face landmarks. Vertex
 and face ids beyond an under-sized template clamp to its last vertex or face,
 as the JAX loader's static clamp does.
@@ -22,22 +23,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from .vertex_ids import EXTRA_JOINT_NAMES, VERTEX_IDS
+
 MODEL_JOINTS = {"smpl": 24, "smplh": 52, "smplx": 55}
 N_BODY_JOINTS = 21  # articulated body joints shared by all variants
 N_HAND_JOINTS = 15
-
-# Extra keypoints (smplx's vertex_ids.py), in the OpenPose order face(5):
-# nose, reye, leye, rear, lear; feet(6): L big toe, small toe, heel, then R;
-# fingertips(10): l thumb..pinky, r thumb..pinky.
-EXTRA_VERTEX_IDS = {
-    "smplh": [332, 6260, 2800, 4071, 583,
-              3216, 3226, 3387, 6617, 6624, 6787,
-              2746, 2319, 2445, 2556, 2673, 6191, 5782, 5905, 6016, 6133],
-    "smplx": [9120, 9929, 9448, 616, 6,
-              5770, 5780, 8846, 8463, 8474, 8635,
-              5361, 4933, 5058, 5169, 5286, 8079, 7669, 7794, 7905, 8022],
-}
-EXTRA_VERTEX_IDS["smpl"] = EXTRA_VERTEX_IDS["smplh"]
 
 
 def axis_angle_to_matrix(aa: torch.Tensor) -> torch.Tensor:
@@ -63,8 +53,11 @@ class BodyModel(nn.Module):
     """SMPL-family body with the reference ``BodyModel`` call signature
     (ref lib/body_model/body_model.py:68-112)."""
 
+    # the joints the HMR evaluation reads (ref lib/body_model/body_model.py)
+    J_regressor_idx = {"pelvis": 0, "lwrist": 20, "rwrist": 21, "neck": 12}
+
     def __init__(self, bm_path: str, num_betas: int = 10, model_type: str = "smpl",
-                 num_expressions: int = 10, device="cpu"):
+                 num_expressions: int = 10, device="cpu", vertex_ids=None):
         super().__init__()
         if model_type not in MODEL_JOINTS:
             raise ValueError(f"model_type must be one of {sorted(MODEL_JOINTS)}, "
@@ -110,12 +103,15 @@ class BodyModel(nn.Module):
         buf("J_regressor", np.asarray(J_reg, np.float32)[:n_joints])
         buf("lbs_weights", np.asarray(data["weights"], np.float32)[:, :n_joints])
         buf("faces", faces, torch.long)
-        buf("extra_joint_ids", np.minimum(EXTRA_VERTEX_IDS[model_type], n_verts - 1),
+        vid = vertex_ids or VERTEX_IDS[model_type]
+        buf("extra_joint_ids", np.minimum([vid[n] for n in EXTRA_JOINT_NAMES], n_verts - 1),
             torch.long)
         buf("lmk_faces_idx", lmk_faces, torch.long)
         buf("lmk_bary_coords", lmk_bary)
         self.parents = parents.tolist()
         self.f = self.faces
+        # the joint regressor as float32 numpy, for the host-side evaluation
+        self.J_regressor_array = np.asarray(J_reg, np.float32)[:n_joints]
 
     def _lbs(self, betas: torch.Tensor, full_pose: torch.Tensor):
         B, n_joints = full_pose.shape[0], self.n_joints

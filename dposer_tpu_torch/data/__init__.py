@@ -1,4 +1,5 @@
 from .amass import AMASSDataset
+from .mocap import MocapDataset
 from .normalizer import PoseNormalizer
 
-__all__ = ["AMASSDataset", "PoseNormalizer"]
+__all__ = ["AMASSDataset", "MocapDataset", "PoseNormalizer"]

@@ -1,6 +1,7 @@
-"""Sample-quality and completion metrics (ref lib/utils/metric.py,
-lib/dataset/AMASS.py:263-324). Port of ``dposer_tpu/ops/metrics.py``: APD and
-``Evaler``; the HMR errors wait for the fitting tasks."""
+"""Sample-quality, completion and HMR metrics (ref lib/utils/metric.py,
+lib/dataset/AMASS.py:263-324, lib/dataset/mocap_dataset.py:61-84). Port of
+``dposer_tpu/ops/metrics.py``: APD, ``Evaler``, and the PA- and
+pelvis-aligned MPJPE (host numpy in float64)."""
 from __future__ import annotations
 
 import os
@@ -10,11 +11,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..body_model.constants import VERT_SEG_PATH
 from ..body_model.part_indices import BodyPartIndices, BodySegIndices
-
-# the SMPL-X tooling's vertex segmentation, shipped with the package
-VERT_SEG_PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                             "assets", "smplx_vert_segmentation.json")
 
 
 def average_pairwise_distance(joints3d: torch.Tensor) -> torch.Tensor:
@@ -89,3 +87,28 @@ class Evaler:
     def print_multi_eval_result(eval_result, hypo_num):
         print(f"multihypo {hypo_num} MPVPE (All): %.2f mm" % np.mean(eval_result["mpvpe_all"]))
         print(f"multihypo {hypo_num} MPJPE (Body): %.2f mm" % np.mean(eval_result["mpjpe_body"]))
+
+
+def pa_mpjpe(pred: np.ndarray, gt: np.ndarray) -> float:
+    """Procrustes-aligned MPJPE in mm of one [J, 3] set against another, in
+    float64 numpy (ref lib/utils/transforms.py:264-286)."""
+    A = np.asarray(pred, np.float64)
+    B = np.asarray(gt, np.float64)
+    ca, cb = A.mean(0), B.mean(0)
+    H = (A - ca).T @ (B - cb) / len(A)
+    U, s, Vt = np.linalg.svd(H)
+    V = Vt.T
+    d = np.ones_like(s)
+    d[-1] = np.sign(np.linalg.det(V @ U.T))
+    R = (V * d[None, :]) @ U.T
+    c = (s * d).sum() / np.var(A, axis=0).sum()
+    t = -c * (R @ ca) + cb
+    aligned = (c * (R @ A.T)).T + t
+    return float(np.sqrt(((aligned - B) ** 2).sum(-1)).mean() * 1000.0)
+
+
+def pelvis_aligned_mpjpe(pred: np.ndarray, gt: np.ndarray, pelvis_idx: int = 0) -> float:
+    """MPJPE in mm after moving both sets' pelvis to the origin."""
+    p = pred - pred[pelvis_idx:pelvis_idx + 1]
+    g = gt - gt[pelvis_idx:pelvis_idx + 1]
+    return float(np.sqrt(((p - g) ** 2).sum(-1)).mean() * 1000.0)

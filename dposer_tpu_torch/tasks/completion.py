@@ -9,8 +9,8 @@ data term for ``iterations x steps_per_iter`` Adam steps:
 - time strategy '3': truncated annealing with offset 2 (ref :189-191);
 - the reference passes ``quan_t`` as the loss's ``weighted`` flag (ref :196),
   a non-zero tensor, so the SNR-weighted branch is always taken;
-- Adam with b1 0.9, b2 0.999, eps 1e-8 and bias corrections applied as optax
-  applies them (``m/(1-b1^t)``, ``sqrt(v/(1-b2^t)) + eps``);
+- Adam with b1 0.9, b2 0.999, eps 1e-8 in optax's arithmetic
+  (``tasks/optim.py``);
 - the observed dims are pasted at the end: ``obs*mask + x*(1-mask)`` (ref :205).
 
 ``backend="torch"`` is the loop in autograd: the gradient flows through the
@@ -27,6 +27,7 @@ import torch
 
 from ..diffusion.score_fn import get_score_fn
 from ..diffusion.sde import SDE
+from .optim import Adam
 from .prior import DPoserPrior, sample_quan_t
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -72,7 +73,7 @@ class DPoserComp:
 
     def _optimize_torch(self, observation, mask, noise, generator):
         x = observation.clone().requires_grad_(True)
-        m, v = torch.zeros_like(observation), torch.zeros_like(observation)
+        opt = Adam([x], self.lr, ADAM_B1, ADAM_B2, ADAM_EPS)
         for i in range(self.total_steps):
             it = i // self.steps_per_iter
             quan_t = sample_quan_t(i, self.total_steps, self.sde.N, self.time_strategy,
@@ -81,13 +82,7 @@ class DPoserComp:
             dposer, data = self._loss(x, self.prior.timesteps[quan_t], observation, mask,
                                       None if noise is None else noise[i], generator)
             loss = 100.0 / (1.0 + it) * data + 0.1 * (it + 1.0) * dposer
-            (g,) = torch.autograd.grad(loss, x)
-            with torch.no_grad():
-                m = ADAM_B1 * m + (1.0 - ADAM_B1) * g
-                v = ADAM_B2 * v + (1.0 - ADAM_B2) * g * g
-                m_hat = m / (1.0 - ADAM_B1 ** (i + 1))
-                v_hat = v / (1.0 - ADAM_B2 ** (i + 1))
-                x -= self.lr * m_hat / (torch.sqrt(v_hat) + ADAM_EPS)
+            opt.step(torch.autograd.grad(loss, x))
         x = x.detach()
         return observation * mask + x * (1.0 - mask)
 

@@ -1,0 +1,182 @@
+"""Motion denoising: noisy 3D joints -> a clean pose sequence. Port of
+``dposer_tpu/tasks/motion_denoising.py`` (ref run/motion_denoising.py:63-300).
+
+The per-frame poses [T, 63] are fitted by Adam (lr 0.03, b1 0.9, b2 0.999)
+to a temporal vertex-smoothness term, a joint data term and the DPoser
+prior, for ``iterations x steps_per_iter`` steps with ``it = step //
+steps_per_iter``:
+
+- the weights: temp ``10(1+it)``, data ``100/(1+it^2)``, dposer
+  ``0.1(1+it) * dposer_weight`` (ref :156-162);
+- the prior unweighted, its sum over the T frames divided by T, the time
+  strategy's offset 2 (ref :125-143, :240-247);
+- the init ``0.01 * randn``, not the noisy joints (ref :74);
+- a final gaussian smoothing (window 3, sigma 2) that keeps both endpoints
+  (ref :283-285); MPJPE and MPVPE against the ground truth in cm (ref
+  :292-299).
+
+The gradient flows through the body model and the prior's L2 (the denoised
+estimate is detached). JAX runs the schedule as one ``lax.scan``; here it is
+an eager loop. ``optimize_batch`` fits F fragments as one loss summed over
+the fragments: Adam is elementwise, so each fragment's trajectory is its own
+``optimize``'s. Its fragments share each step's time draw (one draw a step
+under strategy '1', from the first fragment's generator).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..diffusion.sde import SDE
+from ..ops.smoothing import gaussian_smoothing
+from .optim import Adam
+from .prior import DPoserPrior, sample_quan_t
+
+POSE_DIM = 63
+
+
+def _safe_norm(d: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``sqrt(max(sum d^2, 1e-12))``: a finite gradient at d = 0, where
+    ``torch.linalg.norm``'s is NaN."""
+    return torch.sqrt(torch.clamp((d * d).sum(dim), min=1e-12))
+
+
+class MotionDenoise:
+    """Sequence pose optimiser against noisy 3D joints."""
+
+    def __init__(self, sde: SDE, score_fn: Callable, body_model, normalizer,
+                 dposer_weight: float = 1.0, batch_size: int = 60, lr: float = 0.03):
+        self.sde = sde
+        self.body_model = body_model
+        self.device = body_model.v_template.device
+        self.prior = DPoserPrior(sde, score_fn, device=self.device)
+        self.normalizer = normalizer
+        self.dposer_weight = dposer_weight
+        # kept for the reference's signature; the prior divides by the
+        # fragment's own length T
+        self.batch_size = batch_size
+        self.lr = lr
+
+    def _body(self, poses: torch.Tensor):
+        out = self.body_model(pose_body=poses)
+        return out.v, out.Jtr
+
+    def _loss(self, poses, init_joints, t, z, it):
+        """The schedule's loss of F fragments ``poses`` [F, T, 63], summed
+        over the fragments."""
+        F, T = poses.shape[:2]
+        flat = poses.reshape(F * T, POSE_DIM)
+        normed = self.normalizer.offline_normalize(flat, from_axis=True)
+        vec_t = torch.full((F * T,), t, dtype=poses.dtype, device=poses.device)
+        # the sum over all fragments / T is the sum of each fragment's prior
+        dposer = self.prior.loss(normed, vec_t, weighted=False, reduction="sum_per_batch",
+                                 batch_size=T, z=z.reshape(F * T, POSE_DIM))
+        v, jtr = self._body(flat)
+        v, jtr = v.reshape(F, T, *v.shape[1:]), jtr.reshape(F, T, *jtr.shape[1:])
+        temp = _safe_norm(v[:, :-1] - v[:, 1:]).mean((1, 2)).sum()
+        data = _safe_norm(jtr[:, :, :22] - init_joints).mean((1, 2)).sum()
+        # float32 weights, as the JAX loop computes them from the int step
+        it = np.float32(it)
+        w_temp = float(np.float32(10.0) * (np.float32(1.0) + it))
+        w_data = float(np.float32(100.0) / (np.float32(1.0) + it * it))
+        w_dposer = float(np.float32(0.1) * (np.float32(1.0) + it)
+                         * np.float32(self.dposer_weight))
+        return w_temp * temp + w_data * data + w_dposer * dposer
+
+    def _run(self, joints3d, generators, time_strategy, sample_trun, sample_time,
+             iterations, steps_per_iter, poses0, z):
+        """``joints3d`` [F, T, 22, 3] -> the smoothed poses [F, T, 63]."""
+        F, T = joints3d.shape[:2]
+        init_joints = joints3d.detach()
+        if poses0 is None:
+            poses0 = torch.stack([0.01 * torch.randn(T, POSE_DIM, generator=g,
+                                                     device=self.device)
+                                  for g in generators])
+        poses = poses0.detach().clone().requires_grad_(True)
+        opt = Adam([poses], self.lr)
+        total = iterations * steps_per_iter
+        timesteps = self.prior.timesteps.tolist()
+        for i in range(total):
+            quan_t = sample_quan_t(i, total, self.sde.N, time_strategy, sample_trun,
+                                   sample_time, offset=2,
+                                   generator=None if generators is None else generators[0])
+            if z is not None:
+                z_i = z[i]
+            else:
+                z_i = torch.stack([torch.randn(T, POSE_DIM, generator=g, device=self.device)
+                                   for g in generators])
+            loss = self._loss(poses, init_joints, timesteps[quan_t], z_i,
+                              i // steps_per_iter)
+            opt.step(torch.autograd.grad(loss, poses))
+        poses = poses.detach()
+        # smoothing for the demo's sake, the endpoints kept (ref :283-285)
+        smooth = torch.stack([gaussian_smoothing(p, window_size=3, sigma=2.0) for p in poses])
+        smooth[:, 0], smooth[:, -1] = poses[:, 0], poses[:, -1]
+        return smooth
+
+    def optimize_batch(self, joints3d: torch.Tensor, time_strategy: str = "3",
+                       sample_trun: float = 2.0, sample_time: int = 990,
+                       iterations: int = 5, steps_per_iter: int = 50,
+                       generators: Optional[Sequence[torch.Generator]] = None,
+                       poses0: Optional[torch.Tensor] = None,
+                       z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Denoise F fragments ``joints3d`` [F, T, 22, 3] at once -> poses
+        [F, T, 63]. Fragment f draws its init and its prior normals from
+        ``generators[f]``, so its result is that of ``optimize`` with that
+        generator. ``poses0`` [F, T, 63] and ``z`` [steps, F, T, 63] inject
+        them instead."""
+        if generators is None and (poses0 is None or z is None):
+            generators = [torch.Generator(device=self.device) for _ in range(len(joints3d))]
+        return self._run(joints3d, generators, time_strategy, sample_trun, sample_time,
+                         iterations, steps_per_iter, poses0, z)
+
+    def optimize(self, joints3d: torch.Tensor, gt_poses: Optional[torch.Tensor] = None,
+                 time_strategy: str = "3", sample_trun: float = 2.0, sample_time: int = 990,
+                 iterations: int = 5, steps_per_iter: int = 50, verbose: bool = False,
+                 generator: Optional[torch.Generator] = None,
+                 poses0: Optional[torch.Tensor] = None,
+                 z: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
+        """``joints3d`` [T, 22, 3] noisy joints -> the metrics in cm (with
+        ``gt_poses``); the denoised poses [T, 63] are left on
+        ``self.last_poses``. ``poses0`` [T, 63] and ``z`` [steps, T, 63]
+        inject the init and the prior's normals."""
+        if generator is None and (poses0 is None or z is None):
+            generator = torch.Generator(device=self.device)
+        poses = self._run(joints3d[None], None if generator is None else [generator],
+                          time_strategy, sample_trun, sample_time, iterations,
+                          steps_per_iter, None if poses0 is None else poses0[None],
+                          None if z is None else z[:, None])[0]
+        self.last_poses = poses
+        results: Dict[str, np.ndarray] = {}
+        if gt_poses is not None:
+            results = self.metrics(poses, joints3d, gt_poses)
+            if verbose:
+                print("before denoising:{:0.8f} cm".format(results["init_MPJPE"].mean()))
+                print("after denoising:{:0.8f} cm".format(results["MPJPE"].mean()))
+        return results
+
+    @torch.no_grad()
+    def metrics(self, poses: torch.Tensor, joints3d: torch.Tensor,
+                gt_poses: torch.Tensor) -> Dict[str, np.ndarray]:
+        """Per-frame init MPJPE, MPJPE and MPVPE in cm (ref :292-299)."""
+        v_gt, j_gt = self._body(gt_poses)
+        v_out, j_out = self._body(poses)
+
+        def cm(a, b):
+            return (_safe_norm(a - b).mean(-1) * 100.0).cpu().numpy()
+
+        return {"init_MPJPE": cm(joints3d, j_gt[:, :22]), "MPJPE": cm(j_out[:, :22], j_gt[:, :22]),
+                "MPVPE": cm(v_out, v_gt)}
+
+
+def noise_schedule_kwargs(std: float) -> Dict:
+    """The per-noise-level optimisation schedules (ref :329-336)."""
+    if std == 0.02:
+        return {"iterations": 3, "steps_per_iter": 40, "sample_trun": 10.0, "sample_time": 495}
+    if std == 0.04:
+        return {"iterations": 3, "steps_per_iter": 60, "sample_trun": 4.0, "sample_time": 490}
+    if std == 0.1:
+        return {"iterations": 3, "steps_per_iter": 80, "sample_trun": 3.0, "sample_time": 480}
+    raise NotImplementedError(f"no schedule for noise std {std}")
