@@ -52,7 +52,9 @@ Phases; any failure exits non-zero:
    three hops, each with 50 repeated calls bit-identical and K10's and K11's
    bounds at the handoff's bytes and at fp32 input; K8 at every stage and
    the denoise, with 50 repeated calls bit-identical;
-   K1 also at completion's [1000, 1024] residual block; K2-K6's in-kernel
+   K1 also at completion's [1000, 1024] residual block; K1's three layer
+   shapes, K2's EM and score modes and K3 (its value and step size) also at
+   the chunked metrics protocol's 50 rows; K2-K6's in-kernel
    normals read their seed from device memory (timed with a seed tensor
    made once), each within 0.3 us of its time in PERF.md's table
    (``TABLE_US``; every other kernel's delta printed); K2's imputation mode
@@ -80,7 +82,15 @@ Phases; any failure exits non-zero:
    poses/s, and the tensor maps K1 encodes a call (at most 8: its map cache
    holds them across launches); (b) the demo's generation task with ``--metrics`` (50 poses,
    then 500 poses x 1000 steps with the langevin corrector at eps 5e-3,
-   through the SMPL body): APD must lie in [0.80, 1.00];
+   through the SMPL body): APD must lie in [0.80, 1.00] and SI in [0, 100];
+   then the self-intersection metric (SI): the native library built with
+   g++ (a missing g++ fails the phase), multithreaded SI equal to
+   single-threaded SI on 20 meshes of the smooth 7,056-vertex SMPL body of
+   ``benchmarks/gen_synth_body.py``, and the protocol on that body at
+   ``--metrics-chunks`` 1 and 10: SI in [0, 100], the chunked APD within 5%
+   of the single batch's, each run's wall, SI and sampling seconds and the
+   host CPU, and the device time of one protocol sampler call at 500 and at
+   50 rows;
    (c) completion by optimisation, 100 synthetic poses x 10 hypotheses,
    2x100 Adam steps, time strategy '3': solves/s, MPJPE and MPVPE, and the
    launches a solve (K5 1, K1 1,000, K6's perturbing instantiation 199, K6
@@ -136,7 +146,12 @@ Phases; any failure exits non-zero:
    PA-MPJPE and MPJPE below the mean-pose init's, the same fit without the
    prior, ms per image; both with the device's busy share over a profiled
    window and no kernel launched (the JAX package runs these tasks under
-   XLA);
+   XLA); (o) ``python -m dposer_tpu_torch.completion``'s ``run`` over a
+   synthetic test split of 5,000 poses (``benchmarks/gen_synth_amass.py``'s
+   mixture), 100 poses x 10 hypotheses a batch: MPJPE and MPVPE in the
+   bands, each batch's launches those of a 5c solve, one CUDA graph
+   captured for the split, row-solves/s and poses/s, the first batch's wall
+   beside the steady median;
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -145,6 +160,9 @@ Needs the repository around it (the port, the pinned checkpoint under
 SMPL-X bodies, ``dposer_tpu/assets`` for the mean pose, and
 ``benchmarks/gen_synth_amass.py`` and ``gen_synth_motion.py`` for the synthetic
 poses); writes only under ``chiprun_out/chip_smoke``.
+The self-intersection metric also needs ``g++`` (it builds its library under
+``dposer_tpu_torch/native/_build``) and ``benchmarks/gen_synth_body.py`` and
+``time_metrics.py`` for the smooth SMPL body.
 """
 import copy
 import ctypes
@@ -172,7 +190,9 @@ sys.path.insert(0, os.path.join(REPO, "tests"))  # fixtures.py: numpy only
 import numpy as np  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from dposer_tpu_torch import completion as completion_cli  # noqa: E402
 from dposer_tpu_torch import demo  # noqa: E402
+from dposer_tpu_torch import native  # noqa: E402
 from dposer_tpu_torch import fitting as fitting_cli  # noqa: E402
 from dposer_tpu_torch import motion_denoising as motion_cli  # noqa: E402
 from dposer_tpu_torch import train as train_cli  # noqa: E402
@@ -188,6 +208,7 @@ from dposer_tpu_torch.diffusion import losses as tlosses  # noqa: E402
 from dposer_tpu_torch.diffusion.score_fn import get_score_fn  # noqa: E402
 from dposer_tpu_torch.diffusion import few_step  # noqa: E402
 from dposer_tpu_torch.diffusion.sde import SubVPSDE, sampling_eps_for  # noqa: E402
+from dposer_tpu_torch.smplify import sequence_generator  # noqa: E402
 from dposer_tpu_torch.benchmarks import ilp_probe, mxu_micro  # noqa: E402
 from dposer_tpu_torch.ops.cuda import (build, chain_link, fused_comp, fused_em,  # noqa: E402
                                        fused_lik, fused_ode, fused_train, philox, quant,
@@ -221,6 +242,8 @@ APD_BAND = (0.80, 1.00)
 MPJPE_BAND, MPVPE_BAND = (50.0, 400.0), (5.0, 80.0)  # mm, tests/test_trained_artifact.py
 B, H, D = 500, 1024, 63
 RC = 1000  # completion's rows: 100 poses x 10 hypotheses
+METRICS_CHUNKS = 10  # the chunked metrics protocol's --metrics-chunks
+BM = B // METRICS_CHUNKS  # its rows a chunk
 BL = 50  # the likelihood protocol's batch
 BT = 1280  # the train batch (configs/default_amass_configs.py)
 FT_STEPS, SCRATCH_STEPS, RESUME_STEPS = 500, 1000, 200  # the training protocols (a)-(c)
@@ -826,6 +849,10 @@ def phase_kernels(model, dev):
         library_ms=graph_ms(langevin_library),
         library="composite: torch.linalg.vector_norm + mean + the update in torch ops",
         bound_ms=bms3, bound_by=by3))
+
+    small = chunk_row_checks(net, coefs, lc, x, z, i, dev)
+    for r, s in zip(rows, small):
+        r[f"at_{BM}_rows"] = s
     for r in rows:
         kernel_row_line(r)
         for v in r.get("variants", []):
@@ -838,7 +865,72 @@ def phase_kernels(model, dev):
                   f"is a {r['library']}"
                   + (f"; score mode {r['score_mode_ms'] * 1e3:.2f} us (eager "
                      f"{r['score_mode_eager_ms'] * 1e3:.2f})" if "score_mode_ms" in r else ""))
+        print(f"    at {BM} rows (the metrics protocol's chunk): " + "; ".join(
+            f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g}), {v['ms'] * 1e3:.2f} us"
+            + (f", score mode {v['score_mode_ms'] * 1e3:.2f} us" if "score_mode_ms" in v else "")
+            for k, v in r[f"at_{BM}_rows"].items()))
     return rows
+
+
+def chunk_row_checks(net, coefs, lc, x, z, i, dev):
+    """K1, K2 and K3 at the chunked metrics protocol's BM rows (``--metrics-
+    chunks 10`` replays every step at that shape): K1's three layer shapes,
+    K2's EM and score modes, K3's value and step size (its norms are reduced
+    over all rows across the cluster, split otherwise at BM rows), each
+    against its plain version on the same inputs within phase 3's
+    tolerances, and timed. Returns one dict of cases per kernel."""
+    tp, W, gs, gb = net["tp_all"][i], net["W"], net["gn_scale"], net["gn_bias"]
+    wp, bp = net["w_post"], net["b_post"]
+    xs, zs = x[:BM].contiguous(), z[:BM].contiguous()
+    hs = score_net.dense_gn_silu_plain(xs, W[0], tp[0], gs[0], gb[0])
+    hs1 = score_net.dense_gn_silu_plain(hs, W[1], tp[1], gs[1], gb[1])
+    small = [{}, {}, {}]
+    for label, a, j, res in (("pre", xs, 0, None), ("block", hs, 1, None),
+                             ("block+residual", hs1, 2, hs)):
+        args = (a, W[j], tp[j], gs[j], gb[j])
+        ref = score_net.dense_gn_silu_plain(*args, res)
+        out = score_net.dense_gn_silu(*args, residual=res)
+        torch.cuda.synchronize()
+        e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
+        check(e <= tol, f"dense_gn_silu {label} at {BM} rows: max abs err {e} > {tol}")
+        o = torch.empty_like(ref)
+        small[0][label] = dict(max_abs_err=e, tol=tol, ms=graph_ms(
+            lambda: score_net.dense_gn_silu(*args, residual=res, out=o)))
+    hid_s = torch.empty(BM, H, device=dev)
+    score_net.network_hidden(net, xs, i, hid_s, torch.empty_like(hid_s))
+    xs_ref, xms_ref = fused_em.head_em_plain(hid_s, wp, bp, coefs, i, "em", D, x=xs, noise=zs)
+    xsk, xms = xs.clone(), torch.empty_like(xs)
+    fused_em.head_em(hid_s, wp, bp, coefs, i, "em", x=xsk, x_mean=xms, noise=zs)
+    ss_ref, sqs_ref = fused_em.head_em_plain(hid_s, wp, bp, coefs, i, "score", D)
+    ss, sqs = torch.empty_like(xs), torch.empty(BM, device=dev)
+    fused_em.head_em(hid_s, wp, bp, coefs, i, "score", score=ss, score_sq=sqs)
+    torch.cuda.synchronize()
+    e2s = [err(xsk, xs_ref), err(xms, xms_ref), err(ss, ss_ref)]
+    tol2s = [1e-3 * max(1.0, float(r.abs().max())) for r in (xs_ref, xms_ref, ss_ref)]
+    check(all(a <= b for a, b in zip(e2s, tol2s)),
+          f"head_em at {BM} rows: errors {e2s} > {tol2s}")
+    sqs_e = float(((sqs - sqs_ref).abs() / sqs_ref.abs().clamp(min=1e-6)).max())
+    check(sqs_e <= 1e-3, f"head_em at {BM} rows: row norms relative error {sqs_e}")
+    xst = xs.clone()
+    small[1]["em+score"] = dict(
+        max_abs_err=max(e2s), tol=max(tol2s), score_sq_rel_err=sqs_e,
+        ms=graph_ms(lambda: fused_em.head_em(hid_s, wp, bp, coefs, i, "em", x=xst,
+                                             seed=dseed(7), slab=1)),
+        score_mode_ms=graph_ms(lambda: fused_em.head_em(hid_s, wp, bp, coefs, i, "score",
+                                                        score=ss, score_sq=sqs)))
+    x3s_ref, sts_ref = fused_em.langevin_update_plain(xs, ss, sqs, lc, i, 0.16, zs)
+    x3s, sts = xs.clone(), torch.empty(1, device=dev)
+    fused_em.langevin_update(x3s, ss, sqs, lc, i, 0.16, noise=zs, step_out=sts)
+    torch.cuda.synchronize()
+    e3s, tol3s = err(x3s, x3s_ref), 1e-4 * max(1.0, float(x3s_ref.abs().max()))
+    check(e3s <= tol3s, f"langevin_update at {BM} rows: max abs err {e3s} > {tol3s}")
+    sts_e = abs(float(sts[0]) / float(sts_ref) - 1.0)
+    check(sts_e <= 1e-4, f"langevin_update at {BM} rows: step size relative error {sts_e}")
+    small[2]["value+step_out"] = dict(
+        max_abs_err=e3s, tol=tol3s, step_rel_err=sts_e,
+        ms=graph_ms(lambda: fused_em.langevin_update(xst, ss, sqs, lc, i, 0.16,
+                                                     seed=dseed(5))))
+    return small
 
 
 def phase_completion_kernels(model, dev, clusters):
@@ -1369,7 +1461,7 @@ def phase_completion_protocols(model, dev):
         sde, model, (100 * HYPO, D), 100 * D, lr=comp.lr, iterations=comp.iterations,
         steps_per_iter=comp.steps_per_iter, time_strategy="3", sample_trun=comp.sample_trun,
         sample_time=comp.sample_time, rng_mode="kernel", device=dev, loop="eager")
-    (graphed,) = comp._solvers.values()
+    (graphed,) = comp.cuda_solvers()
     eager_twin(res["solver"], graphed,
                lambda: eager(gen, obs.repeat(HYPO, 1), mask.repeat(HYPO, 1)))
 
@@ -1409,6 +1501,66 @@ def phase_completion_protocols(model, dev):
                 check(c["masked_renoise"] == 1 and c["head_em_impute"] > 1,
                       f"demo {name}: K4 launched {c['masked_renoise']} times, not once")
     return dict(results=res, by_run=by_run)
+
+
+def phase_completion_cli(dev):
+    """(o) ``python -m dposer_tpu_torch.completion``'s ``run`` over a synthetic
+    AMASS test split: ``benchmarks/gen_synth_amass.py``'s mixture at seed 0,
+    5,000 test poses, the pinned checkpoint's statistics, 100 poses x 10
+    hypotheses a batch, left leg, the synthetic SMPL-X body. MPJPE and MPVPE
+    in the bands, each batch's launches those of a 5c solve, one graph
+    captured for the whole split."""
+    mod = load_benchmark("gen_synth_amass")
+    rng = np.random.default_rng(0)
+    centers, w, basis = mod.make_mixture(rng)
+    root = os.path.join(OUT, "amass_synth")
+    test_dir = os.path.join(root, "version1", "test")
+    os.makedirs(test_dir, exist_ok=True)
+    np.save(os.path.join(test_dir, "pose_body.npy"),
+            mod.sample_poses(rng, 5000, centers, w, basis))
+    smplx, _ = make_synthetic_body_model(os.path.join(OUT, "smplx_fixture.npz"), "smplx")
+    args = completion_cli.parse_args([
+        "--device", "cuda", "--ckpt-path", CKPT, "--stats-dir", STATS, "--dataset-folder",
+        root, "--version", "version1", "--bodymodel-path", smplx, "--batch_size", "100",
+        "--hypo", str(HYPO), "--part", PART, "--seed", "42"])
+    fused_em.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = completion_cli.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fused_em.launch_counts()
+    n = r["n_batches"]
+    check(n == 50 and r["mpjpe_body"].shape == (5000,), f"split: {n} batches")
+    per_batch = {k: counts[k] / n for k in ("comp_perturb", "dense_gn_silu",
+                                            "head_adam_perturb", "head_adam")}
+    print(f"[completion cli] launches a batch: {per_batch}")
+    check(per_batch == dict(comp_perturb=1, dense_gn_silu=1000, head_adam_perturb=199,
+                            head_adam=1), f"completion cli: launches a batch {per_batch}")
+    captured = [lp for lp in r["loops"] if lp.capture_s is not None]
+    check(len(r["loops"]) == 1 and len(captured) == 1,
+          f"completion cli: {len(captured)} graphs captured over {len(r['loops'])} loops")
+    mpjpe, mpvpe = float(np.mean(r["mpjpe_body"])), float(np.mean(r["mpvpe_all"]))
+    check_bands("completion cli", mpjpe, mpvpe)
+    walls = r["batch_walls_s"]
+    steady = float(np.median(walls[1:]))
+    lp = captured[0]
+    res = dict(mpjpe_mm=mpjpe, mpvpe_mm=mpvpe, batches=n, rows_per_batch=100 * HYPO,
+               wall_s=r["wall_s"], run_wall_s=wall, first_batch_s=walls[0],
+               steady_batch_median_s=steady, batch_walls_s=walls,
+               row_solves_per_s=n * 100 * HYPO / r["wall_s"],
+               poses_per_s=n * 100 / r["wall_s"],
+               steady_row_solves_per_s=100 * HYPO / steady, launches=counts,
+               graph=dict(warmup_s=lp.warmup_s, capture_s=lp.capture_s,
+                          instantiate_s=lp.instantiate_s))
+    print(f"[completion cli] {n} batches x {100 * HYPO} rows: MPJPE {mpjpe:.1f} mm, MPVPE "
+          f"{mpvpe:.1f} mm; {res['row_solves_per_s']:.1f} row-solves/s, "
+          f"{res['poses_per_s']:.1f} poses/s over the split ({r['wall_s']:.3f} s of batches, "
+          f"{wall:.3f} s with loading); first batch {walls[0] * 1e3:.1f} ms (warm-up "
+          f"{lp.warmup_s * 1e3:.1f}, capture {lp.capture_s * 1e3:.1f}, instantiate "
+          f"{lp.instantiate_s * 1e3:.1f}), steady median {steady * 1e3:.2f} ms "
+          f"({res['steady_row_solves_per_s']:.1f} row-solves/s)")
+    return dict(results=res, by_run=dict(completion_cli_split=counts))
 
 
 def phase_ode_kernels(model, dev):
@@ -1731,7 +1883,7 @@ def phase_fitting_protocols(model, dev):
     sched = motion_cli.noise_schedule_kwargs(MOTION_STD)
 
     def fragment_draws():
-        gens = [motion_cli.sequence_generator(0, i, dev) for i in range(8)]
+        gens = [sequence_generator(0, i, dev) for i in range(8)]
         return gens, torch.stack([motion_cli.noisy_joints(body, gts[i], MOTION_STD, g)
                                   for i, g in enumerate(gens)])
 
@@ -2211,11 +2363,115 @@ def phase_protocols(model, dev):
     check(poses.shape == (50, D) and np.isfinite(poses).all(), "demo samples")
     apd = res["apd"]
     check(APD_BAND[0] <= apd <= APD_BAND[1], f"APD {apd} outside {APD_BAND}")
-    print(f"[metrics] APD {apd:.4f} in {APD_BAND}; protocol wall {res['metrics_wall_s']:.2f}s")
+    print(f"[metrics] APD {apd:.4f} in {APD_BAND}; protocol wall {res['metrics_wall_s']:.2f}s "
+          f"(SI's {res['si_wall_s']:.2f} s included)")
+    check(np.isfinite(res["si"]) and 0.0 <= res["si"] <= 100.0, f"SI {res['si']}")
+    si_res, si_by_run = metrics_si(model, poses, dev)
     return dict(generation=gen_res, metrics=dict(apd=apd, wall_s=res["metrics_wall_s"],
-                                                 launches=demo_counts),
+                                                 si_wall_s=res["si_wall_s"],
+                                                 si_fixture=res["si"], launches=demo_counts,
+                                                 smooth_body=si_res),
                 by_run=dict(generation_500x1000=gen_counts,
-                            demo_generation_metrics=demo_counts))
+                            demo_generation_metrics=demo_counts, **si_by_run))
+
+
+def host_cpu():
+    """The host CPU's model (``lscpu``, else ``/proc/cpuinfo``) and its
+    thread count."""
+    lines = []
+    try:
+        lines = subprocess.run(["lscpu"], capture_output=True, text=True).stdout.splitlines()
+    except FileNotFoundError:
+        pass
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            lines += f.read().splitlines()
+    fields = {}
+    for ln in lines:  # newer lscpu indents "Model name" under "Vendor ID"
+        key, sep, value = ln.partition(":")
+        if sep:
+            fields.setdefault(key.strip().lower(), value.strip())
+    model = fields.get("model name", "unknown")
+    if model == "unknown":  # a virtual machine may hide the name: its family and model
+        model = (f"{fields.get('vendor id', '?')} family {fields.get('cpu family', '?')} "
+                 f"model {fields.get('model', '?')} (name hidden)")
+    return dict(model=model, threads=os.cpu_count())
+
+
+def metrics_si(model, poses, dev):
+    """(b) the self-intersection metric of the metrics protocol: the native
+    library built with g++, multithreaded SI equal to single-threaded SI on
+    20 meshes of the smooth 7,056-vertex SMPL body
+    (``benchmarks/gen_synth_body.py::make_smooth_smpl_body``), and the
+    demo's protocol on that body at ``--metrics-chunks`` 1 and 10: SI in
+    [0, 100], APD of the chunked run within 5% of the single batch's (its
+    samples are other draws; the APD band belongs to the fixture body),
+    and each run's wall beside its SI and sampling seconds. Then the device
+    time of one protocol sampler call (CUDA events around the graph's
+    replay) at 500 rows and at a chunk's rows, which tells how much of the
+    chunked run's sampling seconds the device itself adds."""
+    check(shutil.which("g++") is not None,
+          "no g++ on the PATH: the self-intersection metric cannot be built")
+    t0 = time.perf_counter()
+    lib = native.build_lib()
+    native.load()
+    cpu = host_cpu()
+    print(f"[metrics] native SI library {os.path.basename(lib)} built in "
+          f"{time.perf_counter() - t0:.2f} s; host CPU {cpu['model']}, {cpu['threads']} threads")
+    smooth = load_benchmark("gen_synth_body").make_smooth_smpl_body(
+        os.path.join(OUT, "smooth_smpl.npz"))
+    body = BodyModel(smooth, num_betas=10, model_type="smpl", device=dev)
+    pose = torch.cat([torch.as_tensor(poses[:20], device=dev),
+                      torch.zeros(20, 6, device=dev)], 1)
+    verts, faces = body(pose_body=pose).v.cpu().numpy(), body.f.cpu().numpy()
+    si_mt = native.self_intersections_percentage(verts, faces)
+    si_st = native.self_intersections_percentage(verts, faces, n_threads=1)
+    check(np.array_equal(si_mt, si_st), f"SI multithreaded {si_mt} != single-threaded {si_st}")
+    print(f"[metrics] SI on 20 smooth-body meshes ({verts.shape[1]} vertices, {len(faces)} "
+          f"faces): multithreaded equal to single-threaded, mean {float(si_st.mean()):.3f}%")
+    res, by_run = dict(host_cpu=cpu, mt_equals_st_20_meshes=True), {}
+    for chunks in (1, METRICS_CHUNKS):
+        args = demo.parse_args(["--task", "generation", "--metrics", "--metrics-chunks",
+                                str(chunks), "--device", "cuda", "--ckpt-path", CKPT,
+                                "--stats-dir", STATS, "--smpl-path", smooth, "--output-path",
+                                os.path.join(OUT, f"metrics_chunks{chunks}"), "--seed", "42"])
+        fused_em.reset_launch_counts()
+        r = demo.run(args)
+        torch.cuda.synchronize()
+        by_run[f"demo_metrics_smooth_chunks{chunks}"] = fused_em.launch_counts()
+        check(np.isfinite(r["si"]) and 0.0 <= r["si"] <= 100.0,
+              f"chunks {chunks}: SI {r['si']} outside [0, 100]")
+        res[f"chunks{chunks}"] = {k: r[k] for k in ("apd", "si", "metrics_wall_s", "si_wall_s",
+                                                     "sample_wall_s")}
+        print(f"[metrics] smooth body, chunks {chunks}: SI {r['si']:.3f}% (JAX on a TPU host, "
+              f"the same checkpoint and body: 0.89%, context only), APD {r['apd']:.4f}; "
+              f"protocol wall {r['metrics_wall_s']:.3f} s, SI {r['si_wall_s']:.3f} s, "
+              f"sampling {r['sample_wall_s']:.3f} s (host {cpu['model']}, {cpu['threads']} "
+              f"threads)")
+    a1, a10 = res["chunks1"]["apd"], res[f"chunks{METRICS_CHUNKS}"]["apd"]
+    check(abs(a10 - a1) <= 0.05 * a1,
+          f"APD chunks {METRICS_CHUNKS} {a10} not within 5% of chunks 1 {a1}")
+    sde, dev_ms = SubVPSDE(N=1000), {}
+    for rows in (B, BM):
+        sampler = demo.build_sampler(get_config(), sde, model, rows, demo.METRICS_EPS,
+                                     "langevin", dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        sampler(gen)  # warm-up and capture
+        times = []
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            sampler(gen)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        dev_ms[rows] = min(times)
+    res["sampler_call_device_ms"] = {str(k): v for k, v in dev_ms.items()}
+    res["chunked_device_ms"] = METRICS_CHUNKS * dev_ms[BM]
+    print(f"[metrics] device time of one protocol sampler call (1000 steps, langevin): "
+          f"{dev_ms[B]:.2f} ms at {B} rows, {dev_ms[BM]:.2f} ms at {BM} rows, so "
+          f"{METRICS_CHUNKS} chunks take {res['chunked_device_ms']:.2f} ms of device time")
+    return res, by_run
 
 
 # ---------------------------------------------------------------------------
@@ -2769,9 +3025,10 @@ def phase_int8_protocols(model, dev, amax, bf16_apd, bf16_c2_pc_mpjpe):
           f"int8 per-channel APD {apd}: outside {APD_BAND} or more than 0.03 from bf16's "
           f"{bf16_apd}")
     res["metrics_int8_channel"] = dict(apd=apd, bf16_apd=bf16_apd, wall_s=r["metrics_wall_s"],
+                                       si_wall_s=r["si_wall_s"],
                                        launches=by_run["demo_generation_metrics_int8_channel"])
     print(f"[int8] metrics per-channel: APD {apd:.4f} (bf16 {bf16_apd:.4f}), protocol wall "
-          f"{r['metrics_wall_s']:.2f} s")
+          f"{r['metrics_wall_s']:.2f} s (SI's {r['si_wall_s']:.2f} s included)")
 
     # moments at 2,000 rows on one host-normal stream (the fp32 tabled sampler
     # and per-tensor int8 reported beside them)
@@ -3428,6 +3685,7 @@ def main():
             proto = phase_protocols(model, dev)
             rows += phase_train_kernels(model, dev)
         comp = phase_completion_protocols(model, dev)
+        comp_cli = phase_completion_cli(dev)
         with torch.no_grad():
             int8 = phase_int8_protocols(model, dev, amax, proto["metrics"]["apd"],
                                         comp["results"]["completion2_pc"]["mpjpe_mm"])
@@ -3437,8 +3695,9 @@ def main():
         fit = phase_fitting_protocols(model, dev)
         parity["train"] = phase_train_parity(model, dev)
         train = phase_train_protocols(dev)
-        by_run = {**proto.pop("by_run"), **comp["by_run"], **int8["by_run"], **micro["by_run"],
-                  **ode["by_run"], **fit["by_run"], **train["by_run"]}
+        by_run = {**proto.pop("by_run"), **comp["by_run"], **comp_cli["by_run"],
+                  **int8["by_run"], **micro["by_run"], **ode["by_run"], **fit["by_run"],
+                  **train["by_run"]}
         for r in rows:
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
@@ -3466,11 +3725,14 @@ def main():
                     + ms["langevin_update"])
     met = proto["metrics"]
     met["device_ms_per_sampling_est"] = 1000 * metrics_step
-    met["device_share_of_protocol_wall_est"] = 1000 * metrics_step / (1e3 * met["wall_s"])
+    # over the protocol's wall less its SI seconds (SI runs on the host after
+    # the sampling at one chunk)
+    met["device_share_of_protocol_wall_est"] = (1000 * metrics_step
+                                                / (1e3 * (met["wall_s"] - met["si_wall_s"])))
     print(f"[metrics] kernels alone: {metrics_step * 1e3:.1f} us a step, "
           f"{1000 * metrics_step:.1f} ms for the 500 x 1000 sampling, "
           f"~{100 * met['device_share_of_protocol_wall_est']:.0f}% of the protocol's wall "
-          f"(build + 50-pose demo + sampling + APD)")
+          f"less SI (build + sampling + SMPL forward + APD)")
     # the same estimate for a solve at 1000 rows: K5 once, 200 steps of K1 x5,
     # K6's perturbing instantiation at the first 199 and K6 at the last
     fwd_rc = k1_rc["pre"] + 2 * k1_rc["block"] + 2 * k1_rc["block+residual"]
@@ -3482,6 +3744,7 @@ def main():
     print(f"[completion] kernels alone: {solve_ms:.1f} ms per solve, so the device is busy "
           f"~{100 * sol['device_busy_share_est']:.0f}% of the best call")
     proto["completion"] = comp["results"]
+    proto["completion_cli"] = comp_cli["results"]
     # and for the PF-ODE paths: 4 x 125 stages of K1 x5 and K8 at 500 rows; 4 x 100
     # stages of K7 x5 and K9 at 50 rows
     k7 = {v["key"]: v["ms"]

@@ -16,7 +16,12 @@ ddim|dpm|hybrid`` under a corrector-free config the few-step one) and writes the
 denormalized to axis-angle, to ``<output-path>/generation/samples.npz``
 (``pose_samples``).
 ``--metrics`` runs the 500-sample protocol (EM + langevin corrector, eps
-5e-3) through the SMPL body and prints the APD (ref run/demo.py:338-405).
+5e-3) through the SMPL body and prints the APD and the self-intersection
+percentage (SI, host C++ built with ``g++``; ref run/demo.py:338-406).
+``--metrics-chunks C`` (C divides 500) samples the protocol in C chunks of
+one graph each, enqueued back to back, and runs each chunk's SI on a worker
+thread while the later chunks are still on the device; 1, the default, is
+the reference's single batch.
 
 The completion tasks read up to 50 axis-angle poses (``pose_samples``) from
 ``--file-path``, mask ``--part`` and complete it ``--hypo`` times:
@@ -51,10 +56,10 @@ bf16 kernels (a tenth of the rows, at least one, for DDIM; none for the
 hybrid, as in the JAX demo). The ODE paths and the completion solver stay
 unquantized.
 
-Rendering, ``--video``, the self-intersection metric and the other tasks are
-not ported yet. On ``--device cuda`` every route goes through the kernels,
-DPM-Solver++ excepted (it has no kernel in either package); on ``--device
-cpu`` the kernels' plain versions run, with host-drawn normals.
+Rendering, ``--video`` and the other tasks are not ported yet. On ``--device
+cuda`` every route goes through the kernels, DPM-Solver++ excepted (it has
+no kernel in either package); on ``--device cpu`` the kernels' plain
+versions run, with host-drawn normals.
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ import copy
 import os
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -82,7 +88,7 @@ from .models import create_score_model
 from .ops.cuda.fused_em import get_cuda_em_hypo_sampler, get_cuda_em_sampler
 from .ops.cuda.fused_ode import get_cuda_ode_sampler
 from .ops.cuda.quant import calibrate_act_amax, calibrate_act_amax_per_channel
-from .ops.metrics import Evaler, average_pairwise_distance
+from .ops.metrics import Evaler, average_pairwise_distance, self_intersections_percentage
 from .ops.smoothing import slerp_interpolation
 from .tasks import DPoserComp
 from .utils.checkpoint import load_params_for_inference
@@ -123,6 +129,11 @@ def parse_args(argv):
                    help="interpolation: the adaptive RK45 encode and the generic PF "
                         "decode instead of the fixed-grid fast paths")
     p.add_argument("--metrics", action="store_true")
+    p.add_argument("--metrics-chunks", type=int, default=1,
+                   help="--metrics: sample the 500 poses in this many chunks (it must "
+                        "divide 500) and run each chunk's self-intersection test on a "
+                        "worker thread while the later chunks sample; 1 is the "
+                        "reference's single batch")
     p.add_argument("--hypo", type=int, default=10)
     p.add_argument("--part", default="left_leg", choices=BodyPartIndices.PARTS)
     p.add_argument("--sampler", default="pc", choices=["pc", "ddim", "dpm", "hybrid"],
@@ -428,15 +439,77 @@ def run_interpolation(args, config, sde, model, normalizer, generator, device) -
     return out
 
 
+def _timed_si(vertices: torch.Tensor, faces: np.ndarray, ready) -> tuple:
+    """SI of one chunk's meshes once ``ready`` (its copy's event, or None)
+    has completed -> (SI per mesh, seconds of the SI call)."""
+    if ready is not None:
+        ready.synchronize()
+    t0 = time.perf_counter()
+    si = self_intersections_percentage(vertices.numpy(), faces)
+    return si, time.perf_counter() - t0
+
+
+def run_metrics(args, config, sde, model, normalizer, generator, device,
+                quant_kwargs) -> dict:
+    """The 500-sample metrics protocol (ref run/demo.py:338-406): ``apd``,
+    ``si``, ``metrics_wall_s`` (build, sample, APD, SI), ``si_wall_s`` (the
+    SI calls' seconds, summed over the chunks) and ``sample_wall_s`` (from
+    the start until the device has finished every chunk's meshes).
+
+    With ``--metrics-chunks C`` > 1 one sampler of 500/C rows serves every
+    chunk. Each chunk's sampling and SMPL forward are enqueued in turn, its
+    vertices copied into pinned host memory without blocking and an event
+    recorded after the copy; a worker thread waits on that event and runs
+    the chunk's SI (the native call releases the interpreter lock) while the
+    later chunks are on the device. Each chunk draws from ``generator`` in
+    turn, so the samples differ from the single batch's; APD is taken over
+    the joints of all 500."""
+    t0 = time.perf_counter()
+    n_chunks = args.metrics_chunks
+    per = METRICS_SAMPLE_NUM // n_chunks
+    sampler = build_sampler(config, sde, model, per, METRICS_EPS, "langevin", device,
+                            quant_kw=quant_kwargs(METRICS_EPS, "langevin"))
+    # Pose-NDF protocol: SMPL body, zero-padded hand joints
+    body = BodyModel(args.smpl_path, num_betas=10, model_type="smpl", device=device)
+    faces = body.f.cpu().numpy()
+    on_card = device.type == "cuda"
+    jtrs, futures = [], []
+    with ThreadPoolExecutor(1) as pool:
+        for _ in range(n_chunks):
+            samples = normalizer.offline_denormalize(sampler(generator), to_axis=True)
+            pose = torch.cat([samples, torch.zeros(per, 6, device=device)], 1)
+            out = body(pose_body=pose)
+            jtrs.append(out.Jtr[:, :22])
+            verts = torch.empty(out.v.shape, dtype=out.v.dtype, pin_memory=on_card)
+            verts.copy_(out.v, non_blocking=on_card)
+            ready = None
+            if on_card:
+                ready = torch.cuda.Event()
+                ready.record()
+            futures.append((pool.submit(_timed_si, verts, faces, ready), ready))
+        apd = float(average_pairwise_distance(torch.cat(jtrs)))
+        if on_card:
+            futures[-1][1].synchronize()
+        sample_wall = time.perf_counter() - t0
+        chunks = [f.result() for f, _ in futures]
+    si = float(np.nanmean(np.concatenate([c[0] for c in chunks])))
+    return dict(apd=apd, si=si, metrics_wall_s=time.perf_counter() - t0,
+                si_wall_s=float(sum(c[1] for c in chunks)), sample_wall_s=sample_wall)
+
+
 def run(args) -> dict:
     """The task. Generation returns ``samples_file``, ``step`` and, with
-    ``--metrics``, ``apd`` and ``metrics_wall_s``; the completion tasks
+    ``--metrics``, ``run_metrics``'s ``apd``, ``si``, ``metrics_wall_s``,
+    ``si_wall_s`` and ``sample_wall_s``; the completion tasks
     ``hypotheses_file``, ``mpvpe``, ``mpjpe`` and ``step``; interpolation
     ``frames_file``, ``recon_err`` and ``step``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain versions)")
+    if args.metrics_chunks < 1 or METRICS_SAMPLE_NUM % args.metrics_chunks:
+        raise SystemExit(f"--metrics-chunks {args.metrics_chunks} must divide "
+                         f"{METRICS_SAMPLE_NUM}")
     config = load_config(args.config_path)
     model, step = load_model(config, args.ckpt_path, device)
     print(f"=> loaded checkpoint '{args.ckpt_path}' (step {step})")
@@ -468,18 +541,13 @@ def run(args) -> dict:
     print(f"samples saved to {out['samples_file']}")
 
     if args.metrics:
-        t0 = time.perf_counter()
-        sampler = build_sampler(config, sde, model, METRICS_SAMPLE_NUM, METRICS_EPS,
-                                "langevin", device,
-                                quant_kw=quant_kwargs(METRICS_EPS, "langevin"))
-        samples = normalizer.offline_denormalize(sampler(generator), to_axis=True)
-        # Pose-NDF protocol: SMPL body, zero-padded hand joints
-        body = BodyModel(args.smpl_path, num_betas=10, model_type="smpl", device=device)
-        pose = torch.cat([samples, torch.zeros(METRICS_SAMPLE_NUM, 6, device=device)], 1)
-        out["apd"] = float(average_pairwise_distance(body(pose_body=pose).Jtr[:, :22]))
-        out["metrics_wall_s"] = time.perf_counter() - t0
-        print(f"[metrics] protocol wall (build+sample+APD): {out['metrics_wall_s']:.2f}s")
+        out.update(run_metrics(args, config, sde, model, normalizer, generator, device,
+                               quant_kwargs))
+        print(f"[metrics] protocol segment wall (build+sample+APD+SI, "
+              f"chunks={args.metrics_chunks}): {out['metrics_wall_s']:.2f}s "
+              f"(SI {out['si_wall_s']:.2f}s, sampling {out['sample_wall_s']:.2f}s)")
         print("average_pairwise_distance for 500 generated samples", out["apd"])
+        print("self-intersections percentage for 500 generated samples", out["si"])
     return out
 
 

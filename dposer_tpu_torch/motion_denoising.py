@@ -14,10 +14,9 @@ per-frame init MPJPE, MPJPE and MPVPE (cm) are averaged and printed, and the
 poses written to ``<outpath-folder>/denoised_poses.npz``. Without
 ``--file-path`` every ``.npz`` under ``--data-dir`` is denoised,
 ``--batch-fragments`` fragments of one length at a time as one batched
-loss; each sequence draws its noise, its init and its prior normals from a
-generator of its own, keyed by (seed, index), so its result does not depend
-on the batching (under time strategy '1' the fragments of a batch share the
-first one's time draws). Each sequence's means go to
+loss; each sequence draws its noise, its init and its prior's times and
+normals from a generator of its own, keyed by (seed, index), so its result
+does not depend on the batching. Each sequence's means go to
 ``<outpath-folder>/<dataset>_results_logging.csv``. The prior's network runs
 in fp32 under autograd through the body model (the JAX package runs it
 under XLA, with no Pallas kernel); the prior's weight is 0.1 under time
@@ -35,7 +34,8 @@ import torch
 
 from .body_model import BodyModel
 from .config import load_config
-from .smplify import build_normalizer, cli_device, load_model_for_inference
+from .smplify import (build_normalizer, cli_device, load_model_for_inference,
+                      sequence_generator)
 from .tasks.motion_denoising import MotionDenoise, noise_schedule_kwargs
 
 SDE_N = 500  # ref run/motion_denoising.py:94, :119
@@ -79,12 +79,6 @@ def schedule_for(args) -> dict:
     if args.steps_per_iter is not None:
         sched["steps_per_iter"] = args.steps_per_iter
     return sched
-
-
-def sequence_generator(seed: int, index: int, device) -> torch.Generator:
-    """The generator of sequence ``index``: its noise, init and prior normals."""
-    s = int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0] >> 1)
-    return torch.Generator(device=device).manual_seed(s)
 
 
 def noisy_joints(body_model, gt_poses, std, generator):

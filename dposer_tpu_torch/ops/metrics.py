@@ -1,9 +1,12 @@
 """Sample-quality, completion and HMR metrics (ref lib/utils/metric.py,
 lib/dataset/AMASS.py:263-324, lib/dataset/mocap_dataset.py:61-84). Port of
-``dposer_tpu/ops/metrics.py``: APD, ``Evaler``, and the PA- and
-pelvis-aligned MPJPE (host numpy in float64)."""
+``dposer_tpu/ops/metrics.py``: APD, the self-intersection percentage (the
+host C++ of ``dposer_tpu_torch/native``, in place of the reference's
+pymeshlab), ``Evaler``, and the PA- and pelvis-aligned MPJPE (host numpy in
+float64)."""
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from typing import Dict, Optional
@@ -23,6 +26,33 @@ def average_pairwise_distance(joints3d: torch.Tensor) -> torch.Tensor:
     d = torch.sqrt(torch.clamp(torch.sum(diff ** 2, dim=-1), min=1e-24))
     pair = d.mean(-1)
     return (pair.sum() - torch.trace(pair)) / (b * (b - 1))
+
+
+@functools.cache
+def _warn_no_compiler(reason: str) -> None:
+    warnings.warn(f"self-intersection metric unavailable ({reason}): SI is NaN",
+                  RuntimeWarning, stacklevel=3)
+
+
+def self_intersections_percentage(vertices, faces) -> np.ndarray:
+    """The percentage of self-intersecting faces per mesh (ref
+    metric.py:41-89): ``vertices`` [B, V, 3] or [V, 3] and ``faces`` [F, 3],
+    tensors or arrays -> float32 numpy [B], on every host thread.
+
+    Without a host compiler to build the native library it returns NaNs and
+    warns once, as the reference does without pymeshlab (ref metric.py:70-71);
+    a failed compile or load raises."""
+    if isinstance(vertices, torch.Tensor):
+        vertices = vertices.detach().cpu().numpy()
+    if isinstance(faces, torch.Tensor):
+        faces = faces.detach().cpu().numpy()
+    from .. import native
+
+    try:
+        return native.self_intersections_percentage(vertices, faces)
+    except FileNotFoundError as e:
+        _warn_no_compiler(str(e))
+        return np.full(1 if np.ndim(vertices) == 2 else len(vertices), np.nan, np.float32)
 
 
 class Evaler:

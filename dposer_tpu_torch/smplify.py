@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
 
 from .config import load_config
@@ -19,7 +20,7 @@ from .diffusion.sde import build_sde
 from .tasks.smplify import DPoser, SMPLify
 
 __all__ = ["DPoser", "SMPLify", "build_dposer_prior", "build_normalizer", "cli_device",
-           "load_model_for_inference"]
+           "load_model_for_inference", "sequence_generator"]
 
 
 def cli_device(name: str) -> torch.device:
@@ -29,6 +30,13 @@ def cli_device(name: str) -> torch.device:
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
     return device
+
+
+def sequence_generator(seed: int, index: int, device) -> torch.Generator:
+    """The generator of sequence (or batch) ``index``, keyed by (``seed``,
+    ``index``): its draws do not depend on which others run beside it."""
+    s = int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0] >> 1)
+    return torch.Generator(device=device).manual_seed(s)
 
 
 def load_model_for_inference(config, ckpt_path: str, sde_N=None, device="cuda"):

@@ -99,6 +99,11 @@ class DPoserComp:
                 continuous=self.continuous, device=self.device)
         return self._solvers[key]
 
+    def cuda_solvers(self) -> list:
+        """The kernel solvers built so far, one per (rows, dim, elements,
+        rng mode); each holds its loops in ``loops``."""
+        return list(self._solvers.values())
+
     def _default_rng_mode(self) -> str:
         return "kernel" if self.device.type == "cuda" else "host"
 

@@ -19,8 +19,8 @@ The gradient flows through the body model and the prior's L2 (the denoised
 estimate is detached). JAX runs the schedule as one ``lax.scan``; here it is
 an eager loop. ``optimize_batch`` fits F fragments as one loss summed over
 the fragments: Adam is elementwise, so each fragment's trajectory is its own
-``optimize``'s. Its fragments share each step's time draw (one draw a step
-under strategy '1', from the first fragment's generator).
+``optimize``'s (each fragment draws its own time every step under strategy
+'1', as JAX's vmap over per-fragment keys does).
 """
 from __future__ import annotations
 
@@ -65,11 +65,11 @@ class MotionDenoise:
 
     def _loss(self, poses, init_joints, t, z, it):
         """The schedule's loss of F fragments ``poses`` [F, T, 63], summed
-        over the fragments."""
+        over the fragments; ``t`` [F] is each fragment's prior time."""
         F, T = poses.shape[:2]
         flat = poses.reshape(F * T, POSE_DIM)
         normed = self.normalizer.offline_normalize(flat, from_axis=True)
-        vec_t = torch.full((F * T,), t, dtype=poses.dtype, device=poses.device)
+        vec_t = t.to(poses.dtype).repeat_interleave(T)
         # the sum over all fragments / T is the sum of each fragment's prior
         dposer = self.prior.loss(normed, vec_t, weighted=False, reduction="sum_per_batch",
                                  batch_size=T, z=z.reshape(F * T, POSE_DIM))
@@ -86,9 +86,12 @@ class MotionDenoise:
         return w_temp * temp + w_data * data + w_dposer * dposer
 
     def _run(self, joints3d, generators, time_strategy, sample_trun, sample_time,
-             iterations, steps_per_iter, poses0, z):
+             iterations, steps_per_iter, poses0, z, t_idx):
         """``joints3d`` [F, T, 22, 3] -> the smoothed poses [F, T, 63]."""
         F, T = joints3d.shape[:2]
+        if time_strategy == "1" and t_idx is None and generators is None:
+            raise ValueError("time strategy '1' draws each step's time from the fragments' "
+                             "generators: pass generators= or inject t_idx=")
         init_joints = joints3d.detach()
         if poses0 is None:
             poses0 = torch.stack([0.01 * torch.randn(T, POSE_DIM, generator=g,
@@ -97,11 +100,18 @@ class MotionDenoise:
         poses = poses0.detach().clone().requires_grad_(True)
         opt = Adam([poses], self.lr)
         total = iterations * steps_per_iter
-        timesteps = self.prior.timesteps.tolist()
+        timesteps = self.prior.timesteps
         for i in range(total):
-            quan_t = sample_quan_t(i, total, self.sde.N, time_strategy, sample_trun,
-                                   sample_time, offset=2,
-                                   generator=None if generators is None else generators[0])
+            # fragment f draws its time, then its normals, from generators[f],
+            # as optimize draws from its generator
+            if t_idx is not None:
+                quan_t = [int(q) for q in t_idx[i]]
+            elif time_strategy == "1":
+                quan_t = [sample_quan_t(i, total, self.sde.N, time_strategy, generator=g)
+                          for g in generators]
+            else:
+                quan_t = [sample_quan_t(i, total, self.sde.N, time_strategy, sample_trun,
+                                        sample_time, offset=2)] * F
             if z is not None:
                 z_i = z[i]
             else:
@@ -121,33 +131,38 @@ class MotionDenoise:
                        iterations: int = 5, steps_per_iter: int = 50,
                        generators: Optional[Sequence[torch.Generator]] = None,
                        poses0: Optional[torch.Tensor] = None,
-                       z: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       z: Optional[torch.Tensor] = None,
+                       t_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Denoise F fragments ``joints3d`` [F, T, 22, 3] at once -> poses
-        [F, T, 63]. Fragment f draws its init and its prior normals from
-        ``generators[f]``, so its result is that of ``optimize`` with that
-        generator. ``poses0`` [F, T, 63] and ``z`` [steps, F, T, 63] inject
-        them instead."""
+        [F, T, 63]. Fragment f draws its init, and every step its time
+        (strategy '1') and its prior normals, from ``generators[f]``, so its
+        result is that of ``optimize`` with that generator. ``poses0`` [F, T,
+        63], ``z`` [steps, F, T, 63] and ``t_idx`` [steps, F] (the time
+        indices) inject them instead."""
         if generators is None and (poses0 is None or z is None):
             generators = [torch.Generator(device=self.device) for _ in range(len(joints3d))]
         return self._run(joints3d, generators, time_strategy, sample_trun, sample_time,
-                         iterations, steps_per_iter, poses0, z)
+                         iterations, steps_per_iter, poses0, z, t_idx)
 
     def optimize(self, joints3d: torch.Tensor, gt_poses: Optional[torch.Tensor] = None,
                  time_strategy: str = "3", sample_trun: float = 2.0, sample_time: int = 990,
                  iterations: int = 5, steps_per_iter: int = 50, verbose: bool = False,
                  generator: Optional[torch.Generator] = None,
                  poses0: Optional[torch.Tensor] = None,
-                 z: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
+                 z: Optional[torch.Tensor] = None,
+                 t_idx: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
         """``joints3d`` [T, 22, 3] noisy joints -> the metrics in cm (with
         ``gt_poses``); the denoised poses [T, 63] are left on
-        ``self.last_poses``. ``poses0`` [T, 63] and ``z`` [steps, T, 63]
-        inject the init and the prior's normals."""
+        ``self.last_poses``. ``poses0`` [T, 63], ``z`` [steps, T, 63] and
+        ``t_idx`` [steps] inject the init, the prior's normals and its time
+        indices."""
         if generator is None and (poses0 is None or z is None):
             generator = torch.Generator(device=self.device)
         poses = self._run(joints3d[None], None if generator is None else [generator],
                           time_strategy, sample_trun, sample_time, iterations,
                           steps_per_iter, None if poses0 is None else poses0[None],
-                          None if z is None else z[:, None])[0]
+                          None if z is None else z[:, None],
+                          None if t_idx is None else t_idx[:, None])[0]
         self.last_poses = poses
         results: Dict[str, np.ndarray] = {}
         if gt_poses is not None:

@@ -81,6 +81,30 @@ def test_demo_generation_and_metrics(workdir):
     assert poses.shape == (50, 63) and np.isfinite(poses).all()
     m = re.search(r"average_pairwise_distance for 500 generated samples (\S+)", p.stdout)
     assert m and np.isfinite(float(m.group(1))) and float(m.group(1)) > 0
+    m = re.search(r"self-intersections percentage for 500 generated samples (\S+)", p.stdout)
+    assert m and 0.0 <= float(m.group(1)) <= 100.0
+    assert "protocol segment wall (build+sample+APD+SI, chunks=1)" in p.stdout
+
+
+def test_demo_metrics_chunks(workdir):
+    """``--metrics-chunks 4``: four chunks of 125 poses, SI on a worker thread;
+    both metric lines. A count that does not divide 500 exits non-zero."""
+    out = workdir["tmp"] / "out_chunks"
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo",
+                        *_args(workdir, out, "--metrics", "--smpl-path", workdir["smpl"],
+                               "--metrics-chunks", "4")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "protocol segment wall (build+sample+APD+SI, chunks=4)" in p.stdout
+    apd = re.search(r"average_pairwise_distance for 500 generated samples (\S+)", p.stdout)
+    si = re.search(r"self-intersections percentage for 500 generated samples (\S+)", p.stdout)
+    assert apd and np.isfinite(float(apd.group(1))) and float(apd.group(1)) > 0
+    assert si and 0.0 <= float(si.group(1)) <= 100.0
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo",
+                        *_args(workdir, out, "--metrics", "--smpl-path", workdir["smpl"],
+                               "--metrics-chunks", "3")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode != 0 and "must divide 500" in p.stdout + p.stderr
 
 
 def test_demo_never_loads_jax(workdir):

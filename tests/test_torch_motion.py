@@ -207,6 +207,62 @@ def test_optimize_batch_matches_optimize(setup):
     assert not torch.allclose(batched[0], batched[1])
 
 
+def test_optimize_batch_matches_optimize_time_strategy_1(setup):
+    """Under time strategy '1' fragment f draws its own time every step from
+    ``generators[f]``, before its normals, as ``optimize`` draws from its
+    generator: the batch's fragments are each one's own ``optimize`` to 1e-5
+    rad over 10 steps, as under strategy '3'."""
+    s = setup
+    F = 3
+    sched = dict(SCHED, time_strategy="1")
+    rng = np.random.default_rng(8)
+    noisy = _t(s["noisy"][None] + 0.02 * rng.normal(size=(F, T, 22, 3)).astype(np.float32))
+    md = MotionDenoise(s["ts"], s["tscore"], s["tbm"], s["tnz"], batch_size=T)
+    batched = md.optimize_batch(
+        noisy, generators=[torch.Generator().manual_seed(20 + f) for f in range(F)], **sched)
+    for f in range(F):
+        md.optimize(noisy[f], generator=torch.Generator().manual_seed(20 + f), **sched)
+        np.testing.assert_allclose(batched[f].numpy(), md.last_poses.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=f"fragment {f}")
+    # injected draws without the time indices have no time to draw from
+    with pytest.raises(ValueError, match="strategy '1'"):
+        md.optimize_batch(noisy, poses0=torch.zeros(F, T, 63),
+                          z=torch.zeros(STEPS, F, T, 63), **sched)
+
+
+def test_optimize_batch_time_strategy_1_matches_jax(setup):
+    """The batch under strategy '1' against JAX's ``optimize_batch``, which
+    vmaps each fragment's run over its own key: JAX's init, per-step time
+    indices and normals injected (``poses0``, ``t_idx``, ``z``). Random
+    times put some steps at small indices (33 and 43 on these keys), where
+    float32 rounding of the prior's gradient moves Adam's normalised step:
+    JAX's own ``optimize_batch`` lies 3.0e-3 rad from its own ``optimize``
+    on these keys, and the port 1.3e-3 from JAX's batch (both measured), so
+    the bound is 5e-3 rad."""
+    s = setup
+    F = 2
+    sched = dict(SCHED, time_strategy="1")
+    rng = np.random.default_rng(9)
+    noisy = (s["noisy"][None] + 0.02 * rng.normal(size=(F, T, 22, 3))).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(11), F)
+    jmd = JaxMotionDenoise(s["js"], s["jscore"], s["jbm"], s["jnz"], batch_size=T)
+    ref = np.asarray(jmd.optimize_batch(keys, jnp.asarray(noisy), **sched))
+    poses0, z, t_idx = [], [], []
+    for k in keys:
+        p0, zf = _jax_draws(k)
+        k = jax.random.split(k)[0]
+        t_idx.append([int(jax.random.randint(jax.random.split(jax.random.fold_in(k, i))[0],
+                                             (), 0, 500)) for i in range(STEPS)])
+        poses0.append(p0)
+        z.append(zf)
+    t_idx = np.asarray(t_idx).T  # [steps, F]
+    assert len(np.unique(t_idx)) > STEPS  # the fragments draw their own times
+    md = MotionDenoise(s["ts"], s["tscore"], s["tbm"], s["tnz"], batch_size=T)
+    out = md.optimize_batch(_t(noisy), poses0=_t(np.stack(poses0)),
+                            z=_t(np.stack(z, 1)), t_idx=torch.as_tensor(t_idx), **sched)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=5e-3)
+
+
 def test_humaneva_split_matches_jax(tmp_path):
     src = tmp_path / "in" / "Subject1"
     src.mkdir(parents=True)
@@ -311,3 +367,19 @@ def test_motion_cli_directory_mode(motion_data):
     assert one["init_MPJPE"] == avg["init_MPJPE"]
     for k in avg:
         np.testing.assert_allclose(one[k], avg[k], rtol=1e-3, err_msg=k)
+
+
+def test_motion_cli_directory_mode_time_strategy_1(motion_data):
+    """Under ``--time-strategy 1`` each fragment draws its own times, so a
+    batch of two gives each sequence the result of a batch of its own, to
+    the 1e-3 relative of ``test_motion_cli_directory_mode``."""
+    d = motion_data
+    common = ["--data-dir", d["frags"], "--time-strategy", "1", "--iterations", "1",
+              "--steps-per-iter", "30"]
+    two = cli.run(_cli_args(d, *common, "--outpath-folder", str(d["tmp"] / "ts1_b2"),
+                            "--batch-fragments", "2"))
+    one = cli.run(_cli_args(d, *common, "--outpath-folder", str(d["tmp"] / "ts1_b1"),
+                            "--batch-fragments", "1"))
+    assert one["init_MPJPE"] == two["init_MPJPE"]
+    for k in two:
+        np.testing.assert_allclose(one[k], two[k], rtol=1e-3, err_msg=k)
