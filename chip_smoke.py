@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``dposer_tpu_torch``) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --plain-loops   # (p) also times each shard's plain loop
 
 Phases; any failure exits non-zero:
 
@@ -151,7 +152,25 @@ Phases; any failure exits non-zero:
    mixture), 100 poses x 10 hypotheses a batch: MPJPE and MPVPE in the
    bands, each batch's launches those of a 5c solve, one CUDA graph
    captured for the split, row-solves/s and poses/s, the first batch's wall
-   beside the steady median;
+   beside the steady median; (p) sharded serving on one card
+   (``dposer_tpu_torch/parallel``, a mesh of four shards on cuda:0): the
+   500 x 1000 generation (each shard bit-equal to a 125-row call with its
+   folded generator, the shards' draws different, launches 4x a 125-row
+   call's, one graph a shard, no tensor map encoded by a replay), EM at N =
+   20 on injected host noise with and without the corrector and imputation
+   (each shard bit-equal on its rows; corrector-free within phase 4's
+   row-by-row bounds of the 500-row call; K2's score mode and K3 are held
+   against their plain versions at a shard's 125 rows in phase 3), the 5c
+   solve (each shard bit-equal; on injected host normals the 1,000-row
+   solve bit for bit) and ``DPoserComp(mesh=)`` (pasted exactly, 5c's
+   bands), ODE sampling 500 x 125 (each shard bit-equal; within
+   5e-2*max(1, |ref|) of the 500-row call), the likelihood 50 x 100 on two
+   shards with 5g's probe (each shard bit-equal, every row's bits/dim and z
+   the 50-row call's, bits/dim mean within 0.1 of 5g's), and
+   ``python -m dposer_tpu_torch.completion --multihost`` as two processes
+   on the card over 1,000 poses, equal bit for bit to one process; walls
+   beside the unsharded calls' and a shard call's device time and bound
+   (with ``--plain-loops`` also its plain loop's);
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -172,6 +191,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -193,6 +213,7 @@ import torch.nn.functional as F  # noqa: E402
 from dposer_tpu_torch import completion as completion_cli  # noqa: E402
 from dposer_tpu_torch import demo  # noqa: E402
 from dposer_tpu_torch import native  # noqa: E402
+from dposer_tpu_torch import parallel  # noqa: E402
 from dposer_tpu_torch import fitting as fitting_cli  # noqa: E402
 from dposer_tpu_torch import motion_denoising as motion_cli  # noqa: E402
 from dposer_tpu_torch import train as train_cli  # noqa: E402
@@ -256,6 +277,11 @@ TMA_ENCODES_PER_CALL = 8  # K1's tensor-map cache misses allowed in one generati
 DRAW_TOL = 1e-5  # in-kernel normals against the plain Philox stream (logf, cospif vs float64)
 REPEATS = 50  # repeated calls of K2, K3, K6-K12 that must give the same bits
 GRAPH_SEED = 21  # the graph phase's generator seed (and GRAPH_SEED + 1)
+SHARDS, SHARD_SEED = 4, 31  # (p): the mesh's shards, all on cuda:0, and its seeds
+CLI_POSES, CLI_TIMEOUT_S = 1000, 300  # (p)(vi): the split, each process's time limit
+# (p): also time each shard's call on the plain versions (a run with this
+# argument, for PERF.md's plain column; the default run skips it)
+PLAIN_LOOPS = "--plain-loops" in sys.argv[1:]
 MOTION_STD = 0.04  # (m): the joints' noise in m
 # (m): optimize_batch against each fragment's optimize on the same draws:
 # the poses over the first MOTION_SHORT_STEPS steps (rad), and each
@@ -851,8 +877,9 @@ def phase_kernels(model, dev):
         bound_ms=bms3, bound_by=by3))
 
     small = chunk_row_checks(net, coefs, lc, x, z, i, dev)
-    for r, s in zip(rows, small):
-        r[f"at_{BM}_rows"] = s
+    shard = chunk_row_checks(net, coefs, lc, x, z, i, dev, rows=B // SHARDS)
+    for r, s, s2 in zip(rows, small, shard):
+        r[f"at_{BM}_rows"], r[f"at_{B // SHARDS}_rows"] = s, s2
     for r in rows:
         kernel_row_line(r)
         for v in r.get("variants", []):
@@ -865,23 +892,26 @@ def phase_kernels(model, dev):
                   f"is a {r['library']}"
                   + (f"; score mode {r['score_mode_ms'] * 1e3:.2f} us (eager "
                      f"{r['score_mode_eager_ms'] * 1e3:.2f})" if "score_mode_ms" in r else ""))
-        print(f"    at {BM} rows (the metrics protocol's chunk): " + "; ".join(
-            f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g}), {v['ms'] * 1e3:.2f} us"
-            + (f", score mode {v['score_mode_ms'] * 1e3:.2f} us" if "score_mode_ms" in v else "")
-            for k, v in r[f"at_{BM}_rows"].items()))
+        for n, what in ((BM, "the metrics protocol's chunk"), (B // SHARDS, "a shard in (p)")):
+            print(f"    at {n} rows ({what}): " + "; ".join(
+                f"{k} err {v['max_abs_err']:.3g} (tol {v['tol']:.3g}), {v['ms'] * 1e3:.2f} us"
+                + (f", score mode {v['score_mode_ms'] * 1e3:.2f} us" if "score_mode_ms" in v
+                   else "")
+                for k, v in r[f"at_{n}_rows"].items()))
     return rows
 
 
-def chunk_row_checks(net, coefs, lc, x, z, i, dev):
-    """K1, K2 and K3 at the chunked metrics protocol's BM rows (``--metrics-
-    chunks 10`` replays every step at that shape): K1's three layer shapes,
-    K2's EM and score modes, K3's value and step size (its norms are reduced
-    over all rows across the cluster, split otherwise at BM rows), each
-    against its plain version on the same inputs within phase 3's
-    tolerances, and timed. Returns one dict of cases per kernel."""
+def chunk_row_checks(net, coefs, lc, x, z, i, dev, rows=BM):
+    """K1, K2 and K3 at ``rows``: the chunked metrics protocol's BM rows
+    (``--metrics-chunks 10`` replays every step at that shape), or a shard's
+    rows in (p): K1's three layer shapes, K2's EM and score modes, K3's value
+    and step size (its norms are reduced over all rows across the cluster,
+    split otherwise at fewer rows), each against its plain version on the
+    same inputs within phase 3's tolerances, and timed. Returns one dict of
+    cases per kernel."""
     tp, W, gs, gb = net["tp_all"][i], net["W"], net["gn_scale"], net["gn_bias"]
     wp, bp = net["w_post"], net["b_post"]
-    xs, zs = x[:BM].contiguous(), z[:BM].contiguous()
+    xs, zs = x[:rows].contiguous(), z[:rows].contiguous()
     hs = score_net.dense_gn_silu_plain(xs, W[0], tp[0], gs[0], gb[0])
     hs1 = score_net.dense_gn_silu_plain(hs, W[1], tp[1], gs[1], gb[1])
     small = [{}, {}, {}]
@@ -892,25 +922,25 @@ def chunk_row_checks(net, coefs, lc, x, z, i, dev):
         out = score_net.dense_gn_silu(*args, residual=res)
         torch.cuda.synchronize()
         e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
-        check(e <= tol, f"dense_gn_silu {label} at {BM} rows: max abs err {e} > {tol}")
+        check(e <= tol, f"dense_gn_silu {label} at {rows} rows: max abs err {e} > {tol}")
         o = torch.empty_like(ref)
         small[0][label] = dict(max_abs_err=e, tol=tol, ms=graph_ms(
             lambda: score_net.dense_gn_silu(*args, residual=res, out=o)))
-    hid_s = torch.empty(BM, H, device=dev)
+    hid_s = torch.empty(rows, H, device=dev)
     score_net.network_hidden(net, xs, i, hid_s, torch.empty_like(hid_s))
     xs_ref, xms_ref = fused_em.head_em_plain(hid_s, wp, bp, coefs, i, "em", D, x=xs, noise=zs)
     xsk, xms = xs.clone(), torch.empty_like(xs)
     fused_em.head_em(hid_s, wp, bp, coefs, i, "em", x=xsk, x_mean=xms, noise=zs)
     ss_ref, sqs_ref = fused_em.head_em_plain(hid_s, wp, bp, coefs, i, "score", D)
-    ss, sqs = torch.empty_like(xs), torch.empty(BM, device=dev)
+    ss, sqs = torch.empty_like(xs), torch.empty(rows, device=dev)
     fused_em.head_em(hid_s, wp, bp, coefs, i, "score", score=ss, score_sq=sqs)
     torch.cuda.synchronize()
     e2s = [err(xsk, xs_ref), err(xms, xms_ref), err(ss, ss_ref)]
     tol2s = [1e-3 * max(1.0, float(r.abs().max())) for r in (xs_ref, xms_ref, ss_ref)]
     check(all(a <= b for a, b in zip(e2s, tol2s)),
-          f"head_em at {BM} rows: errors {e2s} > {tol2s}")
+          f"head_em at {rows} rows: errors {e2s} > {tol2s}")
     sqs_e = float(((sqs - sqs_ref).abs() / sqs_ref.abs().clamp(min=1e-6)).max())
-    check(sqs_e <= 1e-3, f"head_em at {BM} rows: row norms relative error {sqs_e}")
+    check(sqs_e <= 1e-3, f"head_em at {rows} rows: row norms relative error {sqs_e}")
     xst = xs.clone()
     small[1]["em+score"] = dict(
         max_abs_err=max(e2s), tol=max(tol2s), score_sq_rel_err=sqs_e,
@@ -923,9 +953,9 @@ def chunk_row_checks(net, coefs, lc, x, z, i, dev):
     fused_em.langevin_update(x3s, ss, sqs, lc, i, 0.16, noise=zs, step_out=sts)
     torch.cuda.synchronize()
     e3s, tol3s = err(x3s, x3s_ref), 1e-4 * max(1.0, float(x3s_ref.abs().max()))
-    check(e3s <= tol3s, f"langevin_update at {BM} rows: max abs err {e3s} > {tol3s}")
+    check(e3s <= tol3s, f"langevin_update at {rows} rows: max abs err {e3s} > {tol3s}")
     sts_e = abs(float(sts[0]) / float(sts_ref) - 1.0)
-    check(sts_e <= 1e-4, f"langevin_update at {BM} rows: step size relative error {sts_e}")
+    check(sts_e <= 1e-4, f"langevin_update at {rows} rows: step size relative error {sts_e}")
     small[2]["value+step_out"] = dict(
         max_abs_err=e3s, tol=tol3s, step_rel_err=sts_e,
         ms=graph_ms(lambda: fused_em.langevin_update(xst, ss, sqs, lc, i, 0.16,
@@ -2248,6 +2278,479 @@ def phase_ode_protocols(model, dev):
                                 task_wall_s=wall, launches=by_run["demo_interpolation"])
     print(f"[interpolation] demo: reconstruction error {r['recon_err']:.4f} (normalized), "
           f"task wall {wall:.2f} s, launches {by_run['demo_interpolation']}")
+    return dict(results=res, by_run=by_run, lik_inputs=(data, eps))
+
+# ---------------------------------------------------------------------------
+# sharded serving on one card (dposer_tpu_torch/parallel)
+# ---------------------------------------------------------------------------
+
+def forward_bound_ms(rows, jvp=False):
+    """The bound of one forward's five hidden layers at ``rows`` (the pre
+    layer, then two blocks of two layers, the second of each with its
+    residual), each launch bounded as phase 3 bounds it: K1, or K7 with its
+    tangent on the bf16 copies the layer before wrote."""
+    total = 0.0
+    for k, res in ((D, False), (H, False), (H, True), (H, False), (H, True)):
+        if jvp:
+            rest = 2 * k * H + 3 * 4 * H + 2 * 4 * rows * H * (2 if res else 1)
+            total += bound(2 * (2 if k == H else 4) * rows * k + rest + 2 * 2 * rows * H,
+                           2 * 2 * rows * k * H, 40 * rows * H)[0]
+        else:
+            total += bound(4 * rows * k + 2 * k * H + 3 * 4 * H
+                           + 4 * rows * H * (2 if res else 1), 2 * rows * k * H, 14 * rows * H)[0]
+    return total
+
+
+def head_bound_ms(name, rows):
+    """One launch's bound of a head or an elementwise kernel at ``rows``, with
+    phase 3's bytes and operations."""
+    w = 2 * H * score_net.HEAD_COLS + 4 * score_net.HEAD_COLS
+    n6 = 4 * rows * H + w + 9 * 4 * rows * D + 32
+    return bound(*{
+        "head_em": (4 * rows * H + w + 2 * 4 * rows * D + 32, 2 * rows * H * D, 110 * rows * D),
+        "head_em_impute": (4 * rows * H + w + 4 * 4 * rows * D + 32, 2 * rows * H * D,
+                           360 * rows * D),
+        "langevin_update": (3 * 4 * rows * D + 4 * rows + 32, 0, 220 * rows * D),
+        "masked_renoise": (4 * 4 * rows * D + 32, 0, 116 * rows * D),
+        "comp_perturb": (2 * 4 * rows * D + 32, 0, 113 * rows * D),
+        "head_adam": (n6, 2 * rows * H * D, 20 * rows * D),
+        "head_adam_perturb": (n6 + 4 * rows * D, 2 * rows * H * D, 133 * rows * D),
+        "head_rk4": (4 * rows * H + w + 5 * 4 * rows * D + 32, 2 * rows * H * D, 12 * rows * D),
+        "head_rk4_jvp": (2 * 4 * rows * H + w + 6 * 4 * rows * D + 3 * 4 * rows + 32,
+                         2 * 2 * rows * H * D, 16 * rows * D),
+    }[name])[0]
+
+
+def call_bound_ms(counts, rows):
+    """The bound of one call's kernels at ``rows``: each launch's bound, summed
+    over the call's launch counts (K1 and K7 five layers a forward)."""
+    total = 0.0
+    for name, n in counts.items():
+        if n and name in ("dense_gn_silu", "dense_gn_silu_jvp"):
+            total += n / 5 * forward_bound_ms(rows, jvp=name == "dense_gn_silu_jvp")
+        elif n:
+            total += n * head_bound_ms(name, rows)
+    return total
+
+
+def event_ms(fn, n=5):
+    """Device time of one ``fn()`` between CUDA events, over ``n`` calls after
+    one warm call (a graphed loop's call: its input copies and one replay)."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def shard_of(x, r, n=SHARDS, axis=0):
+    """Shard ``r``'s contiguous rows of ``x`` out of ``n``, as the mesh splits
+    them."""
+    return x.narrow(axis, r * x.shape[axis] // n, x.shape[axis] // n).contiguous()
+
+
+def check_shards(what, out, refs):
+    """Each shard's rows of ``out`` bit-equal to its single-device result."""
+    for r, ref in enumerate(refs):
+        check(torch.equal(shard_of(out, r, len(refs)), ref),
+              f"{what}: shard {r} is not bit-equal to the single-device call at "
+              f"{ref.shape[0]} rows")
+
+
+def plain_loop_ms(build_plain, call):
+    """(p) with ``--plain-loops``: the device time of one shard's call on the
+    plain versions (``plain=True`` on injected inputs, captured and replayed
+    by ``graph_ms``); None in the default run, which does not pay for the
+    plain loops' capture."""
+    if not PLAIN_LOOPS:
+        return None
+    plain = build_plain()
+    return graph_ms(lambda: call(plain), reps=1, replays=3)
+
+
+def plain_text(ms):
+    return "not timed (--plain-loops)" if ms is None else f"{ms:.2f}"
+
+
+def one_call_counts(fn):
+    """The launch counts of one ``fn()``, and its result."""
+    fused_em.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return fused_em.launch_counts(), out
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+CLI_RANK = """
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+from dposer_tpu_torch import completion as cli
+r = cli.run(cli.parse_args({argv!r}))
+np.savez({out!r}, mpjpe=r["mpjpe_body"], mpvpe=r["mpvpe_all"], batches=r["batch_indices"])
+"""
+
+
+def cli_two_processes(argv):
+    """(p)(vi) the completion CLI as two processes on this card over a gloo
+    group at a free localhost port, each with a time limit (a hang fails the
+    phase; every process is stopped): their saved per-sample errors and
+    their standard outputs."""
+    url = f"127.0.0.1:{free_port()}"
+    files = [os.path.join(OUT, f"cli_rank{r}.npz") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CLI_RANK.format(repo=REPO, out=files[r], argv=argv + [
+            "--multihost", "--coordinator", url, "--num-processes", "2", "--process-id",
+            str(r)])],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f"completion cli rank {r}: no end within {CLI_TIMEOUT_S} s")
+            check(proc.returncode == 0,
+                  f"completion cli rank {r} exited {proc.returncode}:\n{out[-3000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return [np.load(f) for f in files], outs
+
+
+def phase_sharded(model, dev, lik_data, lik_eps, lik_bpd_mean):
+    """(p) sharded serving on one card: the four sharded kernel wrappers on a
+    mesh of four shards on cuda:0 (the likelihood on two), each shard
+    bit-equal to a single-device call at its rows with its folded generator
+    or its rows of the injected inputs; ``DPoserComp(mesh=)``; the
+    completion CLI as two processes against one. Where rows are independent
+    the sharded result is also the unsharded call's, bit for bit: EM without
+    the corrector, the solve on injected host normals, ODE, the likelihood
+    on an injected probe. Walls printed, not gated; a shard's call timed
+    between CUDA events (its graph's replay) beside the bound of its kernels
+    at the shard's rows, and with ``--plain-loops`` its plain loop's
+    (``plain_loop_ms``)."""
+    t_phase = time.perf_counter()
+    os.makedirs(OUT, exist_ok=True)
+    mesh = parallel.make_mesh(devices=[dev] * SHARDS)
+    sde, config = SubVPSDE(N=1000), get_config()
+    rs = B // SHARDS
+    by_run, res = {}, {}
+
+    def gens(seed):
+        return parallel.shard_generators(mesh, torch.Generator(device=dev).manual_seed(seed))
+
+    def best(walls):
+        return min(walls[1:])  # the first call captures
+
+    # (i) generation, 500 x 1000, in-kernel normals
+    sharded = demo.build_sampler(config, sde, model, B, 1e-3, "none", dev, mesh=mesh)
+    single = demo.build_sampler(config, sde, model, rs, 1e-3, "none", dev)
+    whole = demo.build_sampler(config, sde, model, B, 1e-3, "none", dev)
+    walls, encodes = [], []
+    for _ in range(3):
+        fused_em.reset_launch_counts()
+        e0 = build.tma_encodes("dense_gn_silu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = sharded(torch.Generator(device=dev).manual_seed(SHARD_SEED))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        encodes.append(build.tma_encodes("dense_gn_silu") - e0)
+    counts = fused_em.launch_counts()
+    by_run["sharded_generation_4x125"] = counts
+    check(len(sharded.loops) == SHARDS and all(lp.graph and lp.capture_s is not None
+                                                for lp in sharded.loops),
+          f"sharded generation: {len(sharded.loops)} loops, expected one graph a shard")
+    check(encodes[1:] == [0, 0], f"sharded generation: replays encoded {encodes[1:]} tensor maps")
+    g = gens(SHARD_SEED)
+    one, ref0 = one_call_counts(lambda: single(g[0]))
+    check(all(counts[k] == SHARDS * one[k] for k in counts),
+          f"sharded generation: launches {counts}, not {SHARDS} x a {rs}-row call's {one}")
+    check_shards("sharded generation", x, [ref0] + [single(g[r]) for r in range(1, SHARDS)])
+    gaps = [float((shard_of(x, a) - shard_of(x, b)).abs().max())
+            for a in range(SHARDS) for b in range(a + 1, SHARDS)]
+    check(min(gaps) > 1e-3, f"sharded generation: two shards drew the same rows ({gaps})")
+    check(torch.isfinite(x).all().item(), "sharded generation: non-finite output")
+    whole_walls, xw = timed_calls(
+        lambda: whole(torch.Generator(device=dev).manual_seed(SHARD_SEED)))
+    single_walls, _ = timed_calls(lambda: single(g[0]))
+    shard_ms = event_ms(lambda: sharded.shards[0](g[0]))
+    gp = torch.Generator(device=dev).manual_seed(SHARD_SEED + 3)
+    zp, noisep = (torch.randn(shape, generator=gp, device=dev)
+                  for shape in ((rs, D), (sde.N, 1, rs, D)))
+    plain_ms = plain_loop_ms(
+        lambda: fused_em.get_cuda_em_sampler(sde, model, (rs, D), eps=1e-3,
+                                             denoise=config.sampling.noise_removal,
+                                             predictor=config.sampling.predictor, device=dev,
+                                             plain=True),
+        lambda plain: plain(z=zp, noise=noisep))
+    res["generation"] = dict(
+        wall_s=best(walls), walls_s=walls, whole_500_wall_s=best(whole_walls),
+        single_125_wall_s=best(single_walls), tma_encodes=encodes, launches=counts,
+        launches_125_row_call=one, shard_call_device_ms=shard_ms, shard_call_plain_ms=plain_ms,
+        shard_call_bound_ms=call_bound_ms(one, rs), moments=moments(x),
+        whole_moments=moments(xw), shards_bit_equal=True, graphs=len(sharded.loops),
+        graph_loops=[dict(warmup_s=lp.warmup_s, capture_s=lp.capture_s,
+                          instantiate_s=lp.instantiate_s) for lp in sharded.loops])
+    r_ = res["generation"]
+    print(f"[sharded] (i) generation 500 x 1000 as {SHARDS} x {rs} on {dev}: every shard "
+          f"bit-equal to a {rs}-row call with its folded generator, the shards' draws differ "
+          f"(min gap {min(gaps):.3g}); launches {counts} = {SHARDS} x {one}; "
+          f"{len(sharded.loops)} graphs; tensor maps encoded a call {encodes}; moments "
+          f"{r_['moments']} (the 500-row call {r_['whole_moments']}); wall "
+          f"{r_['wall_s'] * 1e3:.1f} ms (500 rows {r_['whole_500_wall_s'] * 1e3:.1f}, {rs} rows "
+          f"{r_['single_125_wall_s'] * 1e3:.1f}); a shard's call {shard_ms:.2f} ms of device "
+          f"time (its plain loop {plain_text(plain_ms)}, graph replay), bound "
+          f"{r_['shard_call_bound_ms']:.2f}")
+
+    # (ii) EM at N = 20, host noise injected: each shard on its rows of z and noise
+    sde20 = SubVPSDE(N=20)
+    gn = torch.Generator(device=dev).manual_seed(SHARD_SEED + 1)
+    z = torch.randn(B, D, generator=gn, device=dev)
+    mask, obs = create_mask(normalized_synthetic_poses(B, dev), part=PART, generator=gn)
+    res["em_n20"] = {}
+    for corrector in ("none", "langevin"):
+        for imputation in (False, True):
+            name = corrector + ("_imputation" if imputation else "")
+            k = (corrector == "langevin") + 2 * imputation + 1
+            noise = torch.randn((20, k, B, D), generator=gn, device=dev)
+            io = dict(observation=obs, mask=mask) if imputation else {}
+            kw = dict(corrector=corrector, imputation=imputation, device=dev)
+            fused_em.reset_launch_counts()
+            out = fused_em.get_cuda_em_sampler(sde20, model, (B, D), mesh=mesh, **kw)(
+                z=z, noise=noise, **io)
+            torch.cuda.synchronize()
+            by_run[f"sharded_em_n20_{name}"] = fused_em.launch_counts()
+            one_shard = fused_em.get_cuda_em_sampler(sde20, model, (rs, D), **kw)
+            check_shards(f"sharded EM ({name})", out, [
+                one_shard(z=shard_of(z, r), noise=shard_of(noise, r, axis=2),
+                          **{k_: shard_of(v, r) for k_, v in io.items()})
+                for r in range(SHARDS)])
+            entry = dict(shards_bit_equal=True)
+            if corrector == "none":  # rows are independent: the 500-row call, phase 4's bounds
+                ref = fused_em.get_cuda_em_sampler(sde20, model, (B, D), **kw)(
+                    z=z, noise=noise, **io)
+                tol = 2e-2 * max(1.0, float(ref.abs().max()))
+                row_err = (out - ref).abs().amax(1)
+                frac = float((row_err <= tol).float().mean())
+                med = float((out - ref).abs().median())
+                check(frac >= 0.90 and med <= tol / 10,
+                      f"sharded EM ({name}): {frac:.3f} of rows within {tol} of the 500-row "
+                      f"call, median {med}")
+                entry.update(rows_within_tol=frac, median_abs_err=med,
+                             max_abs_err=float(row_err.max()), tol=tol)
+            res["em_n20"][name] = entry
+            print(f"[sharded] (ii) EM N = 20 ({name}), host noise: every shard bit-equal to a "
+                  f"{rs}-row call on its rows; {entry}")
+
+    # (iii) the 5c solve, 1,000 rows x 2x100, in-kernel normals; then DPoserComp(mesh=)
+    normalizer = PoseNormalizer(STATS, normalize=config.data.normalize,
+                                min_max=config.data.min_max, rot_rep=config.data.rot_rep,
+                                device=dev)
+    gts = torch.as_tensor(synthetic_poses(100), device=dev)
+    gc = torch.Generator(device=dev).manual_seed(5)
+    mask, obs = create_mask(normalizer.offline_normalize(gts, from_axis=True), part=PART,
+                            generator=gc)
+    obs_t, mask_t = obs.repeat(HYPO, 1), mask.repeat(HYPO, 1)
+    kw = dict(time_strategy="3", rng_mode="kernel")
+    solver = fused_comp.get_cuda_comp_solver(sde, model, (RC, D), 100 * D, mesh=mesh, **kw)
+    single = fused_comp.get_cuda_comp_solver(sde, model, (RC // SHARDS, D), 100 * D,
+                                             device=dev, **kw)
+    whole = fused_comp.get_cuda_comp_solver(sde, model, (RC, D), 100 * D, device=dev, **kw)
+    walls, xs = timed_calls(lambda: solver(torch.Generator(device=dev).manual_seed(SHARD_SEED),
+                                           obs_t, mask_t))
+    by_run["sharded_solver_4x250"] = counts = fused_em.launch_counts()
+    g = gens(SHARD_SEED)
+    parts = [(shard_of(obs_t, r), shard_of(mask_t, r)) for r in range(SHARDS)]
+    one, ref0 = one_call_counts(lambda: single(g[0], *parts[0]))
+    check(all(counts[k] == SHARDS * one[k] for k in counts),
+          f"sharded solver: launches {counts}, not {SHARDS} x {one}")
+    check_shards("sharded solver", xs,
+                 [ref0] + [single(g[r], *parts[r]) for r in range(1, SHARDS)])
+    whole_walls, _ = timed_calls(
+        lambda: whole(torch.Generator(device=dev).manual_seed(SHARD_SEED), obs_t, mask_t))
+    shard_ms = event_ms(lambda: solver.shards[0](g[0], *parts[0]))
+    # on injected host normals the rows are independent (n_elems is global):
+    # the sharded solve is the 1,000-row solve, bit for bit
+    noise_h = torch.randn((200, RC, D), generator=gp, device=dev)
+    kh = dict(time_strategy="3", rng_mode="host")
+    xs_h = fused_comp.get_cuda_comp_solver(sde, model, (RC, D), 100 * D, mesh=mesh, **kh)(
+        None, obs_t, mask_t, noise=noise_h)
+    ref_h = fused_comp.get_cuda_comp_solver(sde, model, (RC, D), 100 * D, device=dev, **kh)(
+        None, obs_t, mask_t, noise=noise_h)
+    check(torch.equal(xs_h, ref_h), f"sharded solver on host normals: max abs err "
+                                    f"{err(xs_h, ref_h)} against the 1,000-row solve")
+    plain_ms = plain_loop_ms(
+        lambda: fused_comp.get_cuda_comp_solver(sde, model, (RC // SHARDS, D), 100 * D,
+                                                time_strategy="3", device=dev, plain=True),
+        lambda plain: plain(None, *parts[0], noise=shard_of(noise_h, 0, axis=1)))
+    comp = DPoserComp(sde, model=model, time_strategy="3", backend="cuda", device=dev,
+                      mesh=mesh)
+    fused_em.reset_launch_counts()
+    hypos = comp.optimize_hypos(obs, mask, HYPO, gc)
+    torch.cuda.synchronize()
+    by_run["sharded_dposercomp_100x10"] = fused_em.launch_counts()
+    check(hypos.shape == (100, HYPO, D) and torch.isfinite(hypos).all().item(),
+          "sharded DPoserComp output")
+    check(torch.equal(hypos * mask[:, None], (obs * mask)[:, None].expand_as(hypos)),
+          "sharded DPoserComp: observed dims are not pasted exactly")
+    smplx, _ = make_synthetic_body_model(os.path.join(OUT, "smplx_fixture.npz"), "smplx")
+    ev = Evaler(BodyModel(smplx, num_betas=10, model_type="smplx", device=dev),
+                part=PART).multi_eval_bodys(normalizer.offline_denormalize(hypos, to_axis=True),
+                                            gts)
+    mpjpe, mpvpe = float(np.mean(ev["mpjpe_body"])), float(np.mean(ev["mpvpe_all"]))
+    check_bands("sharded DPoserComp", mpjpe, mpvpe)
+    res["solver"] = dict(wall_s=best(walls), walls_s=walls, whole_1000_wall_s=best(whole_walls),
+                         launches=counts, launches_250_row_call=one,
+                         shard_call_device_ms=shard_ms, shard_call_plain_ms=plain_ms,
+                         shard_call_bound_ms=call_bound_ms(one, RC // SHARDS),
+                         shards_bit_equal=True, host_normals_equal_1000_row_solve=True,
+                         dposercomp_mpjpe_mm=mpjpe,
+                         dposercomp_mpvpe_mm=mpvpe)
+    r_ = res["solver"]
+    print(f"[sharded] (iii) solver 1000 x 2x100 as {SHARDS} x {RC // SHARDS}: every shard "
+          f"bit-equal; on host normals the 1,000-row solve bit for bit; launches {counts} = "
+          f"{SHARDS} x {one}; wall {r_['wall_s'] * 1e3:.1f} ms "
+          f"(1,000 rows {r_['whole_1000_wall_s'] * 1e3:.1f}); a shard's call {shard_ms:.2f} ms "
+          f"of device time (its plain loop {plain_text(plain_ms)}), bound "
+          f"{r_['shard_call_bound_ms']:.2f}; DPoserComp(mesh=) 100 x "
+          f"{HYPO}: pasted exactly, MPJPE {mpjpe:.1f} mm, MPVPE {mpvpe:.1f} mm")
+
+    # (iv) PF-ODE sampling, 500 x 125
+    kw = dict(n_steps=ODE_STEPS, eps=1e-3)
+    sampler = fused_ode.get_cuda_ode_sampler(sde, model, (B, D), mesh=mesh, **kw)
+    single = fused_ode.get_cuda_ode_sampler(sde, model, (rs, D), device=dev, **kw)
+    whole = fused_ode.get_cuda_ode_sampler(sde, model, (B, D), device=dev, **kw)
+    walls, (nfe, x) = timed_calls(
+        lambda: sampler(torch.Generator(device=dev).manual_seed(SHARD_SEED)))
+    by_run["sharded_ode_4x125"] = counts = fused_em.launch_counts()
+    check(nfe == 4 * ODE_STEPS, f"sharded ODE: nfe {nfe}")
+    g = gens(SHARD_SEED)
+    one, ref0 = one_call_counts(lambda: single(g[0])[1])
+    check_shards("sharded ODE", x, [ref0] + [single(g[r])[1] for r in range(1, SHARDS)])
+    zz = torch.randn(B, D, generator=torch.Generator(device=dev).manual_seed(SHARD_SEED + 2),
+                     device=dev)
+    xz, ref = sampler(z=zz)[1], whole(z=zz)[1]
+    e, tol = err(xz, ref), ODE_TOL * max(1.0, float(ref.abs().max()))
+    check(e <= tol, f"sharded ODE against the 500-row call: {e} > {tol}")
+    whole_walls, _ = timed_calls(
+        lambda: whole(torch.Generator(device=dev).manual_seed(SHARD_SEED)))
+    shard_ms = event_ms(lambda: sampler.shards[0](g[0]))
+    plain_ms = plain_loop_ms(
+        lambda: fused_ode.get_cuda_ode_sampler(sde, model, (rs, D), device=dev, plain=True,
+                                               **kw),
+        lambda plain: plain(z=zp))
+    res["ode"] = dict(wall_s=best(walls), walls_s=walls, whole_500_wall_s=best(whole_walls),
+                      launches=counts, launches_125_row_call=one, shard_call_device_ms=shard_ms,
+                      shard_call_plain_ms=plain_ms,
+                      shard_call_bound_ms=call_bound_ms(one, rs), shards_bit_equal=True,
+                      max_abs_err_vs_500=e, tol=tol)
+    r_ = res["ode"]
+    print(f"[sharded] (iv) PF-ODE 500 x {ODE_STEPS} as {SHARDS} x {rs}: every shard "
+          f"bit-equal; against the 500-row call {e:.3g} (tol {tol:.3g}); wall "
+          f"{r_['wall_s'] * 1e3:.1f} ms (500 rows {r_['whole_500_wall_s'] * 1e3:.1f}); a "
+          f"shard's call {shard_ms:.2f} ms of device time (its plain loop "
+          f"{plain_text(plain_ms)}), bound {r_['shard_call_bound_ms']:.2f}")
+
+    # (v) the likelihood, 50 x 100 on a mesh of 2, with 5g's data and probe injected
+    mesh2 = parallel.make_mesh(devices=[dev] * 2)
+    kw = dict(n_steps=LIK_STEPS, eps=LIK_EPS)
+    lik = fused_lik.get_cuda_likelihood_fn(sde, model, (BL, D), mesh=mesh2, **kw)
+    single = fused_lik.get_cuda_likelihood_fn(sde, model, (BL // 2, D), device=dev, **kw)
+    whole = fused_lik.get_cuda_likelihood_fn(sde, model, (BL, D), device=dev, **kw)
+    walls, (bpd, zl, nfe) = timed_calls(lambda: lik(None, lik_data, epsilon=lik_eps))
+    by_run["sharded_likelihood_2x25"] = counts = fused_em.launch_counts()
+    halves = [(shard_of(lik_data, r, 2), shard_of(lik_eps, r, 2)) for r in range(2)]
+    one, first = one_call_counts(lambda: single(None, halves[0][0], epsilon=halves[0][1]))
+    refs = [first] + [single(None, d_, epsilon=e_) for d_, e_ in halves[1:]]
+    check_shards("sharded likelihood (bits/dim)", bpd, [r_[0] for r_ in refs])
+    check_shards("sharded likelihood (z)", zl, [r_[1] for r_ in refs])
+    # each row's bits/dim and z are the 50-row call's, bit for bit
+    bpd_w, zl_w, _ = whole(None, lik_data, epsilon=lik_eps)
+    check(torch.equal(bpd, bpd_w) and torch.equal(zl, zl_w),
+          f"sharded likelihood against the {BL}-row call: bits/dim {err(bpd, bpd_w)}, "
+          f"z {err(zl, zl_w)}")
+    gap = abs(float(bpd.mean()) - lik_bpd_mean)
+    check(gap <= BPD_LIMIT, f"sharded likelihood: bits/dim mean {float(bpd.mean())} against "
+                            f"5g's {lik_bpd_mean}")
+    whole_walls, _ = timed_calls(lambda: whole(None, lik_data, epsilon=lik_eps))
+    shard_ms = event_ms(lambda: lik.shards[0](None, halves[0][0], epsilon=halves[0][1]))
+    plain_ms = plain_loop_ms(
+        lambda: fused_lik.get_cuda_likelihood_fn(sde, model, (BL // 2, D), device=dev,
+                                                 plain=True, **kw),
+        lambda plain: plain(None, halves[0][0], epsilon=halves[0][1]))
+    res["likelihood"] = dict(wall_s=best(walls), walls_s=walls,
+                             whole_50_wall_s=best(whole_walls), launches=counts,
+                             launches_25_row_call=one, shard_call_device_ms=shard_ms,
+                             shard_call_plain_ms=plain_ms,
+                             shard_call_bound_ms=call_bound_ms(one, BL // 2),
+                             shards_bit_equal=True, rows_equal_50_row_call=True,
+                             bpd_mean=float(bpd.mean()),
+                             bpd_mean_5g=lik_bpd_mean, bpd_mean_gap=gap)
+    r_ = res["likelihood"]
+    print(f"[sharded] (v) likelihood 50 x {LIK_STEPS} as 2 x 25: every shard bit-equal, and "
+          f"every row's bits/dim and z the 50-row call's; "
+          f"bits/dim mean {r_['bpd_mean']:.4f} (5g {lik_bpd_mean:.4f}); wall "
+          f"{r_['wall_s'] * 1e3:.1f} ms (50 rows {r_['whole_50_wall_s'] * 1e3:.1f}); a shard's "
+          f"call {shard_ms:.2f} ms of device time (its plain loop {plain_text(plain_ms)}), "
+          f"bound {r_['shard_call_bound_ms']:.2f}")
+
+    # (vi) the completion CLI as two processes on this card against one process
+    mod = load_benchmark("gen_synth_amass")
+    rng = np.random.default_rng(0)
+    centers, w, basis = mod.make_mixture(rng)
+    root = os.path.join(OUT, "amass_synth_1k")
+    os.makedirs(os.path.join(root, "version1", "test"), exist_ok=True)
+    np.save(os.path.join(root, "version1", "test", "pose_body.npy"),
+            mod.sample_poses(rng, CLI_POSES, centers, w, basis))
+    argv = ["--device", "cuda", "--ckpt-path", CKPT, "--stats-dir", STATS, "--dataset-folder",
+            root, "--version", "version1", "--bodymodel-path", smplx, "--batch_size", "100",
+            "--hypo", str(HYPO), "--part", PART, "--seed", "42"]
+    t0 = time.perf_counter()
+    ranks, outs = cli_two_processes(argv)
+    two_wall = time.perf_counter() - t0
+    fused_em.reset_launch_counts()
+    t0 = time.perf_counter()
+    r1 = completion_cli.run(completion_cli.parse_args(argv))
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    by_run["completion_cli_split_1000"] = fused_em.launch_counts()
+    n_batches = CLI_POSES // 100
+    check(r1["n_batches"] == n_batches, f"completion cli: {r1['n_batches']} batches")
+    got = [[int(b) for b in f["batches"]] for f in ranks]
+    check(got == [list(range(n_batches // 2)), list(range(n_batches // 2, n_batches))],
+          f"completion cli: the ranks' batches {got}")
+    for r, f in enumerate(ranks):
+        check(np.array_equal(f["mpjpe"], r1["mpjpe_body"])
+              and np.array_equal(f["mpvpe"], r1["mpvpe_all"]),
+              f"completion cli rank {r}: the gathered per-sample errors differ from one "
+              f"process's")
+    check("The average of mpjpe_body" in outs[0] and "The average of" not in outs[1],
+          "completion cli: rank 0 alone prints the averages")
+    res["completion_cli_two_processes"] = dict(
+        poses=CLI_POSES, batches=n_batches, per_sample_bit_equal=True,
+        two_process_wall_s=two_wall, one_process_run_s=one_wall,
+        mpjpe_mm=float(np.mean(r1["mpjpe_body"])), mpvpe_mm=float(np.mean(r1["mpvpe_all"])))
+    print(f"[sharded] (vi) completion cli over {CLI_POSES} poses: two processes on {dev} "
+          f"(batches {got[0]} and {got[1]}, {two_wall:.1f} s with their start-up) gather the "
+          f"one-process run's {len(r1['mpjpe_body'])} per-sample MPJPE and MPVPE bit for bit "
+          f"(one process {one_wall:.2f} s); rank 1 printed no averages")
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[sharded] phase 5p wall {res['phase_wall_s']:.1f} s")
     return dict(results=res, by_run=by_run)
 
 
@@ -3657,6 +4160,9 @@ def phase_train_protocols(dev):
 
 
 def main():
+    if sys.argv[1:] not in ([], ["--plain-loops"]):
+        print("usage: python3 chip_smoke.py [--plain-loops]", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3692,12 +4198,14 @@ def main():
             micro = phase_microbenchmarks()
             graphs = phase_graphs(model, dev, amax)
         ode = phase_ode_protocols(model, dev)
+        sharded = phase_sharded(model, dev, *ode["lik_inputs"],
+                                ode["results"]["likelihood"]["bpd_means"]["kernel"])
         fit = phase_fitting_protocols(model, dev)
         parity["train"] = phase_train_parity(model, dev)
         train = phase_train_protocols(dev)
         by_run = {**proto.pop("by_run"), **comp["by_run"], **comp_cli["by_run"],
-                  **int8["by_run"], **micro["by_run"], **ode["by_run"], **fit["by_run"],
-                  **train["by_run"]}
+                  **int8["by_run"], **micro["by_run"], **ode["by_run"], **sharded["by_run"],
+                  **fit["by_run"], **train["by_run"]}
         for r in rows:
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
@@ -3761,6 +4269,7 @@ def main():
               f"~{100 * dev_ms / wall_ms:.0f}% of the best call")
     proto.update(ode["results"])
     proto["fitting"] = fit["results"]
+    proto["sharded"] = sharded["results"]
     # and for a train step: K10 x5 (the last layer without its fp32 out), K11
     # on the stash and K12 x5 at batch 1,280
     by_name = {r["name"]: r for r in rows}

@@ -26,11 +26,15 @@ The port of ``dposer_tpu`` (JAX/Pallas on a TPU), module for module:
   APD, the completion ``Evaler`` and the PA-MPJPE, rotation conversions,
   checkpoints, completion masks, logging and step timing; ``ops.smoothing``:
   the temporal filters and linear and spherical interpolation.
+- ``dposer_tpu_torch.parallel``: a device mesh of the port's own, over which
+  the kernel samplers, the completion solver, the RK4 sampler and the
+  likelihood shard their rows (``mesh=``), and multi-process evaluation.
 
 Entry points: ``python -m dposer_tpu_torch.demo --task
 generation|completion|completion2|interpolation``, ``python -m
 dposer_tpu_torch.train``, ``python -m dposer_tpu_torch.bench``, ``python -m
-dposer_tpu_torch.motion_denoising`` and ``python -m dposer_tpu_torch.fitting``.
+dposer_tpu_torch.completion``, ``python -m dposer_tpu_torch.motion_denoising``
+and ``python -m dposer_tpu_torch.fitting``.
 The package imports torch, numpy and the standard library only.
 """
 

@@ -60,6 +60,16 @@ Rendering, ``--video`` and the other tasks are not ported yet. On ``--device
 cuda`` every route goes through the kernels, DPM-Solver++ excepted (it has
 no kernel in either package); on ``--device cpu`` the kernels' plain
 versions run, with host-drawn normals.
+
+The demo builds one device mesh (``parallel.make_mesh``: the process's
+visible CUDA devices, or the CPU), as ``run/demo.py`` does. With more than
+one device it shards where the JAX demo does: the generation and metrics
+sampler (its rows padded to a multiple of the mesh's size with extra draws,
+and trimmed), and the completion solver and completion2's pc, DDIM and
+hybrid hypothesis samplers when their hypothesis rows divide the mesh (on
+one device otherwise). The few-step generation samplers, the ODE sampler
+and DPM-Solver++ run on one device, as in the JAX demo. With one device
+every route is the single-device one.
 """
 from __future__ import annotations
 
@@ -90,6 +100,7 @@ from .ops.cuda.fused_ode import get_cuda_ode_sampler
 from .ops.cuda.quant import calibrate_act_amax, calibrate_act_amax_per_channel
 from .ops.metrics import Evaler, average_pairwise_distance, self_intersections_percentage
 from .ops.smoothing import slerp_interpolation
+from .parallel import make_mesh, mesh_route
 from .tasks import DPoserComp
 from .utils.checkpoint import load_params_for_inference
 from .utils.masks import create_mask
@@ -208,12 +219,24 @@ def make_quant_kwargs(args, config, sde, model, device):
     return quant_kwargs
 
 
+def mesh_rows(mesh, rows: int) -> int:
+    """``rows`` padded up to a multiple of the mesh's size (no mesh: as is)."""
+    return rows if mesh is None else -(-rows // mesh.size) * mesh.size
+
+
+def mesh_if_divides(mesh, rows: int):
+    """``mesh`` when ``rows`` divide into its shards, else None (one device),
+    as the JAX demo chooses for its solver and hypothesis samplers."""
+    return mesh if mesh is not None and rows % mesh.size == 0 else None
+
+
 def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, device,
-                  probability_flow: bool = False, quant_kw=None, loop=None):
+                  probability_flow: bool = False, quant_kw=None, loop=None, mesh=None):
     """The config's PC sampler through the CUDA kernels: Philox normals drawn
     in the kernels on the card (the whole loop replayed as one CUDA graph
     unless ``loop="eager"``), host normals with the plain versions on the
-    CPU. ``quant_kw`` (from ``make_quant_kwargs``) selects the int8 mode."""
+    CPU. ``quant_kw`` (from ``make_quant_kwargs``) selects the int8 mode;
+    ``mesh`` (more than one device; ``batch`` must divide it) shards it."""
     device = torch.device(device)
     return get_cuda_em_sampler(
         sde, model, (batch, model.n_poses * model.pose_dim), eps=eps,
@@ -222,17 +245,20 @@ def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, de
         corrector=corrector, snr=config.sampling.snr,
         n_corrector_steps=config.sampling.n_steps_each,
         predictor=config.sampling.predictor, probability_flow=probability_flow,
-        device=device, loop=loop, **(quant_kw or {}))
+        device=device, loop=loop, mesh=mesh, **(quant_kw or {}))
 
 
 def build_generation_sampler(config, sde, model, batch: int, eps: float, device,
-                             quant_kw=None, args=None):
+                             quant_kw=None, args=None, mesh=None):
     """``sampler(generator) -> x`` for the generation task: with ``args.sampler``
     other than pc under a corrector-free config the few-step sampler (ref
     run/demo.py:225-281); else the config's PC sampler, or under
     ``sampling.method = "ode"`` the RK4 PF-ODE kernel sampler (ref
     run/demo.py:284-299), which stays unquantized. ``quant_kw`` (from
-    ``make_quant_kwargs``) selects the int8 mode of the kernel routes."""
+    ``make_quant_kwargs``) selects the int8 mode of the kernel routes.
+    ``mesh`` (more than one device) shards the PC sampler, as the JAX demo
+    shards its kernel sampler; the few-step and ODE samplers run on one
+    device."""
     quant_kw = quant_kw or {}
     if args is not None and args.sampler != "pc" and config.sampling.corrector == "none":
         return few_step_generation_sampler(args, config, sde, model, batch, eps, device,
@@ -246,8 +272,13 @@ def build_generation_sampler(config, sde, model, batch: int, eps: float, device,
         return lambda generator: s(generator)[1]
     if method != "pc":
         raise ValueError(f"Sampler name {config.sampling.method} unknown.")
-    return build_sampler(config, sde, model, batch, eps, config.sampling.corrector, device,
-                         quant_kw=quant_kw)
+    if mesh is None:
+        return build_sampler(config, sde, model, batch, eps, config.sampling.corrector,
+                             device, quant_kw=quant_kw)
+    s = build_sampler(config, sde, model, mesh_rows(mesh, batch), eps,
+                      config.sampling.corrector, device, quant_kw=quant_kw, mesh=mesh)
+    print(f"[sampler] kernel sampler over {mesh.size} shards")
+    return lambda generator: s(generator)[:batch]
 
 
 def few_step_quant_kw(quant_kw: dict, sampler: str, n_fs: int) -> dict:
@@ -293,28 +324,36 @@ def few_step_generation_sampler(args, config, sde, model, batch: int, eps: float
     return lambda generator: s(generator)[1]
 
 
-def complete_by_optimisation(sde, model, observation, mask, hypo_num, generator, device):
+def complete_by_optimisation(sde, model, observation, mask, hypo_num, generator, device,
+                             mesh=None):
     """``--task completion``: DPoserComp with the demo's time strategy '2'
     (ref run/demo.py:306), the whole Adam loop on the kernels. The reference's
-    fixed time 900 assumes N = 1000; a reduced N takes its last grid index."""
+    fixed time 900 assumes N = 1000; a reduced N takes its last grid index.
+    ``mesh`` (more than one device; the hypothesis rows divide it) shards
+    the hypothesis rows."""
     comp = DPoserComp(sde, model=model, time_strategy="2",
-                      sample_time=min(900, sde.N - 1), backend="cuda", device=device)
-    print("[completion] kernel Adam-loop solver")
+                      sample_time=min(900, sde.N - 1), backend="cuda", device=device, mesh=mesh)
+    print("[completion] kernel Adam-loop solver"
+          + ("" if mesh is None else f" over {mesh.size} shards"))
     return comp.optimize_hypos(observation, mask, hypo_num, generator)
 
 
 def complete_by_imputation(args, config, sde, model, observation, mask, generator, device,
-                           quant_kwargs):
+                           quant_kwargs, mesh=None):
     """``--task completion2``: masked imputation in the reverse sampler, the
     hypotheses tiled into rows -> [B, H, D] (ref run/demo.py:492-606). Under
     ``--quant`` the pc, DDIM and hybrid routes run int8, calibrated on the
     config's corrector (the hybrid's tail corrector is not consulted, as in
-    the JAX demo)."""
+    the JAX demo). ``mesh`` (more than one device; the hypothesis rows
+    divide it) shards the tiled rows of the kernel routes; DPM-Solver++ runs
+    on one device."""
     device = torch.device(device)
     hypo_num, shape, eps = args.hypo, tuple(observation.shape), sampling_eps_for(sde)
     dn = config.sampling.noise_removal
-    kernel_kw = dict(rng_mode="kernel" if device.type == "cuda" else "host", device=device)
+    kernel_kw = dict(rng_mode="kernel" if device.type == "cuda" else "host", device=device,
+                     mesh=mesh)
     qtag = "" if args.quant == "none" else ", " + args.quant
+    qtag += "" if mesh is None else f", over {mesh.size} shards"
     if args.sampler == "pc":
         if config.sampling.method != "pc":
             raise NotImplementedError(f"masked imputation runs in the pc sampler; the "
@@ -354,7 +393,7 @@ def complete_by_imputation(args, config, sde, model, observation, mask, generato
 
 
 def run_completion(args, config, sde, model, normalizer, generator, device,
-                   quant_kwargs) -> dict:
+                   quant_kwargs, mesh=None) -> dict:
     """The completion tasks. Returns ``hypotheses_file``, ``mpvpe`` and ``mpjpe``."""
     with np.load(args.file_path, allow_pickle=False) as f:
         gts = torch.as_tensor(f["pose_samples"][:SAMPLE_NUM], dtype=torch.float32,
@@ -362,12 +401,13 @@ def run_completion(args, config, sde, model, normalizer, generator, device,
     print(f"loaded axis pose data {tuple(gts.shape)} from {args.file_path}")
     normed = normalizer.offline_normalize(gts, from_axis=True)
     mask, observation = create_mask(normed, part=args.part, generator=generator)
+    mesh = mesh_if_divides(mesh, args.hypo * observation.shape[0])
     if args.task == "completion":
         multihypo = complete_by_optimisation(sde, model, observation, mask, args.hypo,
-                                             generator, device)
+                                             generator, device, mesh)
     else:
         multihypo = complete_by_imputation(args, config, sde, model, observation, mask,
-                                           generator, device, quant_kwargs)
+                                           generator, device, quant_kwargs, mesh)
     preds = normalizer.offline_denormalize(multihypo, to_axis=True)
     body = BodyModel(args.bodymodel_path, num_betas=10, model_type="smplx", device=device)
     evaler = Evaler(body_model=body, part=args.part)
@@ -450,7 +490,7 @@ def _timed_si(vertices: torch.Tensor, faces: np.ndarray, ready) -> tuple:
 
 
 def run_metrics(args, config, sde, model, normalizer, generator, device,
-                quant_kwargs) -> dict:
+                quant_kwargs, mesh=None) -> dict:
     """The 500-sample metrics protocol (ref run/demo.py:338-406): ``apd``,
     ``si``, ``metrics_wall_s`` (build, sample, APD, SI), ``si_wall_s`` (the
     SI calls' seconds, summed over the chunks) and ``sample_wall_s`` (from
@@ -463,12 +503,13 @@ def run_metrics(args, config, sde, model, normalizer, generator, device,
     the chunk's SI (the native call releases the interpreter lock) while the
     later chunks are on the device. Each chunk draws from ``generator`` in
     turn, so the samples differ from the single batch's; APD is taken over
-    the joints of all 500."""
+    the joints of all 500. ``mesh`` (more than one device) shards each
+    chunk's sampler, its rows padded to a multiple of the mesh's size."""
     t0 = time.perf_counter()
     n_chunks = args.metrics_chunks
     per = METRICS_SAMPLE_NUM // n_chunks
-    sampler = build_sampler(config, sde, model, per, METRICS_EPS, "langevin", device,
-                            quant_kw=quant_kwargs(METRICS_EPS, "langevin"))
+    sampler = build_sampler(config, sde, model, mesh_rows(mesh, per), METRICS_EPS, "langevin",
+                            device, quant_kw=quant_kwargs(METRICS_EPS, "langevin"), mesh=mesh)
     # Pose-NDF protocol: SMPL body, zero-padded hand joints
     body = BodyModel(args.smpl_path, num_betas=10, model_type="smpl", device=device)
     faces = body.f.cpu().numpy()
@@ -476,7 +517,7 @@ def run_metrics(args, config, sde, model, normalizer, generator, device,
     jtrs, futures = [], []
     with ThreadPoolExecutor(1) as pool:
         for _ in range(n_chunks):
-            samples = normalizer.offline_denormalize(sampler(generator), to_axis=True)
+            samples = normalizer.offline_denormalize(sampler(generator)[:per], to_axis=True)
             pose = torch.cat([samples, torch.zeros(per, 6, device=device)], 1)
             out = body(pose_body=pose)
             jtrs.append(out.Jtr[:, :22])
@@ -497,12 +538,14 @@ def run_metrics(args, config, sde, model, normalizer, generator, device,
                 si_wall_s=float(sum(c[1] for c in chunks)), sample_wall_s=sample_wall)
 
 
-def run(args) -> dict:
+def run(args, mesh=None) -> dict:
     """The task. Generation returns ``samples_file``, ``step`` and, with
     ``--metrics``, ``run_metrics``'s ``apd``, ``si``, ``metrics_wall_s``,
     ``si_wall_s`` and ``sample_wall_s``; the completion tasks
     ``hypotheses_file``, ``mpvpe``, ``mpjpe`` and ``step``; interpolation
-    ``frames_file``, ``recon_err`` and ``step``."""
+    ``frames_file``, ``recon_err`` and ``step``. ``mesh`` is the devices to
+    shard over, by default the process's visible CUDA devices on ``--device
+    cuda`` and the CPU on ``--device cpu``."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
@@ -520,9 +563,14 @@ def run(args) -> dict:
                                 rot_rep=config.data.rot_rep, device=device)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     quant_kwargs = make_quant_kwargs(args, config, sde, model, device)
+    if mesh is None:
+        mesh = make_mesh() if device.type == "cuda" else make_mesh(devices=[device])
+    mesh, _ = mesh_route(mesh, device)
+    if mesh is not None:
+        print(f"[mesh] sharding over {mesh.size} devices: {[str(d) for d in mesh.devices]}")
     if args.task in ("completion", "completion2"):
         return dict(run_completion(args, config, sde, model, normalizer, generator, device,
-                                   quant_kwargs), step=step)
+                                   quant_kwargs, mesh), step=step)
     if args.task == "interpolation":
         return dict(run_interpolation(args, config, sde, model, normalizer, generator,
                                       device), step=step)
@@ -532,7 +580,8 @@ def run(args) -> dict:
     sampler = build_generation_sampler(
         config, sde, model, SAMPLE_NUM, eps, device,
         quant_kw=(quant_kwargs(eps, config.sampling.corrector)
-                  if few or config.sampling.method.lower() == "pc" else None), args=args)
+                  if few or config.sampling.method.lower() == "pc" else None), args=args,
+        mesh=mesh)
     samples = normalizer.offline_denormalize(sampler(generator), to_axis=True)
     target = os.path.join(args.output_path, "generation")
     os.makedirs(target, exist_ok=True)
@@ -542,7 +591,7 @@ def run(args) -> dict:
 
     if args.metrics:
         out.update(run_metrics(args, config, sde, model, normalizer, generator, device,
-                               quant_kwargs))
+                               quant_kwargs, mesh))
         print(f"[metrics] protocol segment wall (build+sample+APD+SI, "
               f"chunks={args.metrics_chunks}): {out['metrics_wall_s']:.2f}s "
               f"(SI {out['si_wall_s']:.2f}s, sampling {out['sample_wall_s']:.2f}s)")

@@ -198,7 +198,7 @@ def get_cuda_ddim_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...],
     """DDIM through the reverse-diffusion kernels: the DDIM rows are the
     kernel sampler's table contract. ``kw`` goes to ``get_cuda_em_sampler``
     (``imputation``, ``rng_mode``, ``quant``/``act_amax``, ``device``,
-    ``plain``). With ``imputation=True`` the kernel sampler derives its
+    ``plain``, ``mesh``: each part shards over it). With ``imputation=True`` the kernel sampler derives its
     imputation columns from the overridden timesteps.
 
     ``bf16_tail_steps=K`` (with ``quant="int8"``) splits the rows into an int8
@@ -302,7 +302,8 @@ def get_cuda_hybrid_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...
     head rides the DDIM table override (no corrector), the tail is the kernel
     sampler's ``step_range=(N - m_tail, N)`` slice, optionally with the
     langevin corrector. ``kw`` goes to both ``get_cuda_em_sampler`` builds
-    (``quant``/``act_amax`` quantize both)."""
+    (``quant``/``act_amax`` quantize both; ``mesh`` shards both, the head's
+    rows joined and split again for the tail)."""
     from ..ops.cuda.fused_em import get_cuda_em_sampler
 
     t_sw = hybrid_t_switch(sde, m_tail, eps)
@@ -327,7 +328,8 @@ def get_cuda_hybrid_sampler(sde: SDE, model: ScoreModelFC, shape: Tuple[int, ...
 def _tile_hypos(build_sampler: Callable, shape: Tuple[int, int], hypo_num: int):
     """Tile H hypotheses into the rows of one [H*B, D] sampler and untile its
     output to [B, H, D]. Rows decorrelate through the prior draw and the
-    noise streams, which cover the whole row space."""
+    noise streams, which cover the whole row space. A kernel route built
+    with ``mesh=`` shards the tiled rows, hypothesis-major, as JAX does."""
     batch, dim = shape
     inner = build_sampler((hypo_num * batch, dim))
 

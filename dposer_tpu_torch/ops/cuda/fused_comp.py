@@ -38,6 +38,7 @@ import torch
 
 from ...diffusion.fast_sampler import _corrector_tables, _labels_for
 from ...diffusion.sde import SDE
+from ...parallel.sharding import mesh_route, shard_builder
 from ...tasks.prior import sample_quan_t
 from . import build
 from .fused_em import _check_coefs, _noise_args, draw_seed, host_slabs, resolve_device
@@ -322,7 +323,7 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
                          sample_trun: float = 5.0, sample_time: int = 900,
                          eps: float = 1e-3, rng_mode: str = "host",
                          continuous: bool = True, device="cuda", plain: bool = False,
-                         loop: Optional[str] = None):
+                         loop: Optional[str] = None, mesh=None):
     """Build the kernel completion solver for ``model`` (a ScoreModelFC).
 
     Returns ``solve(generator, observation, mask, noise=None) -> x`` [R, D].
@@ -344,7 +345,23 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
     CUDA graph, captured at the first call and replayed at every call, on
     the card under ``rng_mode="kernel"``; ``"graph"`` under ``"host"`` needs
     ``noise=`` at every call. ``solve.loops`` holds its ``GraphLoop``.
+
+    ``mesh`` of more than one device shards the rows (port of
+    ``fused_comp.py::_sharded_comp_solver``, through
+    ``sharding.shard_builder``): one single-device solver a shard at
+    ``(rows // n, D)``, each with its own operands, buffers and loop; rows
+    that do not divide the mesh raise. ``n_elems`` stays global: every shard
+    divides its mean losses by the caller's B*D. A call splits the
+    observation, the mask and the injected ``noise`` [T, R, D] by rows and
+    gives each shard its folded generator; ``solve.shards`` holds the
+    shards' solvers. A mesh of one device is the route above on that
+    device, and then ``device`` is not read.
     """
+    args = dict(locals())
+    mesh, device = mesh_route(mesh, device)
+    if mesh is not None:
+        return shard_builder(get_cuda_comp_solver, args, mesh, ("observation", "mask", "noise"),
+                             "the sharded completion solver")
     if rng_mode not in ("host", "kernel"):
         raise ValueError(f"rng_mode must be 'host' or 'kernel', got {rng_mode!r}")
     if not continuous:

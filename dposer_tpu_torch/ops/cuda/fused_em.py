@@ -50,6 +50,7 @@ from ...diffusion.fast_sampler import (_corrector_tables, _imputation_tables,
                                        _labels_for, _pred_tables,
                                        check_imputation_args)
 from ...diffusion.sde import SDE
+from ...parallel.sharding import mesh_route, shard_builder
 from . import build
 from .graph_loop import GraphLoop, resolve_loop
 from .philox import seed_bits
@@ -570,7 +571,7 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
                         quant: Optional[str] = None, act_amax=None,
                         bf16_tail_steps: int = 0,
                         _tables_override=None, device="cuda", plain: bool = False,
-                        loop: Optional[str] = None):
+                        loop: Optional[str] = None, mesh=None):
     """Build the kernel PC sampler for ``model`` (a ScoreModelFC).
 
     Returns ``sampler(generator=None, observation=None, mask=None, z=None,
@@ -618,7 +619,22 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     ``noise[N-K:]``. Under in-kernel normals both parts draw with the seed of
     one call, keyed by the grid's step, so they draw what one full run draws;
     on the graph each part is a graph of its own.
+
+    ``mesh`` (``parallel.sharding.Mesh``) of more than one device shards the
+    batch (port of ``fused_em.py::_sharded_sampler``, through
+    ``sharding.shard_builder``): one sampler, mixed schedule included, a
+    shard at ``(B // n, D)`` on its device; ``z``, the observation, the mask
+    and ``noise`` split by rows; each shard's prior draw, host normals or
+    in-kernel seed from its folded generator. The langevin corrector's
+    batch-mean norms are per shard, as in JAX: each shard is a langevin
+    batch of its own. A mesh of one device is the route above on that
+    device, and then ``device`` is not read.
     """
+    args = dict(locals())
+    mesh, device = mesh_route(mesh, device)
+    if mesh is not None:
+        return shard_builder(get_cuda_em_sampler, args, mesh,
+                             ("observation", "mask", "z", "noise"), "the sharded kernel sampler")
     if bf16_tail_steps:
         if quant != "int8" or _tables_override is not None or step_range is not None:
             raise ValueError("bf16_tail_steps requires quant='int8' and is incompatible "
@@ -762,7 +778,8 @@ def get_cuda_em_hypo_sampler(sde: SDE, model, shape: Tuple[int, int], hypo_num: 
     ``sampler(generator, observation [B, D], mask [B, D], z=None, noise=None)
     -> [B, H, D]``. Rows decorrelate through the prior draw and the noise
     streams, which cover the whole ``H*B`` row space; ``z`` and ``noise`` are
-    taken in that tiled row space (``[H*B, D]``, ``[N, K, H*B, D]``).
+    taken in that tiled row space (``[H*B, D]``, ``[N, K, H*B, D]``). With
+    ``mesh=`` the tiled rows, hypothesis-major, are what the mesh shards.
     """
     batch, dim = shape
     kw.setdefault("imputation", True)

@@ -35,6 +35,7 @@ import torch
 
 from ...diffusion.likelihood import bits_per_dim, draw_epsilon
 from ...diffusion.sde import SDE
+from ...parallel.sharding import mesh_route, shard_builder
 from . import build
 from .fused_em import resolve_device
 from .graph_loop import GraphLoop, resolve_loop
@@ -118,7 +119,8 @@ head_rk4_jvp.launches = 0
 
 def get_cuda_likelihood_fn(sde: SDE, model, shape: Tuple[int, int], n_steps: int = 100,
                            hutchinson_type: str = "Rademacher", eps: float = 1e-5,
-                           device="cuda", plain: bool = False, loop: Optional[str] = None):
+                           device="cuda", plain: bool = False, loop: Optional[str] = None,
+                           mesh=None):
     """Build the kernel likelihood for ``model`` (a ScoreModelFC).
 
     Returns ``likelihood_fn(generator, data [B, D], epsilon=None) -> (bpd [B],
@@ -131,7 +133,23 @@ def get_cuda_likelihood_fn(sde: SDE, model, shape: Tuple[int, int], n_steps: int
     CUDA graph, captured at the first call and replayed at every call (the
     probe is drawn before it and copied in); ``likelihood_fn.loops`` holds
     its ``GraphLoop``.
+
+    ``mesh`` of more than one device shards the batch (port of
+    ``fused_lik.py::_sharded_likelihood_fn``, through
+    ``sharding.shard_builder``): one single-device likelihood a shard at
+    ``(B // n, D)`` with its own operands, buffers and loop (a batch that
+    does not divide the mesh raises), ``data`` and ``epsilon`` split by
+    rows, each shard's probe drawn from its folded generator unless
+    injected, bits/dim and z joined on the mesh's first device;
+    ``likelihood_fn.shards`` holds the shards' functions. A mesh of one
+    device is the route above on that device, and then ``device`` is not
+    read.
     """
+    args = dict(locals())
+    mesh, device = mesh_route(mesh, device)
+    if mesh is not None:
+        return shard_builder(get_cuda_likelihood_fn, args, mesh, ("data", "epsilon"),
+                             "the sharded likelihood")
     device = resolve_device(device)
     graph = resolve_loop(loop, device, plain) == "graph"
     batch, dim = shape

@@ -35,6 +35,7 @@ import torch
 
 from ...diffusion.fast_sampler import denoise_coefs, pf_ode_grid
 from ...diffusion.sde import SDE
+from ...parallel.sharding import mesh_route, shard_builder
 from . import build
 from .fused_em import resolve_device
 from .graph_loop import GraphLoop, resolve_loop
@@ -160,7 +161,7 @@ head_rk4.launches = 0
 
 def get_cuda_ode_sampler(sde: SDE, model, shape: Tuple[int, int], n_steps: int = 125,
                          eps: float = 1e-3, denoise: bool = False, device="cuda",
-                         plain: bool = False, loop: Optional[str] = None):
+                         plain: bool = False, loop: Optional[str] = None, mesh=None):
     """Build the kernel RK4 PF-ODE sampler for ``model`` (a ScoreModelFC).
 
     Returns ``sampler(generator=None, z=None) -> (nfe, x)`` with the static
@@ -172,7 +173,21 @@ def get_cuda_ode_sampler(sde: SDE, model, shape: Tuple[int, int], n_steps: int =
     ``get_cuda_em_sampler``'s: on the card the integration is by default one
     CUDA graph, captured at the first call and replayed at every call (it
     draws no noise); ``sampler.loops`` holds its ``GraphLoop``.
+
+    ``mesh`` of more than one device shards the batch (port of
+    ``fused_ode.py::_sharded_ode_sampler``, through
+    ``sharding.shard_builder``): one single-device sampler a shard at
+    ``(B // n, D)`` with its own operands, buffers and loop (a batch that
+    does not divide the mesh raises), ``z`` split by rows, each shard's
+    prior drawn from its folded generator; ``sampler.shards`` holds the
+    shards' samplers. A mesh of one device is the route above on that
+    device, and then ``device`` is not read.
     """
+    args = dict(locals())
+    mesh, device = mesh_route(mesh, device)
+    if mesh is not None:
+        return shard_builder(get_cuda_ode_sampler, args, mesh, ("z",),
+                             "the sharded RK4 PF-ODE sampler")
     device = resolve_device(device)
     graph = resolve_loop(loop, device, plain) == "graph"
     batch, dim = shape

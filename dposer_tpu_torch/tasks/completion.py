@@ -17,7 +17,9 @@ data term for ``iterations x steps_per_iter`` Adam steps:
 clean-pose argument of the losses only, the denoised estimate is detached.
 ``backend="cuda"`` is the whole loop on the CUDA kernels
 (``ops/cuda/fused_comp.py``): forward-only per step, since nothing is
-differentiated through the network. Hypotheses there are extra rows.
+differentiated through the network. Hypotheses there are extra rows, and
+``mesh=`` (a ``parallel.sharding.Mesh`` of more than one device) shards
+those rows over the mesh's devices.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 
 from ..diffusion.score_fn import get_score_fn
 from ..diffusion.sde import SDE
+from ..parallel.sharding import mesh_route
 from .optim import Adam
 from .prior import DPoserPrior, sample_quan_t
 
@@ -40,11 +43,16 @@ class DPoserComp:
                  continuous: bool = True, lr: float = 0.1, iterations: int = 2,
                  steps_per_iter: int = 100, time_strategy: str = "3",
                  sample_trun: float = 5.0, sample_time: int = 900,
-                 backend: str = "torch", model=None, device="cuda"):
+                 backend: str = "torch", model=None, device="cuda", mesh=None):
         if backend not in ("torch", "cuda"):
             raise ValueError(f"backend must be 'torch' or 'cuda', got {backend!r}")
         if backend == "cuda" and model is None:
             raise ValueError("backend='cuda' needs model=")
+        # a mesh of one device is the single-device route on that device
+        mesh, device = mesh_route(mesh, device)
+        if mesh is not None and backend != "cuda":
+            raise ValueError("mesh= shards the kernel solver (backend='cuda'); the autograd "
+                             "solver runs on one device")
         if score_fn is None:
             if model is None:
                 raise ValueError("pass score_fn= or model=")
@@ -62,6 +70,7 @@ class DPoserComp:
         self.backend = backend
         self.continuous = continuous
         self._model = model
+        self.mesh = mesh
         self._solvers = {}
 
     def _loss(self, x, t, observation, mask, z, generator):
@@ -96,12 +105,13 @@ class DPoserComp:
                 iterations=self.iterations, steps_per_iter=self.steps_per_iter,
                 time_strategy=self.time_strategy, sample_trun=self.sample_trun,
                 sample_time=self.sample_time, rng_mode=rng_mode,
-                continuous=self.continuous, device=self.device)
+                continuous=self.continuous, device=self.device, mesh=self.mesh)
         return self._solvers[key]
 
     def cuda_solvers(self) -> list:
         """The kernel solvers built so far, one per (rows, dim, elements,
-        rng mode); each holds its loops in ``loops``."""
+        rng mode); each holds its loops in ``loops`` (one a shard under a
+        mesh)."""
         return list(self._solvers.values())
 
     def _default_rng_mode(self) -> str:
@@ -110,7 +120,8 @@ class DPoserComp:
     def optimize(self, observation: torch.Tensor, mask: torch.Tensor, noise=None,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One completion pass on ``observation``/``mask`` [B, D]. ``noise``
-        [total_steps, B, D] injects the per-step perturbation normals."""
+        [total_steps, B, D] injects the per-step perturbation normals. Under a
+        mesh, B must divide into its shards."""
         if self.backend == "cuda":
             b, d = observation.shape
             solver = self._cuda_solver(b, d, b * d, "host" if noise is not None
@@ -120,7 +131,8 @@ class DPoserComp:
 
     def optimize_hypos(self, observation: torch.Tensor, mask: torch.Tensor, hypo: int,
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``hypo`` completions of every pose -> [B, hypo, D]."""
+        """``hypo`` completions of every pose -> [B, hypo, D]. Under a mesh,
+        the ``hypo*B`` rows must divide into its shards."""
         b, d = observation.shape
         if self.backend == "cuda":
             # hypotheses are extra rows: the mean-loss gradients are

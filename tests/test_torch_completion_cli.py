@@ -3,7 +3,8 @@ package's ``run.completion``: one batch of the CLI's pipeline against JAX's
 with the mask's fill and the perturbation normals injected (a 2-block net
 at hidden 128, 8 poses x 2 hypotheses, the full 2 x 100 Adam steps), the
 whole CLI against ``python -m run.completion`` on the tiny config of
-``tests/test_cli.py`` over a sampled synthetic split, and the refusals."""
+``tests/test_cli.py`` over a sampled synthetic split, and the refusals
+(``tests/test_torch_parallel.py`` runs it as two processes)."""
 import os
 import re
 import subprocess
@@ -186,13 +187,20 @@ def test_cli_against_jax_cli(workdir, capsys):
 
 @pytest.mark.parametrize("flags", [["--multihost"], ["--num-processes", "2"],
                                    ["--device", "cuda"]])
-def test_cli_refusals(workdir, flags):
-    """The multi-process flags are refused, not ignored; ``--device cuda``
-    without a card exits non-zero. A ``SystemExit`` with a message exits
-    with status 1."""
+def test_cli_refusals(workdir, flags, monkeypatch):
+    """``--multihost`` with neither a coordinator nor torchrun's environment
+    exits naming what is missing; a multi-process flag without
+    ``--multihost`` is refused, not ignored; ``--device cuda`` without a
+    card exits non-zero. A ``SystemExit`` with a message exits with status
+    1."""
     if flags == ["--device", "cuda"] and torch.cuda.is_available():
         pytest.skip("a card is present")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit) as e:
         cli.main(["--ckpt-path", workdir["ckpt"], *flags])
     msg = str(e.value.code)
-    assert ("no CUDA device" in msg) if flags[0] == "--device" else ("not ported" in msg)
+    want = {"--multihost": "MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE not set",
+            "--num-processes": "--num-processes given without --multihost",
+            "--device": "no CUDA device"}[flags[0]]
+    assert want in msg, msg
