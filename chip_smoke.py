@@ -170,7 +170,26 @@ Phases; any failure exits non-zero:
    ``python -m dposer_tpu_torch.completion --multihost`` as two processes
    on the card over 1,000 poses, equal bit for bit to one process; walls
    beside the unsharded calls' and a shard call's device time and bound
-   (with ``--plain-loops`` also its plain loop's);
+   (with ``--plain-loops`` also its plain loop's); (q) data-parallel
+   training (``parallel.sharding``'s training half): K10 (both routes) and
+   K12 on rows 640:1280 of the train shapes at ``row_offset=640`` bit-equal
+   to those rows of the full launch, K12's dgamma and dbeta of the two
+   halves summed within 1e-5 x max(1, |full|) of the full launch's, each
+   against its plain version at the offset, and timed at 640 rows beside
+   1,280; ``python -m dposer_tpu_torch.train --multihost`` as two processes
+   on cuda:0 (4 steps at 1,280 rows, eval at steps 2 and 4): the first
+   firing captures its sampler's graph, the second captures none, encodes
+   no tensor map and draws samples bit-equal to a sampler built fresh on the
+   same EMA weights, the ranks equal; beside it 5m's 8 fragments and 5n's 8
+   images on a mesh of four shards on cuda:0 over 20 steps against the
+   unsharded batch (poses within 1e-5 rad, fits within 2e-5 x max(1,
+   |ref|), metrics within 1e-3 relative and 1e-4 absolute); then two
+   processes on cuda:0 over gloo training the kernel step at 1,280 rows (640
+   a rank) from the pinned checkpoint for 100 steps against one process on
+   the same stream (the first 20 losses within 1e-4 relative, the last-50
+   mean within 2%, the ranks' parameters and EMA bit-equal, a rank's step
+   K10 x5, K11 x1, K12 x5), with ms a step, the all-reduce's share and the
+   gradient bytes a step;
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -230,11 +249,12 @@ from dposer_tpu_torch.diffusion.score_fn import get_score_fn  # noqa: E402
 from dposer_tpu_torch.diffusion import few_step  # noqa: E402
 from dposer_tpu_torch.diffusion.sde import SubVPSDE, sampling_eps_for  # noqa: E402
 from dposer_tpu_torch.smplify import sequence_generator  # noqa: E402
-from dposer_tpu_torch.benchmarks import ilp_probe, mxu_micro  # noqa: E402
+from dposer_tpu_torch.benchmarks import data_parallel, ilp_probe, mxu_micro  # noqa: E402
 from dposer_tpu_torch.ops.cuda import (build, chain_link, fused_comp, fused_em,  # noqa: E402
                                        fused_lik, fused_ode, fused_train, philox, quant,
                                        score_net)
 from dposer_tpu_torch.models import create_score_model  # noqa: E402
+from dposer_tpu_torch.ops.cuda.graph_loop import GraphLoop  # noqa: E402
 from dposer_tpu_torch.ops.metrics import Evaler, average_pairwise_distance  # noqa: E402
 from dposer_tpu_torch.ops.rotations import estimate_focal_length  # noqa: E402
 from dposer_tpu_torch.tasks import DPoser, DPoserComp, MotionDenoise, SMPLify  # noqa: E402
@@ -279,6 +299,13 @@ REPEATS = 50  # repeated calls of K2, K3, K6-K12 that must give the same bits
 GRAPH_SEED = 21  # the graph phase's generator seed (and GRAPH_SEED + 1)
 SHARDS, SHARD_SEED = 4, 31  # (p): the mesh's shards, all on cuda:0, and its seeds
 CLI_POSES, CLI_TIMEOUT_S = 1000, 300  # (p)(vi): the split, each process's time limit
+# (q): the rank's first row, the steps of the two-rank run and the steps held
+# loss by loss, the bounds, the pool of poses, each rank's time limit, the
+# trainer's steps, the fits' steps, and the bound of the halves'
+# dgamma/dbeta sums against the full launch's
+ROW_OFFSET, DP_STEPS, DP_CHECK_STEPS = BT // 2, 100, data_parallel.CHECK_STEPS
+DP_LOSS_RTOL, DP_TAIL_RTOL, DP_POOL = 1e-4, 0.02, 20000
+DP_TIMEOUT_S, MH_STEPS, DP_FIT_STEPS, DP_SUM_TOL = 300, 4, 20, 1e-5
 # (p): also time each shard's call on the plain versions (a run with this
 # argument, for PERF.md's plain column; the default run skips it)
 PLAIN_LOOPS = "--plain-loops" in sys.argv[1:]
@@ -2061,7 +2088,10 @@ def phase_fitting_protocols(model, dev):
           f"{r['window_ms_per_step']:.2f} ms, busy share {r['busy_share']}")
     res["phase_wall_s"] = time.perf_counter() - t_phase
     print(f"[fitting] (m) and (n) in {res['phase_wall_s']:.1f} s")
-    return dict(results=res, by_run=by_run)
+    inputs = dict(sde=sde, score_fn=score_fn, normalizer=normalizer, body=body, noisy=noisy,
+                  gts=gts, sched=sched, smpl=smpl, prior=prior, focal=focal, cc=cc,
+                  keypoints=keypoints, init=(init_pose, init_betas, init_cam_t))
+    return dict(results=res, by_run=by_run, inputs=inputs)
 
 
 def normalized_synthetic_poses(n, dev):
@@ -3971,6 +4001,19 @@ def get_config():
 """
 
 
+MH_CONFIG = """
+from dposer_tpu_torch.config import get_config as _base
+
+
+def get_config():
+    c = _base()
+    c.OUTPUT_DIR = {out!r}
+    c.training.n_iters, c.training.log_freq = {n_iters}, 1
+    c.training.eval_freq, c.training.save_freq = {eval_freq}, 10 ** 9
+    return c
+"""
+
+
 def device_kernel_us(prof):
     """``(total, {name: total})`` µs of the device kernels in a profiler
     trace; user annotations (their spans cover other kernels) are left out."""
@@ -4159,6 +4202,439 @@ def phase_train_protocols(dev):
     return dict(results=res, by_run=by_run)
 
 
+# ---------------------------------------------------------------------------
+# (q) data-parallel training: K10 and K12 at a row offset, two ranks on the
+# card, the trainer's --multihost and its eval graphs, sharded fitting
+# ---------------------------------------------------------------------------
+
+def row_offset_checks(model, dev):
+    """(q)(i) K10 (both routes) and K12 on rows ROW_OFFSET:1280 of the train
+    step's shapes at ``row_offset=ROW_OFFSET`` against rows ROW_OFFSET:1280
+    of the full launch, bit for bit (K10's out, stash, xhat and rstd; K12's
+    dh and g); K12's dgamma and dbeta of the two halves summed against the
+    full launch's within DP_SUM_TOL x max(1, |full|max) (the halves' row
+    blocks are added in another order); each half launch against its plain
+    version at the offset with ``phase_train_kernels``' tolerances; and the
+    device time of each at 640 rows beside 1,280."""
+    _, _, _, op = train_operands(model, dev)
+    keep, seed, h = op["keep"], 20261017, ROW_OFFSET
+    W, Wb, P, gw, gb = op["w_fwd"], op["w_bwd"], op["proj"], op["gn_w"], op["gn_b"]
+    plain_f, plain_b = fused_train.dense_gn_silu_train_plain, fused_train.dense_gn_silu_bwd_plain
+    fwd = [plain_f(op["x_pert"], W[0], P[0], gw[0], gb[0], seed, 0, keep)]
+    for j in range(1, 5):
+        fwd.append(plain_f(fwd[-1][0], W[j], P[j], gw[j], gb[j], seed, j, keep,
+                           fwd[j - 2][0] if j % 2 == 0 else None))
+    sl = slice(h, BT)
+
+    def rows(x):
+        return None if x is None else x[sl]
+
+    out = {}
+    for label, j, route in (("K10 pre (register)", 0, "register"),
+                            ("K10 block+residual (Hopper)", 2, "wgmma")):
+        a = op["x_pert"] if j == 0 else fwd[j - 1][0]
+        a_b = fwd[j - 1][1] if route == "wgmma" else None
+        a_in = None if a_b is not None else a
+        res = fwd[j - 2][0] if j == 2 else None
+
+        def launch(sel=slice(0, BT), off=0, a_in=a_in, a_b=a_b, res=res, j=j):
+            return fused_train.dense_gn_silu_train(
+                None if a_in is None else a_in[sel], W[j], P[j][sel], gw[j], gb[j], seed, j,
+                keep, residual=None if res is None else res[sel],
+                a_b=None if a_b is None else a_b[sel], row_offset=off)
+
+        fused_em.reset_launch_counts()
+        full, half = launch(), launch(sl, h)
+        torch.cuda.synchronize()
+        check(fused_em.route_counts()["dense_gn_silu_train"][route] == 2,
+              f"{label}: not on the {route} route")
+        check(all(torch.equal(x, y[sl]) for x, y in zip(half, full)),
+              f"{label}: rows {h}:{BT} at row_offset={h} are not the full launch's rows")
+        ref = plain_f(rows(a), W[j], P[j][sl], gw[j], gb[j], seed, j, keep, rows(res),
+                      row_offset=h)
+        e_out, tol = err(half[0], ref[0]), 1e-3 * max(1.0, float(ref[0].abs().max()))
+        e_bf = [err(g.float(), r.float()) for g, r in zip(half[1:3], ref[1:3])]
+        tol_bf = [1e-2 * max(1.0, float(r.float().abs().max())) for r in ref[1:3]]
+        e_rs = float(((half[3] - ref[3]).abs() / ref[3]).max())
+        check(e_out <= tol and all(x <= y for x, y in zip(e_bf, tol_bf)) and e_rs <= 1e-3,
+              f"{label} at row_offset={h}: out {e_out} (tol {tol}), stash/xhat {e_bf} "
+              f"(tol {tol_bf}), rstd rel {e_rs}")
+        dropped = ~fused_train.dropout_keep(seed, j, BT - h, H, keep, dev, row_offset=h)
+        base = torch.zeros(BT - h, H, device=dev) if res is None else res[sl]
+        check(torch.equal(half[0][dropped], base[dropped]),
+              f"{label} at row_offset={h}: another dropout mask than the plain version's")
+        K, rows_h = (a if a_b is None else a_b).shape[1], BT - h
+        n_bytes = ((4 if a_b is None else 2) * rows_h * K + 2 * K * H + 2 * rows_h * H + 8 * H
+                   + 4 * rows_h * H + 4 * rows_h * H + 4 * rows_h * 32
+                   + (4 * rows_h * H if res is not None else 0))
+        bms, by = bound(n_bytes, 2 * rows_h * K * H, 40 * rows_h * H)
+        out[label] = dict(rows_bit_equal=True, max_abs_err=e_out, tol=tol,
+                          errs_stash_xhat=e_bf, rstd_rel_err=e_rs, bound_ms_640=bms,
+                          bound_by=by, ms_1280=graph_ms(launch),
+                          ms_640=graph_ms(lambda: launch(sl, h)))
+    # K12: the hop into a block's second layer with the carried gradient, and
+    # the hop into its first layer
+    head = fused_train.head_dsm_plain(fwd[4][0], op["wpost_k"], op["bpost"], op["coefs"], op["z"])
+    dpad = torch.zeros(BT, score_net.HEAD_COLS, dtype=torch.bfloat16, device=dev)
+    dpad[:, :D] = head[1]
+    chain = {4: plain_b(dpad, op["wpost_t"], fwd[4][2], fwd[4][3], gw[4], gb[4], seed, 4, keep)}
+    chain[3] = plain_b(chain[4][0], Wb[3], fwd[3][2], fwd[3][3], gw[3], gb[3], seed, 3, keep)
+    for label, j, A, Wt, g_res in (("K12 hidden+g_res", 2, chain[3][0], Wb[2], chain[4][1]),
+                                   ("K12 hidden", 3, chain[4][0], Wb[3], None)):
+        with_out = j % 2 == 0
+
+        def launch(sel=slice(0, BT), off=0, A=A, Wt=Wt, g_res=g_res, j=j, with_out=with_out):
+            g_out = torch.empty(sel.stop - sel.start, H, device=dev) if with_out else None
+            return fused_train.dense_gn_silu_bwd(
+                A[sel], Wt, fwd[j][2][sel], fwd[j][3][sel], gw[j], gb[j], seed, j, keep,
+                g_res=None if g_res is None else g_res[sel], g_out=g_out, row_offset=off)
+
+        full = [None if t is None else t.clone() for t in launch()]
+        halves = [[None if t is None else t.clone() for t in launch(part, part.start)]
+                  for part in (slice(0, h), sl)]
+        torch.cuda.synchronize()
+        check(torch.equal(halves[1][0], full[0][sl])
+              and (not with_out or torch.equal(halves[1][1], full[1][sl])),
+              f"{label}: rows {h}:{BT} at row_offset={h} are not the full launch's rows")
+        sums = [halves[0][k] + halves[1][k] for k in (2, 3)]
+        e_sum = [err(a_, b_) for a_, b_ in zip(sums, full[2:])]
+        tol_sum = [DP_SUM_TOL * max(1.0, float(b_.abs().max())) for b_ in full[2:]]
+        check(all(e <= t for e, t in zip(e_sum, tol_sum)),
+              f"{label}: the halves' dgamma/dbeta sum {e_sum} from the full launch's "
+              f"(tol {tol_sum})")
+        ref = plain_b(A[sl], Wt, fwd[j][2][sl], fwd[j][3][sl], gw[j], gb[j], seed, j, keep,
+                      None if g_res is None else g_res[sl], row_offset=h)
+        got = halves[1]
+        e_dh = err(got[0].float(), ref[0].float())
+        tol_dh = 1e-2 * float(ref[0].float().abs().max())
+        e_g = ([err(got[1], ref[1]) if with_out else 0.0]
+               + [err(a_, b_) for a_, b_ in zip(got[2:], ref[2:])])
+        tol_g = [1e-3 * float(r.abs().max()) for r in ref[1:]]
+        check(e_dh <= tol_dh and all(x <= y for x, y in zip(e_g, tol_g)),
+              f"{label} at row_offset={h}: dh {e_dh} (tol {tol_dh}), g/dgamma/dbeta {e_g} "
+              f"(tol {tol_g})")
+        K, rows_h = A.shape[1], BT - h
+        n_bytes = (2 * rows_h * K + 2 * K * H + 2 * rows_h * H + 4 * rows_h * 32 + 8 * H
+                   + 2 * rows_h * H + (4 * rows_h * H if g_res is not None else 0)
+                   + (4 * rows_h * H if with_out else 0) + 8 * H)
+        bms, by = bound(n_bytes, 2 * rows_h * K * H, 40 * rows_h * H)
+        out[label] = dict(rows_bit_equal=True, halves_sum_err=e_sum, halves_sum_tol=tol_sum,
+                          max_abs_err=e_dh, tol=tol_dh, errs_g_dgamma_dbeta=e_g,
+                          bound_ms_640=bms, bound_by=by, ms_1280=graph_ms(launch),
+                          ms_640=graph_ms(lambda: launch(sl, h)))
+    for label, r in out.items():
+        print(f"[data-parallel] (i) {label}: rows {h}:{BT} at row_offset={h} bit-equal to the "
+              f"full launch's; against the plain version at the offset {r['max_abs_err']:.3g} "
+              f"(tol {r['tol']:.3g}); {r['ms_640'] * 1e3:.2f} us at {BT - h} rows (bound "
+              f"{r['bound_ms_640'] * 1e3:.2f}, {r['bound_by']}), {r['ms_1280'] * 1e3:.2f} us at "
+              f"{BT}"
+              + (f"; the halves' dgamma/dbeta sums within {max(r['halves_sum_err']):.3g} "
+                 f"(tol {max(r['halves_sum_tol']):.3g})" if "halves_sum_err" in r else ""))
+    return out
+
+
+RANK_SCRIPT = """
+import sys
+sys.path.insert(0, {repo!r})
+import chip_smoke
+chip_smoke.{fn}(*{args!r})
+"""
+
+
+def start_ranks(fn, args_by_rank):
+    """``chip_smoke.<fn>(*args)`` in one process a rank, all started at once
+    from the repository; ``join_ranks`` waits for them."""
+    return [subprocess.Popen([sys.executable, "-c", RANK_SCRIPT.format(
+        repo=REPO, fn=fn, args=tuple(a))], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for a in args_by_rank]
+
+
+def join_ranks(procs, what):
+    """Each of ``procs`` joined within DP_TIMEOUT_S of this call (a hang or a
+    non-zero exit fails the phase; every process is stopped)."""
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                out, _ = proc.communicate(timeout=DP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise PhaseError(f"{what} rank {r}: no end within {DP_TIMEOUT_S} s")
+            check(proc.returncode == 0,
+                  f"{what} rank {r} exited {proc.returncode}:\n{out[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def train_mh_rank_main(argv, out_path):
+    """(q)(iii) one rank of ``python -m dposer_tpu_torch.train --multihost``
+    (``train.main``), then a sampler built fresh on the run's final EMA
+    weights and drawn from the last eval firing's sample generator; writes
+    the firings' capture and tensor-map counts, whether the fresh samples
+    equal the firing's bit for bit, the losses and the state's digest."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    r = train_cli.main(argv)
+    dev = r["device"]
+    config = train_cli.load_config(argv[argv.index("--config") + 1])
+    sde = train_cli.build_sde(config)
+    model = create_score_model(config).to(dev).eval()
+    sd = r["state"].model.state_dict()
+    names = [n for n, q in r["state"].model.named_parameters() if q.requires_grad]
+    sd.update(zip(names, r["state"].ema.shadow_params))
+    model.load_state_dict(sd)
+    last, eb = r["last_eval"], config.eval.batch_size
+    fresh = fused_em.get_cuda_em_sampler(sde, model, (eb, D),
+                                         **train_cli.eval_sampler_kwargs(config, sde, dev))
+    gen = torch.Generator(device=dev).manual_seed(
+        train_cli.sample_seed(train_cli.parse_args(argv).seed, last["step"]))
+    with torch.no_grad():
+        again = torch.cat([fresh(gen) for _ in range(last["samples"].shape[0] // eb)])
+    with open(os.path.join(r["output_dir"], "train.log")) as f:
+        log = f.read()
+    firings = [(int(a), int(b)) for a, b in re.findall(
+        r"validating completed: (\d+) graph\(s\) captured, (\d+) tensor map\(s\) encoded", log)]
+    with open(out_path, "w") as f:
+        json.dump(dict(firings=firings, fresh_equal=bool(torch.equal(again, last["samples"])),
+                       eval_step=last["step"], losses=r["losses"], route=r["route"],
+                       digest=data_parallel.state_digest(r["state"]), world=r["world"],
+                       dp_line=[ln for ln in log.splitlines() if "data-parallel:" in ln]), f)
+
+
+def hypo_params_check(model, dev):
+    """(q)(iii) the trainer's hypothesis sampler in its ``_params`` form
+    (``multi_hypothesis_imputation_sampler_params`` over
+    ``get_cuda_em_hypo_sampler`` with the eval's keywords, eval batch x
+    ``train.HYPO_NUM`` rows) on cuda:0: built once and run on the pinned
+    weights (that call captures), then on a second model's weights (the
+    pinned ones, each scaled by 1 + 0.01 N(0, 1)): its samples bit-equal to
+    a sampler built fresh on the second weights from the same generator, and
+    the second call captures no graph and encodes no tensor map. The eval of
+    (iii)'s trainer has no body model, so it never runs this sampler."""
+    config = get_config()
+    sde = train_cli.build_sde(config)
+    kw = train_cli.eval_sampler_kwargs(config, sde, dev)
+    eb, hn = config.eval.batch_size, train_cli.HYPO_NUM
+    first = copy.deepcopy(model).eval()
+    second = copy.deepcopy(model).eval()
+    g = torch.Generator(device=dev).manual_seed(7)
+    poses = normalized_synthetic_poses(eb, dev)
+    with torch.no_grad():
+        for q in second.parameters():
+            q.mul_(1.0 + 0.01 * torch.randn(q.shape, generator=g, device=dev, dtype=q.dtype))
+        mask, obs = create_mask(poses, part=PART, generator=g)
+
+        def gen():
+            return torch.Generator(device=dev).manual_seed(11)
+
+        run = parallel.sharding.multi_hypothesis_imputation_sampler_params(
+            fused_em.get_cuda_em_hypo_sampler(sde, first, (eb, D), hn, **kw))
+        t0 = time.perf_counter()
+        on_first = run(first, gen(), obs, mask)
+        captures, encodes = GraphLoop.captures, build.tma_encodes("dense_gn_silu")
+        on_second = run(second, gen(), obs, mask)
+        torch.cuda.synchronize(dev)
+        new = (GraphLoop.captures - captures, build.tma_encodes("dense_gn_silu") - encodes)
+        fresh = fused_em.get_cuda_em_hypo_sampler(sde, second, (eb, D), hn, **kw)(gen(), obs,
+                                                                                   mask)
+    check(on_second.shape == (eb, hn, D) and torch.isfinite(on_second).all().item(),
+          f"hypothesis sampler _params form: shape {tuple(on_second.shape)} or non-finite")
+    check(new == (0, 0) and torch.equal(on_second, fresh)
+          and not torch.equal(on_second, on_first),
+          f"hypothesis sampler _params form on a second model's weights: (graphs captured, "
+          f"tensor maps encoded) {new}, bit-equal to a fresh sampler: "
+          f"{bool(torch.equal(on_second, fresh))}, differs from the first weights' samples: "
+          f"{not torch.equal(on_second, on_first)}")
+    wall = time.perf_counter() - t0
+    print(f"[data-parallel] (iii) the hypothesis sampler's _params form, {eb} x {hn} rows on "
+          f"cuda:0: on a second model's weights 0 graphs captured and 0 tensor maps encoded, "
+          f"its samples bit-equal to a fresh sampler's; {wall:.1f} s")
+    return dict(rows=eb * hn, second_call=dict(graphs=new[0], tensor_maps=new[1]),
+                equals_fresh=True, wall_s=wall)
+
+
+def fitting_on_shards(dev, fi):
+    """(q)(iv) 5m's 8 fragments and 5n's 8 images on a mesh of SHARDS shards
+    on cuda:0 over DP_FIT_STEPS steps, against the unsharded batch."""
+    mesh = parallel.Mesh([dev] * SHARDS)
+    cut = dict(fi["sched"], iterations=1, steps_per_iter=DP_FIT_STEPS)
+    tasks = {name: MotionDenoise(fi["sde"], fi["score_fn"], fi["body"], fi["normalizer"],
+                                 batch_size=60, mesh=m)
+             for name, m in (("unsharded", None), ("sharded", mesh))}
+    walls, poses = {}, {}
+    for name, md in tasks.items():
+        gens = [sequence_generator(0, i, dev) for i in range(8)]
+        poses[name], walls[f"motion_{name}"] = timed(lambda: md.optimize_batch(
+            fi["noisy"], time_strategy="3", generators=gens, **cut))
+    e_pose = float((poses["sharded"] - poses["unsharded"]).abs().max())
+    over = 0.0  # the metrics' excess over 1e-4 + 1e-3 |ref| (cm)
+    for i in range(8):
+        a_, b_ = (tasks["unsharded"].metrics(poses[k][i], fi["noisy"][i], fi["gts"][i])
+                  for k in ("sharded", "unsharded"))
+        over = max(over, max(float(np.max(np.abs(a_[k] - b_[k]) - 1e-4 - 1e-3 * np.abs(b_[k])))
+                             for k in a_))
+    check(e_pose <= 1e-5 and over <= 0.0,
+          f"motion denoising on {SHARDS} shards: poses {e_pose} rad from the unsharded batch "
+          f"(tol 1e-5), metrics {over} cm over 1e-4 + 1e-3 |ref|")
+    fits = {}
+    for name, m in (("unsharded", None), ("sharded", mesh)):
+        fitter = SMPLify(fi["smpl"], pose_prior=fi["prior"], step_size=1e-2, cam_step_size=1e-2,
+                         batch_size=N_IMG, num_iters=DP_FIT_STEPS // 5,
+                         focal_length=fi["focal"], sde_N=fi["sde"].N, mesh=m)
+        gen = torch.Generator(device=dev).manual_seed(42)
+        fits[name], walls[f"smplify_{name}"] = timed(lambda: fitter(
+            *fi["init"], fi["cc"], fi["keypoints"], generator=gen))
+    e_fit = [float((a_ - b_).abs().max()) / max(1.0, float(b_.abs().max()))
+             for a_, b_ in zip(fits["sharded"][:3], fits["unsharded"][:3])]
+    rp_a, rp_b = fits["sharded"][3], fits["unsharded"][3]
+    rp_over = float(((rp_a - rp_b).abs() - 1e-4 - 1e-3 * rp_b.abs()).max())
+    check(max(e_fit) <= 2e-5 and rp_over <= 0.0,
+          f"SMPLify on {SHARDS} shards: pose/betas/camera {e_fit} x max(1, |ref|) from the "
+          f"unsharded fit (tol 2e-5), reprojection {rp_over} over 1e-4 + 1e-3 |ref|")
+    print(f"[data-parallel] (iv) {SHARDS} shards on cuda:0, {DP_FIT_STEPS} steps: motion "
+          f"denoising's poses within {e_pose:.3g} rad of the unsharded batch's, SMPLify's fit "
+          f"within {max(e_fit):.3g} x max(1, |ref|); walls "
+          f"{ {k: round(v, 3) for k, v in walls.items()} } s")
+    return dict(shards=SHARDS, steps=DP_FIT_STEPS, motion_pose_max_abs=e_pose,
+                motion_metrics_over=over, smplify_max_rel=e_fit, reprojection_over=rp_over,
+                walls_s=walls)
+
+
+def dp_two_ranks(model, dev):
+    """(q)(ii): ``benchmarks.data_parallel.run`` with two ranks on cuda:0
+    over gloo against one process here, and its gates."""
+    by_run = {}
+    poses = normalized_synthetic_poses(DP_POOL, dev)
+    idx = torch.randint(0, DP_POOL, (DP_STEPS, BT),
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    try:
+        out = data_parallel.run(model, dev, poses, idx, [dev] * 2, "gloo", CKPT, DP_TIMEOUT_S)
+    except RuntimeError as e:
+        raise PhaseError(str(e))
+    one, ranks = out["one"], out["ranks"]
+    by_run["train_data_parallel_one_process"] = one["counts"]
+    for r, rk in enumerate(ranks):
+        check(rk["world"] == 2 and rk["backend"] == "gloo",
+              f"rank {r}: {rk['world']} processes over {rk['backend']}")
+        by_run[f"train_data_parallel_rank{r}"] = rk["counts"]
+    res = data_parallel.summary(out)
+    per_step = res["launches_per_step"]
+    check(per_step == {"dense_gn_silu_train": 5, "head_dsm": 1, "dense_gn_silu_bwd": 5}
+          and res["k10_routes"] == {"wgmma": 4 * DP_STEPS, "register": DP_STEPS},
+          f"data-parallel: a rank's launches a step {per_step}, K10's routes "
+          f"{res['k10_routes']}")
+    check(res["ranks_bit_equal"], "data-parallel: the ranks' parameters, EMA or losses differ")
+    tail = res["last50_means"]
+    tail_rel = abs(tail[0] / tail[1] - 1.0)
+    check(res["first_losses_max_rel"] <= DP_LOSS_RTOL and tail_rel <= DP_TAIL_RTOL,
+          f"data-parallel against one process: the first {DP_CHECK_STEPS} losses up to "
+          f"{res['first_losses_max_rel']:.3g} relative (tol {DP_LOSS_RTOL}), last-50 means "
+          f"{tail} ({tail_rel:.3g}, tol {DP_TAIL_RTOL})")
+    ms, ar = float(np.mean(res["ms_per_step"])), float(np.mean(res["allreduce_in_step_ms"]))
+    share = float(np.mean(res["allreduce_share"]))
+    res.update(steps=DP_STEPS, global_batch=BT, last50_rel=tail_rel,
+               first_losses=ranks[0]["losses"][:DP_CHECK_STEPS],
+               one_process_first_losses=one["losses"][:DP_CHECK_STEPS])
+    print(f"[data-parallel] (ii) 2 ranks on cuda:0 over gloo, {DP_STEPS} kernel steps at "
+          f"{BT} rows (640 a rank): {ms:.3f} ms a step (one process "
+          f"{res['one_process_ms_per_step']:.3f}), the all-reduce {ar:.3f} ms inside a step "
+          f"({100 * share:.0f}% of a step's wall; alone "
+          f"{float(np.mean(res['allreduce_alone_ms'])):.3f} ms) of "
+          f"{res['grad_bytes'] / 2 ** 20:.2f} MiB of "
+          f"gradients; the first {DP_CHECK_STEPS} losses within "
+          f"{res['first_losses_max_rel']:.2e} of one process's, last-50 mean {tail[0]:.5f} vs "
+          f"{tail[1]:.5f} ({tail_rel:.2e}); ranks bit-equal; a step {per_step}; "
+          f"{res['wall_s']:.1f} s for both processes")
+    return res, by_run
+
+
+def start_trainer_ranks(work):
+    """(q)(iii): ``train_mh_rank_main`` as two ranks on a synthetic AMASS
+    layout under ``work``, started; ``(processes, their JSON files)``."""
+    root = os.path.join(work, "amass")
+    for subset, n in (("train", DP_POOL), ("test", 100)):
+        os.makedirs(os.path.join(root, "v1", subset))
+        np.save(os.path.join(root, "v1", subset, "pose_body.npy"), synthetic_poses(n))
+    train_cli.AMASSDataset(root, version="v1", subset="train")  # its stats, cached once
+    cfg = os.path.join(work, "mh.py")
+    with open(cfg, "w") as f:
+        f.write(MH_CONFIG.format(out=os.path.join(work, "out"), n_iters=MH_STEPS,
+                                 eval_freq=MH_STEPS // 2))
+    url = f"tcp://127.0.0.1:{free_port()}"
+    outs = [os.path.join(work, f"mh{r}.json") for r in range(2)]
+    argv = ["--config", cfg, "--dataset-folder", root, "--version", "v1",
+            "--bodymodel-path", "", "--device", "cuda", "--multihost", "--coordinator", url,
+            "--num-processes", "2"]
+    return start_ranks("train_mh_rank_main", [(argv + ["--process-id", str(r)], outs[r])
+                                              for r in range(2)]), outs
+
+
+def check_trainer_ranks(outs, wall):
+    """(q)(iii)'s gates on the ranks' JSON files."""
+    mh = []
+    for p in outs:
+        with open(p) as f:
+            mh.append(json.load(f))
+    for r, m in enumerate(mh):
+        check(m["world"] == 2 and m["route"].startswith("kernel step: K10/K11/K12 on CUDA"),
+              f"train --multihost rank {r}: {m['world']} processes, route {m['route']}")
+        check(len(m["firings"]) == 2 and m["firings"][0][0] >= 1
+              and m["firings"][1] == [0, 0] and m["fresh_equal"],
+              f"train --multihost rank {r}: firings (graphs captured, tensor maps encoded) "
+              f"{m['firings']}, the last firing's samples equal a fresh sampler's: "
+              f"{m['fresh_equal']}")
+    check(mh[0]["digest"] == mh[1]["digest"] and mh[0]["losses"] == mh[1]["losses"],
+          "train --multihost: the ranks' states or losses differ")
+    print(f"[data-parallel] (iii) train --multihost, 2 processes on cuda:0, {MH_STEPS} steps "
+          f"at {BT}: eval firings (graphs captured, tensor maps encoded) {mh[0]['firings']} "
+          f"on each rank, the last firing's samples bit-equal to a fresh sampler's on the same "
+          f"EMA weights; the ranks equal; {wall:.1f} s with (iv) beside them")
+    return dict(steps=MH_STEPS, firings=mh[0]["firings"], last_firing_equals_fresh=True,
+                losses=mh[0]["losses"], dp_line=mh[0]["dp_line"], wall_s=wall)
+
+
+def phase_data_parallel(model, dev, fit_inputs):
+    """(q) data-parallel training (``parallel.sharding``'s training half):
+    (i) ``row_offset_checks``; (ii) two processes on cuda:0 over gloo run the
+    kernel step at a global batch of 1,280 (640 rows a rank) from the pinned
+    checkpoint for DP_STEPS steps, against the same steps in this process:
+    each of the first DP_CHECK_STEPS losses within DP_LOSS_RTOL relative and
+    the last 50 steps' mean within DP_TAIL_RTOL, the ranks' parameters and
+    EMA bit-equal (digests), a rank's step K10 x5 (4 Hopper, 1 register),
+    K11 x1 and K12 x5; ms a step, the all-reduce's share of it (timed inside
+    the step) and the gradient bytes a step; (iii) ``python -m dposer_tpu_torch.train
+    --multihost`` as two processes on cuda:0 (flagship widths, batch 1,280,
+    MH_STEPS steps, an eval firing at half of them and at the end): the
+    first firing captures its sampler's graph, the second captures none and
+    encodes no tensor map, and its samples are bit-equal to a sampler built
+    fresh on the same EMA weights and generator; the ranks' losses and
+    states equal; and ``hypo_params_check``, the hypothesis sampler the
+    trainer's eval runs with a body model; (iv) ``fitting_on_shards``: the poses within 1e-5 rad,
+    the fits within 2e-5 x max(1, |ref|), the metrics within 1e-3 relative,
+    1e-4 absolute (the CPU tests' bounds). (iii) runs beside (iv), whose
+    walls are then not a measurement; (i) and (ii) run alone."""
+    t_phase = time.perf_counter()
+    os.makedirs(OUT, exist_ok=True)
+    res, by_run = {}, {}
+    res["row_offset"] = row_offset_checks(model, dev)
+    res["hypo_params"] = hypo_params_check(model, dev)
+    work = tempfile.mkdtemp(prefix="train_mh_", dir=OUT)
+    try:
+        t0 = time.perf_counter()
+        procs, outs = start_trainer_ranks(work)
+        try:
+            res["fitting"] = fitting_on_shards(dev, fit_inputs)
+        finally:
+            join_ranks(procs, "train --multihost")
+        res["trainer_multihost"] = check_trainer_ranks(outs, time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["training"], by_run = dp_two_ranks(model, dev)
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[data-parallel] (q) in {res['phase_wall_s']:.1f} s")
+    return dict(results=res, by_run=by_run)
+
+
 def main():
     if sys.argv[1:] not in ([], ["--plain-loops"]):
         print("usage: python3 chip_smoke.py [--plain-loops]", file=sys.stderr)
@@ -4203,9 +4679,10 @@ def main():
         fit = phase_fitting_protocols(model, dev)
         parity["train"] = phase_train_parity(model, dev)
         train = phase_train_protocols(dev)
+        dp = phase_data_parallel(model, dev, fit.pop("inputs"))
         by_run = {**proto.pop("by_run"), **comp["by_run"], **comp_cli["by_run"],
                   **int8["by_run"], **micro["by_run"], **ode["by_run"], **sharded["by_run"],
-                  **fit["by_run"], **train["by_run"]}
+                  **fit["by_run"], **train["by_run"], **dp["by_run"]}
         for r in rows:
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
@@ -4270,6 +4747,7 @@ def main():
     proto.update(ode["results"])
     proto["fitting"] = fit["results"]
     proto["sharded"] = sharded["results"]
+    proto["data_parallel"] = dp["results"]
     # and for a train step: K10 x5 (the last layer without its fp32 out), K11
     # on the stash and K12 x5 at batch 1,280
     by_name = {r["name"]: r for r in rows}

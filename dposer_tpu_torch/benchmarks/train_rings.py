@@ -129,7 +129,7 @@ def graph_us(fn, reps: int = 20, replays: int = 10) -> float:
 
 def _arg_types(n_ptr: int):
     P, I = ctypes.c_void_p, ctypes.c_int
-    return [P] * n_ptr + [ctypes.c_uint, I, ctypes.c_uint, ctypes.c_float, I, I, I, P]
+    return [P] * n_ptr + [ctypes.c_uint, I, I, ctypes.c_uint, ctypes.c_float, I, I, I, P]
 
 
 def shapes(dev) -> dict:
@@ -159,7 +159,7 @@ def shapes(dev) -> dict:
                    bt.data_ptr(), None if res is None else res.data_ptr(),
                    None if o is None else o.data_ptr(), st.data_ptr(), xh.data_ptr(),
                    rs.data_ptr()]
-            return lambda: fn(*ptr, 7, 1, thresh, inv, B, K, H,
+            return lambda: fn(*ptr, 7, 1, 0, thresh, inv, B, K, H,
                               torch.cuda.current_stream().cuda_stream)
         out[label] = ("dense_gn_silu_train", k10)
     for label, K, with_res in (("K12 hidden+g_res", 1024, True), ("K12 hop 1", 64, False)):
@@ -178,7 +178,7 @@ def shapes(dev) -> dict:
                    None if go is None else go.data_ptr(), xh.data_ptr(), rs.data_ptr(),
                    gm.data_ptr(), bt.data_ptr(), dh.data_ptr(), parts[0].data_ptr(),
                    parts[1].data_ptr()]
-            return lambda: fn(*ptr, 5, 2, thresh, inv, B, K, H,
+            return lambda: fn(*ptr, 5, 2, 0, thresh, inv, B, K, H,
                               torch.cuda.current_stream().cuda_stream)
         out[label] = ("dense_gn_silu_bwd", k12)
     return out

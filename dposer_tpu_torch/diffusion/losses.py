@@ -40,6 +40,20 @@ from .score_fn import get_score_fn
 from .sde import SDE, VESDE, VPSDE, batch_mul, linspace_f32
 
 
+def batch_rows(batch: int, rows=None):
+    """``(global_batch, slice)``: the batch the draws are made at and the
+    rows of ``batch`` in it. The whole batch, or under ``rows=(row_offset,
+    global_batch)`` (a data-parallel rank's share) those rows, which must lie
+    inside the global batch."""
+    if rows is None:
+        return batch, slice(0, batch)
+    row_offset, global_batch = rows
+    if not 0 <= row_offset <= global_batch - batch:
+        raise ValueError(f"rows {row_offset}..{row_offset + batch} outside the global "
+                         f"batch of {global_batch}")
+    return global_batch, slice(row_offset, row_offset + batch)
+
+
 # ---------------------------------------------------------------------------
 # Optimizer (ref losses.py:31-58)
 # ---------------------------------------------------------------------------
@@ -196,10 +210,12 @@ def make_model_apply(model) -> Callable:
 
 
 def draw_masks(model, batch: int, device, dropout_seed: Optional[int] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None, rows=None):
     """One dropout factor [B, H] per GroupNorm layer: the train kernels' hash
     masks for ``dropout_seed``, else bernoulli(keep) draws from
-    ``generator``; None when the model has no dropout."""
+    ``generator``; None when the model has no dropout. ``rows=(row_offset,
+    global_batch)``: the batch is those rows of a global batch, whose masks
+    are drawn (or hashed) at the global shape and sliced."""
     from ..ops.cuda.fused_train import dropout_mask
 
     keep = 1.0 - float(model.dropout.p)
@@ -207,9 +223,11 @@ def draw_masks(model, batch: int, device, dropout_seed: Optional[int] = None,
     H = model.hidden_dim
     if keep >= 1.0:
         return None
+    n, sl = batch_rows(batch, rows)
     if dropout_seed is not None:
-        return [dropout_mask(dropout_seed, j, batch, H, keep, device) for j in range(n_tp)]
-    u = torch.rand((n_tp, batch, H), generator=generator, device=device)
+        return [dropout_mask(dropout_seed, j, batch, H, keep, device, sl.start)
+                for j in range(n_tp)]
+    u = torch.rand((n_tp, n, H), generator=generator, device=device)[:, sl]
     return list((u < keep).float() * torch.tensor(1.0 / keep, dtype=torch.float32))
 
 
@@ -226,7 +244,11 @@ def get_sde_loss_fn(sde: SDE, train: bool, model_apply: Callable, reduce_mean: b
                     continuous: bool = True, likelihood_weighting: bool = False,
                     eps: float = 1e-5, return_data: bool = False, denoise_steps: int = 5):
     """``loss_fn(params, batch, *, t=None, z=None, dropout_seed=None,
-    generator=None) -> loss`` (``(loss, data)`` with ``return_data``)."""
+    generator=None, rows=None) -> loss`` (``(loss, data)`` with
+    ``return_data``). ``rows=(row_offset, global_batch)``: ``batch`` is those
+    rows of a global batch (a data-parallel rank's share); every draw is made
+    at the global shape and sliced, so the ranks together draw what one
+    device draws. The loss is the mean over ``batch``'s own rows."""
     reduce_op = _reduce(reduce_mean)
 
     def multi_step_denoise(score_fn, x_t, t, t_end, N):
@@ -247,16 +269,18 @@ def get_sde_loss_fn(sde: SDE, train: bool, model_apply: Callable, reduce_mean: b
                 + s_bef[:, None] * noise_pred
         return score_first, x_current
 
-    def loss_fn(params, batch, *, t=None, z=None, dropout_seed=None, generator=None):
+    def loss_fn(params, batch, *, t=None, z=None, dropout_seed=None, generator=None,
+                rows=None):
         B = batch.shape[0]
         dev = batch.device
+        n, sl = batch_rows(B, rows)
         if t is None:
-            t = torch.rand(B, generator=generator, device=dev) * (sde.T - eps) + eps
+            t = (torch.rand(n, generator=generator, device=dev) * (sde.T - eps) + eps)[sl]
         if z is None:
-            z = torch.randn(batch.shape, generator=generator, device=dev)
+            z = torch.randn((n,) + tuple(batch.shape[1:]), generator=generator, device=dev)[sl]
         mean, std = sde.marginal_prob(batch, t)
         perturbed = mean + batch_mul(std, z)
-        masks = (draw_masks(model_apply.model, B, dev, dropout_seed, generator)
+        masks = (draw_masks(model_apply.model, B, dev, dropout_seed, generator, rows)
                  if train else None)
         score_fn = get_score_fn(sde, lambda x, labels: model_apply(params, x, labels, masks),
                                 continuous=continuous)
@@ -290,23 +314,26 @@ def get_sde_loss_fn(sde: SDE, train: bool, model_apply: Callable, reduce_mean: b
 def get_smld_loss_fn(vesde: VESDE, train: bool, model_apply: Callable,
                      reduce_mean: bool = False):
     """``loss_fn(params, batch, *, labels=None, noise=None, dropout_seed=None,
-    generator=None)``; ``noise`` is the standard normal before scaling."""
+    generator=None, rows=None)``; ``noise`` is the standard normal before
+    scaling; ``rows`` as in ``get_sde_loss_fn``."""
     assert isinstance(vesde, VESDE), "SMLD training only works for VESDEs."
     reduce_op = _reduce(reduce_mean)
 
     def loss_fn(params, batch, *, labels=None, noise=None, dropout_seed=None,
-                generator=None):
+                generator=None, rows=None):
         B = batch.shape[0]
         dev = batch.device
+        n, sl = batch_rows(B, rows)
         smld_sigmas = vesde.discrete_sigmas(dev).flip(0)  # descending
         if labels is None:
-            labels = torch.randint(0, vesde.N, (B,), generator=generator, device=dev)
+            labels = torch.randint(0, vesde.N, (n,), generator=generator, device=dev)[sl]
         if noise is None:
-            noise = torch.randn(batch.shape, generator=generator, device=dev)
+            noise = torch.randn((n,) + tuple(batch.shape[1:]), generator=generator,
+                                device=dev)[sl]
         sigmas = smld_sigmas[labels]
         noise = batch_mul(sigmas, noise)
         perturbed = noise + batch
-        masks = (draw_masks(model_apply.model, B, dev, dropout_seed, generator)
+        masks = (draw_masks(model_apply.model, B, dev, dropout_seed, generator, rows)
                  if train else None)
         score = model_apply(params, perturbed, labels, masks)
         target = -batch_mul(1.0 / sigmas ** 2, noise)
@@ -320,22 +347,24 @@ def get_smld_loss_fn(vesde: VESDE, train: bool, model_apply: Callable,
 def get_ddpm_loss_fn(vpsde: VPSDE, train: bool, model_apply: Callable,
                      reduce_mean: bool = True):
     """``loss_fn(params, batch, *, labels=None, noise=None, dropout_seed=None,
-    generator=None)``."""
+    generator=None, rows=None)``; ``rows`` as in ``get_sde_loss_fn``."""
     assert isinstance(vpsde, VPSDE), "DDPM training only works for VPSDEs."
     reduce_op = _reduce(reduce_mean)
 
     def loss_fn(params, batch, *, labels=None, noise=None, dropout_seed=None,
-                generator=None):
+                generator=None, rows=None):
         B = batch.shape[0]
         dev = batch.device
+        n, sl = batch_rows(B, rows)
         alphas_cumprod = torch.cumprod(vpsde.alphas(dev), 0)
         sqrt_ac, sqrt_1m_ac = torch.sqrt(alphas_cumprod), torch.sqrt(1.0 - alphas_cumprod)
         if labels is None:
-            labels = torch.randint(0, vpsde.N, (B,), generator=generator, device=dev)
+            labels = torch.randint(0, vpsde.N, (n,), generator=generator, device=dev)[sl]
         if noise is None:
-            noise = torch.randn(batch.shape, generator=generator, device=dev)
+            noise = torch.randn((n,) + tuple(batch.shape[1:]), generator=generator,
+                                device=dev)[sl]
         perturbed = batch_mul(sqrt_ac[labels], batch) + batch_mul(sqrt_1m_ac[labels], noise)
-        masks = (draw_masks(model_apply.model, B, dev, dropout_seed, generator)
+        masks = (draw_masks(model_apply.model, B, dev, dropout_seed, generator, rows)
                  if train else None)
         score = model_apply(params, perturbed, labels, masks)
         losses = torch.square(score - noise)
@@ -353,10 +382,18 @@ def get_step_fn(sde: SDE, train: bool, model_apply: Callable, reduce_mean: bool 
                 auxiliary_loss: bool = False, denormalize: Optional[Callable] = None,
                 body_model_fn: Optional[Callable] = None, rot_rep: str = "rot6d",
                 denoise_steps: int = 5, rot6d_to_axis: Optional[Callable] = None):
-    """``step_fn(state, batch, **noise) -> loss dict``. Training updates
-    ``state`` in place (gradient, clip, Adam, EMA, step); evaluation computes
-    the loss under the EMA parameters without dropout. ``noise`` is the
-    loss's injected draws (``t``, ``z``, ``dropout_seed``, ``generator``).
+    """``step_fn(state, batch, *, rows=None, grad_hook=None, **noise) -> loss
+    dict``. Training updates ``state`` in place (gradient, clip, Adam, EMA,
+    step); evaluation computes the loss under the EMA parameters without
+    dropout. ``noise`` is the loss's injected draws (``t``, ``z``,
+    ``dropout_seed``, ``generator``). A data-parallel rank passes ``rows=
+    (row_offset, global_batch)``, its rows of the step's global batch (the
+    draws are made at the global shape and sliced), and ``grad_hook(grads,
+    losses) -> losses``, which runs between the backward and the update on
+    the trained parameters' gradients (in order; None where a parameter has
+    none) and the detached losses (the all-reduce of
+    ``parallel.sharding.data_parallel_step``). Without them the step is the
+    one-device step.
     With ``auxiliary_loss`` the body-model v2v and j2j terms are added
     (ref losses.py:239-258); ``body_model_fn(pose_axis [B, 63]) -> (v, Jtr)``
     must be differentiable."""
@@ -398,17 +435,20 @@ def get_step_fn(sde: SDE, train: bool, model_apply: Callable, reduce_mean: bool 
 
     if train:
 
-        def step_fn(state: TrainState, batch, **noise):
+        def step_fn(state: TrainState, batch, *, rows=None, grad_hook=None, **noise):
             state.tx.zero_grad()
-            loss, loss_dict = full_loss(params_of(state.model), batch, **noise)
+            loss, loss_dict = full_loss(params_of(state.model), batch, rows=rows, **noise)
             loss.backward()
+            losses = {k: v.detach() for k, v in loss_dict.items()}
+            if grad_hook is not None:
+                losses = grad_hook([p.grad for p in state.tx.params], losses)
             apply_train_update(state)
-            return {k: v.detach() for k, v in loss_dict.items()}
+            return losses
     else:
 
         @torch.no_grad()
-        def step_fn(state: TrainState, batch, **noise):
-            _, loss_dict = full_loss(ema_params_of(state), batch, **noise)
+        def step_fn(state: TrainState, batch, *, rows=None, **noise):
+            _, loss_dict = full_loss(ema_params_of(state), batch, rows=rows, **noise)
             return loss_dict
 
     return step_fn

@@ -14,7 +14,11 @@ images are fitted as one batch (they share each step's time draw; each is
 evaluated on its own); every image starts from the mean pose, or from the
 bend pose when its keypoints' bbox starts below row 400 (a seated subject,
 ref :71), at the camera translation the manual EHF bbox implies. Each fit is
-written to ``<outdir>/<name>_fit.npz``.
+written to ``<outdir>/<name>_fit.npz``. A batch's images split over this
+process's cards (``parallel.make_mesh``; ``run(args, mesh=)`` names other
+devices), which it prints when there are several; the fit draws its times
+and normals for the whole batch before it splits them, so the results are
+those of one device.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from .body_model.smplx_fit import SMPLXFit
 from .data.mocap import MocapDataset
 from .data.preprocess import compute_bbox
 from .ops.rotations import cam_crop2full
+from .parallel import make_mesh, mesh_route
 from .smplify import build_dposer_prior, cli_device
 from .tasks.smplify import SMPLify
 
@@ -83,13 +88,20 @@ def init_camera(center, scale, img_h, img_w, focal_length):
     return cam_t, torch.stack([img_w, img_h], -1) / 2
 
 
-def run(args) -> dict:
+def run(args, mesh=None) -> dict:
     """Fit every image; returns the per-image ``pa_mpjpe_body`` and
     ``mpjpe_body`` in mm, and with ``--report-init-baseline`` the init's as
-    ``init_pa_mpjpe_body`` and ``init_mpjpe_body``."""
+    ``init_pa_mpjpe_body`` and ``init_mpjpe_body``. ``mesh`` is the devices a
+    batch's images split over, by default the process's visible CUDA devices
+    on ``--device cuda`` and the CPU on ``--device cpu``."""
     import cv2
 
     device = cli_device(args.device)
+    if mesh is None:
+        mesh = make_mesh() if device.type == "cuda" else make_mesh(devices=[device])
+    mesh, _ = mesh_route(mesh, device)
+    if mesh is not None:
+        print(f"batched images data-parallel over {mesh.size} devices")
     os.makedirs(args.outdir, exist_ok=True)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     smpl = SMPLXFit(args.bodymodel_path, device=device)
@@ -139,7 +151,10 @@ def run(args) -> dict:
             fitters[fkey] = SMPLify(smpl, pose_prior=priors[B], step_size=args.step_size,
                                     cam_step_size=args.cam_step_size, batch_size=B,
                                     num_iters=args.num_iters, focal_length=fkey[0],
-                                    time_strategy=args.time_strategy, sde_N=args.sde_N)
+                                    time_strategy=args.time_strategy, sde_N=args.sde_N,
+                                    mesh=mesh, replica=lambda dev, B=B: (
+                                        SMPLXFit(args.bodymodel_path, device=dev),
+                                        build_dposer_prior(args, batch_size=B, device=dev)))
         fit = [r.cpu().numpy() for r in fitters[fkey](poses, betas, init_cam_t,
                                                        camera_center, keypoints,
                                                        generator=generator)]

@@ -17,7 +17,11 @@ poses written to ``<outpath-folder>/denoised_poses.npz``. Without
 loss; each sequence draws its noise, its init and its prior's times and
 normals from a generator of its own, keyed by (seed, index), so its result
 does not depend on the batching. Each sequence's means go to
-``<outpath-folder>/<dataset>_results_logging.csv``. The prior's network runs
+``<outpath-folder>/<dataset>_results_logging.csv``. In directory mode the
+fragments of a batch split over this process's cards (``parallel.make_mesh``;
+``run(args, mesh=)`` names other devices), which it prints when there are
+several: each shard fits its fragments with their own generators, so the
+results are those of one device. The prior's network runs
 in fp32 under autograd through the body model (the JAX package runs it
 under XLA, with no Pallas kernel); the prior's weight is 0.1 under time
 strategy '1' and 1 otherwise (ref :317-322).
@@ -34,6 +38,7 @@ import torch
 
 from .body_model import BodyModel
 from .config import load_config
+from .parallel import make_mesh, mesh_route
 from .smplify import (build_normalizer, cli_device, load_model_for_inference,
                       sequence_generator)
 from .tasks.motion_denoising import MotionDenoise, noise_schedule_kwargs
@@ -88,9 +93,11 @@ def noisy_joints(body_model, gt_poses, std, generator):
                                       device=joints.device)
 
 
-def run(args) -> dict:
+def run(args, mesh=None) -> dict:
     """Denoise; returns the averages over every frame (``init_MPJPE``,
-    ``MPJPE``, ``MPVPE`` in cm)."""
+    ``MPJPE``, ``MPVPE`` in cm). ``mesh`` is the devices directory mode
+    shards the fragments over, by default the process's visible CUDA devices
+    on ``--device cuda`` and the CPU on ``--device cpu``."""
     device = cli_device(args.device)
     config = load_config(args.config)
     _, sde, score_fn = load_model_for_inference(config, args.ckpt_path, SDE_N, device)
@@ -122,6 +129,18 @@ def run(args) -> dict:
             print(f"The average of {k} is {v}")
         return averages
 
+    if mesh is None:
+        mesh = make_mesh() if device.type == "cuda" else make_mesh(devices=[device])
+    mesh, _ = mesh_route(mesh, device)
+    if mesh is not None:
+        print(f"batched fragments data-parallel over {mesh.size} devices")
+
+    def replica(dev):
+        """The prior, the body model and the normalizer on another device."""
+        return (load_model_for_inference(config, args.ckpt_path, SDE_N, dev)[2],
+                BodyModel(args.bodymodel_path, num_betas=10, model_type="smplx", device=dev),
+                build_normalizer(config, args.dataset_folder, args.version, args.stats_dir, dev))
+
     seqs = sorted(os.path.relpath(os.path.join(root, f), args.data_dir)
                   for root, _, files in os.walk(args.data_dir) for f in files
                   if f.endswith(".npz"))
@@ -135,7 +154,7 @@ def run(args) -> dict:
     results_by_seq = {}
     for T, group in sorted(by_len.items()):
         md = MotionDenoise(sde, score_fn, body_model, normalizer, dposer_weight=dposer_weight,
-                           batch_size=T, lr=lr)
+                           batch_size=T, lr=lr, mesh=mesh, replica=replica)
         for c0 in range(0, len(group), args.batch_fragments):
             chunk = group[c0:c0 + args.batch_fragments]
             gens = [sequence_generator(args.seed, i, device) for i, _ in chunk]

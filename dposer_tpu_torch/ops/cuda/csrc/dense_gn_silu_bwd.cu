@@ -79,6 +79,7 @@ struct Params {
   float *dgamma_part, *dbeta_part;
   uint32_t seed;
   int layer;
+  int row_offset;  // the launch's first row in the global batch (dropout hash)
   uint32_t keep_thresh;
   float inv_keep;
   int B, K, N;
@@ -147,7 +148,7 @@ dense_gn_silu_bwd_kernel(const __grid_constant__ CUtensorMap tmA,
   float* red = reinterpret_cast<float*>(loop.ring);
 
   const bool use_dropout = p.keep_thresh < dr::KEEP_ALL;
-  const uint32_t rkey = dr::row_key(dr::layer_key(p.seed, p.layer), gr);
+  const uint32_t rkey = dr::row_key(dr::layer_key(p.seed, p.layer), p.row_offset + gr);
   const size_t row = static_cast<size_t>(gr) * p.N + col0 + 4 * h;
   // gx: g_xhat; m: the in-lane group sums of g_xhat and g_xhat * xhat, in
   // column order as the terms are made
@@ -241,21 +242,23 @@ dense_gn_silu_bwd_kernel(const __grid_constant__ CUtensorMap tmA,
 // N] fp32, the row blocks' partial sums, whose row 0 holds dgamma and dbeta
 // (the sums over every row block) when the kernel ends. N/32 must be a
 // power of two <= 32 and N a multiple of 64; the [B, N] operands 16-byte
-// aligned. Returns 0, the error of a failed tensor-map encode, or
-// cudaGetLastError() after the launch.
+// aligned. The dropout hash keys row r as row row_offset + r of the global
+// batch, as K10 does. Returns 0, the error of a failed tensor-map encode,
+// or cudaGetLastError() after the launch.
 extern "C" int dposer_dense_gn_silu_bwd(const void* A, const void* W, const float* g_res,
                                         float* g_out, const void* xhat, const float* rstd,
                                         const float* gamma, const float* beta, void* dh,
                                         float* dgamma_part, float* dbeta_part,
-                                        unsigned int seed, int layer, unsigned int keep_thresh,
-                                        float inv_keep, int B, int K, int N, void* stream) {
+                                        unsigned int seed, int layer, int row_offset,
+                                        unsigned int keep_thresh, float inv_keep, int B, int K,
+                                        int N, void* stream) {
   using R = BwdRing;
   if (B <= 0 || K <= 0 || N % ss::BN != 0 || N / ss::BN > MAX_COL_TILES ||
       !ss::tma_ok(A, W, K, N))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{g_res, g_out, static_cast<const __nv_bfloat16*>(xhat), rstd, gamma, beta,
                  static_cast<__nv_bfloat16*>(dh), dgamma_part, dbeta_part, seed, layer,
-                 keep_thresh, inv_keep, B, K, N};
+                 row_offset, keep_thresh, inv_keep, B, K, N};
   CUtensorMap ma, mw;
   const int e = ss::maps(&ma, &mw, A, W, B, K, N);
   if (e != 0) return e;

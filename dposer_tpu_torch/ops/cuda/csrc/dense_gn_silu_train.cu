@@ -74,6 +74,7 @@ struct Params {
   float* rstd;
   uint32_t seed;
   int layer;
+  int row_offset;  // the launch's first row in the global batch (dropout hash)
   uint32_t keep_thresh;
   float inv_keep;
   int B, K, N;
@@ -136,7 +137,7 @@ __device__ __forceinline__ void epilogue(float (&e)[32], const Operands& o,
   for (int g = 0; g < G::NG; ++g) rs[g] = rsqrtf(s[0][g] * inv_gs + GN_EPS);
   if (gr >= p.B) return;
   const bool use_dropout = p.keep_thresh < dr::KEEP_ALL;
-  const uint32_t rkey = dr::row_key(dr::layer_key(p.seed, p.layer), gr);
+  const uint32_t rkey = dr::row_key(dr::layer_key(p.seed, p.layer), p.row_offset + gr);
   const size_t row = static_cast<size_t>(gr) * p.N + col0 + 4 * h;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
@@ -273,18 +274,21 @@ int launch_wgmma(const void* Ab, const void* W, const Params& p, cudaStream_t s)
 // not written) [B, N] fp32 (out may alias residual), stash and xhat [B, N]
 // bf16, rstd [B, 32] fp32. N/32 (the group size) must be a power of two
 // <= 32 and N a multiple of 64; proj, residual, out, stash and xhat 16-byte
-// aligned. Returns 0, the error of a failed tensor-map encode, or
+// aligned. The dropout hash keys row r of the launch as row row_offset + r
+// of the global batch (a data-parallel rank's rows; 0 on one device).
+// Returns 0, the error of a failed tensor-map encode, or
 // cudaGetLastError() after the launch.
 extern "C" int dposer_dense_gn_silu_train(const float* A, const void* Ab, const void* W,
                                           const void* proj, const float* gamma,
                                           const float* beta, const float* residual, float* out,
                                           void* stash, void* xhat, float* rstd,
-                                          unsigned int seed, int layer, unsigned int keep_thresh,
-                                          float inv_keep, int B, int K, int N, void* stream) {
+                                          unsigned int seed, int layer, int row_offset,
+                                          unsigned int keep_thresh, float inv_keep, int B, int K,
+                                          int N, void* stream) {
   if (B <= 0 || K <= 0 || N % BN != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{static_cast<const __nv_bfloat16*>(proj), gamma, beta, residual, out,
                  static_cast<__nv_bfloat16*>(stash), static_cast<__nv_bfloat16*>(xhat), rstd,
-                 seed, layer, keep_thresh, inv_keep, B, K, N};
+                 seed, layer, row_offset, keep_thresh, inv_keep, B, K, N};
   const auto s = static_cast<cudaStream_t>(stream);
   if (Ab != nullptr) {
     if (!ss::tma_ok(Ab, W, K, N)) return static_cast<int>(cudaErrorInvalidValue);

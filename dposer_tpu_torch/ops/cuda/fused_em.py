@@ -468,6 +468,30 @@ def build_sampler_operands(sde: SDE, model, eps: float, predictor: str, device,
     return net, coefs.float().to(device).contiguous()
 
 
+@torch.no_grad()
+def load_operands_(dst, src) -> None:
+    """Copy the operands ``src`` into ``dst`` in place, tensor by tensor
+    (``(net, coefs)`` of ``build_sampler_operands``, or any dict, list or
+    tensor of them): the addresses a captured graph and K1's tensor-map
+    cache hold stay valid. Entries that are not tensors (sizes) must
+    agree."""
+    if isinstance(dst, torch.Tensor):
+        if dst.shape != src.shape or dst.dtype != src.dtype:
+            raise ValueError(f"operand {tuple(src.shape)} {src.dtype} does not fit "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k, v in dst.items():
+            load_operands_(v, src[k])
+    elif isinstance(dst, (list, tuple)):
+        if len(dst) != len(src):
+            raise ValueError(f"{len(src)} operands do not fit {len(dst)}")
+        for d, t in zip(dst, src):
+            load_operands_(d, t)
+    elif dst != src and not (dst is None and src is None):
+        raise ValueError(f"operand {src!r} does not match {dst!r}")
+
+
 def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
             snr: float, seed=None, x_mean=None, observed=None, renoised: bool = False,
             renoise_next: bool = False, next_slabs=None, plain: bool = False) -> None:
@@ -591,7 +615,10 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     step). The prior draw and the seed draw stay outside the graph, in the
     eager order, so both loops give the same bits from one generator state.
     ``sampler.loops`` holds the call's ``GraphLoop`` (two for the mixed
-    schedule).
+    schedule). ``sampler.load_params(model)`` rewrites the network operands
+    in place from ``model``'s weights (a model of the same architecture):
+    the next call runs on them, and a captured graph is replayed, not
+    captured again (int8 operands keep ``act_amax``'s ranges).
 
     ``probability_flow=True`` is the deterministic PF-ODE Euler decode of the
     interpolation task: the same launches on tables whose score term is
@@ -670,6 +697,7 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
             return tail(generator, observation=observation, mask=mask, z=x, noise=nt)
 
         mixed.loops = head.loops + tail.loops
+        mixed.load_params = lambda m: (head.load_params(m), tail.load_params(m))
         return mixed
 
     if rng_mode not in ("host", "kernel"):
@@ -765,7 +793,12 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
             return runner(values)
         return runner(values, noise=noise, generator=generator)
 
-    sampler.loops = (runner,)
+    def load_params(model_new) -> None:
+        load_operands_((net, coefs), build_sampler_operands(
+            sde, model_new, eps, predictor, device, _tables_override, probability_flow, quant,
+            act_amax))
+
+    sampler.loops, sampler.load_params = (runner,), load_params
     return sampler
 
 
@@ -790,5 +823,5 @@ def get_cuda_em_hypo_sampler(sde: SDE, model, shape: Tuple[int, int], hypo_num: 
                     mask=mask.repeat(hypo_num, 1), z=z, noise=noise)
         return out.reshape(hypo_num, batch, dim).transpose(0, 1)
 
-    sampler.loops = inner.loops
+    sampler.loops, sampler.load_params = inner.loops, inner.load_params
     return sampler

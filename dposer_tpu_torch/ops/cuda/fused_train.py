@@ -60,6 +60,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ...diffusion.losses import apply_train_update, batch_rows
 from ...diffusion.sde import SDE, VPSDE, SubVPSDE
 from ...models.time_embedding import get_timestep_embedding
 from . import build
@@ -98,10 +99,11 @@ def keep_threshold(keep: float) -> int:
 
 
 def dropout_keep(seed: int, layer: int, rows: int, cols: int, keep: float,
-                 device=None) -> torch.Tensor:
-    """Bool [rows, cols]: the elements K10 and K12 keep at (seed, layer)."""
+                 device=None, row_offset: int = 0) -> torch.Tensor:
+    """Bool [rows, cols]: the elements K10 and K12 keep at (seed, layer), at
+    rows ``row_offset ..`` of the global batch."""
     lkey = _fmix32((seed & _M32) ^ _fmix32((layer + _GOLDEN) & _M32))
-    r = torch.arange(rows, dtype=torch.int64, device=device)
+    r = torch.arange(row_offset, row_offset + rows, dtype=torch.int64, device=device)
     c = torch.arange(cols, dtype=torch.int64, device=device)
     rkey = _fmix32(lkey ^ _mul32(r, _GOLDEN))
     u = _fmix32(rkey[:, None] ^ _mul32(c, _COL_MUL)[None, :])
@@ -109,12 +111,12 @@ def dropout_keep(seed: int, layer: int, rows: int, cols: int, keep: float,
 
 
 def dropout_mask(seed: int, layer: int, rows: int, cols: int, keep: float,
-                 device=None) -> Optional[torch.Tensor]:
+                 device=None, row_offset: int = 0) -> Optional[torch.Tensor]:
     """fp32 [rows, cols] of 0 and 1/keep, the factor the kernels apply, or
     None when nothing is dropped."""
     if keep_threshold(keep) >= 1 << KEEP_BITS:
         return None
-    kept = dropout_keep(seed, layer, rows, cols, keep, device)
+    kept = dropout_keep(seed, layer, rows, cols, keep, device, row_offset)
     return kept.float() * torch.tensor(1.0 / keep, dtype=torch.float32)
 
 
@@ -133,11 +135,12 @@ def _mean_g(v: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed: int, layer: int, keep: float,
-                              residual=None, a_b=None):
+                              residual=None, a_b=None, row_offset: int = 0):
     """Plain K10: ``(out fp32, out in w's dtype, xhat in w's dtype, rstd
     [B, 32] fp32)``. ``a_b``, ``a`` already in w's dtype (the stash the
     layer before wrote), takes the place of ``a``, which may then be None.
-    The stash is a tensor of its own, also in fp32."""
+    The stash is a tensor of its own, also in fp32. ``row_offset``: the
+    first row's index in the global batch, which keys the dropout hash."""
     cdt = w.dtype
     h = (a.to(cdt) if a_b is None else a_b).float() @ w.float() + proj.float()
     B, N = h.shape
@@ -146,7 +149,7 @@ def dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed: int, layer: int, ke
     rstd = torch.rsqrt((d * d).mean(-1, keepdim=True) + GN_EPS)
     xhat = (d * rstd).reshape(B, N)
     s = F.silu(xhat * gamma + beta)
-    mask = dropout_mask(seed, layer, B, N, keep, h.device)
+    mask = dropout_mask(seed, layer, B, N, keep, h.device, row_offset)
     if mask is not None:
         s = s * mask
     out = s if residual is None else s + residual
@@ -165,14 +168,15 @@ def head_dsm_plain(h, w_post, b_post, coefs, z):
 
 
 def dense_gn_silu_bwd_plain(dh_next, w_t, xhat, rstd, gamma, beta, seed: int, layer: int,
-                            keep: float, g_res=None):
-    """Plain K12: ``(dh in w_t's dtype, g fp32, dgamma [N], dbeta [N])``."""
+                            keep: float, g_res=None, row_offset: int = 0):
+    """Plain K12: ``(dh in w_t's dtype, g fp32, dgamma [N], dbeta [N])``;
+    ``row_offset`` as in ``dense_gn_silu_train_plain``."""
     g = dh_next.float() @ w_t.float()
     if g_res is not None:
         g = g + g_res
     B, N = g.shape
     gd = g
-    mask = dropout_mask(seed, layer, B, N, keep, g.device)
+    mask = dropout_mask(seed, layer, B, N, keep, g.device, row_offset)
     if mask is not None:
         gd = g * mask
     xh = xhat.float()
@@ -215,6 +219,12 @@ def _kernel_device(name: str, dev: torch.device, cdt, N: int) -> None:
                          f"{{2,4,8,16,32}}; got N={N}")
 
 
+def _check_row_offset(row_offset: int, B: int) -> None:
+    if not 0 <= row_offset <= 2 ** 31 - 1 - B:
+        raise ValueError(f"row_offset {row_offset} must be >= 0 and leave rows "
+                         f"row_offset + {B} in int32")
+
+
 def check_stash_input(a_b, w, B: int, K: int) -> None:
     """Raise unless K10's Hopper route can take ``a_b`` as A: ``w``'s dtype,
     [B, K] contiguous, 16-byte aligned, K % 8 == 0 (TMA rows). Checked on
@@ -229,7 +239,7 @@ def check_stash_input(a_b, w, B: int, K: int) -> None:
 
 def dense_gn_silu_train(a, w, proj, gamma, beta, seed: int, layer: int, keep: float,
                         residual=None, out=None, stash=None, xhat=None, rstd=None, *,
-                        a_b=None, write_out: bool = True):
+                        a_b=None, write_out: bool = True, row_offset: int = 0):
     """K10 on ``a`` [B, K] fp32, ``w`` [K, N] and ``proj`` [B, N] in the
     compute dtype; returns ``(out, stash, xhat, rstd)`` (allocated when not
     given; ``out`` may be ``residual`` itself).
@@ -238,8 +248,10 @@ def dense_gn_silu_train(a, w, proj, gamma, beta, seed: int, layer: int, keep: fl
     routes the layer through the Hopper loop (TMA and ``wgmma`` from shared
     memory; ``a`` may then be None); without it the register-staged loop
     rounds ``a``. ``write_out=False`` writes no fp32 output (``out`` is then
-    None): the caller reads only the stash. Each launch adds one to
-    ``launches`` and to its route's count in ``routes``."""
+    None): the caller reads only the stash. ``row_offset`` is the first
+    row's index in the global batch (a data-parallel rank's rows), which
+    keys the dropout hash. Each launch adds one to ``launches`` and to its
+    route's count in ``routes``."""
     B, K = (a if a_b is None else a_b).shape
     N = w.shape[1]
     dev, cdt = w.device, w.dtype
@@ -269,9 +281,10 @@ def dense_gn_silu_train(a, w, proj, gamma, beta, seed: int, layer: int, keep: fl
     _check("rstd", rstd, dev, torch.float32, (B, NUM_GROUPS))
     if a_b is not None:
         check_stash_input(a_b, w, B, K)
+    _check_row_offset(row_offset, B)
     if dev.type == "cpu":
         res = dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed, layer, keep, residual,
-                                        a_b=a_b)
+                                        a_b=a_b, row_offset=row_offset)
         for dst, src in zip((out, stash, xhat, rstd), res):
             if dst is not None:
                 dst.copy_(src)
@@ -279,11 +292,12 @@ def dense_gn_silu_train(a, w, proj, gamma, beta, seed: int, layer: int, keep: fl
     _kernel_device("dense_gn_silu_train", dev, cdt, N)
     hopper = a_b is not None
     fn = _lib_fn("dense_gn_silu_train", "dposer_dense_gn_silu_train",
-                 [_P] * 11 + [_U, _I, _U, _F, _I, _I, _I, _P])
+                 [_P] * 11 + [_U, _I, _I, _U, _F, _I, _I, _I, _P])
     err = fn(None if hopper else a.data_ptr(), _ptr(a_b), w.data_ptr(), proj.data_ptr(),
              gamma.data_ptr(), beta.data_ptr(), _ptr(residual), _ptr(out), stash.data_ptr(),
-             xhat.data_ptr(), rstd.data_ptr(), seed & 0xFFFFFFFF, layer, keep_threshold(keep),
-             _inv_keep(keep), B, K, N, torch.cuda.current_stream(dev).cuda_stream)
+             xhat.data_ptr(), rstd.data_ptr(), seed & 0xFFFFFFFF, layer, row_offset,
+             keep_threshold(keep), _inv_keep(keep), B, K, N,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"dense_gn_silu_train launch failed: CUDA error {err}")
     dense_gn_silu_train.launches += 1
@@ -351,12 +365,13 @@ def _bwd_tile_rows() -> int:
 
 
 def dense_gn_silu_bwd(dh_next, w_t, xhat, rstd, gamma, beta, seed: int, layer: int,
-                      keep: float, g_res=None, g_out=None, dh=None):
+                      keep: float, g_res=None, g_out=None, dh=None, *, row_offset: int = 0):
     """K12 on ``dh_next`` [B, K] and ``w_t`` [K, N] in the compute dtype (on
     the card K % 8 == 0 and both 16-byte aligned: TMA rows); returns ``(dh
     [B, N], g_out, dgamma [N], dbeta [N])``. ``g_out`` (may be ``g_res``
-    itself) receives the hop's fp32 gradient when given. Each launch adds one
-    to ``launches`` and to ``routes["wgmma"]``, its one route."""
+    itself) receives the hop's fp32 gradient when given; ``row_offset`` keys
+    the dropout hash as K10's does. Each launch adds one to ``launches`` and
+    to ``routes["wgmma"]``, its one route."""
     B, K = dh_next.shape
     N = w_t.shape[1]
     dev, cdt = dh_next.device, w_t.dtype
@@ -372,9 +387,10 @@ def dense_gn_silu_bwd(dh_next, w_t, xhat, rstd, gamma, beta, seed: int, layer: i
         if t is not None:
             _check(nm, t, dev, torch.float32, (B, N))
     _check("dh", dh, dev, cdt, (B, N))
+    _check_row_offset(row_offset, B)
     if dev.type == "cpu":
         d, g, dg, db = dense_gn_silu_bwd_plain(dh_next, w_t, xhat, rstd, gamma, beta, seed,
-                                               layer, keep, g_res)
+                                               layer, keep, g_res, row_offset)
         if g_out is not None:
             g_out.copy_(g)
         return dh.copy_(d), g_out, dg, db
@@ -385,10 +401,10 @@ def dense_gn_silu_bwd(dh_next, w_t, xhat, rstd, gamma, beta, seed: int, layer: i
     n_blk = -(-B // _bwd_tile_rows())
     parts = torch.empty((2, n_blk, N), dtype=torch.float32, device=dev)
     fn = _lib_fn("dense_gn_silu_bwd", "dposer_dense_gn_silu_bwd",
-                 [_P] * 11 + [_U, _I, _U, _F, _I, _I, _I, _P])
+                 [_P] * 11 + [_U, _I, _I, _U, _F, _I, _I, _I, _P])
     err = fn(dh_next.data_ptr(), w_t.data_ptr(), _ptr(g_res), _ptr(g_out), xhat.data_ptr(),
              rstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(), dh.data_ptr(),
-             parts[0].data_ptr(), parts[1].data_ptr(), seed & 0xFFFFFFFF, layer,
+             parts[0].data_ptr(), parts[1].data_ptr(), seed & 0xFFFFFFFF, layer, row_offset,
              keep_threshold(keep), _inv_keep(keep), B, K, N,
              torch.cuda.current_stream(dev).cuda_stream)
     if err:
@@ -405,21 +421,22 @@ dense_gn_silu_bwd.routes = {"wgmma": 0}
 
 def dense_gn_silu_train_plain_into(a, w, proj, gamma, beta, seed: int, layer: int,
                                    keep: float, residual=None, out=None, *, a_b=None,
-                                   write_out: bool = True, **_):
+                                   write_out: bool = True, row_offset: int = 0, **_):
     """The plain K10 with the wrapper's signature, on any device: the
     reference path the kernels are held to on the card."""
     res = dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed, layer, keep, residual,
-                                    a_b=a_b)
+                                    a_b=a_b, row_offset=row_offset)
     if not write_out:
         return (None,) + res[1:]
     return res if out is None else (out.copy_(res[0]),) + res[1:]
 
 
 def dense_gn_silu_bwd_plain_into(dh_next, w_t, xhat, rstd, gamma, beta, seed: int,
-                                 layer: int, keep: float, g_res=None, g_out=None, **_):
+                                 layer: int, keep: float, g_res=None, g_out=None, *,
+                                 row_offset: int = 0, **_):
     """The plain K12 with the wrapper's signature, on any device."""
     dh, g, dg, db = dense_gn_silu_bwd_plain(dh_next, w_t, xhat, rstd, gamma, beta, seed,
-                                            layer, keep, g_res)
+                                            layer, keep, g_res, row_offset)
     return dh, None if g_out is None else g_out.copy_(g), dg, db
 
 
@@ -474,30 +491,33 @@ class _DSMNet(torch.autograd.Function):
     H] (each layer's per-row time projection with both biases), the
     GroupNorm rows ``gn_w``/``gn_b`` [n_tp, H], the head's weight [D, H] and
     bias [D], and the dense weights ([out, in], torch's layout). The grads
-    returned are dproj = dh, dgamma, dbeta, and the weights' ``in^T @ dh``."""
+    returned are dproj = dh, dgamma, dbeta, and the weights' ``in^T @ dh``.
+    ``cfg.row_offset`` is the rows' first index in the global batch, which
+    keys K10's and K12's dropout hash."""
 
     @staticmethod
     def forward(ctx, cfg, x_pert, z, coefs, proj, gn_w, gn_b, w_post, b_post, *weights):
-        cdt, seed, keep = cfg.cdt, cfg.seed, cfg.keep
+        cdt, seed, keep, ro = cfg.cdt, cfg.seed, cfg.keep, cfg.row_offset
         n_tp = len(weights)
         w_fwd, w_bwd, wpost_k, wpost_t, bpost = kernel_weights(cdt, w_post, b_post,
                                                                 weights).values()
         proj_c = _copy_as(cdt, proj.transpose(0, 1))  # [n_tp, B, H]
         x_pert = x_pert.contiguous()
         fwd = cfg.layers.fwd
-        h, st, xh, rs = fwd(x_pert, w_fwd[0], proj_c[0], gn_w[0], gn_b[0], seed, 0, keep)
+        h, st, xh, rs = fwd(x_pert, w_fwd[0], proj_c[0], gn_w[0], gn_b[0], seed, 0, keep,
+                            row_offset=ro)
         stash, xhats, rstds = [st], [xh], [rs]
         # every layer after the pre one reads the stash of the layer before;
         # a block's first layer and the last layer write only their stash
         # (the head reads the last one: h rounded as the head rounds it)
         for j in range(1, n_tp, 2):
             _, st, xh, rs = fwd(None, w_fwd[j], proj_c[j], gn_w[j], gn_b[j], seed, j, keep,
-                                a_b=stash[-1], write_out=False)
+                                a_b=stash[-1], write_out=False, row_offset=ro)
             stash.append(st), xhats.append(xh), rstds.append(rs)
             last = j + 2 >= n_tp
             h, st, xh, rs = fwd(None, w_fwd[j + 1], proj_c[j + 1], gn_w[j + 1], gn_b[j + 1],
                                 seed, j + 1, keep, residual=h, out=None if last else h,
-                                a_b=stash[-1], write_out=not last)
+                                a_b=stash[-1], write_out=not last, row_offset=ro)
             stash.append(st), xhats.append(xh), rstds.append(rs)
         loss_rows, dout = cfg.layers.head(stash[-1], wpost_k, bpost, coefs, z)
         ctx.cfg = cfg
@@ -525,7 +545,8 @@ class _DSMNet(torch.autograd.Function):
             g_out = g_carry if j % 2 == 0 and j > 0 else None
             dh[j], _, dgam[j], dbet[j] = cfg.layers.bwd(
                 dpad if last else dh[j + 1], wpost_t if last else w_bwd[j], xhats[j],
-                rstds[j], gn_w[j], gn_b[j], seed, j, keep, g_res=g_res, g_out=g_out)
+                rstds[j], gn_w[j], gn_b[j], seed, j, keep, g_res=g_res, g_out=g_out,
+                row_offset=cfg.row_offset)
         with tf32(cfg.tf32):
             ins = [x_pert.to(cdt)] + stash[:-1]
             d_w = [torch.matmul(dh[j].float().t(), ins[j].float()) for j in range(n_tp)]
@@ -566,13 +587,19 @@ def scope_error(sde: SDE, model, continuous: bool = True,
 def get_cuda_train_loss_fn(sde: SDE, model, *, reduce_mean: bool = False,
                            likelihood_weighting: bool = False, eps: float = 1e-5,
                            compute_dtype=torch.bfloat16, plain: bool = False):
-    """``loss_fn(batch, t=None, z=None, dropout_seed=None, generator=None) ->
-    loss``: continuous VP/subVP DSM through the kernels, differentiable in
-    ``model``'s parameters (autograd runs K12 and the GEMMs around it).
+    """``loss_fn(batch, t=None, z=None, dropout_seed=None, generator=None,
+    rows=None) -> loss``: continuous VP/subVP DSM through the kernels,
+    differentiable in ``model``'s parameters (autograd runs K12 and the GEMMs
+    around it).
 
     ``t`` [B] and ``z`` [B, D] are drawn from ``generator`` when not given,
     as the autograd loss draws them; ``dropout_seed`` keys the kernels' mask
-    hash (drawn from ``generator`` when not given). ``compute_dtype=float32``
+    hash (drawn from ``generator`` when not given). ``rows=(row_offset,
+    global_batch)`` makes ``batch`` rows ``row_offset ..`` of a global batch
+    (a data-parallel rank's share): ``t`` and ``z`` are drawn at the global
+    shape and sliced, and the hash keys each row by its global index, so the
+    ranks' rows together draw what one device draws; the loss stays the mean
+    over ``batch``'s own rows. ``compute_dtype=float32``
     (CPU only) is the exactness mode; ``plain=True`` runs the kernels' plain
     versions on any device. Raises NotImplementedError outside the kernels'
     scope (``scope_error``)."""
@@ -616,19 +643,19 @@ def get_cuda_train_loss_fn(sde: SDE, model, *, reduce_mean: bool = False,
         gn_b = torch.stack([g.bias for g in gnorms])
         return x_pert.detach(), proj, coefs.contiguous().float(), gn_w, gn_b
 
-    def loss_fn(batch, t=None, z=None, dropout_seed=None, generator=None):
-        B = batch.shape[0]
+    def loss_fn(batch, t=None, z=None, dropout_seed=None, generator=None, rows=None):
         dev = batch.device
+        n, sl = batch_rows(batch.shape[0], rows)
         if t is None:
-            t = torch.rand(B, generator=generator, device=dev) * (sde.T - eps) + eps
+            t = (torch.rand(n, generator=generator, device=dev) * (sde.T - eps) + eps)[sl]
         if z is None:
-            z = torch.randn(batch.shape, generator=generator, device=dev)
+            z = torch.randn((n,) + tuple(batch.shape[1:]), generator=generator, device=dev)[sl]
         if dropout_seed is None:
             dropout_seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
                                              device=dev))
         x_pert, proj, coefs, gn_w, gn_b = inputs(batch, t, z)
         cfg = SimpleNamespace(cdt=compute_dtype, seed=int(dropout_seed), keep=keep,
-                              layers=layers, tf32=dev.type == "cuda")
+                              layers=layers, tf32=dev.type == "cuda", row_offset=sl.start)
         return _DSMNet.apply(cfg, x_pert, z.contiguous(), coefs, proj, gn_w, gn_b,
                              model.post_dense.weight, model.post_dense.bias,
                              *[m.weight for m in dense])
@@ -667,20 +694,22 @@ def get_cuda_train_loss_and_grad(sde: SDE, model, **kw):
 
 def get_cuda_step_fn(sde: SDE, model, **kw):
     """Drop-in for ``losses.get_step_fn(train=True, ...)`` with the network's
-    forward and backward through the kernels: ``step_fn(state, batch,
-    t=None, z=None, dropout_seed=None, generator=None) -> loss dict``,
-    updating ``state`` in place (clip, Adam, EMA, step)."""
-    from ...diffusion.losses import apply_train_update
-
+    forward and backward through the kernels: ``step_fn(state, batch, *,
+    rows=None, grad_hook=None, t=None, z=None, dropout_seed=None,
+    generator=None) -> loss dict``, updating ``state`` in place (clip, Adam,
+    EMA, step); ``rows`` and ``grad_hook`` as in ``losses.get_step_fn``."""
     loss_fn = get_cuda_train_loss_fn(sde, model, **kw)
 
-    def step_fn(state, batch, **noise):
+    def step_fn(state, batch, *, rows=None, grad_hook=None, **noise):
         state.tx.zero_grad()
         with tf32(batch.device.type == "cuda"):
-            loss = loss_fn(batch, **noise)
+            loss = loss_fn(batch, rows=rows, **noise)
             loss.backward()
-        apply_train_update(state)
         loss = loss.detach()
-        return {"step_loss": loss, "score_loss": loss}
+        losses = {"step_loss": loss, "score_loss": loss}
+        if grad_hook is not None:
+            losses = grad_hook([p.grad for p in state.tx.params], losses)
+        apply_train_update(state)
+        return losses
 
     return step_fn

@@ -105,7 +105,10 @@ class GraphLoop:
     first replayed call, ``warmup_s``, ``capture_s`` and ``instantiate_s``
     hold the seconds of the warm-up, of the capture (the host loop issuing
     into the graph) and of ending the capture (the graph's instantiation),
-    and ``launches`` the kernel launches of one replay."""
+    and ``launches`` the kernel launches of one replay. ``GraphLoop.captures``
+    counts the captures made in this process."""
+
+    captures = 0
 
     def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor], *, graph: bool):
         self.body, self.inputs, self.graph = body, inputs, graph
@@ -168,3 +171,4 @@ class GraphLoop:
         self.capture_s = t1 - t0
         self._delta = _counts_delta(_counts_now(), warm)
         self._graph, self._out = graph, out
+        GraphLoop.captures += 1

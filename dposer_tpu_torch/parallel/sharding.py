@@ -1,7 +1,8 @@
-"""Serving over several devices: a device mesh of the port's own, the row
-split of the sharded kernel wrappers, and multi-process evaluation.
+"""Several devices: a device mesh of the port's own, the row split of the
+sharded kernel wrappers, multi-process evaluation, and data-parallel
+training over a process group.
 
-Port of the serving half of ``dposer_tpu/parallel/sharding.py``. JAX shards
+Port of ``dposer_tpu/parallel/sharding.py``. JAX shards
 a batch over a ``jax.sharding.Mesh`` and runs each single-device Pallas
 kernel once per shard under ``shard_map``: the rows split, the PRNG key is
 folded by the shard's index, no collective runs, and the result is joined.
@@ -25,8 +26,27 @@ tensors (``init_distributed``), the counterpart of
 of batches (``shard_eval_batches``) and the per-sample results are gathered
 (``allgather_ragged_1d``).
 
-The training half (the gradient all-reduce of ``data_parallel_step`` and its
-kin, the ``_params`` sampler forms) is not ported here.
+Data-parallel training is one process a device, PyTorch's idiom, where JAX
+runs one GSPMD program over a global mesh: each process holds the whole
+train state and steps on its contiguous rows of every global batch
+(``shard_global_batch``); ``data_parallel_step`` runs the step with its row
+range, so that its draws (``t``, ``z``, the dropout factors or the kernels'
+hash rows) are the global batch's, as GSPMD draws them from a replicated key,
+and with one all-reduce of the gradients and the losses between the
+backward and the update (``allreduce_mean_``). Each rank's loss is the mean
+over its own rows and the all-reduce averages them over the ranks: the
+global batch's mean, exactly so up to the order of the sums when the ranks
+hold equal rows. Clipping, Adam, the EMA and the step count then run on
+identical gradients on every rank, so the ranks' states stay equal bit for
+bit. The all-reduce runs on NCCL where each process of a host has a card of
+its own, else on gloo, which stages CUDA tensors through the host
+(``init_distributed(backend=)``); the gathers of CPU tensors always run on
+gloo.
+
+``data_parallel_sampler_params`` and ``multi_hypothesis_imputation_sampler_
+params`` run a kernel sampler built once on weights the caller swaps at
+every call (the trainer's EMA): the sampler rewrites its operands in place
+(``load_params``), so its captured graph is replayed, not captured again.
 """
 from __future__ import annotations
 
@@ -90,6 +110,7 @@ def process_devices(n_visible: int, local_rank: int, local_count: int) -> List[t
 
 
 _HOST_SHARE: Optional[Tuple[int, int]] = None  # set by init_distributed
+_GRAD_GROUP = None  # the NCCL group of the gradient all-reduce, where there is one
 
 
 def host_share() -> Tuple[int, int]:
@@ -227,7 +248,8 @@ def shard_builder(builder: Callable, args: dict, mesh: Mesh, inputs: Sequence[st
     (``shard_generators``), the shards launch in order from this thread with
     no host synchronisation between them, and their results are joined
     (``join_result``). ``run.shards`` holds the shards' functions and
-    ``run.loops`` their loops."""
+    ``run.loops`` their loops; ``run.load_params(model)`` loads ``model``'s
+    weights into every shard in place, where the shards can."""
     shards = build_shards(mesh, tuple(args["shape"]), lambda dev, rows: builder(
         **dict(args, shape=rows, device=dev, mesh=None)), what)
 
@@ -240,7 +262,31 @@ def shard_builder(builder: Callable, args: dict, mesh: Mesh, inputs: Sequence[st
                                             {k: (t, -2) for k, t in named.items()}))
 
     run.shards, run.loops = shards, loops_of(shards)
+    if all(hasattr(s, "load_params") for s in shards):
+        run.load_params = lambda model: [s.load_params(model) for s in shards]
     return run
+
+
+def padded_split(mesh: Mesh, n: int) -> List[List[int]]:
+    """``n`` items split over the mesh's shards in contiguous runs of
+    ``ceil(n / mesh.size)``, the last item repeated to fill the last shards
+    (as GSPMD pads a ragged batch): each shard's item indices."""
+    per = -(-n // mesh.size)
+    idx = list(range(n)) + [n - 1] * (per * mesh.size - n)
+    return [idx[r * per:(r + 1) * per] for r in range(mesh.size)]
+
+
+def generator_on(generator: torch.Generator, device) -> torch.Generator:
+    """A generator on ``device`` in ``generator``'s state, which draws what
+    ``generator`` would (the CUDA generators of two cards share one stream
+    type); ``generator`` does not advance."""
+    device = torch.device(device)
+    if device.type != generator.device.type:
+        raise ValueError(f"a {generator.device.type} generator's stream cannot move to "
+                         f"{device}")
+    g = torch.Generator(device=device)
+    g.set_state(generator.get_state())
+    return g
 
 
 def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -312,8 +358,9 @@ def pad_batch_to_multiple(batch: np.ndarray, multiple: int):
 
 def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
-                     timeout: datetime.timedelta = datetime.timedelta(seconds=300)) -> None:
-    """Join the gloo process group of a multi-process evaluation.
+                     timeout: datetime.timedelta = datetime.timedelta(seconds=300),
+                     backend: str = "gloo") -> None:
+    """Join the process group of a multi-process evaluation or training.
 
     ``coordinator`` is ``host:port`` (rendezvous ``tcp://host:port``) or a
     URL (``tcp://...``, ``file://...``) and needs ``num_processes`` and
@@ -323,9 +370,17 @@ def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[
     ``ValueError`` naming it; the rendezvous and later collectives give up
     after ``timeout``. The processes then gather their hosts' names, so that
     ``make_mesh`` gives each process its own share of its host's devices
-    (``host_share``)."""
+    (``host_share``).
+
+    The group itself runs on gloo. ``backend`` picks the gradient
+    all-reduce's (``grad_backend``): ``"gloo"``, or ``"auto"``: a second
+    group over NCCL where every process of every host has a CUDA device of
+    its own and NCCL is built, else gloo (NCCL refuses two ranks on one
+    device). ``timeout`` bounds every collective of both."""
     import torch.distributed as dist
 
+    if backend not in ("gloo", "auto"):
+        raise ValueError(f"backend must be 'gloo' or 'auto', got {backend!r}")
     if coordinator is not None:
         missing = [f"--{name.replace('_', '-')}" for name, v in
                    (("num_processes", num_processes), ("process_id", process_id)) if v is None]
@@ -347,9 +402,26 @@ def init_distributed(coordinator: Optional[str] = None, num_processes: Optional[
     dist.init_process_group("gloo", init_method=url, world_size=world, rank=rank,
                             timeout=timeout)
     hosts = [None] * world
-    dist.all_gather_object(hosts, socket.gethostname())
-    global _HOST_SHARE
-    _HOST_SHARE = (hosts[:rank].count(hosts[rank]), hosts.count(hosts[rank]))
+    dist.all_gather_object(hosts, (socket.gethostname(),
+                                   torch.cuda.device_count() if torch.cuda.is_available() else 0))
+    global _HOST_SHARE, _GRAD_GROUP
+    names = [h for h, _ in hosts]
+    _HOST_SHARE = (names[:rank].count(names[rank]), names.count(names[rank]))
+    own_cards = all(cards >= names.count(h) for h, cards in hosts)
+    _GRAD_GROUP = None
+    if backend == "auto" and own_cards and dist.is_nccl_available():
+        torch.cuda.set_device(process_devices(torch.cuda.device_count(), *_HOST_SHARE)[0])
+        _GRAD_GROUP = dist.new_group(backend="nccl", timeout=timeout)
+
+
+def grad_backend() -> Optional[str]:
+    """The gradient all-reduce's backend, ``"nccl"`` or ``"gloo"``; None
+    without a process group."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return "nccl" if _GRAD_GROUP is not None else "gloo"
 
 
 def _rank_and_size() -> Tuple[int, int]:
@@ -408,3 +480,155 @@ def shard_eval_batches(dataset_len: int, batch_size: int,
     per, extra = divmod(n_batches, pc)
     start = pi * per + min(pi, extra)
     return range(start, start + per + (1 if pi < extra else 0))
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training
+# ---------------------------------------------------------------------------
+
+def rank_rows(global_batch: int) -> slice:
+    """This process's contiguous rows of a global batch of ``global_batch``
+    rows; a batch that does not divide the process count raises."""
+    rank, size = _rank_and_size()
+    if global_batch % size:
+        raise ValueError(f"global batch {global_batch} must be divisible by {size} processes")
+    per = global_batch // size
+    return slice(rank * per, (rank + 1) * per)
+
+
+def shard_global_batch(batch, axis: int = 0):
+    """This process's rows of the global batch ``batch`` (a tensor or a numpy
+    array, the same on every process), a view along ``axis``: the counterpart
+    of JAX's ``shard_global_batch`` (axis 0) and, at axis 1, of its
+    ``shard_global_multi_batch`` for a ``[K, B, ...]`` window or a ``[K, B]``
+    index window."""
+    index = [slice(None)] * batch.ndim
+    index[axis] = rank_rows(batch.shape[axis])
+    return batch[tuple(index)]
+
+
+def shard_global_multi_batch(batches):
+    """A ``[K, B, ...]`` window's rows of this process, along axis 1."""
+    return shard_global_batch(batches, axis=1)
+
+
+def allreduce_mean_(grads: Sequence[Optional[torch.Tensor]],
+                    losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The mean over the processes of ``grads`` (in place; None skipped) and
+    of the scalar ``losses`` (returned), in one all-reduce of one flat fp32
+    buffer on the gradient group (``grad_backend``)."""
+    import torch.distributed as dist
+
+    live = [g for g in grads if g is not None]
+    keys = list(losses)
+    flat = torch.cat([g.reshape(-1) for g in live]
+                     + [torch.stack([losses[k].float() for k in keys])])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=_GRAD_GROUP)
+    flat.mul_(1.0 / process_count())
+    parts = torch.split(flat, [g.numel() for g in live] + [len(keys)])
+    torch._foreach_copy_(live, [p.view_as(g) for p, g in zip(parts, live)])
+    return dict(zip(keys, parts[-1].unbind(0)))
+
+
+def data_parallel_step(step_fn: Callable) -> Callable:
+    """``run(state, batch, extra=None, **noise) -> loss dict``: one step of
+    the global batch whose rows ``batch`` is on this process
+    (``shard_global_batch``), the counterpart of JAX's
+    ``data_parallel_step``. ``step_fn`` is a train step of
+    ``losses.get_step_fn`` or ``fused_train.get_cuda_step_fn``; it runs with
+    its row range, so its draws are the global batch's, and with
+    ``allreduce_mean_`` between its backward and its update. The returned
+    losses are the global batch's, the same on every process. ``extra``
+    (host floats by name) rides in the same all-reduce and comes back among
+    the losses as the processes' mean (a flag every process must agree on).
+    Without a process group the step is ``step_fn``'s own."""
+    def run(state, batch, extra: Optional[Dict[str, float]] = None, **noise):
+        n = process_count()
+        if n == 1:
+            losses = step_fn(state, batch, **noise)
+            return losses if not extra else dict(losses, **_scalars(extra, batch.device))
+        rows = batch.shape[0]
+
+        def hook(grads, losses):
+            return allreduce_mean_(grads, dict(losses, **_scalars(extra or {}, batch.device)))
+
+        return step_fn(state, batch, rows=(process_index() * rows, n * rows), grad_hook=hook,
+                       **noise)
+
+    return run
+
+
+def _scalars(values: Dict[str, float], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(float(v), device=device) for k, v in values.items()}
+
+
+def _window(step: Callable, state, batches: Sequence, noise: Callable[[int], dict],
+            extra: Optional[Callable[[], Dict[str, float]]]) -> list:
+    """``step`` on each batch with ``noise(j)``'s draws (and ``extra()`` in
+    the last step's all-reduce), then one host read of every step's losses:
+    a list of ``{name: float}``."""
+    last = len(batches) - 1
+    pending = [step(state, b, extra=extra() if extra is not None and j == last else None,
+                    **noise(j)) for j, b in enumerate(batches)]
+    flat = torch.cat([torch.stack(list(ld.values())) for ld in pending]).tolist()
+    out, i = [], 0
+    for ld in pending:
+        out.append(dict(zip(ld, flat[i:i + len(ld)])))
+        i += len(ld)
+    return out
+
+
+def data_parallel_multi_step(step_fn: Callable) -> Callable:
+    """``run(state, batches, noise, extra=None) -> [loss dict of floats] *
+    K``: K data-parallel steps over a window of this process's rows,
+    ``batches`` ``[K, B / n, ...]`` (``shard_global_multi_batch``) or a list
+    of K such batches, then one host read of the losses (the port's
+    ``--steps-per-dispatch``). ``noise(j)`` gives step j's draws (a
+    generator seeded for the step, a dropout seed); it is called just
+    before the step. ``extra()``, called before the last step, gives host
+    floats that ride in its all-reduce and come back in its loss dict as the
+    processes' mean."""
+    step = data_parallel_step(step_fn)
+
+    def run(state, batches, noise: Callable[[int], dict],
+            extra: Optional[Callable[[], Dict[str, float]]] = None) -> list:
+        return _window(step, state, list(batches), noise, extra)
+
+    return run
+
+
+def data_parallel_multi_step_indexed(step_fn: Callable) -> Callable:
+    """``run(state, idx, data, noise, extra=None)``:
+    ``data_parallel_multi_step`` on device-resident data: ``idx`` ``[K, B /
+    n]`` is this process's columns of a ``[K, B]`` index window
+    (``shard_global_multi_batch``), a tensor on ``data``'s device, and step
+    j trains on ``data[idx[j]]``."""
+    step = data_parallel_step(step_fn)
+
+    def run(state, idx: torch.Tensor, data: torch.Tensor, noise: Callable[[int], dict],
+            extra: Optional[Callable[[], Dict[str, float]]] = None) -> list:
+        return _window(step, state, [data.index_select(0, i) for i in idx], noise, extra)
+
+    return run
+
+
+def data_parallel_sampler_params(sampler: Callable) -> Callable:
+    """``run(params, generator=None, observation=None, mask=None, z=None)``:
+    ``sampler`` (a kernel sampler of ``fused_em.get_cuda_em_sampler``, with
+    ``mesh=`` or without) built once, on the weights of the model ``params``
+    at each call, which it loads in place (``sampler.load_params``): a
+    replayed graph stays valid, so a call after the first replays it. The
+    counterpart of JAX's form, which threads the weights through one
+    compiled program."""
+    def run(params, *args, **kwargs):
+        sampler.load_params(params)
+        return sampler(*args, **kwargs)
+
+    return run
+
+
+def multi_hypothesis_imputation_sampler_params(sampler: Callable) -> Callable:
+    """``run(params, generator, observation [B, D], mask [B, D]) -> [B, H,
+    D]``: a hypothesis sampler of ``fused_em.get_cuda_em_hypo_sampler`` run
+    as ``data_parallel_sampler_params`` runs a sampler."""
+    return data_parallel_sampler_params(sampler)

@@ -58,12 +58,12 @@ def build_normalizer(config, dataset_folder: str, version: str, stats_dir=None,
                           rot_rep=config.data.rot_rep, device=device)
 
 
-def build_dposer_prior(args, batch_size: int = 1) -> DPoser:
+def build_dposer_prior(args, batch_size: int = 1, device=None) -> DPoser:
     """The DPoser prior from ``args`` (``config_path``, ``ckpt_path``,
     ``sde_N``, ``dataset_folder``, ``version``, ``stats_dir``, ``device``),
-    as ref run/smplify.py:17-67 builds it; ``config_path`` None is the
-    flagship config."""
-    device = cli_device(args.device)
+    as ref run/smplify.py:17-67 builds it, on ``device`` when given (a
+    shard's); ``config_path`` None is the flagship config."""
+    device = cli_device(args.device) if device is None else torch.device(device)
     config = load_config(args.config_path)
     _, sde, score_fn = load_model_for_inference(config, args.ckpt_path, args.sde_N, device)
     normalizer = build_normalizer(config, args.dataset_folder, args.version,

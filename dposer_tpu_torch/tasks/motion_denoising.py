@@ -21,6 +21,15 @@ an eager loop. ``optimize_batch`` fits F fragments as one loss summed over
 the fragments: Adam is elementwise, so each fragment's trajectory is its own
 ``optimize``'s (each fragment draws its own time every step under strategy
 '1', as JAX's vmap over per-fragment keys does).
+
+``MotionDenoise(mesh=)`` splits the fragments of ``optimize_batch`` over a
+``parallel.sharding.Mesh`` (JAX shards the vmapped fragment axis): each
+shard fits its fragments on its device with their own generators, the shards
+one after the other from this thread, and the poses are joined on this
+task's device. A chunk that does not divide the mesh is padded with its last
+fragment (on a copy of its generator) and trimmed. A shard on another device
+than the body model's runs on the parts ``replica(device) -> (score_fn,
+body_model, normalizer)`` builds there.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 
 from ..diffusion.sde import SDE
+from ..parallel.sharding import Mesh, generator_on, padded_split
 from ..ops.smoothing import gaussian_smoothing
 from .optim import Adam
 from .prior import DPoserPrior, sample_quan_t
@@ -47,7 +57,8 @@ class MotionDenoise:
     """Sequence pose optimiser against noisy 3D joints."""
 
     def __init__(self, sde: SDE, score_fn: Callable, body_model, normalizer,
-                 dposer_weight: float = 1.0, batch_size: int = 60, lr: float = 0.03):
+                 dposer_weight: float = 1.0, batch_size: int = 60, lr: float = 0.03,
+                 mesh: Optional[Mesh] = None, replica: Optional[Callable] = None):
         self.sde = sde
         self.body_model = body_model
         self.device = body_model.v_template.device
@@ -58,6 +69,40 @@ class MotionDenoise:
         # fragment's own length T
         self.batch_size = batch_size
         self.lr = lr
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.replica = replica
+        self._on = {self.device: self}
+
+    def task_on(self, device) -> "MotionDenoise":
+        """This task's single-device form on ``device``: itself on its own
+        device, else one built (once) on ``replica(device)``'s parts."""
+        device = torch.device(device)
+        if device not in self._on:
+            if self.replica is None:
+                raise ValueError(f"a shard on {device}, off the body model's {self.device}, "
+                                 "needs replica=")
+            self._on[device] = MotionDenoise(self.sde, *self.replica(device),
+                                             dposer_weight=self.dposer_weight,
+                                             batch_size=self.batch_size, lr=self.lr)
+        return self._on[device]
+
+    def _run_sharded(self, joints3d, generators, poses0, z, t_idx, **kw):
+        """``_run`` of each shard's fragments on its device, joined here."""
+        F = joints3d.shape[0]
+        outs, p0 = [], 0
+        for dev, rows in zip(self.mesh.devices, padded_split(self.mesh, F)):
+            # a fragment's own generator where it runs on its device; a copy
+            # for a pad (positions F and on) or on another device
+            gens = None if generators is None else [
+                generators[i] if p < F and generators[i].device == dev
+                else generator_on(generators[i], dev) for p, i in enumerate(rows, p0)]
+            p0 += len(rows)
+            sel = torch.tensor(rows)
+            outs.append(self.task_on(dev)._run(
+                joints3d[sel].to(dev), gens, poses0=None if poses0 is None else poses0[sel].to(dev),
+                z=None if z is None else z[:, sel].to(dev),
+                t_idx=None if t_idx is None else t_idx[:, sel], **kw))
+        return torch.cat([o.to(self.device) for o in outs])[:F]
 
     def _body(self, poses: torch.Tensor):
         out = self.body_model(pose_body=poses)
@@ -138,11 +183,16 @@ class MotionDenoise:
         (strategy '1') and its prior normals, from ``generators[f]``, so its
         result is that of ``optimize`` with that generator. ``poses0`` [F, T,
         63], ``z`` [steps, F, T, 63] and ``t_idx`` [steps, F] (the time
-        indices) inject them instead."""
+        indices) inject them instead. Under ``mesh=`` the fragments split over
+        the mesh's shards (a copy of a generator on another device draws what
+        the generator would)."""
         if generators is None and (poses0 is None or z is None):
             generators = [torch.Generator(device=self.device) for _ in range(len(joints3d))]
-        return self._run(joints3d, generators, time_strategy, sample_trun, sample_time,
-                         iterations, steps_per_iter, poses0, z, t_idx)
+        kw = dict(time_strategy=time_strategy, sample_trun=sample_trun, sample_time=sample_time,
+                  iterations=iterations, steps_per_iter=steps_per_iter)
+        if self.mesh is not None:
+            return self._run_sharded(joints3d, generators, poses0, z, t_idx, **kw)
+        return self._run(joints3d, generators, poses0=poses0, z=z, t_idx=t_idx, **kw)
 
     def optimize(self, joints3d: torch.Tensor, gt_poses: Optional[torch.Tensor] = None,
                  time_strategy: str = "3", sample_trun: float = 2.0, sample_time: int = 990,

@@ -19,16 +19,30 @@ the DPoser prior. As in the reference:
 The gradient flows through the body model and the prior's L2; the images of
 a batch share each step's time draw. Each stage is an eager loop (JAX runs
 each as one ``lax.scan``).
+
+``SMPLify(mesh=)`` splits the images over a ``parallel.sharding.Mesh`` (JAX
+shards the image axis of its two stages): every step's time and the prior's
+normals are drawn first, at the whole batch's shape and in the unsharded
+fit's order, from the caller's generator, and split by rows; each shard then
+fits its images on its device with its rows of them, the shards one after
+the other from this thread, and the results are joined on the first device.
+A shard's loss is scaled by its share of the batch, so each image's gradient
+is the unsharded fit's. A batch that does not divide the mesh is padded with
+its last image and trimmed. A shard on another device than the body
+model's runs on ``replica(device) -> (body_model, pose_prior)``.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
+
+import copy
 
 import torch
 
 from ..body_model import constants
 from ..body_model.fitting_losses import body_fitting_loss, camera_fitting_loss
 from ..diffusion.sde import SDE
+from ..parallel.sharding import Mesh, padded_split
 from .optim import Adam
 from .prior import DPoserPrior, sample_quan_t
 
@@ -70,7 +84,8 @@ class SMPLify:
     def __init__(self, body_model, pose_prior: Optional[DPoser] = None,
                  step_size: float = 1e-2, batch_size: int = 32, num_iters: int = 100,
                  focal_length=5000.0, time_strategy: str = "3", sde_N: int = 500,
-                 cam_step_size: Optional[float] = None):
+                 cam_step_size: Optional[float] = None, mesh: Optional[Mesh] = None,
+                 replica: Optional[Callable] = None):
         self.smpl = body_model
         self.pose_prior = pose_prior
         self.step_size = step_size
@@ -86,6 +101,65 @@ class SMPLify:
         self.sample_time = round(sde_N * 0.9)
         self.sample_trun = 20.0
         self.ign_joints = [constants.JOINT_IDS[i] for i in self.IGN_JOINTS]
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.replica = replica
+        self.loss_scale = 1.0  # a shard's share of the batch (the body stage's loss)
+        self._parts = {}
+
+    def _shard(self, device, rows: int, batch: int) -> "SMPLify":
+        """The single-device fit of ``rows`` of ``batch`` images on
+        ``device``: this fit's parts there (``replica``'s, built once, off the
+        body model's device), a prior normalised by ``rows`` and the loss
+        scaled by ``rows / batch``."""
+        device = torch.device(device)
+        own = self.smpl.bm.v_template.device
+        if device not in self._parts:
+            if device == own:
+                self._parts[device] = (self.smpl, self.pose_prior)
+            elif self.replica is None:
+                raise ValueError(f"a shard on {device}, off the body model's {own}, needs "
+                                 "replica=")
+            else:
+                self._parts[device] = self.replica(device)
+        shard = copy.copy(self)
+        shard.smpl, prior = self._parts[device]
+        shard.pose_prior = None if prior is None else copy.copy(prior)
+        if shard.pose_prior is not None:
+            shard.pose_prior.batch_size = rows
+        shard.mesh, shard.loss_scale = None, rows / batch
+        return shard
+
+    def _draws(self, batch: int, device, generator, z, t_idx):
+        """``(z [steps, B, 63], t_idx [steps])``: the body stage's prior draws,
+        each made, where not injected, as the unsharded fit makes it, step by
+        step (the time, then the normals) from ``generator``."""
+        total = self.STAGES * self.num_iters
+        draw_t = t_idx is None and self.time_strategy == "1"
+        if self.pose_prior is None or (z is not None and not draw_t):
+            return z, t_idx
+        zs, ts = [], []
+        for i in range(total):
+            ts.append(sample_quan_t(i, total, self.sde_N, self.time_strategy, self.sample_trun,
+                                    self.sample_time, offset=5, generator=generator)
+                      if draw_t else None)
+            if z is None:
+                zs.append(torch.randn((batch, N_POSES * 3), generator=generator, device=device))
+        return (torch.stack(zs) if z is None else z), (ts if draw_t else t_idx)
+
+    def _call_sharded(self, init_pose, init_betas, init_cam_t, camera_center, keypoints_2d,
+                      generator, z, t_idx):
+        """The fit of each shard's rows on its device, joined here."""
+        B = init_pose.shape[0]
+        here = init_pose.device
+        z, t_idx = self._draws(B, here, generator, z, t_idx)
+        outs = []
+        for dev, rows in zip(self.mesh.devices, padded_split(self.mesh, B)):
+            sel = torch.tensor(rows)
+            outs.append(self._shard(dev, len(rows), B)(
+                *(a[sel].to(dev) for a in (init_pose, init_betas, init_cam_t, camera_center,
+                                           keypoints_2d)),
+                z=None if z is None else z[:, sel].to(dev), t_idx=t_idx))
+        return tuple(torch.cat([o[k].to(here) for o in outs])[:B] for k in range(4))
 
     def _forward(self, betas, body_pose, global_orient, transl):
         return self.smpl(betas=betas, body_pose=body_pose, global_orient=global_orient,
@@ -104,7 +178,7 @@ class SMPLify:
         return go.detach(), cam_t.detach()
 
     def _stage2(self, bp, bt, go, camera_translation, camera_center, joints_2d, conf,
-                generator, z):
+                generator, z, t_idx=None):
         """The body pose, the betas and the global orientation."""
         var = [a.detach().clone().requires_grad_(True) for a in (bp, bt, go)]
         opt = Adam(var, self.step_size)
@@ -115,9 +189,10 @@ class SMPLify:
             out = self._forward(bt_v, bp_v, go_v, camera_translation)
             prior = None
             if self.pose_prior is not None:
-                quan_t = sample_quan_t(i, total, self.sde_N, self.time_strategy,
-                                       self.sample_trun, self.sample_time, offset=5,
-                                       generator=generator)
+                quan_t = (int(t_idx[i]) if t_idx is not None else
+                          sample_quan_t(i, total, self.sde_N, self.time_strategy,
+                                        self.sample_trun, self.sample_time, offset=5,
+                                        generator=generator))
                 prior = self.pose_prior(bp_v, bt_v, quan_t,
                                         z=None if z is None else z[i], generator=generator)
             loss = body_fitting_loss(
@@ -126,20 +201,25 @@ class SMPLify:
                 pose_prior_weight=self.POSE_PRIOR_WEIGHTS[stage],
                 shape_prior_weight=self.SHAPE_PRIOR_WEIGHTS[stage],
                 angle_prior_weight=self.ANGLE_PRIOR_WEIGHTS[stage])
+            if self.loss_scale != 1.0:
+                loss = loss * self.loss_scale
             opt.step(torch.autograd.grad(loss, var))
         return [a.detach() for a in var]
 
     def __call__(self, init_pose: torch.Tensor, init_betas: torch.Tensor,
                  init_cam_t: torch.Tensor, camera_center: torch.Tensor,
                  keypoints_2d: torch.Tensor, generator: Optional[torch.Generator] = None,
-                 z: Optional[torch.Tensor] = None
+                 z: Optional[torch.Tensor] = None, t_idx=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Fit ``init_pose`` [B, 66] (orientation and 21 body joints), the
         betas [B, 10] and the camera translation [B, 3] to ``keypoints_2d``
         [B, 49, 3] (x, y, confidence). ``z`` [5 num_iters, B, 63] injects the
-        prior's normals, else they come from ``generator``. Returns the pose
-        [B, 66], the betas, the camera translation and the final
-        reprojection loss [B, 49]."""
+        prior's normals and ``t_idx`` [5 num_iters] its time indices, else
+        they come from ``generator``. Returns the pose [B, 66], the betas, the
+        camera translation and the final reprojection loss [B, 49]."""
+        if self.mesh is not None:
+            return self._call_sharded(init_pose, init_betas, init_cam_t, camera_center,
+                                      keypoints_2d, generator, z, t_idx)
         joints_2d = keypoints_2d[:, :, :2]
         joints_conf = keypoints_2d[:, :, -1]
         body_pose, betas = init_pose[:, 3:], init_betas
@@ -150,7 +230,7 @@ class SMPLify:
         conf[:, self.ign_joints] = 0.0
         body_pose, betas, global_orient = self._stage2(
             body_pose, betas, global_orient, camera_translation, camera_center, joints_2d,
-            conf, generator, z)
+            conf, generator, z, t_idx)
         with torch.no_grad():
             out = self._forward(betas, body_pose, global_orient, camera_translation)
             reproj = body_fitting_loss(body_pose, betas, out.joints, camera_translation,

@@ -40,8 +40,31 @@ host synchronisation per window); log, eval and save fire when a window
 crosses a multiple of their frequency. SIGTERM and SIGINT end the run at the
 next window and write a resumable checkpoint.
 
-Not ported: ``--multihost``, ``--coordinator``, ``--num-processes``,
-``--process-id`` and ``--profile-dir`` (see ROADMAP.md).
+Evaluation builds its kernel samplers once, at the first firing, and loads
+the EMA weights into them in place at every firing
+(``parallel.data_parallel_sampler_params``): on the card the first firing
+captures their graphs and every later one replays them. The samples draw
+from a generator of their own, seeded by ``(seed, step)``.
+
+Data parallelism (``--multihost``): one process a device, over a process
+group (``parallel.init_distributed``: ``--coordinator host:port`` or a URL
+with ``--num-processes`` and ``--process-id``, else torchrun's environment,
+``torchrun --nproc-per-node N -m dposer_tpu_torch.train ... --multihost``).
+The global batch (the config's ``batch_size``) must divide the process
+count; each process takes its contiguous columns of the one index stream's
+batches and trains on them (``parallel.data_parallel_multi_step``), its
+draws made at the global batch's shape and sliced and the kernels' dropout
+hash keyed by global row, so the run is the one-process run up to the order
+of the gradients' sums. One all-reduce a step averages the gradients and the
+losses (NCCL where every process of a host has a card of its own, else
+gloo); clipping, Adam and the EMA then run alike on every rank. Each process
+takes the card ``parallel.process_devices`` gives it, keeps its own run
+directory (``-rank<r>`` after the name), its checkpoints and its
+evaluation; the processes agree on a SIGTERM in the last step's all-reduce
+of a window, so all of them checkpoint the same step. A process that sees
+several cards without ``--multihost`` trains on the first.
+
+Not ported: ``--profile-dir`` (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -66,10 +89,13 @@ from .diffusion.likelihood import get_likelihood_fn
 from .diffusion.score_fn import get_score_fn
 from .diffusion.sde import build_sde, sampling_eps_for
 from .models import create_score_model
+from .ops.cuda import build
 from .ops.cuda.fused_em import get_cuda_em_hypo_sampler, get_cuda_em_sampler
 from .ops.cuda.fused_train import get_cuda_step_fn, scope_error
+from .ops.cuda.graph_loop import GraphLoop
 from .ops.metrics import Evaler, average_pairwise_distance
 from .ops.rotations import rot6d_to_axis_angle
+from .parallel import sharding as par
 from .utils import checkpoint as ckpt_lib
 from .utils.generic import MetricWriter, close_logger, create_logger
 from .utils.masks import create_mask
@@ -103,6 +129,14 @@ def parse_args(argv):
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="steps between reads of the losses (one host sync per window)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel over a process group, one process a device "
+                        "(torchrun's environment, or --coordinator, --num-processes and "
+                        "--process-id)")
+    p.add_argument("--coordinator", default=None,
+                   help="the group's rendezvous: host:port, tcp://... or file://...")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
 
 
@@ -124,6 +158,20 @@ def dropout_seed(seed: int, step: int) -> int:
 def eval_seed(seed: int, step: int) -> int:
     """The seed of the eval at step ``step`` (its own stream)."""
     return int(_seed_words(seed, step, 2)[0])
+
+
+def sample_seed(seed: int, step: int) -> int:
+    """The seed of the eval's generation samples at step ``step``."""
+    return int(_seed_words(seed, step, 3)[0])
+
+
+def eval_sampler_kwargs(config, sde, device) -> dict:
+    """The keywords of the eval's kernel samplers (``get_cuda_em_sampler``):
+    the config's sampling settings, in-kernel normals on the card."""
+    sc = config.sampling
+    return dict(eps=sampling_eps_for(sde), denoise=sc.noise_removal, corrector=sc.corrector,
+                snr=sc.snr, n_corrector_steps=sc.n_steps_each, predictor=sc.predictor,
+                device=device, rng_mode="kernel" if device.type == "cuda" else "host")
 
 
 def newest_checkpoint(path: str):
@@ -154,22 +202,45 @@ def select_route(args, config, sde, model, device):
 
 def main(argv=None) -> dict:
     """Train; returns ``output_dir``, ``route``, ``step``, ``losses`` (each
-    step's loss), ``windows`` ((steps, seconds) per window), ``best_apd``
-    and ``checkpoints``."""
+    step's loss), ``windows`` ((steps, seconds) per window), ``best_apd``,
+    ``checkpoints``, ``state``, ``last_eval`` (the last firing's ``step``
+    and its generation ``samples``, normalized), and this process's
+    ``device``, ``rank`` and the process count ``world``."""
     args = parse_args(sys.argv[1:] if argv is None else argv)
     device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available "
+                         "(pass --device cpu to train on the CPU)")
+    if args.multihost:
+        par.init_distributed(args.coordinator, args.num_processes, args.process_id,
+                             backend="auto" if device.type == "cuda" else "gloo")
+    rank, world = par.process_index(), par.process_count()
     if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit("--device cuda: no CUDA device is available "
-                             "(pass --device cpu to train on the CPU)")
-        device = torch.device("cuda", torch.cuda.current_device())
+        device = (par.process_devices(torch.cuda.device_count(), *par.host_share())[0]
+                  if world > 1 else torch.device("cuda", torch.cuda.current_device()))
+        torch.cuda.set_device(device)
     config = load_config(args.config)
     tcfg = config.training
+    if tcfg.batch_size % world:
+        raise ValueError(f"batch {tcfg.batch_size} must be divisible by the {world} "
+                         f"processes")
 
+    name = args.name if world == 1 else f"{args.name}-rank{rank}".lstrip("-")
     logger, out_dir = create_logger(config.OUTPUT_DIR, config.DATASET.TRAIN_DATASET,
-                                    config.DATASET.TEST_DATASET, "train", name=args.name)
+                                    config.DATASET.TEST_DATASET, "train", name=name)
     logger.info(pprint.pformat(config))
     logger.info(pprint.pformat(vars(args)))
+    if world > 1:
+        logger.info(f"data-parallel: process {rank} of {world} on {device}, gradient "
+                    f"all-reduce over {par.grad_backend()}, {tcfg.batch_size // world} of "
+                    f"{tcfg.batch_size} rows a step")
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
+        logger.info(f"{torch.cuda.device_count()} CUDA devices visible: training on {device} "
+                    f"alone; one process a card (torchrun --nproc-per-node "
+                    f"{torch.cuda.device_count()} ... --multihost) is the multi-card route, "
+                    f"though on four H100s it is slower than one card at a global batch of "
+                    f"1,280 or 5,120, where the step is host-bound, and 1.16x faster at "
+                    f"20,480 (python -m dposer_tpu_torch.benchmarks.data_parallel)")
     writer = MetricWriter(os.path.join(out_dir, "tb"))
 
     body_model_vis = None
@@ -205,7 +276,6 @@ def main(argv=None) -> dict:
                         f"{'restored' if info['optimizer_restored'] else 'fresh'})")
 
     sde = build_sde(config)
-    sampling_eps = sampling_eps_for(sde)
     train_step, route, kernel_route = select_route(args, config, sde, model, device)
     if train_step is None:
         aux = {}
@@ -223,7 +293,9 @@ def main(argv=None) -> dict:
         train_step = losses_lib.get_step_fn(
             sde, True, losses_lib.make_model_apply(model), reduce_mean=tcfg.reduce_mean,
             continuous=tcfg.continuous, likelihood_weighting=tcfg.likelihood_weighting, **aux)
-    logger.info(f"train step: {route}")
+    logger.info(f"train step: {route}" + (f"; data-parallel over {world} processes "
+                                          f"({par.grad_backend()}), this one on {device}"
+                                          if world > 1 else ""))
 
     K = max(1, args.steps_per_dispatch)
     batch_size = tcfg.batch_size
@@ -236,16 +308,20 @@ def main(argv=None) -> dict:
             return t.pin_memory().to(device, non_blocking=True)
         return t
 
+    # this process's columns of each [K, B] index window of the one stream
     if args.host_data:
-        def window_batches(rows):
-            return [upload(train_dataset.poses[r]) for r in rows]
+        multi_step = par.data_parallel_multi_step(train_step)
+
+        def run_window(idx, noise, extra):
+            return multi_step(state, [upload(train_dataset.poses[r]) for r in idx], noise, extra)
         logger.info("train data: host gather, one upload per batch")
     else:
         data_dev = torch.as_tensor(train_dataset.poses, device=device)
+        multi_step = par.data_parallel_multi_step_indexed(train_step)
 
-        def window_batches(rows):
-            idx = upload(np.stack(rows))  # one [K, B] int32 upload a window
-            return [data_dev.index_select(0, idx[j]) for j in range(len(rows))]
+        def run_window(idx, noise, extra):
+            # one [K, B / n] int32 upload a window
+            return multi_step(state, upload(np.ascontiguousarray(idx)), data_dev, noise, extra)
         logger.info(f"train data device-resident ({train_dataset.poses.nbytes / 2**20:.0f} "
                     f"MiB); batches gathered by index")
 
@@ -279,18 +355,31 @@ def main(argv=None) -> dict:
         checkpoints.append(path)
         return path
 
+    eb = config.eval.batch_size
+    score_e = get_score_fn(sde, eval_model, continuous=tcfg.continuous)
+    likelihood = get_likelihood_fn(sde, score_e, rtol=1e-4, atol=1e-4, eps=1e-4)
+    eval_samplers = {}
+
+    def samplers():
+        """The eval's kernel samplers, built once on ``eval_model`` and run on
+        the weights each firing loads (``_params`` forms)."""
+        if not eval_samplers:
+            kw = eval_sampler_kwargs(config, sde, device)
+            eval_samplers["sample"] = par.data_parallel_sampler_params(
+                get_cuda_em_sampler(sde, eval_model, (eb, dim), **kw))
+            eval_samplers["hypo"] = par.multi_hypothesis_imputation_sampler_params(
+                get_cuda_em_hypo_sampler(sde, eval_model, (eb, dim), HYPO_NUM, **kw))
+        return eval_samplers["sample"], eval_samplers["hypo"]
+
+    last_eval = {}
+
     def evaluate(step, best_apd):
         model_e = load_ema()
         gen = torch.Generator(device=device).manual_seed(eval_seed(args.seed, step))
-        score_fn = get_score_fn(sde, model_e, continuous=tcfg.continuous)
-        likelihood = get_likelihood_fn(sde, score_fn, rtol=1e-4, atol=1e-4, eps=1e-4)
-        eb = config.eval.batch_size
-        sc = config.sampling
-        sample_kw = dict(eps=sampling_eps, denoise=sc.noise_removal, corrector=sc.corrector,
-                         snr=sc.snr, n_corrector_steps=sc.n_steps_each,
-                         predictor=sc.predictor, device=device,
-                         rng_mode="kernel" if device.type == "cuda" else "host")
-        sampler = get_cuda_em_sampler(sde, model_e, (eb, dim), **sample_kw)
+        gen_s = torch.Generator(device=device).manual_seed(sample_seed(args.seed, step))
+        captures = GraphLoop.captures
+        encodes = build.tma_encodes("dense_gn_silu") if device.type == "cuda" else 0
+        sampler, hypo_sampler = samplers()
         metrics_e = {"bpd": [], "mpvpe_all": [], "mpjpe_body": []}
         samples = []
         with torch.no_grad():
@@ -301,8 +390,7 @@ def main(argv=None) -> dict:
                 metrics_e["bpd"].append(float(bpd.mean()))
                 if body_model_vis is not None:
                     mask, observation = create_mask(poses, part="left_leg", generator=gen)
-                    hypo = get_cuda_em_hypo_sampler(sde, model_e, (eb, dim), HYPO_NUM,
-                                                    **sample_kw)(gen, observation, mask)
+                    hypo = hypo_sampler(model_e, gen, observation, mask)
                     preds, gts = denormalize(hypo), denormalize(poses)
                     if config.data.rot_rep == "rot6d":
                         preds = rot6d_to_axis_angle(preds.reshape(-1, 6)).reshape(eb, HYPO_NUM, -1)
@@ -310,9 +398,9 @@ def main(argv=None) -> dict:
                     res = Evaler(body_model_vis, part="left_leg").multi_eval_bodys(preds, gts)
                     metrics_e["mpvpe_all"].append(float(np.mean(res["mpvpe_all"])))
                     metrics_e["mpjpe_body"].append(float(np.mean(res["mpjpe_body"])))
-                samples.append(sampler(gen))
+                samples.append(sampler(model_e, gen_s))
             if not samples:  # a test split smaller than one eval batch
-                samples.append(sampler(gen))
+                samples.append(sampler(model_e, gen_s))
             for k, v in metrics_e.items():
                 if v:
                     writer.add_scalar(f"eval_{k}", float(np.mean(v)), step)
@@ -326,7 +414,10 @@ def main(argv=None) -> dict:
                 writer.add_scalar("APD", apd, step)
         np.savez(os.path.join(out_dir, "last_samples.npz"),
                  pose_samples=samples_dn.cpu().numpy()[None])
-        logger.info("validating completed")
+        last_eval.update(step=step, samples=torch.cat(samples))
+        new_encodes = build.tma_encodes("dense_gn_silu") - encodes if device.type == "cuda" else 0
+        logger.info(f"validating completed: {GraphLoop.captures - captures} graph(s) captured, "
+                    f"{new_encodes} tensor map(s) encoded")
         if apd > best_apd:
             best_apd = apd
             logger.info(f"saving best checkpoint, APD: {best_apd}")
@@ -340,25 +431,32 @@ def main(argv=None) -> dict:
     timer = StepTimer()
     metrics, metrics_n, best_apd = {}, 0, 0.0
     all_losses, windows = [], []
-    while step < n_iters and not stop["flag"]:
+
+    def noise(j):
+        gen.manual_seed(noise_seed(args.seed, step + j))
+        kw = dict(generator=gen)
+        if kernel_route:
+            kw["dropout_seed"] = dropout_seed(args.seed, step + j)
+        return kw
+
+    # with several processes a SIGTERM must stop all of them at one step: the
+    # flag rides in the window's last all-reduce, and the processes halt on
+    # the agreed value
+    agree = (lambda: {"stop": float(stop["flag"])}) if world > 1 else None
+    halt = stop["flag"]
+    while step < n_iters and not halt:
         k_this = min(K, n_iters - step)
         t0 = time.perf_counter()
-        pending = []
-        for j, batch in enumerate(window_batches([next(idx_stream) for _ in range(k_this)])):
-            gen.manual_seed(noise_seed(args.seed, step + j))
-            noise = dict(generator=gen)
-            if kernel_route:
-                noise["dropout_seed"] = dropout_seed(args.seed, step + j)
-            pending.append(train_step(state, batch, **noise))
-        keys = list(pending[0])
-        values = torch.stack([torch.stack([ld[k] for k in keys]) for ld in pending]).tolist()
+        idx = par.shard_global_multi_batch(np.stack([next(idx_stream) for _ in range(k_this)]))
+        values = run_window(idx, noise, agree)
+        halt = values[-1].pop("stop") > 0 if agree is not None else stop["flag"]
         windows.append((k_this, time.perf_counter() - t0))
         timer.tick()
         prev_step, step = step, state.step
         for j, row in enumerate(values):
             s_j = prev_step + j + 1
-            all_losses.append(row[0])
-            for k, v in zip(keys, row):
+            all_losses.append(row["step_loss"])
+            for k, v in row.items():
                 metrics[k] = metrics.get(k, 0.0) + v
             metrics_n += 1
             if s_j % tcfg.log_freq == 0:
@@ -372,7 +470,7 @@ def main(argv=None) -> dict:
                     msg += f"steps/s: {timer.steps_per_sec * K:.1f},\t"
                     writer.add_scalar("steps_per_sec", timer.steps_per_sec * K, s_j)
                 logger.info(msg)
-        if stop["flag"]:
+        if halt:
             break
         if step % tcfg.eval_freq < k_this:
             logger.info("start validating")
@@ -381,7 +479,7 @@ def main(argv=None) -> dict:
             logger.info(f"Save checkpoint to {out_dir}")
             save_checkpoint()
 
-    if stop["flag"]:
+    if halt:
         logger.info(f"preemption checkpoint saved: {save_checkpoint()}")
     for sig, handler in prev_handlers.items():
         signal.signal(sig, handler)
@@ -389,7 +487,8 @@ def main(argv=None) -> dict:
     logger.info(f"End. Final output dir: {out_dir}")
     close_logger(logger)
     return dict(output_dir=out_dir, route=route, step=state.step, losses=all_losses,
-                windows=windows, best_apd=best_apd, checkpoints=checkpoints, state=state)
+                windows=windows, best_apd=best_apd, checkpoints=checkpoints, state=state,
+                last_eval=last_eval, device=device, rank=rank, world=world)
 
 
 if __name__ == "__main__":

@@ -107,11 +107,12 @@ class RoundingEachInput:
         return ft.head_dsm_plain(self.prev, w_post, b_post, coefs, z)
 
     def fwd(self, a, w, proj, gamma, beta, seed, layer, keep, residual=None, out=None,
-            a_b=None, write_out=True):
+            a_b=None, write_out=True, row_offset=0):
         if a_b is not None:
             assert a is None and torch.equal(a_b, self.prev.to(w.dtype))
             a = self.prev
-        res = ft.dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed, layer, keep, residual)
+        res = ft.dense_gn_silu_train_plain(a, w, proj, gamma, beta, seed, layer, keep, residual,
+                                           row_offset=row_offset)
         self.prev = res[0]
         return res if out is None else (out.copy_(res[0]),) + res[1:]
 
