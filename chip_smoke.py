@@ -189,7 +189,24 @@ Phases; any failure exits non-zero:
    the same stream (the first 20 losses within 1e-4 relative, the last-50
    mean within 2%, the ranks' parameters and EMA bit-equal, a rank's step
    K10 x5, K11 x1, K12 x5), with ms a step, the all-reduce's share and the
-   gradient bytes a step;
+   gradient bytes a step; (r) the last modules: (i) the native rasterizer
+   (``body_model/visual.py``) built with g++, its masks against the plain
+   numpy version's on at least 97% of the pixels at 512 x 384 in the six
+   views, on the 10,475-vertex synthetic SMPL-X body and the smooth SMPL
+   body, ms a render of both with the host CPU; (ii) the demo's
+   ``generation_process`` on the kernel sampler's graph, 3 x 1000 steps
+   recording steps 9, 19, ..., 999: the output bit-equal to the sampler's
+   without ``trajectory_steps``, the frames at 9, 499 and 999 bit-equal to
+   ``step_range`` calls, K1 5,000 and K2 1,000 a call and one graph; the
+   body model and the renders of the 300 frames, with their walls; (iii)
+   ``python -m dposer_tpu_torch.train --profile-dir`` from scratch, 20
+   kernel steps and an eval: the trace holds K10's, K11's and K12's kernels
+   and the spans of steps 11-20, ``last_samples.npz`` holds ``pose_trajs``
+   [10, 5, 63], and the eval's trajectory is bit-equal to a fresh sampler's
+   on the same EMA weights; (iv) ``demo_fit``'s fit of one image of (n)'s
+   synthetic EHF geometry (its re-projection loss falls) and a TimeMLPs
+   model through the ancestral predictor and ald at N = 20, card against
+   CPU within 1e-4 x max(1, |ref|);
 6. one ``{"kernels": [...]}`` line, the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
 
@@ -231,12 +248,14 @@ import torch.nn.functional as F  # noqa: E402
 
 from dposer_tpu_torch import completion as completion_cli  # noqa: E402
 from dposer_tpu_torch import demo  # noqa: E402
+from dposer_tpu_torch import demo_fit  # noqa: E402
 from dposer_tpu_torch import native  # noqa: E402
 from dposer_tpu_torch import parallel  # noqa: E402
 from dposer_tpu_torch import fitting as fitting_cli  # noqa: E402
 from dposer_tpu_torch import motion_denoising as motion_cli  # noqa: E402
 from dposer_tpu_torch import train as train_cli  # noqa: E402
 from dposer_tpu_torch.body_model import BodyModel  # noqa: E402
+from dposer_tpu_torch.body_model import visual  # noqa: E402
 from dposer_tpu_torch.body_model.fitting_losses import perspective_projection  # noqa: E402
 from dposer_tpu_torch.body_model.smplx_fit import SMPLXFit  # noqa: E402
 from dposer_tpu_torch.config import get_config  # noqa: E402
@@ -247,13 +266,14 @@ from dposer_tpu_torch.diffusion import likelihood as tlik  # noqa: E402
 from dposer_tpu_torch.diffusion import losses as tlosses  # noqa: E402
 from dposer_tpu_torch.diffusion.score_fn import get_score_fn  # noqa: E402
 from dposer_tpu_torch.diffusion import few_step  # noqa: E402
-from dposer_tpu_torch.diffusion.sde import SubVPSDE, sampling_eps_for  # noqa: E402
+from dposer_tpu_torch.diffusion import sampling as tsampling  # noqa: E402
+from dposer_tpu_torch.diffusion.sde import SubVPSDE, VPSDE, sampling_eps_for  # noqa: E402
 from dposer_tpu_torch.smplify import sequence_generator  # noqa: E402
 from dposer_tpu_torch.benchmarks import data_parallel, ilp_probe, mxu_micro  # noqa: E402
 from dposer_tpu_torch.ops.cuda import (build, chain_link, fused_comp, fused_em,  # noqa: E402
                                        fused_lik, fused_ode, fused_train, philox, quant,
                                        score_net)
-from dposer_tpu_torch.models import create_score_model  # noqa: E402
+from dposer_tpu_torch.models import TimeMLPs, create_score_model  # noqa: E402
 from dposer_tpu_torch.ops.cuda.graph_loop import GraphLoop  # noqa: E402
 from dposer_tpu_torch.ops.metrics import Evaler, average_pairwise_distance  # noqa: E402
 from dposer_tpu_torch.ops.rotations import estimate_focal_length  # noqa: E402
@@ -1543,11 +1563,13 @@ def phase_completion_protocols(model, dev):
             hy = f["pose_hypotheses"]
         check(hy.shape == (50, HYPO, D) and np.isfinite(hy).all(), f"demo {name} hypotheses")
         check_bands(f"demo {name}", r["mpjpe"], r["mpvpe"])
-        res[name] = dict(mpjpe_mm=r["mpjpe"], mpvpe_mm=r["mpvpe"], task_wall_s=wall,
+        # the task's renders (host C++ and cv2) are timed apart: (r) measures them
+        res[name] = dict(mpjpe_mm=r["mpjpe"], mpvpe_mm=r["mpvpe"],
+                         task_wall_s=wall - r["render_s"], render_s=r["render_s"],
                          launches=by_run[f"demo_{name}"])
         print(f"[completion] demo {name}: MPJPE {r['mpjpe']:.1f} mm, MPVPE {r['mpvpe']:.1f} mm, "
-              f"task wall {wall:.2f} s (load, build, sample, evaluate), launches "
-              f"{by_run[f'demo_{name}']}")
+              f"task wall {wall - r['render_s']:.2f} s (load, build, sample, evaluate; its "
+              f"renders {r['render_s']:.2f} s apart), launches {by_run[f'demo_{name}']}")
         if name.startswith("completion2"):
             c = by_run[f"demo_{name}"]
             print(f"[completion] demo {name} a call: K4 masked_renoise {c['masked_renoise']}, "
@@ -2305,9 +2327,11 @@ def phase_ode_protocols(model, dev):
     res["interpolation"] = dict(recon_err_normalized=r["recon_err"],
                                 recon_err_axis_angle=float(np.abs(recon - anchors).mean()),
                                 frame_step_abs_max=float(np.abs(np.diff(frames, axis=1)).max()),
-                                task_wall_s=wall, launches=by_run["demo_interpolation"])
+                                task_wall_s=wall - r["render_s"], render_s=r["render_s"],
+                                launches=by_run["demo_interpolation"])
     print(f"[interpolation] demo: reconstruction error {r['recon_err']:.4f} (normalized), "
-          f"task wall {wall:.2f} s, launches {by_run['demo_interpolation']}")
+          f"task wall {wall - r['render_s']:.2f} s (renders {r['render_s']:.2f} s apart), "
+          f"launches {by_run['demo_interpolation']}")
     return dict(results=res, by_run=by_run, lik_inputs=(data, eps))
 
 # ---------------------------------------------------------------------------
@@ -4635,6 +4659,286 @@ def phase_data_parallel(model, dev, fit_inputs):
     return dict(results=res, by_run=by_run)
 
 
+GP_ROWS, GP_STEPS = 3, range(9, 1000, 10)  # (r)(ii): generation_process's rows and frames
+GP_CHECK_STEPS = (9, 499, 999)  # its frames held to step_range calls
+RENDER_SHAPE = (512, 384, 3)  # the demo's canvas
+RASTER_AGREE = 0.97  # native against plain masks (tests/test_native.py:108)
+PROFILE_CONFIG = MH_CONFIG  # (r)(iii): the trainer's config, evaluated at its last step
+PROFILE_STEPS = 20
+TM_TOL = 1e-4  # (r)(iv): TimeMLPs' plain samplers on the card against the CPU, x max(1, |ref|)
+# (r)(iv): VP's beta_1 at N = 20 (at 20 the last DDPM beta is 1 and the
+# ancestral update divides by sqrt(1 - beta) = 0)
+TM_BETA_1 = 10.0
+
+
+def raster_check(body):
+    """(r)(i) the native rasterizer built with g++ here, against its plain
+    numpy version at the demo's 512 x 384 in the six views, on the
+    10,475-vertex synthetic SMPL-X body ``body`` (tests/fixtures.py) and on
+    the smooth 7,056-vertex SMPL body of ``benchmarks/gen_synth_body.py``
+    (a closed mesh of small faces): the masks agree on RASTER_AGREE of the
+    pixels; ms per render of both versions, with the host CPU. Returns the
+    results and the smooth body."""
+    t0 = time.perf_counter()
+    lib_path = native.build_lib()
+    native.load()
+    build_s = time.perf_counter() - t0
+    smooth = load_benchmark("gen_synth_body").make_smooth_smpl_body(
+        os.path.join(OUT, "smooth_smpl_render.npz"))
+    bodies = dict(smplx_fixture=body, smooth_smpl=BodyModel(
+        smooth, num_betas=10, model_type="smpl", device=body.v_template.device))
+    cam = dict(focal=demo.FOCAL, princpt=demo.PRINCPT)
+    h, w = RENDER_SHAPE[:2]
+    cpu = host_cpu()
+    res = dict(build_s=build_s, host_cpu=cpu)
+    pose_dims = dict(smplx_fixture=D, smooth_smpl=D + 6)  # SMPL: the hand joints padded
+    for name, bm in bodies.items():
+        with torch.no_grad():
+            out = bm(pose_body=torch.zeros(1, pose_dims[name], device=bm.v_template.device))
+        verts, faces = out.v[0].cpu().numpy(), out.f.cpu().numpy()
+        agree, ms, plain_ms = {}, [], []
+        for view in sorted(visual.VIEW_ANGLES):
+            v = visual.view_vertices(verts, view)
+            t0 = time.perf_counter()
+            _, mask = visual.rasterize_mesh(v, faces, h, w, cam["focal"], cam["princpt"])
+            t1 = time.perf_counter()
+            _, mask_p = visual.rasterize_mesh_plain(v, faces, h, w, cam["focal"],
+                                                    cam["princpt"])
+            t2 = time.perf_counter()
+            ms.append((t1 - t0) * 1e3)
+            plain_ms.append((t2 - t1) * 1e3)
+            agree[view] = float((mask == mask_p).mean())
+            check(mask.sum() > 100, f"rasterizer: {name}'s {view} view drew {int(mask.sum())} "
+                                    f"pixels")
+            check(agree[view] >= RASTER_AGREE,
+                  f"rasterizer: {name}'s {view} view agrees with the plain version on "
+                  f"{agree[view]:.4f} of the pixels (< {RASTER_AGREE})")
+        res[name] = dict(vertices=len(verts), faces=len(faces), mask_agree=agree,
+                         ms_per_render=ms, plain_ms_per_render=plain_ms)
+        print(f"[render] (r)(i) {name}: {len(verts)} vertices, {len(faces)} faces at {w} x {h} "
+              f"in six views: masks agree with the plain version on {min(agree.values()):.4f}+ "
+              f"of the pixels; {np.median(ms):.2f} ms a render native, "
+              f"{np.median(plain_ms):.1f} ms plain (numpy)")
+    print(f"[render] (r)(i) native rasterizer built with g++ in {build_s:.2f} s "
+          f"({os.path.basename(lib_path)}); host CPU {cpu['model']} ({cpu['threads']} threads)")
+    return res, bodies["smooth_smpl"]
+
+
+def generation_process_check(model, dev, smooth):
+    """(r)(ii) the demo's generation_process on the kernel sampler's graph:
+    GP_ROWS x 1000 flagship steps, in-kernel normals, recording steps 9, 19,
+    ..., 999; the final output bit-equal to the sampler without
+    trajectory_steps and the frames at GP_CHECK_STEPS bit-equal to eager
+    ``step_range=(0, s + 1)`` calls without the denoise, all from one
+    generator state; K1 5,000 and K2 1,000 launches a call and one graph
+    captured; then the body model and the renders of the 300 frames to
+    arrays (front view), with the walls of the three. The frames go through
+    ``smooth``, the 13,944-face SMPL body of ``raster_check`` (hand joints
+    zero-padded, as the metrics protocol pads them), whose small faces are
+    near a real body's render work; the synthetic SMPL-X fixture's 64 faces
+    are not."""
+    config = get_config()
+    sde = SubVPSDE(N=1000)
+    eps = sampling_eps_for(sde)
+    normalizer = PoseNormalizer(STATS, normalize=config.data.normalize,
+                                min_max=config.data.min_max, rot_rep=config.data.rot_rep,
+                                device=dev)
+    sampler = demo.build_sampler(config, sde, model, GP_ROWS, eps, config.sampling.corrector,
+                                 dev, trajectory_steps=GP_STEPS)
+    plain = demo.build_sampler(config, sde, model, GP_ROWS, eps, config.sampling.corrector, dev)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(GRAPH_SEED)
+
+    captures = GraphLoop.captures
+    (trajs, x), first_s = timed(lambda: sampler(gen()))
+    check(GraphLoop.captures - captures == 1, "generation_process: the first call captured "
+                                              f"{GraphLoop.captures - captures} graphs, not 1")
+    fused_em.reset_launch_counts()
+    (trajs, x), sample_s = timed(lambda: sampler(gen()))
+    counts = fused_em.launch_counts()
+    check(counts["dense_gn_silu"] == 5000 and counts["head_em"] == 1000,
+          f"generation_process: launches a call {counts} (K1 5,000 and K2 1,000 expected)")
+    check(trajs.shape == (len(GP_STEPS), GP_ROWS, D) and torch.isfinite(trajs).all().item(),
+          f"generation_process: trajectory {tuple(trajs.shape)}")
+    check(torch.equal(x, plain(gen())), "generation_process: the final output differs from the "
+                                        "sampler's without trajectory_steps")
+    for s in GP_CHECK_STEPS:
+        head = fused_em.get_cuda_em_sampler(
+            sde, model, (GP_ROWS, D), eps=eps, denoise=False, rng_mode="kernel",
+            corrector=config.sampling.corrector, predictor=config.sampling.predictor,
+            step_range=(0, s + 1), device=dev, loop="eager")
+        check(torch.equal(trajs[list(GP_STEPS).index(s)], head(gen())),
+              f"generation_process: the frame at step {s} differs from a step_range=(0, {s + 1}) "
+              f"call")
+    axis = normalizer.offline_denormalize(trajs.reshape(-1, D), to_axis=True)
+    (meshes, faces), body_s = timed(lambda: visual.body_meshes(
+        torch.cat([axis, torch.zeros(len(axis), 6, device=dev)], 1), None, smooth))
+    bg = np.ones(RENDER_SHAPE) * 255
+    t0 = time.perf_counter()
+    frames = [visual.render_mesh(bg, m, faces, dict(focal=demo.FOCAL, princpt=demo.PRINCPT),
+                                 view="front") for m in meshes]
+    render_s = time.perf_counter() - t0
+    check(len(frames) == len(GP_STEPS) * GP_ROWS and all(np.isfinite(f).all() for f in frames)
+          and all((f != bg).any() for f in frames), "generation_process: the renders")
+    print(f"[render] (r)(ii) generation_process {GP_ROWS} x 1000 steps on the graph, "
+          f"{len(GP_STEPS)} frames recorded: sampling {sample_s * 1e3:.1f} ms a call (first call "
+          f"with the capture {first_s * 1e3:.1f} ms), K1 {counts['dense_gn_silu']} and K2 "
+          f"{counts['head_em']} launches a call; output bit-equal to the sampler without "
+          f"trajectory_steps, frames {GP_CHECK_STEPS} bit-equal to step_range calls; smooth "
+          f"SMPL body ({len(faces)} faces) over {len(meshes)} frames {body_s * 1e3:.1f} ms, "
+          f"renders {render_s:.2f} s ({render_s * 1e3 / len(frames):.2f} ms a frame)")
+    return dict(rows=GP_ROWS, frames=len(GP_STEPS), sample_s=sample_s, first_call_s=first_s,
+                body_s=body_s, render_s=render_s, render_faces=len(faces),
+                launches=counts), counts
+
+
+def trainer_profile_check(dev, work):
+    """(r)(iii) ``python -m dposer_tpu_torch.train`` (``train.main``) on the
+    card from scratch, PROFILE_STEPS kernel steps at the flagship's batch
+    1,280 with ``--profile-dir`` and an eval at the last step: the trace
+    file holds K10's, K11's and K12's kernels and the ``train_step_<s>``
+    spans of local steps 10-20; ``last_samples.npz`` holds ``pose_trajs``
+    [10, 5, 63]; and the eval's trajectory and samples are bit-equal to a
+    sampler built fresh on the same EMA weights and generator."""
+    root = os.path.join(work, "amass")
+    for subset, n in (("train", DP_POOL), ("test", 100)):
+        os.makedirs(os.path.join(root, "v1", subset))
+        np.save(os.path.join(root, "v1", subset, "pose_body.npy"), synthetic_poses(n))
+    cfg = os.path.join(work, "prof.py")
+    with open(cfg, "w") as f:
+        f.write(PROFILE_CONFIG.format(out=os.path.join(work, "out"), n_iters=PROFILE_STEPS,
+                                      eval_freq=PROFILE_STEPS))
+    prof_dir = os.path.join(work, "trace")
+    argv = ["--config", cfg, "--dataset-folder", root, "--version", "v1", "--bodymodel-path",
+            "", "--device", "cuda", "--profile-dir", prof_dir]
+    fused_em.reset_launch_counts()
+    r, wall = timed(lambda: train_cli.main(argv))
+    counts = fused_em.launch_counts()
+    check(r["route"].startswith("kernel step: K10/K11/K12 on CUDA"), f"trainer route {r['route']}")
+    (trace,) = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel" and k in e.get("name", ""))
+               for k in ("dense_gn_silu_train", "head_dsm", "dense_gn_silu_bwd")}
+    spans = sorted(int(e["name"].rsplit("_", 1)[1]) for e in events
+                   if re.fullmatch(r"train_step_\d+", e.get("name", ""))
+                   and e.get("ph") == "X" and e.get("cat") == "user_annotation")
+    check(all(kernels.values()), f"trainer trace: kernels by name {kernels}")
+    check(spans == list(range(11, PROFILE_STEPS + 1)),
+          f"trainer trace: the spans of steps {spans}, expected 11-{PROFILE_STEPS}")
+    with np.load(os.path.join(r["output_dir"], "last_samples.npz")) as f:
+        pose_trajs = f["pose_trajs"]
+    check(pose_trajs.shape == (10, 5, D) and np.isfinite(pose_trajs).all(),
+          f"last_samples.npz pose_trajs {pose_trajs.shape}")
+    config = train_cli.load_config(cfg)
+    sde = train_cli.build_sde(config)
+    model = create_score_model(config).to(dev).eval()
+    sd = r["state"].model.state_dict()
+    names = [n for n, q in r["state"].model.named_parameters() if q.requires_grad]
+    sd.update(zip(names, r["state"].ema.shadow_params))
+    model.load_state_dict(sd)
+    last, eb = r["last_eval"], config.eval.batch_size
+    fresh = fused_em.get_cuda_em_sampler(sde, model, (eb, D),
+                                         trajectory_steps=train_cli.trajectory_steps(sde.N),
+                                         **train_cli.eval_sampler_kwargs(config, sde, dev))
+    gen = torch.Generator(device=dev).manual_seed(train_cli.sample_seed(42, last["step"]))
+    with torch.no_grad():
+        trajs, x = fresh(gen)
+    check(torch.equal(trajs, last["trajs"]) and torch.equal(x, last["samples"]),
+          "trainer eval: the trajectory or samples differ from a fresh sampler's")
+    print(f"[render] (r)(iii) train --profile-dir, {PROFILE_STEPS} steps at {BT} with an eval: "
+          f"trace {os.path.getsize(os.path.join(prof_dir, trace)) / 2 ** 20:.1f} MiB, kernels "
+          f"in it {kernels}, spans of steps {spans[0]}-{spans[-1]}; pose_trajs "
+          f"{pose_trajs.shape}; the eval's trajectory bit-equal to a fresh sampler's; "
+          f"{wall:.1f} s")
+    return dict(steps=PROFILE_STEPS, wall_s=wall, trace_kernels=kernels, spans=spans,
+                pose_trajs_shape=list(pose_trajs.shape), launches=counts), counts
+
+
+def time_mlps_check(dev):
+    """(r)(iv) a TimeMLPs model (no kernel covers it) sampled through the
+    ancestral predictor and through ald at N = 20 (VP, beta_1
+    TM_BETA_1) on injected noise,
+    on the card and on the CPU: within TM_TOL x max(1, |ref|)."""
+    torch.manual_seed(0)
+    tm = TimeMLPs(n_poses=21, pose_dim=3, hidden_dim=64, n_blocks=2, dropout=0.0).eval()
+    sde = VPSDE(beta_1=TM_BETA_1, N=20)
+    rng = np.random.default_rng(5)
+    z = torch.from_numpy(rng.normal(size=(50, D)).astype(np.float32))
+    out = {}
+    for pred, corr in (("ancestral_sampling", "none"), ("euler_maruyama", "ald")):
+        k = 1 if corr == "none" else 2
+        noise = torch.from_numpy(rng.normal(size=(20, k, 50, D)).astype(np.float32))
+        res = {}
+        for d in ("cpu", dev):
+            m = copy.deepcopy(tm).to(d)
+            s = tsampling.get_pc_sampler(sde, (50, D), get_score_fn(sde, m), predictor=pred,
+                                         corrector=corr, device=d)
+            res[str(d)] = s(z=z.to(d), noise=noise.to(d)).cpu()
+        ref = res["cpu"]
+        e = float((res[str(dev)] - ref).abs().max())
+        bound = TM_TOL * max(1.0, float(ref.abs().max()))
+        check(torch.isfinite(ref).all().item() and e <= bound,
+              f"TimeMLPs {pred}/{corr}: card against CPU {e} (> {bound})")
+        out[f"{pred}_{corr}"] = dict(max_abs_err=e, bound=bound)
+    print("[render] (r)(iv) TimeMLPs at N = 20 on the plain PC loop, card against CPU: "
+          + ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in out.items()))
+    return out
+
+
+def demo_fit_check(dev, fi):
+    """(r)(iv) ``demo_fit.fit_image`` (the fit of ``python -m
+    dposer_tpu_torch.demo_fit`` without its cv2 read and write) of image 0
+    of (n)'s synthetic EHF geometry, its keypoints as an OpenPose dict and a
+    blank 1600 x 1200 image, on (n)'s 10,475-vertex body: the
+    hip-and-shoulder re-projection loss falls."""
+    kp = fi["keypoints"][0, :25].cpu().numpy()
+    json_data = {"people": [{"pose_keypoints_2d": kp.reshape(-1).tolist()}]}
+    img = np.zeros((EHF_H, EHF_W, 3), np.uint8)
+    args = demo_fit.parse_args(["--img", "-", "--device", "cuda", "--ckpt-path", CKPT,
+                                "--stats-dir", STATS, "--seed", "42"])
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    fused_em.reset_launch_counts()
+    fit, wall = timed(lambda: demo_fit.fit_image(args, img, json_data, dev, gen,
+                                                 smpl=fi["smpl"]))
+    counts = fused_em.launch_counts()
+    check(np.isfinite(fit["pose"]).all() and fit["final_reproj"] < fit["init_reproj"],
+          f"demo_fit: re-projection loss {fit['init_reproj']} -> {fit['final_reproj']}")
+    over, render_s = timed(lambda: demo_fit.overlay(img, fit))
+    check((over != img).any(), "demo_fit: the overlay drew nothing")
+    print(f"[render] (r)(iv) demo_fit on a synthetic EHF image: hip-and-shoulder re-projection "
+          f"loss {fit['init_reproj']:.1f} -> {fit['final_reproj']:.1f} px^2, SMPLify's loss "
+          f"{float(fit['loss'].sum()):.1f}; fit {wall:.2f} s, overlay {render_s * 1e3:.1f} ms")
+    return dict(init_reproj=fit["init_reproj"], final_reproj=fit["final_reproj"], wall_s=wall,
+                overlay_s=render_s), counts
+
+
+def phase_last_modules(model, dev, fit_inputs):
+    """(r) the last modules: (i) ``raster_check``, (ii)
+    ``generation_process_check``, (iii) ``trainer_profile_check``, (iv)
+    ``demo_fit_check`` and ``time_mlps_check``. Each main path runs with
+    the launch counters set to 0 before it and read after it."""
+    t_phase = time.perf_counter()
+    os.makedirs(OUT, exist_ok=True)
+    res, by_run = {}, {}
+    res["rasterizer"], smooth = raster_check(fit_inputs["smpl"].bm)
+    with torch.no_grad():
+        res["generation_process"], by_run["generation_process"] = generation_process_check(
+            model, dev, smooth)
+    work = tempfile.mkdtemp(prefix="train_prof_", dir=OUT)
+    try:
+        res["trainer_profile"], by_run["train_profile"] = trainer_profile_check(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["demo_fit"], by_run["demo_fit"] = demo_fit_check(dev, fit_inputs)
+    with torch.no_grad():
+        res["time_mlps"] = time_mlps_check(dev)
+    res["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[render] (r) in {res['phase_wall_s']:.1f} s")
+    return dict(results=res, by_run=by_run)
+
+
 def main():
     if sys.argv[1:] not in ([], ["--plain-loops"]):
         print("usage: python3 chip_smoke.py [--plain-loops]", file=sys.stderr)
@@ -4679,10 +4983,12 @@ def main():
         fit = phase_fitting_protocols(model, dev)
         parity["train"] = phase_train_parity(model, dev)
         train = phase_train_protocols(dev)
-        dp = phase_data_parallel(model, dev, fit.pop("inputs"))
+        fit_inputs = fit.pop("inputs")
+        dp = phase_data_parallel(model, dev, fit_inputs)
+        last = phase_last_modules(model, dev, fit_inputs)
         by_run = {**proto.pop("by_run"), **comp["by_run"], **comp_cli["by_run"],
                   **int8["by_run"], **micro["by_run"], **ode["by_run"], **sharded["by_run"],
-                  **fit["by_run"], **train["by_run"], **dp["by_run"]}
+                  **fit["by_run"], **train["by_run"], **dp["by_run"], **last["by_run"]}
         for r in rows:
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
@@ -4748,6 +5054,7 @@ def main():
     proto["fitting"] = fit["results"]
     proto["sharded"] = sharded["results"]
     proto["data_parallel"] = dp["results"]
+    proto["last_modules"] = last["results"]
     # and for a train step: K10 x5 (the last layer without its fp32 out), K11
     # on the stash and K12 x5 at batch 1,280
     by_name = {r["name"]: r for r in rows}

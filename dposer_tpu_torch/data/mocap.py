@@ -10,7 +10,7 @@ import torch
 from ..body_model.smpl import BodyModel
 from ..ops.metrics import pa_mpjpe
 from ..ops.rotations import axis_angle_to_matrix, estimate_focal_length
-from .preprocess import load_ply, process_image
+from .preprocess import bbox_from_detector, load_ply, process_image
 
 __all__ = ["MocapDataset", "estimate_focal_length"]
 
@@ -45,6 +45,19 @@ class MocapDataset:
         return {"norm_img": norm_img, "center": center, "scale": scale,
                 "crop_ul": crop_ul, "crop_br": crop_br, "img_h": img_h, "img_w": img_w,
                 "focal_length": estimate_focal_length(img_h, img_w)}
+
+    def cameras(self) -> Dict:
+        """Every detection's bbox ``center`` and ``scale``, its image's
+        ``img_h``, ``img_w`` and ``focal_length``, stacked into float32
+        arrays: ``batch()``'s camera fields, without the crop (so without
+        ``cv2``)."""
+        items = []
+        for img_idx, *bbox in self.detection_list:
+            img_h, img_w = self.img_bgr_list[int(img_idx)].shape[:2]
+            center, scale = bbox_from_detector(bbox)
+            items.append(dict(center=center, scale=scale, img_h=img_h, img_w=img_w,
+                              focal_length=estimate_focal_length(img_h, img_w)))
+        return {k: np.stack([np.asarray(it[k], np.float32) for it in items]) for k in items[0]}
 
     def batch(self) -> Dict:
         """Every detection's item stacked into float32 arrays."""

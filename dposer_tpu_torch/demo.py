@@ -1,5 +1,5 @@
-"""Generation, pose-completion and interpolation demo on the card (port of
-``run/demo.py``).
+"""Generation, pose-completion, interpolation and render demo on the card
+(port of ``run/demo.py``).
 
     python -m dposer_tpu_torch.demo --task generation \\
         --ckpt-path artifacts/trained_r5/axis-zscore-400k-synth.pth \\
@@ -8,13 +8,17 @@
     python -m dposer_tpu_torch.demo --task completion2 --sampler hybrid \\
         --file-path poses.npz --bodymodel-path SMPLX_NEUTRAL.npz --part left_leg ...
     python -m dposer_tpu_torch.demo --task interpolation --file-path poses.npz ...
+    python -m dposer_tpu_torch.demo --task view --file-path poses.npz \\
+        --bodymodel-path SMPLX_NEUTRAL.npz [--view front|back|left|right|top|bottom]
+    python -m dposer_tpu_torch.demo --task generation_process --bodymodel-path ...
 
 Generation samples 50 poses with the config's sampler (sub-VP EM, no
 corrector, through the CUDA kernels; with ``sampling.method = "ode"`` the
 125-step RK4 probability-flow-ODE kernel sampler; with ``--sampler
 ddim|dpm|hybrid`` under a corrector-free config the few-step one) and writes them,
 denormalized to axis-angle, to ``<output-path>/generation/samples.npz``
-(``pose_samples``).
+(``pose_samples``), and renders each through the SMPL-X body
+(``--bodymodel-path``) to ``generated_sample{i}.png``.
 ``--metrics`` runs the 500-sample protocol (EM + langevin corrector, eps
 5e-3) through the SMPL body and prints the APD and the self-intersection
 percentage (SI, host C++ built with ``g++``; ref run/demo.py:338-406).
@@ -56,10 +60,32 @@ bf16 kernels (a tenth of the rows, at least one, for DDIM; none for the
 hybrid, as in the JAX demo). The ODE paths and the completion solver stay
 unquantized.
 
-Rendering, ``--video`` and the other tasks are not ported yet. On ``--device
-cuda`` every route goes through the kernels, DPM-Solver++ excepted (it has
-no kernel in either package); on ``--device cpu`` the kernels' plain
-versions run, with host-drawn normals.
+``view`` renders the first 50 poses of ``--file-path`` as they are
+(``view/GT_sample{i}.png``). ``generation_process`` samples 3 poses with the
+config's pc sampler, records the state after steps 9, 19, ... of the N-step
+grid (100 frames at N = 1000) and renders each pose's frames to a 30 fps
+video ``generation_process/generation_process{i}.mp4`` (ref
+run/demo.py:408-437). Completion renders the masked poses and each
+hypothesis (``sample{i}_masked.png``, ``sample{i}_completion{h}.png``), and
+interpolation each pair's 60 frames (``inter_{pair}_{i}.png``, or with
+``--video`` one 60 fps ``interpolation_video.mp4``). Renders run the native
+rasterizer (``body_model/visual.py``, host C++ built with ``g++``) in the
+``--view`` preset and write with ``cv2``. As in the JAX demo, generation,
+completion and interpolation print ``[skip renders]`` and go on when the
+body model file is missing; ``view`` and ``generation_process`` raise
+instead. Each task's result holds ``render_s``, the seconds it spent
+rendering. ``--faster``
+is accepted and not read, as in the JAX demo.
+
+On ``--device cuda`` every route goes through the kernels, DPM-Solver++
+excepted (it has no kernel in either package); on ``--device cpu`` the
+kernels' plain versions run, with host-drawn normals. A config outside the
+kernels' scope (a predictor other than Euler-Maruyama or reverse diffusion,
+a corrector other than none or langevin, a Fourier time embedding, or the
+TimeMLPs model) samples generation, the metrics protocol,
+``generation_process`` and completion2's pc route on the plain PC loop
+(``diffusion/sampling.py``) on the same device, as the JAX demo takes its
+XLA sampler there; the demo prints the route it takes.
 
 The demo builds one device mesh (``parallel.make_mesh``: the process's
 visible CUDA devices, or the CPU), as ``run/demo.py`` does. With more than
@@ -86,6 +112,7 @@ import torch
 
 from . import N_POSES
 from .body_model import BodyModel
+from .body_model.visual import body_meshes, multiple_render, render_mesh, write_video
 from .config import load_config
 from .data import PoseNormalizer
 from .body_model.part_indices import BodyPartIndices
@@ -95,7 +122,8 @@ from .diffusion.sampling import get_sampling_fn
 from .diffusion.score_fn import get_score_fn
 from .diffusion.sde import build_sde, sampling_eps_for
 from .models import create_score_model
-from .ops.cuda.fused_em import get_cuda_em_hypo_sampler, get_cuda_em_sampler
+from .ops.cuda.fused_em import (get_cuda_em_hypo_sampler, get_cuda_em_sampler,
+                                   in_kernel_scope)
 from .ops.cuda.fused_ode import get_cuda_ode_sampler
 from .ops.cuda.quant import calibrate_act_amax, calibrate_act_amax_per_channel
 from .ops.metrics import Evaler, average_pairwise_distance, self_intersections_percentage
@@ -113,13 +141,17 @@ ANCHOR_IDX = (1, 10, 11, 12, 17, 14)
 INTER_FRAMES = 60
 ENCODE_STEPS, ENCODE_EPS, DECODE_EPS = 250, 1e-4, 1e-5
 CALIB_BATCH, CALIB_SEED_OFFSET = 256, 999
+BG_IMG_SHAPE = (512, 384, 3)
+FOCAL, PRINCPT = (1500, 1500), (200, 192)
+VIDEO_NUM, VIDEO_FPS, INTER_VIDEO_FPS = 3, 30, 60
 
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="DPoser generation and completion "
                                             "on the GPU")
-    p.add_argument("--task", default="generation",
-                   choices=["generation", "completion", "completion2", "interpolation"])
+    p.add_argument("--task", default="view",
+                   choices=["view", "generation", "generation_process", "interpolation",
+                            "completion", "completion2"])
     p.add_argument("--config-path", default=None,
                    help="Python file with get_config() (default: the flagship "
                         "sub-VP ScoreModelFC config)")
@@ -171,6 +203,11 @@ def parse_args(argv):
                    help="activation quantization of the int8 modes: static per-tensor "
                         "ranges, or per-channel ranges folded into the int8 weights "
                         "(SmoothQuant-style); per-tensor degrades completion")
+    p.add_argument("--view", default="front",
+                   help="the render's view preset: front, back, left, right, top or bottom")
+    p.add_argument("--faster", action="store_true", help="accepted and not read, as in JAX")
+    p.add_argument("--video", action="store_true",
+                   help="interpolation: one video of all frames instead of a PNG a frame")
     p.add_argument("--output-path", default="./output/test_results")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -230,13 +267,39 @@ def mesh_if_divides(mesh, rows: int):
     return mesh if mesh is not None and rows % mesh.size == 0 else None
 
 
+def kernel_scope(config, model, corrector=None) -> bool:
+    """Whether the kernel sampler runs the config's sampler (the JAX demo's
+    ``pallas_eligible``): the pc method, in ``in_kernel_scope``."""
+    return (config.sampling.method.lower() == "pc"
+            and in_kernel_scope(config.sampling, model, corrector))
+
+
+def plain_pc_sampler(config, sde, model, batch: int, eps: float, device, corrector=None,
+                     **overrides):
+    """The config's pc sampler on the plain loop (``diffusion/sampling.py``)
+    on ``device``, ``corrector`` in place of the config's; ``overrides`` go
+    to ``get_pc_sampler`` (``return_trajectory``, ``imputation``)."""
+    sampling = copy.copy(config.sampling)
+    sampling.method = "pc"
+    if corrector is not None:
+        sampling.corrector = corrector
+    score_fn = get_score_fn(sde, model, continuous=config.training.continuous)
+    print(f"[sampler] plain PC loop (predictor={sampling.predictor}, "
+          f"corrector={sampling.corrector}): outside the kernels' scope")
+    return get_sampling_fn(SimpleNamespace(sampling=sampling), sde,
+                           (batch, model.n_poses * model.pose_dim), score_fn, eps,
+                           device=device, **overrides)
+
+
 def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, device,
-                  probability_flow: bool = False, quant_kw=None, loop=None, mesh=None):
+                  probability_flow: bool = False, quant_kw=None, loop=None, mesh=None,
+                  trajectory_steps=None):
     """The config's PC sampler through the CUDA kernels: Philox normals drawn
     in the kernels on the card (the whole loop replayed as one CUDA graph
     unless ``loop="eager"``), host normals with the plain versions on the
     CPU. ``quant_kw`` (from ``make_quant_kwargs``) selects the int8 mode;
-    ``mesh`` (more than one device; ``batch`` must divide it) shards it."""
+    ``mesh`` (more than one device; ``batch`` must divide it) shards it;
+    ``trajectory_steps`` makes it return ``(trajs, x)``."""
     device = torch.device(device)
     return get_cuda_em_sampler(
         sde, model, (batch, model.n_poses * model.pose_dim), eps=eps,
@@ -245,7 +308,8 @@ def build_sampler(config, sde, model, batch: int, eps: float, corrector: str, de
         corrector=corrector, snr=config.sampling.snr,
         n_corrector_steps=config.sampling.n_steps_each,
         predictor=config.sampling.predictor, probability_flow=probability_flow,
-        device=device, loop=loop, mesh=mesh, **(quant_kw or {}))
+        device=device, loop=loop, mesh=mesh, trajectory_steps=trajectory_steps,
+        **(quant_kw or {}))
 
 
 def build_generation_sampler(config, sde, model, batch: int, eps: float, device,
@@ -272,7 +336,10 @@ def build_generation_sampler(config, sde, model, batch: int, eps: float, device,
         return lambda generator: s(generator)[1]
     if method != "pc":
         raise ValueError(f"Sampler name {config.sampling.method} unknown.")
+    if not kernel_scope(config, model):
+        return plain_pc_sampler(config, sde, model, batch, eps, device)
     if mesh is None:
+        print(f"[sampler] kernel sampler (corrector={config.sampling.corrector})")
         return build_sampler(config, sde, model, batch, eps, config.sampling.corrector,
                              device, quant_kw=quant_kw)
     s = build_sampler(config, sde, model, mesh_rows(mesh, batch), eps,
@@ -359,6 +426,10 @@ def complete_by_imputation(args, config, sde, model, observation, mask, generato
             raise NotImplementedError(f"masked imputation runs in the pc sampler; the "
                                       f"config's sampling method is "
                                       f"{config.sampling.method!r}")
+        if not kernel_scope(config, model):
+            s = plain_pc_sampler(config, sde, model, shape[0], eps, device, imputation=True)
+            return torch.stack([s(generator, observation=observation, mask=mask)
+                                for _ in range(hypo_num)], dim=1)
         s = get_cuda_em_hypo_sampler(sde, model, shape, hypo_num, eps=eps, denoise=dn,
                                      corrector=config.sampling.corrector,
                                      snr=config.sampling.snr,
@@ -394,11 +465,9 @@ def complete_by_imputation(args, config, sde, model, observation, mask, generato
 
 def run_completion(args, config, sde, model, normalizer, generator, device,
                    quant_kwargs, mesh=None) -> dict:
-    """The completion tasks. Returns ``hypotheses_file``, ``mpvpe`` and ``mpjpe``."""
-    with np.load(args.file_path, allow_pickle=False) as f:
-        gts = torch.as_tensor(f["pose_samples"][:SAMPLE_NUM], dtype=torch.float32,
-                              device=device)
-    print(f"loaded axis pose data {tuple(gts.shape)} from {args.file_path}")
+    """The completion tasks. Returns ``hypotheses_file``, ``mpvpe``, ``mpjpe``
+    and ``render_s``."""
+    gts = load_poses(args, device)
     normed = normalizer.offline_normalize(gts, from_axis=True)
     mask, observation = create_mask(normed, part=args.part, generator=generator)
     mesh = mesh_if_divides(mesh, args.hypo * observation.shape[0])
@@ -421,11 +490,23 @@ def run_completion(args, config, sde, model, normalizer, generator, device,
     np.savez(out["hypotheses_file"], pose_hypotheses=preds.cpu().numpy(),
              mask=mask.cpu().numpy(), gts=gts.cpu().numpy())
     print(f"hypotheses saved to {out['hypotheses_file']}")
+    t0 = time.perf_counter()
+    try:
+        multiple_render(observation, normalizer, body, target, "sample{}_masked.png",
+                        **render_kwargs(args))
+        for h in range(args.hypo):
+            multiple_render(multihypo[:, h], normalizer, body, target,
+                            "sample{}_completion" + str(h) + ".png", **render_kwargs(args))
+        print(f"Completion samples under {target}")
+    except FileNotFoundError as e:
+        print(f"[skip renders] {e}")
+    out["render_s"] = time.perf_counter() - t0
     return out
 
 
 def run_interpolation(args, config, sde, model, normalizer, generator, device) -> dict:
-    """The interpolation task. Returns ``frames_file`` and ``recon_err``."""
+    """The interpolation task. Returns ``frames_file``, ``recon_err`` and
+    ``render_s``."""
     with np.load(args.file_path, allow_pickle=False) as f:
         poses = f["pose_samples"]
     if poses.shape[0] <= max(ANCHOR_IDX):
@@ -464,19 +545,120 @@ def run_interpolation(args, config, sde, model, normalizer, generator, device) -
     print(f"reconstruction mean abs err (normalized space): {recon_err:.4f}")
 
     decoder = build_decoder(INTER_FRAMES)
-    frames = []
-    for idx in range(len(ANCHOR_IDX) - 1):
-        latents = slerp_interpolation(anchor_z[idx], anchor_z[idx + 1], INTER_FRAMES)
-        frames.append(normalizer.offline_denormalize(decoder(generator, z=latents),
-                                                     to_axis=True))
     target = os.path.join(args.output_path, "interpolation")
     os.makedirs(target, exist_ok=True)
+    frames, renders, body, render_s = [], [], None, 0.0
+    render = True  # until a render is skipped; the decode goes on (frames.npz)
+    for idx in range(len(ANCHOR_IDX) - 1):
+        latents = slerp_interpolation(anchor_z[idx], anchor_z[idx + 1], INTER_FRAMES)
+        samples = decoder(generator, z=latents)
+        frames.append(normalizer.offline_denormalize(samples, to_axis=True))
+        if not render:
+            continue
+        t0 = time.perf_counter()
+        try:
+            if body is None:
+                body = BodyModel(args.bodymodel_path, num_betas=10, model_type="smplx",
+                                 device=device)
+            if args.video:  # one video of every frame (ref demo.py:474-500)
+                meshes, faces = body_meshes(samples, normalizer, body)
+                renders += [render_mesh(np.ones(BG_IMG_SHAPE) * 255, m, faces,
+                                        dict(focal=FOCAL, princpt=PRINCPT),
+                                        view="front").astype(np.uint8) for m in meshes]
+            else:
+                multiple_render(samples, normalizer, body, target,
+                                "inter_" + str(idx) + "_{}.png", **render_kwargs(args))
+        except FileNotFoundError as e:
+            print(f"[skip renders] {e}")
+            render = False
+        render_s += time.perf_counter() - t0
     out = dict(frames_file=os.path.join(target, "frames.npz"), recon_err=recon_err)
+    if args.video and renders:
+        t0 = time.perf_counter()
+        out["video_file"] = os.path.join(target, "interpolation_video.mp4")
+        write_video(renders, out["video_file"], INTER_VIDEO_FPS)
+        render_s += time.perf_counter() - t0
+    out["render_s"] = render_s
     np.savez(out["frames_file"], pose_frames=torch.stack(frames).cpu().numpy(),
              anchors=anchors.cpu().numpy(),
              recon=normalizer.offline_denormalize(recon, to_axis=True).cpu().numpy())
     print(f"Interpolation outputs under {target}")
     return out
+
+
+def render_kwargs(args) -> dict:
+    """``multiple_render``'s canvas, camera and ``--view`` (ref run/demo.py:150)."""
+    return dict(bg_img=np.ones(BG_IMG_SHAPE) * 255, focal=FOCAL, princpt=PRINCPT,
+                view=args.view)
+
+
+def load_poses(args, device) -> torch.Tensor:
+    """The first ``SAMPLE_NUM`` axis-angle poses of ``--file-path``."""
+    with np.load(args.file_path, allow_pickle=False) as f:
+        poses = torch.as_tensor(f["pose_samples"][:SAMPLE_NUM], dtype=torch.float32,
+                                device=device)
+    print(f"loaded axis pose data {tuple(poses.shape)} from {args.file_path}")
+    return poses
+
+
+def run_view(args, device) -> dict:
+    """The view task (ref run/demo.py:446-450): the poses of ``--file-path``
+    rendered as they are. A missing body model raises."""
+    poses = load_poses(args, device)
+    body = BodyModel(args.bodymodel_path, num_betas=10, model_type="smplx", device=device)
+    target = os.path.join(args.output_path, "view")
+    multiple_render(poses, None, body, target, "GT_sample{}.png", convert=False,
+                    **render_kwargs(args))
+    print(f"rendered images saved under {target}")
+    return dict(view_dir=target, n=len(poses))
+
+
+def run_generation_process(args, config, sde, model, normalizer, generator, device) -> dict:
+    """The generation_process task (ref run/demo.py:408-437): ``VIDEO_NUM``
+    poses sampled with the config's pc sampler, the state recorded after
+    grid steps 9, 19, ..., and each pose's frames rendered (front view) to
+    a ``VIDEO_FPS`` video. In the kernels' scope the kernel sampler records
+    the steps (``trajectory_steps``; on the card one CUDA graph), else the
+    plain PC loop's trajectory is sliced. A missing body model or ``cv2``
+    raises. Returns ``videos``, ``trajs`` [frames, VIDEO_NUM, D]
+    (normalized) and ``sample_s``, ``body_s`` and ``render_s``."""
+    if config.sampling.method.lower() != "pc":
+        raise ValueError(f"generation_process records the pc sampler's trajectory; the "
+                         f"config's sampling method is {config.sampling.method!r}")
+    target = os.path.join(args.output_path, "generation_process")
+    os.makedirs(target, exist_ok=True)
+    eps = sampling_eps_for(sde)
+    t0 = time.perf_counter()
+    if kernel_scope(config, model):
+        s = build_sampler(config, sde, model, VIDEO_NUM, eps, config.sampling.corrector, device,
+                          trajectory_steps=range(9, sde.N, 10))
+        print("[sampler] kernel sampler recording steps 9, 19, ... "
+              f"(corrector={config.sampling.corrector})")
+        trajs, _ = s(generator)
+    else:
+        trajs, _ = plain_pc_sampler(config, sde, model, VIDEO_NUM, eps, device,
+                                    return_trajectory=True)(generator)
+        trajs = trajs[9::10]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    sample_s = time.perf_counter() - t0
+    import cv2  # noqa: F401  (the videos need it: fail before the renders, as JAX does)
+
+    body = BodyModel(args.bodymodel_path, num_betas=10, model_type="smplx", device=device)
+    videos, body_s, render_s = [], 0.0, 0.0
+    for idx in range(VIDEO_NUM):
+        t0 = time.perf_counter()
+        meshes, faces = body_meshes(trajs[:, idx], normalizer, body)
+        t1 = time.perf_counter()
+        frames = [render_mesh(np.ones(BG_IMG_SHAPE) * 255, m, faces,
+                              dict(focal=FOCAL, princpt=PRINCPT), view="front").astype(np.uint8)
+                  for m in meshes]
+        render_s += time.perf_counter() - t1
+        body_s += t1 - t0
+        videos.append(os.path.join(target, f"generation_process{idx}.mp4"))
+        write_video(frames, videos[-1], VIDEO_FPS)
+    return dict(videos=videos, trajs=trajs, sample_s=sample_s, body_s=body_s,
+                render_s=render_s)
 
 
 def _timed_si(vertices: torch.Tensor, faces: np.ndarray, ready) -> tuple:
@@ -508,8 +690,12 @@ def run_metrics(args, config, sde, model, normalizer, generator, device,
     t0 = time.perf_counter()
     n_chunks = args.metrics_chunks
     per = METRICS_SAMPLE_NUM // n_chunks
-    sampler = build_sampler(config, sde, model, mesh_rows(mesh, per), METRICS_EPS, "langevin",
-                            device, quant_kw=quant_kwargs(METRICS_EPS, "langevin"), mesh=mesh)
+    if kernel_scope(config, model, "langevin"):
+        sampler = build_sampler(config, sde, model, mesh_rows(mesh, per), METRICS_EPS,
+                                "langevin", device,
+                                quant_kw=quant_kwargs(METRICS_EPS, "langevin"), mesh=mesh)
+    else:
+        sampler = plain_pc_sampler(config, sde, model, per, METRICS_EPS, device, "langevin")
     # Pose-NDF protocol: SMPL body, zero-padded hand joints
     body = BodyModel(args.smpl_path, num_betas=10, model_type="smpl", device=device)
     faces = body.f.cpu().numpy()
@@ -539,7 +725,9 @@ def run_metrics(args, config, sde, model, normalizer, generator, device,
 
 
 def run(args, mesh=None) -> dict:
-    """The task. Generation returns ``samples_file``, ``step`` and, with
+    """The task. View returns ``view_dir`` and ``n``; generation_process
+    ``run_generation_process``'s keys and ``step``; generation returns
+    ``samples_file``, ``step`` and, with
     ``--metrics``, ``run_metrics``'s ``apd``, ``si``, ``metrics_wall_s``,
     ``si_wall_s`` and ``sample_wall_s``; the completion tasks
     ``hypotheses_file``, ``mpvpe``, ``mpjpe`` and ``step``; interpolation
@@ -553,6 +741,8 @@ def run(args, mesh=None) -> dict:
     if args.metrics_chunks < 1 or METRICS_SAMPLE_NUM % args.metrics_chunks:
         raise SystemExit(f"--metrics-chunks {args.metrics_chunks} must divide "
                          f"{METRICS_SAMPLE_NUM}")
+    if args.task == "view":
+        return run_view(args, device)
     config = load_config(args.config_path)
     model, step = load_model(config, args.ckpt_path, device)
     print(f"=> loaded checkpoint '{args.ckpt_path}' (step {step})")
@@ -574,6 +764,9 @@ def run(args, mesh=None) -> dict:
     if args.task == "interpolation":
         return dict(run_interpolation(args, config, sde, model, normalizer, generator,
                                       device), step=step)
+    if args.task == "generation_process":
+        return dict(run_generation_process(args, config, sde, model, normalizer, generator,
+                                           device), step=step)
 
     eps = sampling_eps_for(sde)
     few = args.sampler != "pc" and config.sampling.corrector == "none"
@@ -582,12 +775,22 @@ def run(args, mesh=None) -> dict:
         quant_kw=(quant_kwargs(eps, config.sampling.corrector)
                   if few or config.sampling.method.lower() == "pc" else None), args=args,
         mesh=mesh)
-    samples = normalizer.offline_denormalize(sampler(generator), to_axis=True)
+    normed = sampler(generator)
+    samples = normalizer.offline_denormalize(normed, to_axis=True)
     target = os.path.join(args.output_path, "generation")
     os.makedirs(target, exist_ok=True)
     out = dict(samples_file=os.path.join(target, "samples.npz"), step=step)
     np.savez(out["samples_file"], pose_samples=samples.cpu().numpy())
     print(f"samples saved to {out['samples_file']}")
+    t0 = time.perf_counter()
+    try:
+        body = BodyModel(args.bodymodel_path, num_betas=10, model_type="smplx", device=device)
+        multiple_render(normed, normalizer, body, target, "generated_sample{}.png",
+                        **render_kwargs(args))
+        print(f"samples saved under {target}")
+    except FileNotFoundError as e:
+        print(f"[skip renders] body model unavailable: {e}")
+    out["render_s"] = time.perf_counter() - t0
 
     if args.metrics:
         out.update(run_metrics(args, config, sde, model, normalizer, generator, device,

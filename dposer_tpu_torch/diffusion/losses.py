@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..models import TimeMLPs
 from ..models.time_embedding import get_timestep_embedding
 from .ema import EMAState, ema_init, ema_update
 from .score_fn import get_score_fn
@@ -169,9 +170,12 @@ def ema_params_of(state: TrainState) -> Dict[str, torch.Tensor]:
 
 def make_model_apply(model) -> Callable:
     """``apply(params, x, labels, masks=None) -> out``: ``model``'s forward
-    (ScoreModelFC) on the named parameters ``params``; ``masks`` (one [B, H]
-    factor of 0 and 1/keep per GroupNorm layer, in network order) replace
-    the Dropout module's draws, None means no dropout."""
+    (ScoreModelFC or TimeMLPs) on the named parameters ``params``; ``masks``
+    (one [B, H] factor of 0 and 1/keep per dropout layer, in network order:
+    ``dropout_layers``) replace the Dropout modules' draws, None means no
+    dropout."""
+    if isinstance(model, TimeMLPs):
+        return _time_mlps_apply(model)
     act = model.act
     n_blocks = model.n_blocks
 
@@ -209,17 +213,48 @@ def make_model_apply(model) -> Callable:
     return apply
 
 
+def _time_mlps_apply(model: TimeMLPs) -> Callable:
+    """``make_model_apply`` for TimeMLPs: the time label appended to the
+    pose, a dropout mask after each hidden block's activation."""
+    act = model.net[1]
+    n_blocks = model.n_blocks
+
+    def dense(p, i, h):
+        return F.linear(h, p[f"net.{i}.weight"], p[f"net.{i}.bias"])
+
+    def apply(params, x, labels, masks=None):
+        labels = torch.atleast_1d(labels).to(x.dtype).expand(x.shape[0])
+        h = act(dense(params, 0, torch.cat([x, labels[:, None]], dim=1)))
+        for b in range(n_blocks):
+            h = act(dense(params, 2 + 3 * b, h))
+            if masks is not None:
+                h = h * masks[b]
+        return dense(params, 2 + 3 * n_blocks, h)
+
+    apply.model = model
+    return apply
+
+
+def dropout_layers(model) -> tuple:
+    """``(p, n)``: ``model``'s dropout rate and its number of dropout layers
+    (ScoreModelFC: one per GroupNorm layer; TimeMLPs: one per hidden block)."""
+    if isinstance(model, TimeMLPs):
+        drops = [m for m in model.net if isinstance(m, torch.nn.Dropout)]
+        return (float(drops[0].p) if drops else 0.0), len(drops)
+    return float(model.dropout.p), 1 + 2 * model.n_blocks
+
+
 def draw_masks(model, batch: int, device, dropout_seed: Optional[int] = None,
                generator: Optional[torch.Generator] = None, rows=None):
-    """One dropout factor [B, H] per GroupNorm layer: the train kernels' hash
+    """One dropout factor [B, H] per dropout layer: the train kernels' hash
     masks for ``dropout_seed``, else bernoulli(keep) draws from
     ``generator``; None when the model has no dropout. ``rows=(row_offset,
     global_batch)``: the batch is those rows of a global batch, whose masks
     are drawn (or hashed) at the global shape and sliced."""
     from ..ops.cuda.fused_train import dropout_mask
 
-    keep = 1.0 - float(model.dropout.p)
-    n_tp = 1 + 2 * model.n_blocks
+    p_drop, n_tp = dropout_layers(model)
+    keep = 1.0 - p_drop
     H = model.hidden_dim
     if keep >= 1.0:
         return None

@@ -89,6 +89,20 @@ class SDE:
 
         return rsde
 
+    def reverse_sde_guided(self, score_fn: Callable):
+        """``rsde(x, t) -> (drift, diffusion, alpha, sigma^2, score)``: the
+        reverse SDE with what guidance and one-step denoising need (ref
+        sde_lib.py:98-109 with guide=True)."""
+
+        def rsde(x, t):
+            drift, diffusion = self.sde(x, t)
+            score = score_fn(x, t)
+            drift = drift - batch_mul(diffusion ** 2, score)
+            alpha, sigma = self.return_alpha_sigma(t)
+            return drift, diffusion, alpha, sigma ** 2, score
+
+        return rsde
+
     def reverse_discretize(self, score_fn: Callable, probability_flow: bool = False):
         """Discretized reverse iteration (ref sde_lib.py:111-117)."""
 

@@ -1,5 +1,5 @@
-from .score_mlp import ScoreModelFC, create_score_model, get_act, get_sigmas
+from .score_mlp import ScoreModelFC, TimeMLPs, create_score_model, get_act, get_sigmas
 from .time_embedding import GaussianFourierProjection, get_timestep_embedding
 
-__all__ = ["ScoreModelFC", "create_score_model", "get_act", "get_sigmas",
+__all__ = ["ScoreModelFC", "TimeMLPs", "create_score_model", "get_act", "get_sigmas",
            "GaussianFourierProjection", "get_timestep_embedding"]

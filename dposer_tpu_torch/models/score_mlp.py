@@ -1,4 +1,5 @@
-"""ScoreModelFC, the flat-pose score MLP (ref lib/algorithms/advanced/model.py:93-196).
+"""ScoreModelFC, the flat-pose score MLP (ref lib/algorithms/advanced/model.py:93-196),
+and TimeMLPs, the plain baseline (ref model.py:69-90).
 
 Pre-Linear with a per-layer time projection, GroupNorm(32) + activation +
 dropout, ``n_blocks`` residual blocks of two such sub-layers with skip
@@ -124,14 +125,49 @@ class ScoreModelFC(nn.Module):
         return res
 
 
-def create_score_model(config, n_poses: int = 21) -> ScoreModelFC:
-    """Build the score model a config describes (ref run/train.py:154-174)."""
-    if config.model.type != "ScoreModelFC":
-        raise NotImplementedError(f"unsupported model {config.model.type!r}")
+class TimeMLPs(nn.Module):
+    """The plain time-conditioned MLP baseline (ref model.py:69-90): the
+    time label appended to the pose as one more input, ``n_blocks`` hidden
+    Linear + activation + dropout layers. Its layers sit in a ``Sequential``
+    named ``net`` in the reference's layout (Linears at ``net.0``,
+    ``net.{2+3b}`` and ``net.{2+3n}``), so a reference ``.pth`` loads as it
+    is. No kernel covers it; it samples on the plain samplers."""
+
+    def __init__(self, n_poses: int = 21, pose_dim: int = 6, hidden_dim: int = 64,
+                 n_blocks: int = 2, dropout: float = 0.1, act_name: str = "swish"):
+        super().__init__()
+        self.n_poses = n_poses
+        self.pose_dim = pose_dim
+        self.hidden_dim = hidden_dim
+        self.n_blocks = n_blocks
+        self.act_name = act_name
+        dim = n_poses * pose_dim
+        layers = [nn.Linear(dim + 1, hidden_dim), get_act(act_name)]
+        for _ in range(n_blocks):
+            layers += [nn.Linear(hidden_dim, hidden_dim), get_act(act_name), nn.Dropout(dropout)]
+        layers.append(nn.Linear(hidden_dim, dim))
+        self.net = nn.Sequential(*layers)
+
+    def forward(self, batch: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """batch: [B, n_poses*pose_dim]; t: [B] or a scalar label time."""
+        t = torch.as_tensor(t, dtype=batch.dtype, device=batch.device)
+        t = torch.atleast_1d(t).expand(batch.shape[0])
+        return self.net(torch.cat([batch, t[:, None]], dim=1))
+
+
+def create_score_model(config, n_poses: int = 21) -> nn.Module:
+    """Build the score model a config describes (ref run/train.py:154-174):
+    ``ScoreModelFC`` or ``TimeMLPs``."""
     m = config.model
+    pose_dim = 3 if config.data.rot_rep == "axis" else 6
+    if m.type == "TimeMLPs":
+        return TimeMLPs(n_poses=n_poses, pose_dim=pose_dim, hidden_dim=m.HIDDEN_DIM,
+                        n_blocks=m.N_BLOCKS, dropout=m.dropout, act_name=m.nonlinearity)
+    if m.type != "ScoreModelFC":
+        raise NotImplementedError(f"unsupported model {m.type!r}")
     return ScoreModelFC(
         n_poses=n_poses,
-        pose_dim=3 if config.data.rot_rep == "axis" else 6,
+        pose_dim=pose_dim,
         hidden_dim=m.HIDDEN_DIM, embed_dim=m.EMBED_DIM, n_blocks=m.N_BLOCKS,
         dropout=m.dropout, act_name=m.nonlinearity,
         embedding_type=m.embedding_type,

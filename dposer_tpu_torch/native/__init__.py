@@ -1,9 +1,11 @@
-"""The port's native (C++) helper: the mesh self-intersection metric. Port of
-``dposer_tpu/native/__init__.py``.
+"""The port's native (C++) helpers: the mesh self-intersection metric and the
+software rasterizer. Port of ``dposer_tpu/native/__init__.py``.
 
 ``src/`` holds byte-for-byte copies of the JAX package's ``mesh_si.cpp`` and
 ``tri_tri.h`` (a uniform-grid broad phase and Möller's triangle-triangle
-test, threaded over the meshes of a batch). They are built with the host's
+test, threaded over the meshes of a batch) and ``raster.cpp`` (a
+flat-shaded z-buffer rasterizer, ``body_model/visual.py``'s renders). They
+are built with the host's
 ``g++`` at first use into ``_build/`` beside this file, and bound with
 ``ctypes``. The library's name carries a digest of the sources, of
 ``g++ -dumpfullversion`` and ``-dumpmachine``, of the machine and of the
@@ -34,7 +36,7 @@ import numpy as np
 
 SRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-SOURCES = ("mesh_si.cpp", "tri_tri.h")
+SOURCES = ("mesh_si.cpp", "tri_tri.h", "raster.cpp")
 CXX = "g++"
 CXXFLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
@@ -51,7 +53,8 @@ def compiler() -> str:
     path = shutil.which(CXX)
     if path is None:
         raise FileNotFoundError(f"no host C++ compiler: {CXX!r} is not on the PATH, and the "
-                                f"self-intersection metric builds {SRC_DIR} with it")
+                                f"native helpers (self-intersection, rasterizer) build "
+                                f"{SRC_DIR} with it")
     return path
 
 
@@ -108,6 +111,7 @@ def load() -> ctypes.CDLL:
                 raise NativeLibraryError(f"cannot load {path}: {e}") from e
             f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
             i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
             lib.self_intersections_percentage.argtypes = [
                 f32p, ctypes.c_int, ctypes.c_int, i32p, ctypes.c_int, f32p]
             lib.self_intersections_percentage.restype = None
@@ -116,6 +120,10 @@ def load() -> ctypes.CDLL:
             lib.self_intersections_percentage_mt.restype = None
             lib.tri_tri_test.argtypes = [f32p, f32p]
             lib.tri_tri_test.restype = ctypes.c_int
+            lib.rasterize.argtypes = [f32p, ctypes.c_int, i32p, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                                      ctypes.c_float, ctypes.c_float, f32p, f32p, f32p, u8p]
+            lib.rasterize.restype = None
             _LIB = lib
         return _LIB
 
@@ -148,3 +156,26 @@ def tri_tri_test(t1: np.ndarray, t2: np.ndarray) -> bool:
     lib = load()
     return bool(lib.tri_tri_test(np.ascontiguousarray(t1, np.float32).reshape(9),
                                  np.ascontiguousarray(t2, np.float32).reshape(9)))
+
+
+def rasterize(verts: np.ndarray, faces: np.ndarray, height: int, width: int, fx: float,
+              fy: float, cx: float, cy: float, light_dir, base_color) -> tuple:
+    """Flat-shaded z-buffer rasterization of ``verts`` [V, 3] (camera space,
+    z > 0 forward) and ``faces`` [F, 3] at ``height`` x ``width`` with the
+    pinhole ``fx, fy, cx, cy`` -> (rgb [H, W, 3] float64 0-255, mask [H, W]
+    bool). The library computes in float32 and releases the interpreter
+    lock while it runs."""
+    lib = load()
+    verts = np.ascontiguousarray(verts, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    if verts.ndim != 2 or verts.shape[1] != 3 or faces.ndim != 2 or faces.shape[1] != 3:
+        raise ValueError(f"verts [V, 3] and faces [F, 3] expected, got {verts.shape} and "
+                         f"{faces.shape}")
+    if faces.size and (faces.min() < 0 or faces.max() >= len(verts)):
+        raise ValueError(f"face indices outside [0, {len(verts)})")
+    rgb = np.zeros((height, width, 3), np.float32)
+    mask = np.zeros((height, width), np.uint8)
+    lib.rasterize(verts, len(verts), faces, len(faces), int(height), int(width), float(fx),
+                  float(fy), float(cx), float(cy), np.ascontiguousarray(light_dir, np.float32),
+                  np.ascontiguousarray(base_color, np.float32), rgb, mask)
+    return rgb.astype(np.float64), mask.astype(bool)

@@ -42,7 +42,7 @@ version is here or in ``score_net.py``; a wrapper given CPU tensors runs it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -50,6 +50,7 @@ from ...diffusion.fast_sampler import (_corrector_tables, _imputation_tables,
                                        _labels_for, _pred_tables,
                                        check_imputation_args)
 from ...diffusion.sde import SDE
+from ...models import ScoreModelFC
 from ...parallel.sharding import mesh_route, shard_builder
 from . import build
 from .graph_loop import GraphLoop, resolve_loop
@@ -585,6 +586,19 @@ def draw_seed(generator: Optional[torch.Generator]) -> torch.Tensor:
                          device=generator.device if generator is not None else "cpu")
 
 
+KERNEL_PREDICTORS = ("euler_maruyama", "reverse_diffusion")
+
+
+def in_kernel_scope(sampling, model, corrector=None) -> bool:
+    """Whether the kernel sampler runs the pc sampler of ``sampling`` (a
+    config's ``sampling`` block): an Euler-Maruyama or reverse-diffusion
+    predictor, a none or langevin corrector (``corrector`` in place of the
+    block's), and a ScoreModelFC with the positional time embedding."""
+    return (sampling.predictor in KERNEL_PREDICTORS
+            and (corrector or sampling.corrector) in ("none", "langevin")
+            and isinstance(model, ScoreModelFC) and model.embedding_type == "positional")
+
+
 def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e-3,
                         denoise: bool = True, rng_mode: str = "host",
                         corrector: str = "none", snr: float = 0.16,
@@ -595,7 +609,8 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
                         quant: Optional[str] = None, act_amax=None,
                         bf16_tail_steps: int = 0,
                         _tables_override=None, device="cuda", plain: bool = False,
-                        loop: Optional[str] = None, mesh=None):
+                        loop: Optional[str] = None, mesh=None,
+                        trajectory_steps: Optional[Sequence[int]] = None):
     """Build the kernel PC sampler for ``model`` (a ScoreModelFC).
 
     Returns ``sampler(generator=None, observation=None, mask=None, z=None,
@@ -656,6 +671,19 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     batch-mean norms are per shard, as in JAX: each shard is a langevin
     batch of its own. A mesh of one device is the route above on that
     device, and then ``device`` is not read.
+
+    ``trajectory_steps`` (grid steps inside the run's rows) makes a call
+    return ``(trajs [T, B, D], x)``, ``trajs[j]`` the state ``x`` after step
+    ``trajectory_steps[j]`` (the noised state, also at the last step, as the
+    JAX sampler's ``return_trajectory`` records it). The loop body copies
+    ``x`` into a static buffer after each named step, so a captured graph
+    records the copies too, and a call returns a clone of that buffer; the
+    final ``x`` is the sampler's without ``trajectory_steps``, bit for bit.
+    Corrector-free imputation then re-noises before each predictor (K4 at
+    every step) instead of folding the next step's re-noise into K2, so the
+    recorded state is the step's own. Under a mesh each shard records its
+    rows and the trajectories join along their rows (axis 1). It does not
+    combine with ``bf16_tail_steps``.
     """
     args = dict(locals())
     mesh, device = mesh_route(mesh, device)
@@ -663,6 +691,9 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
         return shard_builder(get_cuda_em_sampler, args, mesh,
                              ("observation", "mask", "z", "noise"), "the sharded kernel sampler")
     if bf16_tail_steps:
+        if trajectory_steps is not None:
+            raise ValueError("trajectory_steps records one run's steps; the mixed schedule "
+                             "(bf16_tail_steps) runs two")
         if quant != "int8" or _tables_override is not None or step_range is not None:
             raise ValueError("bf16_tail_steps requires quant='int8' and is incompatible "
                              "with _tables_override/step_range")
@@ -726,13 +757,21 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
         raise ValueError(f"step_range {step_range} out of bounds for the "
                          f"{int(coefs.shape[0])}-step grid")
     n_steps = hi - lo
+    record = {}  # grid step -> its row of the trajectory buffer
+    if trajectory_steps is not None:
+        record = {int(s): j for j, s in enumerate(trajectory_steps)}
+        if len(record) != len(trajectory_steps) or not all(lo <= s < hi for s in record):
+            raise ValueError(f"trajectory_steps must be distinct grid steps in [{lo}, {hi})")
     # corrector-free imputation: K2 re-noises for the next step, K4 runs once
-    fold = imputation and n_corr == 0
+    # (unless a trajectory records each step's own state)
+    fold = imputation and n_corr == 0 and trajectory_steps is None
 
     # the loop's static buffers: the state, its scratch and the inputs
     x = torch.empty((batch, dim), dtype=torch.float32, device=device)
     x_mean = torch.empty_like(x) if denoise else None
     scratch = pc_scratch(net, batch, n_corr, device)
+    trajs = (torch.empty((len(record), batch, dim), dtype=torch.float32, device=device)
+             if trajectory_steps is not None else None)
     inputs = dict(z=torch.empty_like(x))
     if imputation:
         inputs.update(observation=torch.empty_like(x), mask=torch.empty_like(x))
@@ -758,7 +797,10 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
                     x_mean=x_mean if i == hi - 1 else None, observed=observed,
                     renoised=fold and i > lo, renoise_next=fold and i + 1 < hi,
                     next_slabs=next_slabs, plain=plain)
-        return x_mean if denoise else x
+            if i in record:
+                trajs[record[i]].copy_(x)
+        out = x_mean if denoise else x
+        return out if trajs is None else (trajs, out)
 
     runner = GraphLoop(body, inputs, graph=graph)
 

@@ -62,6 +62,7 @@ import torch.nn.functional as F
 
 from ...diffusion.losses import apply_train_update, batch_rows
 from ...diffusion.sde import SDE, VPSDE, SubVPSDE
+from ...models import ScoreModelFC
 from ...models.time_embedding import get_timestep_embedding
 from . import build
 from .score_net import HEAD_COLS, NUM_GROUPS, _check, _ptr
@@ -563,6 +564,8 @@ class _DSMNet(torch.autograd.Function):
 def scope_error(sde: SDE, model, continuous: bool = True,
                 auxiliary_loss: bool = False) -> Optional[str]:
     """Why ``model`` under ``sde`` is outside the kernels' scope, or None."""
+    if not isinstance(model, ScoreModelFC):
+        return f"the train kernels run a ScoreModelFC, not a {type(model).__name__}"
     dim = model.n_poses * model.pose_dim
     hidden = model.hidden_dim
     if not isinstance(sde, (VPSDE, SubVPSDE)) or not continuous:

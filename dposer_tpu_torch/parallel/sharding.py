@@ -219,15 +219,21 @@ def loops_of(shards: Sequence) -> tuple:
     return tuple(lp for s in shards for lp in s.loops)
 
 
+def _row_axis(t: torch.Tensor) -> int:
+    """The rows of a result: axis -2 of ``[..., B, D]`` (a state, or a
+    trajectory [T, B, D]), axis 0 of a vector [B]."""
+    return t.ndim - 2 if t.ndim >= 2 else 0
+
+
 def join_result(mesh: Mesh, outs: Sequence):
-    """The shards' results joined: a tensor by rows on the mesh's first
-    device, a tuple entry by entry, each tensor so and anything else (an
-    NFE count) as shard 0 gives it."""
+    """The shards' results joined: a tensor by its rows (``_row_axis``) on
+    the mesh's first device, a tuple entry by entry, each tensor so and
+    anything else (an NFE count) as shard 0 gives it."""
     first = outs[0]
     if isinstance(first, torch.Tensor):
-        return join_rows(mesh, outs)
-    return tuple(join_rows(mesh, [o[i] for o in outs]) if isinstance(v, torch.Tensor) else v
-                 for i, v in enumerate(first))
+        return join_rows(mesh, outs, _row_axis(first))
+    return tuple(join_rows(mesh, [o[i] for o in outs], _row_axis(v))
+                 if isinstance(v, torch.Tensor) else v for i, v in enumerate(first))
 
 
 def shard_builder(builder: Callable, args: dict, mesh: Mesh, inputs: Sequence[str],
@@ -617,9 +623,10 @@ def data_parallel_sampler_params(sampler: Callable) -> Callable:
     ``sampler`` (a kernel sampler of ``fused_em.get_cuda_em_sampler``, with
     ``mesh=`` or without) built once, on the weights of the model ``params``
     at each call, which it loads in place (``sampler.load_params``): a
-    replayed graph stays valid, so a call after the first replays it. The
-    counterpart of JAX's form, which threads the weights through one
-    compiled program."""
+    replayed graph stays valid, so a call after the first replays it. It
+    returns what ``sampler`` returns (``(trajs, x)`` for a sampler built
+    with ``trajectory_steps``). The counterpart of JAX's form, which threads
+    the weights through one compiled program."""
     def run(params, *args, **kwargs):
         sampler.load_params(params)
         return sampler(*args, **kwargs)

@@ -45,6 +45,7 @@ from .optim import Adam
 from .prior import DPoserPrior, sample_quan_t
 
 POSE_DIM = 63
+TRACE_TERMS = ("temp", "data", "dposer", "w_temp", "w_data", "w_dposer")
 
 
 def _safe_norm(d: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -128,11 +129,15 @@ class MotionDenoise:
         w_data = float(np.float32(100.0) / (np.float32(1.0) + it * it))
         w_dposer = float(np.float32(0.1) * (np.float32(1.0) + it)
                          * np.float32(self.dposer_weight))
-        return w_temp * temp + w_data * data + w_dposer * dposer
+        terms = {"temp": temp, "data": data, "dposer": dposer, "w_temp": w_temp * temp,
+                 "w_data": w_data * data, "w_dposer": w_dposer * dposer}
+        return w_temp * temp + w_data * data + w_dposer * dposer, terms
 
     def _run(self, joints3d, generators, time_strategy, sample_trun, sample_time,
-             iterations, steps_per_iter, poses0, z, t_idx):
-        """``joints3d`` [F, T, 22, 3] -> the smoothed poses [F, T, 63]."""
+             iterations, steps_per_iter, poses0, z, t_idx, instrument=False):
+        """``joints3d`` [F, T, 22, 3] -> the smoothed poses [F, T, 63]; with
+        ``instrument`` ``(poses, trace)``, ``trace`` each loss term (JAX's
+        names, summed over the fragments) a step as numpy [steps]."""
         F, T = joints3d.shape[:2]
         if time_strategy == "1" and t_idx is None and generators is None:
             raise ValueError("time strategy '1' draws each step's time from the fragments' "
@@ -146,6 +151,7 @@ class MotionDenoise:
         opt = Adam([poses], self.lr)
         total = iterations * steps_per_iter
         timesteps = self.prior.timesteps
+        trace = []
         for i in range(total):
             # fragment f draws its time, then its normals, from generators[f],
             # as optimize draws from its generator
@@ -162,14 +168,19 @@ class MotionDenoise:
             else:
                 z_i = torch.stack([torch.randn(T, POSE_DIM, generator=g, device=self.device)
                                    for g in generators])
-            loss = self._loss(poses, init_joints, timesteps[quan_t], z_i,
-                              i // steps_per_iter)
+            loss, terms = self._loss(poses, init_joints, timesteps[quan_t], z_i,
+                                     i // steps_per_iter)
             opt.step(torch.autograd.grad(loss, poses))
+            if instrument:
+                trace.append(torch.stack([terms[k].detach() for k in TRACE_TERMS]))
         poses = poses.detach()
         # smoothing for the demo's sake, the endpoints kept (ref :283-285)
         smooth = torch.stack([gaussian_smoothing(p, window_size=3, sigma=2.0) for p in poses])
         smooth[:, 0], smooth[:, -1] = poses[:, 0], poses[:, -1]
-        return smooth
+        if not instrument:
+            return smooth
+        steps = torch.stack(trace).cpu().numpy() if trace else np.zeros((0, len(TRACE_TERMS)))
+        return smooth, {k: steps[:, j] for j, k in enumerate(TRACE_TERMS)}
 
     def optimize_batch(self, joints3d: torch.Tensor, time_strategy: str = "3",
                        sample_trun: float = 2.0, sample_time: int = 990,
@@ -200,19 +211,26 @@ class MotionDenoise:
                  generator: Optional[torch.Generator] = None,
                  poses0: Optional[torch.Tensor] = None,
                  z: Optional[torch.Tensor] = None,
-                 t_idx: Optional[torch.Tensor] = None) -> Dict[str, np.ndarray]:
+                 t_idx: Optional[torch.Tensor] = None,
+                 instrument: bool = False) -> Dict[str, np.ndarray]:
         """``joints3d`` [T, 22, 3] noisy joints -> the metrics in cm (with
         ``gt_poses``); the denoised poses [T, 63] are left on
         ``self.last_poses``. ``poses0`` [T, 63], ``z`` [steps, T, 63] and
         ``t_idx`` [steps] inject the init, the prior's normals and its time
-        indices."""
+        indices. ``instrument`` also leaves the per-step raw and weighted
+        loss terms on ``self.last_trace`` (``temp``, ``data``, ``dposer``,
+        ``w_temp``, ``w_data``, ``w_dposer``, numpy [steps] each; ref
+        :63-116), the diagnostic seam of the protocol."""
         if generator is None and (poses0 is None or z is None):
             generator = torch.Generator(device=self.device)
-        poses = self._run(joints3d[None], None if generator is None else [generator],
-                          time_strategy, sample_trun, sample_time, iterations,
-                          steps_per_iter, None if poses0 is None else poses0[None],
-                          None if z is None else z[:, None],
-                          None if t_idx is None else t_idx[:, None])[0]
+        out = self._run(joints3d[None], None if generator is None else [generator],
+                        time_strategy, sample_trun, sample_time, iterations,
+                        steps_per_iter, None if poses0 is None else poses0[None],
+                        None if z is None else z[:, None],
+                        None if t_idx is None else t_idx[:, None], instrument=instrument)
+        if instrument:
+            out, self.last_trace = out
+        poses = out[0]
         self.last_poses = poses
         results: Dict[str, np.ndarray] = {}
         if gt_poses is not None:

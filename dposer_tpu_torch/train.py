@@ -64,7 +64,14 @@ evaluation; the processes agree on a SIGTERM in the last step's all-reduce
 of a window, so all of them checkpoint the same step. A process that sees
 several cards without ``--multihost`` trains on the first.
 
-Not ported: ``--profile-dir`` (see ROADMAP.md).
+``--profile-dir DIR`` traces local steps 10-20 of the run (the windows from
+the first that starts at or after local step 10 to the first that ends at or
+after step 20) with ``torch.profiler`` into one Chrome trace file in
+``DIR``; each window is a ``trace_annotation`` span named ``train_step_<s>``
+(``train_steps_<a>-<b>`` for a window of several steps). The evaluation
+writes ``last_samples.npz`` with ``pose_samples`` [1, 50, 63] and
+``pose_trajs`` [10, 5, 63], the generation sampler's states at steps 0,
+N/10, ... of the last call's first five rows, as axis-angle.
 """
 from __future__ import annotations
 
@@ -86,11 +93,13 @@ from .config import load_config
 from .data import AMASSDataset
 from .diffusion import losses as losses_lib
 from .diffusion.likelihood import get_likelihood_fn
+from .diffusion.sampling import get_pc_sampler
 from .diffusion.score_fn import get_score_fn
 from .diffusion.sde import build_sde, sampling_eps_for
 from .models import create_score_model
 from .ops.cuda import build
-from .ops.cuda.fused_em import get_cuda_em_hypo_sampler, get_cuda_em_sampler
+from .ops.cuda.fused_em import (get_cuda_em_hypo_sampler, get_cuda_em_sampler,
+                                in_kernel_scope)
 from .ops.cuda.fused_train import get_cuda_step_fn, scope_error
 from .ops.cuda.graph_loop import GraphLoop
 from .ops.metrics import Evaler, average_pairwise_distance
@@ -99,10 +108,18 @@ from .parallel import sharding as par
 from .utils import checkpoint as ckpt_lib
 from .utils.generic import MetricWriter, close_logger, create_logger
 from .utils.masks import create_mask
-from .utils.profiling import StepTimer
+from .utils.profiling import StepTimer, Trace, trace_annotation
 
 HYPO_NUM = 5
 LOSS_EPS = 1e-5
+TRAJ_ROWS = 5  # the rows of the eval trajectory kept in last_samples.npz
+PROFILE_STEPS = (10, 20)  # --profile-dir: the local steps traced
+
+
+def trajectory_steps(n: int) -> range:
+    """The grid steps the eval's generation sampler records: every tenth of
+    the N steps from step 0 (JAX keeps ``trajs[::N // 10]``)."""
+    return range(0, n, max(1, n // 10))
 
 
 def parse_args(argv):
@@ -137,6 +154,9 @@ def parse_args(argv):
                    help="the group's rendezvous: host:port, tcp://... or file://...")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="trace local steps 10-20 (host and card, torch.profiler) into one "
+                        "Chrome trace file in this directory")
     return p.parse_args(argv)
 
 
@@ -174,6 +194,33 @@ def eval_sampler_kwargs(config, sde, device) -> dict:
                 device=device, rng_mode="kernel" if device.type == "cuda" else "host")
 
 
+def plain_eval_samplers(config, sde, score_fn, shape, device) -> dict:
+    """The eval's samplers on the plain PC loop (``get_pc_sampler``) for a
+    config outside the kernels' scope, as the JAX trainer samples every
+    config (ref run/train.py:308-317), in the forms of the kernel ones:
+    ``sample(model, generator) -> (trajs, x)``, ``trajs`` the states after
+    ``trajectory_steps``, and ``hypo(model, generator, observation, mask)
+    -> [B, HYPO_NUM, D]``. ``score_fn`` reads the weights the eval loads, so
+    ``model`` is not read."""
+    sc = config.sampling
+    kw = dict(predictor=sc.predictor, corrector=sc.corrector, snr=sc.snr,
+              n_steps=sc.n_steps_each, probability_flow=sc.probability_flow,
+              denoise=sc.noise_removal, eps=sampling_eps_for(sde), device=device)
+    sample = get_pc_sampler(sde, shape, score_fn, return_trajectory=True, **kw)
+    impute = get_pc_sampler(sde, shape, score_fn, imputation=True, **kw)
+    steps = list(trajectory_steps(sde.N))
+
+    def run_sample(model, generator):
+        trajs, x = sample(generator)
+        return trajs[steps], x
+
+    def run_hypo(model, generator, observation, mask):
+        return torch.stack([impute(generator, observation=observation, mask=mask)
+                            for _ in range(HYPO_NUM)], dim=1)
+
+    return dict(sample=run_sample, hypo=run_hypo)
+
+
 def newest_checkpoint(path: str):
     if os.path.isfile(path):
         return path
@@ -203,8 +250,9 @@ def select_route(args, config, sde, model, device):
 def main(argv=None) -> dict:
     """Train; returns ``output_dir``, ``route``, ``step``, ``losses`` (each
     step's loss), ``windows`` ((steps, seconds) per window), ``best_apd``,
-    ``checkpoints``, ``state``, ``last_eval`` (the last firing's ``step``
-    and its generation ``samples``, normalized), and this process's
+    ``checkpoints``, ``state``, ``last_eval`` (the last firing's ``step``,
+    its generation ``samples`` and the last sampler call's ``trajs`` [10, B,
+    D], normalized), and this process's
     ``device``, ``rank`` and the process count ``world``."""
     args = parse_args(sys.argv[1:] if argv is None else argv)
     device = torch.device(args.device)
@@ -361,14 +409,24 @@ def main(argv=None) -> dict:
     eval_samplers = {}
 
     def samplers():
-        """The eval's kernel samplers, built once on ``eval_model`` and run on
-        the weights each firing loads (``_params`` forms)."""
+        """The eval's samplers, built once on ``eval_model``: in the kernels'
+        scope the kernel samplers, run on the weights each firing loads
+        (``_params`` forms); else the plain PC loop on ``eval_model``
+        itself, which ``load_ema`` updates in place."""
         if not eval_samplers:
-            kw = eval_sampler_kwargs(config, sde, device)
-            eval_samplers["sample"] = par.data_parallel_sampler_params(
-                get_cuda_em_sampler(sde, eval_model, (eb, dim), **kw))
-            eval_samplers["hypo"] = par.multi_hypothesis_imputation_sampler_params(
-                get_cuda_em_hypo_sampler(sde, eval_model, (eb, dim), HYPO_NUM, **kw))
+            if in_kernel_scope(config.sampling, eval_model):
+                kw = eval_sampler_kwargs(config, sde, device)
+                eval_samplers["sample"] = par.data_parallel_sampler_params(
+                    get_cuda_em_sampler(sde, eval_model, (eb, dim), **kw,
+                                        trajectory_steps=trajectory_steps(sde.N)))
+                eval_samplers["hypo"] = par.multi_hypothesis_imputation_sampler_params(
+                    get_cuda_em_hypo_sampler(sde, eval_model, (eb, dim), HYPO_NUM, **kw))
+            else:
+                eval_samplers.update(plain_eval_samplers(config, sde, score_e, (eb, dim),
+                                                         device))
+                logger.info(f"eval sampler: plain PC loop (predictor="
+                            f"{config.sampling.predictor}, corrector="
+                            f"{config.sampling.corrector}): outside the kernels' scope")
         return eval_samplers["sample"], eval_samplers["hypo"]
 
     last_eval = {}
@@ -398,23 +456,29 @@ def main(argv=None) -> dict:
                     res = Evaler(body_model_vis, part="left_leg").multi_eval_bodys(preds, gts)
                     metrics_e["mpvpe_all"].append(float(np.mean(res["mpvpe_all"])))
                     metrics_e["mpjpe_body"].append(float(np.mean(res["mpjpe_body"])))
-                samples.append(sampler(model_e, gen_s))
+                trajs, x = sampler(model_e, gen_s)
+                samples.append(x)
             if not samples:  # a test split smaller than one eval batch
-                samples.append(sampler(model_e, gen_s))
+                trajs, x = sampler(model_e, gen_s)
+                samples.append(x)
             for k, v in metrics_e.items():
                 if v:
                     writer.add_scalar(f"eval_{k}", float(np.mean(v)), step)
             samples_dn = denormalize(torch.cat(samples)[:50])
+            trajs_s = trajs[:, :TRAJ_ROWS]  # the last call's trajectory
+            trajs_dn = denormalize(trajs_s)
             if config.data.rot_rep == "rot6d":
                 samples_dn = rot6d_to_axis_angle(samples_dn.reshape(-1, 6)).reshape(-1, N_POSES * 3)
+                trajs_dn = rot6d_to_axis_angle(trajs_dn.reshape(-1, 6))
+            trajs_dn = trajs_dn.reshape(trajs_s.shape[0], trajs_s.shape[1], -1)
             apd = 0.0
             if body_model_vis is not None:
                 apd = float(average_pairwise_distance(body_model_vis(pose_body=samples_dn).Jtr[:, :22]))
                 logger.info(f"APD: {apd}")
                 writer.add_scalar("APD", apd, step)
         np.savez(os.path.join(out_dir, "last_samples.npz"),
-                 pose_samples=samples_dn.cpu().numpy()[None])
-        last_eval.update(step=step, samples=torch.cat(samples))
+                 pose_trajs=trajs_dn.cpu().numpy(), pose_samples=samples_dn.cpu().numpy()[None])
+        last_eval.update(step=step, samples=torch.cat(samples), trajs=trajs)
         new_encodes = build.tma_encodes("dense_gn_silu") - encodes if device.type == "cuda" else 0
         logger.info(f"validating completed: {GraphLoop.captures - captures} graph(s) captured, "
                     f"{new_encodes} tensor map(s) encoded")
@@ -444,13 +508,25 @@ def main(argv=None) -> dict:
     # the agreed value
     agree = (lambda: {"stop": float(stop["flag"])}) if world > 1 else None
     halt = stop["flag"]
+    local_step, trace, traced = 0, None, False
     while step < n_iters and not halt:
         k_this = min(K, n_iters - step)
+        if args.profile_dir and trace is None and not traced and local_step >= PROFILE_STEPS[0]:
+            trace = Trace(args.profile_dir, device)
         t0 = time.perf_counter()
-        idx = par.shard_global_multi_batch(np.stack([next(idx_stream) for _ in range(k_this)]))
-        values = run_window(idx, noise, agree)
+        span = (f"train_step_{step + 1}" if k_this == 1
+                else f"train_steps_{step + 1}-{step + k_this}")
+        with trace_annotation(span):
+            idx = par.shard_global_multi_batch(
+                np.stack([next(idx_stream) for _ in range(k_this)]))
+            values = run_window(idx, noise, agree)
         halt = values[-1].pop("stop") > 0 if agree is not None else stop["flag"]
         windows.append((k_this, time.perf_counter() - t0))
+        local_step += k_this
+        if trace is not None and local_step >= PROFILE_STEPS[1]:
+            logger.info(f"trace of local steps {PROFILE_STEPS[0]}-{PROFILE_STEPS[1]} saved "
+                        f"to {trace.stop()}")
+            trace, traced = None, True
         timer.tick()
         prev_step, step = step, state.step
         for j, row in enumerate(values):
@@ -479,6 +555,9 @@ def main(argv=None) -> dict:
             logger.info(f"Save checkpoint to {out_dir}")
             save_checkpoint()
 
+    if trace is not None:  # the run ended inside the traced steps
+        logger.info(f"trace of local steps {PROFILE_STEPS[0]}-{local_step} saved to "
+                    f"{trace.stop()}")
     if halt:
         logger.info(f"preemption checkpoint saved: {save_checkpoint()}")
     for sig, handler in prev_handlers.items():

@@ -1,10 +1,11 @@
-"""Reference-schema checkpoints for the torch ScoreModelFC.
+"""Reference-schema checkpoints for the torch ScoreModelFC and TimeMLPs.
 
 A reference ``.pth`` is ``{model_state_dict, optimizer_state_dict, epoch,
 step, ema: {decay, num_updates, shadow_params}}`` (ref run/train.py:395-401).
 The port's module uses the reference's parameter names, so the state dict
 loads as it is; the EMA ``shadow_params`` list is aligned by
-``torch_parameter_order``. ``state_dict_from_flax`` maps a JAX parameter
+``torch_parameter_order`` (``time_mlps_parameter_order`` for a TimeMLPs
+checkpoint, whose keys start with ``net.``). ``state_dict_from_flax`` maps a JAX parameter
 pytree (as numpy) into the same state dict, for cross-framework tests.
 """
 from __future__ import annotations
@@ -31,8 +32,23 @@ def torch_parameter_order(n_blocks: int = 2) -> List[str]:
     return [f"{p}.{leaf}" for p in prefixes for leaf in ("weight", "bias")]
 
 
+def time_mlps_parameter_order(n_blocks: int = 2) -> List[str]:
+    """TimeMLPs parameter names in ``model.parameters()`` order: the
+    Linears of its ``net`` at 0, 2 + 3b and 2 + 3n (ref model.py:69-90)."""
+    idx = [0] + [2 + 3 * b for b in range(n_blocks)] + [2 + 3 * n_blocks]
+    return [f"net.{i}.{leaf}" for i in idx for leaf in ("weight", "bias")]
+
+
 def _n_blocks(state_dict: Dict[str, Any]) -> int:
     return sum(1 for k in state_dict if re.fullmatch(r"b\d+_dense1\.weight", k))
+
+
+def _parameter_order(state_dict: Dict[str, Any]) -> List[str]:
+    """The EMA shadow's alignment for the model whose state dict this is."""
+    if "net.0.weight" in state_dict:
+        linears = sum(1 for k in state_dict if re.fullmatch(r"net\.\d+\.weight", k))
+        return time_mlps_parameter_order(linears - 2)
+    return torch_parameter_order(_n_blocks(state_dict))
 
 
 def load_params_for_inference(path: str, use_ema: bool = True
@@ -43,7 +59,7 @@ def load_params_for_inference(path: str, use_ema: bool = True
     state_dict = dict(ckpt["model_state_dict"])
     ema = ckpt.get("ema")
     if use_ema and ema is not None:
-        order = torch_parameter_order(_n_blocks(state_dict))
+        order = _parameter_order(state_dict)
         shadow = ema["shadow_params"]
         if len(shadow) != len(order):
             raise ValueError(f"EMA shadow length {len(shadow)} != expected "
@@ -60,17 +76,28 @@ def load_params_for_inference(path: str, use_ema: bool = True
 def state_dict_from_flax(params: Dict[str, Any], sigma_min: float = 0.01,
                          sigma_max: float = 50.0, num_scales: int = 1000
                          ) -> Dict[str, torch.Tensor]:
-    """JAX ScoreModelFC params (numpy leaves) -> the port's full state dict.
+    """JAX ScoreModelFC or TimeMLPs params (numpy leaves) -> the port's full
+    state dict.
 
     Dense ``kernel`` [in, out] becomes ``weight`` [out, in]; GroupNorm
     ``scale`` becomes ``weight``. The dead ``pre_dense_cond`` layer is
     zero-filled and the ``sigmas`` buffer recomputed, so the result loads
-    with ``strict=True``.
+    with ``strict=True``. TimeMLPs' ``dense_in``, ``dense_{b}`` and
+    ``dense_out`` become ``net.0``, ``net.{2+3b}`` and ``net.{2+3n}``.
     """
     sd: Dict[str, torch.Tensor] = {}
 
     def put(key, arr):
         sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32, copy=True))
+
+    if "dense_in" in params:
+        n_blocks = len(params) - 2
+        names = (["dense_in"] + [f"dense_{b}" for b in range(n_blocks)] + ["dense_out"])
+        for name, key in zip(names, time_mlps_parameter_order(n_blocks)[::2]):
+            prefix = key.rsplit(".", 1)[0]
+            put(f"{prefix}.weight", np.asarray(params[name]["kernel"]).T)
+            put(f"{prefix}.bias", params[name]["bias"])
+        return sd
 
     for name, leaves in params.items():
         prefix = "shared_time_embed.0" if name == "shared_time_embed_0" else name

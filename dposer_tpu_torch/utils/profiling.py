@@ -1,11 +1,62 @@
-"""Step timing for the training and sampling loops (port of
-``StepTimer`` in ``dposer_tpu/utils/profiling.py``)."""
+"""Profiling and step timing for the training and sampling loops (port of
+``dposer_tpu/utils/profiling.py``).
+
+- ``trace_annotation``: a named span on the profiler's timeline
+  (``torch.profiler.record_function``; next to nothing when no trace runs).
+- ``Trace`` and ``profile_trace``: trace the host and the card
+  (``torch.profiler``, CUPTI on the card) and write one Chrome trace file
+  into a directory.
+- ``StepTimer``: wall-clock steps with an exponentially smoothed rate.
+"""
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Optional
 
 import torch
+
+
+def trace_annotation(name: str):
+    """A named span for the profiler's timeline."""
+    return torch.profiler.record_function(name)
+
+
+class Trace:
+    """A running trace of the host (and the card when ``device`` is a CUDA
+    device), started here; ``stop()`` writes
+    ``<logdir>/trace_<pid>_<time>.json`` (Chrome trace format, for
+    chrome://tracing or Perfetto) and returns its path."""
+
+    def __init__(self, logdir: str, device=None):
+        self.logdir = logdir
+        self.device = None if device is None else torch.device(device)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device is not None and self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(logdir, exist_ok=True)
+        self.profiler = torch.profiler.profile(activities=activities)
+        self.path: Optional[str] = None
+        self.profiler.start()
+
+    def stop(self) -> str:
+        if self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.profiler.stop()
+        self.path = os.path.join(self.logdir, f"trace_{os.getpid()}_{int(time.time())}.json")
+        self.profiler.export_chrome_trace(self.path)
+        return self.path
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str, device=None):
+    """A ``Trace`` of the block; its ``path`` names the file once written."""
+    trace = Trace(logdir, device)
+    try:
+        yield trace
+    finally:
+        trace.stop()
 
 
 class StepTimer:

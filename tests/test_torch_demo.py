@@ -226,3 +226,86 @@ def test_demo_interpolation_needs_enough_poses(workdir):
                                task="interpolation")],
                        cwd=REPO, capture_output=True, text=True, timeout=300)
     assert p.returncode != 0 and "anchors" in p.stdout + p.stderr
+
+
+def test_demo_view_task(workdir):
+    """``--task view``: the poses of ``--file-path`` rendered as they are
+    through the SMPL-X body, one PNG a pose, in the ``--view`` preset."""
+    out = workdir["tmp"] / "out_view"
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo",
+                        *_args(workdir, out, "--file-path", workdir["poses"], "--bodymodel-path",
+                               workdir["smplx"], "--view", "left", task="view")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    names = sorted(os.listdir(out / "view"))
+    assert names == sorted(f"GT_sample{i}.png" for i in range(8))
+    # without the body model the view task raises, as JAX's does
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo",
+                        *_args(workdir, out, "--file-path", workdir["poses"], task="view")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode != 0 and "FileNotFoundError" in p.stderr
+
+
+def test_demo_generation_process_task(workdir):
+    """``--task generation_process``: the kernel sampler (its plain versions
+    here) records steps 9, 19, ... of the N = 50 grid; one 5-frame video a
+    pose, 3 poses."""
+    out = workdir["tmp"] / "out_process"
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo",
+                        *_args(workdir, out, "--bodymodel-path", workdir["smplx"],
+                               task="generation_process")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "[sampler] kernel sampler recording steps 9, 19" in p.stdout
+    import cv2
+
+    for i in range(3):
+        cap = cv2.VideoCapture(str(out / "generation_process" / f"generation_process{i}.mp4"))
+        assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 5
+        ok, frame = cap.read()
+        assert ok and frame.shape == (512, 384, 3)
+
+
+def test_demo_generation_renders_on_the_plain_route(workdir):
+    """A corrector outside the kernels' scope (ald) samples on the plain PC
+    loop, and generation renders its 50 samples through the body model;
+    without the body model it skips the renders, as JAX's demo does."""
+    # the generic score function labels with t*999: the 1000-entry sigma table
+    (workdir["tmp"] / "tiny_config_ald.py").write_text(
+        (workdir["tmp"] / "tiny_config_n1000.py").read_text().replace(
+            "    return c", "    c.sampling.corrector = 'ald'\n    return c"))
+    out = workdir["tmp"] / "out_ald"
+    args = _args(workdir, out, "--bodymodel-path", workdir["smplx"])
+    args[args.index("--config-path") + 1] = str(workdir["tmp"] / "tiny_config_ald.py")
+    args[args.index("--ckpt-path") + 1] = str(workdir["tmp"] / "tiny_n1000.pth")
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo", *args],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "[sampler] plain PC loop (predictor=euler_maruyama, corrector=ald)" in p.stdout
+    names = os.listdir(out / "generation")
+    assert len([n for n in names if n.startswith("generated_sample")]) == 50
+    with np.load(out / "generation" / "samples.npz") as f:
+        assert f["pose_samples"].shape == (50, 63) and np.isfinite(f["pose_samples"]).all()
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo",
+                        *_args(workdir, workdir["tmp"] / "out_skip")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0 and "[skip renders] body model unavailable" in p.stdout
+
+
+def test_demo_interpolation_video(workdir):
+    """``--task interpolation --video``: one 60 fps video of the 5 x 60
+    decoded frames, beside ``frames.npz``."""
+    out = workdir["tmp"] / "out_interp_video"
+    args = _args(workdir, out, "--file-path", str(workdir["tmp"] / "poses20.npz"), "--video",
+                 "--bodymodel-path", workdir["smplx"], task="interpolation")
+    p = subprocess.run([sys.executable, "-m", "dposer_tpu_torch.demo", *args],
+                       cwd=REPO, capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert p.returncode == 0, p.stdout + p.stderr
+    import cv2
+
+    cap = cv2.VideoCapture(str(out / "interpolation" / "interpolation_video.mp4"))
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == 300
+    assert cap.get(cv2.CAP_PROP_FPS) == 60
+    with np.load(out / "interpolation" / "frames.npz") as f:
+        assert f["pose_frames"].shape == (5, 60, 63)

@@ -17,13 +17,13 @@ from dposer_tpu.body_model.smplx_jax import BodyModel as JaxBodyModel
 from dposer_tpu.diffusion import losses as jlosses
 from dposer_tpu.diffusion.ema import ema_init as jema_init, ema_update as jema_update
 from dposer_tpu.diffusion.sde import SubVPSDE as JSubVP, VESDE as JVE, VPSDE as JVP
-from dposer_tpu.models import ScoreModelFC as FlaxScoreModelFC
+from dposer_tpu.models import ScoreModelFC as FlaxScoreModelFC, TimeMLPs as FlaxTimeMLPs
 from dposer_tpu.models.score_mlp import make_model_apply as jmake_apply
 from dposer_tpu.ops import rotations as jrot
 from dposer_tpu_torch.body_model import BodyModel
 from dposer_tpu_torch.diffusion import losses as tlosses
 from dposer_tpu_torch.diffusion.sde import SubVPSDE, VESDE, VPSDE
-from dposer_tpu_torch.models import ScoreModelFC
+from dposer_tpu_torch.models import ScoreModelFC, TimeMLPs
 from dposer_tpu_torch.ops import rotations as trot
 from dposer_tpu_torch.utils.checkpoint import state_dict_from_flax
 from fixtures import make_synthetic_body_model
@@ -99,6 +99,51 @@ def test_sde_loss_matches_jax(sde_name, reduce_mean, lw):
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(l_ref), rtol=1e-5)
     assert_grads_close(g_ref, tm, 1e-4)
+
+
+@pytest.mark.parametrize("sde_name", ["subvp", "ve"])
+def test_time_mlps_sde_loss_matches_jax(sde_name):
+    """The DSM loss and its gradients through a TimeMLPs (the trainer's
+    autograd route for it) on JAX's draws."""
+    kw = dict(n_poses=21, pose_dim=3, hidden_dim=64, n_blocks=2, dropout=0.0)
+    fm = FlaxTimeMLPs(**kw)
+    params = jax.tree.map(np.asarray, fm.init(jax.random.PRNGKey(4), jnp.zeros((1, D)),
+                                              jnp.ones((1,)))["params"])
+    tm = TimeMLPs(**kw)
+    tm.load_state_dict(state_dict_from_flax(params), strict=True)
+    sj, st = SDES[sde_name]
+    sde_j, sde_t = sj(N=1000), st(N=1000)
+    x = batch_np()
+    key = jax.random.PRNGKey(9)
+    jloss = jlosses.get_sde_loss_fn(sde_j, True, jmake_apply(fm), reduce_mean=True)
+    l_ref, g_ref = jax.value_and_grad(jloss)(params, key, jnp.asarray(x))
+    t, z = jax_tz(key, sde_j, x)
+    loss = tlosses.get_sde_loss_fn(sde_t, True, tlosses.make_model_apply(tm), reduce_mean=True)(
+        tlosses.params_of(tm), torch.from_numpy(x), t=t, z=z)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(l_ref), rtol=1e-5)
+    ref_sd = state_dict_from_flax(jax.tree.map(np.asarray, g_ref))
+    for name, p in tm.named_parameters():
+        ref = ref_sd[name].numpy()
+        err = np.linalg.norm(p.grad.numpy() - ref) / (np.linalg.norm(ref) + 1e-12)
+        assert err < 1e-4, f"{name}: relative error {err}"
+
+
+def test_time_mlps_dropout_masks():
+    """A TimeMLPs draws one [B, H] mask per hidden block, and the apply
+    multiplies each block's activation by its mask."""
+    tm = TimeMLPs(n_poses=21, pose_dim=3, hidden_dim=64, n_blocks=2, dropout=0.25)
+    assert tlosses.dropout_layers(tm) == (0.25, 2)
+    g = torch.Generator().manual_seed(0)
+    masks = tlosses.draw_masks(tm, 5, "cpu", generator=g)
+    assert len(masks) == 2 and all(m.shape == (5, 64) for m in masks)
+    assert set(torch.unique(torch.cat(masks)).tolist()) <= {0.0, float(torch.tensor(1 / 0.75))}
+    apply = tlosses.make_model_apply(tm)
+    x, labels = torch.from_numpy(batch_np(n=5)), torch.full((5,), 321.0)
+    ones = [torch.ones(5, 64)] * 2
+    with torch.no_grad():
+        torch.testing.assert_close(apply(tlosses.params_of(tm), x, labels, ones),
+                                   tm.eval()(x, labels), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("kind", ["smld", "ddpm"])

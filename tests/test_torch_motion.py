@@ -383,3 +383,24 @@ def test_motion_cli_directory_mode_time_strategy_1(motion_data):
     assert one["init_MPJPE"] == two["init_MPJPE"]
     for k in two:
         np.testing.assert_allclose(one[k], two[k], rtol=1e-3, err_msg=k)
+
+
+def test_instrument_trace_matches_jax(setup):
+    """``optimize(instrument=True)``'s per-step raw and weighted loss terms
+    on ``last_trace``, under JAX's names, against JAX's trace over the 10
+    steps on JAX's draws injected."""
+    s = setup
+    key = jax.random.PRNGKey(6)
+    jmd = JaxMotionDenoise(s["js"], s["jscore"], s["jbm"], s["jnz"], batch_size=T)
+    jmd.optimize(key, jnp.asarray(s["noisy"]), instrument=True, **SCHED)
+    poses0, z = _jax_draws(key)
+    md = MotionDenoise(s["ts"], s["tscore"], s["tbm"], s["tnz"], batch_size=T)
+    md.optimize(_t(s["noisy"]), poses0=_t(poses0), z=_t(z), instrument=True, **SCHED)
+    assert sorted(md.last_trace) == sorted(jmd.last_trace)
+    for k, ref in jmd.last_trace.items():
+        assert md.last_trace[k].shape == (STEPS,)
+        np.testing.assert_allclose(md.last_trace[k], ref, rtol=1e-5, err_msg=k)
+    # without instrument= the poses are the same and no trace is taken
+    md2 = MotionDenoise(s["ts"], s["tscore"], s["tbm"], s["tnz"], batch_size=T)
+    md2.optimize(_t(s["noisy"]), poses0=_t(poses0), z=_t(z), **SCHED)
+    assert torch.equal(md2.last_poses, md.last_poses) and not hasattr(md2, "last_trace")

@@ -2,9 +2,11 @@
 data layout: a smoke run on each route, resume (4 steps equal 2 steps and a
 resume of 2, to the bit), SIGTERM's resumable checkpoint, the written
 ``.pth`` in the port's and the JAX package's loaders, an evaluation from the
-pinned checkpoint, and the refusal to start without a card."""
+pinned checkpoint, an evaluation outside the kernels' scope (TimeMLPs under
+ald), ``profile_trace``, and the refusal to start without a card."""
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -21,6 +23,7 @@ from dposer_tpu_torch.diffusion import losses as tlosses
 from dposer_tpu_torch.models import create_score_model
 from dposer_tpu_torch.utils.checkpoint import (load_params_for_inference,
                                                restore_train_state, torch_parameter_order)
+from dposer_tpu_torch.utils.profiling import profile_trace, trace_annotation
 from fixtures import make_synthetic_body_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -208,6 +211,76 @@ def test_eval_from_the_pinned_checkpoint(tmp_path, monkeypatch):
     assert os.path.exists(os.path.join(res["output_dir"], "best_model.pth"))
     # the EMA continued from the checkpoint's counter
     assert res["state"].ema.num_updates == 400002
+
+
+def test_eval_trajectory_and_profile_dir(tmp_path, monkeypatch):
+    """From the pinned checkpoint, 20 steps with ``--profile-dir`` and an
+    eval at the last: ``last_samples.npz`` holds ``pose_trajs`` [10, rows,
+    63], the eval sampler's states at steps 0, 100, ..., 900 of the last
+    call (axis-angle), and the trace file of local steps 10-20 holds each
+    step's ``train_step_<s>`` span."""
+    data = write_layout(str(tmp_path / "amass"))
+    cfg = write_config(tmp_path / "prof.py", tmp_path / "out", n_iters=400020, eval_freq=20,
+                       save_freq=10 ** 9, model="pass  # flagship widths", batch=8)
+    monkeypatch.setenv("DPOSER_TENSORBOARD", "0")
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        res = train_cli.main(["--config", cfg, "--dataset-folder", data, "--version", "v1",
+                              "--bodymodel-path", "", "--device", "cpu", "--restore-dir", CKPT,
+                              "--profile-dir", str(tmp_path / "prof")])
+    finally:
+        torch.set_num_threads(n)
+    assert res["step"] == 400020 and res["last_eval"]["step"] == 400020
+    trajs = res["last_eval"]["trajs"]
+    assert trajs.shape == (10, 2, 63) and torch.isfinite(trajs).all()
+    with np.load(os.path.join(res["output_dir"], "last_samples.npz")) as f:
+        assert f["pose_trajs"].shape == (10, 2, 63) and f["pose_samples"].shape == (1, 2, 63)
+        assert np.isfinite(f["pose_trajs"]).all()
+    (trace,) = os.listdir(tmp_path / "prof")
+    text = open(tmp_path / "prof" / trace).read()
+    traced = {int(s) for s in re.findall(r'"train_step_(\d+)"', text)}
+    assert traced == set(range(400011, 400021)), sorted(traced)
+    assert "trace of local steps 10-20 saved" in open(
+        os.path.join(res["output_dir"], "train.log")).read()
+
+
+TIME_MLPS_ALD = ("c.model.type, c.model.HIDDEN_DIM, c.model.N_BLOCKS = 'TimeMLPs', 64, 1\n"
+                 "    c.model.num_scales, c.sampling.corrector = 20, 'ald'")
+
+
+def test_eval_outside_the_kernels_scope(tmp_path, monkeypatch):
+    """A TimeMLPs model under the ald corrector (N = 20), which no kernel
+    covers, trains two steps and evaluates through the plain PC loop: the
+    bits/dim, the left-leg completion's hypotheses, the APD and the
+    trajectory at steps 0, 2, ..., 18, as the JAX trainer evaluates every
+    config."""
+    data = write_layout(str(tmp_path / "amass"))
+    smplx, _ = make_synthetic_body_model(str(tmp_path / "smplx.npz"), "smplx")
+    cfg = write_config(tmp_path / "tm.py", tmp_path / "out", n_iters=2, eval_freq=2,
+                       save_freq=10 ** 9, model=TIME_MLPS_ALD, batch=8)
+    monkeypatch.setenv("DPOSER_TENSORBOARD", "0")
+    res = train_cli.main(["--config", cfg, "--dataset-folder", data, "--version", "v1",
+                          "--bodymodel-path", smplx, "--device", "cpu", "--seed", "3"])
+    assert res["step"] == 2 and res["last_eval"]["step"] == 2
+    assert type(res["state"].model).__name__ == "TimeMLPs"
+    log = open(os.path.join(res["output_dir"], "train.log")).read()
+    assert ("eval sampler: plain PC loop (predictor=euler_maruyama, corrector=ald)" in log
+            and "Sample bpd:" in log and "APD:" in log)
+    assert res["last_eval"]["trajs"].shape == (10, 2, 63)
+    with np.load(os.path.join(res["output_dir"], "last_samples.npz")) as f:
+        assert f["pose_trajs"].shape == (10, 2, 63) and f["pose_samples"].shape == (1, 2, 63)
+        assert np.isfinite(f["pose_trajs"]).all() and np.isfinite(f["pose_samples"]).all()
+
+
+def test_profile_trace_writes_its_spans(tmp_path):
+    """``profile_trace`` traces its block and writes one trace file into the
+    directory, holding the block's ``trace_annotation`` spans."""
+    with profile_trace(str(tmp_path / "prof")) as trace:
+        with trace_annotation("outer_span"):
+            torch.ones(8).sum()
+    assert os.listdir(tmp_path / "prof") == [os.path.basename(trace.path)]
+    assert '"outer_span"' in open(trace.path).read()
 
 
 def test_cli_refuses_without_a_card(tmp_path):
