@@ -1,0 +1,6 @@
+"""The share of the traced window with no device operation running, %."""
+from portbench.metrics._common import idle_pct
+
+
+def read(run):
+    return idle_pct(run)
