@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from ..models import TimeMLPs
 from ..models.time_embedding import get_timestep_embedding
+from ..utils import profiling
 from .ema import EMAState, ema_init, ema_update
 from .score_fn import get_score_fn
 from .sde import SDE, VESDE, VPSDE, batch_mul, linspace_f32
@@ -139,9 +140,12 @@ class TrainState:
 
 
 def init_train_state(config, model) -> TrainState:
-    params = [p for p in model.parameters() if p.requires_grad]
-    return TrainState(step=0, model=model, tx=build_optimizer(config, params),
-                      ema=ema_init(params, decay=config.model.ema_rate))
+    """The state before the first step: the optimizer (its first build
+    imports ``torch._dynamo``) and the EMA; the set-up span ``train.init``."""
+    with profiling.setup_span("train.init"):
+        params = [p for p in model.parameters() if p.requires_grad]
+        return TrainState(step=0, model=model, tx=build_optimizer(config, params),
+                          ema=ema_init(params, decay=config.model.ema_rate))
 
 
 def apply_train_update(state: TrainState) -> None:

@@ -40,6 +40,7 @@ from ...diffusion.fast_sampler import _corrector_tables, _labels_for
 from ...diffusion.sde import SDE
 from ...parallel.sharding import mesh_route, shard_builder
 from ...tasks.prior import sample_quan_t
+from ...utils import profiling
 from . import build
 from .fused_em import _check_coefs, _noise_args, draw_seed, host_slabs, resolve_device
 from .graph_loop import GraphLoop, resolve_loop
@@ -380,23 +381,24 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
     graph = resolve_loop(loop, device, plain, rng_mode == "kernel") == "graph"
     rows, dim = shape
     total_steps = iterations * steps_per_iter
-    net, coefs = build_solver_operands(sde, model, n_elems, lr, iterations,
-                                       steps_per_iter, time_strategy, sample_trun,
-                                       sample_time, eps, device)
-    if net["dim"] != dim:
-        raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
-    fold = not plain  # K6 perturbs for the next step; K5 runs once a solve
+    with profiling.setup_span("build.solver"):
+        net, coefs = build_solver_operands(sde, model, n_elems, lr, iterations,
+                                           steps_per_iter, time_strategy, sample_trun,
+                                           sample_time, eps, device)
+        if net["dim"] != dim:
+            raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
+        fold = not plain  # K6 perturbs for the next step; K5 runs once a solve
 
-    # the loop's static buffers: x and its moments, the scratch and the inputs
-    x = torch.empty((rows, dim), dtype=torch.float32, device=device)
-    m1, v = torch.empty_like(x), torch.empty_like(x)
-    scratch = solver_scratch(net, rows, device)
-    inputs = dict(observation=torch.empty_like(x), mask=torch.empty_like(x))
-    if rng_mode == "kernel":
-        inputs["seed"] = torch.zeros((1,), dtype=torch.int64, device=device)
-    elif graph:
-        inputs["noise"] = torch.empty((total_steps, rows, dim), dtype=torch.float32,
-                                      device=device)
+        # the loop's static buffers: x and its moments, the scratch and the inputs
+        x = torch.empty((rows, dim), dtype=torch.float32, device=device)
+        m1, v = torch.empty_like(x), torch.empty_like(x)
+        scratch = solver_scratch(net, rows, device)
+        inputs = dict(observation=torch.empty_like(x), mask=torch.empty_like(x))
+        if rng_mode == "kernel":
+            inputs["seed"] = torch.zeros((1,), dtype=torch.int64, device=device)
+        elif graph:
+            inputs["noise"] = torch.empty((total_steps, rows, dim), dtype=torch.float32,
+                                          device=device)
 
     def body(noise=None, generator=None, warm_up=False):
         obs, msk = inputs["observation"], inputs["mask"]
@@ -418,6 +420,7 @@ def get_cuda_comp_solver(sde: SDE, model, shape: Tuple[int, int], n_elems: int,
 
     runner = GraphLoop(body, inputs, graph=graph)
 
+    @profiling.spanned("loop.call")
     @torch.no_grad()
     def solve(generator: Optional[torch.Generator], observation, mask, noise=None):
         values = {}

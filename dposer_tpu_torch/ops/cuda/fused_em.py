@@ -52,6 +52,7 @@ from ...diffusion.fast_sampler import (_corrector_tables, _imputation_tables,
 from ...diffusion.sde import SDE
 from ...models import ScoreModelFC
 from ...parallel.sharding import mesh_route, shard_builder
+from ...utils import profiling
 from . import build
 from .graph_loop import GraphLoop, resolve_loop
 from .philox import seed_bits
@@ -748,38 +749,39 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
     batch, dim = shape
     if probability_flow and _tables_override is not None:
         raise ValueError("overridden tables carry their own noise coefficients")
-    net, coefs = build_sampler_operands(sde, model, eps, predictor, device,
-                                        _tables_override, probability_flow, quant, act_amax)
-    if net["dim"] != dim:
-        raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
-    lo, hi = (0, int(coefs.shape[0])) if step_range is None else step_range
-    if not 0 <= lo < hi <= int(coefs.shape[0]):
-        raise ValueError(f"step_range {step_range} out of bounds for the "
-                         f"{int(coefs.shape[0])}-step grid")
-    n_steps = hi - lo
-    record = {}  # grid step -> its row of the trajectory buffer
-    if trajectory_steps is not None:
-        record = {int(s): j for j, s in enumerate(trajectory_steps)}
-        if len(record) != len(trajectory_steps) or not all(lo <= s < hi for s in record):
-            raise ValueError(f"trajectory_steps must be distinct grid steps in [{lo}, {hi})")
-    # corrector-free imputation: K2 re-noises for the next step, K4 runs once
-    # (unless a trajectory records each step's own state)
-    fold = imputation and n_corr == 0 and trajectory_steps is None
+    with profiling.setup_span("build.sampler"):
+        net, coefs = build_sampler_operands(sde, model, eps, predictor, device,
+                                            _tables_override, probability_flow, quant, act_amax)
+        if net["dim"] != dim:
+            raise ValueError(f"shape {shape} does not match the model's pose dim {net['dim']}")
+        lo, hi = (0, int(coefs.shape[0])) if step_range is None else step_range
+        if not 0 <= lo < hi <= int(coefs.shape[0]):
+            raise ValueError(f"step_range {step_range} out of bounds for the "
+                             f"{int(coefs.shape[0])}-step grid")
+        n_steps = hi - lo
+        record = {}  # grid step -> its row of the trajectory buffer
+        if trajectory_steps is not None:
+            record = {int(s): j for j, s in enumerate(trajectory_steps)}
+            if len(record) != len(trajectory_steps) or not all(lo <= s < hi for s in record):
+                raise ValueError(f"trajectory_steps must be distinct grid steps in [{lo}, {hi})")
+        # corrector-free imputation: K2 re-noises for the next step, K4 runs once
+        # (unless a trajectory records each step's own state)
+        fold = imputation and n_corr == 0 and trajectory_steps is None
 
-    # the loop's static buffers: the state, its scratch and the inputs
-    x = torch.empty((batch, dim), dtype=torch.float32, device=device)
-    x_mean = torch.empty_like(x) if denoise else None
-    scratch = pc_scratch(net, batch, n_corr, device)
-    trajs = (torch.empty((len(record), batch, dim), dtype=torch.float32, device=device)
-             if trajectory_steps is not None else None)
-    inputs = dict(z=torch.empty_like(x))
-    if imputation:
-        inputs.update(observation=torch.empty_like(x), mask=torch.empty_like(x))
-    if rng_mode == "kernel":
-        inputs["seed"] = torch.zeros((1,), dtype=torch.int64, device=device)
-    elif graph:
-        inputs["noise"] = torch.empty((n_steps, K, batch, dim), dtype=torch.float32,
-                                      device=device)
+        # the loop's static buffers: the state, its scratch and the inputs
+        x = torch.empty((batch, dim), dtype=torch.float32, device=device)
+        x_mean = torch.empty_like(x) if denoise else None
+        scratch = pc_scratch(net, batch, n_corr, device)
+        trajs = (torch.empty((len(record), batch, dim), dtype=torch.float32, device=device)
+                 if trajectory_steps is not None else None)
+        inputs = dict(z=torch.empty_like(x))
+        if imputation:
+            inputs.update(observation=torch.empty_like(x), mask=torch.empty_like(x))
+        if rng_mode == "kernel":
+            inputs["seed"] = torch.zeros((1,), dtype=torch.int64, device=device)
+        elif graph:
+            inputs["noise"] = torch.empty((n_steps, K, batch, dim), dtype=torch.float32,
+                                          device=device)
 
     def body(noise=None, generator=None, warm_up=False):
         x.copy_(inputs["z"])
@@ -804,6 +806,7 @@ def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e
 
     runner = GraphLoop(body, inputs, graph=graph)
 
+    @profiling.spanned("loop.call")
     @torch.no_grad()
     def sampler(generator: Optional[torch.Generator] = None, observation=None,
                 mask=None, z=None, noise=None):

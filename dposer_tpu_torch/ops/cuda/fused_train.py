@@ -64,6 +64,7 @@ from ...diffusion.losses import apply_train_update, batch_rows
 from ...diffusion.sde import SDE, VPSDE, SubVPSDE
 from ...models import ScoreModelFC
 from ...models.time_embedding import get_timestep_embedding
+from ...utils import profiling
 from . import build
 from .score_net import HEAD_COLS, NUM_GROUPS, _check, _ptr
 
@@ -700,19 +701,29 @@ def get_cuda_step_fn(sde: SDE, model, **kw):
     forward and backward through the kernels: ``step_fn(state, batch, *,
     rows=None, grad_hook=None, t=None, z=None, dropout_seed=None,
     generator=None) -> loss dict``, updating ``state`` in place (clip, Adam,
-    EMA, step); ``rows`` and ``grad_hook`` as in ``losses.get_step_fn``."""
-    loss_fn = get_cuda_train_loss_fn(sde, model, **kw)
+    EMA, step); ``rows`` and ``grad_hook`` as in ``losses.get_step_fn``.
 
+    The build is the set-up span ``train.init``; a step is the span
+    ``train.step`` around ``train.forward`` (the draws, K10, K11),
+    ``train.backward`` (K12, the weight-gradient GEMMs) and ``train.update``
+    (the hook, the clip, Adam, the EMA)."""
+    with profiling.setup_span("train.init"):
+        loss_fn = get_cuda_train_loss_fn(sde, model, **kw)
+
+    @profiling.spanned("train.step")
     def step_fn(state, batch, *, rows=None, grad_hook=None, **noise):
-        state.tx.zero_grad()
         with tf32(batch.device.type == "cuda"):
-            loss = loss_fn(batch, rows=rows, **noise)
-            loss.backward()
-        loss = loss.detach()
-        losses = {"step_loss": loss, "score_loss": loss}
-        if grad_hook is not None:
-            losses = grad_hook([p.grad for p in state.tx.params], losses)
-        apply_train_update(state)
+            with profiling.span("train.forward"):
+                state.tx.zero_grad()
+                loss = loss_fn(batch, rows=rows, **noise)
+            with profiling.span("train.backward"):
+                loss.backward()
+        with profiling.span("train.update"):
+            loss = loss.detach()
+            losses = {"step_loss": loss, "score_loss": loss}
+            if grad_hook is not None:
+                losses = grad_hook([p.grad for p in state.tx.params], losses)
+            apply_train_update(state)
         return losses
 
     return step_fn

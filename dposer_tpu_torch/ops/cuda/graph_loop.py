@@ -32,10 +32,12 @@ to the eager loop.
 """
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
+
+from ...utils import profiling
 
 THROWAWAY_SEED = 0x5EED  # the warm-up's seed: its draws are overwritten
 
@@ -106,9 +108,18 @@ class GraphLoop:
     hold the seconds of the warm-up, of the capture (the host loop issuing
     into the graph) and of ending the capture (the graph's instantiation),
     and ``launches`` the kernel launches of one replay. ``GraphLoop.captures``
-    counts the captures made in this process."""
+    and ``GraphLoop.replays`` count the captures and the replays made in
+    this process.
+
+    A call is the span ``loop.replay`` (``loop.eager`` on the eager loop):
+    the copy-in, the replay, the clone-out; with spans on, a pair of CUDA
+    events around the replay alone gives its device time. The first call's
+    warm-up, capture and instantiation are the set-up spans
+    ``loop.warmup``, ``loop.capture`` and ``loop.instantiate``, whose
+    seconds the three attributes hold."""
 
     captures = 0
+    replays = 0
 
     def __init__(self, body: Callable, inputs: Dict[str, torch.Tensor], *, graph: bool):
         self.body, self.inputs, self.graph = body, inputs, graph
@@ -122,21 +133,24 @@ class GraphLoop:
         return None if self._delta is None else {k: n for k, (n, _) in self._delta.items() if n}
 
     def __call__(self, values: Dict[str, object], **host):
-        for name, v in values.items():
-            dst = self.inputs[name]
-            if tuple(v.shape) != tuple(dst.shape):
-                raise ValueError(f"{name} has shape {tuple(v.shape)}, expected "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(v)
-        if not self.graph:
-            return _fresh(self.body(**host))
-        if host:
-            raise ValueError(f"a replayed loop takes no host-side arguments: {sorted(host)}")
-        if self._graph is None:
-            self._capture()
-        self._graph.replay()
-        _add_counts(self._delta)
-        return _fresh(self._out)
+        with profiling.span("loop.replay" if self.graph else "loop.eager"):
+            for name, v in values.items():
+                dst = self.inputs[name]
+                if tuple(v.shape) != tuple(dst.shape):
+                    raise ValueError(f"{name} has shape {tuple(v.shape)}, expected "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(v)
+            if not self.graph:
+                return _fresh(self.body(**host))
+            if host:
+                raise ValueError(f"a replayed loop takes no host-side arguments: {sorted(host)}")
+            if self._graph is None:
+                self._capture()
+            with profiling.device_events():
+                self._graph.replay()
+            GraphLoop.replays += 1
+            _add_counts(self._delta)
+            return _fresh(self._out)
 
     def _capture(self) -> None:
         start = _counts_now()
@@ -148,27 +162,28 @@ class GraphLoop:
     def _warm_up_and_capture(self) -> None:
         dev = next(iter(self.inputs.values())).device
         seed = self.inputs.get("seed")
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            kept = None if seed is None else seed.clone()
-            if seed is not None:
-                seed.fill_(THROWAWAY_SEED)
-            self.body(warm_up=True)
-            if seed is not None:
-                seed.copy_(kept)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.warmup_s = time.perf_counter() - t0
+        with profiling.setup_span("loop.warmup") as warmup:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                kept = None if seed is None else seed.clone()
+                if seed is not None:
+                    seed.fill_(THROWAWAY_SEED)
+                self.body(warm_up=True)
+                if seed is not None:
+                    seed.copy_(kept)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
         warm = _counts_now()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            t0 = time.perf_counter()
-            out = self.body()
-            t1 = time.perf_counter()
-        self.instantiate_s = time.perf_counter() - t1
-        self.capture_s = t1 - t0
+        with contextlib.ExitStack() as ending:
+            with torch.cuda.graph(graph):
+                with profiling.setup_span("loop.capture") as capture:
+                    out = self.body()
+                # ending the capture instantiates the graph
+                instantiate = ending.enter_context(profiling.setup_span("loop.instantiate"))
+        self.warmup_s, self.capture_s = warmup.seconds, capture.seconds
+        self.instantiate_s = instantiate.seconds
         self._delta = _counts_delta(_counts_now(), warm)
         self._graph, self._out = graph, out
         GraphLoop.captures += 1

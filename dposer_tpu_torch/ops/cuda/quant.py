@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ...diffusion.fast_sampler import (_corrector_tables, _group_norm, _labels_for,
                                        _pred_tables, precompute_time_tables)
 from ...diffusion.sde import SDE
+from ...utils import profiling
 
 
 def n_matmuls(model) -> int:
@@ -162,9 +163,10 @@ def calibrate_act_amax_per_channel(sde: SDE, model, shape: Tuple[int, int],
     scales develop outlier channels (~100 against O(1-5)); a per-tensor scale
     leaves ordinary channels a few levels, which ``smooth_fold`` avoids.
     Channels that never light up take the vector's max, so the fold leaves
-    them alone."""
-    amax = _trajectory_amax(sde, model, shape, generator, eps, corrector, snr,
-                            n_corrector_steps, predictor, z, noise, device, True)
+    them alone. The set-up span ``quant.calibrate``."""
+    with profiling.setup_span("quant.calibrate"):
+        amax = _trajectory_amax(sde, model, shape, generator, eps, corrector, snr,
+                                n_corrector_steps, predictor, z, noise, device, True)
     out = [a.double().cpu().numpy() * margin for a in amax]
     if not all(np.all(np.isfinite(a)) and a.max() > 0 for a in out):
         raise ValueError("per-channel calibration produced invalid ranges")

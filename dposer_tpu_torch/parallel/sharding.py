@@ -59,9 +59,12 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 MASK64 = (1 << 64) - 1
 SPLITMIX_GAMMA = 0x9E3779B97F4A7C15
 TORCHRUN_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+host_reads = 0  # the train windows' loss reads in this process (``_window``)
 
 
 class Mesh:
@@ -572,11 +575,16 @@ def _window(step: Callable, state, batches: Sequence, noise: Callable[[int], dic
             extra: Optional[Callable[[], Dict[str, float]]]) -> list:
     """``step`` on each batch with ``noise(j)``'s draws (and ``extra()`` in
     the last step's all-reduce), then one host read of every step's losses:
-    a list of ``{name: float}``."""
+    a list of ``{name: float}``. The span ``train.window``, its read
+    ``train.loss_read``; ``host_reads`` counts the reads."""
+    global host_reads
     last = len(batches) - 1
-    pending = [step(state, b, extra=extra() if extra is not None and j == last else None,
-                    **noise(j)) for j, b in enumerate(batches)]
-    flat = torch.cat([torch.stack(list(ld.values())) for ld in pending]).tolist()
+    with profiling.span("train.window"):
+        pending = [step(state, b, extra=extra() if extra is not None and j == last else None,
+                        **noise(j)) for j, b in enumerate(batches)]
+        with profiling.span("train.loss_read"):
+            flat = torch.cat([torch.stack(list(ld.values())) for ld in pending]).tolist()
+        host_reads += 1
     out, i = [], 0
     for ld in pending:
         out.append(dict(zip(ld, flat[i:i + len(ld)])))

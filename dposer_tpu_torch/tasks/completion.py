@@ -30,6 +30,7 @@ import torch
 from ..diffusion.score_fn import get_score_fn
 from ..diffusion.sde import SDE
 from ..parallel.sharding import mesh_route
+from ..utils import profiling
 from .optim import Adam
 from .prior import DPoserPrior, sample_quan_t
 
@@ -37,7 +38,15 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 class DPoserComp:
-    """Completion solver: observation + mask -> completed poses."""
+    """Completion solver: observation + mask -> completed poses.
+
+    ``optimize_hypos`` is the span ``comp.optimize_hypos``, the kernel
+    solver's lookup (and build, for a new shape) ``comp.solver``;
+    ``DPoserComp.solver_builds`` and ``solver_lookups`` count the kernel
+    solvers built and looked up in this process."""
+
+    solver_builds = 0
+    solver_lookups = 0
 
     def __init__(self, sde: SDE, score_fn: Optional[Callable] = None,
                  continuous: bool = True, lr: float = 0.1, iterations: int = 2,
@@ -95,9 +104,12 @@ class DPoserComp:
         x = x.detach()
         return observation * mask + x * (1.0 - mask)
 
+    @profiling.spanned("comp.solver")
     def _cuda_solver(self, rows: int, dim: int, n_elems: int, rng_mode: str):
         key = (rows, dim, n_elems, rng_mode)
+        DPoserComp.solver_lookups += 1
         if key not in self._solvers:
+            DPoserComp.solver_builds += 1
             from ..ops.cuda.fused_comp import get_cuda_comp_solver
 
             self._solvers[key] = get_cuda_comp_solver(
@@ -129,6 +141,7 @@ class DPoserComp:
             return solver(generator, observation, mask, noise=noise)
         return self._optimize_torch(observation, mask, noise, generator)
 
+    @profiling.spanned("comp.optimize_hypos")
     def optimize_hypos(self, observation: torch.Tensor, mask: torch.Tensor, hypo: int,
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``hypo`` completions of every pose -> [B, hypo, D]. Under a mesh,

@@ -67,8 +67,9 @@ several cards without ``--multihost`` trains on the first.
 ``--profile-dir DIR`` traces local steps 10-20 of the run (the windows from
 the first that starts at or after local step 10 to the first that ends at or
 after step 20) with ``torch.profiler`` into one Chrome trace file in
-``DIR``; each window is a ``trace_annotation`` span named ``train_step_<s>``
-(``train_steps_<a>-<b>`` for a window of several steps). The evaluation
+``DIR``, the program's spans on (``utils.profiling``): each window is a
+span ``dp.train_step_<s>`` (``dp.train_steps_<a>-<b>`` for a window of
+several steps) around ``dp.train.window`` and its steps. The evaluation
 writes ``last_samples.npz`` with ``pose_samples`` [1, 50, 63] and
 ``pose_trajs`` [10, 5, 63], the generation sampler's states at steps 0,
 N/10, ... of the last call's first five rows, as axis-angle.
@@ -108,7 +109,7 @@ from .parallel import sharding as par
 from .utils import checkpoint as ckpt_lib
 from .utils.generic import MetricWriter, close_logger, create_logger
 from .utils.masks import create_mask
-from .utils.profiling import StepTimer, Trace, trace_annotation
+from .utils.profiling import StepTimer, Trace, span
 
 HYPO_NUM = 5
 LOSS_EPS = 1e-5
@@ -514,9 +515,9 @@ def main(argv=None) -> dict:
         if args.profile_dir and trace is None and not traced and local_step >= PROFILE_STEPS[0]:
             trace = Trace(args.profile_dir, device)
         t0 = time.perf_counter()
-        span = (f"train_step_{step + 1}" if k_this == 1
+        name = (f"train_step_{step + 1}" if k_this == 1
                 else f"train_steps_{step + 1}-{step + k_this}")
-        with trace_annotation(span):
+        with span(name):
             idx = par.shard_global_multi_batch(
                 np.stack([next(idx_stream) for _ in range(k_this)]))
             values = run_window(idx, noise, agree)

@@ -3,7 +3,7 @@ data layout: a smoke run on each route, resume (4 steps equal 2 steps and a
 resume of 2, to the bit), SIGTERM's resumable checkpoint, the written
 ``.pth`` in the port's and the JAX package's loaders, an evaluation from the
 pinned checkpoint, an evaluation outside the kernels' scope (TimeMLPs under
-ald), ``profile_trace``, and the refusal to start without a card."""
+ald), ``Trace`` with the program's spans, and the refusal to start without a card."""
 import json
 import os
 import re
@@ -23,7 +23,7 @@ from dposer_tpu_torch.diffusion import losses as tlosses
 from dposer_tpu_torch.models import create_score_model
 from dposer_tpu_torch.utils.checkpoint import (load_params_for_inference,
                                                restore_train_state, torch_parameter_order)
-from dposer_tpu_torch.utils.profiling import profile_trace, trace_annotation
+from dposer_tpu_torch.utils import profiling
 from fixtures import make_synthetic_body_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -218,7 +218,7 @@ def test_eval_trajectory_and_profile_dir(tmp_path, monkeypatch):
     eval at the last: ``last_samples.npz`` holds ``pose_trajs`` [10, rows,
     63], the eval sampler's states at steps 0, 100, ..., 900 of the last
     call (axis-angle), and the trace file of local steps 10-20 holds each
-    step's ``train_step_<s>`` span."""
+    step's ``dp.train_step_<s>`` span."""
     data = write_layout(str(tmp_path / "amass"))
     cfg = write_config(tmp_path / "prof.py", tmp_path / "out", n_iters=400020, eval_freq=20,
                        save_freq=10 ** 9, model="pass  # flagship widths", batch=8)
@@ -239,7 +239,7 @@ def test_eval_trajectory_and_profile_dir(tmp_path, monkeypatch):
         assert np.isfinite(f["pose_trajs"]).all()
     (trace,) = os.listdir(tmp_path / "prof")
     text = open(tmp_path / "prof" / trace).read()
-    traced = {int(s) for s in re.findall(r'"train_step_(\d+)"', text)}
+    traced = {int(s) for s in re.findall(r'"dp\.train_step_(\d+)"', text)}
     assert traced == set(range(400011, 400021)), sorted(traced)
     assert "trace of local steps 10-20 saved" in open(
         os.path.join(res["output_dir"], "train.log")).read()
@@ -274,13 +274,16 @@ def test_eval_outside_the_kernels_scope(tmp_path, monkeypatch):
 
 
 def test_profile_trace_writes_its_spans(tmp_path):
-    """``profile_trace`` traces its block and writes one trace file into the
-    directory, holding the block's ``trace_annotation`` spans."""
-    with profile_trace(str(tmp_path / "prof")) as trace:
-        with trace_annotation("outer_span"):
-            torch.ones(8).sum()
-    assert os.listdir(tmp_path / "prof") == [os.path.basename(trace.path)]
-    assert '"outer_span"' in open(trace.path).read()
+    """``Trace`` turns the program's spans on while it runs and writes one
+    trace file into the directory, holding the spans opened meanwhile;
+    ``stop()`` turns them off again and keeps none in memory."""
+    trace = profiling.Trace(str(tmp_path / "prof"))
+    with profiling.span("outer_span"):
+        torch.ones(8).sum()
+    path = trace.stop()
+    assert profiling.enable(False) is False and profiling.take() == []
+    assert os.listdir(tmp_path / "prof") == [os.path.basename(path)]
+    assert '"dp.outer_span"' in open(path).read()
 
 
 def test_cli_refuses_without_a_card(tmp_path):
