@@ -23,7 +23,11 @@ Phases; any failure exits non-zero:
    by registers; a ptxas line
    reporting serialized wgmma in K7 or K9 fails the phase; K10's and K12's instantiations with their registers,
    shared memory, spills and CTAs an SM, where a serialized wgmma fails the
-   phase too);
+   phase too; K1's bf16 route (``dense_wgmma_ss.cuh``'s ring, from the copy
+   the layer before wrote) with its registers, static shared memory, spills
+   and CTAs an SM by registers, its launch at 500 and 1,000 rows (dynamic
+   shared memory, stages, CTAs an SM), and a serialized wgmma in K1's
+   library fails the phase);
 3. each of the fourteen kernels, K2's imputation mode and K6's perturbing
    instantiation against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
@@ -53,6 +57,12 @@ Phases; any failure exits non-zero:
    three hops, each with 50 repeated calls bit-identical and K10's and K11's
    bounds at the handoff's bytes and at fp32 input; K8 at every stage and
    the denoise, with 50 repeated calls bit-identical;
+   K1 on the routes a forward takes (the pre layer on the element loads
+   writing the bf16 copy, a block's first layer from the copy writing its
+   copy alone, the second with the residual), bit-equal to the fp32 route
+   (A rounded in registers) and its copies byte for byte the output rounded,
+   each K = 1024 shape also timed on the fp32 route, with bounds at the
+   handoff's bytes;
    K1 also at completion's [1000, 1024] residual block; K1's three layer
    shapes, K2's EM and score modes and K3 (its value and step size) also at
    the chunked metrics protocol's 50 rows; K2-K6's in-kernel
@@ -80,7 +90,8 @@ Phases; any failure exits non-zero:
 5. the slices' protocols at flagship size, each with the launch counters
    set to 0 before it and read after it:
    (a) generation, 500 poses x 1000 sub-VP EM steps, in-kernel normals:
-   poses/s, and the tensor maps K1 encodes a call (at most 8: its map cache
+   poses/s, K1's routes a call (4,000 from the bf16 copy, 1,000 element
+   loads, none from fp32 A), and the tensor maps K1 encodes a call (at most 8: its map cache
    holds them across launches); (b) the demo's generation task with ``--metrics`` (50 poses,
    then 500 poses x 1000 steps with the langevin corrector at eps 5e-3,
    through the SMPL body): APD must lie in [0.80, 1.00] and SI in [0, 100];
@@ -95,7 +106,8 @@ Phases; any failure exits non-zero:
    (c) completion by optimisation, 100 synthetic poses x 10 hypotheses,
    2x100 Adam steps, time strategy '3': solves/s, MPJPE and MPVPE, and the
    launches a solve (K5 1, K1 1,000, K6's perturbing instantiation 199, K6
-   with the paste 1);
+   with the paste 1) and K1's routes (800 from the bf16 copy, 200 element
+   loads);
    (d) the demo's ``completion`` task and its ``completion2`` task with
    ``--sampler pc``, ``ddim`` and ``hybrid``, 50 poses x 10 hypotheses, left
    leg masked, through the synthetic SMPL-X body: MPJPE must lie in (50, 400)
@@ -507,6 +519,8 @@ def wgmma_instantiations(logs):
     rows = []
     for lib in ("dense_gn_silu", "chain_link"):
         for e in ptxas_entries(logs.get(lib, ""), "wgmma_kernel"):
+            if "handoff" in e["entry"]:  # K1's bf16 route: k1_bf16_instantiations
+                continue
             base = re.search(r"(dense_gn_silu|chain_link)_wgmma_kernel", e["entry"]).group(0)
             args = ",".join(re.findall(r"L[ib](\d+)E", e["entry"]))
             rows.append(dict(library=lib, kernel=f"{base}<{args}>", registers=e["registers"],
@@ -514,6 +528,36 @@ def wgmma_instantiations(logs):
     fn = build.load("dense_gn_silu").dposer_wgmma_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return rows, dict(wide=fn(1), narrow=fn(0))
+
+
+def k1_bf16_instantiations(logs):
+    """Registers, static shared memory, spills and CTAs an SM by registers of
+    every instantiation of K1's bf16 route (``dense_gn_silu.cu``'s
+    ``handoff::dense_gn_silu_wgmma_kernel`` on ``csrc/dense_wgmma_ss.cuh``'s
+    ring) from the ``-Xptxas -v`` log, and the ptxas lines of K1's library
+    that report serialized wgmma."""
+    log = logs.get("dense_gn_silu", "")
+    serialized = [ln.strip() for ln in log.splitlines() if "wgmma" in ln and "serialized" in ln]
+    rows = []
+    for e in ptxas_entries(log, "handoff"):
+        args = ",".join(re.findall(r"L[ib](\d+)E", e["entry"]))
+        rows.append(dict(kernel=f"handoff::dense_gn_silu_wgmma_kernel<{args}>",
+                         registers=e["registers"], static_smem=e["static_smem"],
+                         spills=e["spills"],
+                         ctas_per_sm_by_registers=ctas_per_sm_by_registers(e["registers"], 256)))
+    return rows, serialized
+
+
+def k1_bf16_launch(rows, n):
+    """K1's bf16 route at ``rows`` x ``n`` as it launches on this card:
+    threads and dynamic shared memory a CTA, the ring's stages and the CTAs
+    an SM holds at once."""
+    fn = build.load("dense_gn_silu").dposer_dense_gn_silu_bf16_launch_info
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    check(fn(rows, n, out) == 0 and out[3] >= 1, f"K1's bf16 route: no CTA fits an SM "
+                                                  f"({list(out)})")
+    return dict(zip(("threads", "dynamic_smem", "stages", "ctas_per_sm"), list(out)))
 
 
 def wgmma8_instantiations(logs):
@@ -617,6 +661,20 @@ def phase_build():
     print(f"[build] wgmma rings: {dyn['wide']} B (wide) and {dyn['narrow']} B (narrow) of dynamic "
           f"shared memory a block; {len(rows)} instantiations"
           + ("" if rows else " (libraries were already built: no ptxas log)"))
+    k1_rows, k1_serialized = k1_bf16_instantiations(logs)
+    for r in k1_rows:
+        print(f"[build] K1 bf16 route: {r['kernel']} {r['registers']} registers, "
+              f"{r['static_smem']} B static smem, {r['ctas_per_sm_by_registers']} CTAs an SM by "
+              f"registers; {r['spills'] or 'spills not reported'}")
+    k1_launch = {rows_: k1_bf16_launch(rows_, H) for rows_ in (B, RC)}
+    for rows_, c in k1_launch.items():
+        print(f"[build] K1 bf16 route at [{rows_}, {H}]: {c['threads']} threads, "
+              f"{c['dynamic_smem']} B dynamic smem a CTA ({c['stages']} stages); "
+              f"{c['ctas_per_sm']} CTAs an SM")
+    print(f"[build] K1: ptxas lines reporting serialized wgmma: {len(k1_serialized)}"
+          + "".join(f"\n    {ln}" for ln in k1_serialized))
+    # the bf16 route keeps no operand in registers, so nothing may serialize it
+    check(not k1_serialized, "ptxas serialized a wgmma of K1")
     rows8, dyn8, serialized = wgmma8_instantiations(logs)
     for r in rows8:
         print(f"[build] int8 wgmma loop {r['library']}: {r['kernel']} {r['registers']} registers, "
@@ -709,6 +767,8 @@ def phase_build():
     k2_sass = check_sass("head_em", "head_em_kernel", "head_em_impute_kernel", K2_SASS)
     k6_sass = check_sass("head_adam", "head_adam_kernel", "head_adam_perturb_kernel", K6_SASS)
     return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters,
+                      k1_bf16_instantiations=k1_rows, k1_bf16_launch=k1_launch,
+                      k1_serialized_wgmma=k1_serialized,
                       k2_sass=k2_sass, k6_sass=k6_sass,
                       int8_instantiations=rows8, int8_dynamic_smem=dyn8,
                       serialized_wgmma=serialized, likelihood_serialized_wgmma=jvp_serialized,
@@ -747,39 +807,71 @@ def phase_kernels(model, dev):
     x = torch.randn(B, D, generator=gen, device=dev)
     rows = []
 
-    # K1 dense_gn_silu: the three layer shapes one network forward runs, and
-    # the residual block at completion's 1000 rows (on the wide and the narrow
-    # ring of dense_wgmma.cuh: 128 and 256 blocks)
+    # K1 dense_gn_silu: the three layer shapes one network forward runs as
+    # network_hidden runs them (the pre layer from fp32 x on the element
+    # loads, writing the bf16 copy; a block's first layer from the copy,
+    # writing its copy alone; the second with the residual, the fp32 output
+    # and the copy), the residual block at completion's 1000 rows (the deep
+    # and the shallow ring of the bf16 route: 128 and 256 CTAs), and each
+    # K = 1024 shape beside it on the fp32 route (A rounded in registers,
+    # dense_wgmma.cuh), whose output the bf16 route's must equal bit for bit
     h = score_net.dense_gn_silu_plain(x, W[0], tp[0], gs[0], gb[0])
     h1 = score_net.dense_gn_silu_plain(h, W[1], tp[1], gs[1], gb[1])
     xc = torch.randn(RC, D, generator=torch.Generator(device=dev).manual_seed(1000), device=dev)
     hc = score_net.dense_gn_silu_plain(xc, W[0], tp[0], gs[0], gb[0])
     hc1 = score_net.dense_gn_silu_plain(hc, W[1], tp[1], gs[1], gb[1])
     variants = []
-    for label, a, j, res in (("pre [500,63]x[63,1024]", x, 0, None),
-                             ("block [500,1024]x[1024,1024]", h, 1, None),
-                             ("block+residual [500,1024]x[1024,1024]", h1, 2, h),
-                             ("block+residual/1000 [1000,1024]x[1024,1024]", hc1, 2, hc)):
+    for label, a, j, res, route in (
+            ("pre [500,63]x[63,1024]", x, 0, None, "register"),
+            ("block [500,1024]x[1024,1024]", h, 1, None, "bf16"),
+            ("block+residual [500,1024]x[1024,1024]", h1, 2, h, "bf16"),
+            ("block+residual/1000 [1000,1024]x[1024,1024]", hc1, 2, hc, "bf16"),
+            ("fp32:block [500,1024]x[1024,1024]", h, 1, None, "fp32"),
+            ("fp32:block+residual [500,1024]x[1024,1024]", h1, 2, h, "fp32"),
+            ("fp32:block+residual/1000 [1000,1024]x[1024,1024]", hc1, 2, hc, "fp32")):
         args = (a, W[j], tp[j], gs[j], gb[j])
+        R, K = a.shape
         ref = score_net.dense_gn_silu_plain(*args, res)
-        out = score_net.dense_gn_silu(*args, residual=res)
+        a_b = a.to(torch.bfloat16) if route == "bf16" else None
+        # the first layer of a block writes its copy alone; the others also
+        # their fp32 output
+        write_out = route != "bf16" or res is not None
+        o = torch.empty_like(ref) if write_out else None
+        o_b = torch.empty(R, H, dtype=torch.bfloat16, device=dev)
+        kw = dict(a_b=a_b, out_b=o_b, write_out=write_out)
+        a_in = None if route == "bf16" else a
+        fused_em.reset_launch_counts()
+        got = score_net.dense_gn_silu(a_in, *args[1:], residual=res, out=o, **kw)
+        torch.cuda.synchronize()
+        counted = fused_em.route_counts()["dense_gn_silu"]
+        want_route = {"bf16": "wgmma_bf16", "fp32": "wgmma", "register": "register"}[route]
+        check(counted[want_route] == 1, f"dense_gn_silu {label}: routes {counted}")
+        out = score_net.dense_gn_silu(*args, residual=res)  # the fp32 route, or the element loads
         torch.cuda.synchronize()
         e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
         check(e <= tol, f"dense_gn_silu {label}: max abs err {e} > {tol}")
-        R, K = a.shape
-        n_bytes = 4 * R * K + 2 * K * H + 3 * 4 * H + 4 * R * H * (2 if res is not None else 1)
+        if write_out:
+            check(torch.equal(got, out), f"dense_gn_silu {label}: not bit-equal to the fp32 route")
+        check(torch.equal(o_b, out.to(torch.bfloat16)),
+              f"dense_gn_silu {label}: the bf16 copy is not the output rounded")
+        # each input byte read once, each output byte written once: A (fp32 or
+        # the bf16 copy), W, the three rows, the residual, the fp32 output
+        # where written, the bf16 copy
+        n_bytes = ((2 if route == "bf16" else 4) * R * K + 2 * K * H + 3 * 4 * H
+                   + 4 * R * H * ((res is not None) + write_out) + 2 * R * H)
         bms, by = bound(n_bytes, 2 * R * K * H, 14 * R * H)
-        o = torch.empty_like(ref)
         a16 = a.to(torch.bfloat16)
+
+        def launch():
+            return score_net.dense_gn_silu(a_in, *args[1:], residual=res, out=o, **kw)
 
         def library():
             y = torch.matmul(a16, W[j]).float() + tp[j]
             return F.silu(F.group_norm(y, 32, gs[j], gb[j], eps=1e-5))
 
         variants.append(dict(
-            shape=label, max_abs_err=e, tol=tol,
-            ms=graph_ms(lambda: score_net.dense_gn_silu(*args, residual=res, out=o)),
-            eager_ms=eager_ms(lambda: score_net.dense_gn_silu(*args, residual=res, out=o)),
+            shape=label, route=route, max_abs_err=e, tol=tol, ms=graph_ms(launch),
+            eager_ms=eager_ms(launch),
             plain_ms=graph_ms(lambda: score_net.dense_gn_silu_plain(*args, res)),
             library_ms=graph_ms(library), bound_ms=bms, bound_by=by))
     main_v = variants[2]
@@ -791,6 +883,10 @@ def phase_kernels(model, dev):
                      tol="1e-3*max(1,|ref|max)", **{k: main_v[k] for k in (
                          "shape", "ms", "eager_ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by")}, variants=variants))
+    for v in variants:
+        print(f"[kernel] dense_gn_silu {v['shape']} ({v['route']}): {v['ms'] * 1e3:.2f} us, "
+              f"bound {v['bound_ms'] * 1e3:.2f} us ({v['bound_by']}), plain "
+              f"{v['plain_ms'] * 1e3:.2f}, library {v['library_ms'] * 1e3:.2f}")
 
     # K2 head_em: the EM update and the corrector's score, host normals
     hid = torch.empty(B, H, device=dev)
@@ -1373,16 +1469,24 @@ def phase_completion_kernels(model, dev, clusters):
     h0 = score_net.dense_gn_silu_plain(pert, W[0], tp[0], gs[0], gb[0])
     h1 = score_net.dense_gn_silu_plain(h0, W[1], tp[1], gs[1], gb[1])
     k1_ms = {}
+    # as network_hidden runs them: the pre layer from fp32, the block's layers
+    # from the bf16 copy (the first writing its copy alone)
     for label, a, j, res in (("pre", pert, 0, None), ("block", h0, 1, None),
                              ("block+residual", h1, 2, h0)):
         args = (a, W[j], tp[j], gs[j], gb[j])
         ref = score_net.dense_gn_silu_plain(*args, res)
-        out = score_net.dense_gn_silu(*args, residual=res)
+        o_b = torch.empty(ref.shape, dtype=torch.bfloat16, device=dev)
+        o = None if label == "block" else torch.empty_like(ref)
+        kw = dict(out_b=o_b, write_out=o is not None)
+        if label != "pre":
+            a, kw["a_b"] = None, a.to(torch.bfloat16)
+        score_net.dense_gn_silu(a, *args[1:], residual=res, out=o, **kw)
         torch.cuda.synchronize()
-        e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
+        out = o_b.float() if o is None else o
+        e, tol = err(out, ref), (1e-2 if o is None else 1e-3) * max(1.0, float(ref.abs().max()))
         check(e <= tol, f"dense_gn_silu {label} at {RC} rows: max abs err {e} > {tol}")
-        o = torch.empty_like(ref)
-        k1_ms[label] = graph_ms(lambda: score_net.dense_gn_silu(*args, residual=res, out=o))
+        k1_ms[label] = graph_ms(lambda: score_net.dense_gn_silu(a, *args[1:], residual=res,
+                                                                out=o, **kw))
     print(f"[kernel] dense_gn_silu at {RC} rows: " + ", ".join(
         f"{k} {v * 1e3:.2f} us" for k, v in k1_ms.items()))
     return rows, k1_ms
@@ -1519,6 +1623,11 @@ def phase_completion_protocols(model, dev):
     # K5 at the first step; K6 perturbs for every later one but pastes at the last
     check(per_solve == dict(comp_perturb=1, dense_gn_silu=1000, head_adam_perturb=199,
                             head_adam=1), f"solver: launches a solve {per_solve}")
+    # a forward: the pre layer on the element loads, four layers on the bf16 copy
+    k1_routes = fused_em.route_counts()["dense_gn_silu"]
+    print(f"[completion] K1's routes a solve: {k1_routes}")
+    check(k1_routes == dict(wgmma_bf16=800, wgmma=0, register=200),
+          f"solver: K1's routes a solve {k1_routes}")
     check(hypos.shape == (100, HYPO, D) and torch.isfinite(hypos).all().item(), "solver output")
     check(torch.equal(hypos * mask[:, None], (obs * mask)[:, None].expand_as(hypos)),
           "solver: observed dims are not pasted exactly")
@@ -2888,6 +2997,11 @@ def phase_protocols(model, dev):
         encodes.append(build.tma_encodes("dense_gn_silu") - enc0)
     check(x.shape == (B, D) and torch.isfinite(x).all().item(), "generation output")
     gen_counts = fused_em.launch_counts()
+    # a forward: the pre layer on the element loads, four layers on the bf16 copy
+    k1_routes = fused_em.route_counts()["dense_gn_silu"]
+    print(f"[generation] K1's routes a call: {k1_routes}")
+    check(k1_routes == dict(wgmma_bf16=4000, wgmma=0, register=1000),
+          f"generation: K1's routes a call {k1_routes}")
     # K1 encodes its tensor maps once per (pointer, shape) and caches them: a
     # call's four K = 1024 layers need two activation and four weight maps
     print(f"[generation] tensor maps encoded per call: {encodes} for "
@@ -2898,7 +3012,7 @@ def phase_protocols(model, dev):
     wall = min(walls[1:])  # steady state: the first call is the warm-up
     gen_res = dict(poses_per_s=B / wall, wall_s=wall, walls_s=walls, tma_encodes=encodes,
                    median_poses_per_s=B / float(np.median(walls[1:])), event_ms=dev_ms,
-                   steps=1000, batch=B, launches=gen_counts)
+                   steps=1000, batch=B, launches=gen_counts, k1_routes=k1_routes)
     print(f"[generation] 500 x 1000 steps: {B / wall:.1f} poses/s best, "
           f"{gen_res['median_poses_per_s']:.1f} median "
           f"({wall * 1e3:.1f} ms per call; calls {['%.3f' % w for w in walls]} s)")
@@ -4822,7 +4936,7 @@ def trainer_profile_check(dev, work):
     kernels = {k: sum(1 for e in events if e.get("cat") == "kernel" and k in e.get("name", ""))
                for k in ("dense_gn_silu_train", "head_dsm", "dense_gn_silu_bwd")}
     spans = sorted(int(e["name"].rsplit("_", 1)[1]) for e in events
-                   if re.fullmatch(r"train_step_\d+", e.get("name", ""))
+                   if re.fullmatch(r"dp\.train_step_\d+", e.get("name", ""))
                    and e.get("ph") == "X" and e.get("cat") == "user_annotation")
     check(all(kernels.values()), f"trainer trace: kernels by name {kernels}")
     check(spans == list(range(11, PROFILE_STEPS + 1)),

@@ -4,8 +4,9 @@
 // Its users: K7 dense_gn_silu_jvp (STACKED) and K10 dense_gn_silu_train on
 // their register routes (fp32 A: the pre layer at K = 63), and K1
 // dense_gn_silu only where TMA cannot address A (K % 4 != 0, the pre layer
-// at K = 63, or a misaligned operand); K1's other layers and K14's bf16
-// modes run dense_wgmma.cuh, K10's bf16 layers and K12 dense_wgmma_ss.cuh.
+// at K = 63, or a misaligned operand); K1's other layers from fp32 A and
+// K14's bf16 modes run dense_wgmma.cuh, K1's, K10's bf16 layers and K12
+// dense_wgmma_ss.cuh.
 // Its constants (BM, BN, C_LD, THREADS), group_sum and quant8 are those of
 // gn_epilogue.cuh, dense_wgmma.cuh and the int8 loops (dense_gemm_int8.cuh,
 // dense_wgmma_int8.cuh) too.

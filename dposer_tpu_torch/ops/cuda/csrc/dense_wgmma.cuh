@@ -1,6 +1,8 @@
-// The Hopper GEMM main loop of the network's bf16 hidden layers, shared by
-// K1 dense_gn_silu (every layer whose rows TMA can address: all K = 1024
-// layers) and K14 chain_link (modes bf16, bf16-out and gn-silu):
+// The Hopper GEMM main loop from fp32 A, shared by K1 dense_gn_silu's fp32
+// route (fp32 A that TMA can address; the network's K = 1024 layers read
+// the bf16 copy the layer before wrote instead, on dense_wgmma_ss.cuh's
+// ring: dense_gn_silu.cu) and K14 chain_link (modes bf16, bf16-out and
+// gn-silu):
 //   C[r, c] = sum_k bf16_rne(A[r, k]) * W[k, c]
 // with A fp32 [B, K] and W bf16 [K, N], both row-major, fp32 accumulation.
 // It computes what dense_gemm.cuh::gemm_tile<VEC, false> computes (the sum
@@ -15,6 +17,11 @@
 // Bound on the H100: bytes. A block layer at [500,1024]x[1024,1024] with its
 // residual moves ~8.2 MB from HBM (A and out fp32, W bf16, the residual):
 // 2.46 us at 3.35 TB/s, against ~1.07 GFLOP, 1.1 us at the bf16 tensor rate.
+// What bounds it is the consumer's chain below; the bf16 copy of A, read by
+// TMA and wgmma from shared memory (dense_wgmma_ss.cuh), has no such chain:
+// K1's block layer with its residual 8.0-8.1 us there against 9.3 here, at
+// 1,000 rows 10.6-11.9 against 13.8-14.3, with the same epilogue (NVIDIA
+// H100 80GB HBM3 at 700 W, CUDA-graph replay; dense_gn_silu.cu).
 //
 // Design (one block = one 64x64 output tile, 256 threads):
 // - Warp 4 is the producer: one lane starts TMA copies into a ring of

@@ -1,7 +1,9 @@
 // The Hopper GEMM main loop of the train step's layer kernels, shared by K10
 // dense_gn_silu_train (every layer whose input is the bf16 copy the layer
 // before wrote: the four K = 1024 layers of a step) and K12
-// dense_gn_silu_bwd (every hop):
+// dense_gn_silu_bwd (every hop), and of K1 dense_gn_silu's bf16 route (the
+// four K = 1024 layers of a sampler's forward, on rings of its own:
+// dense_gn_silu.cu):
 //   C[r, c] = sum_k A[r, k] * W[k, c]
 // with A bf16 [B, K] (K contiguous) and W bf16 [K, N] (N contiguous),
 // fp32 accumulation. Nothing is converted in the loop: both operands go

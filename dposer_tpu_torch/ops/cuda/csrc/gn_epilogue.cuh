@@ -9,15 +9,19 @@
 // GN affine) are read once into registers, and the warp's residual values are
 // all requested before the first is used.
 //
-// K13 takes gn_silu_epilogue_q: the same arithmetic with the warp's sixteen
-// (row, half) chains interleaved shuffle by shuffle, and an optional int8
-// copy of what it stores, out_q[r, c] = quant8(y, qnext[c]) after the
-// residual: the next int8 layer's input, which that layer's main loop reads
-// by TMA as it is (dense_wgmma_int8.cuh) and which quantizing the fp32 out
-// would give, bit for bit.
+// K13 and K1 take gn_silu_epilogue_q: the same arithmetic with the warp's
+// sixteen (row, half) chains interleaved shuffle by shuffle, and an optional
+// copy of what it stores, taken after the residual: for K13 int8, out_q[r, c]
+// = quant8(y, qnext[c]), for K1 bf16, out_q[r, c] = __float2bfloat16_rn(y).
+// Either is the next layer's input, which that layer's main loop reads by
+// TMA as it is (dense_wgmma_int8.cuh, dense_wgmma_ss.cuh) and which
+// quantizing or rounding the fp32 out would give, bit for bit.
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
+#include <cuda_bf16.h>
 
 #include "dense_gemm.cuh"
 
@@ -94,16 +98,21 @@ __device__ __forceinline__ void group_sums(float (&v)[M]) {
     for (int k = 0; k < M; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
 }
 
-// K13's epilogue: gn_silu_epilogue<GS, Out::kStore>'s arithmetic on the
-// warp's rows and columns, the sixteen GroupNorm chains of a warp
+// The epilogue of K13 and K1: gn_silu_epilogue<GS, Out::kStore>'s arithmetic
+// on the warp's rows and columns, the sixteen GroupNorm chains of a warp
 // interleaved (one chain's ten dependent shuffles at a time leave the warp
-// waiting on each), and with qnext [N] and out_q [B, N] int8 (out_q nullable)
-// the int8 copy of out for the next layer.
-template <int GS>
+// waiting on each), and the copy of out for the next layer: T = int8_t
+// (K13) with qnext [N] and out_q [B, N] int8 (out_q nullable) its int8
+// copy; T = __nv_bfloat16 (K1) with out_q [B, N] bf16 (nullable; qnext not
+// read) its bf16 copy, and out nullable (a layer whose fp32 output nothing
+// reads writes the copy alone).
+template <int GS, class T>
 __device__ __forceinline__ void gn_silu_epilogue_q(
     const float* c, const float* __restrict__ tp, const float* __restrict__ gamma,
     const float* __restrict__ beta, const float* residual, float* out, int row0, int col0,
-    int B, int N, const float* __restrict__ qnext, int8_t* __restrict__ out_q) {
+    int B, int N, const float* __restrict__ qnext, T* __restrict__ out_q) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  static_assert(kInt8 || std::is_same<T, __nv_bfloat16>::value, "an int8 or a bf16 copy");
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   constexpr int WARPS = THREADS / 32;
@@ -116,7 +125,7 @@ __device__ __forceinline__ void gn_silu_epilogue_q(
     tpv[half] = tp != nullptr ? tp[gc] : 0.0f;
     gv[half] = gamma != nullptr ? gamma[gc] : 1.0f;
     bv[half] = beta != nullptr ? beta[gc] : 0.0f;
-    qn[half] = out_q != nullptr ? qnext[gc] : 0.0f;
+    if constexpr (kInt8) qn[half] = out_q != nullptr ? qnext[gc] : 0.0f;
   }
   float res[M], v[M], s[M];
 #pragma unroll
@@ -143,8 +152,13 @@ __device__ __forceinline__ void gn_silu_epilogue_q(
     y = y / (1.0f + __expf(-y)) + res[k];
     if (gr < B) {
       const size_t o = static_cast<size_t>(gr) * N + col0 + half * 32 + lane;
-      out[o] = y;
-      if (out_q != nullptr) out_q[o] = static_cast<int8_t>(quant8(y, qn[half]));
+      if constexpr (kInt8) {
+        out[o] = y;
+        if (out_q != nullptr) out_q[o] = static_cast<int8_t>(quant8(y, qn[half]));
+      } else {
+        if (out != nullptr) out[o] = y;
+        if (out_q != nullptr) out_q[o] = __float2bfloat16_rn(y);
+      }
     }
   }
 }

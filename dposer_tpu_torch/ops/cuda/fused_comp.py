@@ -45,7 +45,8 @@ from . import build
 from .fused_em import _check_coefs, _noise_args, draw_seed, host_slabs, resolve_device
 from .graph_loop import GraphLoop, resolve_loop
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
-                        dense_gn_silu, dense_gn_silu_plain_into, network_hidden)
+                        dense_gn_silu, dense_gn_silu_plain_into, handoff_buffers,
+                        network_hidden)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -288,7 +289,8 @@ def adam_step(net: dict, coefs, i: int, x, m1, v, obs, mask, scratch: dict, nois
               perturb_next: bool = False, next_noise=None) -> None:
     """Adam step ``i`` on ``x`` [R, D] and its moments in place. ``noise`` is
     the step's host normals [R, D], or None with ``seed`` for in-kernel
-    normals. ``scratch`` holds ``pert`` [R, D] and ``h``, ``h1`` [R, H].
+    normals. ``scratch`` holds ``pert`` [R, D], ``h``, ``h1`` [R, H] and ``q``
+    (their bf16 copies, handed on from layer to layer).
     ``perturbed``: step ``i - 1``'s K6 already wrote this step's ``pert``,
     so K5 does not run. ``perturb_next``: K6 writes step ``i + 1``'s ``pert``
     from the new ``x`` (``head_adam_perturb``), from ``next_noise`` (host
@@ -303,7 +305,7 @@ def adam_step(net: dict, coefs, i: int, x, m1, v, obs, mask, scratch: dict, nois
     pert, h, h1 = scratch["pert"], scratch["h"], scratch["h1"]
     if not perturbed:
         perturb(x, pert, coefs, i, noise=noise, seed=seed)
-    network_hidden(net, pert, i, h, h1, layer)
+    network_hidden(net, pert, i, h, h1, layer, scratch["q"])
     args = (h, net["w_post"], net["b_post"], coefs, i, x, pert, obs, mask, m1, v)
     if perturb_next:
         head_next(*args, noise=next_noise, seed=seed)
@@ -314,7 +316,7 @@ def adam_step(net: dict, coefs, i: int, x, m1, v, obs, mask, scratch: dict, nois
 def solver_scratch(net: dict, rows: int, device) -> dict:
     """The buffers ``adam_step`` works in."""
     h = torch.empty((rows, net["hidden"]), dtype=torch.float32, device=device)
-    return dict(h=h, h1=torch.empty_like(h),
+    return dict(h=h, h1=torch.empty_like(h), q=handoff_buffers(net, rows, device),
                 pert=torch.empty((rows, net["dim"]), dtype=torch.float32, device=device))
 
 

@@ -58,7 +58,7 @@ from .graph_loop import GraphLoop, resolve_loop
 from .philox import seed_bits
 from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
                         dense_gn_silu, dense_gn_silu_int8, dense_gn_silu_jvp,
-                        hidden_layer, int8_handoff_buffers, network_hidden)
+                        handoff_buffers, hidden_layer, network_hidden)
 
 N_COEFS = 8
 
@@ -422,9 +422,11 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """Launches of each kernel with a Hopper main loop, by route, since the
-    last ``reset_launch_counts``: K7 and K10 ``{"wgmma": n, "register": n}``,
-    K12 ``{"wgmma": n}`` (its one route), K13 and K14 ``{"wgmma_int8": n,
-    "register": n}`` (K14 also ``"wgmma"``, its bf16 modes)."""
+    last ``reset_launch_counts``: K1 ``{"wgmma_bf16": n, "wgmma": n,
+    "register": n}`` (from the bf16 copy, from fp32 A, the element loads), K7
+    and K10 ``{"wgmma": n, "register": n}``, K12 ``{"wgmma": n}`` (its one
+    route), K13 and K14 ``{"wgmma_int8": n, "register": n}`` (K14 also
+    ``"wgmma"``, its bf16 modes)."""
     return {fn.__name__: dict(fn.routes) for fn in _counted() if hasattr(fn, "routes")}
 
 
@@ -507,12 +509,11 @@ def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
     step then runs with ``renoised``. ``slabs[k]`` are the host normals of
     slab ``k`` (corr_0.., [imput_c], em, [imput_p]), or None with ``seed``
     for in-kernel normals. ``scratch`` holds ``h``, ``h1``
-    [B, H], for int8 operands ``q`` (their int8 copies, handed on from layer
-    to layer) and, with a corrector, ``score`` [B, D] and ``score_sq`` [B].
+    [B, H], ``q`` (their bf16 or int8 copies, handed on from layer to layer)
+    and, with a corrector, ``score`` [B, D] and ``score_sq`` [B].
     ``plain=True`` runs the kernels' plain versions instead, on any device:
     the reference the card's kernels are held to. The hidden layers are K1,
-    or K13 for int8 operands (the plain versions hand on the same int8
-    copies)."""
+    or K13 for int8 operands (the plain versions hand on the same copies)."""
     if renoise_next and (observed is None or n_corr):
         raise ValueError("renoise_next folds the next step's re-noise into K2: "
                          "imputation without a corrector only")
@@ -546,7 +547,7 @@ def pc_step(net: dict, coefs, i: int, x, scratch: dict, slabs, *, n_corr: int,
 def pc_scratch(net: dict, batch: int, n_corr: int, device) -> dict:
     """The buffers ``pc_step`` works in."""
     h = torch.empty((batch, net["hidden"]), dtype=torch.float32, device=device)
-    out = dict(h=h, h1=torch.empty_like(h), q=int8_handoff_buffers(net, batch, device))
+    out = dict(h=h, h1=torch.empty_like(h), q=handoff_buffers(net, batch, device))
     if n_corr:
         out["score"] = torch.empty((batch, net["dim"]), dtype=torch.float32, device=device)
         out["score_sq"] = torch.empty((batch,), dtype=torch.float32, device=device)

@@ -40,7 +40,7 @@ from . import build
 from .fused_em import resolve_device
 from .graph_loop import GraphLoop, resolve_loop
 from .score_net import (HEAD_COLS, _check, build_network_operands, dense_gn_silu,
-                        dense_gn_silu_plain_into, network_hidden)
+                        dense_gn_silu_plain_into, handoff_buffers, network_hidden)
 
 N_COEFS = 8
 STAGE_GRID = (0, 1, 1, 2)  # a stage's offset on the stage-time grid from its step's 2i
@@ -205,7 +205,7 @@ def get_cuda_ode_sampler(sde: SDE, model, shape: Tuple[int, int], n_steps: int =
     x = torch.empty((batch, dim), dtype=torch.float32, device=device)
     xs, acc = torch.empty_like(x), torch.empty_like(x)
     h = torch.empty((batch, net["hidden"]), dtype=torch.float32, device=device)
-    h1 = torch.empty_like(h)
+    h1, q = torch.empty_like(h), handoff_buffers(net, batch, device)
     inputs = dict(z=torch.empty_like(x))
 
     def body(warm_up=False):
@@ -213,7 +213,7 @@ def get_cuda_ode_sampler(sde: SDE, model, shape: Tuple[int, int], n_steps: int =
         xs.copy_(x)
         # the warm-up: the first step's stages and the last stage (the denoise)
         for j, s in (stages[:4] + stages[-1:] if warm_up else stages):
-            network_hidden(net, xs, j, h, h1, layer)
+            network_hidden(net, xs, j, h, h1, layer, q)
             head(h, net["w_post"], net["b_post"], coefs, j, s, x, xs, acc)
         return x
 

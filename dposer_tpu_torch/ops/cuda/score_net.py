@@ -16,7 +16,11 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
   quantization rows ``qinv`` (per-tensor immediates or per-channel
   ``smooth_fold`` rows, one layout for both); the head stays bf16.
 - kernel K1 ``dense_gn_silu`` (``csrc/dense_gn_silu.cu``) with its plain
-  PyTorch version, and ``network_hidden``, which runs the layers with it.
+  PyTorch version, and ``network_hidden``, which runs the layers with it and
+  hands the activations on in bf16 (each epilogue writes the next layer's
+  rounded input, which the bf16 Hopper route reads: TMA and ``wgmma`` with
+  both operands from shared memory; the pre layer, on the fp32 state, runs
+  the element-load loop).
 - kernel K13 ``dense_gn_silu_int8`` (``csrc/dense_gn_silu_int8.cu``): K1's
   layer on int8 operands (port of ``bind_fwd``'s quant ``mm``), its plain
   version; ``network_hidden`` takes it for int8 operands and hands the
@@ -164,18 +168,26 @@ def _int8_operands(Wf, act_amax, hidden: int) -> dict:
 # K1 dense_gn_silu
 # ---------------------------------------------------------------------------
 
-def dense_gn_silu_plain(a, w, tp_row, gamma, beta, residual=None):
+def dense_gn_silu_plain(a, w, tp_row, gamma, beta, residual=None, a_b=None):
     """``SiLU(GN32(bf16(a) @ w + tp_row)*gamma + beta) [+ residual]`` in
-    fp32, with the matmul inputs rounded to bf16 as the kernel rounds them."""
-    h = a.to(torch.bfloat16).float() @ w.float() + tp_row
+    fp32, with the matmul inputs rounded to bf16 as the kernel rounds them.
+    ``a_b`` (bf16), when given, is ``bf16(a)`` already and ``a`` is not read."""
+    h = (a.to(torch.bfloat16) if a_b is None else a_b).float() @ w.float() + tp_row
     y = F.silu(_group_norm(h, gamma, beta, num_groups=NUM_GROUPS))
     return y if residual is None else y + residual
 
 
-def dense_gn_silu_plain_into(a, w, tp_row, gamma, beta, residual=None, out=None):
+def dense_gn_silu_plain_into(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=None,
+                             out_b=None, write_out: bool = True):
     """The plain version with the wrapper's signature, on any device: the
-    reference path the kernels are held to on the card."""
-    y = dense_gn_silu_plain(a, w, tp_row, gamma, beta, residual)
+    reference path the kernels are held to on the card. With ``out_b`` it
+    also writes the bf16 copy of the output; ``write_out=False`` returns
+    that copy and keeps no fp32 output."""
+    y = dense_gn_silu_plain(a, w, tp_row, gamma, beta, residual, a_b)
+    if out_b is not None:
+        out_b.copy_(y)
+    if not write_out:
+        return out_b
     return y if out is None else out.copy_(y)
 
 
@@ -198,45 +210,92 @@ def _dense_gn_silu_fn():
     fn = build.load("dense_gn_silu").dposer_dense_gn_silu
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, P]
+        fn.argtypes = [P] * 9 + [I, I, I, P]
         fn.restype = I
     return fn
 
 
-def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None):
+def check_bf16_copy(a_b, w, B: int, K: int) -> None:
+    """Raise unless K1's bf16 route can take ``a_b`` and ``w``: ``a_b`` bf16
+    [B, K] contiguous, K a multiple of 8 (TMA rows), both 16-byte aligned.
+    Checked on every device, so the CPU's plain path takes the operands the
+    card takes."""
+    _check("a_b", a_b, w.device, torch.bfloat16, (B, K))
+    if K % 8:
+        raise ValueError(f"a_b needs K % 8 == 0 (TMA rows); got K={K}")
+    for nm, t in (("a_b", a_b), ("w", w)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{nm} must be 16-byte aligned for TMA")
+
+
+def _k1_route(a, a_b, w) -> str:
+    """The route K1's library takes (``dense_gn_silu.cu``): the bf16 copy,
+    fp32 A that TMA can address, or the element loads."""
+    if a_b is not None:
+        return "wgmma_bf16"
+    K, N = w.shape
+    aligned = a.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    return "wgmma" if K % 4 == 0 and N % 8 == 0 and aligned else "register"
+
+
+def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=None, out_b=None,
+                  write_out: bool = True):
     """K1 on ``a`` [B, K] fp32 and ``w`` [K, N] bf16; writes ``out`` [B, N]
-    fp32 (may be ``residual`` itself) and returns it."""
-    B, K = a.shape
+    fp32 (may be ``residual`` itself) and returns it.
+
+    ``a_b`` bf16 [B, K], ``bf16(a)`` written by the previous layer, routes
+    the layer through the bf16 Hopper loop (TMA and ``wgmma`` with both
+    operands from shared memory; ``a`` may then be None); without it the
+    fp32 Hopper loop rounds ``a`` in registers, or, where TMA cannot address
+    ``a`` (the pre layer's K = 63), the element-load loop. With ``out_b``
+    bf16 [B, N] the epilogue also writes the bf16 copy of out, the next
+    layer's ``a_b``; ``write_out=False`` writes that copy alone (``out`` is
+    then None) and returns it. Each launch adds one to ``launches`` and to
+    its route's count in ``routes``."""
+    B, K = (a if a_b is None else a_b).shape
     N = w.shape[1]
-    if out is None:
-        out = torch.empty((B, N), dtype=torch.float32, device=a.device)
-    dev = a.device
-    _check("a", a, dev, torch.float32, (B, K))
+    dev = w.device
+    if not write_out:
+        if out is not None or out_b is None:
+            raise ValueError("write_out=False takes out_b and no out")
+    elif out is None:
+        out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    if a_b is None or a is not None:
+        _check("a", a, dev, torch.float32, (B, K))
     _check("w", w, dev, torch.bfloat16, (K, N))
     for nm, t in (("tp_row", tp_row), ("gamma", gamma), ("beta", beta)):
         _check(nm, t, dev, torch.float32, (N,))
     if residual is not None:
         _check("residual", residual, dev, torch.float32, (B, N))
-    _check("out", out, dev, torch.float32, (B, N))
+    if out is not None:
+        _check("out", out, dev, torch.float32, (B, N))
+    if a_b is not None:
+        check_bf16_copy(a_b, w, B, K)
+    if out_b is not None:
+        _check("out_b", out_b, dev, torch.bfloat16, (B, N))
     if dev.type == "cpu":
-        return dense_gn_silu_plain_into(a, w, tp_row, gamma, beta, residual, out)
+        return dense_gn_silu_plain_into(a, w, tp_row, gamma, beta, residual, out, a_b=a_b,
+                                        out_b=out_b, write_out=write_out)
     if dev.type != "cuda":
         raise ValueError(f"dense_gn_silu runs on cpu or cuda, not {dev}")
     gs = N // NUM_GROUPS
     if N % 64 or gs not in (2, 4, 8, 16, 32):
         raise ValueError(f"dense_gn_silu kernel needs N % 64 == 0 and a group "
                          f"size N/32 in {{2,4,8,16,32}}; got N={N}")
-    err = _dense_gn_silu_fn()(a.data_ptr(), w.data_ptr(), tp_row.data_ptr(),
-                              gamma.data_ptr(), beta.data_ptr(), _ptr(residual),
-                              out.data_ptr(), B, K, N,
+    route = _k1_route(a, a_b, w)
+    err = _dense_gn_silu_fn()(None if a_b is not None else a.data_ptr(), _ptr(a_b),
+                              w.data_ptr(), tp_row.data_ptr(), gamma.data_ptr(),
+                              beta.data_ptr(), _ptr(residual), _ptr(out), _ptr(out_b), B, K, N,
                               torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"dense_gn_silu launch failed: CUDA error {err}")
     dense_gn_silu.launches += 1
-    return out
+    dense_gn_silu.routes[route] += 1
+    return out if write_out else out_b
 
 
 dense_gn_silu.launches = 0
+dense_gn_silu.routes = {"wgmma_bf16": 0, "wgmma": 0, "register": 0}
 
 
 def layer_weights(net: dict, j: int) -> tuple:
@@ -263,44 +322,49 @@ def network_hidden(net: dict, x: torch.Tensor, i: int, h: torch.Tensor,
     K1 or its plain version for bf16 operands, K13 or its plain version for
     int8 ones.
 
-    Int8 operands hand the activations on as int8 through ``q = (hq, h1q)``,
-    int8 [B, H] beside ``h`` and ``h1`` (``int8_handoff_buffers``; made here
-    when not given): each layer's epilogue also writes its output quantized by
-    the next layer's ``qinv`` row, and the next layer reads that copy (K13's
-    Hopper route) instead of quantizing the fp32 one; the sums are the same.
-    The pre layer reads the fp32 state (K13's register route); the last block
-    writes no copy, since the bf16 head reads ``h``."""
+    The activations are handed on through ``q = (hq, h1q)``, two [B, H]
+    buffers beside ``h`` and ``h1`` (``handoff_buffers``; made here when not
+    given): each layer's epilogue also writes its output as the next layer
+    reads it, and the next layer reads that copy instead of the fp32 one.
+    For int8 operands the copy is the output quantized by the next layer's
+    ``qinv`` row (K13's Hopper route reads it); for bf16 operands it is the
+    output rounded to bf16 (K1's bf16 route reads it), and a block's first
+    layer writes its copy alone, no fp32 ``h1``. The sums are the same
+    either way. The pre layer reads the fp32 state (K13's register route,
+    K1's element loads); the last block writes no copy, since the head reads
+    ``h``."""
     layer = hidden_layer(net) if layer is None else layer
     tp = net["tp_all"][i]
     gs, gb = net["gn_scale"], net["gn_bias"]
     n_layers = 1 + 2 * net["n_blocks"]
     if q is None:
-        q = int8_handoff_buffers(net, h.shape[0], h.device)
+        q = handoff_buffers(net, h.shape[0], h.device)
+    int8 = "Wq" in net
 
-    def handoff(j, a_q, out_q):  # K13's int8 input and output for layer j
-        if q is None:
-            return {}
-        kw = {} if a_q is None else dict(a_q=a_q)
+    def handoff(j, a_copy, out_copy):  # layer j's copy in and copy out
+        kw = {} if a_copy is None else {"a_q" if int8 else "a_b": a_copy}
         if j + 1 < n_layers:
-            kw.update(qinv_next=net["qinv_rows"][j + 1], out_q=out_q)
+            kw.update(dict(qinv_next=net["qinv_rows"][j + 1], out_q=out_copy) if int8
+                      else dict(out_b=out_copy))
         return kw
 
-    hq, h1q = (None, None) if q is None else q
+    hq, h1q = q
     layer(x, *layer_weights(net, 0), tp[0], gs[0], gb[0], out=h, **handoff(0, None, hq))
     for blk in range(net["n_blocks"]):
         j = 1 + 2 * blk
-        layer(h, *layer_weights(net, j), tp[j], gs[j], gb[j], out=h1, **handoff(j, hq, h1q))
-        layer(h1, *layer_weights(net, j + 1), tp[j + 1], gs[j + 1], gb[j + 1],
+        first = dict(out=h1) if int8 else dict(write_out=False)
+        layer(None, *layer_weights(net, j), tp[j], gs[j], gb[j], **first,
+              **handoff(j, hq, h1q))
+        layer(None, *layer_weights(net, j + 1), tp[j + 1], gs[j + 1], gb[j + 1],
               residual=h, out=h, **handoff(j + 1, h1q, hq))
     return h
 
 
-def int8_handoff_buffers(net: dict, batch: int, device) -> tuple:
-    """``network_hidden``'s ``q`` for int8 operands: two int8 [batch, H]
-    buffers; ``None`` for bf16 operands."""
-    if "Wq" not in net:
-        return None
-    return tuple(torch.empty((batch, net["hidden"]), dtype=torch.int8, device=device)
+def handoff_buffers(net: dict, batch: int, device) -> tuple:
+    """``network_hidden``'s ``q``: two [batch, H] buffers for the copies the
+    layers hand on, int8 for int8 operands and bf16 for bf16 ones."""
+    dtype = torch.int8 if "Wq" in net else torch.bfloat16
+    return tuple(torch.empty((batch, net["hidden"]), dtype=dtype, device=device)
                  for _ in range(2))
 
 

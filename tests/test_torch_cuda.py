@@ -66,6 +66,100 @@ def test_dense_gn_silu(dev, B, K, gs, residual):
     torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
 
 
+def _route_counts(bf16=0, fp32=0, register=0):
+    return {"wgmma_bf16": bf16, "wgmma": fp32, "register": register}
+
+
+# the bf16 route, from the copy the layer before wrote: rows one, a
+# likelihood batch, generation's 500 (a ragged last tile; the deep ring) and
+# completion's 1,000 (more CTAs than SMs at N = 1024: the shallow ring); K
+# one stage and the hidden 1024; against the fp32 Hopper route (A rounded in
+# registers: the same products in the same order, so the same bits) and the
+# plain version
+@pytest.mark.parametrize("B", [1, 50, 500, 1000])
+@pytest.mark.parametrize("K", [64, 1024])
+@pytest.mark.parametrize("gs", [2, 8, 32])
+@pytest.mark.parametrize("residual", ["none", "given", "aliased"])
+def test_dense_gn_silu_bf16_route(dev, B, K, gs, residual):
+    rng = np.random.default_rng(K + B)
+    N = 32 * gs
+    a = _t(rng, (B, K), dev)
+    w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    res = _t(rng, (B, N), dev) if residual != "none" else None
+    want = score_net.dense_gn_silu_plain(a, w, tp, gamma, beta, res)
+    reset_launch_counts()
+    ref = dense_gn_silu(a, w, tp, gamma, beta, residual=res)
+    out_b = torch.empty((B, N), dtype=torch.bfloat16, device=dev)
+    res_in = None if res is None else res.clone()
+    out = dense_gn_silu(None, w, tp, gamma, beta, residual=res,
+                        out=res if residual == "aliased" else None, a_b=a.to(torch.bfloat16),
+                        out_b=out_b)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=1, fp32=1)
+    if residual == "aliased":
+        assert out is res
+    assert torch.equal(out, ref)
+    # the copy is __float2bfloat16_rn of what the epilogue stored: torch's
+    # round to nearest even
+    assert torch.equal(out_b, out.to(torch.bfloat16))
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
+    only_b = torch.empty_like(out_b)
+    got = dense_gn_silu(None, w, tp, gamma, beta, residual=res_in, a_b=a.to(torch.bfloat16),
+                        out_b=only_b, write_out=False)
+    torch.cuda.synchronize()
+    assert got is only_b and torch.equal(only_b, out_b)
+
+
+def test_dense_gn_silu_pre_layer_writes_the_copy(dev):
+    """The pre layer (K = 63, the element loads) with ``out_b``: its bf16
+    copy byte for byte is its fp32 output rounded, and the output is the one
+    it writes without the copy."""
+    rng = np.random.default_rng(63)
+    B, K, N = 500, 63, 1024
+    a = _t(rng, (B, K), dev)
+    w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    ref = dense_gn_silu(a, w, tp, gamma, beta)
+    out_b = torch.empty((B, N), dtype=torch.bfloat16, device=dev)
+    reset_launch_counts()
+    out = dense_gn_silu(a, w, tp, gamma, beta, out_b=out_b)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(register=1)
+    assert torch.equal(out, ref) and torch.equal(out_b, out.to(torch.bfloat16))
+
+
+def test_k1_routes_a_forward(dev):
+    """A generation call and a completion solve, each replayed from its
+    graph, run every forward as 4 layers on the bf16 route and the pre layer
+    on the element loads: none on the fp32 Hopper route."""
+    model = _small_model(dev)
+    n = 6
+    sampler = get_cuda_em_sampler(tsde.SubVPSDE(N=n), model, (40, 63), rng_mode="kernel",
+                                  device="cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    sampler(g)  # captures
+    reset_launch_counts()
+    x = sampler(g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x).all()
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=4 * n, register=n)
+    rows, steps = 70, 8
+    rng = np.random.default_rng(12)
+    obs, mask = _t(rng, (rows, 63), dev, 0.3), torch.ones(rows, 63, device=dev)
+    mask[:, 0:12] = 0.0
+    solve = get_cuda_comp_solver(tsde.SubVPSDE(N=1000), model, (rows, 63), rows * 63,
+                                 iterations=2, steps_per_iter=steps // 2, rng_mode="kernel",
+                                 device="cuda")
+    solve(g, obs, mask)  # captures
+    reset_launch_counts()
+    x = solve(g, obs, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x).all()
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=4 * steps,
+                                                                     register=steps)
+
+
 def _head(dev, B=500, H=1024, D=63, seed=0):
     rng = np.random.default_rng(seed)
     h = _t(rng, (B, H), dev)

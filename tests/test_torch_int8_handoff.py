@@ -99,7 +99,7 @@ def test_network_hidden_with_handoff_is_bit_equal(scheme):
     net = _int8_net(scheme)
     B, H = 12, net["hidden"]
     rng = np.random.default_rng(5)
-    q = score_net.int8_handoff_buffers(net, B, "cpu")
+    q = score_net.handoff_buffers(net, B, "cpu")
     assert [(t.dtype, tuple(t.shape)) for t in q] == [(torch.int8, (B, H))] * 2
     for i in range(net["tp_all"].shape[0]):
         x = _t(rng, (B, DIM), 2.0)
@@ -140,13 +140,14 @@ def test_plain_layers_take_the_handoff(scheme):
 
 def test_sampler_scratch_holds_the_int8_copies():
     """``pc_scratch`` gives int8 operands two int8 [B, H] buffers beside ``h``
-    and ``h1``, and bf16 operands none."""
+    and ``h1``, and bf16 operands two bf16 ones."""
     net = _int8_net("tensor")
     s = fused_em.pc_scratch(net, 10, 0, "cpu")
     assert [(t.dtype, tuple(t.shape)) for t in s["q"]] == [(torch.int8, (10, 128))] * 2
     bf16 = dict(net)
     del bf16["Wq"]
-    assert fused_em.pc_scratch(bf16, 10, 1, "cpu")["q"] is None
+    q = fused_em.pc_scratch(bf16, 10, 1, "cpu")["q"]
+    assert [(t.dtype, tuple(t.shape)) for t in q] == [(torch.bfloat16, (10, 128))] * 2
 
 
 def _old_int8_chain(x, ws, n_steps, rows):
@@ -262,12 +263,15 @@ def test_k14_handoff_validation_errors(case):
 
 
 def test_route_counts_start_at_zero():
-    """``route_counts`` names K7's two routes, K10's two, K12's one, K13's two
-    and K14's three, and ``reset_launch_counts`` sets them to 0."""
+    """``route_counts`` names K1's three routes, K7's two, K10's two, K12's
+    one, K13's two and K14's three, and ``reset_launch_counts`` sets them to
+    0."""
     score_net.dense_gn_silu_int8.routes["register"] += 3
     score_net.dense_gn_silu_jvp.routes["wgmma"] += 2
+    score_net.dense_gn_silu.routes["wgmma_bf16"] += 4
     fused_em.reset_launch_counts()
     assert fused_em.route_counts() == {
+        "dense_gn_silu": {"wgmma_bf16": 0, "wgmma": 0, "register": 0},
         "dense_gn_silu_jvp": {"wgmma": 0, "register": 0},
         "dense_gn_silu_train": {"wgmma": 0, "register": 0},
         "dense_gn_silu_bwd": {"wgmma": 0},
