@@ -16,9 +16,9 @@ Phases; any failure exits non-zero:
    grid, cluster size, shared memory, the clusters the card holds at once
    and their registers; K2's instantiation without imputation and K6's
    without the next step's perturbation held by their ``cuobjdump -sass``
-   digests to recorded SASS (K6's from before its perturbing instantiation
-   existed, K2's from the source whose kernels read their seed from device
-   memory; under the nvcc the digests were recorded with); K6 and its perturbing
+   digests to recorded SASS (both from the source whose sampling kernels
+   launch programmatically; under the nvcc the digests were recorded with);
+   K6 and its perturbing
    instantiation with their registers, spills (none allowed) and CTAs an SM
    by registers; a ptxas line
    reporting serialized wgmma in K7 or K9 fails the phase; K10's and K12's instantiations with their registers,
@@ -143,8 +143,11 @@ Phases; any failure exits non-zero:
    shape (generation, the metrics sampler, completion2 pc, ddim and hybrid,
    int8 per channel and int8-mixed, the PF-Euler decode, PF-ODE sampling,
    the likelihood, the 5c solve) bit-equal to its eager loop from the same
-   generator state with the same launch and route counts, another seed
-   giving other values in tensors of their own; 5a, 5c, 5e and 5g time
+   generator state with the same launch, route and programmatic counts,
+   another seed giving other values in tensors of their own, the captured
+   graphs' edges between kernels printed by type, and the generation and 5c
+   graphs holding a programmatic edge into every programmatic launch but
+   the first (K1, K2, K5, K6, K13: ``csrc/mbarrier.cuh``); 5a, 5c, 5e and 5g time
    their eager loop beside the graph and print both walls, the graph's
    warm-up, capture and instantiation seconds and the device's busy share
    of each; (l) ``python -m dposer_tpu_torch.bench``'s line as run on the
@@ -350,27 +353,33 @@ SHARE_STEPS = 12  # the fitting phases' profiled window, Adam steps
 N_IMG, EHF_W, EHF_H, EHF_TOP_V = 8, 1600, 1200, 250.0  # (n): gen_synth_ehf.py's geometry
 # Each kernel row's device us per launch in PERF.md's table before the seed
 # moved to device memory (as the run that last changed the kernel until then
-# measured it), and the kernels that read their seed from device memory
-TABLE_US = dict(dense_gn_silu=11.08, head_em=3.60, langevin_update=3.68, masked_renoise=1.83,
-                head_em_impute=4.94, comp_perturb=2.00, head_adam=4.45, head_adam_perturb=4.69,
+# measured it), and the kernels that read their seed from device memory. The
+# programmatic launches' rows (K1, K2, K5, K6, K13) as chip_smoke's kernel
+# phase timed them once they launched so (graph replay of one kernel's
+# launches, each starting under the tail of the one before; NVIDIA H100
+# 80GB HBM3 at 700 W): K1 from 11.08, K2 3.60, its imputation 4.94, K5
+# 2.00, K6 4.45, its perturbing instantiation 4.69, K13 7.01
+TABLE_US = dict(dense_gn_silu=7.63, head_em=2.94, langevin_update=3.68, masked_renoise=1.83,
+                head_em_impute=4.33, comp_perturb=1.57, head_adam=4.19, head_adam_perturb=4.47,
                 dense_gn_silu_jvp=5.70, head_rk4=3.55, head_rk4_jvp=3.26,
-                dense_gn_silu_int8=7.01, chain_link=7.58, dense_gn_silu_train=18.39,
+                dense_gn_silu_int8=6.74, chain_link=7.58, dense_gn_silu_train=18.39,
                 head_dsm=4.45, dense_gn_silu_bwd=18.78)
 SEED_KERNELS = ("head_em", "head_em_impute", "langevin_update", "masked_renoise", "comp_perturb",
                 "head_adam_perturb")
 # The SASS of a kernel as recorded from a source that compiled it beside an
 # instantiation added to its file (build.sass; sha256 of the text), and the
 # nvcc that compiled it: K2 without imputation (csrc/head_em.cu::
-# head_em_kernel, EM and score mode), recorded from the source whose kernels
-# read their seed from device memory (the graph loops' change; before it
-# 8020dc81..., recorded before the imputation instantiation), and K6 without
-# the next step's perturbation (csrc/head_adam.cu::head_adam_kernel),
-# recorded before the perturbing instantiation and unchanged by the seed's
-# move, since this kernel draws nothing
+# head_em_kernel, EM and score mode) and K6 without the next step's
+# perturbation (csrc/head_adam.cu::head_adam_kernel), both recorded from the
+# source whose sampling kernels launch programmatically (csrc/mbarrier.cuh:
+# the wait and the trigger in the kernels). Before it K2's was 878fe3d9...
+# (its seed read from device memory; before that 8020dc81..., recorded
+# before the imputation instantiation) and K6's 03b1a6bd... (recorded before
+# the perturbing instantiation, unchanged by the seed's move)
 K2_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
-               sha256="878fe3d94d1d2aacabe0029453c17a7edc17d31d0592b5f6433a98ed3b9a4cb8")
+               sha256="35d6e7187ccd1a280aa32b5c215ef57f8a5067d288b0806b7b65b96e6645c753")
 K6_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
-               sha256="03b1a6bd6f40a81e41fc149024a423cf027c101d25243e95e333ca1e6a77ac17")
+               sha256="2ec4c7aab89a03cfab0e29ca09eb741b69a58ce73862092d297aed1188fac0f9")
 
 
 class PhaseError(RuntimeError):
@@ -3153,12 +3162,22 @@ def _tensors(out):
     return tuple(out) if isinstance(out, tuple) else (out,)
 
 
+# The routes whose captured graphs must hold a programmatic edge into every
+# programmatic launch but each graph's first (graph_against_eager)
+PDL_GATED = ("generation", "solver")
+
+
 def graph_against_eager(name, build, call, dev, n_graphs=1):
     """One graphed route at its main path's shape: ``build(loop)`` makes the
     route's sampler, ``call(fn, generator)`` runs it once. The graph's first
     call (warm-up, capture, replay) must give the eager call's bits from the
-    same generator state, with the same launch and route counts; a second
-    call from another seed must give other values in tensors of its own."""
+    same generator state, with the same launch, route and programmatic
+    counts; a second call from another seed must give other values in
+    tensors of its own. The captured graphs' edges between kernels are
+    printed by type (``GraphLoop.kernel_edges``); for the routes of
+    ``PDL_GATED`` the programmatic ones must number the call's programmatic
+    launches, less at most one a graph (its first launch follows the reset
+    of the loop's state)."""
     eager, graph = build("eager"), build("graph")
     kinds = ([lp.graph for lp in graph.loops], [lp.graph for lp in eager.loops])
     check(kinds == ([True] * n_graphs, [False] * n_graphs), f"{name}: loops {kinds}")
@@ -3170,7 +3189,8 @@ def graph_against_eager(name, build, call, dev, n_graphs=1):
         outs[kind] = _tensors(call(fn, torch.Generator(device=dev).manual_seed(GRAPH_SEED)))
         torch.cuda.synchronize()
         walls[kind] = time.perf_counter() - t0
-        counts[kind] = (fused_em.launch_counts(), fused_em.route_counts())
+        counts[kind] = (fused_em.launch_counts(), fused_em.route_counts(),
+                        fused_em.programmatic_counts())
     check(all(torch.equal(a, b) for a, b in zip(outs["graph"], outs["eager"])),
           f"{name}: the graph is not bit-equal to the eager loop")
     check(counts["graph"] == counts["eager"],
@@ -3184,8 +3204,15 @@ def graph_against_eager(name, build, call, dev, n_graphs=1):
     check(all(torch.isfinite(t).all().item() for t in outs["graph"] + again),
           f"{name}: non-finite output")
     loops = [dict(warmup_s=lp.warmup_s, capture_s=lp.capture_s,
-                  instantiate_s=lp.instantiate_s) for lp in graph.loops]
+                  instantiate_s=lp.instantiate_s, edges=lp.kernel_edges()) for lp in graph.loops]
     n = sum(counts["graph"][0].values())
+    n_pdl = sum(counts["graph"][2].values())
+    n_edges = sum(lp["edges"]["programmatic"] for lp in loops)
+    print(f"[graph] {name}: {n_pdl} programmatic launches a call, the graphs' edges between "
+          f"kernels {[lp['edges'] for lp in loops]}")
+    if name in PDL_GATED:
+        check(n_pdl > 0 and n_pdl - n_graphs <= n_edges <= n_pdl,
+              f"{name}: {n_edges} programmatic edges for {n_pdl} programmatic launches")
     print(f"[graph] {name}: bit-equal to eager, {n} launches a call on both, another seed "
           f"differs; first call {walls['graph'] * 1e3:.1f} ms (eager {walls['eager'] * 1e3:.1f}"
           f" ms); " + "; ".join(f"warm-up {lp['warmup_s'] * 1e3:.1f} ms, capture "
@@ -3193,7 +3220,7 @@ def graph_against_eager(name, build, call, dev, n_graphs=1):
                                 f"{lp['instantiate_s'] * 1e3:.1f} ms" for lp in loops))
     return dict(bit_equal=True, launches_equal=True, launches=n, other_seed_differs=True,
                 distinct_tensors=True, first_call_s=walls["graph"], eager_call_s=walls["eager"],
-                loops=loops)
+                programmatic_launches=n_pdl, programmatic_edges=n_edges, loops=loops)
 
 
 def phase_graphs(model, dev, amax):

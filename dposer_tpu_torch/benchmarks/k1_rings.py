@@ -4,13 +4,17 @@ K1 ``dense_gn_silu`` reads the bf16 copy of its input that the layer before
 wrote through ``ops/cuda/csrc/dense_wgmma_ss.cuh``'s ring (one consumer
 warpgroup, 64 K-columns a stage): a grid that fits the SMs once takes the
 deep ring (8 stages, one wgmma group left in flight), a larger one the
-shallow ring (4 stages, each group waited on). Each variant here is the shipped
-``dense_gn_silu.cu`` with its ring lines substituted, compiled into a
+shallow ring (5 stages, each group waited on, two CTAs an SM at most). Each
+variant here is the shipped ``dense_gn_silu.cu`` with its ring lines
+substituted, compiled into a
 temporary directory, and timed by CUDA-graph replay beside the shipped build,
 in turns, at the network's shapes: a block's first layer (the copy alone)
 and its second (the residual, the fp32 output and the copy) at generation's
 500 rows, and the second at completion's 1,000; the shipped build's fp32
-route (A rounded in registers) at the same shapes beside them.
+route (A rounded in registers) at the same shapes beside them. Every route
+is a programmatic launch (``csrc/mbarrier.cuh``), so in the replayed graph
+each launch starts its prologue under the tail of the one before, as in a
+sampler's chain.
 
     python -m dposer_tpu_torch.benchmarks.k1_rings [--rounds 2]
 
@@ -35,13 +39,18 @@ from .train_rings import graph_us
 
 H = 1024
 DEEP = "using DeepRing = ss::Ring<1, 8, 1, 1>;"
-SHALLOW = "using ShallowRing = ss::Ring<1, 4, 2, 0>;"
+SHALLOW = "using ShallowRing = ss::Ring<1, 5, 2, 0>;"
 # name: [(old, new)] substitutions into dense_gn_silu.cu
 VARIANTS = {
     "shipped": [],
     "the other wgmma pipeline depth": [(DEEP, "using DeepRing = ss::Ring<1, 8, 1, 0>;"),
-                                       (SHALLOW, "using ShallowRing = ss::Ring<1, 4, 2, 1>;")],
+                                       (SHALLOW, "using ShallowRing = ss::Ring<1, 5, 2, 1>;")],
     "12-stage deep ring": [(DEEP, "using DeepRing = ss::Ring<1, 12, 1, 1>;")],
+    # 97 KB: two CTAs share an SM, so the next programmatic launch's CTAs find
+    # room beside a draining one at 500 rows
+    "6-stage ring, two CTAs an SM": [(DEEP, "using DeepRing = ss::Ring<1, 6, 2, 1>;")],
+    # 65 KB: three CTAs an SM at 1,000 rows
+    "4-stage shallow ring": [(SHALLOW, "using ShallowRing = ss::Ring<1, 4, 2, 0>;")],
 }
 
 

@@ -31,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "mbarrier.cuh"
+
 namespace dposer {
 namespace dense {
 
@@ -102,11 +104,12 @@ __device__ __forceinline__ const float* a_source(const float* A, const float* dA
   }
 }
 
+// One K-step's A tile (load_a) and W tile (load_w) into registers;
+// load_tile, both, A first.
 template <bool VEC, bool STACKED>
-__device__ __forceinline__ void load_tile(Regs<VEC>& r, const float* __restrict__ A,
-                                          const float* __restrict__ dA,
-                                          const __nv_bfloat16* __restrict__ W, int row0,
-                                          int col0, int k0, int B, int K, int N, int tid) {
+__device__ __forceinline__ void load_a(Regs<VEC>& r, const float* __restrict__ A,
+                                       const float* __restrict__ dA, int row0, int k0, int B,
+                                       int K, int tid) {
   if constexpr (VEC) {
 #pragma unroll
     for (int i = 0; i < A_VECS; ++i) {
@@ -118,6 +121,22 @@ __device__ __forceinline__ void load_tile(Regs<VEC>& r, const float* __restrict_
                    ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(gr) * K + gc)
                    : make_float4(0.f, 0.f, 0.f, 0.f);
     }
+  } else {
+#pragma unroll
+    for (int i = 0; i < A_ELEMS; ++i) {
+      const int q = tid + i * THREADS;
+      const int gc = k0 + q % BK;
+      int gr;
+      const float* src = a_source<STACKED>(A, dA, row0, q / BK, gr);
+      r.a[i] = (gr < B && gc < K) ? src[static_cast<size_t>(gr) * K + gc] : 0.0f;
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load_w(Regs<VEC>& r, const __nv_bfloat16* __restrict__ W,
+                                       int col0, int k0, int K, int N, int tid) {
+  if constexpr (VEC) {
 #pragma unroll
     for (int i = 0; i < W_VECS; ++i) {
       const int q = tid + i * THREADS;
@@ -128,20 +147,21 @@ __device__ __forceinline__ void load_tile(Regs<VEC>& r, const float* __restrict_
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < A_ELEMS; ++i) {
-      const int q = tid + i * THREADS;
-      const int gc = k0 + q % BK;
-      int gr;
-      const float* src = a_source<STACKED>(A, dA, row0, q / BK, gr);
-      r.a[i] = (gr < B && gc < K) ? src[static_cast<size_t>(gr) * K + gc] : 0.0f;
-    }
-#pragma unroll
     for (int i = 0; i < W_ELEMS; ++i) {
       const int q = tid + i * THREADS;
       const int gk = k0 + q / BN;
       r.w[i] = gk < K ? W[static_cast<size_t>(gk) * N + col0 + q % BN] : __float2bfloat16_rn(0.0f);
     }
   }
+}
+
+template <bool VEC, bool STACKED>
+__device__ __forceinline__ void load_tile(Regs<VEC>& r, const float* __restrict__ A,
+                                          const float* __restrict__ dA,
+                                          const __nv_bfloat16* __restrict__ W, int row0,
+                                          int col0, int k0, int B, int K, int N, int tid) {
+  load_a<VEC, STACKED>(r, A, dA, row0, k0, B, K, tid);
+  load_w<VEC>(r, W, col0, k0, K, N, tid);
 }
 
 template <bool VEC>
@@ -195,8 +215,10 @@ __device__ __forceinline__ void mma_stage(AccTile (&acc)[2], const Stage& s, int
 
 // The block's 64x64 tile of A @ W (STACKED: of [A; dA] @ W) at rows row0.. and
 // columns col0.., left in sm.c as fp32 [BM][C_LD]. Every thread of the block
-// calls it; it ends on a barrier.
-template <bool VEC, bool STACKED>
+// calls it; it ends on a barrier. Dep (mbarrier.cuh) comes between the first
+// two K-steps' W tiles and their A tiles: a programmatic launch loads its
+// weights under the tail of the launch before it.
+template <bool VEC, bool STACKED, class Dep = Serial>
 __device__ __forceinline__ void gemm_tile(Smem& sm, const float* __restrict__ A,
                                           const float* __restrict__ dA,
                                           const __nv_bfloat16* __restrict__ W, int row0,
@@ -215,8 +237,18 @@ __device__ __forceinline__ void gemm_tile(Smem& sm, const float* __restrict__ A,
   // waits in registers and the current one is multiplied from shared memory.
   const int n_k = (K + BK - 1) / BK;
   Regs<VEC> r0, r1;
-  load_tile<VEC, STACKED>(r0, A, dA, W, row0, col0, 0, B, K, N, tid);
-  if (n_k > 1) load_tile<VEC, STACKED>(r1, A, dA, W, row0, col0, BK, B, K, N, tid);
+  if constexpr (Dep::kProgrammatic) {
+    load_w<VEC>(r0, W, col0, 0, K, N, tid);
+    if (n_k > 1) load_w<VEC>(r1, W, col0, BK, K, N, tid);
+    Dep{}();
+    A = after_wait(A);  // A's loads stay after the wait (mbarrier.cuh)
+    dA = after_wait(dA);
+    load_a<VEC, STACKED>(r0, A, dA, row0, 0, B, K, tid);
+    if (n_k > 1) load_a<VEC, STACKED>(r1, A, dA, row0, BK, B, K, tid);
+  } else {
+    load_tile<VEC, STACKED>(r0, A, dA, W, row0, col0, 0, B, K, N, tid);
+    if (n_k > 1) load_tile<VEC, STACKED>(r1, A, dA, W, row0, col0, BK, B, K, N, tid);
+  }
   store_tile<VEC>(r0, sm.stage[0], tid);
   __syncthreads();
 

@@ -26,6 +26,7 @@
 #include <cuda_runtime.h>
 
 #include "dense_gemm.cuh"
+#include "mbarrier.cuh"
 
 namespace dposer {
 namespace dense8 {
@@ -72,21 +73,17 @@ __device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
          ((static_cast<uint32_t>(c) & 0xffu) << 16) | ((static_cast<uint32_t>(d) & 0xffu) << 24);
 }
 
+// One K-step's operands in registers, in two parts: the launch's constants,
+// Wq's tile and the quantization row (load_wq), which a programmatic launch
+// (mbarrier.cuh) loads before its wait for the launches before it, and A's
+// tile (load_a), which it loads after; load_tile, both.
 template <bool VEC>
-__device__ __forceinline__ void load_tile(Regs<VEC>& r, const float* __restrict__ A,
-                                          const float* __restrict__ qinv,
-                                          const int8_t* __restrict__ W, int row0, int col0,
-                                          int k0, int B, int K, int tid) {
+__device__ __forceinline__ void load_wq(Regs<VEC>& r, const float* __restrict__ qinv,
+                                        const int8_t* __restrict__ W, int col0, int k0, int K,
+                                        int tid) {
   if constexpr (VEC) {
     const int gc = k0 + (tid % (BK / 4)) * 4;
     r.qi = gc < K ? *reinterpret_cast<const float4*>(qinv + gc) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < BM * BK / 4 / THREADS; ++i) {
-      const int gr = row0 + (tid + i * THREADS) / (BK / 4);
-      r.a[i] = (gr < B && gc < K)
-                   ? *reinterpret_cast<const float4*>(A + static_cast<size_t>(gr) * K + gc)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
     const int n = tid / (BK / 16), gk = k0 + (tid % (BK / 16)) * 16;
     r.w = gk < K ? *reinterpret_cast<const uint4*>(W + static_cast<size_t>(col0 + n) * K + gk)
                  : make_uint4(0u, 0u, 0u, 0u);
@@ -96,11 +93,40 @@ __device__ __forceinline__ void load_tile(Regs<VEC>& r, const float* __restrict_
 #pragma unroll
     for (int i = 0; i < BM * BK / THREADS; ++i) {
       const int row = (tid + i * THREADS) / BK;
-      const int gr = row0 + row;
-      r.a[i] = (gr < B && gk < K) ? A[static_cast<size_t>(gr) * K + gk] : 0.0f;
       r.w[i] = gk < K ? W[static_cast<size_t>(col0 + row) * K + gk] : int8_t(0);
     }
   }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load_a(Regs<VEC>& r, const float* __restrict__ A, int row0,
+                                       int k0, int B, int K, int tid) {
+  if constexpr (VEC) {
+    const int gc = k0 + (tid % (BK / 4)) * 4;
+#pragma unroll
+    for (int i = 0; i < BM * BK / 4 / THREADS; ++i) {
+      const int gr = row0 + (tid + i * THREADS) / (BK / 4);
+      r.a[i] = (gr < B && gc < K)
+                   ? *reinterpret_cast<const float4*>(A + static_cast<size_t>(gr) * K + gc)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    const int gk = k0 + tid % BK;
+#pragma unroll
+    for (int i = 0; i < BM * BK / THREADS; ++i) {
+      const int gr = row0 + (tid + i * THREADS) / BK;
+      r.a[i] = (gr < B && gk < K) ? A[static_cast<size_t>(gr) * K + gk] : 0.0f;
+    }
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load_tile(Regs<VEC>& r, const float* __restrict__ A,
+                                          const float* __restrict__ qinv,
+                                          const int8_t* __restrict__ W, int row0, int col0,
+                                          int k0, int B, int K, int tid) {
+  load_a<VEC>(r, A, row0, k0, B, K, tid);
+  load_wq<VEC>(r, qinv, W, col0, k0, K, tid);
 }
 
 template <bool VEC>
@@ -175,8 +201,9 @@ __device__ __forceinline__ void mma_stage(int (&acc)[2][2][4], const Stage& s, i
 
 // The block's 64x64 tile of the quantized product at rows row0.. and columns
 // col0.., scaled by qs[col], left in sm.c as fp32 [BM][C_LD]. Every thread of
-// the block calls it; it ends on a barrier.
-template <bool VEC>
+// the block calls it; it ends on a barrier. Dep (mbarrier.cuh) comes between
+// the first two K-steps' Wq tiles and their A tiles.
+template <bool VEC, class Dep = Serial>
 __device__ __forceinline__ void gemm_tile_int8(Smem& sm, const float* __restrict__ A,
                                                const float* __restrict__ qinv,
                                                const int8_t* __restrict__ W,
@@ -197,8 +224,17 @@ __device__ __forceinline__ void gemm_tile_int8(Smem& sm, const float* __restrict
 
   const int n_k = (K + BK - 1) / BK;
   Regs<VEC> r0, r1;
-  load_tile<VEC>(r0, A, qinv, W, row0, col0, 0, B, K, tid);
-  if (n_k > 1) load_tile<VEC>(r1, A, qinv, W, row0, col0, BK, B, K, tid);
+  if constexpr (Dep::kProgrammatic) {
+    load_wq<VEC>(r0, qinv, W, col0, 0, K, tid);
+    if (n_k > 1) load_wq<VEC>(r1, qinv, W, col0, BK, K, tid);
+    Dep{}();
+    A = after_wait(A);  // A's loads stay after the wait (mbarrier.cuh)
+    load_a<VEC>(r0, A, row0, 0, B, K, tid);
+    if (n_k > 1) load_a<VEC>(r1, A, row0, BK, B, K, tid);
+  } else {
+    load_tile<VEC>(r0, A, qinv, W, row0, col0, 0, B, K, tid);
+    if (n_k > 1) load_tile<VEC>(r1, A, qinv, W, row0, col0, BK, B, K, tid);
+  }
   store_tile<VEC>(r0, sm.stage[0], tid);
   __syncthreads();
 

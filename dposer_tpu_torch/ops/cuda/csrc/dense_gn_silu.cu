@@ -56,11 +56,28 @@
 // - the shallow ring, 4 stages (65 KB; all 256 CTAs of 1,000 rows resident,
 //   up to three an SM): each group waited on 11.4-11.9 us, one left in
 //   flight 11.6-11.9, a wash in two runs; it waits, as K10's ring does.
+//   Under programmatic launch (below) three an SM made the completion
+//   solve at 1,000 rows slower than plain launches (12.4-12.5 ms against
+//   11.8-11.9; H100 80GB HBM3 at 700 W, CUDA-graph replay), most likely as
+//   the next layer's CTAs take a free third slot on each SM early and two
+//   more wherever a layer's CTAs leave first: three an SM there, one
+//   elsewhere. So the shallow ring takes 5 stages (81 KB, two CTAs an SM at
+//   most): 10.7 ms a solve.
 // So a grid that fits the SMs once takes the deep ring, a larger one the
 // shallow ring; both add the same products in the same order.
+// Programmatic dependent launch (mbarrier.cuh): every route is launched
+// with programmatic stream serialization, so in a sampler's chain a layer's
+// CTAs are scheduled while the launch before it drains. Each reads first
+// what that launch cannot have written (the time row, the GroupNorm affine,
+// and W: the producer sets its barriers up and starts W's boxes of the
+// ring's first stages, each stage expecting A's bytes and W's together),
+// then waits (griddepcontrol.wait) for the launches before it, then
+// triggers the next launch's scheduling and only then starts A's boxes;
+// the residual and every write come after the wait. The wait orders all
+// memory, so the early trigger is safe, and the sums, their order and the
+// rounding are those of a plain launch: the outputs are bit-equal.
 // Not yet: a persistent kernel whose epilogue overlaps the next tile's
-// loads; the next launch's prologue (barriers, W's first stages) started
-// under this one's tail.
+// loads.
 
 #include <cstdint>
 
@@ -87,24 +104,34 @@ struct Epilogue {
   int B, K, N;
 };
 
+// Every route is a programmatic launch (mbarrier.cuh): the time row and the
+// GroupNorm affine (cols) and W's first stages are read before the wait for
+// the launches before it, A (or its copy) and the residual after it.
+using dposer::Programmatic;
+
+__device__ __forceinline__ Cols cols_of(const Epilogue& p, int col0) {
+  return load_cols(p.tp, p.gamma, p.beta, col0, nullptr, p.out_b);
+}
+
 template <int GS>
-__device__ __forceinline__ void epilogue(const float* c, const Epilogue& p, int row0, int col0) {
-  gn_silu_epilogue_q<GS>(c, p.tp, p.gamma, p.beta, p.residual, p.out, row0, col0, p.B, p.N,
-                         nullptr, p.out_b);
+__device__ __forceinline__ void epilogue(const float* c, const Cols& cols, const Epilogue& p,
+                                         int row0, int col0) {
+  gn_silu_epilogue_q<GS>(c, cols, p.residual, p.out, row0, col0, p.B, p.N, p.out_b);
 }
 
 // The element-load path (fp32 A that TMA cannot address: K % 4 != 0 or a
 // misaligned operand).
 template <int GS>
 __global__ void __launch_bounds__(THREADS)
-dense_gn_silu_kernel(const float* __restrict__ A, const __nv_bfloat16* __restrict__ W,
+dense_gn_silu_kernel(const float* A, const __nv_bfloat16* __restrict__ W,
                      const Epilogue p) {
   __shared__ __align__(128) Smem sm;
 
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  gemm_tile<false, false>(sm, A, nullptr, W, row0, col0, p.B, p.K, p.N);
-  epilogue<GS>(sm.c, p, row0, col0);
+  const Cols cols = cols_of(p, col0);
+  gemm_tile<false, false, Programmatic>(sm, A, nullptr, W, row0, col0, p.B, p.K, p.N);
+  epilogue<GS>(sm.c, cols, p, row0, col0);
 }
 
 // The Hopper path from fp32 A, on dense_wgmma.cuh's ring shape R.
@@ -116,16 +143,18 @@ dense_gn_silu_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
 
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  const float* c = dposer::wgmma::gemm_tile<R>(smem, &tmA, &tmW, row0, col0, p.K);
-  epilogue<GS>(c, p, row0, col0);
+  const Cols cols = cols_of(p, col0);
+  const float* c = dposer::wgmma::gemm_tile<R, Programmatic>(smem, &tmA, &tmW, row0, col0, p.K);
+  epilogue<GS>(c, cols, p, row0, col0);
 }
 
 // The bf16 route's rings (dense_wgmma_ss.cuh, one consumer warpgroup, one
 // 64 x 64 tile a CTA, 64 K-columns a stage): a grid that fits the SMs once
 // takes the deep ring (8 stages, one wgmma group left in flight, one CTA an
-// SM), a larger one the shallow ring (4 stages, each group waited on).
+// SM), a larger one the shallow ring (5 stages, each group waited on, two
+// CTAs an SM at most).
 using DeepRing = ss::Ring<1, 8, 1, 1>;
-using ShallowRing = ss::Ring<1, 4, 2, 0>;
+using ShallowRing = ss::Ring<1, 5, 2, 0>;
 
 namespace handoff {
 
@@ -144,7 +173,11 @@ dense_gn_silu_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  if (warp == R::PRODUCER_WARP && lane == 0) loop.start(&tmA, &tmW, row0, col0, p.B);
+  const bool producer = warp == R::PRODUCER_WARP && lane == 0;
+  const Cols cols = cols_of(p, col0);
+  if (producer) loop.start_w(&tmA, &tmW, row0, col0, p.B);
+  Programmatic{}();  // the launches before this one are done: A's copy is written
+  if (producer) loop.start_a(&tmA, row0, p.B);
   __syncthreads();  // the barriers are in place
   float* c = reinterpret_cast<float*>(loop.ring);
   if (warp == R::PRODUCER_WARP) {
@@ -165,7 +198,7 @@ dense_gn_silu_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
     }
   }
   __syncthreads();
-  epilogue<GS>(c, p, row0, col0);
+  epilogue<GS>(c, cols, p, row0, col0);
 }
 
 }  // namespace handoff
@@ -176,7 +209,8 @@ int launch_wgmma(dim3 grid, const float* A, const __nv_bfloat16* W, const Epilog
   CUtensorMap ma, mw;
   const int e = dposer::wgmma::gemm_maps<R>(&ma, &mw, A, W, p.B, p.K, p.N);
   if (e != 0) return e;
-  return dposer::wgmma::launch<R, dense_gn_silu_wgmma_kernel<GS, R>>(grid, stream, ma, mw, p);
+  return dposer::wgmma::launch<R, dense_gn_silu_wgmma_kernel<GS, R>, Programmatic>(grid, stream,
+                                                                                   ma, mw, p);
 }
 
 template <int GS, class R>
@@ -185,8 +219,8 @@ int launch_bf16(dim3 grid, const void* Ab, const void* W, const Epilogue& p,
   CUtensorMap ma, mw;
   const int e = ss::maps(&ma, &mw, Ab, W, p.B, p.K, p.N);
   if (e != 0) return e;
-  return dposer::wgmma::launch<R, handoff::dense_gn_silu_wgmma_kernel<GS, R>>(grid, stream, ma, mw,
-                                                                           p);
+  return dposer::wgmma::launch<R, handoff::dense_gn_silu_wgmma_kernel<GS, R>, Programmatic>(
+      grid, stream, ma, mw, p);
 }
 
 template <int GS>
@@ -198,8 +232,9 @@ int launch(const float* A, const void* Ab, const __nv_bfloat16* W, const Epilogu
     return one_wave ? launch_bf16<GS, DeepRing>(grid, Ab, W, p, stream)
                     : launch_bf16<GS, ShallowRing>(grid, Ab, W, p, stream);
   if (!dposer::wgmma::tma_ok(A, W, p.K, p.N)) {
-    dense_gn_silu_kernel<GS><<<grid, THREADS, 0, stream>>>(A, W, p);
-    return static_cast<int>(cudaGetLastError());
+    const cudaError_t e =
+        dposer::launch_programmatic(dense_gn_silu_kernel<GS>, grid, THREADS, 0, stream, A, W, p);
+    return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
   }
   return one_wave ? launch_wgmma<GS, dposer::wgmma::Wide>(grid, A, W, p, stream)
                   : launch_wgmma<GS, dposer::wgmma::Narrow>(grid, A, W, p, stream);

@@ -40,25 +40,33 @@
 
 namespace {
 
+using dposer::Programmatic;
 using dposer::dense::BM;
 using dposer::dense::BN;
+using dposer::dense::Cols;
 using dposer::dense::THREADS;
+using dposer::dense::load_cols;
+
+// Both routes are programmatic launches (mbarrier.cuh): the time row, the
+// GroupNorm affine and the next layer's quantization row (cols), the
+// rescale row and Wq's first tiles are read before the wait for the
+// launches before it, A (or Aq) and the residual after it.
 
 template <int GS, bool VEC>
 __global__ void __launch_bounds__(THREADS)
-dense_gn_silu_int8_kernel(const float* __restrict__ A, const int8_t* __restrict__ Wq,
+dense_gn_silu_int8_kernel(const float* A, const int8_t* __restrict__ Wq,
                           const float* __restrict__ qinv, const float* __restrict__ qs,
                           const float* __restrict__ tp, const float* __restrict__ gamma,
                           const float* __restrict__ beta, const float* residual, float* out,
-                          const float* __restrict__ qnext, int8_t* __restrict__ out_q, int B,
+                          const float* __restrict__ qnext, int8_t* out_q, int B,
                           int K, int N) {
   __shared__ __align__(128) dposer::dense8::Smem sm;
 
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  dposer::dense8::gemm_tile_int8<VEC>(sm, A, qinv, Wq, qs, row0, col0, B, K);
-  dposer::dense::gn_silu_epilogue_q<GS>(sm.c, tp, gamma, beta, residual, out, row0, col0, B,
-                                        N, qnext, out_q);
+  const Cols cols = load_cols(tp, gamma, beta, col0, qnext, out_q);
+  dposer::dense8::gemm_tile_int8<VEC, Programmatic>(sm, A, qinv, Wq, qs, row0, col0, B, K);
+  dposer::dense::gn_silu_epilogue_q<GS>(sm.c, cols, residual, out, row0, col0, B, N, out_q);
 }
 
 template <int GS>
@@ -68,14 +76,14 @@ dense_gn_silu_int8_wgmma8_kernel(const __grid_constant__ CUtensorMap tmA,
                                  const float* __restrict__ qs, const float* __restrict__ tp,
                                  const float* __restrict__ gamma,
                                  const float* __restrict__ beta, const float* residual,
-                                 float* out, const float* __restrict__ qnext,
-                                 int8_t* __restrict__ out_q, int B, int K, int N) {
+                                 float* out, const float* __restrict__ qnext, int8_t* out_q,
+                                 int B, int K, int N) {
   extern __shared__ uint8_t smem[];
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
-  const float* c = dposer::wgmma8::gemm_tile(smem, &tmA, &tmW, qs, row0, col0, K);
-  dposer::dense::gn_silu_epilogue_q<GS>(c, tp, gamma, beta, residual, out, row0, col0, B, N,
-                                        qnext, out_q);
+  const Cols cols = load_cols(tp, gamma, beta, col0, qnext, out_q);
+  const float* c = dposer::wgmma8::gemm_tile<Programmatic>(smem, &tmA, &tmW, qs, row0, col0, K);
+  dposer::dense::gn_silu_epilogue_q<GS>(c, cols, residual, out, row0, col0, B, N, out_q);
 }
 
 // The main loop's product alone, float(Aq @ Wq^T) * qs, stored as it leaves
@@ -115,22 +123,19 @@ int launch_gs(const Args& a) {
     CUtensorMap ma, mw;
     const int e = dposer::wgmma8::gemm_maps(&ma, &mw, a.Aq, a.Wq, a.B, a.K, a.N);
     if (e != 0) return e;
-    return dposer::wgmma8::launch<dense_gn_silu_int8_wgmma8_kernel<GS>>(
+    return dposer::wgmma8::launch<dense_gn_silu_int8_wgmma8_kernel<GS>, Programmatic>(
         grid, a.K, a.stream, ma, mw, a.qs, a.tp, a.gamma, a.beta, a.residual, a.out, a.qnext,
         a.out_q, a.B, a.K, a.N);
   }
   const bool vec = a.K % 16 == 0 && reinterpret_cast<uintptr_t>(a.A) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.Wq) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.qinv) % 16 == 0;
-  if (vec)
-    dense_gn_silu_int8_kernel<GS, true><<<grid, THREADS, 0, a.stream>>>(
-        a.A, a.Wq, a.qinv, a.qs, a.tp, a.gamma, a.beta, a.residual, a.out, a.qnext, a.out_q,
-        a.B, a.K, a.N);
-  else
-    dense_gn_silu_int8_kernel<GS, false><<<grid, THREADS, 0, a.stream>>>(
-        a.A, a.Wq, a.qinv, a.qs, a.tp, a.gamma, a.beta, a.residual, a.out, a.qnext, a.out_q,
-        a.B, a.K, a.N);
-  return static_cast<int>(cudaGetLastError());
+  const auto kernel =
+      vec ? &dense_gn_silu_int8_kernel<GS, true> : &dense_gn_silu_int8_kernel<GS, false>;
+  const cudaError_t e = dposer::launch_programmatic(
+      kernel, grid, THREADS, 0, a.stream, a.A, a.Wq, a.qinv, a.qs, a.tp, a.gamma, a.beta,
+      a.residual, a.out, a.qnext, a.out_q, a.B, a.K, a.N);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace

@@ -253,8 +253,11 @@ __device__ __forceinline__ void convert_a(uint32_t (&a)[KSTEPS][4], int q,
 // The block's 64x64 tile of bf16(A) @ W at rows row0.. and columns col0..,
 // returned as fp32 [BM][C_LD] in shared memory (stage 0 of the ring). Every
 // thread of the block calls it, in a launch with R::SMEM_BYTES of dynamic
-// shared memory; it ends on a block barrier.
-template <class R>
+// shared memory; it ends on a block barrier. Dep (mbarrier.cuh) is called
+// by every thread once the producer has started W's boxes of the first
+// stages and before it starts A's: a programmatic launch fetches its
+// weights under the tail of the launch before it.
+template <class R, class Dep = Serial>
 __device__ __forceinline__ const float* gemm_tile(uint8_t* smem_raw, const CUtensorMap* tmA,
                                                   const CUtensorMap* tmW, int row0, int col0,
                                                   int K) {
@@ -266,18 +269,33 @@ __device__ __forceinline__ const float* gemm_tile(uint8_t* smem_raw, const CUten
   const int n_k = (K + R::KSTAGE - 1) / R::KSTAGE;
 
   // Start the copies of K-tile kt into its stage (the stage is free).
+  auto copy_a = [&](int kt) {
+    const uint32_t stage = ring_s + (kt % R::STAGES) * R::STAGE_BYTES;
+    const uint32_t full = full0 + 8 * (kt % R::STAGES);
+#pragma unroll
+    for (int q = 0; q < R::BOXES; ++q)
+      tma_load(stage + q * A_BOX_BYTES, tmA, full, kt * R::KSTAGE + 32 * q, row0);
+  };
   auto copy_stage = [&](int kt) {
     const uint32_t stage = ring_s + (kt % R::STAGES) * R::STAGE_BYTES;
     const uint32_t full = full0 + 8 * (kt % R::STAGES);
     mbar_expect_tx(full, R::STAGE_BYTES);
-#pragma unroll
-    for (int q = 0; q < R::BOXES; ++q)
-      tma_load(stage + q * A_BOX_BYTES, tmA, full, kt * R::KSTAGE + 32 * q, row0);
+    copy_a(kt);
+    tma_load(stage + R::A_BYTES, tmW, full, col0, kt * R::KSTAGE);
+  };
+  // A first stage's bytes expected and its W box started: A's box follows
+  // once the launches before this one are done (Dep), the stage's barrier
+  // counting both.
+  auto copy_w = [&](int kt) {
+    const uint32_t stage = ring_s + kt * R::STAGE_BYTES, full = full0 + 8 * kt;
+    mbar_expect_tx(full, R::STAGE_BYTES);
     tma_load(stage + R::A_BYTES, tmW, full, col0, kt * R::KSTAGE);
   };
   // The producer lane sets the barriers up and starts the first stages'
-  // copies before the block barrier that publishes the barriers.
-  if (warp == PRODUCER_WARP && lane == 0) {
+  // copies before the block barrier that publishes the barriers: W's boxes
+  // before Dep, A's after it.
+  const bool producer = warp == PRODUCER_WARP && lane == 0;
+  if (producer) {
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmA)) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmW)) : "memory");
     for (int s = 0; s < R::STAGES; ++s) {
@@ -285,7 +303,16 @@ __device__ __forceinline__ const float* gemm_tile(uint8_t* smem_raw, const CUten
       mbar_init(empty0 + 8 * s, 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    for (int kt = 0; kt < R::STAGES && kt < n_k; ++kt) copy_stage(kt);
+    if constexpr (Dep::kProgrammatic) {
+      for (int kt = 0; kt < R::STAGES && kt < n_k; ++kt) copy_w(kt);
+    } else {
+      for (int kt = 0; kt < R::STAGES && kt < n_k; ++kt) copy_stage(kt);
+    }
+  }
+  if constexpr (Dep::kProgrammatic) {
+    Dep{}();
+    if (producer)
+      for (int kt = 0; kt < R::STAGES && kt < n_k; ++kt) copy_a(kt);
   }
   __syncthreads();
 
@@ -405,13 +432,20 @@ int gemm_maps(CUtensorMap* ma, CUtensorMap* mw, const float* A, const void* W, i
 }
 
 // Launch KERNEL over `grid` with R::SMEM_BYTES of dynamic shared memory
-// (allowed once per kernel, on its first launch).
-template <class R, auto KERNEL, typename... Args>
+// (allowed once per kernel, on its first launch), following the launch
+// before it as Dep says (mbarrier.cuh: Serial, or Programmatic for a
+// kernel whose loop is built with the same tag).
+template <class R, auto KERNEL, class Dep = Serial, typename... Args>
 int launch(dim3 grid, cudaStream_t stream, Args... args) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, R::SMEM_BYTES);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  KERNEL<<<grid, THREADS, R::SMEM_BYTES, stream>>>(args...);
+  if constexpr (Dep::kProgrammatic) {
+    const cudaError_t e = launch_programmatic(KERNEL, grid, THREADS, R::SMEM_BYTES, stream, args...);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    KERNEL<<<grid, THREADS, R::SMEM_BYTES, stream>>>(args...);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -57,6 +57,15 @@
 //   The thread's 16 qs values are loaded while the copies fly.
 // - Tensor maps (int8 [B, K] and [N, K], boxes of 128 x 64, the 128-byte
 //   swizzle) are encoded on the host and cached (tensor_map.cuh), as K1's.
+// - K13 launches programmatically (Dep = Programmatic, mbarrier.cuh): the
+//   producer starts Wq's boxes of every stage, each stage expecting both
+//   operands' bytes, then every thread waits for the launches before it
+//   (griddepcontrol.wait) and triggers the next one's scheduling, and only
+//   then does the producer start Aq's boxes, the copy the layer before
+//   wrote. Wq may be fetched before the wait because no launch of a
+//   sampler's loop writes it; the epilogue's rows (gn_epilogue.cuh's
+//   load_cols) are read before it too, the residual and every write after.
+//   K14's int8 links keep the plain launch (Dep = Serial).
 // TMA needs 16-byte aligned rows and pointers: K % 16 == 0 and Aq, Wq
 // 16-byte aligned. The pre layer (K = 63) and a chain's first link, whose A
 // is fp32 state, go through dense_gemm_int8.cuh: the route follows the
@@ -121,7 +130,11 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t a, uin
 // The block's 64x64 tile of float(Aq @ Wq^T) * qs at rows row0.. and
 // columns col0.., returned as fp32 [BM][C_LD] in shared memory. Every thread
 // of the block calls it, in a launch with smem_bytes(K) of dynamic shared
-// memory; it ends on a block barrier.
+// memory; it ends on a block barrier. Dep (mbarrier.cuh) is called by every
+// thread once the producer has started Wq's boxes of every stage and before
+// it starts Aq's: a programmatic launch fetches its weights under the tail of
+// the launch before it.
+template <class Dep = Serial>
 __device__ __forceinline__ const float* gemm_tile(uint8_t* smem_raw, const CUtensorMap* tmA,
                                                   const CUtensorMap* tmW,
                                                   const float* __restrict__ qs, int row0,
@@ -134,8 +147,10 @@ __device__ __forceinline__ const float* gemm_tile(uint8_t* smem_raw, const CUten
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // The producer lane sets the barriers up and starts every copy before the
-  // block barrier that publishes the barriers.
-  if (warp == PRODUCER_WARP && lane == 0) {
+  // block barrier that publishes the barriers (a programmatic launch: Wq's
+  // before Dep, each stage expecting both operands' bytes, Aq's after it).
+  const bool producer = warp == PRODUCER_WARP && lane == 0;
+  if (producer) {
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmA)) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmW)) : "memory");
     for (int s = 0; s < n_k; ++s) mbar_init(full0 + 8 * s, 1);
@@ -143,9 +158,15 @@ __device__ __forceinline__ const float* gemm_tile(uint8_t* smem_raw, const CUten
     for (int kt = 0; kt < n_k; ++kt) {
       const uint32_t stage = base_s + kt * STAGE_BYTES, full = full0 + 8 * kt;
       mbar_expect_tx(full, STAGE_BYTES);
-      tma_load(stage, tmA, full, kt * KSTAGE, row0);
+      if constexpr (!Dep::kProgrammatic) tma_load(stage, tmA, full, kt * KSTAGE, row0);
       tma_load(stage + A_BYTES, tmW, full, kt * KSTAGE, col0);
     }
+  }
+  if constexpr (Dep::kProgrammatic) {
+    Dep{}();
+    if (producer)
+      for (int kt = 0; kt < n_k; ++kt)
+        tma_load(base_s + kt * STAGE_BYTES, tmA, full0 + 8 * kt, kt * KSTAGE, row0);
   }
   __syncthreads();
 
@@ -210,13 +231,19 @@ inline int gemm_maps(CUtensorMap* ma, CUtensorMap* mw, const void* Aq, const voi
 }
 
 // Launch KERNEL over `grid` with smem_bytes(K) of dynamic shared memory (up
-// to smem_bytes(MAX_K) allowed once per kernel, on its first launch).
-template <auto KERNEL, typename... Args>
+// to smem_bytes(MAX_K) allowed once per kernel, on its first launch),
+// following the launch before it as Dep says (mbarrier.cuh).
+template <auto KERNEL, class Dep = Serial, typename... Args>
 int launch(dim3 grid, int K, cudaStream_t stream, Args... args) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(MAX_K));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  KERNEL<<<grid, THREADS, smem_bytes(K), stream>>>(args...);
+  if constexpr (Dep::kProgrammatic) {
+    const cudaError_t e = launch_programmatic(KERNEL, grid, THREADS, smem_bytes(K), stream, args...);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    KERNEL<<<grid, THREADS, smem_bytes(K), stream>>>(args...);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,6 +36,13 @@
 //   row's operands 16 (fp32) or 8 (bf16) bytes at a time, and a GroupNorm
 //   group of GS consecutive columns is in-lane sums plus, for GS >= 8, one
 //   shuffle with lane ^ 2 (row_group_sums).
+// - K1's bf16 route, a programmatic launch (mbarrier.cuh), starts its ring
+//   in two parts around the wait for the launches before it: start_w sets
+//   the barriers up and starts W's boxes of the first stages, each stage's
+//   barrier expecting A's bytes and W's together; start_a, after the wait,
+//   starts A's boxes (the copy the layer before wrote). W may be fetched
+//   before the wait because no launch of a sampler's loop writes it. K10 and
+//   K12 keep start and their plain launch (launch below).
 // TMA needs 16-byte aligned rows and bases: K % 8 == 0 (a ragged last
 // 64-deep box reads zeros past K) and N % 8 == 0.
 //
@@ -132,10 +139,8 @@ struct Loop {
     tma_load(stage + R::A_BYTES, tmW, full, col0, kt * KSTAGE);
   }
 
-  // The producer lane, before the block barrier that publishes the
-  // barriers: set them up and start the first stages' copies.
-  __device__ __forceinline__ void start(const CUtensorMap* tmA, const CUtensorMap* tmW, int row0,
-                                        int col0, int B) const {
+  // The producer lane: fetch the tensor maps and set the barriers up.
+  __device__ __forceinline__ void init(const CUtensorMap* tmA, const CUtensorMap* tmW) const {
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmA)) : "memory");
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(tmW)) : "memory");
     for (int s = 0; s < R::STAGES; ++s) {
@@ -143,7 +148,39 @@ struct Loop {
       mbar_init(empty0 + 8 * s, 4 * R::WG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // The producer lane, before the block barrier that publishes the
+  // barriers: set them up and start the first stages' copies.
+  __device__ __forceinline__ void start(const CUtensorMap* tmA, const CUtensorMap* tmW, int row0,
+                                        int col0, int B) const {
+    init(tmA, tmW);
     for (int kt = 0; kt < R::STAGES && kt < n_k; ++kt) copy_stage(tmA, tmW, row0, col0, B, kt);
+  }
+
+  // The producer lane of a programmatic launch (mbarrier.cuh), split around
+  // the wait for the launches before it: start_w sets the barriers up and
+  // starts W's boxes of the first stages, each stage expecting W's bytes and
+  // A's together (the weights are the launch's constants, so they are
+  // fetched under the tail of the launch before); start_a, after the wait,
+  // starts A's boxes of those stages (A: the copy that launch wrote).
+  __device__ __forceinline__ void start_w(const CUtensorMap* tmA, const CUtensorMap* tmW, int row0,
+                                          int col0, int B) const {
+    init(tmA, tmW);
+    const int boxes = min(R::WG, (B - row0 + 63) / 64);
+    for (int kt = 0; kt < R::STAGES && kt < n_k; ++kt) {
+      const uint32_t full = full0 + 8 * kt;
+      mbar_expect_tx(full, static_cast<uint32_t>(boxes * BOX + BOX));
+      tma_load(ring_s + kt * R::STAGE_BYTES + R::A_BYTES, tmW, full, col0, kt * KSTAGE);
+    }
+  }
+
+  __device__ __forceinline__ void start_a(const CUtensorMap* tmA, int row0, int B) const {
+    const int boxes = min(R::WG, (B - row0 + 63) / 64);
+    for (int kt = 0; kt < R::STAGES && kt < n_k; ++kt)
+      for (int g = 0; g < boxes; ++g)
+        tma_load(ring_s + kt * R::STAGE_BYTES + g * BOX, tmA, full0 + 8 * kt, kt * KSTAGE,
+                 row0 + 64 * g);
   }
 
   // The producer lane, after the block barrier: each further stage once the

@@ -43,7 +43,15 @@
 // draws its normals (Philox at (seed, step + 1, slab, row, col), K5's key)
 // beside the six state loads, while the copies fly, and writes pert in place
 // after x: one launch a step instead of K5's and K6's. head_adam_kernel is the
-// body without it, so it compiles as it did before that instantiation existed.
+// body without it.
+// Both instantiations are programmatic launches (mbarrier.cuh), as K2's:
+// warp 0 starts Wpost's box, waits for the launches before it (the last
+// hidden layer's h) and starts h's copies; the epilogue warps wait first,
+// then load and draw while the copies fly, as before. (A first version that
+// loaded the step's scalars and drew before the wait gave the solver other
+// last bits: the same counts of fused and plain multiplies and adds in its
+// SASS, so the compiler fused other products of the Adam step. The loads
+// overlap the copies and the MMAs either way.)
 
 #include <cstdint>
 #include <type_traits>
@@ -76,15 +84,14 @@ using PertPtr = std::conditional_t<PERTURB, float*, const float*>;
 template <class T, bool PERTURB>
 __device__ __forceinline__ void head_adam_body(
     const float* __restrict__ h, const CUtensorMap& tmW, const float* __restrict__ bpost,
-    const float* __restrict__ coefs, int step, float* x, PertPtr<PERTURB> __restrict__ pert,
-    const float* __restrict__ obs, const float* __restrict__ mask, float* m1, float* v,
-    int paste, int B, int H, int D, const float* __restrict__ next_noise,
-    const unsigned long long* __restrict__ seed_ptr, int slab) {
+    const float* __restrict__ coefs, int step, float* x, PertPtr<PERTURB> pert,
+    const float* obs, const float* mask, float* m1, float* v, int paste, int B, int H, int D,
+    const float* next_noise, const unsigned long long* __restrict__ seed_ptr, int slab) {
   extern __shared__ __align__(128) unsigned char smem[];
   const hc::Layout<T> L(smem, H);
   const int rank = static_cast<int>(hc::cg::this_cluster().block_rank());
   const int pose0 = (blockIdx.x / T::SPLIT) * T::POSES;
-  hc::start_copies<T>(h, nullptr, &tmW, L, pose0, rank, B, H);
+  hc::start_copies<T, dposer::Programmatic>(h, nullptr, &tmW, L, pose0, rank, B, H);
   hc::cluster_arrive_relaxed();  // the barriers are set up; waited on before the first push
   __syncthreads();  // the barriers are initialized, the zeroed rows written
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -94,9 +101,11 @@ __device__ __forceinline__ void head_adam_body(
   }
 
   // The epilogue warps: warp MMA_WARPS + e finishes pose rank * PPC + e of
-  // the tile, each lane columns lane and lane + 32. While the copies fly it
-  // loads the step's scalars, the bias and the pose's state (and, with
-  // PERTURB, the next step's scalars and normals).
+  // the tile, each lane columns lane and lane + 32. Once the launches before
+  // this one are done, while the copies fly, it loads the step's scalars,
+  // the bias and the pose's state (and, with PERTURB, the next step's
+  // scalars and normals).
+  dposer::grid_dependency_wait();
   const int e = warp - hc::MMA_WARPS;
   const int gr = pose0 + rank * T::PPC + e;
   const bool has_row = e < T::PPC && gr < B;  // uniform across the warp
@@ -168,8 +177,8 @@ template <class T>
 __global__ void __launch_bounds__(hc::THREADS)
 head_adam_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                  const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
-                 float* x, const float* __restrict__ pert, const float* __restrict__ obs,
-                 const float* __restrict__ mask, float* m1, float* v, int paste, int B, int H,
+                 float* x, const float* pert, const float* obs, const float* mask, float* m1,
+                 float* v, int paste, int B, int H,
                  int D) {
   head_adam_body<T, false>(h, tmW, bpost, coefs, step, x, pert, obs, mask, m1, v, paste, B, H,
                            D, nullptr, nullptr, 0);
@@ -181,9 +190,8 @@ template <class T>
 __global__ void __launch_bounds__(hc::THREADS)
 head_adam_perturb_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                          const float* __restrict__ bpost, const float* __restrict__ coefs,
-                         int step, float* x, float* pert, const float* __restrict__ obs,
-                         const float* __restrict__ mask, float* m1, float* v, int B, int H,
-                         int D, const float* __restrict__ next_noise,
+                         int step, float* x, float* pert, const float* obs, const float* mask,
+                         float* m1, float* v, int B, int H, int D, const float* next_noise,
                          const unsigned long long* __restrict__ seed,
                          int slab) {
   head_adam_body<T, true>(h, tmW, bpost, coefs, step, x, pert, obs, mask, m1, v, 0, B, H, D,
@@ -215,8 +223,10 @@ cudaError_t allow_smem_perturb() {
 // h [B, H] fp32, Wpost [H, 64] bf16 (columns >= D zero), bpost [64] fp32,
 // coefs [T, 8] fp32; x, m1, v [B, D] updated in place; pert, obs, mask
 // [B, D]; over clusters of 4 CTAs. H a multiple of 64 and <= 1024, h and
-// Wpost 16-byte aligned, D <= 64. Returns 0, the error of a failed
-// tensor-map encode, or cudaGetLastError() after the launch.
+// Wpost 16-byte aligned, D <= 64. A programmatic launch: Wpost is read
+// before its wait for the launch before it on the stream, so that launch
+// must not write it. Returns 0, the error of a failed tensor-map encode, or
+// cudaGetLastError() after the launch.
 extern "C" int dposer_head_adam(const float* h, const void* Wpost, const float* bpost,
                                 const float* coefs, int step, float* x, const float* pert,
                                 const float* obs, const float* mask, float* m1, float* v,
@@ -227,7 +237,7 @@ extern "C" int dposer_head_adam(const float* h, const void* Wpost, const float* 
   CUtensorMap tmW;
   const int e = hc::wpost_map<Adam>(&tmW, Wpost, H);
   if (e != 0) return e;
-  const cudaError_t err = dposer::launch_cluster(
+  const cudaError_t err = dposer::launch_cluster<dposer::Programmatic>(
       head_adam_kernel<Adam>, dim3(hc::grid_blocks<Adam>(B)), hc::THREADS,
       hc::smem_bytes<Adam>(H), static_cast<cudaStream_t>(stream), Adam::SPLIT, h, tmW, bpost,
       coefs, step, x, pert, obs, mask, m1, v, paste, B, H, D);
@@ -264,7 +274,7 @@ extern "C" int dposer_head_adam_perturb(const float* h, const void* Wpost, const
   CUtensorMap tmW;
   const int e = hc::wpost_map<Adam>(&tmW, Wpost, H);
   if (e != 0) return e;
-  const cudaError_t err = dposer::launch_cluster(
+  const cudaError_t err = dposer::launch_cluster<dposer::Programmatic>(
       head_adam_perturb_kernel<Adam>, dim3(hc::grid_blocks<Adam>(B)), hc::THREADS,
       hc::smem_bytes<Adam>(H), static_cast<cudaStream_t>(stream), Adam::SPLIT, h, tmW, bpost,
       coefs, step, x, pert, obs, mask, m1, v, B, H, D, next_noise, seed, slab);

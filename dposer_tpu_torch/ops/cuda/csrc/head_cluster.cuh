@@ -206,7 +206,12 @@ __device__ __forceinline__ void cluster_wait() {
 // expects RECV_BYTES. Every thread calls it, then arrives on the cluster
 // barrier (cluster_arrive_relaxed: the barriers are initialized), may issue
 // its own loads, and must pass a __syncthreads() before send_partials.
-template <class T>
+// Dep (mbarrier.cuh) is called by warp 0 between Wpost's box and the rows'
+// copies: a programmatic launch fetches its weights under the tail of the
+// launch before it. Warp 0 then waits; no other MMA warp reads or writes
+// global memory, and the epilogue warps wait on their own, after loading
+// the launch's constants, before they read what earlier launches wrote.
+template <class T, class Dep = Serial>
 __device__ __forceinline__ void start_copies(const typename T::A* __restrict__ h,
                                              const typename T::A* __restrict__ dh,
                                              const CUtensorMap* tmW, const Layout<T>& L,
@@ -229,6 +234,7 @@ __device__ __forceinline__ void start_copies(const typename T::A* __restrict__ h
       tma_load(smem_u32(L.w), tmW, bar, 0, k0);
     }
     __syncwarp();
+    Dep{}();
     if (lane < ROWS && lane % T::POSES < poses) {
       const A* src = T::PAIR && lane >= T::POSES ? dh : h;
       bulk_copy(smem_u32(L.a + lane * ald), src + static_cast<size_t>(pose0 + lane % T::POSES) * H + k0,

@@ -39,6 +39,13 @@
 // seed written before each replay. The imputation instantiation also loads
 // the row's obs and mask and draws each pass's normals (step + p, its slab)
 // while the copies fly; x_mean stays the state before the re-noise.
+// Both instantiations are programmatic launches (mbarrier.cuh): warp 0 sets
+// the barriers up and starts Wpost's box under the tail of the launch before
+// it (the last hidden layer), waits for it and starts h's copies; the
+// epilogue warps wait first, then load and draw while the copies fly, as
+// before. (Their loads and draws overlap the copies and the MMAs either way;
+// moving them before the wait changed the bits of K6's Adam step, whose
+// epilogue is built the same way: head_adam.cu.)
 // head_em_kernel is the body without it, so modes 0 and 1 compile as they
 // would if the imputation did not exist (chip_smoke.py holds its SASS to a
 // recorded digest).
@@ -76,7 +83,7 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
                                              const float* __restrict__ bpost,
                                              const float* __restrict__ coefs, int step, int mode,
                                              float* x, float* x_mean, float* score,
-                                             float* score_sq, const float* __restrict__ noise,
+                                             float* score_sq, const float* noise,
                                              const unsigned long long* __restrict__ seed_ptr,
                                              int slab, int B, int H, int D,
                                              const Renoise& rn) {
@@ -84,7 +91,7 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
   const Layout<T> L(smem, H);
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const int row0 = (blockIdx.x / T::SPLIT) * ROWS;
-  start_copies<T>(h, nullptr, &tmW, L, row0, rank, B, H);
+  start_copies<T, dposer::Programmatic>(h, nullptr, &tmW, L, row0, rank, B, H);
   cluster_arrive_relaxed();  // the barriers are set up; waited on before the first push
   __syncthreads();  // the barriers are initialized, the zeroed rows written
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -94,9 +101,10 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
   }
 
   // The epilogue warps: warp MMA_WARPS + e finishes row rank * ROWS_PER_CTA
-  // + e of the tile, each lane columns lane and lane + 32. While the copies
-  // fly it loads the seed, x, the bias and the step's scalars and draws the
-  // normals.
+  // + e of the tile, each lane columns lane and lane + 32. Once the launches
+  // before this one are done, while the copies fly, it loads the seed, x,
+  // the bias and the step's scalars and draws the normals.
+  dposer::grid_dependency_wait();
   const unsigned long long seed = dposer::load_seed(seed_ptr);
   const int e = warp - MMA_WARPS;
   const int r = rank * T::ROWS_PER_CTA + e;
@@ -191,7 +199,7 @@ __global__ void __cluster_dims__(T::SPLIT, 1, 1) __launch_bounds__(THREADS)
 head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
                int mode, float* x, float* x_mean, float* score, float* score_sq,
-               const float* __restrict__ noise, const unsigned long long* __restrict__ seed,
+               const float* noise, const unsigned long long* __restrict__ seed,
                int slab, int B, int H, int D) {
   head_em_body<false>(h, tmW, bpost, coefs, step, mode, x, x_mean, score, score_sq, noise, seed,
                       slab, B, H, D, Renoise{});
@@ -200,7 +208,7 @@ head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap 
 __global__ void __cluster_dims__(T::SPLIT, 1, 1) __launch_bounds__(THREADS)
 head_em_impute_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
                       const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
-                      float* x, float* x_mean, const float* __restrict__ noise,
+                      float* x, float* x_mean, const float* noise,
                       const unsigned long long* __restrict__ seed, int slab, int B, int H,
                       int D,
                       const __grid_constant__ Renoise rn) {
@@ -232,8 +240,10 @@ cudaError_t allow_smem_impute() {
 // [B, D]; score mode: score [B, D], score_sq [B]. noise [B, D] (nullable:
 // then the normals are drawn in-kernel from *seed/step/slab: seed points to
 // device memory, and may be null with noise). H must be a
-// multiple of 64 and <= 1024, h and Wpost 16-byte aligned; D <= 64.
-// Returns cudaGetLastError().
+// multiple of 64 and <= 1024, h and Wpost 16-byte aligned; D <= 64. A
+// programmatic launch: Wpost is read before its wait for the launch before
+// it on the stream, so that launch must not write it. Returns the launch's
+// error or cudaGetLastError().
 extern "C" int dposer_head_em(const float* h, const void* Wpost, const float* bpost,
                               const float* coefs, int step, int mode, float* x,
                               float* x_mean, float* score, float* score_sq,
@@ -246,9 +256,11 @@ extern "C" int dposer_head_em(const float* h, const void* Wpost, const float* bp
   CUtensorMap tmW;
   const int e = wpost_map<T>(&tmW, Wpost, H);
   if (e != 0) return e;
-  head_em_kernel<<<grid_blocks<T>(B), THREADS, smem_bytes<T>(H), static_cast<cudaStream_t>(stream)>>>(
-      h, tmW, bpost, coefs, step, mode, x, x_mean, score, score_sq, noise, seed, slab, B, H, D);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = dposer::launch_programmatic(
+      head_em_kernel, dim3(grid_blocks<T>(B)), THREADS, smem_bytes<T>(H),
+      static_cast<cudaStream_t>(stream), h, tmW, bpost, coefs, step, mode, x, x_mean, score,
+      score_sq, noise, seed, slab, B, H, D);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The launch of a call at B rows and depth H, for reports: grid CTAs,
@@ -282,11 +294,11 @@ extern "C" int dposer_head_em_impute(const float* h, const void* Wpost, const fl
   const int e = wpost_map<T>(&tmW, Wpost, H);
   if (e != 0) return e;
   const Renoise rn{obs, mask, {renoise0, renoise1}, {slab0, slab1}, passes};
-  head_em_impute_kernel<<<grid_blocks<T>(B), THREADS, smem_bytes<T>(H),
-                          static_cast<cudaStream_t>(stream)>>>(h, tmW, bpost, coefs, step, x,
-                                                               x_mean, noise, seed, slab, B, H,
-                                                               D, rn);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = dposer::launch_programmatic(
+      head_em_impute_kernel, dim3(grid_blocks<T>(B)), THREADS, smem_bytes<T>(H),
+      static_cast<cudaStream_t>(stream), h, tmW, bpost, coefs, step, x, x_mean, noise, seed, slab,
+      B, H, D, rn);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // The imputation instantiation's launch at B rows and depth H, for reports,

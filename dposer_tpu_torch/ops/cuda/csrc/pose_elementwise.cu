@@ -35,10 +35,14 @@
 // read from the device table so the host loop never synchronizes. Nothing is
 // staged: every byte is touched once. K4's and K5's arithmetic is common.cuh's
 // masked_renoise and comp_perturb, which round each operation on their own.
+// K5 opens a solve's chain of programmatic launches (mbarrier.cuh): it loads
+// the step's scalars and draws its in-kernel normal before its wait for the
+// launches before it, then reads x; K4 is a plain stream launch.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "mbarrier.cuh"
 
 namespace {
 
@@ -59,15 +63,19 @@ masked_renoise_kernel(float* x, const float* __restrict__ obs, const float* __re
 }
 
 __global__ void __launch_bounds__(THREADS)
-comp_perturb_kernel(const float* __restrict__ x, float* __restrict__ pert,
-                    const float* __restrict__ coefs, int step, const float* __restrict__ noise,
-                    const unsigned long long* __restrict__ seed, int slab, int R, int D) {
+comp_perturb_kernel(const float* x, float* pert, const float* __restrict__ coefs, int step,
+                    const float* noise, const unsigned long long* __restrict__ seed, int slab,
+                    int R, int D) {
   const int idx = blockIdx.x * THREADS + threadIdx.x;
   if (idx >= R * D) return;
   const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
-  const float z = dposer::draw_normal(noise, dposer::load_seed(seed), step, slab, idx / D,
-                                      idx % D, D);
-  pert[idx] = dposer::comp_perturb(cf[0], x[idx], cf[1], z);
+  const float cm = cf[0], cs = cf[1];
+  float z = noise == nullptr
+                ? dposer::philox_normal(dposer::load_seed(seed), step, slab, idx / D, idx % D)
+                : 0.0f;
+  dposer::Programmatic{}();  // x is the state the launches before this one left
+  if (noise != nullptr) z = noise[idx];
+  pert[idx] = dposer::comp_perturb(cm, x[idx], cs, z);
 }
 
 inline int blocks_for(int R, int D) { return (R * D + THREADS - 1) / THREADS; }
@@ -90,12 +98,16 @@ extern "C" int dposer_masked_renoise(float* x, const float* obs, const float* ma
 
 // x [R, D] fp32 read, pert [R, D] written (not x itself); coefs [T, 8]
 // (columns 0, 1: c_m, c_s); noise [R, D] (nullable: drawn in-kernel from
-// *seed, as dposer_masked_renoise). Returns cudaGetLastError().
+// *seed, as dposer_masked_renoise). A programmatic launch: coefs and *seed
+// are read before its wait for the launch before it on the stream, so that
+// launch must not write them. Returns the launch's error or
+// cudaGetLastError().
 extern "C" int dposer_comp_perturb(const float* x, float* pert, const float* coefs, int step,
                                    const float* noise, const unsigned long long* seed, int slab,
                                    int R, int D, void* stream) {
   if (R <= 0 || D <= 0 || x == pert) return static_cast<int>(cudaErrorInvalidValue);
-  comp_perturb_kernel<<<blocks_for(R, D), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t err = dposer::launch_programmatic(
+      comp_perturb_kernel, dim3(blocks_for(R, D)), THREADS, 0, static_cast<cudaStream_t>(stream),
       x, pert, coefs, step, noise, seed, slab, R, D);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -99,9 +99,11 @@ def comp_perturb(x, pert, coefs, step: int, *, noise=None, seed=None, slab: int 
     if err:
         raise RuntimeError(f"comp_perturb launch failed: CUDA error {err}")
     comp_perturb.launches += 1
+    comp_perturb.programmatic += 1
 
 
 comp_perturb.launches = 0
+comp_perturb.programmatic = 0
 
 
 # ---------------------------------------------------------------------------
@@ -198,9 +200,11 @@ def head_adam(h, w_post, b_post, coefs, step: int, x, pert, obs, mask, m1, v,
     if err:
         raise RuntimeError(f"head_adam launch failed: CUDA error {err}")
     head_adam.launches += 1
+    head_adam.programmatic += 1
 
 
 head_adam.launches = 0
+head_adam.programmatic = 0
 
 
 def _head_adam_perturb_fn():
@@ -238,9 +242,11 @@ def head_adam_perturb(h, w_post, b_post, coefs, step: int, x, pert, obs, mask, m
     if err:
         raise RuntimeError(f"head_adam_perturb launch failed: CUDA error {err}")
     head_adam_perturb.launches += 1
+    head_adam_perturb.programmatic += 1
 
 
 head_adam_perturb.launches = 0
+head_adam_perturb.programmatic = 0
 
 
 # ---------------------------------------------------------------------------

@@ -221,9 +221,11 @@ def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
     if err:
         raise RuntimeError(f"head_em launch failed: CUDA error {err}")
     head_em.launches += 1
+    head_em.programmatic += 1
 
 
 head_em.launches = 0
+head_em.programmatic = 0
 
 
 def _head_em_impute_fn():
@@ -277,9 +279,11 @@ def head_em_impute(h, w_post, b_post, coefs, step: int, *, x, observed, x_mean=N
     if err:
         raise RuntimeError(f"head_em (imputation) launch failed: CUDA error {err}")
     head_em_impute.launches += 1
+    head_em_impute.programmatic += 1
 
 
 head_em_impute.launches = 0
+head_em_impute.programmatic = 0
 
 
 # ---------------------------------------------------------------------------
@@ -430,9 +434,20 @@ def route_counts() -> dict:
     return {fn.__name__: dict(fn.routes) for fn in _counted() if hasattr(fn, "routes")}
 
 
+def programmatic_counts() -> dict:
+    """Launches of each programmatically launched kernel since the last
+    ``reset_launch_counts``: the kernels of the sampling chains (K1, K2, K5,
+    K6, K13), whose every launch sets programmatic stream serialization, so
+    each starts its prologue under the tail of the launch before it
+    (``csrc/mbarrier.cuh``)."""
+    return {fn.__name__: fn.programmatic for fn in _counted() if hasattr(fn, "programmatic")}
+
+
 def reset_launch_counts() -> None:
     for fn in _counted():
         fn.launches = 0
+        if hasattr(fn, "programmatic"):
+            fn.programmatic = 0
         for route in getattr(fn, "routes", ()):
             fn.routes[route] = 0
 

@@ -24,15 +24,21 @@ a throwaway seed and ``warm_up=True``: the steps of the loop that launch
 every kernel it launches (its first and last, or the stages of its first
 step), which loads the libraries, sets the kernels' function attributes and
 fills K1's tensor-map cache for the static buffers, at a few steps' cost
-(it never draws from a caller's generator). The launch counters of ``fused_em.launch_counts`` and
-``route_counts`` then count what the capture recorded, once a replay, and
-not the warm-up or the capture itself, so a replayed call counts what the
-same eager call does. A failed capture or replay raises; nothing falls back
-to the eager loop.
+(it never draws from a caller's generator). The launch counters of ``fused_em.launch_counts``,
+``route_counts`` and ``programmatic_counts`` then count what the capture
+recorded, once a replay, and not the warm-up or the capture itself, so a
+replayed call counts what the same eager call does. A failed capture or
+replay raises; nothing falls back to the eager loop.
+
+The sampling chains' kernels (K1, K2, K5, K6, K13) are launched with
+programmatic stream serialization (``csrc/mbarrier.cuh``): capture turns
+each such launch after a kernel into a programmatic edge of the graph, so
+on replay a launch runs its prologue under the tail of the one before it.
+``GraphLoop.kernel_edges`` counts those edges in the captured graph.
 """
 from __future__ import annotations
 
-import contextlib
+import ctypes
 from typing import Callable, Dict, Optional
 
 import torch
@@ -65,28 +71,77 @@ def _counters():
 
 
 def _counts_now() -> Dict[str, tuple]:
-    """Every kernel's launch count and route counts as they stand."""
-    return {fn.__name__: (fn.launches, dict(getattr(fn, "routes", {}))) for fn in _counters()}
+    """Every kernel's launch count, route counts and programmatic launches
+    as they stand."""
+    return {fn.__name__: (fn.launches, dict(getattr(fn, "routes", {})),
+                          getattr(fn, "programmatic", 0)) for fn in _counters()}
 
 
 def _counts_delta(after: dict, before: dict) -> Dict[str, tuple]:
-    return {name: (n - before[name][0], {r: c - before[name][1][r] for r, c in routes.items()})
-            for name, (n, routes) in after.items()}
+    return {name: (n - before[name][0], {r: c - before[name][1][r] for r, c in routes.items()},
+                   p - before[name][2])
+            for name, (n, routes, p) in after.items()}
 
 
 def _set_counts(counts: dict) -> None:
     for fn in _counters():
-        fn.launches, routes = counts[fn.__name__]
+        fn.launches, routes, p = counts[fn.__name__]
         for r, c in routes.items():
             fn.routes[r] = c
+        if hasattr(fn, "programmatic"):
+            fn.programmatic = p
 
 
 def _add_counts(delta: dict) -> None:
     for fn in _counters():
-        n, routes = delta[fn.__name__]
+        n, routes, p = delta[fn.__name__]
         fn.launches += n
         for r, c in routes.items():
             fn.routes[r] += c
+        if hasattr(fn, "programmatic"):
+            fn.programmatic += p
+
+
+class _EdgeData(ctypes.Structure):
+    """``CUgraphEdgeData``: the ports and the type of a graph edge."""
+    _fields_ = [("from_port", ctypes.c_ubyte), ("to_port", ctypes.c_ubyte),
+                ("type", ctypes.c_ubyte), ("reserved", ctypes.c_ubyte * 5)]
+
+
+_KERNEL_NODE = 0  # CU_GRAPH_NODE_TYPE_KERNEL
+_PROGRAMMATIC = 1  # CU_GRAPH_DEPENDENCY_TYPE_PROGRAMMATIC
+
+
+def graph_edges(raw_graph: int) -> Dict[str, int]:
+    """The edges of a CUDA graph (``CUDAGraph.raw_cuda_graph()``) between two
+    kernel nodes, by type, read with libcuda's ``cuGraphGetEdges_v2``:
+    ``"programmatic"`` (the later kernel may start under the earlier one's
+    tail) and ``"full"`` (it starts once the earlier one has completed),
+    and ``"other"``, the edges with another node at either end."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    get = cu.cuGraphGetEdges_v2
+    get.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    if get(raw_graph, None, None, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetEdges_v2 failed")
+    src, dst = (ctypes.c_void_p * n.value)(), (ctypes.c_void_p * n.value)()
+    data = (_EdgeData * n.value)()
+    if get(raw_graph, src, dst, data, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetEdges_v2 failed")
+    kind = ctypes.c_int()
+
+    def is_kernel(node) -> bool:
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        return kind.value == _KERNEL_NODE
+
+    out = {"programmatic": 0, "full": 0, "other": 0}
+    for i in range(n.value):
+        if not (is_kernel(src[i]) and is_kernel(dst[i])):
+            out["other"] += 1
+        else:
+            out["programmatic" if data[i].type == _PROGRAMMATIC else "full"] += 1
+    return out
 
 
 def _fresh(out):
@@ -106,8 +161,9 @@ class GraphLoop:
     that launch each of the loop's kernels, for the warm-up. After the
     first replayed call, ``warmup_s``, ``capture_s`` and ``instantiate_s``
     hold the seconds of the warm-up, of the capture (the host loop issuing
-    into the graph) and of ending the capture (the graph's instantiation),
-    and ``launches`` the kernel launches of one replay. ``GraphLoop.captures``
+    into the graph) and of the graph's instantiation, ``launches`` the
+    kernel launches of one replay, and ``kernel_edges()`` the captured
+    graph's edges between kernels by type. ``GraphLoop.captures``
     and ``GraphLoop.replays`` count the captures and the replays made in
     this process.
 
@@ -128,9 +184,14 @@ class GraphLoop:
         self._delta: Optional[dict] = None
         self.warmup_s = self.capture_s = self.instantiate_s = None
 
+    def kernel_edges(self) -> Optional[Dict[str, int]]:
+        """``graph_edges`` of the captured graph (None before the first
+        replayed call)."""
+        return None if self._graph is None else graph_edges(self._graph.raw_cuda_graph())
+
     @property
     def launches(self) -> Optional[Dict[str, int]]:
-        return None if self._delta is None else {k: n for k, (n, _) in self._delta.items() if n}
+        return None if self._delta is None else {k: n for k, (n, _, _) in self._delta.items() if n}
 
     def __call__(self, values: Dict[str, object], **host):
         with profiling.span("loop.replay" if self.graph else "loop.eager"):
@@ -175,13 +236,13 @@ class GraphLoop:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
         warm = _counts_now()
-        graph = torch.cuda.CUDAGraph()
-        with contextlib.ExitStack() as ending:
-            with torch.cuda.graph(graph):
-                with profiling.setup_span("loop.capture") as capture:
-                    out = self.body()
-                # ending the capture instantiates the graph
-                instantiate = ending.enter_context(profiling.setup_span("loop.instantiate"))
+        # the graph is kept beside its instantiation, for kernel_edges
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            with profiling.setup_span("loop.capture") as capture:
+                out = self.body()
+        with profiling.setup_span("loop.instantiate") as instantiate:
+            graph.instantiate()
         self.warmup_s, self.capture_s = warmup.seconds, capture.seconds
         self.instantiate_s = instantiate.seconds
         self._delta = _counts_delta(_counts_now(), warm)

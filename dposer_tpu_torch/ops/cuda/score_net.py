@@ -290,11 +290,13 @@ def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=Non
     if err:
         raise RuntimeError(f"dense_gn_silu launch failed: CUDA error {err}")
     dense_gn_silu.launches += 1
+    dense_gn_silu.programmatic += 1
     dense_gn_silu.routes[route] += 1
     return out if write_out else out_b
 
 
 dense_gn_silu.launches = 0
+dense_gn_silu.programmatic = 0
 dense_gn_silu.routes = {"wgmma_bf16": 0, "wgmma": 0, "register": 0}
 
 
@@ -465,11 +467,13 @@ def dense_gn_silu_int8(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, out=
     if err:
         raise RuntimeError(f"dense_gn_silu_int8 launch failed: CUDA error {err}")
     dense_gn_silu_int8.launches += 1
+    dense_gn_silu_int8.programmatic += 1
     dense_gn_silu_int8.routes["register" if a_q is None else "wgmma_int8"] += 1
     return out
 
 
 dense_gn_silu_int8.launches = 0
+dense_gn_silu_int8.programmatic = 0
 dense_gn_silu_int8.routes = {"wgmma_int8": 0, "register": 0}
 
 

@@ -232,15 +232,16 @@ def take_setup() -> list:
 
 def counters() -> dict:
     """One snapshot of the program's counters, read where they live: each
-    kernel's launches and routes, the graph loops' captures and replays,
-    ``DPoserComp``'s solver builds and lookups, the train window's host
-    reads."""
-    from ..ops.cuda.fused_em import launch_counts, route_counts
+    kernel's launches, routes and programmatic launches, the graph loops'
+    captures and replays, ``DPoserComp``'s solver builds and lookups, the
+    train window's host reads."""
+    from ..ops.cuda.fused_em import launch_counts, programmatic_counts, route_counts
     from ..ops.cuda.graph_loop import GraphLoop
     from ..parallel import sharding
     from ..tasks.completion import DPoserComp
 
     return dict(launches=launch_counts(), routes=route_counts(),
+                programmatic=programmatic_counts(),
                 graph_captures=GraphLoop.captures, graph_replays=GraphLoop.replays,
                 solver_builds=DPoserComp.solver_builds,
                 solver_lookups=DPoserComp.solver_lookups,

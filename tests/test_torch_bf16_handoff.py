@@ -243,7 +243,8 @@ def test_int8_network_keeps_its_int8_handoff():
 
 
 @pytest.mark.parametrize("variant", ["shipped", "the other wgmma pipeline depth",
-                                     "12-stage deep ring"])
+                                     "12-stage deep ring", "6-stage ring, two CTAs an SM",
+                                     "4-stage shallow ring"])
 def test_k1_rings_variants_apply(variant):
     """Every variant of ``benchmarks/k1_rings.py`` still applies to the
     shipped K1 source, changing its ring lines and nothing else; the shipped
@@ -253,7 +254,8 @@ def test_k1_rings_variants_apply(variant):
 
     shipped = (build.CSRC / "dense_gn_silu.cu").read_text()
     assert set(k1_rings.VARIANTS) == {"shipped", "the other wgmma pipeline depth",
-                                      "12-stage deep ring"}
+                                      "12-stage deep ring", "6-stage ring, two CTAs an SM",
+                                      "4-stage shallow ring"}
     text = k1_rings.variant_source(variant)
     changed = [(a, b) for a, b in zip(shipped.splitlines(), text.splitlines()) if a != b]
     assert len(text.splitlines()) == len(shipped.splitlines())

@@ -1413,9 +1413,54 @@ def test_microbenchmarks_run_on_the_card(dev, monkeypatch):
 # the loops as CUDA graphs (ops/cuda/graph_loop.py) and the device seed
 # ---------------------------------------------------------------------------
 
+def _flagship_model(dev):
+    torch.manual_seed(0)
+    return ScoreModelFC(n_poses=21, pose_dim=3, hidden_dim=1024, embed_dim=512, n_blocks=2,
+                        dropout=0.0).eval().to(dev)
+
+
+# the sampling chains at the benchmark's shapes: generation at 500 rows and
+# N = 1000 (bf16 and int8 per channel), the completion solver at 1,000 rows
+# (100 poses x 10 hypotheses) and 2 x 100 Adam steps
+FLAGSHIP_ROUTES = ["generation_500x1000", "int8ch_500x1000", "solver_1000x200"]
+
+
+def _flagship_routes(dev, route):
+    """``_graph_routes``' pair for a route of ``FLAGSHIP_ROUTES``."""
+    model = _flagship_model(dev)
+    sde = tsde.SubVPSDE(N=1000)
+    kern = dict(rng_mode="kernel", device="cuda")
+    if route == "solver_1000x200":
+        shape = (1000, 63)
+        rng = np.random.default_rng(62)
+        obs = _t(rng, shape, dev, 0.3)
+        mask = torch.ones(shape, device=dev)
+        mask[:, 0:12] = 0.0
+
+        def build(loop):
+            return get_cuda_comp_solver(sde, model, shape, 100 * 63, iterations=2,
+                                        steps_per_iter=100, loop=loop, **kern)
+
+        return build, lambda fn, g, i: fn(g, obs * (1 + i), mask)
+    shape, extra = (500, 63), {}
+    if route == "int8ch_500x1000":
+        from dposer_tpu_torch.ops.cuda import quant
+        amax = quant.calibrate_act_amax_per_channel(
+            sde, model, (256, 63), torch.Generator(device=dev).manual_seed(0), device=dev)
+        extra = dict(quant="int8", act_amax=amax)
+
+    def build(loop):
+        return get_cuda_em_sampler(sde, model, shape, loop=loop, **extra, **kern)
+
+    return build, lambda fn, g, i: fn(g)
+
+
 def _graph_routes(dev, route):
     """``(build(loop) -> fn, call(fn, gen, i) -> output)`` of one graphed
-    route at a small size; call ``i`` takes other inputs than call ``i+1``."""
+    route at a small size (or, for ``FLAGSHIP_ROUTES``, at the benchmark's);
+    call ``i`` takes other inputs than call ``i+1``."""
+    if route in FLAGSHIP_ROUTES:
+        return _flagship_routes(dev, route)
     model = _small_model(dev, scale_by_sigma=route not in ("ode", "likelihood"))
     shape, n = (70, 63), 20
     rng = np.random.default_rng(60)
@@ -1470,7 +1515,8 @@ def _flat(out):
 
 
 @pytest.mark.parametrize("route", ["generation", "langevin", "imputation", "pf_euler",
-                                   "int8_mixed", "solver", "ode", "likelihood"])
+                                   "int8_mixed", "solver", "ode", "likelihood"]
+                         + FLAGSHIP_ROUTES)
 def test_graph_loop_equals_eager_loop(dev, route):
     """One CUDA graph a call (two for int8-mixed), bit-equal to the eager
     loop from the same generator state, with the same launch and route
@@ -1494,6 +1540,43 @@ def test_graph_loop_equals_eager_loop(dev, route):
     assert again[0].data_ptr() != results["graph"][0].data_ptr()
     for lp in graph.loops:
         assert lp.capture_s > 0 and lp.instantiate_s > 0 and lp.launches
+
+
+@pytest.mark.parametrize("route", FLAGSHIP_ROUTES)
+def test_sampling_graphs_replay_bit_identically(dev, route):
+    """The chains of programmatic launches (K1, K2, K5, K6, K13: each starts
+    its prologue under the tail of the launch before it and waits for it
+    before its first dependent read and its first write) at the benchmark's
+    shapes: 50 replays from one generator state give the same bits, which a
+    missing or misplaced wait would not."""
+    build, call = _graph_routes(dev, route)
+    fn = build("graph")
+    first = _flat(call(fn, torch.Generator(device=dev).manual_seed(9), 0))
+    for _ in range(49):
+        again = _flat(call(fn, torch.Generator(device=dev).manual_seed(9), 0))
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("route", FLAGSHIP_ROUTES)
+def test_sampling_graphs_hold_programmatic_edges(dev, route):
+    """Every launch of the captured chain is programmatic
+    (``programmatic_counts`` equals the launches of K1, K2, K5, K6 and K13),
+    and the captured graph holds a programmatic edge into every one of them
+    but the first, whose predecessor is the loop's reset of its state:
+    read from the graph itself (``cuGraphGetEdges_v2``)."""
+    build, call = _graph_routes(dev, route)
+    fn = build("graph")
+    reset_launch_counts()
+    call(fn, torch.Generator(device=dev).manual_seed(3), 0)
+    torch.cuda.synchronize()
+    launched, programmatic = launch_counts(), fused_em.programmatic_counts()
+    assert all(programmatic[k] == launched[k] for k in programmatic)
+    n = sum(programmatic.values())
+    assert n == sum(launched.values()) > 0
+    (lp,) = fn.loops
+    edges = lp.kernel_edges()
+    assert n - 1 <= edges["programmatic"] <= n, edges
 
 
 def test_graph_loop_under_host_normals_replays_injected_noise(dev):

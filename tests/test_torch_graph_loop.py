@@ -229,10 +229,15 @@ class _FakeGraph:
     """Stands in for ``torch.cuda.CUDAGraph``: a replay counts itself. The
     test's body counts launches only where a real capture records them."""
 
-    def __init__(self):
+    def __init__(self, keep_graph=False):
         self.replays = 0
+        self.keep_graph, self.instantiated = keep_graph, False
+
+    def instantiate(self):
+        self.instantiated = True
 
     def replay(self):
+        assert self.instantiated or not self.keep_graph
         self.replays += 1
 
 
@@ -264,7 +269,8 @@ def fake_cuda(monkeypatch):
 def test_replay_accounting_adds_the_captured_counts_per_replay(fake_cuda):
     """The warm-up (with the throwaway seed, the caller's seed restored after
     it) and the capture count nothing; every replay adds what the capture
-    recorded, launches and routes; the outputs are fresh clones."""
+    recorded, launches, routes and programmatic launches; the outputs are
+    fresh clones."""
     seeds_seen = []
     out = torch.zeros(3)
     inputs = dict(z=torch.zeros(3), seed=torch.zeros(1, dtype=torch.int64))
@@ -273,6 +279,7 @@ def test_replay_accounting_adds_the_captured_counts_per_replay(fake_cuda):
         seeds_seen.append((int(inputs["seed"]), warm_up))
         out.copy_(inputs["z"] * 2)
         fused_em.head_em.launches += 3
+        fused_em.head_em.programmatic += 3
         score_net.dense_gn_silu.launches += 5
         score_net.dense_gn_silu_jvp.routes["wgmma"] += 4
         return out
@@ -287,6 +294,7 @@ def test_replay_accounting_adds_the_captured_counts_per_replay(fake_cuda):
     counts = launch_counts()
     assert (counts["head_em"], counts["dense_gn_silu"]) == (3, 5)
     assert route_counts()["dense_gn_silu_jvp"]["wgmma"] == 4
+    assert fused_em.programmatic_counts()["head_em"] == 3
     assert runner.launches == dict(head_em=3, dense_gn_silu=5)
     assert runner.warmup_s >= 0 and runner.capture_s >= 0 and runner.instantiate_s >= 0
     b = runner(dict(z=torch.full((3,), 2.0), seed=torch.tensor([42])))
@@ -296,6 +304,7 @@ def test_replay_accounting_adds_the_captured_counts_per_replay(fake_cuda):
     counts = launch_counts()
     assert (counts["head_em"], counts["dense_gn_silu"]) == (9, 15)
     assert route_counts()["dense_gn_silu_jvp"]["wgmma"] == 12
+    assert fused_em.programmatic_counts()["head_em"] == 9
     assert int(inputs["seed"]) == 43
     assert a.data_ptr() != b.data_ptr() != c.data_ptr() and a is not out
     with pytest.raises(ValueError):  # a replay cannot draw from a generator

@@ -215,8 +215,11 @@ class _Stand:
 
 
 class _Graph:
-    def __init__(self):
+    def __init__(self, keep_graph=False):
         self.replays = 0
+
+    def instantiate(self):
+        pass
 
     def replay(self):
         self.replays += 1
