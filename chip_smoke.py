@@ -27,7 +27,13 @@ Phases; any failure exits non-zero:
    the layer before wrote) with its registers, static shared memory, spills
    and CTAs an SM by registers, its launch at 500 and 1,000 rows (dynamic
    shared memory, stages, CTAs an SM), and a serialized wgmma in K1's
-   library fails the phase);
+   library fails the phase; K1's pre route with its registers (at most
+   128), static shared memory, spills (none allowed) and CTAs an SM by
+   registers, and its launch at 500 and 1,000 rows (the dynamic shared
+   memory it reserves, CTAs an SM: one and two); K13, K7, K10, K14 and K1's
+   other routes held by digests of their libraries' ``cuobjdump -sass`` to
+   the SASS their source compiled to before the pre route, under the nvcc
+   the digests were recorded with);
 3. each of the fourteen kernels, K2's imputation mode and K6's perturbing
    instantiation against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
@@ -57,13 +63,16 @@ Phases; any failure exits non-zero:
    three hops, each with 50 repeated calls bit-identical and K10's and K11's
    bounds at the handoff's bytes and at fp32 input; K8 at every stage and
    the denoise, with 50 repeated calls bit-identical;
-   K1 on the routes a forward takes (the pre layer on the element loads
+   K1 on the routes a forward takes (the pre layer on the pre route
    writing the bf16 copy, a block's first layer from the copy writing its
    copy alone, the second with the residual), bit-equal to the fp32 route
-   (A rounded in registers) and its copies byte for byte the output rounded,
-   each K = 1024 shape also timed on the fp32 route, with bounds at the
-   handoff's bytes;
-   K1 also at completion's [1000, 1024] residual block; K1's three layer
+   (A rounded in registers; for the pre layer on x and W zero-padded to
+   K = 64) and its copies byte for byte the output rounded, each K = 1024
+   shape also timed on the fp32 route and the pre layer on the element
+   loads (whether their bits equal the pre route's printed), with bounds at
+   the handoff's bytes;
+   K1 also at completion's [1000, 63] pre layer (both routes) and
+   [1000, 1024] residual block; K1's three layer
    shapes, K2's EM and score modes and K3 (its value and step size) also at
    the chunked metrics protocol's 50 rows; K2-K6's in-kernel
    normals read their seed from device memory (timed with a seed tensor
@@ -236,6 +245,7 @@ The self-intersection metric also needs ``g++`` (it builds its library under
 """
 import copy
 import ctypes
+import functools
 import hashlib
 import importlib.util
 import json
@@ -380,6 +390,17 @@ K2_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
                sha256="35d6e7187ccd1a280aa32b5c215ef57f8a5067d288b0806b7b65b96e6645c753")
 K6_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
                sha256="2ec4c7aab89a03cfab0e29ca09eb741b69a58ce73862092d297aed1188fac0f9")
+# The SASS of whole libraries (sass_digest) as their source compiled before
+# K1's pre route (csrc/dense_gn_silu.cu's namespace pre) was added, under
+# the nvcc named: K13 (dense_gemm_int8.cuh's and the Hopper int8 loop), K7
+# and K10 (their pre layers on dense_gemm.cuh), K14, and K1 without its
+# pre route's functions; the pre route left every one of them as it was
+PARENT_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0", sha256=dict(
+    dense_gn_silu_int8="0e64094e2f6fde1995874afe7af60bb9d8776807e335b5516c117c54951d2267",
+    dense_gn_silu_jvp="186fafdecc6f287e5b0acf27824b4c84705258a22e51c6bc68d2a69d755e0505",
+    dense_gn_silu_train="2f85623ad0a222419c5bc7a2dffba80abc7384b13e6ffd067afc9f1fbdb9233c",
+    chain_link="10a98582ff0b6a4c192ca34e0cef0cc4b7f49f563dd72d67385daff065092e15",
+    dense_gn_silu="a790232bf7f8befc81000825c86cfd0ff8f300e54edde264a13a2ca81ffdc0bd"))
 
 
 class PhaseError(RuntimeError):
@@ -650,6 +671,52 @@ def check_sass(lib, kept, added, recorded):
                 identical=digest == recorded["sha256"])
 
 
+def sass_digest(lib, skip=None):
+    """(functions, sha256) of a built library's SASS (build.sass): each
+    entry function's name (the hash of the source's path that names its
+    anonymous namespace taken out, so any checkout gives the same) and the
+    sha256 of its text, one a line, sorted by name; functions whose name
+    holds ``skip`` left out."""
+    funcs = {re.sub(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "N_GLOBAL__N_", f): t
+             for f, t in build.sass(build.library_path(lib)).items()}
+    lines = [f"{f} {hashlib.sha256(t.encode()).hexdigest()}" for f, t in sorted(funcs.items())
+             if skip is None or skip not in f]
+    return len(lines), hashlib.sha256("\n".join(lines).encode()).hexdigest()
+
+
+def check_parent_sass():
+    """K13, K7, K10, K14 and K1's routes other than the pre route must
+    compile to ``PARENT_SASS`` under its nvcc (else the digests are printed
+    and not compared)."""
+    release = nvcc_release()
+    same = release == PARENT_SASS["nvcc"]
+    out = {}
+    for lib, want in PARENT_SASS["sha256"].items():
+        n, digest = sass_digest(lib, "3pre" if lib == "dense_gn_silu" else None)
+        out[lib] = dict(functions=n, sha256=digest, identical=digest == want, compared=same)
+        print(f"[build] {lib} SASS ({n} functions" + (", the pre route's left out"
+                                                      if lib == "dense_gn_silu" else "")
+              + f"): sha256 {digest[:16]}, the parent's {want[:16]}: "
+              + (("identical" if digest == want else "DIFFERENT") if same
+                 else f"not compared (this nvcc: {release!r})"))
+        if same:
+            check(digest == want, f"{lib}'s SASS differs from the parent's")
+    return out
+
+
+def k1_pre_instantiations(logs):
+    """Registers, static shared memory, spills and CTAs an SM by registers of
+    every instantiation of K1's pre route (``dense_gn_silu.cu``'s
+    ``pre::dense_gn_silu_kernel``) from the ``-Xptxas -v`` log."""
+    rows = []
+    for e in ptxas_entries(logs.get("dense_gn_silu", ""), "3pre"):
+        args = ",".join(re.findall(r"ILi(\d+)E", e["entry"]))
+        rows.append(dict(kernel=f"pre::dense_gn_silu_kernel<{args}>", registers=e["registers"],
+                         static_smem=e["static_smem"], spills=e["spills"],
+                         ctas_per_sm_by_registers=ctas_per_sm_by_registers(e["registers"], 256)))
+    return rows
+
+
 def ctas_per_sm_by_registers(registers, threads):
     """The CTAs of ``threads`` threads an H100 SM's 65,536 registers hold at
     ``registers`` a thread (allocated in units of 8 a thread)."""
@@ -680,6 +747,25 @@ def phase_build():
         print(f"[build] K1 bf16 route at [{rows_}, {H}]: {c['threads']} threads, "
               f"{c['dynamic_smem']} B dynamic smem a CTA ({c['stages']} stages); "
               f"{c['ctas_per_sm']} CTAs an SM")
+    # K1's pre route: at most 128 registers and no spills (two CTAs an SM by
+    # registers), one CTA an SM where the grid fits the SMs once, two beyond
+    pre_rows = k1_pre_instantiations(logs)
+    for r in pre_rows:
+        print(f"[build] K1 pre route: {r['kernel']} {r['registers']} registers, "
+              f"{r['static_smem']} B static smem, {r['ctas_per_sm_by_registers']} CTAs an SM by "
+              f"registers; {r['spills'] or 'spills not reported'}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", r["spills"] or "")
+        check(m is not None and m.groups() == ("0", "0") and r["registers"] <= 128,
+              f"K1's pre route: {r}")
+    pre_launch = {rows_: score_net.dense_gn_silu_pre_launch_info(rows_, H) for rows_ in (B, RC)}
+    for rows_, c in pre_launch.items():
+        print(f"[build] K1 pre route at [{rows_}, {H}]: {c['threads']} threads, "
+              f"{c['static_smem']} B static and {c['dynamic_smem']} B reserved dynamic smem a CTA, "
+              f"{c['registers']} registers, {c['local_bytes']} B local a thread; "
+              f"{c['ctas_per_sm']} CTAs an SM")
+        check(c["local_bytes"] == 0, f"K1's pre route spills at [{rows_}, {H}]: {c}")
+    check(pre_launch[B]["ctas_per_sm"] == 1 and pre_launch[RC]["ctas_per_sm"] == 2,
+          f"K1's pre route: CTAs an SM {pre_launch}")
     print(f"[build] K1: ptxas lines reporting serialized wgmma: {len(k1_serialized)}"
           + "".join(f"\n    {ln}" for ln in k1_serialized))
     # the bf16 route keeps no operand in registers, so nothing may serialize it
@@ -775,8 +861,11 @@ def phase_build():
     check(not train_serialized, "ptxas serialized a wgmma of K10 or K12")
     k2_sass = check_sass("head_em", "head_em_kernel", "head_em_impute_kernel", K2_SASS)
     k6_sass = check_sass("head_adam", "head_adam_kernel", "head_adam_perturb_kernel", K6_SASS)
+    parent_sass = check_parent_sass()
     return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters,
                       k1_bf16_instantiations=k1_rows, k1_bf16_launch=k1_launch,
+                      k1_pre_instantiations=pre_rows, k1_pre_launch=pre_launch,
+                      parent_sass=parent_sass,
                       k1_serialized_wgmma=k1_serialized,
                       k2_sass=k2_sass, k6_sass=k6_sass,
                       int8_instantiations=rows8, int8_dynamic_smem=dyn8,
@@ -817,13 +906,17 @@ def phase_kernels(model, dev):
     rows = []
 
     # K1 dense_gn_silu: the three layer shapes one network forward runs as
-    # network_hidden runs them (the pre layer from fp32 x on the element
-    # loads, writing the bf16 copy; a block's first layer from the copy,
-    # writing its copy alone; the second with the residual, the fp32 output
-    # and the copy), the residual block at completion's 1000 rows (the deep
-    # and the shallow ring of the bf16 route: 128 and 256 CTAs), and each
-    # K = 1024 shape beside it on the fp32 route (A rounded in registers,
-    # dense_wgmma.cuh), whose output the bf16 route's must equal bit for bit
+    # network_hidden runs them (the pre layer from fp32 x on the pre route,
+    # writing the bf16 copy; a block's first layer from the copy, writing
+    # its copy alone; the second with the residual, the fp32 output and the
+    # copy), the pre layer and the residual block at completion's 1000 rows
+    # (one and two CTAs an SM for the pre route, the deep and the shallow
+    # ring of the bf16 route: 128 and 256 CTAs), the pre layer beside it on
+    # the element loads (the route before it; its bits against the pre
+    # route's reported) and each K = 1024 shape on the fp32 route (A
+    # rounded in registers, dense_wgmma.cuh), whose output the bf16 route's
+    # must equal bit for bit, as the pre route's must equal the fp32
+    # route's on x and W zero-padded to K = 64
     h = score_net.dense_gn_silu_plain(x, W[0], tp[0], gs[0], gb[0])
     h1 = score_net.dense_gn_silu_plain(h, W[1], tp[1], gs[1], gb[1])
     xc = torch.randn(RC, D, generator=torch.Generator(device=dev).manual_seed(1000), device=dev)
@@ -831,7 +924,10 @@ def phase_kernels(model, dev):
     hc1 = score_net.dense_gn_silu_plain(hc, W[1], tp[1], gs[1], gb[1])
     variants = []
     for label, a, j, res, route in (
-            ("pre [500,63]x[63,1024]", x, 0, None, "register"),
+            ("pre [500,63]x[63,1024]", x, 0, None, "pre"),
+            ("pre/1000 [1000,63]x[63,1024]", xc, 0, None, "pre"),
+            ("element:pre [500,63]x[63,1024]", x, 0, None, "element"),
+            ("element:pre/1000 [1000,63]x[63,1024]", xc, 0, None, "element"),
             ("block [500,1024]x[1024,1024]", h, 1, None, "bf16"),
             ("block+residual [500,1024]x[1024,1024]", h1, 2, h, "bf16"),
             ("block+residual/1000 [1000,1024]x[1024,1024]", hc1, 2, hc, "bf16"),
@@ -849,19 +945,36 @@ def phase_kernels(model, dev):
         o_b = torch.empty(R, H, dtype=torch.bfloat16, device=dev)
         kw = dict(a_b=a_b, out_b=o_b, write_out=write_out)
         a_in = None if route == "bf16" else a
+        if route == "element":  # forced: the wrapper takes the pre route at K = 63
+            kw = dict(out_b=o_b)
+        call = (functools.partial(score_net.dense_gn_silu_on_route, "register")
+                if route == "element" else score_net.dense_gn_silu)
         fused_em.reset_launch_counts()
-        got = score_net.dense_gn_silu(a_in, *args[1:], residual=res, out=o, **kw)
+        got = call(a_in, *args[1:], residual=res, out=o, **kw)
         torch.cuda.synchronize()
         counted = fused_em.route_counts()["dense_gn_silu"]
-        want_route = {"bf16": "wgmma_bf16", "fp32": "wgmma", "register": "register"}[route]
-        check(counted[want_route] == 1, f"dense_gn_silu {label}: routes {counted}")
-        out = score_net.dense_gn_silu(*args, residual=res)  # the fp32 route, or the element loads
+        if route != "element":
+            want_route = {"bf16": "wgmma_bf16", "fp32": "wgmma", "pre": "pre_wgmma"}[route]
+            check(counted[want_route] == 1, f"dense_gn_silu {label}: routes {counted}")
+        if route == "pre":  # the fp32 route on x and W zero-padded to K = 64
+            a64 = torch.zeros(R, 64, device=dev)
+            a64[:, :K] = a
+            w64 = torch.zeros(64, H, dtype=torch.bfloat16, device=dev)
+            w64[:K] = W[j]
+            out = score_net.dense_gn_silu_on_route("wgmma", a64, w64, *args[2:], residual=res)
+        else:  # the fp32 route at K = 1024, the pre route at K = 63
+            out = score_net.dense_gn_silu(*args, residual=res)
         torch.cuda.synchronize()
-        e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
+        e = err(got if route in ("pre", "element") else out, ref)
+        tol = 1e-3 * max(1.0, float(ref.abs().max()))
         check(e <= tol, f"dense_gn_silu {label}: max abs err {e} > {tol}")
-        if write_out:
-            check(torch.equal(got, out), f"dense_gn_silu {label}: not bit-equal to the fp32 route")
-        check(torch.equal(o_b, out.to(torch.bfloat16)),
+        same = bool(torch.equal(got, out)) if write_out else None
+        if route == "element":
+            print(f"[kernel] dense_gn_silu {label}: the element loads' output bit-equal to the "
+                  f"pre route's: {same}")
+        elif write_out:
+            check(same, f"dense_gn_silu {label}: not bit-equal to the fp32 route")
+        check(torch.equal(o_b, (got if route == "element" else out).to(torch.bfloat16)),
               f"dense_gn_silu {label}: the bf16 copy is not the output rounded")
         # each input byte read once, each output byte written once: A (fp32 or
         # the bf16 copy), W, the three rows, the residual, the fp32 output
@@ -872,18 +985,18 @@ def phase_kernels(model, dev):
         a16 = a.to(torch.bfloat16)
 
         def launch():
-            return score_net.dense_gn_silu(a_in, *args[1:], residual=res, out=o, **kw)
+            return call(a_in, *args[1:], residual=res, out=o, **kw)
 
         def library():
             y = torch.matmul(a16, W[j]).float() + tp[j]
             return F.silu(F.group_norm(y, 32, gs[j], gb[j], eps=1e-5))
 
         variants.append(dict(
-            shape=label, route=route, max_abs_err=e, tol=tol, ms=graph_ms(launch),
+            shape=label, route=route, max_abs_err=e, tol=tol, bit_equal=same, ms=graph_ms(launch),
             eager_ms=eager_ms(launch),
             plain_ms=graph_ms(lambda: score_net.dense_gn_silu_plain(*args, res)),
             library_ms=graph_ms(library), bound_ms=bms, bound_by=by))
-    main_v = variants[2]
+    main_v = next(v for v in variants if v["shape"].startswith("block+residual [500"))
     rows.append(dict(name="dense_gn_silu", route="cuda", source=f"{CSRC}/dense_gn_silu.cu",
                      replaces=TPU_KERNEL,
                      replaces_part="fused_em.py:58 _make_kernel -> score_net.py:362 fwd "
@@ -1632,10 +1745,10 @@ def phase_completion_protocols(model, dev):
     # K5 at the first step; K6 perturbs for every later one but pastes at the last
     check(per_solve == dict(comp_perturb=1, dense_gn_silu=1000, head_adam_perturb=199,
                             head_adam=1), f"solver: launches a solve {per_solve}")
-    # a forward: the pre layer on the element loads, four layers on the bf16 copy
+    # a forward: the pre layer on the pre route, four layers on the bf16 copy
     k1_routes = fused_em.route_counts()["dense_gn_silu"]
     print(f"[completion] K1's routes a solve: {k1_routes}")
-    check(k1_routes == dict(wgmma_bf16=800, wgmma=0, register=200),
+    check(k1_routes == dict(wgmma_bf16=800, wgmma=0, pre_wgmma=200, register=0),
           f"solver: K1's routes a solve {k1_routes}")
     check(hypos.shape == (100, HYPO, D) and torch.isfinite(hypos).all().item(), "solver output")
     check(torch.equal(hypos * mask[:, None], (obs * mask)[:, None].expand_as(hypos)),
@@ -3006,10 +3119,10 @@ def phase_protocols(model, dev):
         encodes.append(build.tma_encodes("dense_gn_silu") - enc0)
     check(x.shape == (B, D) and torch.isfinite(x).all().item(), "generation output")
     gen_counts = fused_em.launch_counts()
-    # a forward: the pre layer on the element loads, four layers on the bf16 copy
+    # a forward: the pre layer on the pre route, four layers on the bf16 copy
     k1_routes = fused_em.route_counts()["dense_gn_silu"]
     print(f"[generation] K1's routes a call: {k1_routes}")
-    check(k1_routes == dict(wgmma_bf16=4000, wgmma=0, register=1000),
+    check(k1_routes == dict(wgmma_bf16=4000, wgmma=0, pre_wgmma=1000, register=0),
           f"generation: K1's routes a call {k1_routes}")
     # K1 encodes its tensor maps once per (pointer, shape) and caches them: a
     # call's four K = 1024 layers need two activation and four weight maps

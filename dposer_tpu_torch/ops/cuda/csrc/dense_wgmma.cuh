@@ -67,8 +67,8 @@
 //   and cached by (pointer, dims, stride, box): the samplers' loops launch
 //   with a handful of maps and encode each once. They reach the kernel as
 //   __grid_constant__ parameters.
-// TMA needs 16-byte aligned rows and pointers: an A with K % 4 != 0 (the
-// pre layer, K = 63) or a misaligned operand goes through dense_gemm.cuh.
+// TMA needs 16-byte aligned rows and pointers: K1 takes A at K <= 64 (the
+// pre layer) on its pre route, other A TMA cannot address on dense_gemm.cuh.
 #pragma once
 
 #include <cstdint>

@@ -20,7 +20,8 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
   hands the activations on in bf16 (each epilogue writes the next layer's
   rounded input, which the bf16 Hopper route reads: TMA and ``wgmma`` with
   both operands from shared memory; the pre layer, on the fp32 state, runs
-  the element-load loop).
+  the pre route: its rows bulk-loaded and rounded once into shared memory,
+  one ``wgmma`` stage).
 - kernel K13 ``dense_gn_silu_int8`` (``csrc/dense_gn_silu_int8.cu``): K1's
   layer on int8 operands (port of ``bind_fwd``'s quant ``mm``), its plain
   version; ``network_hidden`` takes it for int8 operands and hands the
@@ -230,12 +231,19 @@ def check_bf16_copy(a_b, w, B: int, K: int) -> None:
 
 def _k1_route(a, a_b, w) -> str:
     """The route K1's library takes (``dense_gn_silu.cu``): the bf16 copy,
-    fp32 A that TMA can address, or the element loads."""
+    fp32 A at K <= 64 (the pre layer, whatever A's alignment), fp32 A that
+    TMA can address, or the element loads."""
     if a_b is not None:
         return "wgmma_bf16"
     K, N = w.shape
-    aligned = a.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    return "wgmma" if K % 4 == 0 and N % 8 == 0 and aligned else "register"
+    w_ok = w.data_ptr() % 16 == 0 and N % 8 == 0
+    if K <= 64 and w_ok:
+        return "pre_wgmma"
+    return "wgmma" if K % 4 == 0 and w_ok and a.data_ptr() % 16 == 0 else "register"
+
+
+# the library's codes of the routes dense_gn_silu_on_route forces
+_K1_ROUTE_CODES = {"wgmma_bf16": 1, "wgmma": 2, "pre_wgmma": 3, "register": 4}
 
 
 def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=None, out_b=None,
@@ -245,9 +253,11 @@ def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=Non
 
     ``a_b`` bf16 [B, K], ``bf16(a)`` written by the previous layer, routes
     the layer through the bf16 Hopper loop (TMA and ``wgmma`` with both
-    operands from shared memory; ``a`` may then be None); without it the
-    fp32 Hopper loop rounds ``a`` in registers, or, where TMA cannot address
-    ``a`` (the pre layer's K = 63), the element-load loop. With ``out_b``
+    operands from shared memory; ``a`` may then be None); without it, at
+    K <= 64 (the pre layer's 63), the pre route (``a``'s rows bulk-loaded and
+    rounded once into shared memory, one ``wgmma`` stage), else the fp32
+    Hopper loop rounds ``a`` in registers, or, where TMA cannot address
+    ``a``, the element-load loop. With ``out_b``
     bf16 [B, N] the epilogue also writes the bf16 copy of out, the next
     layer's ``a_b``; ``write_out=False`` writes that copy alone (``out`` is
     then None) and returns it. Each launch adds one to ``launches`` and to
@@ -297,7 +307,65 @@ def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=Non
 
 dense_gn_silu.launches = 0
 dense_gn_silu.programmatic = 0
-dense_gn_silu.routes = {"wgmma_bf16": 0, "wgmma": 0, "register": 0}
+dense_gn_silu.routes = {"wgmma_bf16": 0, "wgmma": 0, "pre_wgmma": 0, "register": 0}
+
+
+def dense_gn_silu_on_route(route: str, a, w, tp_row, gamma, beta, residual=None, out=None, *,
+                           a_b=None, out_b=None):
+    """K1 on CUDA tensors on ``route`` (a key of ``dense_gn_silu.routes``)
+    where ``dense_gn_silu`` would choose by the operands: for tests and
+    reports that hold one route to another on the same operands. Writes
+    ``out`` (made when None) and ``out_b`` if given; raises where the route
+    cannot take the operands. Counted in no ``launches`` or ``routes``."""
+    B, K = (a if a_b is None else a_b).shape
+    N = w.shape[1]
+    dev = w.device
+    if dev.type != "cuda":
+        raise ValueError(f"dense_gn_silu_on_route runs on cuda, not {dev}")
+    if out is None:
+        out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    _check("w", w, dev, torch.bfloat16, (K, N))
+    for nm, t, dtype, shape in (("a", a, torch.float32, (B, K)),
+                                ("a_b", a_b, torch.bfloat16, (B, K)),
+                                ("tp_row", tp_row, torch.float32, (N,)),
+                                ("gamma", gamma, torch.float32, (N,)),
+                                ("beta", beta, torch.float32, (N,)),
+                                ("residual", residual, torch.float32, (B, N)),
+                                ("out", out, torch.float32, (B, N)),
+                                ("out_b", out_b, torch.bfloat16, (B, N))):
+        if t is not None:
+            _check(nm, t, dev, dtype, shape)
+    err = _dense_gn_silu_on_route_fn()(
+        _K1_ROUTE_CODES[route], _ptr(a), _ptr(a_b), w.data_ptr(), tp_row.data_ptr(),
+        gamma.data_ptr(), beta.data_ptr(), _ptr(residual), out.data_ptr(), _ptr(out_b), B, K, N,
+        torch.cuda.current_stream(w.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"dense_gn_silu on route {route} failed: CUDA error {err}")
+    return out
+
+
+def _dense_gn_silu_on_route_fn():
+    fn = build.load("dense_gn_silu").dposer_dense_gn_silu_on_route
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [I] + [P] * 9 + [I, I, I, P]
+        fn.restype = I
+    return fn
+
+
+def dense_gn_silu_pre_launch_info(rows: int, n: int) -> dict:
+    """K1's pre route at ``rows`` x ``n`` as it launches on this card:
+    threads, static shared memory a CTA and the dynamic shared memory it
+    reserves, registers and local memory (spills) a thread, and the CTAs an
+    SM holds at once."""
+    fn = build.load("dense_gn_silu").dposer_dense_gn_silu_pre_launch_info
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(rows, n, out)
+    if err:
+        raise RuntimeError(f"dense_gn_silu_pre_launch_info failed: CUDA error {err}")
+    return dict(zip(("threads", "static_smem", "dynamic_smem", "registers", "local_bytes",
+                     "ctas_per_sm"), list(out)))
 
 
 def layer_weights(net: dict, j: int) -> tuple:
@@ -333,7 +401,7 @@ def network_hidden(net: dict, x: torch.Tensor, i: int, h: torch.Tensor,
     output rounded to bf16 (K1's bf16 route reads it), and a block's first
     layer writes its copy alone, no fp32 ``h1``. The sums are the same
     either way. The pre layer reads the fp32 state (K13's register route,
-    K1's element loads); the last block writes no copy, since the head reads
+    K1's pre route); the last block writes no copy, since the head reads
     ``h``."""
     layer = hidden_layer(net) if layer is None else layer
     tp = net["tp_all"][i]

@@ -55,7 +55,32 @@ def test_k1_with_handoff_is_bit_equal(wrapper, with_residual, write_out):
     else:
         assert got is out_b
     assert fused_em.route_counts()["dense_gn_silu"] == {"wgmma_bf16": 0, "wgmma": 0,
-                                                        "register": 0}
+                                                        "pre_wgmma": 0, "register": 0}
+
+
+def _misaligned(rows, cols, dtype=torch.float32):
+    """A contiguous [rows, cols] view whose data starts 4 bytes past a
+    16-byte boundary."""
+    base = torch.empty(rows * cols + 16, dtype=dtype)
+    skip = next(s for s in range(1, 16) if (base.data_ptr() + s * base.element_size()) % 16 == 4)
+    return base[skip:skip + rows * cols].view(rows, cols)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("pre K=63", "pre_wgmma"), ("pre K=63 misaligned", "pre_wgmma"),
+    ("K=64", "pre_wgmma"), ("rot6d K=126", "register"), ("K=1024", "wgmma"),
+    ("K=1024 misaligned", "register"), ("bf16 copy", "wgmma_bf16")])
+def test_k1_route_follows_the_operands(case, want):
+    """K1's route is chosen by the operands: fp32 A at K <= 64 (the pre
+    layer, whatever A's alignment) takes the pre route, K = 126 (rot6d's pre
+    layer, a row stride TMA cannot take) the element loads, aligned fp32 A at
+    K = 1024 the fp32 Hopper route, the bf16 copy the bf16 route."""
+    K = int(case.split("K=")[1].split()[0]) if "K=" in case else 1024
+    a = _misaligned(70, K) if "misaligned" in case else torch.empty(70, K)
+    w = torch.empty(K, 256, dtype=torch.bfloat16)
+    a_b = torch.empty(70, K, dtype=torch.bfloat16) if case == "bf16 copy" else None
+    assert (a.data_ptr() % 16 != 0) == ("misaligned" in case)
+    assert score_net._k1_route(a, a_b, w) == want
 
 
 def _bf16_net(hidden=128, n=6, seed=0, n_blocks=2):
@@ -261,3 +286,22 @@ def test_k1_rings_variants_apply(variant):
     assert len(text.splitlines()) == len(shipped.splitlines())
     assert len(changed) == len(k1_rings.VARIANTS[variant])
     assert all("Ring<" in a and "Ring<" in b for a, b in changed)
+
+
+@pytest.mark.parametrize("variant", ["shipped", "two an SM", "as registers allow",
+                                     "16-byte loads", "element loads"])
+def test_k1_pre_variants_apply(variant):
+    """Every variant of ``benchmarks/k1_pre.py`` still applies to the shipped
+    K1 source and changes only the lines it names; the shipped variant is
+    the source as it is."""
+    from dposer_tpu_torch.benchmarks import k1_pre
+    from dposer_tpu_torch.ops.cuda import build
+
+    shipped = (build.CSRC / "dense_gn_silu.cu").read_text()
+    assert set(k1_pre.VARIANTS) == {"shipped", "two an SM", "as registers allow",
+                                    "16-byte loads", "element loads"}
+    text = k1_pre.variant_source(variant)
+    subs = k1_pre.VARIANTS[variant]
+    assert (text == shipped) == (not subs)
+    for old, new in subs:
+        assert old in shipped and old not in text and new in text

@@ -40,8 +40,8 @@ def _t(rng, shape, dev, scale=1.0):
 
 # rows: one, a likelihood batch, generation's 500 (a ragged last tile; the
 # wide ring) and completion's 1,000 (the narrow ring at N = 1024, more blocks
-# than SMs); K: the pre layer's 63
-# (the element-load loop), 64 (one TMA stage, half of a wide one) and 1024;
+# than SMs); K: the pre layer's 63 and 64 (the pre route: one wgmma stage
+# from shared memory) and 1024 (the fp32 Hopper route);
 # N = 32 x the group size; the residual absent, given, or aliased by out
 @pytest.mark.parametrize("B", [1, 50, 500, 1000])
 @pytest.mark.parametrize("K", [63, 64, 1024])
@@ -66,16 +66,17 @@ def test_dense_gn_silu(dev, B, K, gs, residual):
     torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
 
 
-def _route_counts(bf16=0, fp32=0, register=0):
-    return {"wgmma_bf16": bf16, "wgmma": fp32, "register": register}
+def _route_counts(bf16=0, fp32=0, pre=0, register=0):
+    return {"wgmma_bf16": bf16, "wgmma": fp32, "pre_wgmma": pre, "register": register}
 
 
 # the bf16 route, from the copy the layer before wrote: rows one, a
 # likelihood batch, generation's 500 (a ragged last tile; the deep ring) and
 # completion's 1,000 (more CTAs than SMs at N = 1024: the shallow ring); K
 # one stage and the hidden 1024; against the fp32 Hopper route (A rounded in
-# registers: the same products in the same order, so the same bits) and the
-# plain version
+# registers: the same products in the same order, so the same bits), the
+# route the wrapper takes from fp32 A (the pre route at K = 64: the same
+# bits again) and the plain version
 @pytest.mark.parametrize("B", [1, 50, 500, 1000])
 @pytest.mark.parametrize("K", [64, 1024])
 @pytest.mark.parametrize("gs", [2, 8, 32])
@@ -90,16 +91,18 @@ def test_dense_gn_silu_bf16_route(dev, B, K, gs, residual):
     want = score_net.dense_gn_silu_plain(a, w, tp, gamma, beta, res)
     reset_launch_counts()
     ref = dense_gn_silu(a, w, tp, gamma, beta, residual=res)
+    fp32 = score_net.dense_gn_silu_on_route("wgmma", a, w, tp, gamma, beta, residual=res)
     out_b = torch.empty((B, N), dtype=torch.bfloat16, device=dev)
     res_in = None if res is None else res.clone()
     out = dense_gn_silu(None, w, tp, gamma, beta, residual=res,
                         out=res if residual == "aliased" else None, a_b=a.to(torch.bfloat16),
                         out_b=out_b)
     torch.cuda.synchronize()
-    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=1, fp32=1)
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(
+        bf16=1, fp32=int(K > 64), pre=int(K <= 64))
     if residual == "aliased":
         assert out is res
-    assert torch.equal(out, ref)
+    assert torch.equal(out, ref) and torch.equal(out, fp32)
     # the copy is __float2bfloat16_rn of what the epilogue stored: torch's
     # round to nearest even
     assert torch.equal(out_b, out.to(torch.bfloat16))
@@ -112,7 +115,7 @@ def test_dense_gn_silu_bf16_route(dev, B, K, gs, residual):
 
 
 def test_dense_gn_silu_pre_layer_writes_the_copy(dev):
-    """The pre layer (K = 63, the element loads) with ``out_b``: its bf16
+    """The pre layer (K = 63, the pre route) with ``out_b``: its bf16
     copy byte for byte is its fp32 output rounded, and the output is the one
     it writes without the copy."""
     rng = np.random.default_rng(63)
@@ -125,14 +128,76 @@ def test_dense_gn_silu_pre_layer_writes_the_copy(dev):
     reset_launch_counts()
     out = dense_gn_silu(a, w, tp, gamma, beta, out_b=out_b)
     torch.cuda.synchronize()
-    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(register=1)
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(pre=1)
     assert torch.equal(out, ref) and torch.equal(out_b, out.to(torch.bfloat16))
+
+
+def _misaligned_like(t):
+    """A copy of ``t`` whose data starts 4 bytes past a 16-byte boundary."""
+    base = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    skip = next(s for s in range(1, 16) if (base.data_ptr() + 4 * s) % 16 == 4)
+    out = base[skip:skip + t.numel()].view(t.shape)
+    return out.copy_(t)
+
+
+# the pre layer's shapes: rows 40 and 70 (one CTA row, one and a half),
+# generation's 500 and completion's 1,000 (a bulk copy a row block, the last
+# ragged), 1,001 (a last block of one row: 63 values, no 16-byte multiple);
+# A 16-byte aligned (the bulk copy) or not (every thread's loads)
+@pytest.mark.parametrize("B", [40, 70, 500, 1000, 1001])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k1_pre_route(dev, B, aligned):
+    """The pre route (K = 63 from the fp32 state, as the pre layer writes
+    ``out`` and ``out_b``) is bit-equal to the fp32 Hopper route on the
+    operands zero-padded to K = 64 (both round the same values and sum the
+    same k16 chunks in the same order) and within the plain version's
+    tolerance; the element loads (WMMA) on the same operands stay within it
+    too, whether or not their bits are equal."""
+    rng = np.random.default_rng(B)
+    K, N = 63, 1024
+    a = _t(rng, (B, K), dev)
+    if not aligned:
+        a = _misaligned_like(a)
+    assert (a.data_ptr() % 16 == 0) == aligned
+    w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    want = score_net.dense_gn_silu_plain(a, w, tp, gamma, beta)
+    a64 = torch.zeros(B, 64, device=dev)
+    a64[:, :K] = a
+    w64 = torch.zeros(64, N, dtype=torch.bfloat16, device=dev)
+    w64[:K] = w
+    out_b = torch.empty((B, N), dtype=torch.bfloat16, device=dev)
+    reset_launch_counts()
+    out = dense_gn_silu(a, w, tp, gamma, beta, out_b=out_b)
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(pre=1)
+    padded_b = torch.empty_like(out_b)
+    padded = score_net.dense_gn_silu_on_route("wgmma", a64, w64, tp, gamma, beta,
+                                              out_b=padded_b)
+    elem = score_net.dense_gn_silu_on_route("register", a, w, tp, gamma, beta)
+    torch.cuda.synchronize()
+    assert torch.equal(out, padded) and torch.equal(out_b, padded_b)
+    assert torch.equal(out_b, out.to(torch.bfloat16))
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
+    torch.testing.assert_close(elem, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("B", [40, 500, 1000, 1001])
+def test_k1_pre_route_launch_info(dev, B):
+    """The pre route's registers (at most 128 a thread) and shared memory let
+    two CTAs share an SM, with no local memory (no spills); a grid that fits
+    the SMs once (40 and 500 rows at N = 1024) reserves the shared memory
+    that holds it to one CTA an SM, a larger one to two."""
+    info = score_net.dense_gn_silu_pre_launch_info(B, 1024)
+    assert info["threads"] == 256 and info["registers"] <= 128, info
+    assert info["local_bytes"] == 0, info
+    one_wave = 16 * -(-B // 64) <= torch.cuda.get_device_properties(dev).multi_processor_count
+    assert info["ctas_per_sm"] == (1 if one_wave else 2), info
 
 
 def test_k1_routes_a_forward(dev):
     """A generation call and a completion solve, each replayed from its
     graph, run every forward as 4 layers on the bf16 route and the pre layer
-    on the element loads: none on the fp32 Hopper route."""
+    on the pre route: none on the fp32 Hopper route or the element loads."""
     model = _small_model(dev)
     n = 6
     sampler = get_cuda_em_sampler(tsde.SubVPSDE(N=n), model, (40, 63), rng_mode="kernel",
@@ -143,7 +208,7 @@ def test_k1_routes_a_forward(dev):
     x = sampler(g)
     torch.cuda.synchronize()
     assert torch.isfinite(x).all()
-    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=4 * n, register=n)
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=4 * n, pre=n)
     rows, steps = 70, 8
     rng = np.random.default_rng(12)
     obs, mask = _t(rng, (rows, 63), dev, 0.3), torch.ones(rows, 63, device=dev)
@@ -157,7 +222,7 @@ def test_k1_routes_a_forward(dev):
     torch.cuda.synchronize()
     assert torch.isfinite(x).all()
     assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=4 * steps,
-                                                                     register=steps)
+                                                                     pre=steps)
 
 
 def _head(dev, B=500, H=1024, D=63, seed=0):
@@ -1423,6 +1488,10 @@ def _flagship_model(dev):
 # N = 1000 (bf16 and int8 per channel), the completion solver at 1,000 rows
 # (100 poses x 10 hypotheses) and 2 x 100 Adam steps
 FLAGSHIP_ROUTES = ["generation_500x1000", "int8ch_500x1000", "solver_1000x200"]
+# the programmatic edges of a captured call: into each of a generation
+# call's 6,000 launches (K1 x5 and K2 a step) but the first, and into each of
+# a solve's 1,201 (K5 once, K1 x5 and K6 a step)
+FLAGSHIP_EDGES = {"generation_500x1000": 5999, "solver_1000x200": 1201}
 
 
 def _flagship_routes(dev, route):
@@ -1577,6 +1646,8 @@ def test_sampling_graphs_hold_programmatic_edges(dev, route):
     (lp,) = fn.loops
     edges = lp.kernel_edges()
     assert n - 1 <= edges["programmatic"] <= n, edges
+    if route in FLAGSHIP_EDGES:
+        assert edges["programmatic"] == FLAGSHIP_EDGES[route], edges
 
 
 def test_graph_loop_under_host_normals_replays_injected_noise(dev):

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "dposer_tpu_torch" / "ops" / "cuda"
 # (file, function): the kernels of the chains, or the device function whose
 # body each kernel is, that must wait for the launches before them
 WAITING = [
-    ("dense_gn_silu.cu", "dense_gn_silu_kernel"),  # K1, the pre layer's element loads
+    ("dense_gn_silu.cu", "dense_gn_silu_kernel"),  # K1's pre route and its element loads
     ("dense_gn_silu.cu", "dense_gn_silu_wgmma_kernel"),  # K1 from fp32 A and from the bf16 copy
     ("dense_gn_silu_int8.cu", "dense_gn_silu_int8_kernel"),  # K13's register route
     ("dense_gn_silu_int8.cu", "dense_gn_silu_int8_wgmma8_kernel"),  # K13 from the int8 copy
@@ -37,6 +37,7 @@ WAITING = [
 LAUNCHING = [
     ("dense_gn_silu.cu", "launch_wgmma"),
     ("dense_gn_silu.cu", "launch_bf16"),
+    ("dense_gn_silu.cu", "launch_pre"),
     ("dense_gn_silu.cu", "launch"),
     ("dense_gn_silu_int8.cu", "launch_gs"),
     ("head_em.cu", "dposer_head_em"),
