@@ -14,12 +14,8 @@ Phases; any failure exits non-zero:
    for the cluster kernels K2 (and its imputation instantiation), K3, K6,
    K7's Hopper route, K8, K9 and K11 (on the bf16 stash and on fp32 h) their
    grid, cluster size, shared memory, the clusters the card holds at once
-   and their registers; K2's instantiation without imputation and K6's
-   without the next step's perturbation held by their ``cuobjdump -sass``
-   digests to recorded SASS (both from the source whose sampling kernels
-   launch programmatically; under the nvcc the digests were recorded with);
-   K6 and its perturbing
-   instantiation with their registers, spills (none allowed) and CTAs an SM
+   and their registers; K6 and its perturbing instantiation with their
+   registers, spills (none allowed) and CTAs an SM
    by registers; a ptxas line
    reporting serialized wgmma in K7 or K9 fails the phase; K10's and K12's instantiations with their registers,
    shared memory, spills and CTAs an SM, where a serialized wgmma fails the
@@ -30,10 +26,7 @@ Phases; any failure exits non-zero:
    library fails the phase; K1's pre route with its registers (at most
    128), static shared memory, spills (none allowed) and CTAs an SM by
    registers, and its launch at 500 and 1,000 rows (the dynamic shared
-   memory it reserves, CTAs an SM: one and two); K13, K7, K10, K14 and K1's
-   other routes held by digests of their libraries' ``cuobjdump -sass`` to
-   the SASS their source compiled to before the pre route, under the nvcc
-   the digests were recorded with);
+   memory it reserves, CTAs an SM: one and two);
 3. each of the fourteen kernels, K2's imputation mode and K6's perturbing
    instantiation against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
@@ -65,19 +58,16 @@ Phases; any failure exits non-zero:
    the denoise, with 50 repeated calls bit-identical;
    K1 on the routes a forward takes (the pre layer on the pre route
    writing the bf16 copy, a block's first layer from the copy writing its
-   copy alone, the second with the residual), bit-equal to the fp32 route
-   (A rounded in registers; for the pre layer on x and W zero-padded to
-   K = 64) and its copies byte for byte the output rounded, each K = 1024
-   shape also timed on the fp32 route and the pre layer on the element
-   loads (whether their bits equal the pre route's printed), with bounds at
-   the handoff's bytes;
+   copy alone, the second with the residual), the pre layer bit-equal to
+   the pre route on x and W zero-padded to K = 64, and the copies byte for
+   byte the output rounded (a block's first layer's beside the fp32 output
+   the same launch writes), with bounds at the handoff's bytes;
    K1 also at completion's [1000, 63] pre layer (both routes) and
    [1000, 1024] residual block; K1's three layer
    shapes, K2's EM and score modes and K3 (its value and step size) also at
    the chunked metrics protocol's 50 rows; K2-K6's in-kernel
    normals read their seed from device memory (timed with a seed tensor
-   made once), each within 0.3 us of its time in PERF.md's table
-   (``TABLE_US``; every other kernel's delta printed); K2's imputation mode
+   made once); K2's imputation mode
    (the EM update, then the re-noise of its step and of the next) also bit
    for bit against K2 -> K4 -> K4 under host and in-kernel normals, with 50
    repeated calls bit-identical, and K6 with 50 repeated calls bit-identical;
@@ -99,8 +89,8 @@ Phases; any failure exits non-zero:
 5. the slices' protocols at flagship size, each with the launch counters
    set to 0 before it and read after it:
    (a) generation, 500 poses x 1000 sub-VP EM steps, in-kernel normals:
-   poses/s, K1's routes a call (4,000 from the bf16 copy, 1,000 element
-   loads, none from fp32 A), and the tensor maps K1 encodes a call (at most 8: its map cache
+   poses/s, K1's routes a call (4,000 from the bf16 copy, 1,000 on the pre
+   route), and the tensor maps K1 encodes a call (at most 8: its map cache
    holds them across launches); (b) the demo's generation task with ``--metrics`` (50 poses,
    then 500 poses x 1000 steps with the langevin corrector at eps 5e-3,
    through the SMPL body): APD must lie in [0.80, 1.00] and SI in [0, 100];
@@ -115,8 +105,8 @@ Phases; any failure exits non-zero:
    (c) completion by optimisation, 100 synthetic poses x 10 hypotheses,
    2x100 Adam steps, time strategy '3': solves/s, MPJPE and MPVPE, and the
    launches a solve (K5 1, K1 1,000, K6's perturbing instantiation 199, K6
-   with the paste 1) and K1's routes (800 from the bf16 copy, 200 element
-   loads);
+   with the paste 1) and K1's routes (800 from the bf16 copy, 200 on the
+   pre route);
    (d) the demo's ``completion`` task and its ``completion2`` task with
    ``--sampler pc``, ``ddim`` and ``hybrid``, 50 poses x 10 hypotheses, left
    leg masked, through the synthetic SMPL-X body: MPJPE must lie in (50, 400)
@@ -245,8 +235,6 @@ The self-intersection metric also needs ``g++`` (it builds its library under
 """
 import copy
 import ctypes
-import functools
-import hashlib
 import importlib.util
 import json
 import os
@@ -305,6 +293,8 @@ from dposer_tpu_torch.ops.rotations import estimate_focal_length  # noqa: E402
 from dposer_tpu_torch.tasks import DPoser, DPoserComp, MotionDenoise, SMPLify  # noqa: E402
 from dposer_tpu_torch.utils.masks import create_mask  # noqa: E402
 from fixtures import make_synthetic_body_model  # noqa: E402
+from portbench.peaks import (BF16_TC_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S,  # noqa: E402
+                             INT8_TC_OPS)
 
 ART = os.path.join(REPO, "artifacts", "trained_r5")
 CKPT = os.path.join(ART, "axis-zscore-400k-synth.pth")
@@ -319,11 +309,6 @@ TPU_MXU_KERNEL = "benchmarks/mxu_micro.py:61"
 TPU_ILP_KERNEL = "benchmarks/ilp_probe.py:85"
 CSRC = "dposer_tpu_torch/ops/cuda/csrc"
 
-# published H100 SXM peaks (dense), at the full 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-BF16_TC_FLOPS = 989e12
-INT8_TC_OPS = 1979e12
-FP32_FLOPS = 67e12
 APD_BAND = (0.80, 1.00)
 MPJPE_BAND, MPVPE_BAND = (50.0, 400.0), (5.0, 80.0)  # mm, tests/test_trained_artifact.py
 B, H, D = 500, 1024, 63
@@ -361,47 +346,6 @@ MOTION_STD = 0.04  # (m): the joints' noise in m
 MOTION_SHORT_STEPS, MOTION_BATCH_TOL, MOTION_MPJPE_RTOL = 20, 1e-5, 0.05
 SHARE_STEPS = 12  # the fitting phases' profiled window, Adam steps
 N_IMG, EHF_W, EHF_H, EHF_TOP_V = 8, 1600, 1200, 250.0  # (n): gen_synth_ehf.py's geometry
-# Each kernel row's device us per launch in PERF.md's table before the seed
-# moved to device memory (as the run that last changed the kernel until then
-# measured it), and the kernels that read their seed from device memory. The
-# programmatic launches' rows (K1, K2, K5, K6, K13) as chip_smoke's kernel
-# phase timed them once they launched so (graph replay of one kernel's
-# launches, each starting under the tail of the one before; NVIDIA H100
-# 80GB HBM3 at 700 W): K1 from 11.08, K2 3.60, its imputation 4.94, K5
-# 2.00, K6 4.45, its perturbing instantiation 4.69, K13 7.01
-TABLE_US = dict(dense_gn_silu=7.63, head_em=2.94, langevin_update=3.68, masked_renoise=1.83,
-                head_em_impute=4.33, comp_perturb=1.57, head_adam=4.19, head_adam_perturb=4.47,
-                dense_gn_silu_jvp=5.70, head_rk4=3.55, head_rk4_jvp=3.26,
-                dense_gn_silu_int8=6.74, chain_link=7.58, dense_gn_silu_train=18.39,
-                head_dsm=4.45, dense_gn_silu_bwd=18.78)
-SEED_KERNELS = ("head_em", "head_em_impute", "langevin_update", "masked_renoise", "comp_perturb",
-                "head_adam_perturb")
-# The SASS of a kernel as recorded from a source that compiled it beside an
-# instantiation added to its file (build.sass; sha256 of the text), and the
-# nvcc that compiled it: K2 without imputation (csrc/head_em.cu::
-# head_em_kernel, EM and score mode) and K6 without the next step's
-# perturbation (csrc/head_adam.cu::head_adam_kernel), both recorded from the
-# source whose sampling kernels launch programmatically (csrc/mbarrier.cuh:
-# the wait and the trigger in the kernels). Before it K2's was 878fe3d9...
-# (its seed read from device memory; before that 8020dc81..., recorded
-# before the imputation instantiation) and K6's 03b1a6bd... (recorded before
-# the perturbing instantiation, unchanged by the seed's move)
-K2_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
-               sha256="35d6e7187ccd1a280aa32b5c215ef57f8a5067d288b0806b7b65b96e6645c753")
-K6_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0",
-               sha256="2ec4c7aab89a03cfab0e29ca09eb741b69a58ce73862092d297aed1188fac0f9")
-# The SASS of whole libraries (sass_digest) as their source compiled before
-# K1's pre route (csrc/dense_gn_silu.cu's namespace pre) was added, under
-# the nvcc named: K13 (dense_gemm_int8.cuh's and the Hopper int8 loop), K7
-# and K10 (their pre layers on dense_gemm.cuh), K14, and K1 without its
-# pre route's functions; the pre route left every one of them as it was
-PARENT_SASS = dict(nvcc="Build cuda_12.9.r12.9/compiler.36037853_0", sha256=dict(
-    dense_gn_silu_int8="0e64094e2f6fde1995874afe7af60bb9d8776807e335b5516c117c54951d2267",
-    dense_gn_silu_jvp="186fafdecc6f287e5b0acf27824b4c84705258a22e51c6bc68d2a69d755e0505",
-    dense_gn_silu_train="2f85623ad0a222419c5bc7a2dffba80abc7384b13e6ffd067afc9f1fbdb9233c",
-    chain_link="10a98582ff0b6a4c192ca34e0cef0cc4b7f49f563dd72d67385daff065092e15",
-    dense_gn_silu="a790232bf7f8befc81000825c86cfd0ff8f300e54edde264a13a2ca81ffdc0bd"))
-
 
 class PhaseError(RuntimeError):
     pass
@@ -544,18 +488,15 @@ def ptxas_entries(log, word):
 
 def wgmma_instantiations(logs):
     """Registers, static shared memory and spills of every instantiation of
-    the Hopper main loop (``csrc/dense_wgmma.cuh``, in K1 and K14) from the
-    ``-Xptxas -v`` logs, and the dynamic shared memory of its two rings."""
+    the Hopper main loop from fp32 A (``csrc/dense_wgmma.cuh``, in K14) from
+    the ``-Xptxas -v`` log, and the dynamic shared memory of its two rings."""
     rows = []
-    for lib in ("dense_gn_silu", "chain_link"):
-        for e in ptxas_entries(logs.get(lib, ""), "wgmma_kernel"):
-            if "handoff" in e["entry"]:  # K1's bf16 route: k1_bf16_instantiations
-                continue
-            base = re.search(r"(dense_gn_silu|chain_link)_wgmma_kernel", e["entry"]).group(0)
-            args = ",".join(re.findall(r"L[ib](\d+)E", e["entry"]))
-            rows.append(dict(library=lib, kernel=f"{base}<{args}>", registers=e["registers"],
-                             static_smem=e["static_smem"], spills=e["spills"]))
-    fn = build.load("dense_gn_silu").dposer_wgmma_smem_bytes
+    for e in ptxas_entries(logs.get("chain_link", ""), "chain_link_wgmma_kernel"):
+        args = ",".join(re.findall(r"L[ib](\d+)E", e["entry"]))
+        rows.append(dict(library="chain_link", kernel=f"chain_link_wgmma_kernel<{args}>",
+                         registers=e["registers"], static_smem=e["static_smem"],
+                         spills=e["spills"]))
+    fn = build.load("chain_link").dposer_wgmma_smem_bytes
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
     return rows, dict(wide=fn(1), narrow=fn(0))
 
@@ -637,71 +578,6 @@ def train_launch(lib, n):
     out = (ctypes.c_int * 4)()
     check(fn(n, out) == 0 and out[3] >= 1, f"{lib}: no CTA fits an SM ({list(out)})")
     return dict(zip(("threads", "dynamic_smem", "tile_rows", "ctas_per_sm"), list(out)))
-
-
-def nvcc_release():
-    """The ``Build ...`` line of ``nvcc --version``: the compiler a SASS
-    digest belongs to."""
-    out = subprocess.run([build.nvcc_path(), "--version"], capture_output=True, text=True,
-                         timeout=60).stdout
-    return out.strip().splitlines()[-1].strip()
-
-
-def check_sass(lib, kept, added, recorded):
-    """``kept`` (an entry function of ``lib``: K2's ``head_em_kernel``, K6's
-    ``head_adam_kernel``) must compile to its recorded SASS while ``added``
-    is instantiated beside it: its ``cuobjdump -sass`` text (offsets,
-    instructions, encodings) hashes to the digest ``recorded`` under the same
-    nvcc (``K2_SASS``, ``K6_SASS`` say from which source). Under another
-    nvcc the digest is printed and not compared."""
-    funcs = build.sass(build.library_path(lib))
-    names = {k: [f for f in funcs if re.search(rf"{len(k)}{k}[EI]", f)] for k in (kept, added)}
-    check(all(len(v) == 1 for v in names.values()), f"{lib}: entry functions {list(funcs)}")
-    text = funcs[names[kept][0]]
-    digest = hashlib.sha256(text.encode()).hexdigest()
-    release = nvcc_release()
-    same = release == recorded["nvcc"]
-    print(f"[build] {kept} SASS: {len(text.splitlines())} lines, sha256 {digest[:16]}; "
-          f"recorded {recorded['sha256'][:16]} under {recorded['nvcc']!r}, beside {added}: "
-          + (("identical" if digest == recorded["sha256"] else "DIFFERENT") if same
-             else f"not compared (this nvcc: {release!r})"))
-    if same:
-        check(digest == recorded["sha256"], f"{kept}'s SASS differs from the recorded one")
-    return dict(sha256=digest, nvcc=release, recorded=recorded, compared=same,
-                identical=digest == recorded["sha256"])
-
-
-def sass_digest(lib, skip=None):
-    """(functions, sha256) of a built library's SASS (build.sass): each
-    entry function's name (the hash of the source's path that names its
-    anonymous namespace taken out, so any checkout gives the same) and the
-    sha256 of its text, one a line, sorted by name; functions whose name
-    holds ``skip`` left out."""
-    funcs = {re.sub(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "N_GLOBAL__N_", f): t
-             for f, t in build.sass(build.library_path(lib)).items()}
-    lines = [f"{f} {hashlib.sha256(t.encode()).hexdigest()}" for f, t in sorted(funcs.items())
-             if skip is None or skip not in f]
-    return len(lines), hashlib.sha256("\n".join(lines).encode()).hexdigest()
-
-
-def check_parent_sass():
-    """K13, K7, K10, K14 and K1's routes other than the pre route must
-    compile to ``PARENT_SASS`` under its nvcc (else the digests are printed
-    and not compared)."""
-    release = nvcc_release()
-    same = release == PARENT_SASS["nvcc"]
-    out = {}
-    for lib, want in PARENT_SASS["sha256"].items():
-        n, digest = sass_digest(lib, "3pre" if lib == "dense_gn_silu" else None)
-        out[lib] = dict(functions=n, sha256=digest, identical=digest == want, compared=same)
-        print(f"[build] {lib} SASS ({n} functions" + (", the pre route's left out"
-                                                      if lib == "dense_gn_silu" else "")
-              + f"): sha256 {digest[:16]}, the parent's {want[:16]}: "
-              + (("identical" if digest == want else "DIFFERENT") if same
-                 else f"not compared (this nvcc: {release!r})"))
-        if same:
-            check(digest == want, f"{lib}'s SASS differs from the parent's")
-    return out
 
 
 def k1_pre_instantiations(logs):
@@ -859,15 +735,10 @@ def phase_build():
     print(f"[build] train kernels: ptxas lines reporting serialized wgmma: "
           f"{len(train_serialized)}" + "".join(f"\n    {ln}" for ln in train_serialized))
     check(not train_serialized, "ptxas serialized a wgmma of K10 or K12")
-    k2_sass = check_sass("head_em", "head_em_kernel", "head_em_impute_kernel", K2_SASS)
-    k6_sass = check_sass("head_adam", "head_adam_kernel", "head_adam_perturb_kernel", K6_SASS)
-    parent_sass = check_parent_sass()
     return secs, dict(instantiations=rows, dynamic_smem=dyn, cluster_kernels=clusters,
                       k1_bf16_instantiations=k1_rows, k1_bf16_launch=k1_launch,
                       k1_pre_instantiations=pre_rows, k1_pre_launch=pre_launch,
-                      parent_sass=parent_sass,
                       k1_serialized_wgmma=k1_serialized,
-                      k2_sass=k2_sass, k6_sass=k6_sass,
                       int8_instantiations=rows8, int8_dynamic_smem=dyn8,
                       serialized_wgmma=serialized, likelihood_serialized_wgmma=jvp_serialized,
                       train_kernels=train_kernels, train_serialized_wgmma=train_serialized)
@@ -911,12 +782,10 @@ def phase_kernels(model, dev):
     # its copy alone; the second with the residual, the fp32 output and the
     # copy), the pre layer and the residual block at completion's 1000 rows
     # (one and two CTAs an SM for the pre route, the deep and the shallow
-    # ring of the bf16 route: 128 and 256 CTAs), the pre layer beside it on
-    # the element loads (the route before it; its bits against the pre
-    # route's reported) and each K = 1024 shape on the fp32 route (A
-    # rounded in registers, dense_wgmma.cuh), whose output the bf16 route's
-    # must equal bit for bit, as the pre route's must equal the fp32
-    # route's on x and W zero-padded to K = 64
+    # ring of the bf16 route: 128 and 256 CTAs); the pre route's output must
+    # equal its own on x and W zero-padded to K = 64 bit for bit, and each
+    # copy the output rounded (a block's first layer's the output the same
+    # route writes beside it)
     h = score_net.dense_gn_silu_plain(x, W[0], tp[0], gs[0], gb[0])
     h1 = score_net.dense_gn_silu_plain(h, W[1], tp[1], gs[1], gb[1])
     xc = torch.randn(RC, D, generator=torch.Generator(device=dev).manual_seed(1000), device=dev)
@@ -926,55 +795,41 @@ def phase_kernels(model, dev):
     for label, a, j, res, route in (
             ("pre [500,63]x[63,1024]", x, 0, None, "pre"),
             ("pre/1000 [1000,63]x[63,1024]", xc, 0, None, "pre"),
-            ("element:pre [500,63]x[63,1024]", x, 0, None, "element"),
-            ("element:pre/1000 [1000,63]x[63,1024]", xc, 0, None, "element"),
             ("block [500,1024]x[1024,1024]", h, 1, None, "bf16"),
             ("block+residual [500,1024]x[1024,1024]", h1, 2, h, "bf16"),
-            ("block+residual/1000 [1000,1024]x[1024,1024]", hc1, 2, hc, "bf16"),
-            ("fp32:block [500,1024]x[1024,1024]", h, 1, None, "fp32"),
-            ("fp32:block+residual [500,1024]x[1024,1024]", h1, 2, h, "fp32"),
-            ("fp32:block+residual/1000 [1000,1024]x[1024,1024]", hc1, 2, hc, "fp32")):
+            ("block+residual/1000 [1000,1024]x[1024,1024]", hc1, 2, hc, "bf16")):
         args = (a, W[j], tp[j], gs[j], gb[j])
         R, K = a.shape
         ref = score_net.dense_gn_silu_plain(*args, res)
         a_b = a.to(torch.bfloat16) if route == "bf16" else None
+        a_in = None if route == "bf16" else a
         # the first layer of a block writes its copy alone; the others also
         # their fp32 output
         write_out = route != "bf16" or res is not None
         o = torch.empty_like(ref) if write_out else None
         o_b = torch.empty(R, H, dtype=torch.bfloat16, device=dev)
         kw = dict(a_b=a_b, out_b=o_b, write_out=write_out)
-        a_in = None if route == "bf16" else a
-        if route == "element":  # forced: the wrapper takes the pre route at K = 63
-            kw = dict(out_b=o_b)
-        call = (functools.partial(score_net.dense_gn_silu_on_route, "register")
-                if route == "element" else score_net.dense_gn_silu)
         fused_em.reset_launch_counts()
-        got = call(a_in, *args[1:], residual=res, out=o, **kw)
+        got = score_net.dense_gn_silu(a_in, *args[1:], residual=res, out=o, **kw)
         torch.cuda.synchronize()
         counted = fused_em.route_counts()["dense_gn_silu"]
-        if route != "element":
-            want_route = {"bf16": "wgmma_bf16", "fp32": "wgmma", "pre": "pre_wgmma"}[route]
-            check(counted[want_route] == 1, f"dense_gn_silu {label}: routes {counted}")
-        if route == "pre":  # the fp32 route on x and W zero-padded to K = 64
+        want_route = {"bf16": "wgmma_bf16", "pre": "pre_wgmma"}[route]
+        check(counted[want_route] == 1, f"dense_gn_silu {label}: routes {counted}")
+        same, out = None, got
+        if route == "pre":  # the pre route on x and W zero-padded to K = 64
             a64 = torch.zeros(R, 64, device=dev)
             a64[:, :K] = a
             w64 = torch.zeros(64, H, dtype=torch.bfloat16, device=dev)
             w64[:K] = W[j]
-            out = score_net.dense_gn_silu_on_route("wgmma", a64, w64, *args[2:], residual=res)
-        else:  # the fp32 route at K = 1024, the pre route at K = 63
-            out = score_net.dense_gn_silu(*args, residual=res)
+            same = bool(torch.equal(got, score_net.dense_gn_silu(a64, w64, *args[2:])))
+            check(same, f"dense_gn_silu {label}: not bit-equal to the pre route at K = 64")
+        elif not write_out:  # the same route writing the fp32 output beside its copy
+            out = score_net.dense_gn_silu(None, *args[1:], residual=res, a_b=a_b)
         torch.cuda.synchronize()
-        e = err(got if route in ("pre", "element") else out, ref)
+        e = err(out, ref)
         tol = 1e-3 * max(1.0, float(ref.abs().max()))
         check(e <= tol, f"dense_gn_silu {label}: max abs err {e} > {tol}")
-        same = bool(torch.equal(got, out)) if write_out else None
-        if route == "element":
-            print(f"[kernel] dense_gn_silu {label}: the element loads' output bit-equal to the "
-                  f"pre route's: {same}")
-        elif write_out:
-            check(same, f"dense_gn_silu {label}: not bit-equal to the fp32 route")
-        check(torch.equal(o_b, (got if route == "element" else out).to(torch.bfloat16)),
+        check(torch.equal(o_b, out.to(torch.bfloat16)),
               f"dense_gn_silu {label}: the bf16 copy is not the output rounded")
         # each input byte read once, each output byte written once: A (fp32 or
         # the bf16 copy), W, the three rows, the residual, the fp32 output
@@ -985,7 +840,7 @@ def phase_kernels(model, dev):
         a16 = a.to(torch.bfloat16)
 
         def launch():
-            return call(a_in, *args[1:], residual=res, out=o, **kw)
+            return score_net.dense_gn_silu(a_in, *args[1:], residual=res, out=o, **kw)
 
         def library():
             y = torch.matmul(a16, W[j]).float() + tp[j]
@@ -1184,13 +1039,15 @@ def chunk_row_checks(net, coefs, lc, x, z, i, dev, rows=BM):
                              ("block+residual", hs1, 2, hs)):
         args = (a, W[j], tp[j], gs[j], gb[j])
         ref = score_net.dense_gn_silu_plain(*args, res)
-        out = score_net.dense_gn_silu(*args, residual=res)
+        # the K = 1024 layers from the bf16 copy, the pre layer from fp32 x
+        kw = dict(a_b=a.to(torch.bfloat16)) if label != "pre" else {}
+        out = score_net.dense_gn_silu(*args, residual=res, **kw)
         torch.cuda.synchronize()
         e, tol = err(out, ref), 1e-3 * max(1.0, float(ref.abs().max()))
         check(e <= tol, f"dense_gn_silu {label} at {rows} rows: max abs err {e} > {tol}")
         o = torch.empty_like(ref)
         small[0][label] = dict(max_abs_err=e, tol=tol, ms=graph_ms(
-            lambda: score_net.dense_gn_silu(*args, residual=res, out=o)))
+            lambda: score_net.dense_gn_silu(*args, residual=res, out=o, **kw)))
     hid_s = torch.empty(rows, H, device=dev)
     score_net.network_hidden(net, xs, i, hid_s, torch.empty_like(hid_s))
     xs_ref, xms_ref = fused_em.head_em_plain(hid_s, wp, bp, coefs, i, "em", D, x=xs, noise=zs)
@@ -1748,7 +1605,7 @@ def phase_completion_protocols(model, dev):
     # a forward: the pre layer on the pre route, four layers on the bf16 copy
     k1_routes = fused_em.route_counts()["dense_gn_silu"]
     print(f"[completion] K1's routes a solve: {k1_routes}")
-    check(k1_routes == dict(wgmma_bf16=800, wgmma=0, pre_wgmma=200, register=0),
+    check(k1_routes == dict(wgmma_bf16=800, pre_wgmma=200),
           f"solver: K1's routes a solve {k1_routes}")
     check(hypos.shape == (100, HYPO, D) and torch.isfinite(hypos).all().item(), "solver output")
     check(torch.equal(hypos * mask[:, None], (obs * mask)[:, None].expand_as(hypos)),
@@ -3122,7 +2979,7 @@ def phase_protocols(model, dev):
     # a forward: the pre layer on the pre route, four layers on the bf16 copy
     k1_routes = fused_em.route_counts()["dense_gn_silu"]
     print(f"[generation] K1's routes a call: {k1_routes}")
-    check(k1_routes == dict(wgmma_bf16=4000, wgmma=0, pre_wgmma=1000, register=0),
+    check(k1_routes == dict(wgmma_bf16=4000, pre_wgmma=1000),
           f"generation: K1's routes a call {k1_routes}")
     # K1 encodes its tensor maps once per (pointer, shape) and caches them: a
     # call's four K = 1024 layers need two activation and four weight maps
@@ -3400,23 +3257,6 @@ def phase_graphs(model, dev, amax):
     print(f"[graph] {len(res)} routes: graph bit-equal to eager in "
           f"{time.perf_counter() - t0:.1f} s")
     return res
-
-
-def check_table_times(rows):
-    """Each kernel's device time in this run beside its time in PERF.md's
-    table before the seed moved to device memory (``TABLE_US``), printed;
-    the kernels that read it there (K2-K6) must stay within 0.3 us of
-    theirs."""
-    for r in rows:
-        was = TABLE_US.get(r["name"])
-        if was is None:
-            continue
-        now = r["ms"] * 1e3
-        r["table_us"] = was
-        print(f"[table] {r['name']}: {now:.2f} us, table {was:.2f} ({now - was:+.2f})")
-        if r["name"] in SEED_KERNELS:
-            check(now <= was + 0.3, f"{r['name']}: {now:.2f} us, more than 0.3 us over the "
-                                    f"table's {was:.2f}")
 
 
 def bench_line():
@@ -5247,7 +5087,6 @@ def main():
             r["launches_by_run"] = {k: v[r["name"]] for k, v in by_run.items()}
             r["launches"] = sum(r["launches_by_run"].values())
             check(r["launches"] > 0, f"kernel {r['name']} was never launched on a main path")
-        check_table_times(rows)
         bench = bench_line()
     except PhaseError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -1,28 +1,23 @@
-"""K1's pre layer on its routes and load variants, on the card.
+"""K1's pre layer on its load variants, on the card.
 
 The pre layer reads the [B, 63] fp32 state: a 252-byte row stride that TMA
 cannot take. ``ops/cuda/csrc/dense_gn_silu.cu``'s pre route loads a 64-row
 block of it (one contiguous span) into shared memory, rounds it once into
 the swizzled bf16 tile and runs one ``wgmma`` stage. Timed here at
 generation's 500 rows and completion's 1,000, by CUDA-graph replay, in
-turns:
-
-- the pre route as shipped (one bulk copy a span where it starts 16-byte
-  aligned; one CTA an SM where the grid fits the SMs once, two beyond, by
-  the shared memory a launch reserves) and with the source's lines
-  substituted: two CTAs an SM at every size, no reservation (as many as
-  the registers allow), the span read by every thread's 16-byte loads;
-- the element loads (``dense_gemm.cuh``'s WMMA loop, the route before) and
-  the fp32 Hopper route on the operands zero-padded to K = 64, both on the
-  shipped build.
+turns: the pre route as shipped (one bulk copy a span where it starts
+16-byte aligned; one CTA an SM where the grid fits the SMs once, two beyond,
+by the shared memory a launch reserves) and with the source's lines
+substituted: two CTAs an SM at every size, no reservation (as many as the
+registers allow), the span read by every thread's 16-byte loads.
 
 Each alone (a launch chained to itself) and followed by a block's first
 K = 1024 layer on the bf16 route reading the copy it wrote, as in a
 sampler's chain; every launch is programmatic (``csrc/mbarrier.cuh``).
-Then each variant's build (the element loads' too, as the wrapper routes
-them) under a generation call at 500 rows x 1,000 steps and a completion
-solve at 1,000 rows x 200 steps, their graphs captured on it. Every
-output is compared bit for bit with the shipped pre route's.
+Then each variant's build under a generation call at 500 rows x 1,000
+steps and a completion solve at 1,000 rows x 200 steps, their graphs
+captured on it. Every output is compared bit for bit with the shipped
+build's.
 
     python -m dposer_tpu_torch.benchmarks.k1_pre [--rounds 2]
 
@@ -46,7 +41,6 @@ from ..ops.cuda import build
 from .train_rings import graph_us
 
 H, D = 1024, 63
-ROUTE = dict(pre=3, element=4, fp32=2, bf16=1)  # dposer_dense_gn_silu_on_route's codes
 BULK = ("  const int n_bulk = reinterpret_cast<uintptr_t>(span) % 16 == 0 ? n & ~3 : 0;\n")
 LOADS = ("  if (tid == 0 && n_bulk > 0) bulk_copy(sm_s + RAW, span, 4 * n_bulk, bar);\n"
          "  for (int i = n_bulk + tid; i < n; i += THREADS) raw[i] = span[i];\n")
@@ -65,8 +59,6 @@ VARIANTS = {
         (LOADS, "  for (int i = tid; i < n_vec / 4; i += THREADS)\n"
                 "    reinterpret_cast<float4*>(raw)[i] = reinterpret_cast<const float4*>(span)[i];\n"
                 "  for (int i = n_vec + tid; i < n; i += THREADS) raw[i] = span[i];\n")],
-    # the route before: the element loads (dense_gemm.cuh's WMMA loop)
-    "element loads": [("  if (pre::ok(W, K, N)) return kPre;\n", "")],
 }
 
 
@@ -99,47 +91,44 @@ def compile_all(work: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {variant!r}:\n{log}")
         libs[variant] = ctypes.CDLL(str(lib))
-        fn = libs[variant].dposer_dense_gn_silu_on_route
+        fn = libs[variant].dposer_dense_gn_silu
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes, fn.restype = [I] + [P] * 9 + [I, I, I, P], I
+        fn.argtypes, fn.restype = [P] * 9 + [I, I, I, P], I
     return libs
 
 
 def operands(dev, B: int) -> dict:
-    """The pre layer's operands at ``B`` rows (and zero-padded to K = 64),
-    the next layer's weights, and the outputs."""
+    """The pre layer's operands at ``B`` rows, the next layer's weights, and
+    the outputs."""
     g = torch.Generator(device=dev).manual_seed(B)
 
     def rn(*s, sc=1.0, dt=torch.float32):
         return (sc * torch.randn(*s, generator=g, device=dev)).to(dt)
 
-    x, w0 = rn(B, D), rn(D, H, sc=D ** -0.5, dt=torch.bfloat16)
-    x64, w64 = torch.zeros(B, 64, device=dev), torch.zeros(64, H, dtype=torch.bfloat16, device=dev)
-    x64[:, :D], w64[:D] = x, w0
-    return dict(x=x, w0=w0, x64=x64, w64=w64, w1=rn(H, H, sc=H ** -0.5, dt=torch.bfloat16),
+    return dict(x=rn(B, D), w0=rn(D, H, sc=D ** -0.5, dt=torch.bfloat16),
+                w1=rn(H, H, sc=H ** -0.5, dt=torch.bfloat16),
                 rows=[rn(H), 1 + rn(H, sc=0.1), rn(H, sc=0.1)],
                 h=torch.empty(B, H, device=dev),
                 hq=torch.empty(B, H, dtype=torch.bfloat16, device=dev),
                 h1q=torch.empty(B, H, dtype=torch.bfloat16, device=dev), B=B)
 
 
-def launcher(lib, route: str, o: dict, chain: bool):
-    """A callable that launches the pre layer on ``route`` (and, with
-    ``chain``, a block's first layer after it) on the current stream."""
-    fn = lib.dposer_dense_gn_silu_on_route
-    x, w = (o["x64"], o["w64"]) if route == "fp32" else (o["x"], o["w0"])
+def launcher(lib, o: dict, chain: bool):
+    """A callable that launches the pre layer (and, with ``chain``, a block's
+    first layer after it) on the current stream."""
+    fn = lib.dposer_dense_gn_silu
     tp, gm, bt = (t.data_ptr() for t in o["rows"])
-    K, B = x.shape[1], o["B"]
+    B = o["B"]
 
     def run():
         s = torch.cuda.current_stream().cuda_stream
-        err = fn(ROUTE[route], x.data_ptr(), None, w.data_ptr(), tp, gm, bt, None,
-                 o["h"].data_ptr(), o["hq"].data_ptr(), B, K, H, s)
+        err = fn(o["x"].data_ptr(), None, o["w0"].data_ptr(), tp, gm, bt, None,
+                 o["h"].data_ptr(), o["hq"].data_ptr(), B, D, H, s)
         if chain and not err:
-            err = fn(ROUTE["bf16"], None, o["hq"].data_ptr(), o["w1"].data_ptr(), tp, gm, bt,
-                     None, None, o["h1q"].data_ptr(), B, H, H, s)
+            err = fn(None, o["hq"].data_ptr(), o["w1"].data_ptr(), tp, gm, bt, None, None,
+                     o["h1q"].data_ptr(), B, H, H, s)
         if err:
-            raise RuntimeError(f"{route}: CUDA error {err}")
+            raise RuntimeError(f"CUDA error {err}")
     return run
 
 
@@ -206,18 +195,16 @@ def main(argv=None) -> dict:
     with tempfile.TemporaryDirectory(prefix="k1_pre_") as work:
         libs = compile_all(Path(work))
         ops = {B: operands(dev, B) for B in (500, 1000)}
-        runs = ([(v, "pre") for v in VARIANTS if v != "element loads"]
-                + [("shipped", "element"), ("shipped", "fp32")])
-        for B, o in ops.items():  # outputs: each run's (h, hq) against the shipped pre route's
+        for B, o in ops.items():  # outputs: each variant's (h, hq) against the shipped build's
             outs = {}
-            for variant, route in runs:
-                launcher(libs[variant], route, o, False)()
+            for variant in VARIANTS:
+                launcher(libs[variant], o, False)()
                 torch.cuda.synchronize()
-                outs[(variant, route)] = (o["h"].clone(), o["hq"].clone())
-            ref = outs[("shipped", "pre")]
-            for key, (h, hq) in outs.items():
-                bits[f"{key[0]}/{key[1]} [{B}]"] = bool(torch.equal(h, ref[0])
-                                                        and torch.equal(hq, ref[1]))
+                outs[variant] = (o["h"].clone(), o["hq"].clone())
+            ref = outs["shipped"]
+            for variant, (h, hq) in outs.items():
+                bits[f"{variant} [{B}]"] = bool(torch.equal(h, ref[0])
+                                                and torch.equal(hq, ref[1]))
         calls = sampler_calls(dev)
         try:
             for name, make in calls.items():  # a call's output on each variant, same seed
@@ -227,11 +214,11 @@ def main(argv=None) -> dict:
                     ref = out if ref is None else ref
                     bits[f"{variant}: {name}"] = bool(torch.equal(out, ref))
             for r in range(args.rounds):
-                for variant, route in runs + runs[::-1]:
+                for variant in list(VARIANTS) + list(VARIANTS)[::-1]:
                     for B, o in ops.items():
                         for chain in (False, True):
-                            us = graph_us(launcher(libs[variant], route, o, chain))
-                            key = f"{variant}/{route}" + (" + block layer" if chain else "")
+                            us = graph_us(launcher(libs[variant], o, chain))
+                            key = variant + (" + block layer" if chain else "")
                             times.setdefault(key, {}).setdefault(str(B), []).append(us)
                             print(f"[k1_pre] round {r} {key}: [{B}] {us:.2f} us")
                 for variant in list(VARIANTS) + list(VARIANTS)[::-1]:
@@ -241,8 +228,7 @@ def main(argv=None) -> dict:
                         print(f"[k1_pre] round {r} {variant}: {name} {ms:.3f} ms a call")
         finally:  # the samplers built here took the variants' libraries
             build._loaded.pop("dense_gn_silu", None)
-    print(f"[k1_pre] bit-equal to the shipped pre route (kernels) and to the shipped build "
-          f"(calls): {bits}")
+    print(f"[k1_pre] bit-equal to the shipped build (kernels and calls): {bits}")
     print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi, "us": times,
                       "bit_equal": bits}))
     return times

@@ -10,10 +10,9 @@ substituted, compiled into a
 temporary directory, and timed by CUDA-graph replay beside the shipped build,
 in turns, at the network's shapes: a block's first layer (the copy alone)
 and its second (the residual, the fp32 output and the copy) at generation's
-500 rows, and the second at completion's 1,000; the shipped build's fp32
-route (A rounded in registers) at the same shapes beside them. Every route
-is a programmatic launch (``csrc/mbarrier.cuh``), so in the replayed graph
-each launch starts its prologue under the tail of the one before, as in a
+500 rows, and the second at completion's 1,000. Every launch is
+programmatic (``csrc/mbarrier.cuh``), so in the replayed graph each launch
+starts its prologue under the tail of the one before, as in a
 sampler's chain.
 
     python -m dposer_tpu_torch.benchmarks.k1_rings [--rounds 2]
@@ -89,9 +88,9 @@ def compile_all(work: Path) -> dict:
 
 
 def shapes(dev) -> dict:
-    """``{shape: call(lib, route)}``: the operands of a shape and a callable
-    that launches ``lib``'s K1 on them (route ``"bf16"`` from the copy,
-    ``"fp32"`` from fp32 A) on the current stream."""
+    """``{shape: call(lib)}``: the operands of a shape and a callable that
+    launches ``lib``'s K1 on them from the bf16 copy on the current
+    stream."""
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rn(*s, sc=1.0, dt=torch.float32):
@@ -101,20 +100,18 @@ def shapes(dev) -> dict:
     for label, B, with_res, write_out in (("block first [500,1024]", 500, False, False),
                                           ("block+residual [500,1024]", 500, True, True),
                                           ("block+residual [1000,1024]", 1000, True, True)):
-        a, w = rn(B, H), rn(H, H, sc=H ** -0.5, dt=torch.bfloat16)
-        ab = a.to(torch.bfloat16)
+        ab, w = rn(B, H, dt=torch.bfloat16), rn(H, H, sc=H ** -0.5, dt=torch.bfloat16)
         tp, gm, bt = rn(H), 1 + rn(H, sc=0.1), rn(H, sc=0.1)
         res = rn(B, H) if with_res else None
         o = torch.empty(B, H, device=dev) if write_out else None
         ob = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
 
-        def call(lib, route, a=a, ab=ab, w=w, tp=tp, gm=gm, bt=bt, res=res, o=o, ob=ob, B=B):
+        def call(lib, ab=ab, w=w, tp=tp, gm=gm, bt=bt, res=res, o=o, ob=ob, B=B):
             fn = lib.dposer_dense_gn_silu
             P, I = ctypes.c_void_p, ctypes.c_int
             fn.argtypes, fn.restype = [P] * 9 + [I, I, I, P], I
-            ptr = [a.data_ptr() if route == "fp32" else None,
-                   ab.data_ptr() if route == "bf16" else None, w.data_ptr(), tp.data_ptr(),
-                   gm.data_ptr(), bt.data_ptr(), None if res is None else res.data_ptr(),
+            ptr = [None, ab.data_ptr(), w.data_ptr(), tp.data_ptr(), gm.data_ptr(),
+                   bt.data_ptr(), None if res is None else res.data_ptr(),
                    None if o is None else o.data_ptr(), ob.data_ptr()]
             return lambda: fn(*ptr, B, H, H, torch.cuda.current_stream().cuda_stream)
         out[label] = call
@@ -134,19 +131,17 @@ def main(argv=None) -> dict:
     with tempfile.TemporaryDirectory(prefix="k1_rings_") as work:
         libs = compile_all(Path(work))
         cases = shapes(dev)
-        runs = [(v, "bf16") for v in VARIANTS] + [("shipped", "fp32")]
         for r in range(args.rounds):
-            for variant, route in runs + runs[::-1]:
+            for variant in list(VARIANTS) + list(VARIANTS)[::-1]:
                 for label, call in cases.items():
-                    run = call(libs[variant], route)
+                    run = call(libs[variant])
                     err = run()
                     torch.cuda.synchronize()
                     if err:
-                        raise RuntimeError(f"{variant} {route} {label}: CUDA error {err}")
+                        raise RuntimeError(f"{variant} {label}: CUDA error {err}")
                     us = graph_us(lambda: run())
-                    key = variant if route == "bf16" else "shipped, fp32 A"
-                    times.setdefault(key, {}).setdefault(label, []).append(us)
-                    print(f"[k1_rings] round {r} {key}: {label} {us:.2f} us")
+                    times.setdefault(variant, {}).setdefault(label, []).append(us)
+                    print(f"[k1_rings] round {r} {variant}: {label} {us:.2f} us")
     print(json.dumps({"device": torch.cuda.get_device_name(0), "smi": smi, "hidden": H,
                       "us": times}))
     return times

@@ -98,35 +98,12 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def tma_encodes(name: str) -> int:
-    """Tensor maps that the library of kernel ``name`` (K1 or K14, whose main
-    loop is ``csrc/dense_wgmma.cuh``) has encoded since it was loaded: the
-    misses of its map cache."""
+    """Tensor maps that the library of kernel ``name`` (K1 or K14, whose
+    sources include ``csrc/dense_wgmma.cuh``) has encoded since it was
+    loaded: the misses of its map cache."""
     fn = load(name).dposer_tma_encodes
     fn.argtypes, fn.restype = [], ctypes.c_longlong
     return int(fn())
-
-
-def sass(library) -> Dict[str, str]:
-    """``{function: SASS}`` of a built library (``library_path(name)``, or
-    any other tree's), from ``cuobjdump -sass``: each entry function's
-    instructions with their offsets and encodings, one a line with its
-    spaces collapsed (the tool pads its columns to the library's longest
-    line), its name and header lines left out, so two builds of the same
-    device code give equal texts."""
-    tool = Path(nvcc_path()).with_name("cuobjdump")
-    out = subprocess.run([str(tool), "-sass", str(library)], capture_output=True,
-                         text=True, timeout=300, check=True).stdout
-    funcs: Dict[str, list] = {}
-    lines = None
-    for ln in out.splitlines():
-        text = ln.strip()
-        if text.startswith("Function :"):
-            lines = funcs.setdefault(text.split(":", 1)[1].strip(), [])
-        elif lines is not None and text.startswith("/*"):
-            lines.append(" ".join(text.split()))
-        elif lines is not None and text.startswith("...."):
-            lines = None
-    return {fn: "\n".join(body) for fn, body in funcs.items()}
 
 
 if __name__ == "__main__":

@@ -32,9 +32,9 @@
 // faster is int8" is at best the ratio of bytes, not of tensor-core rates.
 //
 // Design: the bf16 modes run dense_wgmma.cuh's Hopper main loop (a TMA ring
-// with mbarriers, a producer warp, wgmma with A from registers), the loop K1
-// runs at K = 1024, and the gn-silu mode adds gn_epilogue.cuh, so a
-// link times exactly what K1 spends on its matmul and its epilogue. The int8
+// with mbarriers, a producer warp, wgmma with A from registers), and the
+// gn-silu mode adds gn_epilogue.cuh, so a link times a matmul from fp32 A
+// and K1's epilogue. The int8
 // mode runs K13's loops: dense_wgmma_int8.cuh (TMA, wgmma s8 from shared
 // memory) on an int8 Aq, dense_gemm_int8.cuh on a fp32 A. The state update
 // is unfused multiplies and an add, as the plain version rounds them.

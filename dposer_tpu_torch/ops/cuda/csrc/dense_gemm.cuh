@@ -2,11 +2,9 @@
 // device code:
 //   C[r, c] = sum_k bf16(A[r, k]) * W[k, c]
 // Its users: K7 dense_gn_silu_jvp (STACKED) and K10 dense_gn_silu_train on
-// their register routes (fp32 A: the pre layer at K = 63), and K1
-// dense_gn_silu only where TMA cannot address A (K % 4 != 0, the pre layer
-// at K = 63, or a misaligned operand); K1's other layers from fp32 A and
-// K14's bf16 modes run dense_wgmma.cuh, K1's, K10's bf16 layers and K12
-// dense_wgmma_ss.cuh.
+// their register routes (fp32 A: the pre layer at K = 63); K14's bf16 modes
+// run dense_wgmma.cuh, K1's, K10's bf16 layers and K12 dense_wgmma_ss.cuh,
+// and K1's pre layer its own one-stage tile (dense_gn_silu.cu).
 // Its constants (BM, BN, C_LD, THREADS), group_sum and quant8 are those of
 // gn_epilogue.cuh, dense_wgmma.cuh and the int8 loops (dense_gemm_int8.cuh,
 // dense_wgmma_int8.cuh) too.

@@ -14,7 +14,7 @@
 // do not fit an SM's shared memory, so each layer is one launch and the
 // weights are re-read from the 50 MB L2 every step.
 //
-// Design: four routes, chosen by the operand, never as a fallback.
+// Design: two routes, chosen by the operand, never as a fallback.
 // - Given Ab, the bf16 copy of A that the layer before wrote (every K = 1024
 //   layer of network_hidden), the bf16 route: dense_wgmma_ss.cuh's loop
 //   (warp 4 starts TMA copies of the copy and W into a ring of 64-column
@@ -26,29 +26,25 @@
 // - Given fp32 A with K <= 64 (the pre layer, A = the [B, 63] state, a
 //   252-byte row stride TMA cannot take; whatever A's alignment), the pre
 //   route (namespace pre, below).
-// - Given other fp32 A that TMA can address (K % 4 == 0, aligned), the fp32
-//   route: dense_wgmma.cuh's loop, which rounds A to bf16 in registers
-//   (direct wrapper calls; K14 runs the same loop).
-// - Otherwise (fp32 A at K > 64 that TMA cannot address, such as rot6d's
-//   K = 126 pre layer) dense_gemm.cuh's element-load loop (64x64 tile, bf16
-//   WMMA).
+// Any other operand is refused: a caller with fp32 A at K > 64 passes its
+// bf16 copy.
 // A GroupNorm group is N/32 consecutive features, so with N/32 <= 32 a
-// 64-wide tile holds whole groups in the natural feature order. Every route
-// ends in gn_epilogue.cuh::gn_silu_epilogue_q (K13's: each warp's sixteen
+// 64-wide tile holds whole groups in the natural feature order. Both routes
+// end in gn_epilogue.cuh::gn_silu_epilogue_q (K13's: each warp's sixteen
 // GroupNorm chains interleaved, two-pass fp32 mean and variance) with its
 // bf16 instantiation: it adds the time row, applies the affine, SiLU and
 // the residual, writes the fp32 out (unless nothing reads it) and, given
 // out_b, out_b = __float2bfloat16_rn(out): the next layer's Ab, the
-// rounding that layer made of the fp32 out, so the products are the same.
-// The bf16 route adds them in the fp32 route's order: the outputs are
-// bit-equal.
+// rounding that layer would make of the fp32 out, so the products are the
+// same.
 //
 // What bounds the bf16 route: not the MMAs, nor HBM. A 500-row layer is 128
 // CTAs, one an SM, each reading 256 KB of the copy and W from L2 through
 // its ring; on the card (NVIDIA H100 80GB HBM3 at 700 W, CUDA-graph replay,
 // chip_smoke.py and benchmarks/k1_rings.py) a block's first layer takes
-// 7.4-7.5 us, with the residual 8.0-8.1, at 1,000 rows 10.6-11.9; the fp32
-// route at the same shapes 8.8-9.2, 9.3 and 13.8-14.3, and before the
+// 7.4-7.5 us, with the residual 8.0-8.1, at 1,000 rows 10.6-11.9; the
+// route it replaced (fp32 A rounded to bf16 in registers, dense_wgmma.cuh's
+// loop) at the same shapes 8.8-9.2, 9.3 and 13.8-14.3, and before the
 // interleaved epilogue 10.77, 11.08 and 14.91. K13 moves half the bytes
 // through its loop in 7.0 us, so most of what is left is the launch, the
 // ring's fill and the epilogue, not the stream of tiles.
@@ -75,22 +71,21 @@
 // wait and the span by one bulk copy after it; all eight warps round it once
 // into the swizzled bf16 tile wgmma reads (column 63 and the rows past B
 // zero), warps 0-3 run four wgmma m64n64k16 from shared memory. The products
-// and their order are the fp32 route's on A and W zero-padded to K = 64, so
-// the outputs are that route's bit for bit (and, on every operand measured,
-// the element loads' too). 72-78 registers, no spills, 33.8 KB of static
-// shared memory: the registers would let three CTAs share an SM, and a launch
-// reserves dynamic shared memory (read by none) so that an SM holds one where
-// the grid fits the SMs once (500 rows) and two beyond (1,000 rows: 256 CTAs,
-// one wave). Bound: bytes, 3.34 MB at 500 rows with the copy (1.00 us), 6.54
+// and their order are this route's on A and W zero-padded to K = 64 and the
+// bf16 route's on their copies, so the outputs are those routes' bit for
+// bit. 72-78 registers, no spills, 33.8 KB of static shared memory: the
+// registers would let three CTAs share an SM, and a launch reserves dynamic
+// shared memory (read by none) so that an SM holds one where the grid fits
+// the SMs once (500 rows) and two beyond (1,000 rows: 256 CTAs, one wave). Bound: bytes, 3.34 MB at 500 rows with the copy (1.00 us), 6.54
 // MB at 1,000 (1.95 us); what is left is the latency of the span's load after
 // the wait and the epilogue. On the card (NVIDIA H100 80GB HBM3 at 700 W,
 // CUDA-graph replay of programmatic launches, benchmarks/k1_pre.py) the pre
 // layer takes 4.28-4.42 us at 500 rows and 5.70-5.82 at 1,000 (the element
-// loads 5.12-5.22 and 9.97-10.20: 254 registers, one CTA an SM, two waves at
-// 1,000 rows), followed by a block's first layer 11.43-11.70 and 15.39-15.68
-// (12.10-12.31 and 20.40-20.68); a generation call at 500 rows 36.52-36.68 ms
-// (37.15-37.21) and a completion solve at 1,000 rows 10.03-10.31
-// (11.05-11.28).
+// loads it replaced, dense_gemm.cuh's WMMA loop, 5.12-5.22 and 9.97-10.20:
+// 254 registers, one CTA an SM, two waves at 1,000 rows), followed by a
+// block's first layer 11.43-11.70 and 15.39-15.68 (12.10-12.31 and
+// 20.40-20.68); a generation call at 500 rows 36.52-36.68 ms (37.15-37.21)
+// and a completion solve at 1,000 rows 10.03-10.31 (11.05-11.28).
 // Left out after measurement there: two CTAs an SM at 500 rows too
 // (12.31-12.54 us with the block layer, 37.06-37.17 ms a call; most likely as
 // a programmatic launch's CTAs are placed while the launch before drains, two
@@ -99,7 +94,7 @@
 // a solve), and 16-byte loads of every thread in place of the bulk copy
 // (5.26-5.62 and 6.63-6.74 us alone); a misaligned span takes every thread's
 // 4-byte loads.
-// Programmatic dependent launch (mbarrier.cuh): every route is launched
+// Programmatic dependent launch (mbarrier.cuh): both routes are launched
 // with programmatic stream serialization, so in a sampler's chain a layer's
 // CTAs are scheduled while the launch before it drains. Each reads first
 // what that launch cannot have written (the time row, the GroupNorm affine,
@@ -129,7 +124,7 @@ namespace {
 using namespace dposer::dense;
 namespace ss = dposer::wgss;
 
-// What every route's epilogue takes: tp/gamma/beta [N], residual (nullable),
+// What both routes' epilogues take: tp/gamma/beta [N], residual (nullable),
 // out [B, N] fp32 and out_b [B, N] bf16 (either nullable, not both).
 struct Epilogue {
   const float *tp, *gamma, *beta, *residual;
@@ -138,7 +133,7 @@ struct Epilogue {
   int B, K, N;
 };
 
-// Every route is a programmatic launch (mbarrier.cuh): the time row and the
+// Both routes are programmatic launches (mbarrier.cuh): the time row and the
 // GroupNorm affine (cols) and W's first stages are read before the wait for
 // the launches before it, A (or its copy) and the residual after it.
 using dposer::Programmatic;
@@ -151,35 +146,6 @@ template <int GS>
 __device__ __forceinline__ void epilogue(const float* c, const Cols& cols, const Epilogue& p,
                                          int row0, int col0) {
   gn_silu_epilogue_q<GS>(c, cols, p.residual, p.out, row0, col0, p.B, p.N, p.out_b);
-}
-
-// The element-load path (fp32 A that TMA cannot address: K % 4 != 0 or a
-// misaligned operand).
-template <int GS>
-__global__ void __launch_bounds__(THREADS)
-dense_gn_silu_kernel(const float* A, const __nv_bfloat16* __restrict__ W,
-                     const Epilogue p) {
-  __shared__ __align__(128) Smem sm;
-
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const Cols cols = cols_of(p, col0);
-  gemm_tile<false, false, Programmatic>(sm, A, nullptr, W, row0, col0, p.B, p.K, p.N);
-  epilogue<GS>(sm.c, cols, p, row0, col0);
-}
-
-// The Hopper path from fp32 A, on dense_wgmma.cuh's ring shape R.
-template <int GS, class R>
-__global__ void __launch_bounds__(THREADS)
-dense_gn_silu_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
-                           const __grid_constant__ CUtensorMap tmW, const Epilogue p) {
-  extern __shared__ uint8_t smem[];
-
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
-  const Cols cols = cols_of(p, col0);
-  const float* c = dposer::wgmma::gemm_tile<R, Programmatic>(smem, &tmA, &tmW, row0, col0, p.K);
-  epilogue<GS>(c, cols, p, row0, col0);
 }
 
 // The bf16 route's rings (dense_wgmma_ss.cuh, one consumer warpgroup, one
@@ -268,8 +234,8 @@ using dposer::tma_load;
 // coalesced loads of every thread). All eight warps round the span into
 // the swizzled bf16 tile once (columns past K and rows past B zero), warps
 // 0-3 run four wgmma m64n64k16 with both operands from shared memory, and
-// all eight the epilogue. The products and their order are those of the
-// fp32 route (dense_wgmma.cuh) on A and W zero-padded to K = 64.
+// all eight the epilogue. The products and their order are this route's on
+// A and W zero-padded to K = 64 and the bf16 route's on their copies.
 template <int GS>
 __global__ void __launch_bounds__(THREADS, 2)
 dense_gn_silu_kernel(const float* A, const __grid_constant__ CUtensorMap tmW, const Epilogue p) {
@@ -376,16 +342,6 @@ inline int reserve(int ctas) {
 }  // namespace pre
 
 template <int GS, class R>
-int launch_wgmma(dim3 grid, const float* A, const __nv_bfloat16* W, const Epilogue& p,
-                 cudaStream_t stream) {
-  CUtensorMap ma, mw;
-  const int e = dposer::wgmma::gemm_maps<R>(&ma, &mw, A, W, p.B, p.K, p.N);
-  if (e != 0) return e;
-  return dposer::wgmma::launch<R, dense_gn_silu_wgmma_kernel<GS, R>, Programmatic>(grid, stream,
-                                                                                   ma, mw, p);
-}
-
-template <int GS, class R>
 int launch_bf16(dim3 grid, const void* Ab, const void* W, const Epilogue& p,
                 cudaStream_t stream) {
   CUtensorMap ma, mw;
@@ -393,28 +349,6 @@ int launch_bf16(dim3 grid, const void* Ab, const void* W, const Epilogue& p,
   if (e != 0) return e;
   return dposer::wgmma::launch<R, handoff::dense_gn_silu_wgmma_kernel<GS, R>, Programmatic>(
       grid, stream, ma, mw, p);
-}
-
-// K1's routes (routes in score_net.py counts them under these names):
-// kByOperand picks one from the operands, the others force it (for tests
-// and reports that hold one route to another on the same operands).
-enum Route { kByOperand = 0, kBf16 = 1, kFp32 = 2, kPre = 3, kElement = 4 };
-
-Route by_operand(const float* A, const void* Ab, const void* W, int K, int N) {
-  if (Ab != nullptr) return kBf16;
-  if (pre::ok(W, K, N)) return kPre;
-  return dposer::wgmma::tma_ok(A, W, K, N) ? kFp32 : kElement;
-}
-
-// Whether `route` can take the operands.
-bool takes(Route route, const float* A, const void* Ab, const void* W, int K, int N) {
-  switch (route) {
-    case kBf16: return Ab != nullptr && ss::tma_ok(Ab, W, K, N);
-    case kPre: return A != nullptr && pre::ok(W, K, N);
-    case kFp32: return A != nullptr && dposer::wgmma::tma_ok(A, W, K, N);
-    case kElement: return A != nullptr;
-    default: return false;
-  }
 }
 
 template <int GS>
@@ -434,43 +368,6 @@ int launch_pre(dim3 grid, bool one_wave, const float* A, const __nv_bfloat16* W,
   return static_cast<int>(l != cudaSuccess ? l : cudaGetLastError());
 }
 
-template <int GS>
-int launch(Route route, const float* A, const void* Ab, const __nv_bfloat16* W,
-           const Epilogue& p, cudaStream_t stream) {
-  const dim3 grid(p.N / BN, (p.B + BM - 1) / BM);
-  const bool one_wave = dposer::wgmma::one_wave(grid.x * grid.y);
-  switch (route) {
-    case kBf16:
-      return one_wave ? launch_bf16<GS, DeepRing>(grid, Ab, W, p, stream)
-                      : launch_bf16<GS, ShallowRing>(grid, Ab, W, p, stream);
-    case kPre:
-      return launch_pre<GS>(grid, one_wave, A, W, p, stream);
-    case kFp32:
-      return one_wave ? launch_wgmma<GS, dposer::wgmma::Wide>(grid, A, W, p, stream)
-                      : launch_wgmma<GS, dposer::wgmma::Narrow>(grid, A, W, p, stream);
-    default: {
-      const cudaError_t e = dposer::launch_programmatic(dense_gn_silu_kernel<GS>, grid, THREADS,
-                                                        0, stream, A, W, p);
-      return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
-    }
-  }
-}
-
-int launch_on(Route route, const float* A, const void* Ab, const void* W, const float* tp,
-              const float* gamma, const float* beta, const float* residual, float* out,
-              void* out_b, int B, int K, int N, void* stream) {
-  const Epilogue p{tp, gamma, beta, residual, out, static_cast<__nv_bfloat16*>(out_b), B, K, N};
-  const auto* w = static_cast<const __nv_bfloat16*>(W);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || K <= 0 || N % BN != 0 || (out == nullptr && out_b == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (route == kByOperand) route = by_operand(A, Ab, W, K, N);
-  if (!takes(route, A, Ab, W, K, N)) return static_cast<int>(cudaErrorInvalidValue);
-  return ss::by_group_size(N, [&](auto gs) {
-    return launch<decltype(gs)::value>(route, A, Ab, w, p, s);
-  });
-}
-
 template <int GS, class R>
 int bf16_launch_info(int* out) {
   const auto kernel = handoff::dense_gn_silu_wgmma_kernel<GS, R>;
@@ -486,9 +383,10 @@ int bf16_launch_info(int* out) {
 
 }  // namespace
 
-// A [B, K] fp32 (the fp32 routes) or Ab [B, K] bf16 (the bf16 route: the
-// copy of A that the layer before wrote; K % 8 == 0, Ab and W 16-byte
-// aligned, else refused), W [K, N] bf16, tp/gamma/beta [N] fp32, residual
+// Ab [B, K] bf16 (the bf16 route: the copy of A that the layer before
+// wrote; K % 8 == 0, Ab and W 16-byte aligned) or, with Ab null, A [B, K]
+// fp32 at K <= 64 (the pre route; W 16-byte aligned), else refused
+// (cudaErrorInvalidValue); W [K, N] bf16, tp/gamma/beta [N] fp32, residual
 // (nullable) and out [B, N] fp32 (out may alias residual), out_b [B, N] bf16:
 // the copy of out for the next layer. out and out_b are each nullable, not
 // both. N/32 (the group size) must be a power of two <= 32 and N a multiple
@@ -498,20 +396,21 @@ extern "C" int dposer_dense_gn_silu(const float* A, const void* Ab, const void* 
                                     const float* tp, const float* gamma, const float* beta,
                                     const float* residual, float* out, void* out_b, int B,
                                     int K, int N, void* stream) {
-  return launch_on(kByOperand, A, Ab, W, tp, gamma, beta, residual, out, out_b, B, K, N, stream);
-}
-
-// The same on route `route` (1 bf16, 2 fp32, 3 pre, 4 element loads; 0 as
-// dposer_dense_gn_silu chooses), for tests and reports; refused
-// (cudaErrorInvalidValue) where that route cannot take the operands.
-extern "C" int dposer_dense_gn_silu_on_route(int route, const float* A, const void* Ab,
-                                             const void* W, const float* tp, const float* gamma,
-                                             const float* beta, const float* residual,
-                                             float* out, void* out_b, int B, int K, int N,
-                                             void* stream) {
-  if (route < kByOperand || route > kElement) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_on(static_cast<Route>(route), A, Ab, W, tp, gamma, beta, residual, out, out_b, B,
-                   K, N, stream);
+  const Epilogue p{tp, gamma, beta, residual, out, static_cast<__nv_bfloat16*>(out_b), B, K, N};
+  const auto* w = static_cast<const __nv_bfloat16*>(W);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || K <= 0 || N % BN != 0 || (out == nullptr && out_b == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Ab != nullptr ? !ss::tma_ok(Ab, W, K, N) : (A == nullptr || !pre::ok(W, K, N)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(N / BN, (B + BM - 1) / BM);
+  const bool one_wave = dposer::wgmma::one_wave(grid.x * grid.y);
+  return ss::by_group_size(N, [&](auto gs) {
+    constexpr int GS = decltype(gs)::value;
+    if (Ab == nullptr) return launch_pre<GS>(grid, one_wave, A, w, p, s);
+    return one_wave ? launch_bf16<GS, DeepRing>(grid, Ab, W, p, s)
+                    : launch_bf16<GS, ShallowRing>(grid, Ab, W, p, s);
+  });
 }
 
 // The bf16 route at B rows and width N as it launches on this card, for

@@ -1,8 +1,7 @@
-// The Hopper GEMM main loop from fp32 A, shared by K1 dense_gn_silu's fp32
-// route (fp32 A that TMA can address; the network's K = 1024 layers read
-// the bf16 copy the layer before wrote instead, on dense_wgmma_ss.cuh's
-// ring: dense_gn_silu.cu) and K14 chain_link (modes bf16, bf16-out and
-// gn-silu):
+// The Hopper GEMM main loop from fp32 A, run by K14 chain_link (modes bf16,
+// bf16-out and gn-silu; K1 dense_gn_silu reads the bf16 copy the layer
+// before wrote instead, on dense_wgmma_ss.cuh's ring, and takes this
+// header's launch helpers and wgmma wrappers):
 //   C[r, c] = sum_k bf16_rne(A[r, k]) * W[k, c]
 // with A fp32 [B, K] and W bf16 [K, N], both row-major, fp32 accumulation.
 // It computes what dense_gemm.cuh::gemm_tile<VEC, false> computes (the sum
@@ -67,8 +66,7 @@
 //   and cached by (pointer, dims, stride, box): the samplers' loops launch
 //   with a handful of maps and encode each once. They reach the kernel as
 //   __grid_constant__ parameters.
-// TMA needs 16-byte aligned rows and pointers: K1 takes A at K <= 64 (the
-// pre layer) on its pre route, other A TMA cannot address on dense_gemm.cuh.
+// TMA needs 16-byte aligned rows and pointers.
 #pragma once
 
 #include <cstdint>
@@ -405,12 +403,6 @@ __device__ __forceinline__ const float* gemm_tile(uint8_t* smem_raw, const CUten
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// TMA addresses A's rows and W's rows with 16-byte aligned strides and bases.
-inline bool tma_ok(const void* A, const void* W, int K, int N) {
-  return K % 4 == 0 && N % 8 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(W) % 16 == 0;
-}
 
 // Whether a grid of `blocks` fits the current device's SMs once (then the
 // Wide ring).

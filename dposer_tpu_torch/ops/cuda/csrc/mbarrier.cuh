@@ -1,7 +1,7 @@
 // PTX wrappers for Hopper's asynchronous copies and the shared-memory
 // barriers (mbarriers) that count them in, shared by the Hopper main loops
-// dense_wgmma.cuh (K1, K14), dense_wgmma_int8.cuh (K13, K14),
-// dense_wgmma_ss.cuh (K10, K12), head_cluster.cuh (K2, K6, K8, K9, K11) and K7's
+// dense_wgmma.cuh (K14), dense_wgmma_int8.cuh (K13, K14),
+// dense_wgmma_ss.cuh (K1, K10, K12), head_cluster.cuh (K2, K6, K8, K9, K11) and K7's
 // (dense_gn_silu_jvp.cu). Addresses are 32-bit
 // shared-window addresses (smem_u32). And the launches: launch_cluster, the
 // host's launch of a kernel over clusters whose size the launch chooses, and

@@ -426,11 +426,9 @@ def launch_counts() -> dict:
 
 def route_counts() -> dict:
     """Launches of each kernel with a Hopper main loop, by route, since the
-    last ``reset_launch_counts``: K1 ``{"wgmma_bf16": n, "wgmma": n,
-    "pre_wgmma": n, "register": n}`` (from the bf16 copy, from fp32 A that
-    TMA can address, from fp32 A at K <= 64, the element loads), K7
-    and K10 ``{"wgmma": n, "register": n}``, K12 ``{"wgmma": n}`` (its one
-    route), K13 and K14 ``{"wgmma_int8": n, "register": n}`` (K14 also
+    last ``reset_launch_counts``: K1 ``{"wgmma_bf16": n, "pre_wgmma": n}``
+    (from the bf16 copy, from fp32 A at K <= 64), K7 and K10 ``{"wgmma": n,
+    "register": n}``, K12 ``{"wgmma": n}`` (its one route), K13 and K14 ``{"wgmma_int8": n, "register": n}`` (K14 also
     ``"wgmma"``, its bf16 modes)."""
     return {fn.__name__: dict(fn.routes) for fn in _counted() if hasattr(fn, "routes")}
 

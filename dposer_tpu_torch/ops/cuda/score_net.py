@@ -230,20 +230,17 @@ def check_bf16_copy(a_b, w, B: int, K: int) -> None:
 
 
 def _k1_route(a, a_b, w) -> str:
-    """The route K1's library takes (``dense_gn_silu.cu``): the bf16 copy,
-    fp32 A at K <= 64 (the pre layer, whatever A's alignment), fp32 A that
-    TMA can address, or the element loads."""
+    """The route K1's library takes (``dense_gn_silu.cu``): the bf16 copy, or
+    fp32 A at K <= 64 (the pre layer, whatever A's alignment) with W 16-byte
+    aligned. Raises ``ValueError`` for any other fp32 A: the library has no
+    route for it, and the caller passes the bf16 copy ``a_b`` instead."""
     if a_b is not None:
         return "wgmma_bf16"
     K, N = w.shape
-    w_ok = w.data_ptr() % 16 == 0 and N % 8 == 0
-    if K <= 64 and w_ok:
+    if K <= 64 and N % 8 == 0 and w.data_ptr() % 16 == 0:
         return "pre_wgmma"
-    return "wgmma" if K % 4 == 0 and w_ok and a.data_ptr() % 16 == 0 else "register"
-
-
-# the library's codes of the routes dense_gn_silu_on_route forces
-_K1_ROUTE_CODES = {"wgmma_bf16": 1, "wgmma": 2, "pre_wgmma": 3, "register": 4}
+    raise ValueError(f"dense_gn_silu takes fp32 a only at K <= 64 with w 16-byte aligned "
+                     f"(got K={K}); pass its bf16 copy a_b")
 
 
 def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=None, out_b=None,
@@ -255,11 +252,10 @@ def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=Non
     the layer through the bf16 Hopper loop (TMA and ``wgmma`` with both
     operands from shared memory; ``a`` may then be None); without it, at
     K <= 64 (the pre layer's 63), the pre route (``a``'s rows bulk-loaded and
-    rounded once into shared memory, one ``wgmma`` stage), else the fp32
-    Hopper loop rounds ``a`` in registers, or, where TMA cannot address
-    ``a``, the element-load loop. With ``out_b``
-    bf16 [B, N] the epilogue also writes the bf16 copy of out, the next
-    layer's ``a_b``; ``write_out=False`` writes that copy alone (``out`` is
+    rounded once into shared memory, one ``wgmma`` stage). On CUDA tensors
+    fp32 ``a`` at K > 64 raises ``ValueError``: pass its copy ``a_b``. With
+    ``out_b`` bf16 [B, N] the epilogue also writes the bf16 copy of out, the
+    next layer's ``a_b``; ``write_out=False`` writes that copy alone (``out`` is
     then None) and returns it. Each launch adds one to ``launches`` and to
     its route's count in ``routes``."""
     B, K = (a if a_b is None else a_b).shape
@@ -307,50 +303,7 @@ def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=Non
 
 dense_gn_silu.launches = 0
 dense_gn_silu.programmatic = 0
-dense_gn_silu.routes = {"wgmma_bf16": 0, "wgmma": 0, "pre_wgmma": 0, "register": 0}
-
-
-def dense_gn_silu_on_route(route: str, a, w, tp_row, gamma, beta, residual=None, out=None, *,
-                           a_b=None, out_b=None):
-    """K1 on CUDA tensors on ``route`` (a key of ``dense_gn_silu.routes``)
-    where ``dense_gn_silu`` would choose by the operands: for tests and
-    reports that hold one route to another on the same operands. Writes
-    ``out`` (made when None) and ``out_b`` if given; raises where the route
-    cannot take the operands. Counted in no ``launches`` or ``routes``."""
-    B, K = (a if a_b is None else a_b).shape
-    N = w.shape[1]
-    dev = w.device
-    if dev.type != "cuda":
-        raise ValueError(f"dense_gn_silu_on_route runs on cuda, not {dev}")
-    if out is None:
-        out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    _check("w", w, dev, torch.bfloat16, (K, N))
-    for nm, t, dtype, shape in (("a", a, torch.float32, (B, K)),
-                                ("a_b", a_b, torch.bfloat16, (B, K)),
-                                ("tp_row", tp_row, torch.float32, (N,)),
-                                ("gamma", gamma, torch.float32, (N,)),
-                                ("beta", beta, torch.float32, (N,)),
-                                ("residual", residual, torch.float32, (B, N)),
-                                ("out", out, torch.float32, (B, N)),
-                                ("out_b", out_b, torch.bfloat16, (B, N))):
-        if t is not None:
-            _check(nm, t, dev, dtype, shape)
-    err = _dense_gn_silu_on_route_fn()(
-        _K1_ROUTE_CODES[route], _ptr(a), _ptr(a_b), w.data_ptr(), tp_row.data_ptr(),
-        gamma.data_ptr(), beta.data_ptr(), _ptr(residual), out.data_ptr(), _ptr(out_b), B, K, N,
-        torch.cuda.current_stream(w.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"dense_gn_silu on route {route} failed: CUDA error {err}")
-    return out
-
-
-def _dense_gn_silu_on_route_fn():
-    fn = build.load("dense_gn_silu").dposer_dense_gn_silu_on_route
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I] + [P] * 9 + [I, I, I, P]
-        fn.restype = I
-    return fn
+dense_gn_silu.routes = {"wgmma_bf16": 0, "pre_wgmma": 0}
 
 
 def dense_gn_silu_pre_launch_info(rows: int, n: int) -> dict:

@@ -54,8 +54,7 @@ def test_k1_with_handoff_is_bit_equal(wrapper, with_residual, write_out):
         assert torch.equal(got, want)
     else:
         assert got is out_b
-    assert fused_em.route_counts()["dense_gn_silu"] == {"wgmma_bf16": 0, "wgmma": 0,
-                                                        "pre_wgmma": 0, "register": 0}
+    assert fused_em.route_counts()["dense_gn_silu"] == {"wgmma_bf16": 0, "pre_wgmma": 0}
 
 
 def _misaligned(rows, cols, dtype=torch.float32):
@@ -68,19 +67,27 @@ def _misaligned(rows, cols, dtype=torch.float32):
 
 @pytest.mark.parametrize("case,want", [
     ("pre K=63", "pre_wgmma"), ("pre K=63 misaligned", "pre_wgmma"),
-    ("K=64", "pre_wgmma"), ("rot6d K=126", "register"), ("K=1024", "wgmma"),
-    ("K=1024 misaligned", "register"), ("bf16 copy", "wgmma_bf16")])
+    ("K=64", "pre_wgmma"), ("rot6d K=126", ValueError), ("K=1024", ValueError),
+    ("K=1024 misaligned", ValueError), ("K=63 W misaligned", ValueError),
+    ("K=65", ValueError), ("K=128", ValueError), ("bf16 copy", "wgmma_bf16")])
 def test_k1_route_follows_the_operands(case, want):
     """K1's route is chosen by the operands: fp32 A at K <= 64 (the pre
-    layer, whatever A's alignment) takes the pre route, K = 126 (rot6d's pre
-    layer, a row stride TMA cannot take) the element loads, aligned fp32 A at
-    K = 1024 the fp32 Hopper route, the bf16 copy the bf16 route."""
+    layer, whatever A's alignment) with W 16-byte aligned takes the pre
+    route, the bf16 copy the bf16 route. Any other fp32 A (K = 126, rot6d's
+    pre layer; the K = 1024 layers; a misaligned W) has no route and raises,
+    telling the caller to pass the bf16 copy."""
     K = int(case.split("K=")[1].split()[0]) if "K=" in case else 1024
-    a = _misaligned(70, K) if "misaligned" in case else torch.empty(70, K)
-    w = torch.empty(K, 256, dtype=torch.bfloat16)
+    w_off = "W misaligned" in case
+    a_off = "misaligned" in case and not w_off
+    a = _misaligned(70, K) if a_off else torch.empty(70, K)
+    w = _misaligned(K, 256, torch.bfloat16) if w_off else torch.empty(K, 256, dtype=torch.bfloat16)
     a_b = torch.empty(70, K, dtype=torch.bfloat16) if case == "bf16 copy" else None
-    assert (a.data_ptr() % 16 != 0) == ("misaligned" in case)
-    assert score_net._k1_route(a, a_b, w) == want
+    assert (a.data_ptr() % 16 != 0, w.data_ptr() % 16 != 0) == (a_off, w_off)
+    if want is ValueError:
+        with pytest.raises(ValueError, match="bf16 copy a_b"):
+            score_net._k1_route(a, a_b, w)
+    else:
+        assert score_net._k1_route(a, a_b, w) == want
 
 
 def _bf16_net(hidden=128, n=6, seed=0, n_blocks=2):
@@ -289,7 +296,7 @@ def test_k1_rings_variants_apply(variant):
 
 
 @pytest.mark.parametrize("variant", ["shipped", "two an SM", "as registers allow",
-                                     "16-byte loads", "element loads"])
+                                     "16-byte loads"])
 def test_k1_pre_variants_apply(variant):
     """Every variant of ``benchmarks/k1_pre.py`` still applies to the shipped
     K1 source and changes only the lines it names; the shipped variant is
@@ -299,7 +306,7 @@ def test_k1_pre_variants_apply(variant):
 
     shipped = (build.CSRC / "dense_gn_silu.cu").read_text()
     assert set(k1_pre.VARIANTS) == {"shipped", "two an SM", "as registers allow",
-                                    "16-byte loads", "element loads"}
+                                    "16-byte loads"}
     text = k1_pre.variant_source(variant)
     subs = k1_pre.VARIANTS[variant]
     assert (text == shipped) == (not subs)

@@ -263,7 +263,7 @@ def test_k14_handoff_validation_errors(case):
 
 
 def test_route_counts_start_at_zero():
-    """``route_counts`` names K1's four routes, K7's two, K10's two, K12's
+    """``route_counts`` names K1's two routes, K7's two, K10's two, K12's
     one, K13's two and K14's three, and ``reset_launch_counts`` sets them to
     0."""
     score_net.dense_gn_silu_int8.routes["register"] += 3
@@ -271,7 +271,7 @@ def test_route_counts_start_at_zero():
     score_net.dense_gn_silu.routes["wgmma_bf16"] += 4
     fused_em.reset_launch_counts()
     assert fused_em.route_counts() == {
-        "dense_gn_silu": {"wgmma_bf16": 0, "wgmma": 0, "pre_wgmma": 0, "register": 0},
+        "dense_gn_silu": {"wgmma_bf16": 0, "pre_wgmma": 0},
         "dense_gn_silu_jvp": {"wgmma": 0, "register": 0},
         "dense_gn_silu_train": {"wgmma": 0, "register": 0},
         "dense_gn_silu_bwd": {"wgmma": 0},

@@ -23,8 +23,8 @@ CSRC = Path(__file__).resolve().parents[1] / "dposer_tpu_torch" / "ops" / "cuda"
 # (file, function): the kernels of the chains, or the device function whose
 # body each kernel is, that must wait for the launches before them
 WAITING = [
-    ("dense_gn_silu.cu", "dense_gn_silu_kernel"),  # K1's pre route and its element loads
-    ("dense_gn_silu.cu", "dense_gn_silu_wgmma_kernel"),  # K1 from fp32 A and from the bf16 copy
+    ("dense_gn_silu.cu", "dense_gn_silu_kernel"),  # K1's pre route
+    ("dense_gn_silu.cu", "dense_gn_silu_wgmma_kernel"),  # K1 from the bf16 copy
     ("dense_gn_silu_int8.cu", "dense_gn_silu_int8_kernel"),  # K13's register route
     ("dense_gn_silu_int8.cu", "dense_gn_silu_int8_wgmma8_kernel"),  # K13 from the int8 copy
     ("head_em.cu", "head_em_body"),  # K2 and its imputation instantiation
@@ -35,10 +35,8 @@ WAITING = [
 # (file, function): the host functions that launch them, each with the
 # programmatic attribute
 LAUNCHING = [
-    ("dense_gn_silu.cu", "launch_wgmma"),
     ("dense_gn_silu.cu", "launch_bf16"),
     ("dense_gn_silu.cu", "launch_pre"),
-    ("dense_gn_silu.cu", "launch"),
     ("dense_gn_silu_int8.cu", "launch_gs"),
     ("head_em.cu", "dposer_head_em"),
     ("head_em.cu", "dposer_head_em_impute"),
