@@ -26,7 +26,7 @@ Phases; any failure exits non-zero:
    library fails the phase; K1's pre route with its registers (at most
    128), static shared memory, spills (none allowed) and CTAs an SM by
    registers, and its launch at 500 and 1,000 rows (the dynamic shared
-   memory it reserves, CTAs an SM: one and two);
+   memory it reserves, CTAs an SM: one and two); K13's pre route the same;
 3. each of the fourteen kernels, K2's imputation mode and K6's perturbing
    instantiation against its plain PyTorch version at the
    main paths' shapes ([500, .] for generation, imputation and PF-ODE
@@ -39,8 +39,9 @@ Phases; any failure exits non-zero:
    plain version's, a library yardstick's and the bound from bytes and
    operations at the published H100 SXM peaks; K13 on states of a real
    trajectory with the per-tensor and per-channel ranges the demo calibrates,
-   each K = 1024 layer on the int8 copy the layer before wrote; K7 on the
-   likelihood's routes (the pre layer on the register route writing the bf16
+   the pre layer on the pre route, each K = 1024 layer on the int8 copy the
+   layer before wrote; K7 on the likelihood's routes (the pre layer on the
+   register route writing the bf16
    copies, the K = 1024 layers on the Hopper route from them; the copies
    byte for byte) and beside them on the register route, and K9, both with
    50 repeated calls bit-identical and bounds at the handoff's bytes and at
@@ -124,7 +125,8 @@ Phases; any failure exits non-zero:
    and finite frames of shape [5, 60, 63]; (i) the int8 serving mode: 500 x
    1000 generation per tensor, per channel and int8-mixed beside bf16
    (poses/s; K13's route counters: 4,000 launches on the Hopper int8 loop
-   and 1,000 on the register-staged one a call, 3,600 and 900 mixed), the
+   and 1,000 on the pre route a call, 3,600 and 900 mixed, none on the
+   register-staged loop), the
    metrics protocol under per-channel int8 (APD in [0.80,
    1.00] and within 0.03 of bf16's), moments at 2,000 rows against the bf16
    kernel route on one host-normal stream (mean within 1e-2, std within 2e-2,
@@ -593,6 +595,20 @@ def k1_pre_instantiations(logs):
     return rows
 
 
+def k13_pre_instantiations(logs):
+    """Registers, static shared memory, spills and CTAs an SM by registers of
+    every instantiation of K13's pre route (``dense_gn_silu_int8.cu``'s
+    ``pre::dense_gn_silu_int8_kernel``) from the ``-Xptxas -v`` log."""
+    rows = []
+    for e in ptxas_entries(logs.get("dense_gn_silu_int8", ""), "3pre"):
+        args = ",".join(re.findall(r"ILi(\d+)E", e["entry"]))
+        rows.append(dict(kernel=f"pre::dense_gn_silu_int8_kernel<{args}>",
+                         registers=e["registers"], static_smem=e["static_smem"],
+                         spills=e["spills"],
+                         ctas_per_sm_by_registers=ctas_per_sm_by_registers(e["registers"], 256)))
+    return rows
+
+
 def ctas_per_sm_by_registers(registers, threads):
     """The CTAs of ``threads`` threads an H100 SM's 65,536 registers hold at
     ``registers`` a thread (allocated in units of 8 a thread)."""
@@ -642,6 +658,23 @@ def phase_build():
         check(c["local_bytes"] == 0, f"K1's pre route spills at [{rows_}, {H}]: {c}")
     check(pre_launch[B]["ctas_per_sm"] == 1 and pre_launch[RC]["ctas_per_sm"] == 2,
           f"K1's pre route: CTAs an SM {pre_launch}")
+    # K13's pre route: the same rule
+    for r in k13_pre_instantiations(logs):
+        print(f"[build] K13 pre route: {r['kernel']} {r['registers']} registers, "
+              f"{r['static_smem']} B static smem, {r['ctas_per_sm_by_registers']} CTAs an SM by "
+              f"registers; {r['spills'] or 'spills not reported'}")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", r["spills"] or "")
+        check(m is not None and m.groups() == ("0", "0") and r["registers"] <= 128,
+              f"K13's pre route: {r}")
+    pre8 = {rows_: score_net.dense_gn_silu_int8_pre_launch_info(rows_, H) for rows_ in (B, RC)}
+    for rows_, c in pre8.items():
+        print(f"[build] K13 pre route at [{rows_}, {H}]: {c['threads']} threads, "
+              f"{c['static_smem']} B static and {c['dynamic_smem']} B reserved dynamic smem a CTA, "
+              f"{c['registers']} registers, {c['local_bytes']} B local a thread; "
+              f"{c['ctas_per_sm']} CTAs an SM")
+        check(c["local_bytes"] == 0, f"K13's pre route spills at [{rows_}, {H}]: {c}")
+    check(pre8[B]["ctas_per_sm"] == 1 and pre8[RC]["ctas_per_sm"] == 2,
+          f"K13's pre route: CTAs an SM {pre8}")
     print(f"[build] K1: ptxas lines reporting serialized wgmma: {len(k1_serialized)}"
           + "".join(f"\n    {ln}" for ln in k1_serialized))
     # the bf16 route keeps no operand in registers, so nothing may serialize it
@@ -654,6 +687,7 @@ def phase_build():
           f"1024 ({dyn8['K128']} B at K = 128); {len(rows8)} instantiations; ptxas lines "
           f"reporting serialized wgmma: {len(serialized)}"
           + "".join(f"\n    {ln}" for ln in serialized))
+    check(not serialized, "ptxas serialized a wgmma of K13 or K14")
     clusters = {}
     # K2 (both instantiations), K3; K6 at the solver's 1,000 rows; K8 at ODE
     # sampling's 500 rows; K11 at the train batch on the bf16 stash (the
@@ -3296,9 +3330,9 @@ def phase_int8_kernels(model, dev, amax):
     against 128 and at K 128 against 1024; (ii) K13 against its plain
     version at the sampler's shapes, per-tensor and per-channel rows, on
     states of a real trajectory (the bf16 kernel sampler's state after 500
-    of 1000 steps): the pre layer on the fp32 state (the register-staged
-    loop), each K = 1024 layer on the int8 copy the layer before it wrote
-    (the Hopper loop), each writing the next layer's int8 copy, held byte for
+    of 1000 steps): the pre layer on the fp32 state (the pre route), each
+    K = 1024 layer on the int8 copy the layer before it wrote (the Hopper
+    loop), each writing the next layer's int8 copy, held byte for
     byte to ``quantize_act`` of its own fp32 output; the K = 1024 layers also
     on the register route, as they ran before the handoff; timings, the bound
     from the new byte flow (fp32 in and no copy beside it), plain and
@@ -3347,7 +3381,7 @@ def phase_int8_kernels(model, dev, amax):
                           * net["qs_rows"][1]),
               f"dense_gn_silu_int8 {scheme}: the Hopper loop's product is not exact")
         for label, a, j, res, route in (
-                ("pre [500,63]x[63,1024]", x, 0, None, "register"),
+                ("pre [500,63]x[63,1024]", x, 0, None, "pre_wgmma8"),
                 ("block [500,1024]x[1024,1024]", h, 1, None, "wgmma_int8"),
                 ("block+residual [500,1024]x[1024,1024]", h1, 2, h, "wgmma_int8"),
                 ("block/register [500,1024]x[1024,1024]", h, 1, None, "register"),
@@ -3414,8 +3448,9 @@ def phase_int8_kernels(model, dev, amax):
                                    "quant mm (int8 x int8 -> int32, rescale row), then the "
                                    "time row, group_norm_vpu, SiLU, h + h2",
                      main_loop=f"{CSRC}/dense_wgmma_int8.cuh (K = 1024 layers, on the int8 "
-                               f"copy the layer before wrote); {CSRC}/dense_gemm_int8.cuh "
-                               f"(the pre layer, on the fp32 state)",
+                               f"copy the layer before wrote); the pre route in "
+                               f"{CSRC}/dense_gn_silu_int8.cu (the pre layer, on the fp32 "
+                               f"state: bulk copies, one wgmma s8 stage)",
                      max_abs_err=max(v["max_abs_err"] for v in variants),
                      tol="1e-3*max(1,|ref|max); the loop's product, the int8 copies: exact",
                      **{k: main_v[k] for k in ("shape", "ms", "eager_ms", "plain_ms",
@@ -3651,13 +3686,14 @@ def phase_int8_protocols(model, dev, amax, bf16_apd, bf16_c2_pc_mpjpe):
           by_run["generation_500x1000_int8_mixed"]["dense_gn_silu"] == 500,
           "int8-mixed generation: 900 int8 steps and 100 bf16 steps")
     # which loop carried each int8 layer: the pre layer on the fp32 state (the
-    # register-staged loop), the four K = 1024 layers on the int8 handoff (the
-    # Hopper int8 loop)
-    for m, want in (("int8_tensor", (4000, 1000)), ("int8_channel", (4000, 1000)),
-                    ("int8_mixed", (3600, 900))):
+    # pre route), the four K = 1024 layers on the int8 handoff (the Hopper
+    # int8 loop), none on the register-staged loop
+    for m, want in (("int8_tensor", (4000, 1000, 0)), ("int8_channel", (4000, 1000, 0)),
+                    ("int8_mixed", (3600, 900, 0))):
         got = routes[m]["dense_gn_silu_int8"]
-        check((got["wgmma_int8"], got["register"]) == want,
-              f"generation {m}: K13 routes {got}, expected wgmma_int8/register {want}")
+        check((got["wgmma_int8"], got["pre_wgmma8"], got["register"]) == want,
+              f"generation {m}: K13 routes {got}, expected wgmma_int8/pre_wgmma8/register "
+              f"{want}")
     print("[int8] K13 routes a 500 x 1000 call: " + "; ".join(
         f"{m} {routes[m]['dense_gn_silu_int8']}" for m in modes if m != "bf16"))
 

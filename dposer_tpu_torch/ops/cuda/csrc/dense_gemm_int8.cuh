@@ -1,7 +1,7 @@
-// The register-staged int8 GEMM main loop of the network's hidden layers,
-// the route of K13 dense_gn_silu_int8 and K14 chain_link's int8 mode where
-// A is fp32 (K13's pre layer, whose input is the state x at K = 63; a
-// chain's first link):
+// The register-staged int8 GEMM main loop of K14 chain_link's int8 mode
+// where A is fp32 (a chain's first link) and of K13 dense_gn_silu_int8 on
+// fp32 A at K > 64 (no caller in the program's forward: K13's pre layer, the
+// state x at K = 63, runs K13's pre route, dense_gn_silu_int8.cu):
 //   C[r, c] = float(sum_k q(A[r, k]) * Wq[c, k]) * qs[c],
 //   q(a) = clamp(rint(a * qinv[k]), -127, 127)
 // (the TPU kernel's quant ``mm``, dposer_tpu/ops/pallas/score_net.py:337-360).

@@ -67,9 +67,11 @@
 //   load_cols) are read before it too, the residual and every write after.
 //   K14's int8 links keep the plain launch (Dep = Serial).
 // TMA needs 16-byte aligned rows and pointers: K % 16 == 0 and Aq, Wq
-// 16-byte aligned. The pre layer (K = 63) and a chain's first link, whose A
-// is fp32 state, go through dense_gemm_int8.cuh: the route follows the
-// operand, and the C entries refuse an Aq that TMA cannot address.
+// 16-byte aligned. The pre layer (K = 63, fp32 state) takes K13's pre route
+// (dense_gn_silu_int8.cu), which runs this file's wgmma s8 on tiles it lays
+// out itself; a chain's first link (fp32 A) goes through
+// dense_gemm_int8.cuh: the route follows the operand, and the C entries
+// refuse an Aq that TMA cannot address.
 #pragma once
 
 #include <cstdint>

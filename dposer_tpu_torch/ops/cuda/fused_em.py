@@ -428,8 +428,11 @@ def route_counts() -> dict:
     """Launches of each kernel with a Hopper main loop, by route, since the
     last ``reset_launch_counts``: K1 ``{"wgmma_bf16": n, "pre_wgmma": n}``
     (from the bf16 copy, from fp32 A at K <= 64), K7 and K10 ``{"wgmma": n,
-    "register": n}``, K12 ``{"wgmma": n}`` (its one route), K13 and K14 ``{"wgmma_int8": n, "register": n}`` (K14 also
-    ``"wgmma"``, its bf16 modes)."""
+    "register": n}``, K12 ``{"wgmma": n}`` (its one route), K13
+    ``{"wgmma_int8": n, "pre_wgmma8": n, "register": n}`` (from the int8
+    copy, from fp32 A at K <= 64, from fp32 A beyond: a forward is 4/1/0),
+    K14 ``{"wgmma_int8": n, "register": n}`` and ``"wgmma"``, its bf16
+    modes."""
     return {fn.__name__: dict(fn.routes) for fn in _counted() if hasattr(fn, "routes")}
 
 

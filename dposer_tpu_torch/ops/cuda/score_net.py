@@ -27,7 +27,9 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
   version; ``network_hidden`` takes it for int8 operands and hands the
   activations on as int8 (each epilogue writes the next layer's quantized
   input, which the Hopper int8 loop ``csrc/dense_wgmma_int8.cuh`` reads;
-  the pre layer, on the fp32 state, runs the register-staged loop).
+  the pre layer, on the fp32 state, runs the pre route: its rows
+  bulk-loaded and quantized once into shared memory, one ``wgmma`` s8
+  stage).
 - kernel K7 ``dense_gn_silu_jvp`` (``csrc/dense_gn_silu_jvp.cu``): the same
   layer with its forward-mode tangent, the tangent rules written out by hand
   (port of ``bind_fwd_jvp``), its plain version, and ``network_hidden_jvp``,
@@ -353,9 +355,8 @@ def network_hidden(net: dict, x: torch.Tensor, i: int, h: torch.Tensor,
     ``qinv`` row (K13's Hopper route reads it); for bf16 operands it is the
     output rounded to bf16 (K1's bf16 route reads it), and a block's first
     layer writes its copy alone, no fp32 ``h1``. The sums are the same
-    either way. The pre layer reads the fp32 state (K13's register route,
-    K1's pre route); the last block writes no copy, since the head reads
-    ``h``."""
+    either way. The pre layer reads the fp32 state (K13's and K1's pre
+    routes); the last block writes no copy, since the head reads ``h``."""
     layer = hidden_layer(net) if layer is None else layer
     tp = net["tp_all"][i]
     gs, gb = net["gn_scale"], net["gn_bias"]
@@ -437,6 +438,16 @@ def check_int8_input(a_q, wq, B: int, K: int) -> None:
             raise ValueError(f"{nm} must be 16-byte aligned for TMA")
 
 
+def _k13_route(a, a_q) -> str:
+    """The route K13's library takes (``dense_gn_silu_int8.cu``): the int8
+    copy ``a_q`` (the Hopper int8 loop), or fp32 ``a`` at K <= 64 (the pre
+    layer, whatever ``a``'s and Wq's alignment: the pre route) or beyond (the
+    register-staged loop)."""
+    if a_q is not None:
+        return "wgmma_int8"
+    return "pre_wgmma8" if a.shape[1] <= 64 else "register"
+
+
 def dense_gn_silu_int8(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, out=None, *,
                        a_q=None, qinv_next=None, out_q=None):
     """K13 on ``a`` [B, K] fp32, ``wq`` [N, K] int8, ``qinv`` [K] and ``qs``
@@ -445,8 +456,10 @@ def dense_gn_silu_int8(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, out=
 
     ``a_q`` int8 [B, K], ``q(a)`` written by the previous layer, routes the
     layer through the Hopper int8 loop (TMA and ``wgmma`` s8; ``a`` may then
-    be None); without it the register-staged loop quantizes ``a``. With
-    ``qinv_next`` [N] fp32 and ``out_q`` int8 [B, N] the epilogue also
+    be None); without it, at K <= 64 (the pre layer's 63), the pre route
+    (``a``'s rows bulk-loaded and quantized once into shared memory, one
+    ``wgmma`` s8 stage), beyond it the register-staged loop quantizes ``a``.
+    With ``qinv_next`` [N] fp32 and ``out_q`` int8 [B, N] the epilogue also
     writes ``q(out, qinv_next)``, the next layer's ``a_q``. Each launch adds
     one to ``launches`` and to its route's count in ``routes``."""
     B, K = (a if a_q is None else a_q).shape
@@ -489,13 +502,28 @@ def dense_gn_silu_int8(a, wq, qinv, qs, tp_row, gamma, beta, residual=None, out=
         raise RuntimeError(f"dense_gn_silu_int8 launch failed: CUDA error {err}")
     dense_gn_silu_int8.launches += 1
     dense_gn_silu_int8.programmatic += 1
-    dense_gn_silu_int8.routes["register" if a_q is None else "wgmma_int8"] += 1
+    dense_gn_silu_int8.routes[_k13_route(a, a_q)] += 1
     return out
 
 
 dense_gn_silu_int8.launches = 0
 dense_gn_silu_int8.programmatic = 0
-dense_gn_silu_int8.routes = {"wgmma_int8": 0, "register": 0}
+dense_gn_silu_int8.routes = {"wgmma_int8": 0, "pre_wgmma8": 0, "register": 0}
+
+
+def dense_gn_silu_int8_pre_launch_info(rows: int, n: int) -> dict:
+    """K13's pre route at ``rows`` x ``n`` as it launches on this card:
+    threads, static shared memory a CTA and the dynamic shared memory it
+    reserves, registers and local memory (spills) a thread, and the CTAs an
+    SM holds at once."""
+    fn = build.load("dense_gn_silu_int8").dposer_dense_gn_silu_int8_pre_launch_info
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(rows, n, out)
+    if err:
+        raise RuntimeError(f"dense_gn_silu_int8_pre_launch_info failed: CUDA error {err}")
+    return dict(zip(("threads", "static_smem", "dynamic_smem", "registers", "local_bytes",
+                     "ctas_per_sm"), list(out)))
 
 
 def int8_loop_product(a_q, wq, qs):

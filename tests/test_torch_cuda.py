@@ -1320,15 +1320,16 @@ def test_dense_gn_silu_int8_hopper_route(dev, B, K, residual, copy):
                                        out=res if residual == "aliased" else None, a_q=a_q,
                                        qinv_next=qnext if copy else None, out_q=out_q)
     torch.cuda.synchronize()
-    assert fused_em.route_counts()["dense_gn_silu_int8"] == {"wgmma_int8": 1, "register": 0}
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == _k13_routes(hopper=1)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
     if copy:
         assert torch.equal(out_q, quantize_act(out, qnext).to(torch.int8))
 
 
 def test_dense_gn_silu_int8_register_route_writes_the_copy(dev):
-    """The pre layer (K = 63, the fp32 state, the register-staged loop) with
-    the int8 copy for the first block: ``quantize_act`` of its output."""
+    """The pre layer (K = 63, the fp32 state; the pre route since it came,
+    the register-staged loop before) with the int8 copy for the first block:
+    ``quantize_act`` of its output."""
     from dposer_tpu_torch.ops.cuda.quant import quantize_act
     rng = np.random.default_rng(64)
     B, K, N = 500, 63, 1024
@@ -1344,9 +1345,117 @@ def test_dense_gn_silu_int8_register_route_writes_the_copy(dev):
     out = score_net.dense_gn_silu_int8(a, wq, qinv, qs, tp, gamma, beta, qinv_next=qnext,
                                        out_q=out_q)
     torch.cuda.synchronize()
-    assert fused_em.route_counts()["dense_gn_silu_int8"] == {"wgmma_int8": 0, "register": 1}
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == _k13_routes(pre=1)
     torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
     assert torch.equal(out_q, quantize_act(out, qnext).to(torch.int8))
+
+
+def _k13_routes(hopper=0, pre=0, register=0):
+    return {"wgmma_int8": hopper, "pre_wgmma8": pre, "register": register}
+
+
+def _k13_pre_operands(dev, B, scheme, state, seed):
+    """The pre layer's operands at B rows: the state (16-byte aligned, or A
+    or Wq 4 bytes past a boundary), int8 Wq [1024, 63], a per-tensor or
+    per-channel quantization row, the rescale, time and affine rows and the
+    next layer's quantization row."""
+    rng = np.random.default_rng(seed)
+    K, N = 63, 1024
+    a = _t(rng, (B, K), dev, 2.0)
+    wq = _int8(rng, (N, K), dev)
+    if state == "misaligned A":
+        a = _misaligned_like(a)
+    elif state == "misaligned Wq":
+        base = torch.empty(wq.numel() + 16, dtype=torch.int8, device=dev)
+        skip = next(s for s in range(1, 16) if (base.data_ptr() + s) % 16 == 4)
+        wq = base[skip:skip + wq.numel()].view(N, K).copy_(wq)
+    assert (a.data_ptr() % 16 == 0) == (state != "misaligned A")
+    assert (wq.data_ptr() % 16 == 0) == (state != "misaligned Wq")
+    if scheme == "tensor":
+        qinv = torch.full((K,), 127.0 / 4.0, device=dev)
+    else:
+        qinv = torch.from_numpy(rng.uniform(10, 60, size=K).astype(np.float32)).to(dev)
+    qs = torch.from_numpy(rng.uniform(1e-5, 1e-4, size=N).astype(np.float32)).to(dev)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    qnext = torch.from_numpy(rng.uniform(10, 60, size=N).astype(np.float32)).to(dev)
+    return a, wq, qinv, qs, tp, gamma, beta, qnext
+
+
+# the pre layer's shapes: one row, 63 (one ragged CTA row), generation's 500
+# (one CTA an SM) and completion's 1,000 (two); the state 16-byte aligned
+# (both spans by one bulk copy each), A misaligned (every thread's loads of
+# the state) or Wq misaligned (every thread's loads of Wq's span); the
+# per-tensor and the per-channel quantization row
+@pytest.mark.parametrize("B", [1, 63, 500, 1000])
+@pytest.mark.parametrize("state", ["aligned", "misaligned A", "misaligned Wq"])
+@pytest.mark.parametrize("scheme", ["tensor", "channel"])
+def test_k13_pre_route(dev, B, state, scheme):
+    """K13's pre route (fp32 A at K = 63, writing ``out`` and ``out_q``) is
+    byte for byte the register-staged loop on the operands zero-padded to
+    K = 128 (the same exact int32 sums, the same rescale and epilogue), its
+    copy is ``quantize_act`` of its own output, and it is within the plain
+    version's tolerance."""
+    from dposer_tpu_torch.ops.cuda.quant import quantize_act
+    a, wq, qinv, qs, tp, gamma, beta, qnext = _k13_pre_operands(dev, B, scheme, state, B + 5)
+    K, N = a.shape[1], wq.shape[0]
+    want = score_net.dense_gn_silu_int8_plain(a, wq, qinv, qs, tp, gamma, beta)
+    out_q = torch.empty((B, N), dtype=torch.int8, device=dev)
+    reset_launch_counts()
+    out = score_net.dense_gn_silu_int8(a, wq, qinv, qs, tp, gamma, beta, qinv_next=qnext,
+                                       out_q=out_q)
+    a128 = torch.zeros(B, 128, device=dev)
+    a128[:, :K] = a
+    wq128 = torch.zeros(N, 128, dtype=torch.int8, device=dev)
+    wq128[:, :K] = wq
+    qinv128 = torch.zeros(128, device=dev)
+    qinv128[:K] = qinv
+    reg_q = torch.empty_like(out_q)
+    reg = score_net.dense_gn_silu_int8(a128, wq128, qinv128, qs, tp, gamma, beta,
+                                       qinv_next=qnext, out_q=reg_q)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == _k13_routes(pre=1, register=1)
+    assert torch.equal(out, reg) and torch.equal(out_q, reg_q)
+    assert torch.equal(out_q, quantize_act(out, qnext).to(torch.int8))
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("B", [1, 500, 1000, 1001])
+def test_k13_pre_route_launch_info(dev, B):
+    """K13's pre route: at most 128 registers a thread (two CTAs an SM by
+    registers), no local memory (no spills); a grid that fits the SMs once
+    (1 and 500 rows at N = 1024) reserves the shared memory that holds it to
+    one CTA an SM, a larger one to two."""
+    info = score_net.dense_gn_silu_int8_pre_launch_info(B, 1024)
+    assert info["threads"] == 256 and info["registers"] <= 128, info
+    assert info["local_bytes"] == 0, info
+    one_wave = 16 * -(-B // 64) <= torch.cuda.get_device_properties(dev).multi_processor_count
+    assert info["ctas_per_sm"] == (1 if one_wave else 2), info
+
+
+@pytest.mark.parametrize("scheme", ["tensor", "channel"])
+def test_k13_routes_a_forward(dev, scheme):
+    """``network_hidden`` on int8 operands runs a forward as the pre layer on
+    the pre route and the four K = 1024 layers on the Hopper int8 loop, and
+    gives its plain version's activation within the layers' tolerance."""
+    from dposer_tpu_torch.ops.cuda import quant
+    model = _small_model(dev)
+    sde = tsde.SubVPSDE(N=6)
+    calib = quant.calibrate_act_amax_per_channel if scheme == "channel" else \
+        quant.calibrate_act_amax
+    amax = calib(sde, model, (64, 63), torch.Generator(device=dev).manual_seed(0), device=dev)
+    net, _ = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev,
+                                             quant="int8", act_amax=amax)
+    rng = np.random.default_rng(4)
+    B, H = 70, net["hidden"]
+    x = _t(rng, (B, 63), dev, 2.0)
+    h, h1 = torch.empty(B, H, device=dev), torch.empty(B, H, device=dev)
+    reset_launch_counts()
+    got = score_net.network_hidden(net, x, 3, h, h1)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == _k13_routes(hopper=4, pre=1)
+    want = score_net.network_hidden(net, x, 3, torch.empty_like(h), torch.empty_like(h1),
+                                    layer=score_net.hidden_layer(net, plain=True))
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-2 * max(1.0, float(want.abs().max())))
 
 
 @pytest.mark.parametrize("B", [1, 500, 512])
@@ -1424,9 +1533,9 @@ def test_int8_kernel_sampler_steps_match_plain(dev, scheme):
         torch.testing.assert_close(xk, xp, rtol=0, atol=2e-2 * max(1.0, float(xp.abs().max())))
     counts = launch_counts()
     assert counts["dense_gn_silu_int8"] == 5 * n and counts["dense_gn_silu"] == 0
-    # the pre layer on the fp32 state, every later layer on the int8 handoff
-    assert fused_em.route_counts()["dense_gn_silu_int8"] == {"wgmma_int8": 4 * n,
-                                                              "register": n}
+    # the pre layer on the fp32 state (the pre route), every later layer on
+    # the int8 handoff
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == _k13_routes(hopper=4 * n, pre=n)
     out = get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax,
                               device="cuda")(z=z, noise=noise)
     ref = get_cuda_em_sampler(sde, model, shape, quant="int8", act_amax=amax, device="cuda",

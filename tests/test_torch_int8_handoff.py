@@ -61,7 +61,50 @@ def test_plain_k13_with_handoff_is_bit_equal(scheme, with_residual):
                                        a_q=a_q, qinv_next=qnext, out_q=out_q)
     assert torch.equal(got, want)
     assert torch.equal(out_q, quant.quantize_act(want, qnext).to(torch.int8))
-    assert fused_em.route_counts()["dense_gn_silu_int8"] == {"wgmma_int8": 0, "register": 0}
+    assert fused_em.route_counts()["dense_gn_silu_int8"] == {"wgmma_int8": 0, "pre_wgmma8": 0,
+                                                              "register": 0}
+
+
+def _misaligned(rows, cols):
+    """A contiguous fp32 [rows, cols] view whose data starts 4 bytes past a
+    16-byte boundary."""
+    base = torch.empty(rows * cols + 16)
+    skip = next(s for s in range(1, 16) if (base.data_ptr() + 4 * s) % 16 == 4)
+    return base[skip:skip + rows * cols].view(rows, cols)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("pre K=63", "pre_wgmma8"), ("pre K=63 misaligned", "pre_wgmma8"), ("K=64", "pre_wgmma8"),
+    ("K=65", "register"), ("rot6d K=126", "register"), ("K=1024", "register"),
+    ("K=1024 misaligned", "register"), ("int8 copy", "wgmma_int8")])
+def test_k13_route_follows_the_operands(case, want):
+    """K13's route is chosen by the operands: the int8 copy ``a_q`` takes the
+    Hopper int8 loop, fp32 A at K <= 64 (the pre layer, whatever A's
+    alignment) the pre route, any wider fp32 A the register-staged loop."""
+    K = int(case.split("K=")[1].split()[0]) if "K=" in case else 1024
+    a = _misaligned(70, K) if "misaligned" in case else torch.empty(70, K)
+    assert (a.data_ptr() % 16 != 0) == ("misaligned" in case)
+    a_q = torch.empty(70, K, dtype=torch.int8) if case == "int8 copy" else None
+    assert score_net._k13_route(None if a_q is not None else a, a_q) == want
+
+
+@pytest.mark.parametrize("variant", ["pre route", "two an SM", "register route"])
+def test_k13_pre_variants_apply(variant):
+    """Every K13 variant of ``benchmarks/k1_pre.py`` still applies to the
+    shipped K13 source and changes only the lines it names; the pre route
+    variant is the source as it is."""
+    from dposer_tpu_torch.benchmarks import k1_pre
+    from dposer_tpu_torch.ops.cuda import build
+
+    shipped = (build.CSRC / "dense_gn_silu_int8.cu").read_text()
+    assert set(k1_pre.K13_VARIANTS) == {"pre route", "two an SM", "register route"}
+    text = k1_pre.variant_source(variant, "dense_gn_silu_int8")
+    subs = k1_pre.K13_VARIANTS[variant]
+    assert (text == shipped) == (not subs)
+    for old, new in subs:
+        assert old in shipped and old not in text and (not new or new in text)
+    assert len(text.splitlines()) == len(shipped.splitlines()) - sum(
+        old.count("\n") - new.count("\n") for old, new in subs)
 
 
 def _int8_net(scheme, hidden=128, n=6, seed=0):
@@ -264,9 +307,10 @@ def test_k14_handoff_validation_errors(case):
 
 def test_route_counts_start_at_zero():
     """``route_counts`` names K1's two routes, K7's two, K10's two, K12's
-    one, K13's two and K14's three, and ``reset_launch_counts`` sets them to
-    0."""
+    one, K13's three and K14's three, and ``reset_launch_counts`` sets them
+    to 0."""
     score_net.dense_gn_silu_int8.routes["register"] += 3
+    score_net.dense_gn_silu_int8.routes["pre_wgmma8"] += 5
     score_net.dense_gn_silu_jvp.routes["wgmma"] += 2
     score_net.dense_gn_silu.routes["wgmma_bf16"] += 4
     fused_em.reset_launch_counts()
@@ -275,7 +319,7 @@ def test_route_counts_start_at_zero():
         "dense_gn_silu_jvp": {"wgmma": 0, "register": 0},
         "dense_gn_silu_train": {"wgmma": 0, "register": 0},
         "dense_gn_silu_bwd": {"wgmma": 0},
-        "dense_gn_silu_int8": {"wgmma_int8": 0, "register": 0},
+        "dense_gn_silu_int8": {"wgmma_int8": 0, "pre_wgmma8": 0, "register": 0},
         "chain_link": {"wgmma": 0, "wgmma_int8": 0, "register": 0}}
 
 

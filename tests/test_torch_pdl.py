@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "dposer_tpu_torch" / "ops" / "cuda"
 WAITING = [
     ("dense_gn_silu.cu", "dense_gn_silu_kernel"),  # K1's pre route
     ("dense_gn_silu.cu", "dense_gn_silu_wgmma_kernel"),  # K1 from the bf16 copy
-    ("dense_gn_silu_int8.cu", "dense_gn_silu_int8_kernel"),  # K13's register route
+    ("dense_gn_silu_int8.cu", "dense_gn_silu_int8_kernel"),  # K13's pre and register routes
     ("dense_gn_silu_int8.cu", "dense_gn_silu_int8_wgmma8_kernel"),  # K13 from the int8 copy
     ("head_em.cu", "head_em_body"),  # K2 and its imputation instantiation
     ("head_adam.cu", "head_adam_body"),  # K6 and its perturbing instantiation
@@ -38,6 +38,7 @@ LAUNCHING = [
     ("dense_gn_silu.cu", "launch_bf16"),
     ("dense_gn_silu.cu", "launch_pre"),
     ("dense_gn_silu_int8.cu", "launch_gs"),
+    ("dense_gn_silu_int8.cu", "launch_pre"),
     ("head_em.cu", "dposer_head_em"),
     ("head_em.cu", "dposer_head_em_impute"),
     ("head_adam.cu", "dposer_head_adam"),
