@@ -92,7 +92,14 @@ Phases; any failure exits non-zero:
    (a) generation, 500 poses x 1000 sub-VP EM steps, in-kernel normals:
    poses/s, K1's routes a call (4,000 from the bf16 copy, 1,000 on the pre
    route), and the tensor maps K1 encodes a call (at most 8: its map cache
-   holds them across launches); (b) the demo's generation task with ``--metrics`` (50 poses,
+   holds them across launches); (a') the same call on DPoser's rot6d
+   configuration (a ScoreModelFC of 21 x 6 = 126 dims, random weights from a
+   seed): K1's pre route over two K-tiles at [500,126]x[126,1024] and K2 at
+   128 columns at [500,1024]x[1024,126] against their plain versions at the
+   plain tolerance, each launch on its wide route, then a graph-replayed call
+   with in-kernel normals and the denoise whose K1 routes read 4,000 from the
+   bf16 copy and 1,000 on the two-tile pre route and whose K2 launches read
+   1,000 at 128 columns; (b) the demo's generation task with ``--metrics`` (50 poses,
    then 500 poses x 1000 steps with the langevin corrector at eps 5e-3,
    through the SMPL body): APD must lie in [0.80, 1.00] and SI in [0, 100];
    then the self-intersection metric (SI): the native library built with
@@ -689,11 +696,13 @@ def phase_build():
           + "".join(f"\n    {ln}" for ln in serialized))
     check(not serialized, "ptxas serialized a wgmma of K13 or K14")
     clusters = {}
-    # K2 (both instantiations), K3; K6 at the solver's 1,000 rows; K8 at ODE
-    # sampling's 500 rows; K11 at the train batch on the bf16 stash (the
-    # step's) and on fp32 h
+    # K2 (both instantiations, at 64 columns and at 128 for a pose of 65-128
+    # dims), K3; K6 at the solver's 1,000 rows; K8 at ODE sampling's 500
+    # rows; K11 at the train batch on the bf16 stash (the step's) and on fp32 h
     for key, lib, args in (("head_em", "head_em", (B, H)),
                            ("head_em_impute", "head_em", (B, H)),
+                           ("head_em_wide", "head_em", (B, H)),
+                           ("head_em_impute_wide", "head_em", (B, H)),
                            ("langevin_update", "langevin_update", ()),
                            ("head_adam", "head_adam", (RC, H)),
                            ("head_adam_perturb", "head_adam", (RC, H)),
@@ -1639,7 +1648,7 @@ def phase_completion_protocols(model, dev):
     # a forward: the pre layer on the pre route, four layers on the bf16 copy
     k1_routes = fused_em.route_counts()["dense_gn_silu"]
     print(f"[completion] K1's routes a solve: {k1_routes}")
-    check(k1_routes == dict(wgmma_bf16=800, pre_wgmma=200),
+    check(k1_routes == dict(wgmma_bf16=800, pre_wgmma=200, pre_wgmma2=0),
           f"solver: K1's routes a solve {k1_routes}")
     check(hypos.shape == (100, HYPO, D) and torch.isfinite(hypos).all().item(), "solver output")
     check(torch.equal(hypos * mask[:, None], (obs * mask)[:, None].expand_as(hypos)),
@@ -3013,7 +3022,7 @@ def phase_protocols(model, dev):
     # a forward: the pre layer on the pre route, four layers on the bf16 copy
     k1_routes = fused_em.route_counts()["dense_gn_silu"]
     print(f"[generation] K1's routes a call: {k1_routes}")
-    check(k1_routes == dict(wgmma_bf16=4000, pre_wgmma=1000),
+    check(k1_routes == dict(wgmma_bf16=4000, pre_wgmma=1000, pre_wgmma2=0),
           f"generation: K1's routes a call {k1_routes}")
     # K1 encodes its tensor maps once per (pointer, shape) and caches them: a
     # call's four K = 1024 layers need two activation and four weight maps
@@ -3057,6 +3066,96 @@ def phase_protocols(model, dev):
                                                  smooth_body=si_res),
                 by_run=dict(generation_500x1000=gen_counts,
                             demo_generation_metrics=demo_counts, **si_by_run))
+
+
+def phase_rot6d(dev):
+    """(a') DPoser's rot6d configuration (126-dim poses) on the generation
+    path: the two kernels it widens at the call's shapes, then the call."""
+    d6 = 126
+    config = get_config()
+    config.data.rot_rep = "rot6d"
+    torch.manual_seed(6)
+    model = create_score_model(config).to(dev).eval()
+    check(model.n_poses * model.pose_dim == d6, "rot6d: the model's pose dim")
+    sde = SubVPSDE(N=1000)
+    net, coefs = fused_em.build_sampler_operands(sde, model, 1e-3, "euler_maruyama", dev)
+    check(net["w_post"].shape == (H, 128), f"rot6d: the head padded to {net['w_post'].shape}")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    i = 500
+    tp, W, gs, gb = net["tp_all"][i], net["W"], net["gn_scale"], net["gn_bias"]
+    x = torch.randn(B, d6, generator=gen, device=dev)
+    res = {}
+    # K1's pre route over two K-tiles, writing its bf16 copy, as the pre layer
+    ref = score_net.dense_gn_silu_plain(x, W[0], tp[0], gs[0], gb[0])
+    o_b = torch.empty(B, H, dtype=torch.bfloat16, device=dev)
+    fused_em.reset_launch_counts()
+    got = score_net.dense_gn_silu(x, W[0], tp[0], gs[0], gb[0], out_b=o_b)
+    torch.cuda.synchronize()
+    routes = fused_em.route_counts()["dense_gn_silu"]
+    check(routes["pre_wgmma2"] == 1, f"rot6d: K1's pre layer took {routes}")
+    e, tol = err(got, ref), 1e-3 * max(1.0, float(ref.abs().max()))
+    check(e <= tol, f"rot6d: K1's two-tile pre route max abs err {e} > {tol}")
+    check(torch.equal(o_b, got.to(torch.bfloat16)),
+          "rot6d: K1's bf16 copy is not the output rounded")
+    pre_ms = graph_ms(lambda: score_net.dense_gn_silu(x, W[0], tp[0], gs[0], gb[0], out=got,
+                                                      out_b=o_b))
+    res["k1_pre2"] = dict(shape=f"[{B},{d6}]x[{d6},{H}]", max_abs_err=e, tol=tol, ms=pre_ms)
+    # K2 at 128 columns: the EM update and the corrector's score, host normals
+    hid = torch.empty(B, H, device=dev)
+    score_net.network_hidden(net, x, i, hid, torch.empty_like(hid))
+    z = torch.randn(B, d6, generator=gen, device=dev)
+    wp, bp = net["w_post"], net["b_post"]
+    x_ref, xm_ref = fused_em.head_em_plain(hid, wp, bp, coefs, i, "em", d6, x=x, noise=z)
+    s_ref, sq_ref = fused_em.head_em_plain(hid, wp, bp, coefs, i, "score", d6)
+    xk, xm = x.clone(), torch.empty_like(x)
+    score, sq = torch.empty_like(x), torch.empty(B, device=dev)
+    fused_em.reset_launch_counts()
+    fused_em.head_em(hid, wp, bp, coefs, i, "em", x=xk, x_mean=xm, noise=z)
+    fused_em.head_em(hid, wp, bp, coefs, i, "score", score=score, score_sq=sq)
+    torch.cuda.synchronize()
+    routes = fused_em.route_counts()["head_em"]
+    check(routes == dict(head64=0, head128=2), f"rot6d: K2 took {routes}")
+    e2 = [err(xk, x_ref), err(xm, xm_ref), err(score, s_ref)]
+    tol2 = [1e-3 * max(1.0, float(r.abs().max())) for r in (x_ref, xm_ref, s_ref)]
+    check(all(a <= b for a, b in zip(e2, tol2)), f"rot6d: K2 wide errors {e2} > {tol2}")
+    sq_e = float(((sq - sq_ref).abs() / sq_ref.abs().clamp(min=1e-6)).max())
+    check(sq_e <= 1e-3, f"rot6d: K2 wide row norms relative error {sq_e}")
+    xs = x.clone()
+    k2_ms = graph_ms(lambda: fused_em.head_em(hid, wp, bp, coefs, i, "em", x=xs, x_mean=xm,
+                                              noise=z))
+    res["k2_wide"] = dict(shape=f"[{B},{H}]x[{H},{d6}]", max_abs_err=max(e2), tol=max(tol2),
+                          row_norm_rel_err=sq_e, ms=k2_ms)
+    print(f"[rot6d] K1 two-tile pre route {res['k1_pre2']['shape']}: err {e:.3g} (tol "
+          f"{tol:.3g}), {pre_ms * 1e3:.2f} us; K2 at 128 columns {res['k2_wide']['shape']}: "
+          f"errs {[float('%.3g' % v) for v in e2]}, {k2_ms * 1e3:.2f} us")
+    # the generation call: in-kernel normals, the denoise, replayed from its graph
+    sampler = fused_em.get_cuda_em_sampler(sde, model, (B, d6), rng_mode="kernel",
+                                           denoise=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    sampler(g)  # warm-up and capture
+    walls, counts = [], None
+    for _ in range(3):
+        fused_em.reset_launch_counts()
+        replays = GraphLoop.replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler(g)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(GraphLoop.replays == replays + 1, "rot6d: the call did not replay its graph")
+        routes = fused_em.route_counts()
+        k1_routes, k2_routes = routes["dense_gn_silu"], routes["head_em"]
+        check(k1_routes == dict(wgmma_bf16=4000, pre_wgmma=0, pre_wgmma2=1000),
+              f"rot6d: K1's routes a call {k1_routes}")
+        check(k2_routes == dict(head64=0, head128=1000), f"rot6d: K2's routes a call {k2_routes}")
+        counts = fused_em.launch_counts()
+    check(out.shape == (B, d6) and torch.isfinite(out).all().item(), "rot6d: generation output")
+    wall = min(walls)
+    res["generation"] = dict(poses_per_s=B / wall, walls_s=walls, k1_routes=k1_routes,
+                             k2_routes=k2_routes, launches=counts)
+    print(f"[rot6d] 500 x 1000 steps at 126 dims: {B / wall:.1f} poses/s best (calls "
+          f"{['%.3f' % w for w in walls]} s); K1's routes a call {k1_routes}, K2's {k2_routes}")
+    return dict(results=res, by_run=dict(generation_rot6d_500x1000=counts))
 
 
 def host_cpu():
@@ -5099,6 +5198,7 @@ def main():
             parity.update(phase_ode_parity(model, dev))
             parity.update(phase_int8_parity(model, dev, amax))
             proto = phase_protocols(model, dev)
+            rot6d = phase_rot6d(dev)
             rows += phase_train_kernels(model, dev)
         comp = phase_completion_protocols(model, dev)
         comp_cli = phase_completion_cli(dev)
@@ -5116,7 +5216,7 @@ def main():
         fit_inputs = fit.pop("inputs")
         dp = phase_data_parallel(model, dev, fit_inputs)
         last = phase_last_modules(model, dev, fit_inputs)
-        by_run = {**proto.pop("by_run"), **comp["by_run"], **comp_cli["by_run"],
+        by_run = {**proto.pop("by_run"), **rot6d["by_run"], **comp["by_run"], **comp_cli["by_run"],
                   **int8["by_run"], **micro["by_run"], **ode["by_run"], **sharded["by_run"],
                   **fit["by_run"], **train["by_run"], **dp["by_run"], **last["by_run"]}
         for r in rows:
@@ -5164,6 +5264,7 @@ def main():
     print(f"[completion] kernels alone: {solve_ms:.1f} ms per solve, so the device is busy "
           f"~{100 * sol['device_busy_share_est']:.0f}% of the best call")
     proto["completion"] = comp["results"]
+    proto["rot6d"] = rot6d["results"]
     proto["completion_cli"] = comp_cli["results"]
     # and for the PF-ODE paths: 4 x 125 stages of K1 x5 and K8 at 500 rows; 4 x 100
     # stages of K7 x5 and K9 at 50 rows

@@ -48,10 +48,10 @@ from .train_rings import graph_us
 
 H, D = 1024, 63
 BULK = ("  const int n_bulk = reinterpret_cast<uintptr_t>(span) % 16 == 0 ? n & ~3 : 0;\n")
-LOADS = ("  if (tid == 0 && n_bulk > 0) bulk_copy(sm_s + RAW, span, 4 * n_bulk, bar);\n"
+LOADS = ("  if (tid == 0 && n_bulk > 0) bulk_copy(sm_s + S::RAW, span, 4 * n_bulk, bar);\n"
          "  for (int i = n_bulk + tid; i < n; i += THREADS) raw[i] = span[i];\n")
 CTAS = "inline int ctas_per_sm(bool one_wave) { return one_wave ? 1 : 2; }"
-DYN = "  const int dyn = pre::reserve(pre::ctas_per_sm(one_wave));"
+DYN = "  const int dyn = pre::reserve<KT>(pre::ctas_per_sm(one_wave));"
 # name: [(old, new)] substitutions into dense_gn_silu.cu
 VARIANTS = {
     "shipped": [],

@@ -54,6 +54,7 @@ from .body_model import BodyModel
 from .body_model.part_indices import BodyPartIndices
 from .config import load_config
 from .data import AMASSDataset
+from .ops.cuda.fused_em import narrow_head_scope
 from .ops.metrics import Evaler
 from .parallel import (allgather_ragged_1d, init_distributed, make_mesh, mesh_route,
                        pad_batch_to_multiple, process_count, process_index,
@@ -166,7 +167,7 @@ def run(args) -> dict:
     n_dev = mesh.size
     print(f"data-parallel over {n_dev} device(s) of this process "
           f"({[str(d) for d in mesh.devices]}), {process_count()} process(es)")
-    if device.type == "cuda":
+    if device.type == "cuda" and narrow_head_scope(model, "solver"):
         comp = DPoserComp(sde, score_fn, config.training.continuous, backend="cuda",
                           model=model, device=device, mesh=mesh_route(mesh, device)[0])
         route = "kernel Adam-loop solver (K5, K1, K6; one CUDA graph a batch shape" + (
@@ -174,7 +175,10 @@ def run(args) -> dict:
     else:
         comp = DPoserComp(sde, score_fn, config.training.continuous, backend="torch",
                           device=device)
-        route = "autograd Adam-loop solver"
+        route = "autograd Adam-loop solver" + (
+            "" if device.type != "cuda" else
+            f" (a pose of {model.n_poses * model.pose_dim} dims is outside the kernel solver's "
+            f"scope)")
     print(f"[completion] {route}")
 
     batch_range = shard_eval_batches(len(dataset), args.batch_size)

@@ -117,13 +117,14 @@ from .config import load_config
 from .data import PoseNormalizer
 from .body_model.part_indices import BodyPartIndices
 from .diffusion import few_step
+from .diffusion.fast_sampler import get_fast_ode_sampler
 from .diffusion.likelihood import get_fast_likelihood_fn, get_likelihood_fn
 from .diffusion.sampling import get_sampling_fn
 from .diffusion.score_fn import get_score_fn
 from .diffusion.sde import build_sde, sampling_eps_for
 from .models import create_score_model
 from .ops.cuda.fused_em import (get_cuda_em_hypo_sampler, get_cuda_em_sampler,
-                                   in_kernel_scope)
+                                   in_kernel_scope, narrow_head_scope)
 from .ops.cuda.fused_ode import get_cuda_ode_sampler
 from .ops.cuda.quant import calibrate_act_amax, calibrate_act_amax_per_channel
 from .ops.metrics import Evaler, average_pairwise_distance, self_intersections_percentage
@@ -329,10 +330,16 @@ def build_generation_sampler(config, sde, model, batch: int, eps: float, device,
                                            quant_kw)
     method = config.sampling.method.lower()
     if method == "ode":
-        s = get_cuda_ode_sampler(sde, model, (batch, model.n_poses * model.pose_dim),
-                                 n_steps=ODE_STEPS, eps=eps,
-                                 denoise=config.sampling.noise_removal, device=device)
-        print("[sampler] kernel RK4 PF-ODE path")
+        shape = (batch, model.n_poses * model.pose_dim)
+        kw = dict(n_steps=ODE_STEPS, eps=eps, denoise=config.sampling.noise_removal,
+                  device=device)
+        if narrow_head_scope(model, "ode"):
+            s = get_cuda_ode_sampler(sde, model, shape, **kw)
+            print("[sampler] kernel RK4 PF-ODE path")
+        else:
+            s = get_fast_ode_sampler(sde, model, shape, **kw)
+            print(f"[sampler] fp32 tabled RK4 PF-ODE loop: a pose of {shape[1]} dims is "
+                  f"outside the kernels' scope")
         return lambda generator: s(generator)[1]
     if method != "pc":
         raise ValueError(f"Sampler name {config.sampling.method} unknown.")
@@ -397,11 +404,19 @@ def complete_by_optimisation(sde, model, observation, mask, hypo_num, generator,
     (ref run/demo.py:306), the whole Adam loop on the kernels. The reference's
     fixed time 900 assumes N = 1000; a reduced N takes its last grid index.
     ``mesh`` (more than one device; the hypothesis rows divide it) shards
-    the hypothesis rows."""
-    comp = DPoserComp(sde, model=model, time_strategy="2",
-                      sample_time=min(900, sde.N - 1), backend="cuda", device=device, mesh=mesh)
-    print("[completion] kernel Adam-loop solver"
-          + ("" if mesh is None else f" over {mesh.size} shards"))
+    the hypothesis rows. A pose the kernel solver does not take (rot6d's 126
+    dims: ``narrow_head_scope``) asks for the autograd solver, on one
+    device, and says so."""
+    if narrow_head_scope(model, "solver"):
+        backend = "cuda"
+        print("[completion] kernel Adam-loop solver"
+              + ("" if mesh is None else f" over {mesh.size} shards"))
+    else:
+        backend, mesh = "torch", None
+        print(f"[completion] autograd solver: a pose of {model.n_poses * model.pose_dim} dims "
+              f"is outside the kernel solver's scope")
+    comp = DPoserComp(sde, model=model, time_strategy="2", sample_time=min(900, sde.N - 1),
+                      backend=backend, device=device, mesh=mesh)
     return comp.optimize_hypos(observation, mask, hypo_num, generator)
 
 

@@ -23,10 +23,11 @@
 //   and all eight warps in the epilogue. No register holds an operand, so
 //   no instruction defines a wgmma input while one is in flight: no
 //   serialized wgmma (C7513), and a group may be left in flight.
-// - Given fp32 A with K <= 64 (the pre layer, A = the [B, 63] state, a
-//   252-byte row stride TMA cannot take; whatever A's alignment), the pre
-//   route (namespace pre, below).
-// Any other operand is refused: a caller with fp32 A at K > 64 passes its
+// - Given fp32 A with K <= 128 (the pre layer, A = the [B, 63] state of
+//   axis-angle poses or the [B, 126] one of rot6d poses, a 252- or 504-byte
+//   row stride TMA cannot take; whatever A's alignment), the pre route
+//   (namespace pre, below): one 64-deep K-tile at K <= 64, two beyond.
+// Any other operand is refused: a caller with fp32 A at K > 128 passes its
 // bf16 copy.
 // A GroupNorm group is N/32 consecutive features, so with N/32 <= 32 a
 // 64-wide tile holds whole groups in the natural feature order. Both routes
@@ -66,7 +67,8 @@
 // So a grid that fits the SMs once takes the deep ring, a larger one the
 // shallow ring; both add the same products in the same order.
 // The pre route: a 64-row block of the [B, K] state is one contiguous span
-// (64 x 252 = 16,128 bytes at K = 63, 16-byte aligned wherever the base is).
+// (64 x 252 = 16,128 bytes at K = 63, 16-byte aligned wherever the base is;
+// 64 x 504 = 32,256 at rot6d's K = 126, the two-tile instantiation below).
 // One thread starts W's 64 x 64 box by TMA (row 63 reads as zero) before the
 // wait and the span by one bulk copy after it; all eight warps round it once
 // into the swizzled bf16 tile wgmma reads (column 63 and the rows past B
@@ -105,6 +107,14 @@
 // the residual and every write come after the wait. The wait orders all
 // memory, so the early trigger is safe, and the sums, their order and the
 // rounding are those of a plain launch: the outputs are bit-equal.
+// The two-tile instantiation (64 < K <= 128, rot6d's 126): the same body
+// over two 64-deep K-tiles: W's two 64 x 64 boxes (rows past K read as
+// zeros), the span rounded into two swizzled bf16 tiles (columns past K
+// zero), eight wgmma m64n64k16. Its 66.6 KB of shared memory (the span alone
+// 32 KB) is past what a CTA may declare statically, so it takes dynamic
+// shared memory, as large as the reservation that sets the CTAs an SM
+// holds; the one-tile instantiation keeps its static shared memory and
+// its reservation. Bound: bytes, 3.59 MB at 500 rows with the copy (1.07 us).
 // Not yet: a persistent kernel whose epilogue overlaps the next tile's
 // loads.
 
@@ -205,19 +215,27 @@ dense_gn_silu_wgmma_kernel(const __grid_constant__ CUtensorMap tmA,
 
 namespace pre {
 
-// The pre layer's shared memory, at offsets from a 1024-byte aligned base:
-// the bf16 A tile (64 rows of 64 K-columns, one 128-byte swizzle atom a
-// row, as TMA would write it), W's box (64 K-rows x 64 columns, MN-major,
-// written by TMA), A's fp32 rows as they lie in memory (64 x K, K <= 64)
-// and the barrier that counts W's box and A's bulk copy in. The epilogue's
-// fp32 tile [BM][C_LD] overlays the first three once the product is done.
-constexpr int KMAX = 64;
-constexpr int TILE_A = 0;
-constexpr int TILE_W = TILE_A + BM * KMAX * 2;
-constexpr int RAW = TILE_W + KMAX * BN * 2;
-constexpr int BAR = RAW + BM * KMAX * 4;
-constexpr int SMEM = 1024 + BAR + 8;  // static; aligned by hand
-static_assert(BM * C_LD * 4 <= BAR, "the epilogue's tile must fit below the barrier");
+// The pre layer's shared memory for KT 64-deep K-tiles, at offsets from a
+// 1024-byte aligned base: the bf16 A tiles (each 64 rows of 64 K-columns,
+// one 128-byte swizzle atom a row, as TMA would write it), W's boxes (each
+// 64 K-rows x 64 columns, MN-major, written by TMA; together the K-rows in
+// order), A's fp32 rows as they lie in memory (64 x K, K <= 64 KT) and the
+// barrier that counts W's boxes and A's bulk copy in. The epilogue's fp32
+// tile [BM][C_LD] overlays the first three once the product is done. One
+// tile: static shared memory; two: dynamic (past the static 48 KB).
+constexpr int KTILE = 64;  // K-columns a tile, W's K-rows a box
+template <int KT>
+struct Smem {
+  static constexpr int KMAX = KTILE * KT;
+  static constexpr int A_TILE = BM * KTILE * 2, W_BOX = KTILE * BN * 2;
+  static constexpr int TILE_A = 0;
+  static constexpr int TILE_W = TILE_A + KT * A_TILE;
+  static constexpr int RAW = TILE_W + KT * W_BOX;
+  static constexpr int BAR = RAW + BM * KMAX * 4;
+  static constexpr int SMEM = 1024 + BAR + 8;  // aligned by hand
+  static constexpr bool STATIC = KT == 1;
+  static_assert(BM * C_LD * 4 <= BAR, "the epilogue's tile must fit below the barrier");
+};
 
 using dposer::bulk_copy;
 using dposer::mbar_expect_tx;
@@ -226,22 +244,31 @@ using dposer::mbar_wait;
 using dposer::smem_u32;
 using dposer::tma_load;
 
-// The route for fp32 A with K <= 64 (the pre layer, A = the [B, 63] state):
-// a 64-row block of A is one contiguous span. One thread starts W's box
-// (TMA; rows past K read as zeros) before the wait for the launches before
-// this one and A's span after it (one bulk copy where the span starts
-// 16-byte aligned, its last values under 16 bytes and a misaligned span by
-// coalesced loads of every thread). All eight warps round the span into
-// the swizzled bf16 tile once (columns past K and rows past B zero), warps
-// 0-3 run four wgmma m64n64k16 with both operands from shared memory, and
-// all eight the epilogue. The products and their order are this route's on
-// A and W zero-padded to K = 64 and the bf16 route's on their copies.
-template <int GS>
+// The route for fp32 A with K <= 64 KT (the pre layer, A = the [B, 63] or
+// [B, 126] state): a 64-row block of A is one contiguous span. One thread
+// starts W's KT boxes (TMA; rows past K read as zeros) before the wait for
+// the launches before this one and A's span after it (one bulk copy where
+// the span starts 16-byte aligned, its last values under 16 bytes and a
+// misaligned span by coalesced loads of every thread). All eight warps round
+// the span into the KT swizzled bf16 tiles once (columns past K and rows
+// past B zero), warps 0-3 run 4 KT wgmma m64n64k16 with both operands from
+// shared memory, and all eight the epilogue. The products and their order
+// are this route's on A and W zero-padded to K = 64 KT and the bf16 route's
+// on their copies.
+template <int GS, int KT>
 __global__ void __launch_bounds__(THREADS, 2)
 dense_gn_silu_kernel(const float* A, const __grid_constant__ CUtensorMap tmW, const Epilogue p) {
-  __shared__ __align__(128) uint8_t smem_raw[SMEM];
-  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t sm_s = smem_u32(sm), bar = sm_s + BAR;
+  using S = Smem<KT>;
+  uint8_t* base;
+  if constexpr (S::STATIC) {
+    __shared__ __align__(128) uint8_t smem_raw[S::SMEM];
+    base = smem_raw;
+  } else {
+    extern __shared__ __align__(128) uint8_t smem_dyn[];
+    base = smem_dyn;
+  }
+  uint8_t* sm = base + ((1024 - (smem_u32(base) & 1023)) & 1023);
+  const uint32_t sm_s = smem_u32(sm), bar = sm_s + S::BAR;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int rows = min(BM, p.B - row0), n = rows * p.K;  // the span's fp32 values
@@ -252,34 +279,41 @@ dense_gn_silu_kernel(const float* A, const __grid_constant__ CUtensorMap tmW, co
     asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tmW)) : "memory");
     mbar_init(bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    mbar_expect_tx(bar, static_cast<uint32_t>(KMAX * BN * 2 + 4 * n_bulk));
-    tma_load(sm_s + TILE_W, &tmW, bar, col0, 0);
+    mbar_expect_tx(bar, static_cast<uint32_t>(KT * S::W_BOX + 4 * n_bulk));
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) tma_load(sm_s + S::TILE_W + kt * S::W_BOX, &tmW, bar, col0,
+                                             KTILE * kt);
   }
   Programmatic{}();  // the launches before this one are done: A is written
   span = dposer::after_wait(span);
-  float* raw = reinterpret_cast<float*>(sm + RAW);
-  if (tid == 0 && n_bulk > 0) bulk_copy(sm_s + RAW, span, 4 * n_bulk, bar);
+  float* raw = reinterpret_cast<float*>(sm + S::RAW);
+  if (tid == 0 && n_bulk > 0) bulk_copy(sm_s + S::RAW, span, 4 * n_bulk, bar);
   for (int i = n_bulk + tid; i < n; i += THREADS) raw[i] = span[i];
   __syncthreads();  // the barrier is in place, the threads' values are in
   mbar_wait(bar, 0);
-  // Thread t rounds the 16-byte chunks (r, c) = (q % 64, q / 64) of q = t,
-  // t + 256: eight K-columns 8c.. of row r, stored at chunk c ^ (r % 8) of
-  // the row (the 128-byte swizzle). A warp reads 32 rows at one column
-  // (stride K, odd at K = 63: distinct banks) and stores 8 distinct chunks
-  // of 8 rows a quarter: no bank conflicts.
+  // In K-tile kt, thread t rounds the 16-byte chunks (r, c) = (q % 64,
+  // q / 64) of q = t, t + 256: eight K-columns 64 kt + 8c.. of row r, stored
+  // at chunk c ^ (r % 8) of the tile's row (the 128-byte swizzle). A warp
+  // reads 32 rows at one column (stride K, odd at K = 63: distinct banks; at
+  // K = 126 two rows a bank) and stores 8 distinct chunks of 8 rows a
+  // quarter: no bank conflicts.
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int q = tid + THREADS * i, r = q % BM, c = q / BM;
-    float v[8];
+  for (int kt = 0; kt < KT; ++kt) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = 8 * c + j;
-      v[j] = r < rows && k < p.K ? raw[r * p.K + k] : 0.0f;
+    for (int i = 0; i < 2; ++i) {
+      const int q = tid + THREADS * i, r = q % BM, c = q / BM;
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int k = KTILE * kt + 8 * c + j;
+        v[j] = r < rows && k < p.K ? raw[r * p.K + k] : 0.0f;
+      }
+      using dposer::wgmma::pack_bf16;
+      *reinterpret_cast<uint4*>(sm + S::TILE_A + kt * S::A_TILE + r * 128 +
+                                ((c ^ (r & 7)) << 4)) =
+          make_uint4(pack_bf16(make_float2(v[0], v[1])), pack_bf16(make_float2(v[2], v[3])),
+                     pack_bf16(make_float2(v[4], v[5])), pack_bf16(make_float2(v[6], v[7])));
     }
-    using dposer::wgmma::pack_bf16;
-    *reinterpret_cast<uint4*>(sm + TILE_A + r * 128 + ((c ^ (r & 7)) << 4)) =
-        make_uint4(pack_bf16(make_float2(v[0], v[1])), pack_bf16(make_float2(v[2], v[3])),
-                   pack_bf16(make_float2(v[4], v[5])), pack_bf16(make_float2(v[6], v[7])));
   }
   // the tile's generic stores become visible to wgmma's reads (async proxy)
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -293,9 +327,12 @@ dense_gn_silu_kernel(const float* A, const __grid_constant__ CUtensorMap tmW, co
 #pragma unroll
     for (int i = 0; i < 32; ++i) keep(acc[i]);
     wgmma_fence();
+    // k-step kk: A's tile kk / 4 at 32 bytes a step into its swizzle row,
+    // W's K-rows 16 kk.. (the boxes lie one after the other)
 #pragma unroll
-    for (int kk = 0; kk < KMAX / 16; ++kk)
-      wgmma_m64n64k16_ss(acc, desc_k(sm_s + TILE_A + 32 * kk), desc_b(sm_s + TILE_W + kk * 2048));
+    for (int kk = 0; kk < S::KMAX / 16; ++kk)
+      wgmma_m64n64k16_ss(acc, desc_k(sm_s + S::TILE_A + (kk / 4) * S::A_TILE + 32 * (kk % 4)),
+                         desc_b(sm_s + S::TILE_W + kk * 2048));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -316,17 +353,20 @@ dense_gn_silu_kernel(const float* A, const __grid_constant__ CUtensorMap tmW, co
 }
 
 // W's map (64 K-rows x 64 columns a box, so rows past K read as zeros) for
-// W 16-byte aligned, K <= 64 and N % 8 == 0; else the route does not apply.
+// W 16-byte aligned, K <= 128 and N % 8 == 0; else the route does not apply.
 inline bool ok(const void* W, int K, int N) {
-  return K <= KMAX && N % 8 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+  return K <= Smem<2>::KMAX && N % 8 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
 }
 
 // The CTAs an SM a grid of the pre route may hold: one where the grid fits
 // the SMs once, two beyond.
 inline int ctas_per_sm(bool one_wave) { return one_wave ? 1 : 2; }
 
-// The dynamic shared memory a launch reserves (the kernel reads none of it)
-// so that an SM of the current device holds `ctas` of its CTAs and no more.
+// The dynamic shared memory a launch of the KT-tile kernel takes so that an
+// SM of the current device holds `ctas` of its CTAs and no more: with one
+// tile a reservation the kernel reads none of, with two its own shared
+// memory grown to that size.
+template <int KT>
 inline int reserve(int ctas) {
   static int per_sm = 0, per_block = 0;
   if (per_sm == 0) {
@@ -335,8 +375,10 @@ inline int reserve(int ctas) {
     cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
     cudaDeviceGetAttribute(&per_block, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   }
+  using S = Smem<KT>;
   // a CTA then takes more than 1/(ctas + 1) of the SM's shared memory
-  return per_sm / (ctas + 1) + 1024 - SMEM - per_block;
+  const int dyn = per_sm / (ctas + 1) + 1024 - (S::STATIC ? S::SMEM : 0) - per_block;
+  return S::STATIC || dyn > S::SMEM ? dyn : S::SMEM;
 }
 
 }  // namespace pre
@@ -351,18 +393,18 @@ int launch_bf16(dim3 grid, const void* Ab, const void* W, const Epilogue& p,
       grid, stream, ma, mw, p);
 }
 
-template <int GS>
+template <int GS, int KT>
 int launch_pre(dim3 grid, bool one_wave, const float* A, const __nv_bfloat16* W,
                const Epilogue& p, cudaStream_t stream) {
-  const auto kernel = pre::dense_gn_silu_kernel<GS>;
+  const auto kernel = pre::dense_gn_silu_kernel<GS, KT>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pre::reserve(1));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pre::reserve<KT>(1));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap mw;
   const int e = dposer::tensor_map(&mw, W, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, p.N, p.K, BN,
-                                   pre::KMAX);
+                                   pre::KTILE);
   if (e != 0) return e;
-  const int dyn = pre::reserve(pre::ctas_per_sm(one_wave));
+  const int dyn = pre::reserve<KT>(pre::ctas_per_sm(one_wave));
   const cudaError_t l =
       dposer::launch_programmatic(kernel, grid, THREADS, dyn, stream, A, mw, p);
   return static_cast<int>(l != cudaSuccess ? l : cudaGetLastError());
@@ -385,7 +427,8 @@ int bf16_launch_info(int* out) {
 
 // Ab [B, K] bf16 (the bf16 route: the copy of A that the layer before
 // wrote; K % 8 == 0, Ab and W 16-byte aligned) or, with Ab null, A [B, K]
-// fp32 at K <= 64 (the pre route; W 16-byte aligned), else refused
+// fp32 at K <= 128 (the pre route, one K-tile at K <= 64, two beyond; W
+// 16-byte aligned), else refused
 // (cudaErrorInvalidValue); W [K, N] bf16, tp/gamma/beta [N] fp32, residual
 // (nullable) and out [B, N] fp32 (out may alias residual), out_b [B, N] bf16:
 // the copy of out for the next layer. out and out_b are each nullable, not
@@ -407,7 +450,9 @@ extern "C" int dposer_dense_gn_silu(const float* A, const void* Ab, const void* 
   const bool one_wave = dposer::wgmma::one_wave(grid.x * grid.y);
   return ss::by_group_size(N, [&](auto gs) {
     constexpr int GS = decltype(gs)::value;
-    if (Ab == nullptr) return launch_pre<GS>(grid, one_wave, A, w, p, s);
+    if (Ab == nullptr)
+      return K <= pre::KTILE ? launch_pre<GS, 1>(grid, one_wave, A, w, p, s)
+                             : launch_pre<GS, 2>(grid, one_wave, A, w, p, s);
     return one_wave ? launch_bf16<GS, DeepRing>(grid, Ab, W, p, s)
                     : launch_bf16<GS, ShallowRing>(grid, Ab, W, p, s);
   });
@@ -427,22 +472,33 @@ extern "C" int dposer_dense_gn_silu_bf16_launch_info(int B, int N, int* out) {
 // The pre route at B rows and width N as it launches on this card, for
 // reports: out = {threads, static shared memory a CTA, the dynamic shared
 // memory it reserves, registers a thread, local memory a thread (spills),
-// CTAs an SM holds at once}. Returns 0 or a CUDA error.
-extern "C" int dposer_dense_gn_silu_pre_launch_info(int B, int N, int* out) {
+// CTAs an SM holds at once}. Returns 0 or a CUDA error. The pre2 entry: its
+// two-tile instantiation (64 < K <= 128), whose dynamic shared memory is its
+// own.
+template <int KT>
+int pre_launch_info(int B, int N, int* out) {
   const bool one_wave = dposer::wgmma::one_wave((N / BN) * ((B + BM - 1) / BM));
   return ss::by_group_size(N, [&](auto gs) {
-    const auto kernel = pre::dense_gn_silu_kernel<decltype(gs)::value>;
+    const auto kernel = pre::dense_gn_silu_kernel<decltype(gs)::value, KT>;
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         pre::reserve(1));
+                                         pre::reserve<KT>(1));
     cudaFuncAttributes a{};
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
     if (e != cudaSuccess) return static_cast<int>(e);
     out[0] = THREADS;
     out[1] = static_cast<int>(a.sharedSizeBytes);
-    out[2] = pre::reserve(pre::ctas_per_sm(one_wave));
+    out[2] = pre::reserve<KT>(pre::ctas_per_sm(one_wave));
     out[3] = a.numRegs;
     out[4] = static_cast<int>(a.localSizeBytes);
     return static_cast<int>(
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], kernel, THREADS, out[2]));
   });
+}
+
+extern "C" int dposer_dense_gn_silu_pre_launch_info(int B, int N, int* out) {
+  return pre_launch_info<1>(B, N, out);
+}
+
+extern "C" int dposer_dense_gn_silu_pre2_launch_info(int B, int N, int* out) {
+  return pre_launch_info<2>(B, N, out);
 }

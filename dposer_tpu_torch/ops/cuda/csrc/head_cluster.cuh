@@ -2,8 +2,12 @@
 // for K2 head_em, K6 head_adam, K8 head_rk4, K9 head_rk4_jvp and K11
 // head_dsm, every kernel that fuses an update into the head:
 //   out[r, c] = sum_k bf16_rne(h[r, k]) * Wpost[k, c] + bpost[c]
-// with h [B, H] fp32 or bf16, Wpost bf16 [H, 64] (zero-padded columns),
-// fp32 sums.
+// with h [B, H] fp32 or bf16, Wpost bf16 [H, DP] (zero-padded columns),
+// fp32 sums. The padded width DP is the tile's: 64 for a pose of at most 64
+// dims (axis-angle's 63; every kernel above), 128 for one of at most 128
+// (rot6d's 126; K2's wide instantiation). A 128-column Wpost is two TMA
+// boxes of 64 columns side by side in shared memory, since a box under the
+// 128-byte swizzle is at most 128 bytes wide.
 //
 // Bound on the H100: at [500, 1024] x [1024, 63] the head reads 2 MB of h
 // once and does 64.5 MFLOP (~0.07 us of bf16 tensor-core time): bytes. One
@@ -11,8 +15,8 @@
 // a quarter of the 132 SMs, each staging 64 KB through registers before its
 // first MMA.
 //
-// A tile is one mma row tile of ROWS = 16 rows. Tile<SPLIT, PAIR, A> says
-// how it is cut and what its rows hold: SPLIT CTAs a cluster, whether its
+// A tile is one mma row tile of ROWS = 16 rows. Tile<SPLIT, PAIR, A, DP>
+// says how it is cut, what its rows hold and how wide its head is: SPLIT CTAs a cluster, whether its
 // rows are 16 poses of h (K2, K6, K8, K11) or a PAIR, 8 poses of h at rows 0-7
 // and the same poses' tangent dh at rows 8-15 (K9: the forward-mode head of
 // the likelihood, whose epilogue needs out and dout of a pose together; the
@@ -36,15 +40,16 @@
 //   path rounds h, or bf16 pairs (4-byte loads at word g * (KC/2 + 4) + t:
 //   KC/2 + 4 is 4 times an odd number, so the eight rows g fall on eight
 //   distinct groups of 4 banks). Wpost's as one TMA box with the 128-byte
-//   swizzle (chunk c of row k at c ^ (k & 7)): its rows are 128 bytes, so
+//   swizzle a 64 columns (two at DP = 128, the second KC rows after the
+//   first; chunk c of row k at c ^ (k & 7)): a box's rows are 128 bytes, so
 //   an ldmatrix.trans of eight rows at one column would otherwise hit one
 //   bank group eight times. The tensor map is encoded once a pointer
 //   (tensor_map.cuh). Each warp copying its own rows with 16-byte cp.async
 //   into the same swizzle landed later. At 500 rows K2's 128 CTAs read 6 MB
 //   from L2 (4 MB of it Wpost, each CTA its slice), and that bounds the
 //   copies.
-// - Each of the 4 MMA warps takes every 4th k-step of the slice across all 8
-//   column tiles (8 independent accumulators).
+// - Each of the 4 MMA warps takes every 4th k-step of the slice across all
+//   DP/8 column tiles (8 independent accumulators, 16 at DP = 128).
 // - 4 more warps load the epilogue's operands (and K2 draws its normals:
 //   in the MMA warps the Philox draws delayed the MMAs or the finish,
 //   wherever they went) while the copies fly, then wait for the rows' partials
@@ -87,26 +92,35 @@ namespace head_cluster {
 namespace cg = cooperative_groups;
 
 constexpr int ROWS = 16;  // rows of a tile: one mma row tile
-constexpr int DP = 64;    // padded output width of Wpost / bpost
+constexpr int BOX_COLS = 64;  // Wpost's columns a TMA box: one 128-byte swizzle row
 constexpr int MMA_WARPS = 4;  // warps 0-3: the copies' wait, the MMAs and the push
 constexpr int EPI_WARPS = 4;  // warps 4-7: the epilogue's loads and draws, then the rows
 constexpr int THREADS = 32 * (MMA_WARPS + EPI_WARPS);
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int P_LD = DP + 8;  // row stride of a warp's partial (floats): conflict-free stores
-constexpr int P_BYTES = MMA_WARPS * ROWS * P_LD * 4;  // the warps' partials [warp][ROWS][P_LD]
-// the partials a CTA receives for its rows: [SPLIT ranks][ROWS / SPLIT][DP],
-// ROWS x DP floats whatever the split
-constexpr int RECV_BYTES = ROWS * DP * 4;
 
-static_assert(ROWS * DP / 4 == 2 * MMA_THREADS, "the push: two float4 a thread");
-
-template <int SPLIT_, bool PAIR_ = false, class A_ = float>
+template <int SPLIT_, bool PAIR_ = false, class A_ = float, int DP_ = 64>
 struct Tile {
   static constexpr int SPLIT = SPLIT_;  // CTAs a cluster, each a 1/SPLIT slice of the depth
   static constexpr bool PAIR = PAIR_;
   using A = A_;  // the rows' type: float (rounded in registers) or __nv_bfloat16
   static_assert(std::is_same_v<A, float> || std::is_same_v<A, __nv_bfloat16>,
                 "rows of fp32 or bf16");
+  static constexpr int DP = DP_;  // padded output width of Wpost / bpost
+  static_assert(DP == 64 || DP == 128, "a head of 64 or 128 columns");
+  static constexpr int BOXES = DP / BOX_COLS;  // Wpost's TMA boxes, side by side
+  static constexpr int P_LD = DP + 8;  // row stride of a warp's partial (floats): conflict-free
+  static constexpr int P_BYTES = MMA_WARPS * ROWS * P_LD * 4;  // [warp][ROWS][P_LD]
+  // At 128 columns the warps' partials overlay Wpost's slice, dead once every
+  // MMA warp is past its MMAs: a CTA then takes 92 KB at H = 1024, not 126,
+  // so that (with at most 128 registers a thread) an SM holds two and a
+  // 500-row call's 32 clusters run at once (30 fitted at one CTA an SM: two
+  // waves).
+  static constexpr bool PART_IN_W = DP > BOX_COLS;
+  // the partials a CTA receives for its rows: [SPLIT ranks][ROWS / SPLIT][DP],
+  // ROWS x DP floats whatever the split
+  static constexpr int RECV_BYTES = ROWS * DP * 4;
+  static constexpr int PUSHES = ROWS * DP / 4 / MMA_THREADS;  // float4 a thread
+  static_assert(PUSHES * MMA_THREADS * 4 == ROWS * DP, "the push: whole float4 a thread");
   static constexpr int POSES = PAIR ? ROWS / 2 : ROWS;  // poses a tile
   static constexpr int PPC = POSES / SPLIT;             // poses a CTA finishes
   static constexpr int ROWS_PER_CTA = ROWS / SPLIT;     // rows a CTA finishes
@@ -121,11 +135,21 @@ struct Tile {
 };
 
 // Shared memory of a CTA for depth slice KC = H / SPLIT, from the first
-// 1024-byte boundary (the swizzle's atom): the swizzled Wpost slice [KC][64]
-// bf16, the tile's slice [ROWS][KC + 8] of T::A, its warps' partials, the
-// partials of its rows that the cluster sends it, and two mbarriers: the
-// copies' and the received partials'.
-__host__ __device__ constexpr int w_bytes(int KC) { return KC * DP * 2; }
+// 1024-byte boundary (the swizzle's atom): the swizzled Wpost slice, T::BOXES
+// boxes [KC][64] bf16 one after the other (at T::PART_IN_W as large as the
+// warps' partials that overlay it), the tile's slice [ROWS][KC + 8] of T::A,
+// its warps' partials (unless T::PART_IN_W), the partials of its rows that
+// the cluster sends it, and two mbarriers: the copies' and the received
+// partials'.
+__host__ __device__ constexpr int box_bytes(int KC) { return KC * BOX_COLS * 2; }
+template <class T>
+__host__ __device__ constexpr int w_bytes(int KC) {
+  return T::BOXES * box_bytes(KC);
+}
+template <class T>
+__host__ __device__ constexpr int w_region(int KC) {
+  return T::PART_IN_W && T::P_BYTES > w_bytes<T>(KC) ? T::P_BYTES : w_bytes<T>(KC);
+}
 __host__ __device__ constexpr int a_ld(int KC) { return KC + 8; }  // elements
 template <class T>
 __host__ __device__ constexpr int a_bytes(int KC) {
@@ -134,23 +158,30 @@ __host__ __device__ constexpr int a_bytes(int KC) {
 template <class T>
 inline size_t smem_bytes(int H) {
   const int KC = H / T::SPLIT;
-  return 1024 + w_bytes(KC) + a_bytes<T>(KC) + P_BYTES + RECV_BYTES + 16;
+  return 1024 + w_region<T>(KC) + a_bytes<T>(KC) + (T::PART_IN_W ? 0 : T::P_BYTES) +
+         T::RECV_BYTES + 16;
 }
 
 template <class T>
 struct Layout {
   unsigned char* w;  // 1024-byte aligned
   typename T::A* a;
-  float* part;  // the warps' partials
+  float* part;  // the warps' partials (over w at T::PART_IN_W)
   float* recv;  // the received CTA partials
   uint64_t* bar;  // [0] the copies, [1] the received partials
   __device__ __forceinline__ Layout(unsigned char* smem, int H) {
     const int KC = H / T::SPLIT;
     w = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
-    a = reinterpret_cast<typename T::A*>(w + w_bytes(KC));
-    part = reinterpret_cast<float*>(a + ROWS * a_ld(KC));
-    recv = part + P_BYTES / 4;
-    bar = reinterpret_cast<uint64_t*>(recv + RECV_BYTES / 4);
+    if constexpr (T::PART_IN_W) {
+      a = reinterpret_cast<typename T::A*>(w + w_region<T>(KC));
+      part = reinterpret_cast<float*>(w);
+      recv = reinterpret_cast<float*>(a + ROWS * a_ld(KC));
+    } else {
+      a = reinterpret_cast<typename T::A*>(w + w_bytes<T>(KC));
+      part = reinterpret_cast<float*>(a + ROWS * a_ld(KC));
+      recv = part + T::P_BYTES / 4;
+    }
+    bar = reinterpret_cast<uint64_t*>(recv + T::RECV_BYTES / 4);
   }
 };
 
@@ -160,10 +191,10 @@ inline int grid_blocks(int B) {
 }
 
 // H a multiple of 16 * SPLIT and <= 1024 (so a slice is whole k-steps), h
-// and Wpost 16-byte aligned, D <= 64.
+// and Wpost 16-byte aligned, D <= T::DP.
 template <class T>
 inline bool operands_ok(const void* h, const void* Wpost, int B, int H, int D) {
-  return B > 0 && H > 0 && H % (16 * T::SPLIT) == 0 && H <= 1024 && D > 0 && D <= DP &&
+  return B > 0 && H > 0 && H % (16 * T::SPLIT) == 0 && H <= 1024 && D > 0 && D <= T::DP &&
          reinterpret_cast<uintptr_t>(h) % 16 == 0 && reinterpret_cast<uintptr_t>(Wpost) % 16 == 0;
 }
 
@@ -198,12 +229,12 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // Set up this CTA's two mbarriers and start its copies for the tile whose
-// first pose is pose0: Wpost's slice as one TMA box with the 128-byte
-// swizzle (chunk c of row k at c ^ (k & 7)), the rows' slices as one bulk
+// first pose is pose0: Wpost's slice as T::BOXES TMA boxes of 64 columns
+// with the 128-byte swizzle (chunk c of row k at c ^ (k & 7)), the rows' slices as one bulk
 // copy a row of KC elements of T::A (tile row r is h's row pose0 + r, or for
 // a PAIR h's row pose0 + r below POSES and dh's row pose0 + r - POSES from
 // there); rows past the batch's end are zeroed. The partials' barrier
-// expects RECV_BYTES. Every thread calls it, then arrives on the cluster
+// expects T::RECV_BYTES. Every thread calls it, then arrives on the cluster
 // barrier (cluster_arrive_relaxed: the barriers are initialized), may issue
 // its own loads, and must pass a __syncthreads() before send_partials.
 // Dep (mbarrier.cuh) is called by warp 0 between Wpost's box and the rows'
@@ -228,10 +259,12 @@ __device__ __forceinline__ void start_copies(const typename T::A* __restrict__ h
       mbar_init(bar, 1);
       mbar_init(recv_bar, 1);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      mbar_expect_tx(recv_bar, static_cast<uint32_t>(RECV_BYTES));
-      mbar_expect_tx(bar,
-                     static_cast<uint32_t>(w_bytes(KC) + (ROWS / T::POSES) * poses * KC * A_BYTES));
-      tma_load(smem_u32(L.w), tmW, bar, 0, k0);
+      mbar_expect_tx(recv_bar, static_cast<uint32_t>(T::RECV_BYTES));
+      mbar_expect_tx(bar, static_cast<uint32_t>(w_bytes<T>(KC) +
+                                                (ROWS / T::POSES) * poses * KC * A_BYTES));
+#pragma unroll
+      for (int b = 0; b < T::BOXES; ++b)
+        tma_load(smem_u32(L.w) + b * box_bytes(KC), tmW, bar, b * BOX_COLS, k0);
     }
     __syncwarp();
     Dep{}();
@@ -264,7 +297,8 @@ __device__ __forceinline__ void send_partials(const Layout<T>& L, int rank, int 
   const uint32_t w_s = smem_u32(L.w);
   mbar_wait(smem_u32(L.bar), 0);
 
-  float acc[8][4] = {};
+  constexpr int NT = T::DP / 8;  // the mma's 8-column tiles
+  float acc[NT][4] = {};
   const int g = lane / 4, t = lane % 4;
 #pragma unroll 4
   for (int s = warp; s < KC / 16; s += MMA_WARPS) {
@@ -283,42 +317,49 @@ __device__ __forceinline__ void send_partials(const Layout<T>& L, int rank, int 
       a[3] = *reinterpret_cast<const uint32_t*>(lo + 8 * ald + 8);
     }
     // ldmatrix.x4.trans: lanes 0-15 address rows kk..kk+15 of column tile
-    // 2p, lanes 16-31 the same rows of tile 2p + 1
+    // 2p, lanes 16-31 the same rows of tile 2p + 1 (tile c lies in box c / 8
+    // at chunk c % 8)
     const int r = kk + (lane & 15);
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
+    for (int p = 0; p < NT / 2; ++p) {
       const int c = 2 * p + (lane >> 4);
+      const int box = T::BOXES == 1 ? 0 : c >> 3, cc = T::BOXES == 1 ? c : c & 7;
       uint32_t b[4];
-      ldmatrix_x4_trans(b, w_s + r * 128 + ((c ^ (r & 7)) << 4));
+      ldmatrix_x4_trans(b, w_s + box * box_bytes(KC) + r * 128 + ((cc ^ (r & 7)) << 4));
       mma_bf16(acc[2 * p], a, b[0], b[1]);
       mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
     }
   }
+  // over Wpost's slice: every MMA warp is past its reads of it
+  if constexpr (T::PART_IN_W) asm volatile("bar.sync 1, %0;" ::"n"(MMA_THREADS) : "memory");
   // the CTA's partial: the warps' sums added in warp order
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float* p = L.part + (warp * ROWS + g) * P_LD + 8 * j + 2 * t;
+  for (int j = 0; j < NT; ++j) {
+    float* p = L.part + (warp * ROWS + g) * T::P_LD + 8 * j + 2 * t;
     *reinterpret_cast<float2*>(p) = make_float2(acc[j][0], acc[j][1]);
-    *reinterpret_cast<float2*>(p + 8 * P_LD) = make_float2(acc[j][2], acc[j][3]);
+    *reinterpret_cast<float2*>(p + 8 * T::P_LD) = make_float2(acc[j][2], acc[j][3]);
   }
   asm volatile("bar.sync 1, %0;" ::"n"(MMA_THREADS) : "memory");  // the MMA warps only
   cluster_wait();  // every peer's barriers are initialized
-  // float4 f (of 16 a row) of row f / 16, for f = tid and tid + MMA_THREADS:
-  // summed, then sent to the CTA that finishes the row
+  // float4 f (of DP / 4 a row) of row f / (DP / 4), for f = tid + u *
+  // MMA_THREADS: summed, then sent to the CTA that finishes the row
+  constexpr int F_ROW = T::DP / 4;
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int f = threadIdx.x + MMA_THREADS * u, row = f / 16, col = 4 * (f % 16);
-    float4 v = *reinterpret_cast<const float4*>(L.part + row * P_LD + col);
+  for (int u = 0; u < T::PUSHES; ++u) {
+    const int f = threadIdx.x + MMA_THREADS * u, row = f / F_ROW, col = 4 * (f % F_ROW);
+    float4 v = *reinterpret_cast<const float4*>(L.part + row * T::P_LD + col);
 #pragma unroll
     for (int w = 1; w < MMA_WARPS; ++w) {
-      const float4 o = *reinterpret_cast<const float4*>(L.part + (w * ROWS + row) * P_LD + col);
+      const float4 o =
+          *reinterpret_cast<const float4*>(L.part + (w * ROWS + row) * T::P_LD + col);
       v.x += o.x;
       v.y += o.y;
       v.z += o.z;
       v.w += o.w;
     }
     const int owner = T::owner(row);
-    st_async(mapa(smem_u32(L.recv + (rank * T::ROWS_PER_CTA + T::local(row)) * DP + col), owner),
+    st_async(mapa(smem_u32(L.recv + (rank * T::ROWS_PER_CTA + T::local(row)) * T::DP + col),
+                  owner),
              v, mapa(smem_u32(L.bar + 1), owner));
   }
 }
@@ -336,15 +377,16 @@ template <class T>
 __device__ __forceinline__ float out_at(const Layout<T>& L, float bias, int lr, int c) {
   float v = bias;
 #pragma unroll
-  for (int q = 0; q < T::SPLIT; ++q) v += L.recv[(q * T::ROWS_PER_CTA + lr) * DP + c];
+  for (int q = 0; q < T::SPLIT; ++q) v += L.recv[(q * T::ROWS_PER_CTA + lr) * T::DP + c];
   return v;
 }
 
-// Host side: Wpost [H, 64] bf16 as a tensor map of [H/SPLIT, 64] boxes,
+// Host side: Wpost [H, T::DP] bf16 as a tensor map of [H/SPLIT, 64] boxes,
 // from the library's map cache. Returns 0 or a CUDA error code.
 template <class T>
 inline int wpost_map(CUtensorMap* out, const void* Wpost, int H) {
-  return tensor_map(out, Wpost, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, DP, H, DP, H / T::SPLIT);
+  return tensor_map(out, Wpost, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, T::DP, H, BOX_COLS,
+                    H / T::SPLIT);
 }
 
 // The launch of KERNEL (a Tile T kernel) at B rows and depth H, for reports:

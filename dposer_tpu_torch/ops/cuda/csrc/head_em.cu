@@ -47,10 +47,21 @@
 // moving them before the wait changed the bits of K6's Adam step, whose
 // epilogue is built the same way: head_adam.cu.)
 // head_em_kernel is the body without it, so modes 0 and 1 compile as they
-// would if the imputation did not exist (chip_smoke.py holds its SASS to a
-// recorded digest).
+// would if the imputation did not exist.
+// Two widths: a pose of at most 64 dims (axis-angle's 63) takes the head
+// padded to 64 columns (head_em_kernel, head_em_impute_kernel), one of 65-128
+// (rot6d's 126) the same body on head_cluster.cuh's 128-column tile
+// (head_em_wide_kernel, head_em_impute_wide_kernel): Wpost's slice two TMA
+// boxes (64 KB a CTA at H = 1024) that the warps' partials overlay once the
+// MMAs are done, twice the MMAs and the pushed partials (8 KB a CTA), each
+// epilogue lane columns lane + 32u for u < 4, the same Philox draw of each
+// element. 92 KB a CTA and at most 128 registers a thread, so an SM holds
+// two CTAs. The C entries choose the width by D. The width is the tile's
+// template parameter, so the 64-column kernels compile as they would
+// without the wide ones.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -62,7 +73,8 @@ namespace {
 
 using namespace dposer::head_cluster;
 
-using T = Tile<4>;  // 16 poses a tile, 4 CTAs a cluster
+using T = Tile<4>;  // 16 poses a tile, 4 CTAs a cluster, the head 64 columns
+using TW = Tile<4, false, float, 128>;  // the same at 128 columns: a pose of 65-128 dims
 
 constexpr int N_COEFS = 8;  // cx, cout, cnoise, score_scale, alpha, (imputation x2), pad
 
@@ -78,7 +90,7 @@ struct Renoise {
   int passes;
 };
 
-template <bool IMPUTE>
+template <class T, bool IMPUTE>
 __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const CUtensorMap& tmW,
                                              const float* __restrict__ bpost,
                                              const float* __restrict__ coefs, int step, int mode,
@@ -101,7 +113,7 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
   }
 
   // The epilogue warps: warp MMA_WARPS + e finishes row rank * ROWS_PER_CTA
-  // + e of the tile, each lane columns lane and lane + 32. Once the launches
+  // + e of the tile, each lane the CPL columns lane + 32u. Once the launches
   // before this one are done, while the copies fly, it loads the seed, x,
   // the bias and the step's scalars and draws the normals.
   dposer::grid_dependency_wait();
@@ -111,10 +123,11 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
   const int gr = row0 + r;
   const bool has_row = e < T::ROWS_PER_CTA && gr < B;  // uniform across the warp
   const float* cf = coefs + static_cast<size_t>(step) * N_COEFS;
+  constexpr int CPL = T::DP / 32;  // columns a lane
   float cx = 0.0f, cout = 0.0f, cn = 0.0f, s = 0.0f;
-  float bias[2] = {0.0f, 0.0f}, xin[2] = {0.0f, 0.0f}, z[2] = {0.0f, 0.0f};
+  float bias[CPL] = {}, xin[CPL] = {}, z[CPL] = {};
   // the imputation's operands: obs, mask, and each pass's coefficients and normals
-  float ob[2] = {}, mk[2] = {}, mc[2] = {}, sd[2] = {}, zr[2][2] = {};
+  float ob[CPL] = {}, mk[CPL] = {}, mc[2] = {}, sd[2] = {}, zr[2][CPL] = {};
   if constexpr (IMPUTE) {
     if (has_row) {
 #pragma unroll
@@ -124,7 +137,7 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
         sd[p] = cf[p * N_COEFS + 6];
       }
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < CPL; ++u) {
         const int c = lane + 32 * u;
         if (c >= D) continue;
         const size_t o = static_cast<size_t>(gr) * D + c;
@@ -146,7 +159,7 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
       s = cf[3];
     }
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
+    for (int u = 0; u < CPL; ++u) {
       const int c = lane + 32 * u;
       if (c >= D) continue;
       bias[u] = bpost[c];
@@ -158,13 +171,13 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
   wait_partials<T>(L);  // every epilogue warp waits: peers push into this CTA until then
 
   if (has_row) {
-    float v[2] = {0.0f, 0.0f};  // out at columns lane, lane + 32
+    float v[CPL] = {};  // out at columns lane + 32u
 #pragma unroll
-    for (int u = 0; u < 2; ++u)
+    for (int u = 0; u < CPL; ++u)
       if (lane + 32 * u < D) v[u] = out_at<T>(L, bias[u], e, lane + 32 * u);
     if (mode == 0) {
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < CPL; ++u) {
         const int c = lane + 32 * u;
         if (c >= D) continue;
         const size_t o = static_cast<size_t>(gr) * D + c;
@@ -182,7 +195,7 @@ __device__ __forceinline__ void head_em_body(const float* __restrict__ h, const 
     } else {
       float sq = 0.0f;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < CPL; ++u) {
         const int c = lane + 32 * u;
         if (c >= D) continue;
         const float val = s * v[u];
@@ -201,8 +214,8 @@ head_em_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap 
                int mode, float* x, float* x_mean, float* score, float* score_sq,
                const float* noise, const unsigned long long* __restrict__ seed,
                int slab, int B, int H, int D) {
-  head_em_body<false>(h, tmW, bpost, coefs, step, mode, x, x_mean, score, score_sq, noise, seed,
-                      slab, B, H, D, Renoise{});
+  head_em_body<T, false>(h, tmW, bpost, coefs, step, mode, x, x_mean, score, score_sq, noise,
+                         seed, slab, B, H, D, Renoise{});
 }
 
 __global__ void __cluster_dims__(T::SPLIT, 1, 1) __launch_bounds__(THREADS)
@@ -212,35 +225,66 @@ head_em_impute_kernel(const float* __restrict__ h, const __grid_constant__ CUten
                       const unsigned long long* __restrict__ seed, int slab, int B, int H,
                       int D,
                       const __grid_constant__ Renoise rn) {
-  head_em_body<true>(h, tmW, bpost, coefs, step, 0, x, x_mean, nullptr, nullptr, noise, seed,
-                     slab, B, H, D, rn);
+  head_em_body<T, true>(h, tmW, bpost, coefs, step, 0, x, x_mean, nullptr, nullptr, noise, seed,
+                        slab, B, H, D, rn);
+}
+
+__global__ void __cluster_dims__(TW::SPLIT, 1, 1) __launch_bounds__(THREADS, 2)
+head_em_wide_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
+                    const float* __restrict__ bpost, const float* __restrict__ coefs, int step,
+                    int mode, float* x, float* x_mean, float* score, float* score_sq,
+                    const float* noise, const unsigned long long* __restrict__ seed,
+                    int slab, int B, int H, int D) {
+  head_em_body<TW, false>(h, tmW, bpost, coefs, step, mode, x, x_mean, score, score_sq, noise,
+                          seed, slab, B, H, D, Renoise{});
+}
+
+__global__ void __cluster_dims__(TW::SPLIT, 1, 1) __launch_bounds__(THREADS, 2)
+head_em_impute_wide_kernel(const float* __restrict__ h, const __grid_constant__ CUtensorMap tmW,
+                           const float* __restrict__ bpost, const float* __restrict__ coefs,
+                           int step, float* x, float* x_mean, const float* noise,
+                           const unsigned long long* __restrict__ seed, int slab, int B, int H,
+                           int D, const __grid_constant__ Renoise rn) {
+  head_em_body<TW, true>(h, tmW, bpost, coefs, step, 0, x, x_mean, nullptr, nullptr, noise,
+                         seed, slab, B, H, D, rn);
 }
 
 // More than 48 KB of dynamic shared memory a CTA, allowed once a kernel.
-template <class Kernel>
+template <class Tl, class Kernel>
 cudaError_t allow_smem_of(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem_bytes<T>(1024)));
+                              static_cast<int>(smem_bytes<Tl>(1024)));
 }
 
-cudaError_t allow_smem() {
-  static const cudaError_t attr = allow_smem_of(head_em_kernel);
-  return attr;
-}
-
-cudaError_t allow_smem_impute() {
-  static const cudaError_t attr = allow_smem_of(head_em_impute_kernel);
-  return attr;
-}
+// The kernels of a width (Tl: T or TW), and their attributes, set once.
+template <class Tl>
+struct Em {
+  static constexpr bool WIDE = std::is_same_v<Tl, TW>;
+  static auto kernel() {
+    if constexpr (WIDE) return head_em_wide_kernel; else return head_em_kernel;
+  }
+  static auto impute() {
+    if constexpr (WIDE) return head_em_impute_wide_kernel; else return head_em_impute_kernel;
+  }
+  static cudaError_t allow_smem() {
+    static const cudaError_t attr = allow_smem_of<Tl>(kernel());
+    return attr;
+  }
+  static cudaError_t allow_smem_impute() {
+    static const cudaError_t attr = allow_smem_of<Tl>(impute());
+    return attr;
+  }
+};
 
 }  // namespace
 
-// h [B, H] fp32, Wpost [H, 64] bf16 (columns >= D zero), bpost [64] fp32,
+// h [B, H] fp32, Wpost [H, P] bf16 (columns >= D zero), bpost [P] fp32, with
+// P = 64 for D <= 64 and P = 128 for 64 < D <= 128 (the wide kernel),
 // coefs [N, 8] fp32. EM mode: x [B, D] updated in place, x_mean (nullable)
 // [B, D]; score mode: score [B, D], score_sq [B]. noise [B, D] (nullable:
 // then the normals are drawn in-kernel from *seed/step/slab: seed points to
 // device memory, and may be null with noise). H must be a
-// multiple of 64 and <= 1024, h and Wpost 16-byte aligned; D <= 64. A
+// multiple of 64 and <= 1024, h and Wpost 16-byte aligned; D <= 128. A
 // programmatic launch: Wpost is read before its wait for the launch before
 // it on the stream, so that launch must not write it. Returns the launch's
 // error or cudaGetLastError().
@@ -249,62 +293,82 @@ extern "C" int dposer_head_em(const float* h, const void* Wpost, const float* bp
                               float* x_mean, float* score, float* score_sq,
                               const float* noise, const unsigned long long* seed, int slab,
                               int B, int H, int D, void* stream) {
-  if (!operands_ok<T>(h, Wpost, B, H, D) || (mode != 0 && mode != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t attr = allow_smem();
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  CUtensorMap tmW;
-  const int e = wpost_map<T>(&tmW, Wpost, H);
-  if (e != 0) return e;
-  const cudaError_t err = dposer::launch_programmatic(
-      head_em_kernel, dim3(grid_blocks<T>(B)), THREADS, smem_bytes<T>(H),
-      static_cast<cudaStream_t>(stream), h, tmW, bpost, coefs, step, mode, x, x_mean, score,
-      score_sq, noise, seed, slab, B, H, D);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  if (mode != 0 && mode != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto launch = [&](auto tile) {
+    using Tl = decltype(tile);
+    if (!operands_ok<Tl>(h, Wpost, B, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t attr = Em<Tl>::allow_smem();
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    CUtensorMap tmW;
+    const int e = wpost_map<Tl>(&tmW, Wpost, H);
+    if (e != 0) return e;
+    const cudaError_t err = dposer::launch_programmatic(
+        Em<Tl>::kernel(), dim3(grid_blocks<Tl>(B)), THREADS, smem_bytes<Tl>(H),
+        static_cast<cudaStream_t>(stream), h, tmW, bpost, coefs, step, mode, x, x_mean, score,
+        score_sq, noise, seed, slab, B, H, D);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  };
+  return D <= T::DP ? launch(T{}) : launch(TW{});
 }
 
 // The launch of a call at B rows and depth H, for reports: grid CTAs,
 // cluster size, threads a CTA, dynamic shared memory a CTA, and the clusters
 // the current device can hold at once (cudaOccupancyMaxActiveClusters).
-// Returns 0 or a CUDA error code.
+// Returns 0 or a CUDA error code. The _wide entry: the 128-column kernel.
 extern "C" int dposer_head_em_launch_info(int B, int H, int* out) {
-  const cudaError_t attr = allow_smem();
+  const cudaError_t attr = Em<T>::allow_smem();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   return launch_info<T>(head_em_kernel, B, H, out);
+}
+
+extern "C" int dposer_head_em_wide_launch_info(int B, int H, int* out) {
+  const cudaError_t attr = Em<TW>::allow_smem();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  return launch_info<TW>(head_em_wide_kernel, B, H, out);
 }
 
 // The imputation instantiation: EM mode as dposer_head_em, then `passes` (1
 // or 2) masked re-noises of x's observed dims, obs and mask [B, D]: pass p
 // with coefs row step + p (columns 5, 6; step + passes - 1 < N) and the host
 // normals renoise_p [B, D] or, when null, the in-kernel draw (*seed, step + p,
-// slab_p). x_mean (nullable) receives the state before the re-noise.
-// Returns cudaGetLastError().
+// slab_p). x_mean (nullable) receives the state before the re-noise. The
+// width is chosen by D as in dposer_head_em. Returns cudaGetLastError().
 extern "C" int dposer_head_em_impute(const float* h, const void* Wpost, const float* bpost,
                                      const float* coefs, int step, float* x, float* x_mean,
                                      const float* noise, const unsigned long long* seed, int slab,
                                      const float* obs, const float* mask, const float* renoise0,
                                      int slab0, const float* renoise1, int slab1, int passes,
                                      int B, int H, int D, void* stream) {
-  if (!operands_ok<T>(h, Wpost, B, H, D) || obs == nullptr || mask == nullptr || passes < 1 ||
-      passes > 2)
+  if (obs == nullptr || mask == nullptr || passes < 1 || passes > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t attr = allow_smem_impute();
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  CUtensorMap tmW;
-  const int e = wpost_map<T>(&tmW, Wpost, H);
-  if (e != 0) return e;
   const Renoise rn{obs, mask, {renoise0, renoise1}, {slab0, slab1}, passes};
-  const cudaError_t err = dposer::launch_programmatic(
-      head_em_impute_kernel, dim3(grid_blocks<T>(B)), THREADS, smem_bytes<T>(H),
-      static_cast<cudaStream_t>(stream), h, tmW, bpost, coefs, step, x, x_mean, noise, seed, slab,
-      B, H, D, rn);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  const auto launch = [&](auto tile) {
+    using Tl = decltype(tile);
+    if (!operands_ok<Tl>(h, Wpost, B, H, D)) return static_cast<int>(cudaErrorInvalidValue);
+    const cudaError_t attr = Em<Tl>::allow_smem_impute();
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    CUtensorMap tmW;
+    const int e = wpost_map<Tl>(&tmW, Wpost, H);
+    if (e != 0) return e;
+    const cudaError_t err = dposer::launch_programmatic(
+        Em<Tl>::impute(), dim3(grid_blocks<Tl>(B)), THREADS, smem_bytes<Tl>(H),
+        static_cast<cudaStream_t>(stream), h, tmW, bpost, coefs, step, x, x_mean, noise, seed,
+        slab, B, H, D, rn);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  };
+  return D <= T::DP ? launch(T{}) : launch(TW{});
 }
 
 // The imputation instantiation's launch at B rows and depth H, for reports,
-// as dposer_head_em_launch_info.
+// as dposer_head_em_launch_info; the _wide entry: the 128-column kernel.
 extern "C" int dposer_head_em_impute_launch_info(int B, int H, int* out) {
-  const cudaError_t attr = allow_smem_impute();
+  const cudaError_t attr = Em<T>::allow_smem_impute();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   return launch_info<T>(head_em_impute_kernel, B, H, out);
+}
+
+extern "C" int dposer_head_em_impute_wide_launch_info(int B, int H, int* out) {
+  const cudaError_t attr = Em<TW>::allow_smem_impute();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  return launch_info<TW>(head_em_impute_wide_kernel, B, H, out);
 }

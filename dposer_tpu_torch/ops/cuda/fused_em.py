@@ -14,7 +14,8 @@ inside one ``pallas_call``:
   or K13 ``dense_gn_silu_int8`` in the int8 serving mode (``quant="int8"``);
 - K2 ``head_em``: the output head fused with the EM update, or, for the
   corrector, with the score and its row norms (split-K over a cluster of 4
-  CTAs a 16-row tile); with ``imputation=True`` its imputation instantiation
+  CTAs a 16-row tile; the head padded to 64 columns, or to 128 for a pose of
+  65-128 dims, rot6d's 126); with ``imputation=True`` its imputation instantiation
   (``head_em_impute``) also runs the masked re-noise of the observed dims
   after the update and, where no corrector follows, the next step's before
   its predictor;
@@ -56,9 +57,9 @@ from ...utils import profiling
 from . import build
 from .graph_loop import GraphLoop, resolve_loop
 from .philox import seed_bits
-from .score_net import (HEAD_COLS, _check, _ptr, build_network_operands,
+from .score_net import (HEAD_COLS, WIDE_HEAD_COLS, _check, _ptr, build_network_operands,
                         dense_gn_silu, dense_gn_silu_int8, dense_gn_silu_jvp,
-                        handoff_buffers, hidden_layer, network_hidden)
+                        handoff_buffers, head_cols, hidden_layer, network_hidden)
 
 N_COEFS = 8
 
@@ -159,15 +160,18 @@ def _noise_args(name, noise, seed, dev, shape):
     return seed_tensor(seed, dev)
 
 
-def _check_head(h, w_post, b_post):
-    """The output head's operands: h [B, H] fp32, w_post [H, 64] bf16,
-    b_post [64] fp32, on one device. Returns ``(B, H, device)``."""
+def _check_head(h, w_post, b_post, D: int):
+    """The output head's operands for a pose of ``D`` dims: h [B, H] fp32,
+    w_post [H, P] bf16, b_post [P] fp32 with ``P = head_cols(D)`` (64, or 128
+    for 65-128 dims), on one device. Returns ``(B, H, device, route)``, the
+    route K2 takes: ``"head64"`` or ``"head128"``, its wide tile."""
     B, H = h.shape
     dev = h.device
+    cols = head_cols(D)
     _check("h", h, dev, torch.float32, (B, H))
-    _check("w_post", w_post, dev, torch.bfloat16, (H, HEAD_COLS))
-    _check("b_post", b_post, dev, torch.float32, (HEAD_COLS,))
-    return B, H, dev
+    _check("w_post", w_post, dev, torch.bfloat16, (H, cols))
+    _check("b_post", b_post, dev, torch.float32, (cols,))
+    return B, H, dev, f"head{cols}"
 
 
 def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
@@ -175,7 +179,9 @@ def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
             slab: int = 0, observed=None, renoise_noise=None, renoise_next=None):
     """K2 on ``h`` [B, H]. ``mode="em"`` updates ``x`` [B, D] in place (and
     writes ``x_mean`` when given); ``mode="score"`` writes ``score`` [B, D]
-    and ``score_sq`` [B].
+    and ``score_sq`` [B]. A pose of at most 64 dims takes the head padded to
+    64 columns, one of 65-128 (rot6d's 126) K2's 128-column tile; each launch
+    adds one to its route's count in ``routes`` (``"head64"``, ``"head128"``).
 
     ``observed=(obs, mask)`` (EM mode; ``head_em_impute``) follows the update
     with the masked re-noise of ``step`` from slab ``slab + 1`` and, with
@@ -189,22 +195,19 @@ def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
         return head_em_impute(h, w_post, b_post, coefs, step, x=x, observed=observed,
                               x_mean=x_mean, noise=noise, seed=seed, slab=slab,
                               renoise_noise=renoise_noise, renoise_next=renoise_next)
-    B, H, dev = _check_head(h, w_post, b_post)
+    if mode not in ("em", "score"):
+        raise ValueError(f"mode must be 'em' or 'score', got {mode!r}")
+    D = (x if mode == "em" else score).shape[1]
+    B, H, dev, route = _check_head(h, w_post, b_post, D)
     _check_coefs(coefs, step, dev)
     if mode == "em":
-        D = x.shape[1]
         _check("x", x, dev, torch.float32, (B, D))
         if x_mean is not None:
             _check("x_mean", x_mean, dev, torch.float32, (B, D))
         seed = _noise_args("head_em", noise, seed, dev, (B, D))
-    elif mode == "score":
-        D = score.shape[1]
+    else:
         _check("score", score, dev, torch.float32, (B, D))
         _check("score_sq", score_sq, dev, torch.float32, (B,))
-    else:
-        raise ValueError(f"mode must be 'em' or 'score', got {mode!r}")
-    if D > HEAD_COLS:
-        raise ValueError(f"pose dim {D} > {HEAD_COLS}")
     if dev.type == "cpu":
         return head_em_plain_into(h, w_post, b_post, coefs, step, mode, x=x,
                                   x_mean=x_mean, score=score, score_sq=score_sq,
@@ -222,10 +225,12 @@ def head_em(h, w_post, b_post, coefs, step: int, mode: str, *, x=None,
         raise RuntimeError(f"head_em launch failed: CUDA error {err}")
     head_em.launches += 1
     head_em.programmatic += 1
+    head_em.routes[route] += 1
 
 
 head_em.launches = 0
 head_em.programmatic = 0
+head_em.routes = {"head64": 0, "head128": 0}
 
 
 def _head_em_impute_fn():
@@ -241,9 +246,9 @@ def head_em_impute(h, w_post, b_post, coefs, step: int, *, x, observed, x_mean=N
                    noise=None, seed=None, slab: int = 0, renoise_noise=None,
                    renoise_next=None):
     """K2's imputation instantiation: ``head_em(..., "em", observed=...)``,
-    launched and counted on its own."""
-    B, H, dev = _check_head(h, w_post, b_post)
+    launched and counted on its own (its routes as ``head_em``'s)."""
     D = x.shape[1]
+    B, H, dev, route = _check_head(h, w_post, b_post, D)
     passes = 1 if renoise_next is None else 2
     _check_coefs(coefs, step + passes - 1, dev)
     for nm, t in (("x", x), ("obs", observed[0]), ("mask", observed[1])):
@@ -258,8 +263,6 @@ def head_em_impute(h, w_post, b_post, coefs, step: int, *, x, observed, x_mean=N
             _check("renoise_noise", z, dev, torch.float32, (B, D))
     elif renoise_noise is not None and any(z is not None for z in renoise_noise):
         raise ValueError("in-kernel normals (seed=) draw the re-noise too: no renoise_noise")
-    if D > HEAD_COLS:
-        raise ValueError(f"pose dim {D} > {HEAD_COLS}")
     if dev.type == "cpu":
         return head_em_plain_into(h, w_post, b_post, coefs, step, "em", x=x, x_mean=x_mean,
                                   noise=noise, observed=observed, renoise_noise=renoise_noise,
@@ -280,10 +283,12 @@ def head_em_impute(h, w_post, b_post, coefs, step: int, *, x, observed, x_mean=N
         raise RuntimeError(f"head_em (imputation) launch failed: CUDA error {err}")
     head_em_impute.launches += 1
     head_em_impute.programmatic += 1
+    head_em_impute.routes[route] += 1
 
 
 head_em_impute.launches = 0
 head_em_impute.programmatic = 0
+head_em_impute.routes = {"head64": 0, "head128": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -425,9 +430,12 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    """Launches of each kernel with a Hopper main loop, by route, since the
-    last ``reset_launch_counts``: K1 ``{"wgmma_bf16": n, "pre_wgmma": n}``
-    (from the bf16 copy, from fp32 A at K <= 64), K7 and K10 ``{"wgmma": n,
+    """Launches of each kernel with more than one route (a Hopper main loop,
+    or a head width), by route, since the last ``reset_launch_counts``: K1
+    ``{"wgmma_bf16": n, "pre_wgmma": n, "pre_wgmma2": n}`` (from the bf16
+    copy, from fp32 A at K <= 64 over one K-tile, at 64 < K <= 128 over two),
+    K2 and its imputation instantiation ``{"head64": n, "head128": n}`` (the
+    head padded to 64 columns, to 128), K7 and K10 ``{"wgmma": n,
     "register": n}``, K12 ``{"wgmma": n}`` (its one route), K13
     ``{"wgmma_int8": n, "pre_wgmma8": n, "register": n}`` (from the int8
     copy, from fp32 A at K <= 64, from fp32 A beyond: a forward is 4/1/0),
@@ -445,6 +453,13 @@ def programmatic_counts() -> dict:
     return {fn.__name__: fn.programmatic for fn in _counted() if hasattr(fn, "programmatic")}
 
 
+def scope_refused_counts() -> dict:
+    """The kernels' scope checks' refusals since the last
+    ``reset_launch_counts``, by reason (``in_kernel_scope``'s and
+    ``narrow_head_scope``'s)."""
+    return dict(SCOPE_REFUSED)
+
+
 def reset_launch_counts() -> None:
     for fn in _counted():
         fn.launches = 0
@@ -452,6 +467,8 @@ def reset_launch_counts() -> None:
             fn.programmatic = 0
         for route in getattr(fn, "routes", ()):
             fn.routes[route] = 0
+    for reason in SCOPE_REFUSED:
+        SCOPE_REFUSED[reason] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -606,16 +623,54 @@ def draw_seed(generator: Optional[torch.Generator]) -> torch.Tensor:
 
 
 KERNEL_PREDICTORS = ("euler_maruyama", "reverse_diffusion")
+# The routes whose head kernel is 64 columns wide (their pre layers too take
+# K <= 64 alone): the completion solver (K6), the RK4 PF-ODE sampler (K8),
+# the likelihood (K7's pre layer, K9) and the train step (K10's pre layer,
+# K11). A pose of more dims (rot6d's 126) is refused there.
+NARROW_HEAD_ROUTES = ("solver", "ode", "likelihood", "train")
+# Refusals of the scope checks by reason: the sampler's predictor, its
+# corrector, the model, a pose wider than any head, and a pose wider than a
+# narrow route's head (``wide_pose_<route>``).
+SCOPE_REFUSED = dict.fromkeys(("predictor", "corrector", "model", "pose_dim")
+                              + tuple(f"wide_pose_{r}" for r in NARROW_HEAD_ROUTES), 0)
+
+
+def _refused(reason: str) -> bool:
+    SCOPE_REFUSED[reason] += 1
+    return False
 
 
 def in_kernel_scope(sampling, model, corrector=None) -> bool:
     """Whether the kernel sampler runs the pc sampler of ``sampling`` (a
     config's ``sampling`` block): an Euler-Maruyama or reverse-diffusion
     predictor, a none or langevin corrector (``corrector`` in place of the
-    block's), and a ScoreModelFC with the positional time embedding."""
-    return (sampling.predictor in KERNEL_PREDICTORS
-            and (corrector or sampling.corrector) in ("none", "langevin")
-            and isinstance(model, ScoreModelFC) and model.embedding_type == "positional")
+    block's), and a ScoreModelFC with the positional time embedding and a
+    pose of at most 128 dims (K2's wide tile; the denoise is K2's x_mean).
+    A refusal is counted by its reason (``scope_refused_counts``)."""
+    if sampling.predictor not in KERNEL_PREDICTORS:
+        return _refused("predictor")
+    if (corrector or sampling.corrector) not in ("none", "langevin"):
+        return _refused("corrector")
+    if not isinstance(model, ScoreModelFC) or model.embedding_type != "positional":
+        return _refused("model")
+    if model.n_poses * model.pose_dim > WIDE_HEAD_COLS:
+        return _refused("pose_dim")
+    return True
+
+
+def narrow_head_scope(model, route: str) -> bool:
+    """Whether the kernels of ``route`` (``NARROW_HEAD_ROUTES``: their head
+    tile 64 columns wide) take ``model``'s pose: at most 64 dims. A wider
+    pose (rot6d's 126) is refused and counted as ``wide_pose_<route>``: the
+    caller chooses the plain path where the request is made (the demo's, the
+    completion CLI's, ``--train-kernel auto``); a kernel builder handed such
+    a model fails its head's operand checks."""
+    if route not in NARROW_HEAD_ROUTES:
+        raise ValueError(f"route must be one of {NARROW_HEAD_ROUTES}, got {route!r}")
+    if model.n_poses * model.pose_dim <= HEAD_COLS:
+        return True
+    return _refused(f"wide_pose_{route}")
+
 
 
 def get_cuda_em_sampler(sde: SDE, model, shape: Tuple[int, int], eps: float = 1e-3,

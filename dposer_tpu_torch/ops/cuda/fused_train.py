@@ -583,7 +583,9 @@ def scope_error(sde: SDE, model, continuous: bool = True,
     # in a 64-wide tile; K11's head tile is 64 columns wide and <= 1024 deep
     if hidden % 64 or hidden // NUM_GROUPS not in (2, 4, 8, 16, 32):
         return f"the train kernels need hidden % 64 == 0 and hidden/32 <= 32 (got {hidden})"
-    if dim > HEAD_COLS:
+    from .fused_em import narrow_head_scope  # it imports this module
+
+    if not narrow_head_scope(model, "train"):
         return f"the train kernels need a pose dim <= {HEAD_COLS} (got {dim})"
     return None
 

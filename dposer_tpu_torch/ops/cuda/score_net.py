@@ -5,7 +5,8 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
 - ``build_network_operands``: the host-side prep. bf16 weights in the
   natural feature order, ``tp_all [N, 1+2*n_blocks, H]`` fp32 (each layer's
   time projection plus its dense bias, per step), the GroupNorm scale and
-  bias rows, and the head zero-padded to 64 output columns. The model's
+  bias rows, and the head zero-padded to 64 output columns (128 for a pose
+  of 65-128 dims, rot6d's 126: ``head_cols``). The model's
   ``1/sigma`` output scaling comes back as ``out_scale`` to fold into the
   coefficient tables. The TPU's lane-strided GroupNorm permutation and its
   8-sublane / 128-lane paddings have no counterpart here: a 64-wide GEMM
@@ -21,7 +22,7 @@ Port of ``dposer_tpu/ops/pallas/score_net.py``:
   rounded input, which the bf16 Hopper route reads: TMA and ``wgmma`` with
   both operands from shared memory; the pre layer, on the fp32 state, runs
   the pre route: its rows bulk-loaded and rounded once into shared memory,
-  one ``wgmma`` stage).
+  one ``wgmma`` stage a 64-deep K-tile, one at K <= 64, two at K <= 128).
 - kernel K13 ``dense_gn_silu_int8`` (``csrc/dense_gn_silu_int8.cu``): K1's
   layer on int8 operands (port of ``bind_fwd``'s quant ``mm``), its plain
   version; ``network_hidden`` takes it for int8 operands and hands the
@@ -59,6 +60,21 @@ from .quant import int8_matmul, quantize_act, quantize_cols, smooth_fold
 
 NUM_GROUPS = 32
 HEAD_COLS = 64  # the head's output width, zero-padded for 16x16 MMA tiles
+WIDE_HEAD_COLS = 128  # K2's wide tile: a pose of 65-128 dims (rot6d's 126)
+PRE_KTILE = 64  # K-columns a K-tile of K1's pre route: one at K <= 64, two at K <= 128
+
+
+def head_cols(dim: int) -> int:
+    """The width the output head is zero-padded to for a pose of ``dim``:
+    ``HEAD_COLS`` up to 64 dims (axis-angle's 63; every head kernel takes
+    it), ``WIDE_HEAD_COLS`` up to 128 (rot6d's 126; K2 alone takes it: the
+    other routes refuse such a pose in their scope checks). Beyond, no
+    kernel: ``NotImplementedError``."""
+    if dim <= HEAD_COLS:
+        return HEAD_COLS
+    if dim <= WIDE_HEAD_COLS:
+        return WIDE_HEAD_COLS
+    raise NotImplementedError(f"pose dim {dim} > {WIDE_HEAD_COLS}")
 
 
 def _nvbf16(t: torch.Tensor) -> torch.Tensor:
@@ -72,8 +88,9 @@ def build_network_operands(model, labels: torch.Tensor, device=None, quant=None,
 
     Returns ``W`` (list of bf16 [K, H]: pre-dense, then dense1/dense2 per
     block), ``gn_scale``/``gn_bias`` ([1+2*n_blocks, H] fp32), ``tp_all``
-    ([N, 1+2*n_blocks, H] fp32), ``w_post`` ([H, 64] bf16), ``b_post``
-    ([64] fp32), ``out_scale`` ([N] or None), on ``device``.
+    ([N, 1+2*n_blocks, H] fp32), ``w_post`` ([H, P] bf16), ``b_post``
+    ([P] fp32), with ``P = head_cols(dim)`` (64, or 128 for a pose of 65-128
+    dims), ``out_scale`` ([N] or None), on ``device``.
 
     ``quant="int8"`` (requires ``act_amax`` from ``quant.calibrate_act_amax``,
     [n_mm] per-tensor ranges, or the list of ``calibrate_act_amax_per_channel``)
@@ -95,8 +112,7 @@ def build_network_operands(model, labels: torch.Tensor, device=None, quant=None,
         raise NotImplementedError(f"the fused kernels hardcode SiLU; model uses "
                                   f"{model.act_name!r}")
     dim = model.n_poses * model.pose_dim
-    if dim > HEAD_COLS:
-        raise NotImplementedError(f"pose dim {dim} > {HEAD_COLS}")
+    cols = head_cols(dim)
     device = torch.device(device) if device is not None else labels.device
     tprojs, out_scale = precompute_time_tables(model, labels)
 
@@ -108,9 +124,9 @@ def build_network_operands(model, labels: torch.Tensor, device=None, quant=None,
                           for n in names], dim=1).float()
     gn_scale = torch.stack([getattr(model, n).weight for n in gn_names]).float()
     gn_bias = torch.stack([getattr(model, n).bias for n in gn_names]).float()
-    w_post = torch.zeros(model.hidden_dim, HEAD_COLS, dtype=torch.bfloat16)
+    w_post = torch.zeros(model.hidden_dim, cols, dtype=torch.bfloat16)
     w_post[:, :dim] = model.post_dense.weight.t().to(torch.bfloat16).cpu()
-    b_post = torch.zeros(HEAD_COLS)
+    b_post = torch.zeros(cols)
     b_post[:dim] = model.post_dense.bias.float().cpu()
     net = dict(tp_all=tp_all.to(device).contiguous(),
                gn_scale=gn_scale.to(device).contiguous(),
@@ -233,16 +249,18 @@ def check_bf16_copy(a_b, w, B: int, K: int) -> None:
 
 def _k1_route(a, a_b, w) -> str:
     """The route K1's library takes (``dense_gn_silu.cu``): the bf16 copy, or
-    fp32 A at K <= 64 (the pre layer, whatever A's alignment) with W 16-byte
-    aligned. Raises ``ValueError`` for any other fp32 A: the library has no
-    route for it, and the caller passes the bf16 copy ``a_b`` instead."""
+    fp32 A at K <= 128 (the pre layer, whatever A's alignment) with W 16-byte
+    aligned: the pre route over one 64-deep K-tile (``"pre_wgmma"``, K <= 64:
+    axis-angle's 63) or two (``"pre_wgmma2"``: rot6d's 126). Raises
+    ``ValueError`` for any other fp32 A: the library has no route for it,
+    and the caller passes the bf16 copy ``a_b`` instead."""
     if a_b is not None:
         return "wgmma_bf16"
     K, N = w.shape
-    if K <= 64 and N % 8 == 0 and w.data_ptr() % 16 == 0:
-        return "pre_wgmma"
-    raise ValueError(f"dense_gn_silu takes fp32 a only at K <= 64 with w 16-byte aligned "
-                     f"(got K={K}); pass its bf16 copy a_b")
+    if K <= 2 * PRE_KTILE and N % 8 == 0 and w.data_ptr() % 16 == 0:
+        return "pre_wgmma" if K <= PRE_KTILE else "pre_wgmma2"
+    raise ValueError(f"dense_gn_silu takes fp32 a only at K <= {2 * PRE_KTILE} with w "
+                     f"16-byte aligned (got K={K}); pass its bf16 copy a_b")
 
 
 def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=None, out_b=None,
@@ -253,9 +271,10 @@ def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=Non
     ``a_b`` bf16 [B, K], ``bf16(a)`` written by the previous layer, routes
     the layer through the bf16 Hopper loop (TMA and ``wgmma`` with both
     operands from shared memory; ``a`` may then be None); without it, at
-    K <= 64 (the pre layer's 63), the pre route (``a``'s rows bulk-loaded and
-    rounded once into shared memory, one ``wgmma`` stage). On CUDA tensors
-    fp32 ``a`` at K > 64 raises ``ValueError``: pass its copy ``a_b``. With
+    K <= 128 (the pre layer's 63 or 126), the pre route (``a``'s rows
+    bulk-loaded and rounded once into shared memory, one ``wgmma`` stage a
+    64-deep K-tile). On CUDA tensors fp32 ``a`` at K > 128 raises
+    ``ValueError``: pass its copy ``a_b``. With
     ``out_b`` bf16 [B, N] the epilogue also writes the bf16 copy of out, the
     next layer's ``a_b``; ``write_out=False`` writes that copy alone (``out`` is
     then None) and returns it. Each launch adds one to ``launches`` and to
@@ -305,15 +324,17 @@ def dense_gn_silu(a, w, tp_row, gamma, beta, residual=None, out=None, *, a_b=Non
 
 dense_gn_silu.launches = 0
 dense_gn_silu.programmatic = 0
-dense_gn_silu.routes = {"wgmma_bf16": 0, "pre_wgmma": 0}
+dense_gn_silu.routes = {"wgmma_bf16": 0, "pre_wgmma": 0, "pre_wgmma2": 0}
 
 
-def dense_gn_silu_pre_launch_info(rows: int, n: int) -> dict:
-    """K1's pre route at ``rows`` x ``n`` as it launches on this card:
-    threads, static shared memory a CTA and the dynamic shared memory it
-    reserves, registers and local memory (spills) a thread, and the CTAs an
-    SM holds at once."""
-    fn = build.load("dense_gn_silu").dposer_dense_gn_silu_pre_launch_info
+def dense_gn_silu_pre_launch_info(rows: int, n: int, k: int = PRE_KTILE) -> dict:
+    """K1's pre route at ``rows`` x ``n`` (depth ``k``: one K-tile at
+    ``k`` <= 64, two beyond) as it launches on this card: threads, static
+    shared memory a CTA and the dynamic shared memory it reserves (with two
+    tiles, its own), registers and local memory (spills) a thread, and the
+    CTAs an SM holds at once."""
+    entry = "pre" if k <= PRE_KTILE else "pre2"
+    fn = getattr(build.load("dense_gn_silu"), f"dposer_dense_gn_silu_{entry}_launch_info")
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
     out = (ctypes.c_int * 6)()
     err = fn(rows, n, out)

@@ -19,7 +19,10 @@ clean-pose argument of the losses only, the denoised estimate is detached.
 (``ops/cuda/fused_comp.py``): forward-only per step, since nothing is
 differentiated through the network. Hypotheses there are extra rows, and
 ``mesh=`` (a ``parallel.sharding.Mesh`` of more than one device) shards
-those rows over the mesh's devices.
+those rows over the mesh's devices. A pose the kernel solver's 64-column
+head cannot take (rot6d's 126 dims; ``fused_em.narrow_head_scope``) is
+refused there with ``NotImplementedError``: its caller asks for
+``backend="torch"``.
 """
 from __future__ import annotations
 
@@ -59,6 +62,12 @@ class DPoserComp:
             raise ValueError("backend='cuda' needs model=")
         # a mesh of one device is the single-device route on that device
         mesh, device = mesh_route(mesh, device)
+        from ..ops.cuda.fused_em import HEAD_COLS, narrow_head_scope  # they import this package
+
+        if backend == "cuda" and not narrow_head_scope(model, "solver"):
+            raise NotImplementedError(
+                f"backend='cuda': the kernel solver's head (K6) is {HEAD_COLS} columns wide, "
+                f"a pose of {model.n_poses * model.pose_dim} dims takes backend='torch'")
         if mesh is not None and backend != "cuda":
             raise ValueError("mesh= shards the kernel solver (backend='cuda'); the autograd "
                              "solver runs on one device")

@@ -54,7 +54,8 @@ def test_k1_with_handoff_is_bit_equal(wrapper, with_residual, write_out):
         assert torch.equal(got, want)
     else:
         assert got is out_b
-    assert fused_em.route_counts()["dense_gn_silu"] == {"wgmma_bf16": 0, "pre_wgmma": 0}
+    assert fused_em.route_counts()["dense_gn_silu"] == {"wgmma_bf16": 0, "pre_wgmma": 0,
+                                                        "pre_wgmma2": 0}
 
 
 def _misaligned(rows, cols, dtype=torch.float32):
@@ -67,14 +68,17 @@ def _misaligned(rows, cols, dtype=torch.float32):
 
 @pytest.mark.parametrize("case,want", [
     ("pre K=63", "pre_wgmma"), ("pre K=63 misaligned", "pre_wgmma"),
-    ("K=64", "pre_wgmma"), ("rot6d K=126", ValueError), ("K=1024", ValueError),
+    ("K=64", "pre_wgmma"), ("rot6d K=126", "pre_wgmma2"), ("K=1024", ValueError),
     ("K=1024 misaligned", ValueError), ("K=63 W misaligned", ValueError),
-    ("K=65", ValueError), ("K=128", ValueError), ("bf16 copy", "wgmma_bf16")])
+    ("K=65", "pre_wgmma2"), ("K=128", "pre_wgmma2"), ("K=129", ValueError),
+    ("rot6d K=126 misaligned", "pre_wgmma2"), ("K=126 W misaligned", ValueError),
+    ("bf16 copy", "wgmma_bf16")])
 def test_k1_route_follows_the_operands(case, want):
-    """K1's route is chosen by the operands: fp32 A at K <= 64 (the pre
+    """K1's route is chosen by the operands: fp32 A at K <= 128 (the pre
     layer, whatever A's alignment) with W 16-byte aligned takes the pre
-    route, the bf16 copy the bf16 route. Any other fp32 A (K = 126, rot6d's
-    pre layer; the K = 1024 layers; a misaligned W) has no route and raises,
+    route, over one 64-deep K-tile at K <= 64 (axis-angle's 63) and two
+    beyond (rot6d's 126), the bf16 copy the bf16 route. Any other fp32 A
+    (K > 128: the K = 1024 layers; a misaligned W) has no route and raises,
     telling the caller to pass the bf16 copy."""
     K = int(case.split("K=")[1].split()[0]) if "K=" in case else 1024
     w_off = "W misaligned" in case

@@ -68,8 +68,8 @@ def test_dense_gn_silu(dev, B, K, gs, residual):
     torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
 
 
-def _route_counts(bf16=0, pre=0):
-    return {"wgmma_bf16": bf16, "pre_wgmma": pre}
+def _route_counts(bf16=0, pre=0, pre2=0):
+    return {"wgmma_bf16": bf16, "pre_wgmma": pre, "pre_wgmma2": pre2}
 
 
 # the bf16 route, from the copy the layer before wrote: rows one, a
@@ -177,6 +177,60 @@ def test_k1_pre_route(dev, B, aligned):
     torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
 
 
+# the two-tile pre route: rot6d's K = 126 and the ends of its range, 65 and
+# 128; the rows and alignments of test_k1_pre_route
+@pytest.mark.parametrize("B", [40, 70, 500, 1000, 1001])
+@pytest.mark.parametrize("K", [65, 126, 128])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_k1_pre_route_two_tiles(dev, B, K, aligned):
+    """The pre route over two K-tiles (64 < K <= 128, as the rot6d pre layer
+    writes ``out`` and ``out_b``) is bit-equal to itself on the operands
+    zero-padded to K = 128 and to the bf16 route on their copies (columns
+    past K and W's rows past K read as zeros, the same k16 chunks summed in
+    the same order), and within the plain version's tolerance."""
+    rng = np.random.default_rng(B + K)
+    N = 1024
+    a = _t(rng, (B, K), dev)
+    if not aligned:
+        a = _misaligned_like(a)
+    assert (a.data_ptr() % 16 == 0) == aligned
+    w = _t(rng, (K, N), dev, K ** -0.5).to(torch.bfloat16)
+    tp, gamma, beta = (_t(rng, (N,), dev) for _ in range(3))
+    want = score_net.dense_gn_silu_plain(a, w, tp, gamma, beta)
+    a128 = torch.zeros(B, 128, device=dev)
+    a128[:, :K] = a
+    w128 = torch.zeros(128, N, dtype=torch.bfloat16, device=dev)
+    w128[:K] = w
+    out_b = torch.empty((B, N), dtype=torch.bfloat16, device=dev)
+    reset_launch_counts()
+    out = dense_gn_silu(a, w, tp, gamma, beta, out_b=out_b)
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(pre2=1)
+    padded_b = torch.empty_like(out_b)
+    padded = dense_gn_silu(a128, w128, tp, gamma, beta, out_b=padded_b)
+    copied = dense_gn_silu(None, w128, tp, gamma, beta, a_b=a128.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=1, pre2=2)
+    assert torch.equal(out, padded) and torch.equal(out_b, padded_b)
+    assert torch.equal(out, copied)
+    assert torch.equal(out_b, out.to(torch.bfloat16))
+    # the same bf16 operands, fp32 sums in another order: rounding only
+    torch.testing.assert_close(out, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("B", [40, 500, 1000, 1001])
+def test_k1_pre_route_two_tiles_launch_info(dev, B):
+    """The two-tile pre route: no local memory (no spills), at most 128
+    registers a thread, and shared memory of its own (66.6 KB, dynamic)
+    that holds an SM to one CTA where the grid fits the SMs once and to two
+    beyond, as the one-tile route's reservation does."""
+    info = score_net.dense_gn_silu_pre_launch_info(B, 1024, k=126)
+    assert info["threads"] == 256 and info["registers"] <= 128, info
+    assert info["local_bytes"] == 0 and info["static_smem"] == 0, info
+    assert info["dynamic_smem"] >= 1024 + 2 * (8192 + 8192) + 64 * 128 * 4, info
+    one_wave = 16 * -(-B // 64) <= torch.cuda.get_device_properties(dev).multi_processor_count
+    assert info["ctas_per_sm"] == (1 if one_wave else 2), info
+
+
 @pytest.mark.parametrize("B", [40, 500, 1000, 1001])
 def test_k1_pre_route_launch_info(dev, B):
     """The pre route's registers (at most 128 a thread) and shared memory let
@@ -224,9 +278,10 @@ def test_k1_routes_a_forward(dev):
 def _head(dev, B=500, H=1024, D=63, seed=0):
     rng = np.random.default_rng(seed)
     h = _t(rng, (B, H), dev)
-    w_post = torch.zeros(H, HEAD_COLS, device=dev)
+    cols = score_net.head_cols(D)
+    w_post = torch.zeros(H, cols, device=dev)
     w_post[:, :D] = _t(rng, (H, D), dev, H ** -0.5)
-    b_post = torch.zeros(HEAD_COLS, device=dev)
+    b_post = torch.zeros(cols, device=dev)
     b_post[:D] = _t(rng, (D,), dev)
     coefs = torch.from_numpy(rng.uniform(0.1, 1.5, size=(4, fused_em.N_COEFS))
                              .astype(np.float32)).to(dev)
@@ -250,6 +305,88 @@ def test_head_em_host_noise(dev, B):
     s_ref, sq_ref = fused_em.head_em_plain(h, w_post, b_post, coefs, 1, "score", 63)
     torch.testing.assert_close(score, s_ref, rtol=0, atol=1e-3)
     torch.testing.assert_close(sq, sq_ref, rtol=1e-4, atol=1e-3)
+
+
+# K2's 128-column tile: D = 126 (rot6d) and the ends of its range; K2's
+# tiles as above
+@pytest.mark.parametrize("B", [1, 37, 500, 1000])
+@pytest.mark.parametrize("D", [65, 126, 128])
+def test_head_em_wide_host_noise(dev, B, D):
+    """K2 at 128 columns, EM and score mode, against the plain version; each
+    launch counted on the wide route."""
+    h, w_post, b_post, coefs, x, z = _head(dev, B=B, D=D)
+    assert w_post.shape == (1024, 128)
+    x_new_ref, x_mean_ref = fused_em.head_em_plain(h, w_post, b_post, coefs, 2, "em",
+                                                   D, x=x, noise=z)
+    x_mean = torch.empty_like(x)
+    reset_launch_counts()
+    head_em(h, w_post, b_post, coefs, 2, "em", x=x, x_mean=x_mean, noise=z)
+    score, sq = torch.empty_like(x), torch.empty(x.shape[0], device=dev)
+    head_em(h, w_post, b_post, coefs, 1, "score", score=score, score_sq=sq)
+    torch.cuda.synchronize()
+    assert fused_em.route_counts()["head_em"] == {"head64": 0, "head128": 2}
+    torch.testing.assert_close(x_mean, x_mean_ref, rtol=0, atol=1e-3)
+    torch.testing.assert_close(x, x_new_ref, rtol=0, atol=1e-3)
+    s_ref, sq_ref = fused_em.head_em_plain(h, w_post, b_post, coefs, 1, "score", D)
+    torch.testing.assert_close(score, s_ref, rtol=0, atol=1e-3)
+    torch.testing.assert_close(sq, sq_ref, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("B", [37, 500])
+def test_head_em_wide_is_the_narrow_head_on_each_half(dev, B):
+    """K2 at 128 columns (D = 126) on host normals, bit for bit the 64-column
+    head run on each half of its columns (63 + 63): a column's sum takes the
+    same k-steps in the same warps, the warps' and the ranks' partials in the
+    same order, whatever the columns beside it."""
+    h, w_post, b_post, coefs, x, z = _head(dev, B=B, D=126)
+    x_w, xm_w = x.clone(), torch.empty_like(x)
+    head_em(h, w_post, b_post, coefs, 2, "em", x=x_w, x_mean=xm_w, noise=z)
+    halves = []
+    for c0 in (0, 63):
+        wp = torch.zeros(1024, HEAD_COLS, dtype=torch.bfloat16, device=dev)
+        wp[:, :63] = w_post[:, c0:c0 + 63]
+        bp = torch.zeros(HEAD_COLS, device=dev)
+        bp[:63] = b_post[c0:c0 + 63]
+        xh, xmh = x[:, c0:c0 + 63].contiguous(), torch.empty(B, 63, device=dev)
+        head_em(h, wp, bp, coefs, 2, "em", x=xh, x_mean=xmh,
+                noise=z[:, c0:c0 + 63].contiguous())
+        halves.append((xh, xmh))
+    torch.cuda.synchronize()
+    assert torch.equal(x_w, torch.cat([halves[0][0], halves[1][0]], 1))
+    assert torch.equal(xm_w, torch.cat([halves[0][1], halves[1][1]], 1))
+
+
+def test_head_em_wide_normals_follow_the_plain_philox_stream(dev):
+    """K2 at 128 columns draws philox_normal per element of its 126 columns,
+    keyed by (seed, step, slab, row, column), as at 64."""
+    h, w_post, b_post, coefs, x, _ = _head(dev, D=126)
+    B, D = x.shape
+    coefs[:, 2] = 1.0
+    for step, slab in ((0, 1), (3, 2)):
+        xs, x_mean = x.clone(), torch.empty_like(x)
+        head_em(h, w_post, b_post, coefs, step, "em", x=xs, x_mean=x_mean, seed=77, slab=slab)
+        want = philox.normals_grid(77, step, slab, B, D, device=dev)
+        torch.testing.assert_close(xs - x_mean, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["head_em_wide", "head_em_impute_wide"])
+@pytest.mark.parametrize("B", [500, 1000])
+def test_head_em_wide_launch_info(dev, kernel, B):
+    """K2's 128-column kernels launch as the 64-column ones: clusters of 4,
+    a CTA's shared memory 1 KB of alignment, the two 32 KB boxes of Wpost's
+    slice (the warps' 34 KB of partials overlay them), the rows' 16.5 KB and
+    the received partials (8 KB): 92 KB, two CTAs an SM, so the card holds a
+    500-row call's 32 clusters at once."""
+    import ctypes
+
+    fn = getattr(score_net.build.load("head_em"), f"dposer_{kernel}_launch_info")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    assert fn(B, 1024, out) == 0
+    grid, cluster, threads, smem, resident = list(out)
+    assert (grid, cluster, threads) == (-(-B // 16) * 4, 4, 256)
+    assert smem == 1024 + 2 * 256 * 128 + 16 * 264 * 4 + 16 * 128 * 4 + 16
+    assert resident >= 32
 
 
 def test_in_kernel_normals_are_standard(dev):
@@ -386,6 +523,46 @@ def test_kernel_sampler_matches_fp32_sampler(dev):
         assert counts["langevin_update"] == (n if corrector == "langevin" else 0)
         scale = max(1.0, float(ref.abs().max()))
         torch.testing.assert_close(out, ref, rtol=0, atol=2e-2 * scale)
+
+
+def test_rot6d_kernel_sampler(dev):
+    """A rot6d ScoreModelFC (21 joints x 6 = 126 dims): the kernel sampler on
+    host normals within test_kernel_sampler_matches_fp32_sampler's bound of
+    the fp32 sampler, corrector none and langevin; on in-kernel normals
+    replayed from its graph, every forward's pre layer on the two-tile pre
+    route and every head on K2's 128-column tile."""
+    torch.manual_seed(0)
+    model = ScoreModelFC(n_poses=21, pose_dim=6, hidden_dim=256, embed_dim=64,
+                         n_blocks=2, dropout=0.0).eval().to(dev)
+    n, shape = 20, (40, 126)
+    rng = np.random.default_rng(7)
+    z, noise = _t(rng, shape, dev), _t(rng, (n, 2) + shape, dev)
+    for corrector, nz in (("none", noise[:, 1:].contiguous()), ("langevin", noise)):
+        ref = tfs.get_fast_pc_sampler(tsde.SubVPSDE(N=n), model, shape,
+                                      corrector=corrector, device=dev)(z=z, noise=nz)
+        reset_launch_counts()
+        out = get_cuda_em_sampler(tsde.SubVPSDE(N=n), model, shape, corrector=corrector,
+                                  device="cuda")(z=z, noise=nz)
+        forwards = n * (2 if corrector == "langevin" else 1)
+        assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=4 * forwards,
+                                                                         pre2=forwards)
+        assert fused_em.route_counts()["head_em"] == {"head64": 0, "head128": forwards}
+        scale = max(1.0, float(ref.abs().max()))
+        torch.testing.assert_close(out, ref, rtol=0, atol=2e-2 * scale)
+    sampler = get_cuda_em_sampler(tsde.SubVPSDE(N=n), model, shape, rng_mode="kernel",
+                                  device="cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    sampler(g)  # captures
+    from dposer_tpu_torch.ops.cuda.graph_loop import GraphLoop
+
+    replays = GraphLoop.replays
+    reset_launch_counts()
+    x = sampler(g)
+    torch.cuda.synchronize()
+    assert x.shape == shape and torch.isfinite(x).all()
+    assert GraphLoop.replays == replays + 1
+    assert fused_em.route_counts()["dense_gn_silu"] == _route_counts(bf16=4 * n, pre2=n)
+    assert fused_em.route_counts()["head_em"] == {"head64": 0, "head128": n}
 
 
 def _masked(dev, B=1000, D=63, seed=8):
@@ -579,11 +756,11 @@ def test_imputation_sampler_steps_match_plain(dev):
         assert counts["dense_gn_silu"] == 5 * n * (1 + n_corr)
 
 
-def _impute_operands(dev, B, seed=14):
-    h, w_post, b_post, coefs, x, z = _head(dev, B=B, seed=seed)
+def _impute_operands(dev, B, seed=14, D=63):
+    h, w_post, b_post, coefs, x, z = _head(dev, B=B, D=D, seed=seed)
     rng = np.random.default_rng(seed)
-    obs, zp, zn = (_t(rng, (B, 63), dev) for _ in range(3))
-    mask = torch.zeros(B, 63, device=dev)
+    obs, zp, zn = (_t(rng, (B, D), dev) for _ in range(3))
+    mask = torch.zeros(B, D, device=dev)
     mask[:, 12:] = 1.0
     return (h, w_post, b_post, coefs), x, z, (obs, mask), zp, zn
 
@@ -597,7 +774,23 @@ def test_head_em_impute_is_head_em_then_masked_renoise(dev, B, passes, rng_mode)
     """K2's imputation epilogue against K2 -> K4 (-> K4 at the next step)
     on the same normals: the same bits (the re-noise rounds each operation
     on its own in both kernels), and x_mean the state before the re-noise."""
-    args, x, z, observed, zp, zn = _impute_operands(dev, B)
+    _impute_is_head_em_then_masked_renoise(dev, B, passes, rng_mode, 63)
+
+
+# the same at 128 columns (rot6d's 126 dims)
+@pytest.mark.parametrize("B", [1, 37, 500, 1000])
+@pytest.mark.parametrize("passes", [1, 2])
+@pytest.mark.parametrize("rng_mode", ["host", "kernel"])
+def test_head_em_impute_wide_is_head_em_then_masked_renoise(dev, B, passes, rng_mode):
+    """K2's imputation instantiation at 128 columns against K2 -> K4 (-> K4),
+    bit for bit, and the plain version within K2's bound; counted on the
+    wide route."""
+    _impute_is_head_em_then_masked_renoise(dev, B, passes, rng_mode, 126)
+    assert fused_em.route_counts()["head_em_impute"] == {"head64": 0, "head128": 1}
+
+
+def _impute_is_head_em_then_masked_renoise(dev, B, passes, rng_mode, D):
+    args, x, z, observed, zp, zn = _impute_operands(dev, B, D=D)
     step, slab = 1, 1
     host = rng_mode == "host"
     nz = dict(noise=z) if host else dict(seed=4242)

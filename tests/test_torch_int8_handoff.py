@@ -306,16 +306,23 @@ def test_k14_handoff_validation_errors(case):
 
 
 def test_route_counts_start_at_zero():
-    """``route_counts`` names K1's two routes, K7's two, K10's two, K12's
-    one, K13's three and K14's three, and ``reset_launch_counts`` sets them
-    to 0."""
+    """``route_counts`` names K1's three routes, K2's two head widths and its
+    imputation instantiation's, K7's two routes, K10's two, K12's one, K13's
+    three and K14's three, and ``reset_launch_counts`` sets them to 0, and
+    the scope checks' refusals too."""
     score_net.dense_gn_silu_int8.routes["register"] += 3
     score_net.dense_gn_silu_int8.routes["pre_wgmma8"] += 5
     score_net.dense_gn_silu_jvp.routes["wgmma"] += 2
     score_net.dense_gn_silu.routes["wgmma_bf16"] += 4
+    score_net.dense_gn_silu.routes["pre_wgmma2"] += 1
+    fused_em.head_em.routes["head128"] += 6
+    fused_em.SCOPE_REFUSED["wide_pose_ode"] += 1
     fused_em.reset_launch_counts()
+    assert set(fused_em.scope_refused_counts().values()) == {0}
     assert fused_em.route_counts() == {
-        "dense_gn_silu": {"wgmma_bf16": 0, "pre_wgmma": 0},
+        "dense_gn_silu": {"wgmma_bf16": 0, "pre_wgmma": 0, "pre_wgmma2": 0},
+        "head_em": {"head64": 0, "head128": 0},
+        "head_em_impute": {"head64": 0, "head128": 0},
         "dense_gn_silu_jvp": {"wgmma": 0, "register": 0},
         "dense_gn_silu_train": {"wgmma": 0, "register": 0},
         "dense_gn_silu_bwd": {"wgmma": 0},
